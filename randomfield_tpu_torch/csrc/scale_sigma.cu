@@ -1,0 +1,110 @@
+// K2: in place re, im *= sigma(|k|) * exp(-k^2 s^2 / 2) * gain over an 'xyz'
+// (nx_loc, ny_loc, nz/2 + 1) block of the packed half-spectrum.  A render
+// passes gain = 1/sqrt(2), the unit draws' complex normalization, so the
+// draws need no pass of their own for it.
+//
+// Replaces randomfield_tpu/ops/pallas_sampler.py:_scale_jit_reim (the 'xzy'
+// single-device kernel) and, through the (x_off, y_off) arguments, its
+// per-shard form scale_shard_pallas_reim.  Same arithmetic, step for step:
+// |k|^2 from the signed global indices, log10|k| = (0.5 / ln 10) ln|k|^2,
+// t = (log10|k| - lk0) / dlk clipped to [0, n_knots - 1], i0 = min(int(t),
+// n_knots - 2), sigma = s[i0] (1 - frac) + s[i0 + 1] frac, sigma(0) = 0, the
+// filter only when s != 0, then the gain.  The TPU kernel stores the knots
+// as overlapping 128-wide segment rows for Mosaic's one-vreg lane gather;
+// here the flat knot vector sits in shared memory and is indexed directly.
+//
+// What bounds it on the H100: device-memory bytes, one read and one write of
+// each lattice (16 bytes per mode); per mode it adds one logf and, when
+// smoothing, one expf.  Design: blockIdx.y is the x plane, so kx is computed
+// once per block; the threads stride over the plane's (y, kz) modes, which lie
+// contiguous, so every access is coalesced.  Products and sums that decide
+// the result are rounded as written (__fmul_rn, __fadd_rn), so no fused
+// multiply-add moves them away from the plain PyTorch version.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocksPerPlane = 32;
+
+__global__ void __launch_bounds__(kThreads)
+scale_sigma_kernel(float* __restrict__ re, float* __restrict__ im,
+                   const float* __restrict__ knots, int n_knots, int ny_loc,
+                   int nzh, int nx, int ny, int x_off, int y_off,
+                   float kx_scale, float ky_scale, float kz_scale,
+                   float half_inv_ln10, float lk0, float inv_dlk,
+                   float smoothing, float gain) {
+  extern __shared__ float tab[];
+  for (int i = threadIdx.x; i < n_knots; i += blockDim.x) tab[i] = knots[i];
+  __syncthreads();
+
+  const int plane = ny_loc * nzh;
+  const int gx = static_cast<int>(blockIdx.y) + x_off;
+  const int sx = gx <= nx / 2 ? gx : gx - nx;
+  const float kx = kx_scale * static_cast<float>(sx);
+  const float kx2 = kx * kx;
+  const float top = static_cast<float>(n_knots - 1);
+  float* rp = re + static_cast<long long>(blockIdx.y) * plane;
+  float* ip = im + static_cast<long long>(blockIdx.y) * plane;
+
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < plane;
+       p += gridDim.x * blockDim.x) {
+    const int y = p / nzh;
+    const int z = p - y * nzh;
+    const int gy = y + y_off;
+    const int sy = gy <= ny / 2 ? gy : gy - ny;
+    const float ky = ky_scale * static_cast<float>(sy);
+    const float kz = kz_scale * static_cast<float>(z);
+    const float ksq =
+        __fadd_rn(__fadd_rn(kx2, __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
+    float amp = 0.f;
+    if (ksq > 0.f) {
+      const float lk = half_inv_ln10 * logf(ksq);
+      const float t = fminf(fmaxf((lk - lk0) * inv_dlk, 0.f), top);
+      const int i0 = min(static_cast<int>(t), n_knots - 2);
+      const float frac = t - static_cast<float>(i0);
+      amp = __fadd_rn(__fmul_rn(tab[i0], 1.f - frac),
+                      __fmul_rn(tab[i0 + 1], frac));
+      if (smoothing != 0.f) amp = amp * expf(-0.5f * ksq * smoothing * smoothing);
+      amp = amp * gain;
+    }
+    rp[p] = rp[p] * amp;
+    ip[p] = ip[p] * amp;
+  }
+}
+
+}  // namespace
+
+// re, im: float32 (nx_loc, ny_loc, nzh), contiguous, scaled in place; they
+// cover global x rows [x_off, x_off + nx_loc) and y rows [y_off, y_off +
+// ny_loc) of an (nx, ny, nz) scene.  knots: float32 (n_knots,), n_knots >= 2.
+// k_scale = 2 pi / (spacing * n) per axis, rounded to float32 as the TPU
+// kernel rounds it.  Returns the CUDA error of the launch (0 on success).
+extern "C" int rf_scale_sigma(void* re, void* im, const void* knots,
+                              int n_knots, int nx_loc, int ny_loc, int nzh,
+                              int nx, int ny, int x_off, int y_off,
+                              float kx_scale, float ky_scale, float kz_scale,
+                              float half_inv_ln10, float lk0, float inv_dlk,
+                              float smoothing, float gain, void* stream) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(n_knots);
+  cudaError_t err = cudaFuncSetAttribute(
+      scale_sigma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int plane = ny_loc * nzh;
+  int per_plane = (plane + kThreads - 1) / kThreads;
+  if (per_plane > kMaxBlocksPerPlane) per_plane = kMaxBlocksPerPlane;
+  const dim3 grid(static_cast<unsigned>(per_plane),
+                  static_cast<unsigned>(nx_loc));
+  scale_sigma_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(re), static_cast<float*>(im),
+      static_cast<const float*>(knots), n_knots, ny_loc, nzh, nx, ny, x_off,
+      y_off, kx_scale, ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk,
+      smoothing, gain);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Message of a CUDA error code returned by the entries of this library.
+extern "C" const char* rf_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

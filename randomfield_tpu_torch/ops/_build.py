@@ -1,0 +1,127 @@
+"""Build the port's CUDA kernels into one shared library and load it.
+
+At first use, ``nvcc`` compiles every ``randomfield_tpu_torch/csrc/*.cu``
+for ``sm_90a`` into one ``.so`` with a plain C interface, which ``ctypes``
+loads.  No PyTorch header is compiled, so the build takes seconds.  The
+library's file name carries a hash of the sources and flags, so an edit
+rebuilds and an unchanged tree reuses the earlier build.
+
+The build directory is ``build/randomfield_tpu_torch/`` beside the package
+(listed in ``.gitignore``), or ``$RF_TORCH_BUILD_DIR``.  ``nvcc`` is
+``$NVCC``, else the one on ``PATH``, else ``$CUDA_HOME/bin/nvcc``, else
+``/usr/local/cuda/bin/nvcc``.
+
+Every C entry returns the CUDA error of its launch; :func:`check` raises
+on a non-zero one.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+__all__ = ["library", "check", "current_stream", "NVCC_FLAGS"]
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LIB = None
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_fft_axis": [_P, _P, _P, _I, _I, _LL, _I, _P],
+    "rf_c2r_tail": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+}
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("RF_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return CSRC.parent.parent / "build" / "randomfield_tpu_torch"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 cuda_home and os.path.join(cuda_home, "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set NVCC or CUDA_HOME): the CUDA kernels of "
+        "randomfield_tpu_torch are built from source at first use"
+    )
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> pathlib.Path:
+    out = build_dir() / f"rf_kernels_{_source_hash()}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def _declare(lib):
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rf_error_string.argtypes = [ctypes.c_int]
+    lib.rf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library():
+    """The loaded kernel library, built on the first call."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _declare(ctypes.CDLL(str(_build())))
+        return _LIB
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if status:
+        msg = library().rf_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status}: {msg}")
+
+
+def current_stream(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

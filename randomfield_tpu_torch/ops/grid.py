@@ -1,0 +1,86 @@
+"""k-space geometry of packed real-to-complex (rfft) spectra.
+
+Port of ``randomfield_tpu/ops/grid.py``; the same conventions:
+
+* fields are ``(nx, ny, nz)`` with uniform ``spacing``; the packed
+  half-spectrum is ``(nx, ny, nz // 2 + 1)``, rfft-packed along the last
+  axis;
+* wavenumbers are angular, ``k = 2 pi f`` with ``f`` numpy's fft
+  frequencies: the fundamental of a box of side L is ``2 pi / L``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = [
+    "kvectors",
+    "get_k_bounds",
+    "conjugate_plane",
+    "hermitian_plane_masks",
+    "self_conjugate_kz_planes",
+]
+
+TWO_PI = 2.0 * np.pi
+
+
+def kvectors(shape, spacing, dtype=torch.float32, device="cpu"):
+    """Angular wavenumber 1-D tensors ``(kx, ky, kz)`` of the half-spectrum.
+
+    ``kx`` and ``ky`` follow full fft ordering, ``kz`` rfft ordering.
+    """
+    nx, ny, nz = shape
+    return tuple(
+        torch.as_tensor(TWO_PI * f, dtype=dtype, device=device)
+        for f in (np.fft.fftfreq(nx, d=spacing), np.fft.fftfreq(ny, d=spacing),
+                  np.fft.rfftfreq(nz, d=spacing))
+    )
+
+
+def get_k_bounds(shape, spacing) -> tuple[float, float]:
+    """(kmin, kmax) over the non-DC modes: the fundamental of the longest
+    side and the corner-mode magnitude."""
+    nx, ny, nz = shape
+    kmin = TWO_PI / (max(nx, ny, nz) * spacing)
+    kmax2 = 0.0
+    for n in (nx, ny):
+        kmax2 += float(np.max(np.abs(TWO_PI * np.fft.fftfreq(n, d=spacing)))) ** 2
+    kmax2 += float(np.max(TWO_PI * np.fft.rfftfreq(nz, d=spacing))) ** 2
+    return float(kmin), float(np.sqrt(kmax2))
+
+
+def conjugate_plane(a: torch.Tensor) -> torch.Tensor:
+    """Map the last two axes ``(i, j) -> ((-i) mod nx, (-j) mod ny)``.
+
+    Applied to the real and the imaginary lattice (the latter negated by
+    the caller) this is ``c(kx, ky) -> conj(c(-kx, -ky))``.
+    """
+    a = torch.roll(torch.flip(a, dims=(-2,)), 1, dims=-2)
+    return torch.roll(torch.flip(a, dims=(-1,)), 1, dims=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def hermitian_plane_masks(nx: int, ny: int):
+    """``(self_conj, canonical)`` numpy bool masks of a self-conjugate plane.
+
+    ``self_conj`` marks the modes that are their own partner (kx in {0,
+    nx/2}, ky in {0, ny/2}); ``canonical`` marks exactly one member of each
+    conjugate pair, chosen lexicographically.
+    """
+    i = np.arange(nx)[:, None]
+    j = np.arange(ny)[None, :]
+    ni = (-i) % nx
+    nj = (-j) % ny
+    self_conj = (i == ni) & (j == nj)
+    canonical = (i < ni) | ((i == ni) & (j <= nj))
+    return self_conj, canonical
+
+
+def self_conjugate_kz_planes(nz: int) -> tuple[int, ...]:
+    """kz planes that must be internally Hermitian: 0, and nz/2 if nz is even."""
+    if nz % 2 == 0:
+        return (0, nz // 2)
+    return (0,)

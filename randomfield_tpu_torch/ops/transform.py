@@ -1,0 +1,71 @@
+"""Hermitian symmetrization of packed re/im spectra, and a plain c2r.
+
+Port of the render's subset of ``randomfield_tpu/ops/transform.py`` with
+its physical conventions: a real field on an (nx, ny, nz) grid of spacing
+a, box volume V, has the packed spectrum c_k with
+
+    delta(x) = (1 / V) sum_k c_k exp(+i k.x).
+
+The render folds 1/V into sigma(k), so its inverse transform is the raw
+sum, ``norm='forward'``.  Spectra travel as separate float32 re/im
+lattices, never as complex tensors: the kernels read and write them that
+way.  The TPU package's ``'safe'``/``'ct'`` FFT backends work around a
+defect of one TPU runtime and are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from randomfield_tpu_torch.ops import grid as _grid
+
+__all__ = ["symmetrize_with_shape_reim", "irfftn"]
+
+_SQRT2 = float(np.sqrt(2.0))
+
+
+def _symmetrize_plane_reim(re2, im2, scale_self_conjugate):
+    """Hermitian projection of one self-conjugate (nx, ny) kz plane.
+
+    For each conjugate pair the canonical member is kept and its partner
+    overwritten with the conjugate; self-conjugate modes keep their real
+    part, times sqrt(2) with ``scale_self_conjugate`` (the sampling
+    convention: a unit complex draw keeps unit total variance).  Returns
+    new (re, im) planes.
+    """
+    nx, ny = re2.shape[-2], re2.shape[-1]
+    self_conj, canonical = (
+        torch.as_tensor(m, device=re2.device)
+        for m in _grid.hermitian_plane_masks(nx, ny)
+    )
+    pre = _grid.conjugate_plane(re2)
+    pim = -_grid.conjugate_plane(im2)
+    out_re = torch.where(canonical, re2, pre)
+    out_im = torch.where(canonical, im2, pim)
+    scale = _SQRT2 if scale_self_conjugate else 1.0
+    out_re = torch.where(self_conj, re2 * scale, out_re)
+    out_im = torch.where(self_conj, torch.zeros((), dtype=im2.dtype,
+                                                device=im2.device), out_im)
+    return out_re, out_im
+
+
+def symmetrize_with_shape_reim(re, im, nz, scale_self_conjugate=True):
+    """Enforce the Hermitian constraint on (..., nx, ny, nzh) re/im lattices.
+
+    Only the kz = 0 plane and, for even nz, the Nyquist plane are
+    constrained.  Updates ``re`` and ``im`` IN PLACE (an O(nx ny) write per
+    plane) and returns them.
+    """
+    for p in _grid.self_conjugate_kz_planes(nz):
+        fre, fim = _symmetrize_plane_reim(re[..., p], im[..., p],
+                                          scale_self_conjugate)
+        re[..., p] = fre
+        im[..., p] = fim
+    return re, im
+
+
+def irfftn(re, im, shape):
+    """Plain packed c2r, ``norm='forward'`` (no 1/N), through ``torch.fft``."""
+    return torch.fft.irfftn(torch.complex(re, im), s=tuple(shape),
+                            dim=(-3, -2, -1), norm="forward")

@@ -1,0 +1,122 @@
+"""The port's CUDA kernels on the card (marked ``gpu``; skip without one).
+
+This file imports torch and the port only, so it also runs where JAX is
+absent.  On a machine with a CUDA card and nvcc, from the repository root:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+
+(``--noconftest``: tests/conftest.py configures JAX.)  Each kernel is held
+to its plain PyTorch version on the same tensors, and a CUDA render to the
+CPU render of the same seed, which the other test_torch_* files hold to
+the JAX package.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import randomfield_tpu_torch as rft  # noqa: E402
+from randomfield_tpu_torch.ops import fft, sampler  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+SPACING = 16.0
+# max|kernel - plain| / max|plain|: float32 rounding of a scale (K2) and of
+# a log2(n)-stage FFT against cuFFT's; K4 at the bar of
+# tests/test_pallas_fft.py:test_irfft_tail_matches_numpy
+K2_TOL, K3_TOL, K4_TOL = 2e-6, 2e-6, 5e-6
+# CUDA render vs CPU render: float32 FFTs of two libraries
+RENDER_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _randn(shape, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((64, 32, 64), None), ((64, 32, 64), (8, 4, 16, 16)), ((16, 256, 30), None),
+])
+@pytest.mark.parametrize("smoothing", [0.0, 3.0])
+@pytest.mark.parametrize("gain", [1.0, 0.5 ** 0.5])
+def test_scale_sigma_matches_plain(cuda, shape, block, smoothing, gain):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    x_off, y_off, bx, by = block or (0, 0, shape[0], shape[1])
+    re0 = _randn((bx, by, shape[2] // 2 + 1), cuda, 1)
+    im0 = _randn((bx, by, shape[2] // 2 + 1), cuda, 2)
+    before = sampler.K2_LAUNCHES
+    a, b = sampler.scale_sigma(re0.clone(), im0.clone(), table, shape, SPACING,
+                               smoothing, x_off, y_off, gain)
+    assert sampler.K2_LAUNCHES == before + 1
+    c, d = sampler.scale_sigma_plain(re0.clone(), im0.clone(), table, shape,
+                                     SPACING, smoothing, x_off, y_off, gain)
+    assert _rel(a, c) <= K2_TOL and _rel(b, d) <= K2_TOL
+
+
+@pytest.mark.parametrize("view", [(1, 16, 100), (3, 32, 5), (2, 128, 513),
+                                  (1, 1024, 96), (2, 2048, 7), (5, 64, 1)])
+def test_ifft_axis_matches_plain(cuda, view):
+    re0, im0 = _randn(view, cuda, 3), _randn(view, cuda, 4)
+    before = fft.K3_LAUNCHES
+    a, b = fft.ifft_axis(re0.clone(), im0.clone(), *view)
+    assert fft.K3_LAUNCHES == before + 1
+    c, d = fft.ifft_axis_plain(re0.clone(), im0.clone(), *view)
+    scale = max(float(c.abs().max()), float(d.abs().max()))
+    assert max(float((a - c).abs().max()), float((b - d).abs().max())) <= K3_TOL * scale
+
+
+@pytest.mark.parametrize("lead,nz", [((3, 5), 32), ((2, 8), 256), ((1, 3), 4096)])
+def test_c2r_tail_matches_plain(cuda, lead, nz):
+    re0 = _randn((*lead, nz // 2 + 1), cuda, 5)
+    im0 = _randn((*lead, nz // 2 + 1), cuda, 6)
+    im0[..., 0] = 0.0   # a packed half-spectrum's DC and Nyquist
+    im0[..., -1] = 0.0  # terms are real
+    w = torch.linspace(0.5, 1.5, nz, device=cuda)
+    before = fft.K4_LAUNCHES
+    got = fft.c2r_tail(re0, im0, nz, w)
+    assert fft.K4_LAUNCHES == before + 1
+    assert _rel(got, fft.c2r_tail_plain(re0, im0, nz, w)) <= K4_TOL
+
+
+def test_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
+    z = torch.zeros((1, 48, 8), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        fft.ifft_axis(z, z.clone(), 1, 48, 8)
+    z = torch.zeros((2, 2, 25), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        fft.c2r_tail(z, z.clone(), 48, torch.ones(48, device=cuda))
+    z = torch.zeros((18, 16), device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fft.ifft_axis(z, z.clone(), 1, 16, 18)
+
+
+@pytest.mark.parametrize("shape,smoothing", [((32, 32, 64), 10.0),
+                                             ((64, 16, 32), 0.0)])
+def test_cuda_render_matches_cpu(cuda, shape, smoothing):
+    seed = 7
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda)
+    before = (sampler.K2_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
+    got = g.generate_delta_field(seed, smoothing_length=smoothing)
+    after = (sampler.K2_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
+    assert [b - a for a, b in zip(before, after)] == [1, 2, 1]
+    assert torch.equal(g.generate_delta_field(seed, smoothing_length=smoothing), got)
+    cpu = rft.Generator(*shape, grid_spacing=SPACING, device="cpu")
+    want = cpu.generate_delta_field(seed, smoothing_length=smoothing)
+    assert _rel(got.cpu(), want) <= RENDER_TOL
+    noise = g.generate_noise(seed)
+    assert torch.equal(g.generate_from_noise(noise, smoothing), got)
+    np.testing.assert_allclose(g.predicted_variance(smoothing, True),
+                               cpu.predicted_variance(smoothing, True), rtol=1e-6)
