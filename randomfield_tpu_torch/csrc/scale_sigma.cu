@@ -9,9 +9,8 @@
 // |k|^2 from the signed global indices, log10|k| = (0.5 / ln 10) ln|k|^2,
 // t = (log10|k| - lk0) / dlk clipped to [0, n_knots - 1], i0 = min(int(t),
 // n_knots - 2), sigma = s[i0] (1 - frac) + s[i0 + 1] frac, sigma(0) = 0, the
-// filter only when s != 0, then the gain.  The TPU kernel stores the knots
-// as overlapping 128-wide segment rows for Mosaic's one-vreg lane gather;
-// here the flat knot vector sits in shared memory and is indexed directly.
+// filter only when s != 0, then the gain.  The interpolation is the one K1
+// and K5 use (sigma_common.cuh).
 //
 // What bounds it on the H100: device-memory bytes, one read and one write of
 // each lattice (16 bytes per mode); per mode it adds one logf and, when
@@ -21,6 +20,8 @@
 // the result are rounded as written (__fmul_rn, __fadd_rn), so no fused
 // multiply-add moves them away from the plain PyTorch version.
 #include <cuda_runtime.h>
+
+#include "sigma_common.cuh"
 
 namespace {
 
@@ -35,15 +36,12 @@ scale_sigma_kernel(float* __restrict__ re, float* __restrict__ im,
                    float half_inv_ln10, float lk0, float inv_dlk,
                    float smoothing, float gain) {
   extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < n_knots; i += blockDim.x) tab[i] = knots[i];
-  __syncthreads();
+  rf::load_knots(tab, knots, n_knots);
 
   const int plane = ny_loc * nzh;
   const int gx = static_cast<int>(blockIdx.y) + x_off;
-  const int sx = gx <= nx / 2 ? gx : gx - nx;
-  const float kx = kx_scale * static_cast<float>(sx);
+  const float kx = kx_scale * static_cast<float>(rf::signed_index(gx, nx));
   const float kx2 = kx * kx;
-  const float top = static_cast<float>(n_knots - 1);
   float* rp = re + static_cast<long long>(blockIdx.y) * plane;
   float* ip = im + static_cast<long long>(blockIdx.y) * plane;
 
@@ -51,20 +49,14 @@ scale_sigma_kernel(float* __restrict__ re, float* __restrict__ im,
        p += gridDim.x * blockDim.x) {
     const int y = p / nzh;
     const int z = p - y * nzh;
-    const int gy = y + y_off;
-    const int sy = gy <= ny / 2 ? gy : gy - ny;
-    const float ky = ky_scale * static_cast<float>(sy);
+    const float ky = ky_scale * static_cast<float>(rf::signed_index(y + y_off, ny));
     const float kz = kz_scale * static_cast<float>(z);
     const float ksq =
         __fadd_rn(__fadd_rn(kx2, __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
     float amp = 0.f;
     if (ksq > 0.f) {
-      const float lk = half_inv_ln10 * logf(ksq);
-      const float t = fminf(fmaxf((lk - lk0) * inv_dlk, 0.f), top);
-      const int i0 = min(static_cast<int>(t), n_knots - 2);
-      const float frac = t - static_cast<float>(i0);
-      amp = __fadd_rn(__fmul_rn(tab[i0], 1.f - frac),
-                      __fmul_rn(tab[i0 + 1], frac));
+      amp = rf::interp_sigma(tab, n_knots, rf::log10_k(ksq, half_inv_ln10),
+                             lk0, inv_dlk);
       if (smoothing != 0.f) amp = amp * expf(-0.5f * ksq * smoothing * smoothing);
       amp = amp * gain;
     }

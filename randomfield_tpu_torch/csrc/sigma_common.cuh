@@ -1,0 +1,49 @@
+// sigma(|k|) by linear interpolation in log10 k over the uniform knot table:
+// the device code that K1 (sample_modes.cu), K2 (scale_sigma.cu) and K5
+// (sample_power_bins.cu) share, so the three interpolate identically.
+//
+// Counterpart of randomfield_tpu/ops/pallas_sampler.py:_interp_sigma_tile.
+// The TPU keeps the knots as overlapping 128-wide segment rows for Mosaic's
+// one-vreg lane gather; here the flat knot vector sits in shared memory and
+// is indexed directly.  Step for step: log10|k| = (0.5 / ln 10) ln|k|^2,
+// t = (log10|k| - lk0) / dlk clipped to [0, n_knots - 1], i0 = min(int(t),
+// n_knots - 2), sigma = s[i0] (1 - frac) + s[i0 + 1] frac.  The final sum is
+// rounded as written (__fmul_rn, __fadd_rn), so no fused multiply-add moves
+// it away from the plain PyTorch version.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rf {
+
+// Copy the knots into shared memory; every thread of the block must call it.
+__device__ __forceinline__ void load_knots(float* tab,
+                                           const float* __restrict__ knots,
+                                           int n_knots) {
+  for (int i = threadIdx.x; i < n_knots; i += blockDim.x) tab[i] = knots[i];
+  __syncthreads();
+}
+
+// fft frequency index: i up to n/2, i - n above.
+__device__ __forceinline__ int signed_index(int i, int n) {
+  return i <= n / 2 ? i : i - n;
+}
+
+// log10|k| from |k|^2 > 0.
+__device__ __forceinline__ float log10_k(float ksq, float half_inv_ln10) {
+  return half_inv_ln10 * logf(ksq);
+}
+
+// sigma at log10|k| = lk, linear over the table tab[0, n_knots).
+__device__ __forceinline__ float interp_sigma(const float* tab, int n_knots,
+                                              float lk, float lk0,
+                                              float inv_dlk) {
+  const float top = static_cast<float>(n_knots - 1);
+  const float t = fminf(fmaxf((lk - lk0) * inv_dlk, 0.f), top);
+  const int i0 = min(static_cast<int>(t), n_knots - 2);
+  const float frac = t - static_cast<float>(i0);
+  return __fadd_rn(__fmul_rn(tab[i0], 1.f - frac),
+                   __fmul_rn(tab[i0 + 1], frac));
+}
+
+}  // namespace rf

@@ -1,23 +1,35 @@
 """The Generator scene/state API — render seeded Gaussian random fields.
 
-Port of the core of ``randomfield_tpu/engine/generator.py`` for the default
-``sampler='threefry'``.  The constructor does the scene setup once (power
-table, uniform sigma(k) table, lightcone weights); each
-``generate_delta_field(seed)`` then runs, on the scene's device:
+Port of the core of ``randomfield_tpu/engine/generator.py``.  The
+constructor does the scene setup once (power table, uniform sigma(k)
+table, lightcone weights); each ``generate_delta_field(seed)`` then runs,
+on the scene's device, one of two samplers:
 
-1. the canonical Threefry unit draws (:mod:`.ops.sample`), bit for bit the
-   JAX package's stream at the same seed, with the kz = 0 and Nyquist
-   planes made Hermitian (:mod:`.ops.transform`);
-2. K2, in place: sigma(|k|) * exp(-k^2 s^2 / 2) / sqrt(2), the last factor
-   the draws' complex normalization (:func:`.ops.sampler.scale_sigma`);
-3. K3, in place: inverse FFT along x, then along y (:func:`.ops.fft.ifft_axis`);
-4. K4: c2r along kz times the plane weights D(z)/D(0), which writes the
+* ``sampler='threefry'`` (default): the canonical Threefry unit draws
+  (:mod:`.ops.sample`), bit for bit the JAX package's stream at the same
+  seed, with the kz = 0 and Nyquist planes made Hermitian
+  (:mod:`.ops.transform`); then K2, in place: sigma(|k|) * exp(-k^2 s^2 /
+  2) / sqrt(2), the last factor the draws' complex normalization
+  (:func:`.ops.sampler.scale_sigma`);
+* ``sampler='pallas'``: K1 draws and scales every mode in one pass from
+  its own counter-based stream (:func:`.ops.sampler.sample_modes`,
+  :mod:`.ops.modestream`); then the Hermitian fix of the two planes.
+
+and then, for both:
+
+1. K3, in place: inverse FFT along x, then along y (:func:`.ops.fft.ifft_axis`);
+2. K4: c2r along kz times the plane weights D(z)/D(0), which writes the
    field (:func:`.ops.fft.c2r_tail`).
 
-On CUDA the spectrum is two float32 lattices updated in place through
-steps 1-3; a render's peak is those two lattices, the field and one
-Threefry chunk's temporaries.  On the CPU every step runs its plain
-PyTorch version.
+``sample_power(seed)`` bins the realized power of a seed's spectrum with no
+FFT: for ``sampler='pallas'`` through K5, which regenerates K1's draws and
+writes no spectrum (:func:`.ops.sampler.sample_power_bins`), the config-4
+covariance-ensemble path; ``calculate_power(delta)`` is the FFT estimator.
+
+On CUDA the spectrum is two float32 lattices updated in place up to K4;
+a render's peak is those two lattices, the field and (Threefry) one
+draw chunk's temporaries.  On the CPU every step runs its plain PyTorch
+version.
 """
 
 from __future__ import annotations
@@ -33,13 +45,13 @@ from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
 from randomfield_tpu_torch.ops import threefry as _threefry
 from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["Generator"]
 
 _INV_SQRT2 = float(np.float32(0.7071067811865476))
 
 _NOT_PORTED = {
-    "sampler='pallas'": "K1, the hardware-PRNG sampler (ROADMAP.md, Queue 2 K1)",
     "sampler='nested'": "the nested stream (ROADMAP.md, Queue 1 item 4)",
     "mesh": "torch.distributed meshes (ROADMAP.md, Queue 1 item 11)",
     "pipeline='staged'": ("the staged (x, kz, y) pipeline, not needed on an "
@@ -66,9 +78,14 @@ class Generator:
         ('default', 'eh98', 'bbks'), or None for the default table.
     interpolation : 'log10k' (P linear in log10 k) or 'loglog'.
     z0 : redshift of the nearest lightcone plane.
-    sampler : 'threefry' only, for now.
-    mesh, pipeline : accepted for API parity; anything but None / 'auto' /
-        'fused' raises NotImplementedError.
+    sampler : 'threefry' (the JAX package's stream, bit for bit) or
+        'pallas' (the fused sampler K1: its own counter-based stream,
+        :mod:`~randomfield_tpu_torch.ops.modestream`); 'nested' raises
+        NotImplementedError.
+    mesh, pipeline : accepted for API parity; a mesh raises
+        NotImplementedError, and so does ``pipeline='staged'`` except with
+        ``sampler='pallas'``, which ignores the pipeline as the JAX
+        package does.
     device : where renders run, "cuda" by default.  On CUDA every axis the
         kernels transform must be a power of two: nx, ny and nz/2 in
         [16, 2048]; other shapes raise ValueError here.
@@ -79,14 +96,15 @@ class Generator:
                  sampler="threefry", device="cuda"):
         if sampler not in ("threefry", "pallas", "nested"):
             raise ValueError(f"unknown sampler {sampler!r}")
-        if sampler != "threefry":
-            raise _not_ported(f"sampler={sampler!r}")
+        if sampler == "nested":
+            raise _not_ported("sampler='nested'")
         if mesh is not None:
             raise _not_ported("mesh")
-        if pipeline == "staged":
+        if pipeline == "staged" and sampler != "pallas":
             raise _not_ported("pipeline='staged'")
-        if pipeline not in ("auto", "fused"):
+        if pipeline not in ("auto", "fused", "staged"):
             raise ValueError(f"unknown pipeline {pipeline!r}")
+        self.sampler = sampler
         self.device = torch.device(device)
         shape = (int(nx), int(ny), int(nz))
         if self.device.type == "cuda":
@@ -167,14 +185,29 @@ class Generator:
         w = self.state.lightcone_weights
         return w if apply_lightcone else torch.ones_like(w)
 
-    def _render_reim(self, re, im, smoothing_length, apply_lightcone):
-        """Unit draws (consumed in place) -> field: symmetrize, K2-K4."""
-        nx, ny, nz = self.shape
-        nzh = nz // 2 + 1
-        _transform.symmetrize_with_shape_reim(re, im, nz)
+    def _scaled_draws(self, re, im, smoothing_length):
+        """Unit draws -> spectrum, in place: symmetrize, then K2."""
+        _transform.symmetrize_with_shape_reim(re, im, self.shape[2])
         _sampler.scale_sigma(re, im, self.state.table, self.shape,
                              self.grid_spacing, smoothing_length,
                              gain=_INV_SQRT2)
+        return re, im
+
+    def _sampled_spectrum(self, seed, smoothing_length):
+        """The seed's packed 'xyz' spectrum as (re, im) float32 lattices."""
+        if self.sampler == "pallas":
+            return _sampler.sample_spectrum(
+                seed, self.state.table, self.shape, self.grid_spacing,
+                smoothing_length)
+        re, im = _sample.unit_draws_reim(
+            _threefry.key_from_seed(seed), self.shape, self.device
+        )
+        return self._scaled_draws(re, im, smoothing_length)
+
+    def _spectrum_to_field(self, re, im, apply_lightcone):
+        """Spectrum (consumed in place) -> field: K3 x, K3 y, K4."""
+        nx, ny, nz = self.shape
+        nzh = nz // 2 + 1
         _fft.ifft_axis(re, im, 1, nx, ny * nzh)
         _fft.ifft_axis(re, im, nx, ny, nzh)
         return _fft.c2r_tail(re, im, nz, self._weights(apply_lightcone))
@@ -182,12 +215,11 @@ class Generator:
     def generate_delta_field(self, seed=0, smoothing_length=0.0,
                              apply_lightcone=True):
         """Render one realization: an (nx, ny, nz) float32 tensor on the
-        scene's device.  A fixed seed gives a bit-identical field; the
-        stream is the JAX package's at the same seed."""
-        re, im = _sample.unit_draws_reim(
-            _threefry.key_from_seed(seed), self.shape, self.device
-        )
-        return self._render_reim(re, im, smoothing_length, apply_lightcone)
+        scene's device.  A fixed seed gives a bit-identical field; with
+        ``sampler='threefry'`` the stream is the JAX package's at the same
+        seed."""
+        re, im = self._sampled_spectrum(seed, smoothing_length)
+        return self._spectrum_to_field(re, im, apply_lightcone)
 
     def generate_delta_fields(self, seeds, smoothing_length=0.0,
                               apply_lightcone=True):
@@ -197,10 +229,16 @@ class Generator:
             for s in np.asarray(seeds).ravel()
         ])
 
+    def _require_threefry(self, what):
+        if self.sampler == "pallas":
+            raise ValueError(
+                f"sampler='pallas' draws inside the fused kernel; {what}")
+
     def generate_noise(self, seed=0):
         """A seed's raw unit normal draws, shape (2, nx, ny, nz//2+1): the
         state before symmetrization and scaling.  ``generate_from_noise``
         of it equals ``generate_delta_field(seed)`` exactly."""
+        self._require_threefry("there is no exportable pre-kernel noise state")
         re, im = _sample.unit_draws_reim(
             _threefry.key_from_seed(seed), self.shape, self.device
         )
@@ -213,6 +251,8 @@ class Generator:
         The same algebra as a seeded render: symmetrize, sigma(k) and the
         filter, c2r, lightcone.  ``draws`` is copied, not consumed.
         """
+        self._require_threefry("generate_from_noise needs a scene with "
+                               "sampler='threefry'")
         nx, ny, nz = self.shape
         want = (2, nx, ny, nz // 2 + 1)
         draws = torch.as_tensor(draws, dtype=torch.float32, device=self.device)
@@ -223,7 +263,56 @@ class Generator:
             )
         re = draws[0].clone(memory_format=torch.contiguous_format)
         im = draws[1].clone(memory_format=torch.contiguous_format)
-        return self._render_reim(re, im, smoothing_length, apply_lightcone)
+        re, im = self._scaled_draws(re, im, smoothing_length)
+        return self._spectrum_to_field(re, im, apply_lightcone)
+
+    # ---- power spectra ---------------------------------------------------------
+    def calculate_power(self, delta, nbins=32):
+        """Realized binned P(k) of a rendered field: host float64
+        ``(k_mean, p_hat, n_modes)`` (:func:`.validate.stats.calculate_power`)."""
+        return _stats.calculate_power(delta, self.grid_spacing, nbins)
+
+    def sample_power(self, seed=0, smoothing_length=0.0, nbins=32):
+        """Realized binned P(k) of a seed's spectrum, with no FFT.
+
+        P_hat = |c_k|^2 V of the sampled packed spectrum, binned as
+        :meth:`calculate_power` bins a field, so it equals
+        ``calculate_power(generate_delta_field(seed, apply_lightcone=False))``
+        up to transform rounding.  With ``sampler='pallas'`` and ``nbins`` <=
+        128 this runs K5, which bins the draws as it makes them and writes
+        no spectrum (BASELINE config 4); otherwise the spectrum is sampled
+        and binned (:func:`.validate.stats.spectrum_power`).  Returns host
+        float64 ``(k_mean, p_hat, n_modes)``.
+        """
+        if self.sampler == "pallas" and nbins <= _sampler.MAX_KERNEL_BINS:
+            return _stats.bins_to_host(self._kernel_bins(seed, smoothing_length,
+                                                     int(nbins)), int(nbins))
+        re, im = self._sampled_spectrum(seed, smoothing_length)
+        return _stats.spectrum_power((re, im), self.shape, self.grid_spacing,
+                                     nbins)
+
+    def sample_power_batch(self, seeds, smoothing_length=0.0, nbins=32):
+        """:meth:`sample_power` for a seed batch: host float64 ``(k_mean,
+        p_hat[nseeds, nbins], n_modes)`` in ``seeds`` order (k_mean and
+        n_modes do not depend on the seed)."""
+        ks = ms = None
+        rows = []
+        for s in np.asarray(seeds).ravel():
+            ks, p, ms = self.sample_power(int(s), smoothing_length, nbins)
+            rows.append(p)
+        return ks, np.asarray(rows), ms
+
+    def _kernel_bins(self, seed, smoothing_length, nbins):
+        """float64 (3, nbins) sums of the seed's spectrum through K5: its
+        interior bins plus its raw planes made Hermitian and binned
+        (:func:`.validate.stats.plane_bins`), as
+        ``engine/staged.py:_sample_power_v3`` does on the TPU."""
+        edges, _ = _stats.bin_setup(self.shape, self.grid_spacing, nbins)
+        acc, pre, pim = _sampler.sample_power_bins(
+            seed, self.state.table, self.shape, self.grid_spacing,
+            smoothing_length, edges)
+        return acc + _stats.plane_bins(pre, pim, self.shape,
+                                       self.grid_spacing, nbins)
 
 
 def _check_kernel_shape(shape):

@@ -37,11 +37,17 @@ _LOCK = threading.Lock()
 _LIB = None
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
     "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_fft_axis": [_P, _P, _P, _I, _I, _LL, _I, _P],
     "rf_c2r_tail": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _U32, _U32,
+                        _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_sample_power_bins": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _I, _I, _U32, _U32, _F, _F, _F, _F, _F, _F,
+                             _F, _F, _I, _F, _F, _P],
 }
 
 

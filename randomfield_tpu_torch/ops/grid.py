@@ -18,6 +18,8 @@ import torch
 
 __all__ = [
     "kvectors",
+    "ksq",
+    "kmag",
     "get_k_bounds",
     "conjugate_plane",
     "hermitian_plane_masks",
@@ -38,6 +40,23 @@ def kvectors(shape, spacing, dtype=torch.float32, device="cpu"):
         for f in (np.fft.fftfreq(nx, d=spacing), np.fft.fftfreq(ny, d=spacing),
                   np.fft.rfftfreq(nz, d=spacing))
     )
+
+
+def ksq(shape, spacing, dtype=torch.float32, device="cpu", x_off=0,
+        nx_loc=None):
+    """|k|^2 on the packed half-spectrum, ``(kx^2 + ky^2) + kz^2`` in
+    ``dtype`` as the JAX package sums it; x rows [x_off, x_off + nx_loc)."""
+    kx, ky, kz = kvectors(shape, spacing, dtype, device)
+    nx_loc = shape[0] - x_off if nx_loc is None else nx_loc
+    kx = kx[x_off:x_off + nx_loc]
+    return ((kx * kx)[:, None, None] + (ky * ky)[None, :, None]
+            + (kz * kz)[None, None, :])
+
+
+def kmag(shape, spacing, dtype=torch.float32, device="cpu", x_off=0,
+         nx_loc=None):
+    """|k| on the packed half-spectrum (rows as :func:`ksq`)."""
+    return torch.sqrt(ksq(shape, spacing, dtype, device, x_off, nx_loc))
 
 
 def get_k_bounds(shape, spacing) -> tuple[float, float]:

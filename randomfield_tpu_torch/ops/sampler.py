@@ -1,12 +1,24 @@
-"""The sigma(k) table and the sigma-scale kernel (K2).
+"""The sigma(k) table and the sampler kernels: K2 scale, K1 sample, K5 bin.
 
 Counterpart of ``randomfield_tpu/ops/pallas_sampler.py``.  Scene setup
 resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
-(:func:`make_sigma_table`); each render multiplies the unit draws in place
-by sigma(|k|) * exp(-k^2 s^2 / 2) * gain, with sigma interpolated linearly
-in log10 k over that table (:func:`scale_sigma`, the CUDA kernel
-``csrc/scale_sigma.cu`` on the card, :func:`scale_sigma_plain` on the
-CPU).
+(:func:`make_sigma_table`), which every kernel here interpolates linearly
+in log10 k (``csrc/sigma_common.cuh``):
+
+* K2 :func:`scale_sigma` (``csrc/scale_sigma.cu``): the default sampler's
+  Threefry unit draws, in place, times sigma(|k|) * exp(-k^2 s^2 / 2) *
+  gain;
+* K1 :func:`sample_modes` (``csrc/sample_modes.cu``): ``sampler='pallas'``
+  draws each mode from its own counter-based stream
+  (:mod:`~randomfield_tpu_torch.ops.modestream`), Box-Muller, and scales it,
+  writing the spectrum in one pass;
+* K5 :func:`sample_power_bins` (``csrc/sample_power_bins.cu``): the same
+  draws binned in log10 |k| as (sum w, sum w |c|^2 V, sum w |k|) with no
+  spectrum written, plus the raw kz = 0 / Nyquist planes.
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it runs the plain PyTorch version beside it (``*_plain``), which repeats
+the kernel's float32 operations in the same order.
 
 The JAX package stores the table as overlapping 128-wide segment rows for
 Mosaic's one-vreg lane gather.  The port keeps one flat knot vector with
@@ -14,7 +26,7 @@ the same knot count as the JAX 'xzy' table, ``m (w - 1) + 1`` with
 ``w = min(ny, 128)``, and the same padding, so its default table equals
 the JAX one value for value with the shared knots de-duplicated.
 
-The launch count of the kernel is ``K2_LAUNCHES``.
+The launch counts are ``K1_LAUNCHES``, ``K2_LAUNCHES`` and ``K5_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -26,7 +38,9 @@ import torch
 
 from randomfield_tpu_torch.ops import _build
 from randomfield_tpu_torch.ops import grid as _grid
+from randomfield_tpu_torch.ops import modestream as _modestream
 from randomfield_tpu_torch.ops import power as _power
+from randomfield_tpu_torch.ops import transform as _transform
 
 __all__ = [
     "SigmaTable",
@@ -36,14 +50,38 @@ __all__ = [
     "scale_sigma_plain",
     "sigma_amplitude",
     "load_reference_state",
+    "sample_modes",
+    "sample_modes_plain",
+    "sample_spectrum",
+    "seeded_modes_plain",
+    "sample_power_bins",
+    "power_bins_plain",
+    "seeded_power_bins_plain",
+    "K1_LAUNCHES",
     "K2_LAUNCHES",
+    "K5_LAUNCHES",
+    "MAX_KERNEL_BINS",
 ]
 
-# kernel launches by scale_sigma (the CPU path does not count)
+# kernel launches by sample_modes, scale_sigma and sample_power_bins (the
+# CPU paths do not count)
+K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K5_LAUNCHES = 0
+
+# K5 bins at most this many (the TPU kernel's lane count); callers fall back
+# to K1 and binning the spectrum above it
+MAX_KERNEL_BINS = 128
 
 _MIN_KNOTS = 513  # >= the default table's information content
 _HALF_INV_LN10 = np.float32(0.5 / np.log(10.0))
+# Box-Muller constants of the TPU sampler, rounded to float32 as JAX rounds them
+_TWO_PI32 = np.float32(6.283185307179586)
+_INV_SQRT2 = np.float32(0.7071067811865476)
+_INV_2_24 = np.float32(2.0 ** -24)
+_HALF_INV_2_24 = np.float32(2.0 ** -25)
+# y rows of one K5 block (csrc/sample_power_bins.cu kThreads)
+_K5_ROWS = 128
 # x planes per step of the plain version (bounds its temporaries)
 _PLAIN_X_CHUNK = 64
 
@@ -113,6 +151,31 @@ def _signed(idx, n):
     return torch.where(idx <= n // 2, idx, idx - n)
 
 
+def _axis_k(c, shape, x_off, nx_loc, y_off, ny_loc, dev):
+    """float32 (kx, ky, kz) of x rows [x_off, +nx_loc), y rows [y_off, +ny_loc)."""
+    nx, ny, nz = shape
+    ix = torch.arange(x_off, x_off + nx_loc, device=dev)
+    iy = torch.arange(y_off, y_off + ny_loc, device=dev)
+    iz = torch.arange(nz // 2 + 1, device=dev)
+    kx = _signed(ix, nx).to(torch.float32) * float(c["kx_scale"])
+    ky = _signed(iy, ny).to(torch.float32) * float(c["ky_scale"])
+    kz = iz.to(torch.float32) * float(c["kz_scale"])
+    return kx, ky, kz
+
+
+def _interp_sigma(knots, ksq, c):
+    """(log10|k| with DC at 0, sigma(|k|) with sigma(0) = 0) of ``ksq``:
+    csrc/sigma_common.cuh's float32 operations, in its order."""
+    n_knots = knots.numel()
+    pos = ksq > 0
+    lk = torch.log(torch.where(pos, ksq, 1.0)) * float(_HALF_INV_LN10)
+    t = ((lk - float(c["lk0"])) * float(c["inv_dlk"])).clamp(0.0, n_knots - 1)
+    i0 = t.to(torch.int64).clamp_max(n_knots - 2)
+    frac = t - i0.to(torch.float32)
+    sig = knots[i0] * (1.0 - frac) + knots[i0 + 1] * frac
+    return lk, torch.where(pos, sig, 0.0)
+
+
 def sigma_amplitude(table, shape, spacing, smoothing_length=0.0, x_off=0,
                     nx_loc=None, y_off=0, ny_loc=None, gain=1.0):
     """sigma(|k|) * exp(-k^2 s^2 / 2) * gain over an 'xyz' block, float32.
@@ -123,28 +186,14 @@ def sigma_amplitude(table, shape, spacing, smoothing_length=0.0, x_off=0,
     y_off + ny_loc).
     """
     nx, ny, nz = shape
-    nzh = nz // 2 + 1
     nx_loc = nx if nx_loc is None else nx_loc
     ny_loc = ny if ny_loc is None else ny_loc
     c = _constants(table, shape, spacing)
-    dev = table.knots.device
-    knots = table.knots
-    n_knots = knots.numel()
-    ix = torch.arange(x_off, x_off + nx_loc, device=dev)
-    iy = torch.arange(y_off, y_off + ny_loc, device=dev)
-    iz = torch.arange(nzh, device=dev)
-    kx = _signed(ix, nx).to(torch.float32) * float(c["kx_scale"])
-    ky = _signed(iy, ny).to(torch.float32) * float(c["ky_scale"])
-    kz = iz.to(torch.float32) * float(c["kz_scale"])
+    kx, ky, kz = _axis_k(c, shape, x_off, nx_loc, y_off, ny_loc,
+                         table.knots.device)
     ksq = (kx * kx)[:, None, None] + (ky * ky)[None, :, None]
     ksq = ksq + (kz * kz)[None, None, :]
-    pos = ksq > 0
-    lk = torch.log(torch.where(pos, ksq, 1.0)) * float(_HALF_INV_LN10)
-    t = ((lk - float(c["lk0"])) * float(c["inv_dlk"])).clamp(0.0, n_knots - 1)
-    i0 = t.to(torch.int64).clamp_max(n_knots - 2)
-    frac = t - i0.to(torch.float32)
-    sig = knots[i0] * (1.0 - frac) + knots[i0 + 1] * frac
-    amp = torch.where(pos, sig, 0.0)
+    _, amp = _interp_sigma(table.knots, ksq, c)
     s = float(np.float32(smoothing_length))
     if s != 0.0:
         amp = amp * torch.exp(-0.5 * ksq * s * s)
@@ -246,3 +295,271 @@ def load_reference_state(stab_rows, lk0, dlk, lightcone_weights, power_k,
     power = _power.validate_power((np.asarray(power_k, np.float64),
                                    np.asarray(power_pk, np.float64)))
     return State(table=table, lightcone_weights=weights, power=power)
+
+
+# ---- K1 and K5: the sampler='pallas' kernels -------------------------------------
+
+def _sampler_ksq(c, shape, x_off, nx_loc, dev):
+    """|k|^2 of x rows [x_off, x_off + nx_loc) in the TPU sampler's float32
+    order, (kx^2 + kz^2) + ky^2 (csrc/threefry.cuh:sampler_ksq)."""
+    kx, ky, kz = _axis_k(c, shape, x_off, nx_loc, 0, shape[1], dev)
+    ksq = (kx * kx)[:, None, None] + (kz * kz)[None, None, :]
+    return ksq + (ky * ky)[None, :, None]
+
+
+def _mode_amplitude(table, c, shape, x_off, nx_loc, smoothing_length,
+                    always_filter):
+    """(|k|^2, log10|k|, amp) of a block: amp = sigma / sqrt(2) times the
+    filter, which K1 applies only when s != 0 and K5 always (exp(0) = 1, so
+    the two agree)."""
+    ksq = _sampler_ksq(c, shape, x_off, nx_loc, table.knots.device)
+    lk, sig = _interp_sigma(table.knots, ksq, c)
+    amp = sig * float(_INV_SQRT2)
+    s = float(np.float32(smoothing_length))
+    if always_filter or s != 0.0:
+        amp = amp * torch.exp(-0.5 * ksq * s * s)
+    return ksq, lk, amp
+
+
+def _uniforms(b1, b2):
+    """Box-Muller uniforms from the top 24 bits: u1 in (0, 1], u2 in [0, 1)."""
+    u1 = (b1 >> 8).to(torch.float32) * float(_INV_2_24) + float(_HALF_INV_2_24)
+    u2 = (b2 >> 8).to(torch.float32) * float(_INV_2_24)
+    return u1, u2
+
+
+def _check_bits(b1, b2, table, shape, x_off):
+    nx, ny, nz = shape
+    want = (ny, nz // 2 + 1)
+    if (b1.shape != b2.shape or b1.ndim != 3 or tuple(b1.shape[1:]) != want
+            or b1.dtype != torch.int64 or b2.dtype != torch.int64):
+        raise ValueError(f"b1/b2 must be equal int64 (nx_loc, {want[0]}, "
+                         f"{want[1]}) blocks, got {tuple(b1.shape)} "
+                         f"{b1.dtype} and {tuple(b2.shape)} {b2.dtype}")
+    if not 0 <= x_off <= nx - b1.shape[0]:
+        raise ValueError(f"x rows [{x_off}, {x_off + b1.shape[0]}) lie "
+                         f"outside the grid {shape}")
+    if b1.device != b2.device or table.knots.device != b1.device:
+        raise ValueError("b1, b2 and the table's knots must share a device")
+
+
+def _check_table(table, name):
+    if table.knots.numel() < 2:
+        raise ValueError("the sigma table needs at least two knots")
+    dev = table.knots.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    if table.knots.dtype != torch.float32 or not table.knots.is_contiguous():
+        raise ValueError(f"{name} needs contiguous float32 knots")
+    return dev
+
+
+def sample_modes_plain(b1, b2, table, shape, spacing, smoothing_length=0.0,
+                       x_off=0):
+    """K1 in plain PyTorch on given bits, any device.
+
+    ``b1``/``b2``: int64 tensors of uint32 values, the bits of the modes of
+    x rows [x_off, x_off + nx_loc), shaped (nx_loc, ny, nz//2+1).  Returns
+    float32 (re, im) of the same shape, before the Hermitian fix: the
+    float32 operations of ``csrc/sample_modes.cu`` (and of the TPU kernel)
+    in their order, x-slab by x-slab.
+    """
+    _check_bits(b1, b2, table, shape, x_off)
+    c = _constants(table, shape, spacing)
+    re = torch.empty(b1.shape, dtype=torch.float32, device=b1.device)
+    im = torch.empty_like(re)
+    for x0 in range(0, b1.shape[0], _PLAIN_X_CHUNK):
+        x1 = min(b1.shape[0], x0 + _PLAIN_X_CHUNK)
+        _, _, amp = _mode_amplitude(table, c, shape, x_off + x0, x1 - x0,
+                                    smoothing_length, always_filter=False)
+        u1, u2 = _uniforms(b1[x0:x1], b2[x0:x1])
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        theta = float(_TWO_PI32) * u2
+        re[x0:x1] = amp * (r * torch.cos(theta))
+        im[x0:x1] = amp * (r * torch.sin(theta))
+    return re, im
+
+
+def seeded_modes_plain(seed, table, shape, spacing, smoothing_length=0.0):
+    """K1's function in plain PyTorch: :func:`sample_modes_plain` on the
+    seed's stream (:mod:`.modestream`), drawn x-slab by x-slab on the
+    table's device."""
+    nx, ny, nz = shape
+    key = _modestream.mode_key(seed)
+    dev = table.knots.device
+    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=dev)
+    im = torch.empty_like(re)
+    for x0 in range(0, nx, _PLAIN_X_CHUNK):
+        n = min(_PLAIN_X_CHUNK, nx - x0)
+        b1, b2 = _modestream.mode_bits(key, shape, x0, n, dev)
+        re[x0:x0 + n], im[x0:x0 + n] = sample_modes_plain(
+            b1, b2, table, shape, spacing, smoothing_length, x0)
+    return re, im
+
+
+def sample_modes(seed, table, shape, spacing, smoothing_length=0.0):
+    """K1: the ``sampler='pallas'`` spectrum of ``seed``, in one pass.
+
+    Returns float32 (nx, ny, nz//2+1) 'xyz' (re, im) lattices on the
+    table's device: each mode's Box-Muller draw from the seed's
+    counter-based stream times sigma(|k|) / sqrt(2) times the filter, DC
+    zero, the kz = 0 / Nyquist planes not yet Hermitian.  On CUDA this
+    launches ``csrc/sample_modes.cu``; on the CPU it runs
+    :func:`seeded_modes_plain`.
+    """
+    global K1_LAUNCHES
+    dev = _check_table(table, "sample_modes")
+    if dev.type == "cpu":
+        return seeded_modes_plain(seed, table, shape, spacing,
+                                  smoothing_length)
+    nx, ny, nz = shape
+    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=dev)
+    im = torch.empty_like(re)
+    c = _constants(table, shape, spacing)
+    k0, k1 = _modestream.mode_key(seed)
+    status = _build.library().rf_sample_modes(
+        re.data_ptr(), im.data_ptr(), table.knots.data_ptr(),
+        table.knots.numel(), nx, ny, nz // 2 + 1, k0, k1,
+        float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
+        float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
+        float(np.float32(smoothing_length)), _build.current_stream(re),
+    )
+    _build.check(status, "sample_modes")
+    K1_LAUNCHES += 1
+    return re, im
+
+
+def sample_spectrum(seed, table, shape, spacing, smoothing_length=0.0):
+    """The ``sampler='pallas'`` spectrum of ``seed``: K1, then the Hermitian
+    fix of the kz = 0 / Nyquist planes (self-conjugate modes times sqrt(2)),
+    as (re, im) float32 'xyz' lattices.  The counterpart of
+    ``pallas_sampler.sample_spectrum_pallas_reim``."""
+    re, im = sample_modes(seed, table, shape, spacing, smoothing_length)
+    return _transform.symmetrize_with_shape_reim(re, im, shape[2])
+
+
+def _bin_edges(edges, dev):
+    """(nbins, float32 edges on ``dev``, le0, inv_dle) of ascending |k| edges;
+    (le0, inv_dle) place the affine first guess of K5's bin search."""
+    edges = np.asarray(edges, np.float64)
+    nbins = edges.size - 1
+    if not 1 <= nbins <= MAX_KERNEL_BINS or np.any(np.diff(edges) <= 0):
+        raise ValueError(f"the binned sampler takes 2 to {MAX_KERNEL_BINS + 1} "
+                         f"ascending edges, got {edges.size}")
+    ledges = np.log10(edges)
+    return (nbins, torch.as_tensor(edges, dtype=torch.float32, device=dev),
+            np.float32(ledges[0]), np.float32(nbins / (ledges[-1] - ledges[0])))
+
+
+def _volume32(shape, spacing):
+    nx, ny, nz = shape
+    return np.float32(nx * ny * nz * float(spacing) ** 3)
+
+
+def power_bins_plain(b1, b2, table, shape, spacing, smoothing_length, edges,
+                     x_off=0):
+    """K5 in plain PyTorch on given bits, any device.
+
+    ``b1``/``b2`` as for :func:`sample_modes_plain`; ``edges``: the nbins + 1
+    ascending |k| bin edges.  Returns ``(acc, plane_re, plane_im)``:
+    ``acc`` float64 (3, nbins), the interior modes' per-bin (sum w, sum w
+    |c|^2 V, sum w |k|) with w = 2, each mode in the bin the estimator's
+    edge search gives its |k| (:func:`.grid.kmag`);
+    ``plane_re``/``plane_im`` float32 (nx_loc, n_planes, ny), the raw draws
+    of the kz = 0 (and, for even nz, Nyquist) planes, K1's values there.
+    """
+    _check_bits(b1, b2, table, shape, x_off)
+    dev = b1.device
+    nbins, edges_t, _, _ = _bin_edges(edges, dev)
+    vol = float(_volume32(shape, spacing))
+    c = _constants(table, shape, spacing)
+    nx, ny, nz = shape
+    planes = _grid.self_conjugate_kz_planes(nz)
+    interior = torch.ones(nz // 2 + 1, dtype=torch.bool, device=dev)
+    interior[list(planes)] = False
+    acc = torch.zeros((3, nbins + 1), dtype=torch.float64, device=dev)
+    pre = torch.empty((b1.shape[0], len(planes), ny), dtype=torch.float32,
+                      device=dev)
+    pim = torch.empty_like(pre)
+    for x0 in range(0, b1.shape[0], _PLAIN_X_CHUNK):
+        x1 = min(b1.shape[0], x0 + _PLAIN_X_CHUNK)
+        _, _, amp = _mode_amplitude(table, c, shape, x_off + x0, x1 - x0,
+                                    smoothing_length, always_filter=True)
+        u1, u2 = _uniforms(b1[x0:x1], b2[x0:x1])
+        pv = amp * amp * (-2.0 * torch.log(u1)) * vol
+        km = _grid.kmag(shape, spacing, torch.float32, dev, x_off + x0,
+                        x1 - x0)
+        idx = torch.searchsorted(edges_t, km) - 1
+        valid = (idx >= 0) & (idx < nbins) & (km > 0) & interior
+        idx = torch.where(valid, idx, nbins).flatten()
+        w = torch.where(valid, 2.0, 0.0)
+        for row, val in enumerate((w, w * pv, w * km)):
+            acc[row].index_add_(0, idx, val.flatten().to(torch.float64))
+        for i, p in enumerate(planes):
+            r = torch.sqrt(-2.0 * torch.log(u1[..., p]))
+            theta = float(_TWO_PI32) * u2[..., p]
+            pre[x0:x1, i] = amp[..., p] * (r * torch.cos(theta))
+            pim[x0:x1, i] = amp[..., p] * (r * torch.sin(theta))
+    return acc[:, :nbins].contiguous(), pre, pim
+
+
+def seeded_power_bins_plain(seed, table, shape, spacing, smoothing_length,
+                            edges):
+    """K5's function in plain PyTorch: :func:`power_bins_plain` on the
+    seed's stream, x-slab by x-slab on the table's device."""
+    nx = shape[0]
+    key = _modestream.mode_key(seed)
+    dev = table.knots.device
+    acc, pres, pims = None, [], []
+    for x0 in range(0, nx, _PLAIN_X_CHUNK):
+        n = min(_PLAIN_X_CHUNK, nx - x0)
+        b1, b2 = _modestream.mode_bits(key, shape, x0, n, dev)
+        a, pre, pim = power_bins_plain(b1, b2, table, shape, spacing,
+                                       smoothing_length, edges, x0)
+        acc = a if acc is None else acc + a
+        pres.append(pre)
+        pims.append(pim)
+    return acc, torch.cat(pres), torch.cat(pims)
+
+
+def sample_power_bins(seed, table, shape, spacing, smoothing_length, edges):
+    """K5: the binned power of ``seed``'s ``sampler='pallas'`` spectrum.
+
+    The draws are K1's (the same stream and amplitude); no spectrum is
+    written.  ``edges``: the nbins + 1 ascending |k| edges, nbins <=
+    ``MAX_KERNEL_BINS``.  Returns ``(acc, plane_re, plane_im)`` as
+    :func:`power_bins_plain` does, for the whole grid, on the table's
+    device.  On CUDA this launches ``csrc/sample_power_bins.cu``, whose sums
+    run in float64 in an order fixed by the shapes (two calls agree bit for
+    bit); on the CPU it runs :func:`seeded_power_bins_plain`.
+    """
+    global K5_LAUNCHES
+    dev = _check_table(table, "sample_power_bins")
+    nbins, edges_t, le0, inv_dle = _bin_edges(edges, dev)
+    if dev.type == "cpu":
+        return seeded_power_bins_plain(seed, table, shape, spacing,
+                                       smoothing_length, edges)
+    nx, ny, nz = shape
+    n_planes = len(_grid.self_conjugate_kz_planes(nz))
+    n_blocks = nx * -(-ny // _K5_ROWS)
+    acc = torch.empty((3, nbins), dtype=torch.float64, device=dev)
+    partials = torch.empty(n_blocks * 3 * nbins, dtype=torch.float64,
+                           device=dev)
+    pre = torch.empty((nx, n_planes, ny), dtype=torch.float32, device=dev)
+    pim = torch.empty_like(pre)
+    kvec = torch.cat(_grid.kvectors(shape, spacing, torch.float32, dev))
+    c = _constants(table, shape, spacing)
+    k0, k1 = _modestream.mode_key(seed)
+    status = _build.library().rf_sample_power_bins(
+        acc.data_ptr(), partials.data_ptr(), n_blocks, pre.data_ptr(),
+        pim.data_ptr(), table.knots.data_ptr(), table.knots.numel(),
+        kvec.data_ptr(), edges_t.data_ptr(), nx, ny, nz // 2 + 1,
+        int(n_planes == 2), k0, k1,
+        float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
+        float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
+        float(np.float32(smoothing_length)), float(_volume32(shape, spacing)),
+        nbins, float(le0), float(inv_dle), _build.current_stream(acc),
+    )
+    _build.check(status, "sample_power_bins")
+    K5_LAUNCHES += 1
+    return acc, pre, pim

@@ -20,12 +20,12 @@ import torch
 
 from randomfield_tpu_torch.ops import grid as _grid
 
-__all__ = ["symmetrize_with_shape_reim", "irfftn"]
+__all__ = ["symmetrize_plane_reim", "symmetrize_with_shape_reim", "irfftn"]
 
 _SQRT2 = float(np.sqrt(2.0))
 
 
-def _symmetrize_plane_reim(re2, im2, scale_self_conjugate):
+def symmetrize_plane_reim(re2, im2, scale_self_conjugate=True):
     """Hermitian projection of one self-conjugate (nx, ny) kz plane.
 
     For each conjugate pair the canonical member is kept and its partner
@@ -58,7 +58,7 @@ def symmetrize_with_shape_reim(re, im, nz, scale_self_conjugate=True):
     plane) and returns them.
     """
     for p in _grid.self_conjugate_kz_planes(nz):
-        fre, fim = _symmetrize_plane_reim(re[..., p], im[..., p],
+        fre, fim = symmetrize_plane_reim(re[..., p], im[..., p],
                                           scale_self_conjugate)
         re[..., p] = fre
         im[..., p] = fim

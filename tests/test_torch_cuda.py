@@ -17,7 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import randomfield_tpu_torch as rft  # noqa: E402
-from randomfield_tpu_torch.ops import fft, sampler  # noqa: E402
+from randomfield_tpu_torch.ops import fft, grid, sampler  # noqa: E402
+from randomfield_tpu_torch.validate import stats  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -120,3 +121,89 @@ def test_cuda_render_matches_cpu(cuda, shape, smoothing):
     assert torch.equal(g.generate_from_noise(noise, smoothing), got)
     np.testing.assert_allclose(g.predicted_variance(smoothing, True),
                                cpu.predicted_variance(smoothing, True), rtol=1e-6)
+
+
+# ---- sampler='pallas': K1, K5 and the render --------------------------------------
+
+# K1 vs plain: the same float32 operations (libdevice logf/sincosf on both
+# sides); the K2 bar
+K1_TOL = 2e-6
+# K5 vs plain: per-mode values agree to float32 rounding; the kernel adds
+# them in float64 in another order than the plain version's index_add_
+K5_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 16, 30), (16, 256, 64)])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_sample_modes_matches_plain(cuda, shape, smoothing):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    before = sampler.K1_LAUNCHES
+    a, b = sampler.sample_modes(5, table, shape, SPACING, smoothing)
+    assert sampler.K1_LAUNCHES == before + 1
+    c, d = sampler.seeded_modes_plain(5, table, shape, SPACING, smoothing)
+    assert _rel(a, c) <= K1_TOL and _rel(b, d) <= K1_TOL
+    assert float(a[0, 0, 0]) == 0.0 and float(b[0, 0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 200, 30), (16, 16, 15)])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_sample_power_bins_matches_plain(cuda, shape, smoothing):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    edges, _ = stats.bin_setup(shape, SPACING, 12)
+    args = (9, table, shape, SPACING, smoothing, edges)
+    before = sampler.K5_LAUNCHES
+    acc, pre, pim = sampler.sample_power_bins(*args)
+    assert sampler.K5_LAUNCHES == before + 1
+    acc2, pre2, pim2 = sampler.sample_power_bins(*args)
+    assert torch.equal(acc, acc2), "K5 is not repeatable bit for bit"
+    want, wpre, wpim = sampler.seeded_power_bins_plain(*args)
+    assert torch.equal(acc[0], want[0])
+    torch.testing.assert_close(acc[1:], want[1:], rtol=K5_RTOL, atol=0)
+    assert _rel(pre, wpre) <= K1_TOL and _rel(pim, wpim) <= K1_TOL
+    # the planes are K1's draws
+    re, im = sampler.sample_modes(9, table, shape, SPACING, smoothing)
+    assert torch.equal(pre[:, 0], re[..., 0]) and torch.equal(pim[:, 0], im[..., 0])
+
+
+def test_sample_power_bins_fixes_the_affine_guess_at_edges(cuda):
+    # edges placed exactly on float32 |k| of lattice shells, and not
+    # log-uniform: the kernel's affine guess is off, its edge search must
+    # still put every mode where the plain edge search does
+    shape = (32, 32, 32)
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    km = np.unique(grid.kmag(shape, SPACING).numpy())
+    edges = np.concatenate([[km[1] * 0.999], km[[3, 8, 20, 60, 200]],
+                            [km[-1] * 1.001]]).astype(np.float32).astype(np.float64)
+    acc, _, _ = sampler.sample_power_bins(2, table, shape, SPACING, 0.0, edges)
+    want, _, _ = sampler.seeded_power_bins_plain(2, table, shape, SPACING, 0.0,
+                                                 edges)
+    assert torch.equal(acc[0], want[0])
+    torch.testing.assert_close(acc[1:], want[1:], rtol=K5_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("shape,smoothing", [((32, 32, 64), 10.0),
+                                             ((64, 16, 32), 0.0)])
+def test_pallas_cuda_render_matches_cpu(cuda, shape, smoothing):
+    seed = 11
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda,
+                      sampler="pallas")
+    before = (sampler.K1_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
+    got = g.generate_delta_field(seed, smoothing_length=smoothing)
+    after = (sampler.K1_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
+    assert [b - a for a, b in zip(before, after)] == [1, 2, 1]
+    assert torch.equal(g.generate_delta_field(seed, smoothing_length=smoothing), got)
+    cpu = rft.Generator(*shape, grid_spacing=SPACING, device="cpu",
+                        sampler="pallas")
+    want = cpu.generate_delta_field(seed, smoothing_length=smoothing)
+    assert _rel(got.cpu(), want) <= RENDER_TOL
+    before = sampler.K5_LAUNCHES
+    k, p, n = g.sample_power(seed, smoothing, nbins=16)
+    assert sampler.K5_LAUNCHES == before + 1
+    kc, pc, nc = cpu.sample_power(seed, smoothing, nbins=16)
+    np.testing.assert_array_equal(n, nc)
+    live = n > 0
+    np.testing.assert_allclose(p[live], pc[live], rtol=1e-5)
+    np.testing.assert_allclose(k[live], kc[live], rtol=1e-6)

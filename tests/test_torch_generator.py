@@ -156,9 +156,14 @@ def test_noise_roundtrip_and_determinism():
 def test_port_imports_no_jax():
     code = (
         "import sys; import randomfield_tpu_torch as rft; "
+        "import randomfield_tpu_torch.validate.sampler_gate; "
         "g = rft.Generator(16, 16, 16, grid_spacing=8.0, device='cpu'); "
         "d = g.generate_delta_field(0); "
         "assert tuple(d.shape) == (16, 16, 16), d.shape; "
+        "p = rft.Generator(16, 16, 16, grid_spacing=8.0, device='cpu', "
+        "sampler='pallas'); "
+        "k, ph, n = p.sample_power(0, nbins=8); "
+        "p.calculate_power(p.generate_delta_field(0), nbins=8); "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'randomfield_tpu' or m.startswith('randomfield_tpu.')]; "
         "assert not bad, bad; print('ok')"
@@ -188,7 +193,6 @@ def test_cuda_rejects_shapes_the_kernels_do_not_take(shape):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(sampler="pallas"), "sampler='pallas'"),
     (dict(sampler="nested"), "sampler='nested'"),
     (dict(mesh=object()), "mesh"),
     (dict(pipeline="staged"), "pipeline='staged'"),

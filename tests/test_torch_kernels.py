@@ -313,13 +313,23 @@ def test_tabulate_sigmas_matches_jax():
 # ---- the build and the C interface -----------------------------------------------
 
 def test_c_entries_match_ctypes_signatures():
-    # every entry the wrappers call exists in csrc with the argument count
-    # its ctypes signature declares (no compiler here to check the binding)
+    # every int entry in csrc is declared for ctypes, and each declaration
+    # has the C parameters' count and types (no compiler here to check the
+    # binding; a pointer or a uint32 passed as an int would be cut)
+    import ctypes
+
+    c_types = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
+               "int": ctypes.c_int, "long long": ctypes.c_longlong,
+               "float": ctypes.c_float, "uint32_t": ctypes.c_uint32}
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    entries = dict(_re.findall(r'extern "C" int (rf_\w+)\(([^)]*)\)', sources))
+    assert set(entries) == set(_build._SIGNATURES)
+    assert {"rf_sample_modes", "rf_sample_power_bins"} <= set(entries)
     for name, argtypes in _build._SIGNATURES.items():
-        m = _re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", sources)
-        assert m, name
-        assert len(m.group(1).split(",")) == len(argtypes), name
+        params = [" ".join(a.split()) for a in entries[name].split(",")]
+        declared = [c_types[p.rsplit(" ", 1)[0].replace(" *", "*")]
+                    for p in params]
+        assert declared == list(argtypes), name
 
 
 def test_build_is_keyed_on_sources(tmp_path, monkeypatch):
