@@ -15,7 +15,11 @@ non-zero with no result line:
    exact shapes, table and weights the 1024^3 main paths give it: K2
    scale_sigma, K3 fft_axis, K4 c2r_tail (and over a sweep of lengths), K1
    sample_modes (s = 0 and 8), K5 sample_power_bins (nbins = 32; counts
-   exact, repeatable bit for bit, and equal to binning K1's spectrum);
+   exact, repeatable bit for bit, and equal to binning K1's spectrum); the
+   slab mesh's K6 r2c_head and forward K3 at the 1024^3 forward transform's
+   shapes (and a sweep), K7 scale_shard and K8 sample_shard on each of the
+   four (1024, 256, 513) shards of a four-rank mesh, their unions equal to
+   whole-grid K2 and K1 bit for bit;
 2. the slices at 128^3, both samplers: CUDA render vs the CPU render (plain
    versions) at the same seed, which the CPU tests hold to the JAX package;
    the sampler='pallas' statistical gate (2000 seeds at 16^3); sample_power
@@ -25,13 +29,20 @@ non-zero with no result line:
    sampler='pallas' render (determinism, finite values, variance vs
    predicted_variance), and the config-4 ensemble, sample_power_batch of 64
    seeds (nbins = 32), whose mean P(k) must match the binned prediction
-   within 6 sigma of its sampling noise;
+   within 6 sigma of its sampling noise; then the slab mesh at 1024^3, both
+   samplers: four ranks in a gloo group share the card (spawned processes;
+   gloo stages the CUDA tensors of its collectives through host memory),
+   each rank's x slab equal to the same rows of the single-device render
+   and calculate_power(mesh=...) equal to the single-device estimator; and
+   a one-rank NCCL mesh through the public API (render and estimator);
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers, of each kernel beside its plain version
-   and, for K3 and K4, beside the cuFFT call that computes the same
+   and, for K3, K4 and K6, beside the cuFFT call that computes the same
    function; each kernel's bound from its bytes and operations; the device's
    idle share during a 1024^3 render (torch.profiler) and its peak device
-   memory.
+   memory; the one-rank mesh render beside the single-device render, and
+   the four-rank run's per-rank stage times (host clock; the exchanges are
+   gloo's through host memory, not the card's).
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -65,13 +76,24 @@ KERNELS = {
     "K5": dict(name="sample_power_bins", route="cuda",
                source="randomfield_tpu_torch/csrc/sample_power_bins.cu",
                replaces="randomfield_tpu/ops/pallas_sampler.py:786"),
+    "K6": dict(name="r2c_head", route="cuda",
+               source="randomfield_tpu_torch/csrc/r2c_head.cu",
+               replaces="randomfield_tpu/ops/pallas_fft.py:490"),
+    "K7": dict(name="scale_shard", route="cuda",
+               source="randomfield_tpu_torch/csrc/scale_sigma.cu",
+               replaces="randomfield_tpu/ops/pallas_sampler.py:573"),
+    "K8": dict(name="sample_shard", route="cuda",
+               source="randomfield_tpu_torch/csrc/sample_modes.cu",
+               replaces="randomfield_tpu/ops/pallas_sampler.py:685"),
 }
-KERNEL_ORDER = ("K1", "K2", "K3", "K4", "K5")
+KERNEL_ORDER = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
-# scale (K1's Box-Muller and K2; libdevice logf/sincosf on both sides) and of
-# a log2(n)-stage FFT against cuFFT's (K3, and K4 as the c2r tail test of the
-# JAX package's tests/test_pallas_fft.py)
-BARS = {"K1": 2e-6, "K2": 2e-6, "K3": 2e-6, "K4": 5e-6}
+# scale (K1's Box-Muller and K2, and K8 and K7 that are they on a shard;
+# libdevice logf/sincosf on both sides) and of a log2(n)-stage FFT against
+# cuFFT's (K3, and K4 and its mirror K6 as the c2r tail test of the JAX
+# package's tests/test_pallas_fft.py)
+BARS = {"K1": 2e-6, "K2": 2e-6, "K3": 2e-6, "K4": 5e-6, "K6": 5e-6,
+        "K7": 2e-6, "K8": 2e-6}
 # K5 vs plain: the same float32 per-mode terms, added in float64 in another
 # order (per-run and per-block partials vs index_add_); counts exactly
 K5_SUM_RTOL = 1e-6
@@ -112,6 +134,16 @@ HEADLINE_SPACING = 2.0  # 2048 / n Mpc/h, as bench.py sizes its grids
 TIMING_REPS = 5
 # the constant a render folds into K2's amplitude (the draws' 1/sqrt(2))
 RENDER_GAIN = 0.5 ** 0.5
+SAMPLERS = ("threefry", "pallas")
+# the slab mesh: four ranks share the one card in a gloo group; a mesh
+# render equals the single-device render of its seed (bit-equal expected:
+# every step works per line or per mode); the estimator's p_hat differs by
+# the forward transform's float32 rounding (hand kernels vs cuFFT)
+MESH_RANKS = 4
+MESH_BAR = 1e-6
+MESH_P_RTOL = 1e-5
+MESH_TIMEOUT_S = 600.0
+MESH_STAGE_REPS = 2
 
 
 def log(msg):
@@ -131,6 +163,17 @@ def rel_err(got, want):
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
     return abs_err, abs_err / scale
+
+
+def check_close(errs, kid, what, got, want):
+    """Fail unless paired tensors agree within BARS[kid] relative; keeps
+    the largest absolute error of each kernel in errs[kid]."""
+    a, r = rel_err(got, want)
+    errs[kid] = max(errs.get(kid, 0.0), a)
+    log(f"phase 1 {kid} {what}: max|d| {a:.3e}, rel {r:.3e} "
+        f"(bar {BARS[kid]:g})")
+    if not r <= BARS[kid]:
+        raise AssertionError(f"{kid} {what} disagrees: rel {r:.3e}")
 
 
 def cuda_ms(torch, fn, reps=TIMING_REPS, setup=None):
@@ -165,12 +208,7 @@ def phase1_kernels(torch, g, errs):
         return torch.randn(shape, generator=gen, device=dev)
 
     def record(kid, what, got, want):
-        a, r = rel_err(got, want)
-        errs[kid] = max(errs.get(kid, 0.0), a)
-        log(f"phase 1 {kid} {what}: max|d| {a:.3e}, rel {r:.3e} "
-            f"(bar {BARS[kid]:g})")
-        if not r <= BARS[kid]:
-            raise AssertionError(f"{kid} {what} disagrees: rel {r:.3e}")
+        check_close(errs, kid, what, got, want)
 
     def check_k3(outer, n, inner):
         re, im = randn(outer, n, inner), randn(outer, n, inner)
@@ -318,11 +356,82 @@ def affine_misbins(torch, g, edges, n):
         f"({moved[worst] / max(n[worst], 1):.3e})")
 
 
+def phase1_mesh_kernels(torch, g, gp, errs):
+    """The slab mesh's kernels vs their plain versions at the 1024^3 mesh
+    paths' shapes: K6 and forward K3 where the one-rank forward transform
+    runs them (and forward K3 over a sweep of lengths), K7 and K8 on each
+    shard of a four-rank mesh, whose unions must equal whole-grid K2 (on
+    the same draws) and K1 (of the same seed) bit for bit."""
+    from randomfield_tpu_torch.ops import fft, sampler
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nx, ny, nz = g.shape
+    nzh = nz // 2 + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(nx, ny, nz)
+    got = fft.r2c_head(x)
+    want = fft.r2c_head_plain(x)
+    torch.cuda.synchronize()
+    check_close(errs, "K6", f"{tuple(x.shape)}", got, want)
+    del x, got, want
+    torch.cuda.empty_cache()
+
+    def check_forward(outer, n, inner):
+        re, im = randn(outer, n, inner), randn(outer, n, inner)
+        got = fft.fft_axis(re.clone(), im.clone(), outer, n, inner)
+        want = fft.fft_axis_plain(re.clone(), im.clone(), outer, n, inner)
+        torch.cuda.synchronize()
+        check_close(errs, "K3", f"forward ({outer}, {n}, {inner})", got, want)
+
+    check_forward(nx, ny, nzh)      # y pass
+    check_forward(1, nx, ny * nzh)  # x pass
+    for n in (128, 256, 512, 2048):
+        check_forward(max(1, 2**24 // (n * 513)), n, 513)
+    torch.cuda.empty_cache()
+
+    ny_loc = ny // MESH_RANKS
+    re, im = randn(nx, ny, nzh), randn(nx, ny, nzh)
+    k2 = sampler.scale_sigma(re.clone(), im.clone(), g.state.table, g.shape,
+                             g.grid_spacing, gain=RENDER_GAIN)
+    k1 = sampler.sample_modes(17, gp.state.table, gp.shape, gp.grid_spacing)
+    for r in range(MESH_RANKS):
+        rows = slice(r * ny_loc, (r + 1) * ny_loc)
+        shard = (re[:, rows].contiguous(), im[:, rows].contiguous())
+        got = sampler.scale_shard(*(t.clone() for t in shard), g.state.table,
+                                  g.shape, g.grid_spacing, 0.0, r * ny_loc,
+                                  RENDER_GAIN)
+        want = sampler.scale_sigma_plain(*shard, g.state.table, g.shape,
+                                         g.grid_spacing, 0.0, 0, r * ny_loc,
+                                         RENDER_GAIN)
+        torch.cuda.synchronize()
+        check_close(errs, "K7", f"shard {r} {tuple(got[0].shape)}", got, want)
+        if not all(torch.equal(a, b[:, rows]) for a, b in zip(got, k2)):
+            raise AssertionError(f"K7 shard {r} is not whole-grid K2's rows")
+        got = sampler.sample_shard(17, gp.state.table, gp.shape,
+                                   gp.grid_spacing, 0.0, r * ny_loc, ny_loc)
+        want = sampler.seeded_modes_plain(17, gp.state.table, gp.shape,
+                                          gp.grid_spacing, 0.0, r * ny_loc,
+                                          ny_loc)
+        torch.cuda.synchronize()
+        check_close(errs, "K8", f"shard {r} {tuple(got[0].shape)}", got, want)
+        if not all(torch.equal(a, b[:, rows]) for a, b in zip(got, k1)):
+            raise AssertionError(f"K8 shard {r} is not whole-grid K1's rows")
+    log(f"phase 1 K7 and K8: the union of the {MESH_RANKS} shards equals "
+        f"whole-grid K2 and K1 bit for bit")
+    del re, im, k1, k2, got, want, shard
+    torch.cuda.empty_cache()
+
+
 def reset_counts():
     from randomfield_tpu_torch.ops import fft, sampler
 
     sampler.K1_LAUNCHES = sampler.K2_LAUNCHES = sampler.K5_LAUNCHES = 0
-    fft.K3_LAUNCHES = fft.K4_LAUNCHES = 0
+    sampler.K7_LAUNCHES = sampler.K8_LAUNCHES = 0
+    fft.K3_LAUNCHES = fft.K4_LAUNCHES = fft.K6_LAUNCHES = 0
 
 
 def read_counts():
@@ -330,7 +439,8 @@ def read_counts():
 
     return {"K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
             "K3": fft.K3_LAUNCHES, "K4": fft.K4_LAUNCHES,
-            "K5": sampler.K5_LAUNCHES}
+            "K5": sampler.K5_LAUNCHES, "K6": fft.K6_LAUNCHES,
+            "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES}
 
 
 def require_launches(counts, least, what):
@@ -474,6 +584,287 @@ def phase3_config4(torch, g, card):
     if not np.all(np.abs(z) <= ENSEMBLE_SIGMAS):
         raise AssertionError(f"ensemble P(k) off prediction: z {z}")
     return counts, total
+
+
+# ---- the slab mesh: four ranks on the card (gloo), one rank (NCCL) ----------
+
+GLOO = " (gloo through host memory)"
+
+
+def host_stage_times(torch, stages, first, reps):
+    """Median host-clock ms of each stage over ``reps`` runs, the device
+    synchronized before and after each stage (the exchanges block the host
+    anyway); returns (ms by name, the last run's output)."""
+    times = {name: [] for name in stages}
+    out = None
+    for _ in range(reps):
+        out = first
+        for name, stage in stages.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = stage(out)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: statistics.median(t) for name, t in times.items()}, out
+
+
+def mesh_render_stages(g, seed):
+    """The calls of a mesh ``g.generate_delta_field(seed)``, one by one."""
+    from randomfield_tpu_torch.ops import fft, sample, sampler, threefry, transform
+    from randomfield_tpu_torch.parallel import dfft
+
+    mesh = g.mesh
+    nx, ny, nz = g.shape
+    nzh = nz // 2 + 1
+    y_off, ny_loc = mesh.rows(ny)
+    if g.sampler == "pallas":
+        stages = {"K8 sample_shard": lambda _: sampler.sample_shard(
+            seed, g.state.table, g.shape, g.grid_spacing, 0.0, y_off, ny_loc)}
+    else:
+        stages = {"Threefry draws of the ky slab (plain PyTorch)":
+                  lambda _: sample.unit_draws_reim(
+                      threefry.key_from_seed(seed), g.shape, g.device, y_off,
+                      ny_loc)}
+    stages["Hermitian symmetrize, all_gather of two planes" + GLOO] = (
+        lambda ri: transform.symmetrize_slab_reim(*ri, nz, mesh))
+    if g.sampler != "pallas":
+        stages["K7 scale_shard"] = lambda ri: sampler.scale_shard(
+            *ri, g.state.table, g.shape, g.grid_spacing, 0.0, y_off,
+            RENDER_GAIN)
+    stages["K3 fft_axis x pass"] = lambda ri: fft.ifft_axis(
+        *ri, 1, nx, ny_loc * nzh)
+    stages["exchange to x slabs, all_to_all" + GLOO] = lambda ri: tuple(
+        dfft.to_x_slabs(t, g.shape, mesh) for t in ri)
+    stages["K3 fft_axis y pass"] = lambda ri: fft.ifft_axis(
+        *ri, nx // mesh.size, ny, nzh)
+    stages["K4 c2r_tail"] = lambda ri: fft.c2r_tail(
+        *ri, nz, g.state.lightcone_weights)
+    return stages
+
+
+def mesh_forward_stages(g):
+    """The distributed forward transform of ``g.calculate_power``, one
+    call per stage."""
+    from randomfield_tpu_torch.ops import fft
+    from randomfield_tpu_torch.parallel import dfft
+
+    mesh = g.mesh
+    nx, ny, nz = g.shape
+    nzh = nz // 2 + 1
+    return {
+        "K6 r2c_head": fft.r2c_head,
+        "K3 fft_axis forward y pass": lambda ri: fft.fft_axis(
+            *ri, nx // mesh.size, ny, nzh),
+        "exchange to ky slabs, all_to_all" + GLOO: lambda ri: tuple(
+            dfft.to_ky_slabs(t, g.shape, mesh) for t in ri),
+        "K3 fft_axis forward x pass": lambda ri: fft.fft_axis(
+            *ri, 1, nx, (ny // mesh.size) * nzh),
+    }
+
+
+def mesh_rank_sampler(torch, rft, mesh, name, seed=1):
+    """One rank's part of the four-rank run for one sampler: the public
+    API's render and estimator with the counts set to 0 before and read
+    after, the stage times, and the comparison with the single-device
+    render of the seed (made one rank at a time, to bound the card's
+    memory)."""
+    import torch.distributed as dist
+
+    g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, mesh=mesh,
+                      sampler=name)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    f = g.generate_delta_field(seed)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, p, n = g.calculate_power(f, nbins=NBINS)
+    power_s = time.perf_counter() - t0
+    res = {"counts": read_counts(), "p": p.tolist(), "n": n.tolist(),
+           "render_ms": 1e3 * render_s, "power_ms": 1e3 * power_s,
+           "finite": bool(torch.isfinite(f).all()),
+           "shape": list(f.shape)}
+    res["stages"], out = host_stage_times(torch, mesh_render_stages(g, seed),
+                                          None, MESH_STAGE_REPS)
+    res["stages_equal"] = torch.equal(out, f)
+    fwd, _ = host_stage_times(torch, mesh_forward_stages(g), f,
+                              MESH_STAGE_REPS)
+    res["stages"].update(fwd)
+    del out
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            one = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                device=mesh.device, sampler=name)
+            w = one.generate_delta_field(seed)
+            x0, nx_loc = mesh.rows(HEADLINE[0])
+            res["max_abs_diff"] = float((f - w[x0:x0 + nx_loc]).abs().max())
+            res["max_abs"] = float(w.abs().max())
+            if r == 0:
+                _, p1, n1 = one.calculate_power(w, nbins=NBINS)
+                res["p_single"], res["n_single"] = p1.tolist(), n1.tolist()
+            del w
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group)
+    return res
+
+
+def mesh_rank(rank, size, store, out_dir, device):
+    """One rank of the four-rank run, all on ``device`` (spawned by
+    :func:`phase3_four_ranks`); writes its results to out_dir."""
+    import torch
+
+    import randomfield_tpu_torch as rft
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+    from randomfield_tpu_torch.parallel import multihost
+
+    multihost.initialize("gloo", f"file://{store}", size, rank, device)
+    try:
+        mesh = pmesh.make_mesh(space=size, device=device)
+        out = {name: mesh_rank_sampler(torch, rft, mesh, name)
+               for name in SAMPLERS}
+    finally:
+        multihost.shutdown()
+    out["imports_jax"] = "jax" in sys.modules or "randomfield_tpu" in sys.modules
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def check_mesh_power(what, p, n, p_single, n_single):
+    """calculate_power(mesh=...) vs the single-device estimator: equal
+    counts, p_hat within MESH_P_RTOL."""
+    p, n = np.asarray(p, np.float64), np.asarray(n, np.float64)
+    p_single = np.asarray(p_single, np.float64)
+    pop = n > 0
+    equal = np.array_equal(n, np.asarray(n_single, np.float64))
+    rel = float(np.max(np.abs(p[pop] / p_single[pop] - 1.0)))
+    log(f"phase 3 {what} calculate_power(mesh=...) vs the single-device "
+        f"estimator: counts {'equal' if equal else 'DIFFER'}, p_hat max rel "
+        f"{rel:.3e} over {int(pop.sum())} bins (bar {MESH_P_RTOL:g})")
+    if not equal or not rel <= MESH_P_RTOL:
+        raise AssertionError(f"{what}: the mesh estimator disagrees")
+
+
+def phase3_four_ranks(torch, dev, card):
+    """The slab mesh at 1024^3 on four ranks sharing the card ``dev``
+    (gloo), both samplers; returns the launch counts summed over the
+    ranks."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rf_mesh_")
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.spawn(mesh_rank, nprocs=MESH_RANKS, join=False,
+                       args=(MESH_RANKS, os.path.join(tmp, "store"), tmp,
+                             str(dev)))
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise TimeoutError("the four-rank run took too long")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 3 four-rank mesh {HEADLINE}: {MESH_RANKS} processes on one "
+        f"card, gloo, {wall:.1f} s from spawn to exit [{card}]")
+    if any(r["imports_jax"] for r in ranks):
+        raise AssertionError("a rank imported JAX")
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    for name in SAMPLERS:
+        res = [r[name] for r in ranks]
+        rel = max(r["max_abs_diff"] for r in res) / max(r["max_abs"] for r in res)
+        log(f"phase 3 four-rank mesh sampler={name!r}: x slabs {res[0]['shape']} "
+            f"vs the single-device render, max|d| / max|delta| {rel:.3e} (bar "
+            f"{MESH_BAR:g}); render {[round(r['render_ms'], 1) for r in res]} "
+            f"ms, calculate_power {[round(r['power_ms'], 1) for r in res]} ms "
+            f"per rank (host clock); launches per rank "
+            f"{[r['counts'] for r in res]}")
+        if not rel <= MESH_BAR:
+            raise AssertionError(f"four-rank {name} render disagrees: {rel:.3e}")
+        if not all(r["finite"] and r["stages_equal"] for r in res):
+            raise AssertionError(f"four-rank {name}: non-finite values, or "
+                                 f"the timed stages are not the render's")
+        if not all(np.array_equal(r[key], res[0][key], equal_nan=True)
+                   for r in res for key in ("p", "n")):
+            raise AssertionError("the ranks' estimators differ")
+        check_mesh_power(f"four-rank sampler={name!r}", res[0]["p"],
+                         res[0]["n"], res[0]["p_single"], res[0]["n_single"])
+        first = "K8" if name == "pallas" else "K7"
+        for r in res:
+            require_launches(r["counts"], {first: 1, "K3": 4, "K4": 1, "K6": 1},
+                             f"four-rank {name} rank")
+            for k in KERNEL_ORDER:
+                counts[k] += r["counts"][k]
+        for stage in res[0]["stages"]:
+            per_rank = [r["stages"][stage] for r in res]
+            log(f"phase 4 four-rank stage {stage} sampler={name!r}: "
+                f"{', '.join(f'{t:.3f}' for t in per_rank)} ms per rank "
+                f"(host clock, median of {MESH_STAGE_REPS}; four processes "
+                f"share the card) [{card}]")
+    return counts
+
+
+def phase3_one_rank(torch, rft, dev, mesh):
+    """The public API on a one-rank NCCL mesh at 1024^3, both samplers:
+    render and estimator with the counts set to 0 before and read after,
+    each held to the single-device result; returns the launch counts."""
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    for name in SAMPLERS:
+        g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, mesh=mesh,
+                          sampler=name)
+        torch.cuda.synchronize()
+        reset_counts()
+        f = g.generate_delta_field(seed=1)
+        _, p, n = g.calculate_power(f, nbins=NBINS)
+        torch.cuda.synchronize()
+        got = read_counts()
+        first = "K8" if name == "pallas" else "K7"
+        require_launches(got, {first: 1, "K3": 4, "K4": 1, "K6": 1},
+                         "one-rank mesh")
+        one = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                            device=dev, sampler=name)
+        w = one.generate_delta_field(seed=1)
+        _, r = rel_err((f,), (w,))
+        log(f"phase 3 one-rank NCCL mesh sampler={name!r} {HEADLINE}: vs the "
+            f"single-device render, rel {r:.3e} (bar {MESH_BAR:g}), "
+            f"{'bit-equal' if torch.equal(f, w) else 'not bit-equal'}; "
+            f"launches {got}")
+        if tuple(f.shape) != HEADLINE or not r <= MESH_BAR:
+            raise AssertionError(f"one-rank mesh {name} render disagrees")
+        _, p1, n1 = one.calculate_power(w, nbins=NBINS)
+        check_mesh_power(f"one-rank sampler={name!r}", p, n, p1, n1)
+        for k in KERNEL_ORDER:
+            counts[k] += got[k]
+        del f, w
+        torch.cuda.empty_cache()
+    return counts
+
+
+def nccl_one_rank_mesh(dev):
+    """Join a one-rank NCCL group at a free localhost port; its mesh."""
+    import socket
+
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+    from randomfield_tpu_torch.parallel import multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize("nccl", f"tcp://127.0.0.1:{port}", 1, 0, dev)
+    return pmesh.make_mesh(space=1)
 
 
 def render_stages(g, seed):
@@ -643,33 +1034,111 @@ def phase4_times(torch, rft, dev, g, gp, card):
                                                        edges),
                None),
     }
-    times = {}
-    for what, (kernel, plain, library) in runs.items():
-        # in turns: plain, kernel, kernel, plain; the mean of each pair
-        p1 = cuda_ms(torch, plain, setup=fresh)
-        k1 = cuda_ms(torch, kernel, setup=fresh)
-        k2 = cuda_ms(torch, kernel, setup=fresh)
-        p2 = cuda_ms(torch, plain, setup=fresh)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        lib_ms = None if library is None else cuda_ms(torch, library)
-        times[what] = (k_ms, p_ms, lib_ms)
-        lib = "" if lib_ms is None else f", cuFFT call {lib_ms:.3f} ms"
-        log(f"phase 4 {what} at {HEADLINE}: kernel {k_ms:.3f} ms "
-            f"({k1:.3f}, {k2:.3f}), plain {p_ms:.3f} ms ({p1:.3f}, {p2:.3f})"
-            f"{lib} [{card}]")
-        torch.cuda.empty_cache()
+    times = {what: time_kernel(torch, what, *run, fresh, HEADLINE, card)
+             for what, run in runs.items()}
     x, y = times.pop("K3 x pass"), times.pop("K3 y pass")
     times["K3"] = (x[0] + y[0], x[1] + y[1], x[2] + y[2])
+    return times
+
+
+def time_kernel(torch, what, kernel, plain, library, setup, shape, card):
+    """(kernel ms, plain ms, library ms or None): in turns plain, kernel,
+    kernel, plain, the mean of each pair; then the library call."""
+    p1 = cuda_ms(torch, plain, setup=setup)
+    k1 = cuda_ms(torch, kernel, setup=setup)
+    k2 = cuda_ms(torch, kernel, setup=setup)
+    p2 = cuda_ms(torch, plain, setup=setup)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    lib_ms = None if library is None else cuda_ms(torch, library)
+    lib = "" if lib_ms is None else f", cuFFT call {lib_ms:.3f} ms"
+    log(f"phase 4 {what} at {shape}: kernel {k_ms:.3f} ms "
+        f"({k1:.3f}, {k2:.3f}), plain {p_ms:.3f} ms ({p1:.3f}, {p2:.3f})"
+        f"{lib} [{card}]")
+    torch.cuda.empty_cache()
+    return k_ms, p_ms, lib_ms
+
+
+def phase4_mesh(torch, rft, dev, g, gp, mesh, card):
+    """Times of the mesh's kernels at its 1024^3 shapes (K6 at the one-rank
+    forward transform's, K7 and K8 on the second of four shards, forward K3
+    beside cuFFT) and of the one-rank mesh render beside the single-device
+    render; returns {K: (ms, plain_ms, library_ms or None)}."""
+    from randomfield_tpu_torch.ops import fft, sampler
+
+    nx, ny, nz = HEADLINE
+    nzh = nz // 2 + 1
+    for one in (g, gp):
+        m = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, mesh=mesh,
+                          sampler=one.sampler)
+        reps = 3
+        s1 = cuda_ms(torch, lambda: one.generate_delta_field(seed=2), reps)
+        m1 = cuda_ms(torch, lambda: m.generate_delta_field(seed=2), reps)
+        m2 = cuda_ms(torch, lambda: m.generate_delta_field(seed=2), reps)
+        s2 = cuda_ms(torch, lambda: one.generate_delta_field(seed=2), reps)
+        log(f"phase 4 render sampler={one.sampler!r} {HEADLINE}: one-rank NCCL "
+            f"mesh {(m1 + m2) / 2:.3f} ms ({m1:.3f}, {m2:.3f}), single device "
+            f"{(s1 + s2) / 2:.3f} ms ({s1:.3f}, {s2:.3f}), mesh / single "
+            f"{(m1 + m2) / (s1 + s2):.4f} [{card}]")
+        del m
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(HEADLINE, generator=gen, device=dev)
+    times = {"K6": time_kernel(
+        torch, "K6", lambda: fft.r2c_head(x), lambda: fft.r2c_head_plain(x),
+        lambda: torch.fft.rfft(x, dim=-1), None, HEADLINE, card)}
+    src_re = torch.randn((nx, ny, nzh), generator=gen, device=dev)
+    src_im = torch.randn((nx, ny, nzh), generator=gen, device=dev)
+    re, im = torch.empty_like(src_re), torch.empty_like(src_im)
+    spec = torch.complex(src_re, src_im)
+
+    def fresh():
+        re.copy_(src_re)
+        im.copy_(src_im)
+
+    for what, dim, view in (("x", 0, (1, nx, ny * nzh)), ("y", 1, (nx, ny, nzh))):
+        time_kernel(torch, f"K3 forward {what} pass",
+                    lambda: fft.fft_axis(re, im, *view),
+                    lambda: fft.fft_axis_plain(re, im, *view),
+                    lambda: torch.fft.fft(spec, dim=dim), fresh, HEADLINE, card)
+    del x, src_re, src_im, re, im, spec
+    torch.cuda.empty_cache()
+
+    ny_loc = ny // MESH_RANKS
+    shard = (nx, ny_loc, nzh)
+    src_re = torch.randn(shard, generator=gen, device=dev)
+    src_im = torch.randn(shard, generator=gen, device=dev)
+    re, im = torch.empty_like(src_re), torch.empty_like(src_im)
+    t = g.state.table
+    times["K7"] = time_kernel(
+        torch, "K7 (shard 1 of 4)",
+        lambda: sampler.scale_shard(re, im, t, HEADLINE, HEADLINE_SPACING,
+                                    0.0, ny_loc, RENDER_GAIN),
+        lambda: sampler.scale_sigma_plain(re, im, t, HEADLINE,
+                                          HEADLINE_SPACING, 0.0, 0, ny_loc,
+                                          RENDER_GAIN),
+        None, fresh, shard, card)
+    tp = gp.state.table
+    times["K8"] = time_kernel(
+        torch, "K8 (shard 1 of 4)",
+        lambda: sampler.sample_shard(2, tp, HEADLINE, HEADLINE_SPACING, 0.0,
+                                     ny_loc, ny_loc),
+        lambda: sampler.seeded_modes_plain(2, tp, HEADLINE, HEADLINE_SPACING,
+                                           0.0, ny_loc, ny_loc),
+        None, None, shard, card)
     return times
 
 
 def kernel_bounds(g):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
-    once) over the HBM rate and its operations over the float32 rate."""
+    once) over the HBM rate and its operations over the float32 rate.  K6
+    at the one-rank forward transform's shape, K7 and K8 on one shard of a
+    four-rank mesh."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
+    shard = nx * (ny // MESH_RANKS) * nzh
     knots = 4 * g.state.table.knots.numel()
     m = nz // 2
 
@@ -685,13 +1154,21 @@ def kernel_bounds(g):
                fft_ops(m, nx * ny) + 10.0 * m * nx * ny + cells),
         "K5": (knots + 4 * (nx + ny + nzh + NBINS + 1) + 16 * nx * ny
                + 24 * NBINS, OPS_PER_MODE["K5"] * modes),
+        # the field read, the spectrum written, the twiddles; the m-point
+        # FFTs and the unfold (8 adds and 8 multiplies per packed mode)
+        "K6": (4 * cells + 8 * modes + 8 * m,
+               fft_ops(m, nx * ny) + 16.0 * modes),
+        "K7": (16 * shard + knots, OPS_PER_MODE["K2"] * shard),
+        "K8": (8 * shard + knots, OPS_PER_MODE["K1"] * shard),
     }
     out = {}
     for k, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
         out[k] = (1e3 * max(t_bytes, t_ops),
                   "bytes" if t_bytes >= t_ops else "operations")
-        log(f"phase 4 {k} bound at {HEADLINE}: {nbytes / 1e9:.4f} GB -> "
+        at = (f"one shard ({nx}, {ny // MESH_RANKS}, {nzh})"
+              if k in ("K7", "K8") else f"{HEADLINE}")
+        log(f"phase 4 {k} bound at {at}: {nbytes / 1e9:.4f} GB -> "
             f"{1e3 * t_bytes:.4f} ms, {ops / 1e9:.2f} G operations -> "
             f"{1e3 * t_ops:.4f} ms; bound {out[k][0]:.4f} ms by {out[k][1]}")
     return out
@@ -746,22 +1223,33 @@ def main() -> int:
         phase1_kernels(torch, g, errs)
         torch.cuda.empty_cache()
         phase1_sampler(torch, gp, errs)
+        phase1_mesh_kernels(torch, g, gp, errs)
         phase2_slice(torch, rft, dev)
         phase2_gate(torch, dev)
         phase2_consistency(torch, rft, dev)
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
-        for counts in (phase3_main(torch, g), phase3_main(torch, gp),
-                       phase3_config4(torch, gp, card)[0]):
+        main_paths = [phase3_main(torch, g), phase3_main(torch, gp),
+                      phase3_config4(torch, gp, card)[0]]
+        torch.cuda.empty_cache()
+        main_paths.append(phase3_four_ranks(torch, dev, card))
+        mesh = nccl_one_rank_mesh(dev)
+        main_paths.append(phase3_one_rank(torch, rft, dev, mesh))
+        for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
         torch.cuda.empty_cache()
         times = phase4_times(torch, rft, dev, g, gp, card)
+        times.update(phase4_mesh(torch, rft, dev, g, gp, mesh, card))
         bounds = kernel_bounds(g)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        from randomfield_tpu_torch.parallel import multihost
+
+        multihost.shutdown()
 
     kernels = [
         dict(KERNELS[k], launches=launches[k], max_abs_err=errs[k],

@@ -66,7 +66,7 @@ c2r_tail_kernel(const float* __restrict__ re, const float* __restrict__ im,
   __syncthreads();
 
   // the m-point transform needs exp(+2 pi i k / m) = W^(2k): stride 2
-  rf::ifft_lines(g, nlines, m, log2m, nzh, tw, 2);
+  rf::fft_lines(g, nlines, m, log2m, nzh, tw, 2);
 
   float* dst = out + line0 * nz;
   for (int e = threadIdx.x; e < nlines * nz; e += blockDim.x) {
@@ -75,12 +75,6 @@ c2r_tail_kernel(const float* __restrict__ re, const float* __restrict__ im,
     const float2 z = g[b * nzh + (p >> 1)];
     dst[e] = ((p & 1) ? z.y : z.x) * weights[p];
   }
-}
-
-int log2_of(long long v) {
-  int k = 0;
-  while ((1LL << k) < v) ++k;
-  return k;
 }
 
 }  // namespace
@@ -104,6 +98,6 @@ extern "C" int rf_c2r_tail(const void* re, const void* im, const void* weights,
   c2r_tail_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(re), static_cast<const float*>(im),
       static_cast<const float*>(weights), static_cast<const float2*>(tw),
-      static_cast<float*>(out), lines, m, log2_of(m), lines_per_block);
+      static_cast<float*>(out), lines, m, rf::log2_of(m), lines_per_block);
   return static_cast<int>(cudaGetLastError());
 }

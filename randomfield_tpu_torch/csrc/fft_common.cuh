@@ -1,5 +1,8 @@
-// Shared-memory radix-2 inverse complex FFT: the device routine that the
-// axis FFT (fft_axis.cu, K3) and the c2r tail (c2r_tail.cu, K4) share.
+// Shared-memory radix-2 complex FFT: the device routine that the axis FFT
+// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4) and the r2c head
+// (r2c_head.cu, K6) share.  Its direction is its twiddles' sign: a caller
+// passes exp(+2 pi i k / n) for the inverse and their conjugates for the
+// forward transform, so both directions cost the same single pass.
 //
 // Counterpart of randomfield_tpu/ops/pallas_fft.py:_ct_core, which the TPU's
 // minor-axis FFT and c2r tail kernels share in the same way.  The TPU version
@@ -25,18 +28,29 @@ __device__ __forceinline__ int bit_reverse(int v, int log2n) {
   return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - log2n));
 }
 
+// log2 of a power of two (host side: the launchers pass it to the kernels).
+inline int log2_of(long long v) {
+  int k = 0;
+  while ((1LL << k) < v) ++k;
+  return k;
+}
+
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// Unnormalized inverse FFT, X[j] = sum_k x[k] exp(+2 pi i j k / n), of `lines`
+__device__ __forceinline__ float2 conj_if(float2 a, bool conjugate) {
+  return conjugate ? make_float2(a.x, -a.y) : a;
+}
+
+// Unnormalized FFT, X[j] = sum_k x[k] exp(sign 2 pi i j k / n), of `lines`
 // lines in shared memory.  Line l occupies buf[l * stride, l * stride + n) and
 // holds x[k] at position bit_reverse(k, log2n); on return it holds X[j] at j.
-// tw[k * tw_step] must be exp(+2 pi i k / n) for 0 <= k < n / 2.  Every
+// tw[k * tw_step] must be exp(sign 2 pi i k / n) for 0 <= k < n / 2.  Every
 // thread of the block calls this after a barrier that follows the load; it
 // ends with a barrier, so the caller may read any line right after it.
-__device__ inline void ifft_lines(float2* buf, int lines, int n, int log2n, int stride,
-                           const float2* tw, int tw_step) {
+__device__ inline void fft_lines(float2* buf, int lines, int n, int log2n,
+                                 int stride, const float2* tw, int tw_step) {
   const int half_n = n >> 1;
   const int total = lines * half_n;
   for (int s = 0; s < log2n; ++s) {

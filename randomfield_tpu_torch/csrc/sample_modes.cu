@@ -16,14 +16,22 @@
 // draws from its hardware PRNG per tile, which nothing else can replay; this
 // one draws the counter-based stream of ops/modestream.py.
 //
+// K8, the same kernel over the ky rows [y_off, y_off + ny_loc) of a slab
+// mesh's shard, replaces pallas_sampler.py:sample_shard_pallas_reim (the
+// _make_kernel shard mode).  The TPU kernel seeds each tile by its global
+// tile id; here every mode hashes its global flat 'xyz' counter
+// (x ny + y_off + y_loc) nzh + z and takes its global |k|, so the shards'
+// union is the whole-grid K1 output bit for bit.  Only the index arithmetic
+// differs from K1 (y_off = 0, ny_loc = ny).
+//
 // What bounds it on the H100: it reads nothing per mode and writes the two
 // float32 lattices once (8 bytes per mode, 4.303 GB at 1024^3, 1.284 ms at
 // 3.35 TB/s); per mode it spends about 70 integer operations on the hash and
 // a logf, sqrtf, sincosf and (smoothing) expf.  Design: blockIdx.y is the x
 // plane, so kx is computed once per block; the threads stride over the
-// plane's (y, kz) modes, which lie contiguous, so the stores are coalesced
-// for any nzh (513 at 1024^3).  The mode index is 64-bit (2048^3 has more
-// than 2^32 modes).
+// plane's (y, kz) modes, which lie contiguous in the output and in the
+// counter, so the stores are coalesced for any nzh (513 at 1024^3).  The
+// mode index is 64-bit (2048^3 has more than 2^32 modes).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -39,23 +47,27 @@ constexpr int kMaxBlocksPerPlane = 64;
 __global__ void __launch_bounds__(kThreads)
 sample_modes_kernel(float* __restrict__ re, float* __restrict__ im,
                     const float* __restrict__ knots, int n_knots, int nx,
-                    int ny, int nzh, uint32_t k0, uint32_t k1, float kx_scale,
-                    float ky_scale, float kz_scale, float half_inv_ln10,
-                    float lk0, float inv_dlk, float smoothing) {
+                    int ny, int nzh, int y_off, int ny_loc, uint32_t k0,
+                    uint32_t k1, float kx_scale, float ky_scale,
+                    float kz_scale, float half_inv_ln10, float lk0,
+                    float inv_dlk, float smoothing) {
   extern __shared__ float tab[];
   rf::load_knots(tab, knots, n_knots);
 
-  const int plane = ny * nzh;
+  const int plane = ny_loc * nzh;
   const int x = static_cast<int>(blockIdx.y);
   const float kx = kx_scale * static_cast<float>(rf::signed_index(x, nx));
-  const unsigned long long first = static_cast<unsigned long long>(x) * plane;
-  float* rp = re + first;
-  float* ip = im + first;
+  // the counter of this plane's first mode, (x ny + y_off) nzh
+  const unsigned long long first =
+      (static_cast<unsigned long long>(x) * ny + y_off) * nzh;
+  float* rp = re + static_cast<long long>(x) * plane;
+  float* ip = im + static_cast<long long>(x) * plane;
 
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < plane;
        p += gridDim.x * blockDim.x) {
-    const int y = p / nzh;
-    const int z = p - y * nzh;
+    const int yl = p / nzh;
+    const int z = p - yl * nzh;
+    const int y = yl + y_off;
     const float ky = ky_scale * static_cast<float>(rf::signed_index(y, ny));
     const float kz = kz_scale * static_cast<float>(z);
     const float ksq = rf::sampler_ksq(kx, ky, kz);
@@ -80,29 +92,32 @@ sample_modes_kernel(float* __restrict__ re, float* __restrict__ im,
 
 }  // namespace
 
-// re, im: float32 (nx, ny, nzh) outputs, contiguous.  knots: float32
-// (n_knots,), n_knots >= 2.  (k0, k1): the seed's stream key.  k_scale =
-// 2 pi / (spacing * n) per axis and the table constants, rounded to float32
-// as the TPU kernel rounds them.  Returns the CUDA error of the launch.
+// re, im: float32 (nx, ny_loc, nzh) outputs, contiguous, the ky rows
+// [y_off, y_off + ny_loc) of an (nx, ny, nzh) spectrum (K1: y_off = 0,
+// ny_loc = ny).  knots: float32 (n_knots,), n_knots >= 2.  (k0, k1): the
+// seed's stream key.  k_scale = 2 pi / (spacing * n) per axis and the table
+// constants, rounded to float32 as the TPU kernel rounds them.  Returns the
+// CUDA error of the launch.
 extern "C" int rf_sample_modes(void* re, void* im, const void* knots,
                                int n_knots, int nx, int ny, int nzh,
-                               uint32_t k0, uint32_t k1, float kx_scale,
-                               float ky_scale, float kz_scale,
-                               float half_inv_ln10, float lk0, float inv_dlk,
-                               float smoothing, void* stream) {
+                               int y_off, int ny_loc, uint32_t k0,
+                               uint32_t k1, float kx_scale, float ky_scale,
+                               float kz_scale, float half_inv_ln10, float lk0,
+                               float inv_dlk, float smoothing, void* stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(n_knots);
   cudaError_t err = cudaFuncSetAttribute(
       sample_modes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int plane = ny * nzh;
+  const int plane = ny_loc * nzh;
   int per_plane = (plane + kThreads - 1) / kThreads;
   if (per_plane > kMaxBlocksPerPlane) per_plane = kMaxBlocksPerPlane;
   const dim3 grid(static_cast<unsigned>(per_plane), static_cast<unsigned>(nx));
   sample_modes_kernel<<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(re), static_cast<float*>(im),
-      static_cast<const float*>(knots), n_knots, nx, ny, nzh, k0, k1,
-      kx_scale, ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing);
+      static_cast<const float*>(knots), n_knots, nx, ny, nzh, y_off, ny_loc,
+      k0, k1, kx_scale, ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk,
+      smoothing);
   return static_cast<int>(cudaGetLastError());
 }

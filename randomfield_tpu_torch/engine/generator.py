@@ -30,6 +30,12 @@ On CUDA the spectrum is two float32 lattices updated in place up to K4;
 a render's peak is those two lattices, the field and (Threefry) one
 draw chunk's temporaries.  On the CPU every step runs its plain PyTorch
 version.
+
+With ``mesh`` (a :class:`..parallel.mesh.SlabMesh`) every rank builds the
+same Generator and calls the same methods; each rank draws its ky slab of
+the spectrum (K7 or K8 in place of K2 or K1), and the distributed inverse
+(:mod:`..parallel.dfft`) returns its x slab of the field, equal to the
+same rows of the single-device render (:mod:`..parallel.render`).
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
 from randomfield_tpu_torch.ops import threefry as _threefry
 from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.parallel import dfft as _dfft
+from randomfield_tpu_torch.parallel import mesh as _mesh
+from randomfield_tpu_torch.parallel import render as _render
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["Generator"]
@@ -53,9 +62,10 @@ _INV_SQRT2 = float(np.float32(0.7071067811865476))
 
 _NOT_PORTED = {
     "sampler='nested'": "the nested stream (ROADMAP.md, Queue 1 item 4)",
-    "mesh": "torch.distributed meshes (ROADMAP.md, Queue 1 item 11)",
     "pipeline='staged'": ("the staged (x, kz, y) pipeline, not needed on an "
                           "80 GB card (ROADMAP.md, Queue 1 item 7)"),
+    "noise I/O on a mesh": ("generate_noise and generate_from_noise run on "
+                            "one device (ROADMAP.md, Queue 1 item 11)"),
 }
 
 
@@ -82,31 +92,41 @@ class Generator:
         'pallas' (the fused sampler K1: its own counter-based stream,
         :mod:`~randomfield_tpu_torch.ops.modestream`); 'nested' raises
         NotImplementedError.
-    mesh, pipeline : accepted for API parity; a mesh raises
-        NotImplementedError, and so does ``pipeline='staged'`` except with
-        ``sampler='pallas'``, which ignores the pipeline as the JAX
-        package does.
-    device : where renders run, "cuda" by default.  On CUDA every axis the
-        kernels transform must be a power of two: nx, ny and nz/2 in
-        [16, 2048]; other shapes raise ValueError here.
+    mesh : None for one device, or this rank's slab mesh
+        (:func:`randomfield_tpu_torch.parallel.mesh.make_mesh`): nx and ny
+        must divide by its size; renders return the rank's (nx/P, ny, nz)
+        x slab.  A pencil mesh raises NotImplementedError.
+    pipeline : accepted for API parity; ``pipeline='staged'`` raises
+        NotImplementedError except with ``sampler='pallas'``, which ignores
+        the pipeline as the JAX package does.
+    device : where renders run: the mesh's device with a mesh, else "cuda"
+        by default.  On CUDA every axis the kernels transform must be a
+        power of two: nx, ny and nz/2 in [16, 2048]; other shapes raise
+        ValueError here.
     """
 
     def __init__(self, nx, ny, nz, grid_spacing, cosmology=None, power=None,
                  interpolation="log10k", z0=0.0, mesh=None, pipeline="auto",
-                 sampler="threefry", device="cuda"):
+                 sampler="threefry", device=None):
         if sampler not in ("threefry", "pallas", "nested"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if sampler == "nested":
             raise _not_ported("sampler='nested'")
-        if mesh is not None:
-            raise _not_ported("mesh")
         if pipeline == "staged" and sampler != "pallas":
             raise _not_ported("pipeline='staged'")
         if pipeline not in ("auto", "fused", "staged"):
             raise ValueError(f"unknown pipeline {pipeline!r}")
-        self.sampler = sampler
-        self.device = torch.device(device)
         shape = (int(nx), int(ny), int(nz))
+        if mesh is not None:
+            mesh = _mesh.require_slab(mesh)
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device "
+                                 f"{mesh.device}")
+            device = mesh.device
+            _mesh.check_divisible(shape, mesh.size)
+        self.mesh = mesh
+        self.sampler = sampler
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             _check_kernel_shape(shape)
         self.cosmology = _cosmo.create_cosmology(cosmology)
@@ -156,12 +176,14 @@ class Generator:
 
         The sum over packed modes of multiplicity * (sigma * filter)^2, with
         the float32 per-mode amplitudes the render applies, accumulated in
-        float64 on the scene's device.  ``apply_lightcone=True`` predicts
-        the default lightcone-weighted render: the plane mean of D^2 times
-        the unweighted variance.
+        float64 on the scene's device (on a mesh, each rank over its ky rows,
+        then summed over the ranks).  ``apply_lightcone=True`` predicts the
+        default lightcone-weighted render: the plane mean of D^2 times the
+        unweighted variance.
         """
         nx, ny, nz = self.shape
         nzh = nz // 2 + 1
+        y_off, ny_loc = (0, ny) if self.mesh is None else self.mesh.rows(ny)
         mult = torch.full((nzh,), 2.0, dtype=torch.float64, device=self.device)
         mult[0] = 1.0
         if nz % 2 == 0:
@@ -171,9 +193,11 @@ class Generator:
         for x0 in range(0, nx, step):
             amp = _sampler.sigma_amplitude(
                 self.state.table, self.shape, self.grid_spacing,
-                smoothing_length, x0, min(step, nx - x0),
+                smoothing_length, x0, min(step, nx - x0), y_off, ny_loc,
             ).to(torch.float64)
             total += (amp * amp * mult).sum()
+        if self.mesh is not None:
+            self.mesh.all_reduce_sum(total)
         out = float(total)
         if apply_lightcone:
             w = np.asarray(self.growth_function, np.float64)
@@ -194,7 +218,13 @@ class Generator:
         return re, im
 
     def _sampled_spectrum(self, seed, smoothing_length):
-        """The seed's packed 'xyz' spectrum as (re, im) float32 lattices."""
+        """The seed's packed 'xyz' spectrum as (re, im) float32 lattices
+        (on a mesh, this rank's ky slab)."""
+        if self.mesh is not None:
+            spectrum = (_render.pallas_spectrum if self.sampler == "pallas"
+                        else _render.threefry_spectrum)
+            return spectrum(seed, self.state.table, self.shape,
+                            self.grid_spacing, smoothing_length, self.mesh)
         if self.sampler == "pallas":
             return _sampler.sample_spectrum(
                 seed, self.state.table, self.shape, self.grid_spacing,
@@ -206,6 +236,9 @@ class Generator:
 
     def _spectrum_to_field(self, re, im, apply_lightcone):
         """Spectrum (consumed in place) -> field: K3 x, K3 y, K4."""
+        if self.mesh is not None:
+            return _dfft.irfftn_slab_reim(re, im, self.shape, self.mesh,
+                                          self._weights(apply_lightcone))
         nx, ny, nz = self.shape
         nzh = nz // 2 + 1
         _fft.ifft_axis(re, im, 1, nx, ny * nzh)
@@ -215,9 +248,9 @@ class Generator:
     def generate_delta_field(self, seed=0, smoothing_length=0.0,
                              apply_lightcone=True):
         """Render one realization: an (nx, ny, nz) float32 tensor on the
-        scene's device.  A fixed seed gives a bit-identical field; with
-        ``sampler='threefry'`` the stream is the JAX package's at the same
-        seed."""
+        scene's device (on a mesh, this rank's (nx/P, ny, nz) x slab).  A
+        fixed seed gives a bit-identical field; with ``sampler='threefry'``
+        the stream is the JAX package's at the same seed."""
         re, im = self._sampled_spectrum(seed, smoothing_length)
         return self._spectrum_to_field(re, im, apply_lightcone)
 
@@ -233,6 +266,8 @@ class Generator:
         if self.sampler == "pallas":
             raise ValueError(
                 f"sampler='pallas' draws inside the fused kernel; {what}")
+        if self.mesh is not None:
+            raise _not_ported("noise I/O on a mesh")
 
     def generate_noise(self, seed=0):
         """A seed's raw unit normal draws, shape (2, nx, ny, nz//2+1): the
@@ -269,8 +304,11 @@ class Generator:
     # ---- power spectra ---------------------------------------------------------
     def calculate_power(self, delta, nbins=32):
         """Realized binned P(k) of a rendered field: host float64
-        ``(k_mean, p_hat, n_modes)`` (:func:`.validate.stats.calculate_power`)."""
-        return _stats.calculate_power(delta, self.grid_spacing, nbins)
+        ``(k_mean, p_hat, n_modes)`` (:func:`.validate.stats.calculate_power`;
+        on a mesh ``delta`` is this rank's x slab, and every rank gets the
+        whole field's result)."""
+        return _stats.calculate_power(delta, self.grid_spacing, nbins,
+                                      mesh=self.mesh)
 
     def sample_power(self, seed=0, smoothing_length=0.0, nbins=32):
         """Realized binned P(k) of a seed's spectrum, with no FFT.
@@ -282,8 +320,20 @@ class Generator:
         128 this runs K5, which bins the draws as it makes them and writes
         no spectrum (BASELINE config 4); otherwise the spectrum is sampled
         and binned (:func:`.validate.stats.spectrum_power`).  Returns host
-        float64 ``(k_mean, p_hat, n_modes)``.
+        float64 ``(k_mean, p_hat, n_modes)``.  On a mesh (``sampler='threefry'``
+        only, as in the JAX package) each rank bins its ky rows and every
+        rank gets the sums over all of them.
         """
+        if self.mesh is not None:
+            if self.sampler == "pallas":
+                raise ValueError(
+                    "mesh scenes with sampler='pallas' support plain renders "
+                    "only, as in the JAX package; build the Generator with "
+                    "sampler='threefry' for sample_power on a mesh")
+            spectrum = self._sampled_spectrum(seed, smoothing_length)
+            return _stats.bins_to_host(_render.spectrum_bins(
+                spectrum, self.shape, self.grid_spacing, int(nbins),
+                self.mesh), int(nbins))
         if self.sampler == "pallas" and nbins <= _sampler.MAX_KERNEL_BINS:
             return _stats.bins_to_host(self._kernel_bins(seed, smoothing_length,
                                                      int(nbins)), int(nbins))

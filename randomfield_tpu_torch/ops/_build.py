@@ -4,7 +4,9 @@ At first use, ``nvcc`` compiles every ``randomfield_tpu_torch/csrc/*.cu``
 for ``sm_90a`` into one ``.so`` with a plain C interface, which ``ctypes``
 loads.  No PyTorch header is compiled, so the build takes seconds.  The
 library's file name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the earlier build.
+rebuilds and an unchanged tree reuses the earlier build.  Processes that
+start together (the ranks of a mesh) build once: a lock file beside the
+library serializes them, and the build lands by an atomic rename.
 
 The build directory is ``build/randomfield_tpu_torch/`` beside the package
 (listed in ``.gitignore``), or ``$RF_TORCH_BUILD_DIR``.  ``nvcc`` is
@@ -18,6 +20,7 @@ on a non-zero one.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -41,9 +44,10 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "rf_fft_axis": [_P, _P, _P, _I, _I, _LL, _I, _P],
+    "rf_fft_axis": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
+    "rf_r2c_head": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "rf_c2r_tail": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _U32, _U32,
+    "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
                              _I, _I, _U32, _U32, _F, _F, _F, _F, _F, _F,
@@ -88,6 +92,14 @@ def _build() -> pathlib.Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(f"{out.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: pathlib.Path) -> None:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            *(str(p) for p in _sources() if p.suffix == ".cu")]
@@ -99,7 +111,6 @@ def _build() -> pathlib.Path:
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
-    return out
 
 
 def _declare(lib):

@@ -1,16 +1,19 @@
-"""The render's inverse transforms: axis FFT (K3) and c2r tail (K4).
+"""The hand FFT kernels: axis FFT (K3), c2r tail (K4) and r2c head (K6).
 
 Counterpart of ``randomfield_tpu/ops/pallas_fft.py``.  A render's inverse
 3-D c2r runs as two passes of :func:`ifft_axis` (x, then y) over the packed
 (nx, ny, nzh) re/im spectrum, in place, and one :func:`c2r_tail` along kz
 that also applies the per-plane lightcone weights and writes the field.
+The distributed forward transform (:mod:`..parallel.dfft`) is the reverse:
+:func:`r2c_head` along z, then :func:`fft_axis` along y and x.
 
 On CUDA tensors the wrappers launch the hand kernels built from
-``csrc/fft_axis.cu`` and ``csrc/c2r_tail.cu``; on CPU tensors they run the
-plain PyTorch versions beside them (``torch.fft``).  Launch counts are
-``K3_LAUNCHES`` and ``K4_LAUNCHES``.
+``csrc/fft_axis.cu`` (both directions), ``csrc/c2r_tail.cu`` and
+``csrc/r2c_head.cu``; on CPU tensors they run the plain PyTorch versions
+beside them (``torch.fft``).  Launch counts are ``K3_LAUNCHES``,
+``K4_LAUNCHES`` and ``K6_LAUNCHES``.
 
-Both kernels take power-of-two transform lengths from 16 to 2048
+The kernels take power-of-two transform lengths from 16 to 2048
 (:func:`kernel_length_ok`); a mixed-radix version is a later step.
 """
 
@@ -26,21 +29,28 @@ from randomfield_tpu_torch.ops import _build
 __all__ = [
     "ifft_axis",
     "ifft_axis_plain",
+    "fft_axis",
+    "fft_axis_plain",
     "c2r_tail",
     "c2r_tail_plain",
+    "r2c_head",
+    "r2c_head_plain",
     "kernel_length_ok",
     "K3_LAUNCHES",
     "K4_LAUNCHES",
+    "K6_LAUNCHES",
 ]
 
-# kernel launches by ifft_axis / c2r_tail (the CPU paths do not count)
+# kernel launches by ifft_axis and fft_axis / c2r_tail / r2c_head (the CPU
+# paths do not count)
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
+K6_LAUNCHES = 0
 
 MIN_LENGTH, MAX_LENGTH = 16, 2048
 _MAX_OUTER = 65535  # the kernel's grid.y
 # complex elements one K3 block transforms (sets the panel width) and one
-# K4 block holds: 32-64 KB of shared memory, several blocks per SM
+# K4 or K6 block holds: 32-64 KB of shared memory, several blocks per SM
 _K3_PANEL_ELEMS = 4096
 _K4_BLOCK_ELEMS = 2048
 
@@ -74,15 +84,27 @@ def _view3(re, outer, n, inner, name):
 
 # ---- K3 --------------------------------------------------------------------
 
-def ifft_axis_plain(re, im, outer, n, inner):
-    """K3 in plain PyTorch: ``torch.fft.ifft(norm='forward')`` along the
-    middle axis of the (outer, n, inner) view, written back in place."""
-    c = torch.complex(_view3(re, outer, n, inner, "ifft_axis"),
-                      _view3(im, outer, n, inner, "ifft_axis"))
-    out = torch.fft.ifft(c, dim=1, norm="forward")
+def _axis_plain(re, im, outer, n, inner, transform, name):
+    c = torch.complex(_view3(re, outer, n, inner, name),
+                      _view3(im, outer, n, inner, name))
+    out = transform(c, dim=1)
     re.view(outer, n, inner).copy_(out.real)
     im.view(outer, n, inner).copy_(out.imag)
     return re, im
+
+
+def ifft_axis_plain(re, im, outer, n, inner):
+    """K3 in plain PyTorch: ``torch.fft.ifft(norm='forward')`` along the
+    middle axis of the (outer, n, inner) view, written back in place."""
+    return _axis_plain(re, im, outer, n, inner,
+                       lambda c, dim: torch.fft.ifft(c, dim=dim, norm="forward"),
+                       "ifft_axis")
+
+
+def fft_axis_plain(re, im, outer, n, inner):
+    """Forward K3 in plain PyTorch: ``torch.fft.fft`` (no scaling) along
+    the middle axis of the (outer, n, inner) view, written back in place."""
+    return _axis_plain(re, im, outer, n, inner, torch.fft.fft, "fft_axis")
 
 
 def ifft_axis(re, im, outer, n, inner):
@@ -94,33 +116,45 @@ def ifft_axis(re, im, outer, n, inner):
     ``kernel_length_ok(n)`` and outer <= 65535; CPU tensors run
     :func:`ifft_axis_plain`.  Returns (re, im).
     """
+    return _axis(re, im, outer, n, inner, +1)
+
+
+def fft_axis(re, im, outer, n, inner):
+    """K3 forward: X[j] = sum_k x[k] exp(-2 pi i jk/n), IN PLACE.
+
+    :func:`ifft_axis` with the other sign (the same kernel, its twiddles
+    conjugated as they load); CPU tensors run :func:`fft_axis_plain`.
+    Returns (re, im).
+    """
+    return _axis(re, im, outer, n, inner, -1)
+
+
+def _axis(re, im, outer, n, inner, sign):
     global K3_LAUNCHES
-    _check_pair(re, im, "ifft_axis")
+    name = "ifft_axis" if sign > 0 else "fft_axis"
+    _check_pair(re, im, name)
     if not (re.is_contiguous() and im.is_contiguous()):
-        raise ValueError("ifft_axis transforms contiguous tensors in place")
-    _view3(re, outer, n, inner, "ifft_axis")
+        raise ValueError(f"{name} transforms contiguous tensors in place")
+    _view3(re, outer, n, inner, name)
     if re.device.type == "cpu":
-        return ifft_axis_plain(re, im, outer, n, inner)
+        plain = ifft_axis_plain if sign > 0 else fft_axis_plain
+        return plain(re, im, outer, n, inner)
     if re.device.type != "cuda":
-        raise ValueError(f"ifft_axis runs on cpu or cuda, not {re.device}")
+        raise ValueError(f"{name} runs on cpu or cuda, not {re.device}")
     if not kernel_length_ok(n):
-        raise ValueError(f"ifft_axis: n={n} unsupported on CUDA (need a "
+        raise ValueError(f"{name}: n={n} unsupported on CUDA (need a "
                          f"power of two in [{MIN_LENGTH}, {MAX_LENGTH}])")
     if outer > _MAX_OUTER:
-        raise ValueError(f"ifft_axis: outer={outer} > {_MAX_OUTER}")
-    _launch_ifft_axis(re, im, outer, n, inner)
-    K3_LAUNCHES += 1
-    return re, im
-
-
-def _launch_ifft_axis(re, im, outer, n, inner):
+        raise ValueError(f"{name}: outer={outer} > {_MAX_OUTER}")
     status = _build.library().rf_fft_axis(
         re.data_ptr(), im.data_ptr(),
-        _twiddles(n, n // 2, str(re.device)).data_ptr(),
+        _twiddles(n, n // 2, str(re.device)).data_ptr(), int(sign),
         int(outer), int(n), int(inner), max(8, _K3_PANEL_ELEMS // n),
         _build.current_stream(re),
     )
-    _build.check(status, "ifft_axis")
+    _build.check(status, name)
+    K3_LAUNCHES += 1
+    return re, im
 
 
 # ---- K4 --------------------------------------------------------------------
@@ -180,3 +214,77 @@ def _launch_c2r_tail(re, im, nz, weights):
     )
     _build.check(status, "c2r_tail")
     return out
+
+
+# ---- K6 --------------------------------------------------------------------
+
+def r2c_head_plain(x):
+    """K6 in plain PyTorch: the half-length pack of
+    ``pallas_fft.rfft_minor_half_reim`` in its order of float32 operations.
+
+    ``x``: float32 (..., nz), nz even.  z[j] = x[2j] + i x[2j+1] goes
+    through ``torch.fft.fft`` of length m = nz/2 and unfolds as X[k] = A[k]
+    + W^-k B[k]; returns (re, im) float32 (..., nz//2 + 1), the
+    unnormalized forward real transform along the last axis
+    (``torch.fft.rfft``).
+    """
+    nz = x.shape[-1]
+    m = nz // 2
+    pair = x.reshape(*x.shape[:-1], m, 2)
+    z = torch.fft.fft(torch.complex(pair[..., 0], pair[..., 1]), dim=-1)
+    zre, zim = z.real, z.imag
+    # Z*[m-k]: index-reversed with wraparound (k = 0 -> Z[0])
+    rev = torch.cat([torch.zeros(1, dtype=torch.int64),
+                     torch.arange(m - 1, 0, -1)]).to(x.device)
+    zre_r, zim_r = zre[..., rev], zim[..., rev]
+    a_re = 0.5 * (zre + zre_r)
+    a_im = 0.5 * (zim - zim_r)
+    b_re = 0.5 * (zim + zim_r)
+    b_im = -0.5 * (zre - zre_r)
+    tw = _twiddles(nz, m, str(x.device))
+    wre, wim = tw[:, 0], -tw[:, 1]  # W^-k = exp(-2 pi i k / nz)
+    out_re = a_re + (wre * b_re - wim * b_im)
+    out_im = a_im + (wre * b_im + wim * b_re)
+    tail_re = zre[..., :1] - zim[..., :1]
+    return (torch.cat([out_re, tail_re], dim=-1),
+            torch.cat([out_im, torch.zeros_like(tail_re)], dim=-1))
+
+
+def r2c_head(x):
+    """K6: r2c along the minor axis by the half-length complex pack.
+
+    ``x``: contiguous float32 (..., nz).  Returns new float32 (re, im)
+    tensors (..., nz//2 + 1), the unnormalized forward real transform along
+    the last axis: the head of the distributed forward transform,
+    reading the field once and writing the spectrum once.  On CUDA, nz must
+    be even with ``kernel_length_ok(nz // 2)``; CPU tensors run
+    :func:`r2c_head_plain`.
+    """
+    global K6_LAUNCHES
+    if x.dtype != torch.float32:
+        raise ValueError("r2c_head: x must be float32")
+    nz = x.shape[-1]
+    m = nz // 2
+    if x.device.type == "cpu":
+        if nz % 2:
+            raise ValueError(f"r2c_head: nz={nz} must be even")
+        return r2c_head_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"r2c_head runs on cpu or cuda, not {x.device}")
+    if nz % 2 or not kernel_length_ok(m):
+        raise ValueError(f"r2c_head: nz={nz} unsupported on CUDA (need even "
+                         f"nz with nz/2 a power of two in "
+                         f"[{MIN_LENGTH}, {MAX_LENGTH}])")
+    if not x.is_contiguous():
+        raise ValueError("r2c_head's CUDA kernel needs a contiguous tensor")
+    re = torch.empty((*x.shape[:-1], m + 1), dtype=torch.float32,
+                     device=x.device)
+    im = torch.empty_like(re)
+    status = _build.library().rf_r2c_head(
+        x.data_ptr(), _twiddles(nz, m, str(x.device)).data_ptr(),
+        re.data_ptr(), im.data_ptr(), x.numel() // nz, int(m),
+        max(1, _K4_BLOCK_ELEMS // m), _build.current_stream(x),
+    )
+    _build.check(status, "r2c_head")
+    K6_LAUNCHES += 1
+    return re, im

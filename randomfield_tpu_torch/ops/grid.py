@@ -43,20 +43,24 @@ def kvectors(shape, spacing, dtype=torch.float32, device="cpu"):
 
 
 def ksq(shape, spacing, dtype=torch.float32, device="cpu", x_off=0,
-        nx_loc=None):
+        nx_loc=None, y_off=0, ny_loc=None):
     """|k|^2 on the packed half-spectrum, ``(kx^2 + ky^2) + kz^2`` in
-    ``dtype`` as the JAX package sums it; x rows [x_off, x_off + nx_loc)."""
+    ``dtype`` as the JAX package sums it; x rows [x_off, x_off + nx_loc)
+    and ky rows [y_off, y_off + ny_loc) (all rows by default)."""
     kx, ky, kz = kvectors(shape, spacing, dtype, device)
     nx_loc = shape[0] - x_off if nx_loc is None else nx_loc
+    ny_loc = shape[1] - y_off if ny_loc is None else ny_loc
     kx = kx[x_off:x_off + nx_loc]
+    ky = ky[y_off:y_off + ny_loc]
     return ((kx * kx)[:, None, None] + (ky * ky)[None, :, None]
             + (kz * kz)[None, None, :])
 
 
 def kmag(shape, spacing, dtype=torch.float32, device="cpu", x_off=0,
-         nx_loc=None):
+         nx_loc=None, y_off=0, ny_loc=None):
     """|k| on the packed half-spectrum (rows as :func:`ksq`)."""
-    return torch.sqrt(ksq(shape, spacing, dtype, device, x_off, nx_loc))
+    return torch.sqrt(ksq(shape, spacing, dtype, device, x_off, nx_loc,
+                          y_off, ny_loc))
 
 
 def get_k_bounds(shape, spacing) -> tuple[float, float]:

@@ -43,17 +43,23 @@ def mode_key(seed: int) -> tuple[int, int]:
     return _threefry.fold_in(base, STREAM_TAG)
 
 
-def mode_bits(key, shape, x_off=0, nx_loc=None, device="cpu"):
-    """``(b1, b2)`` of the modes of x planes [x_off, x_off + nx_loc).
+def mode_bits(key, shape, x_off=0, nx_loc=None, device="cpu", y_off=0,
+              ny_loc=None):
+    """``(b1, b2)`` of the modes of x planes [x_off, x_off + nx_loc) and ky
+    rows [y_off, y_off + ny_loc) (all rows by default).
 
-    Int64 tensors of uint32 values, shaped (nx_loc, ny, nz//2+1): the
-    Threefry-2x32 hash under ``key`` of each mode's flat 'xyz' index.
+    Int64 tensors of uint32 values, shaped (nx_loc, ny_loc, nz//2+1): the
+    Threefry-2x32 hash under ``key`` of each mode's flat 'xyz' index in
+    the whole (nx, ny, nz//2+1) spectrum, so a slab's bits are the
+    matching slice of the whole grid's.
     """
     nx, ny, nz = shape
     nzh = nz // 2 + 1
     nx_loc = nx - x_off if nx_loc is None else nx_loc
-    plane = ny * nzh
-    idx = torch.arange(x_off * plane, (x_off + nx_loc) * plane,
-                       dtype=torch.int64, device=device)
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
+    xs = torch.arange(x_off, x_off + nx_loc, dtype=torch.int64, device=device)
+    ys = torch.arange(y_off, y_off + ny_loc, dtype=torch.int64, device=device)
+    zs = torch.arange(nzh, dtype=torch.int64, device=device)
+    idx = ((xs[:, None] * ny + ys[None, :]) * nzh)[:, :, None] + zs
     b1, b2 = _threefry.threefry2x32(key, idx >> 32, idx & _MASK)
-    return b1.view(nx_loc, ny, nzh), b2.view(nx_loc, ny, nzh)
+    return b1, b2

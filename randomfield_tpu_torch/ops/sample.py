@@ -10,6 +10,10 @@ x-slabs draws
 and each chunk is swapped to the packed (x, y, kz) order.  The port draws
 the same numbers (:mod:`randomfield_tpu_torch.ops.threefry`), so a seed
 renders the same field in both packages.
+
+A slab mesh draws only its ky rows: each element is drawn at the counter
+it has in the full chunk, never at a counter of a slab-shaped array of its
+own, so the union of the slabs is the single-device draw bit for bit.
 """
 
 from __future__ import annotations
@@ -32,21 +36,30 @@ def canonical_chunks(nx: int) -> int:
     return 1
 
 
-def unit_draws_reim(key, shape, device="cpu"):
-    """Unit normal draws as float32 (nx, ny, nzh) re and im lattices.
+def unit_draws_reim(key, shape, device="cpu", y_off=0, ny_loc=None):
+    """Unit normal draws as float32 (nx, ny_loc, nzh) re and im lattices.
 
-    ``key`` is a Threefry key pair (:func:`threefry.key_from_seed`).  Only
-    one chunk's Threefry temporaries exist at a time; at 1024^3 that is
-    about 0.5 GB per int64 word lattice of a 64-plane chunk.
+    ``key`` is a Threefry key pair (:func:`threefry.key_from_seed`); ky
+    rows [y_off, y_off + ny_loc) of the canonical stream, all of them by
+    default.  Only one chunk's Threefry temporaries exist at a time; at
+    1024^3 that is about 0.5 GB per int64 word lattice of a 64-plane chunk.
     """
     nx, ny, nz = shape
     nzh = nz // 2 + 1
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
+    if not 0 <= y_off <= ny - ny_loc:
+        raise ValueError(f"ky rows [{y_off}, {y_off + ny_loc}) lie outside "
+                         f"the grid {tuple(shape)}")
     chunks = canonical_chunks(nx)
     cx = nx // chunks
-    re = torch.empty((nx, ny, nzh), dtype=torch.float32, device=device)
+    re = torch.empty((nx, ny_loc, nzh), dtype=torch.float32, device=device)
     im = torch.empty_like(re)
+    # flat index of element (c, x, kz, y) in the (2, cx, nzh, ny) chunk
+    rows = torch.arange(2 * cx * nzh, dtype=torch.int64, device=device)
+    ys = torch.arange(y_off, y_off + ny_loc, dtype=torch.int64, device=device)
+    idx = (rows[:, None] * ny + ys[None, :]).view(2, cx, nzh, ny_loc)
     for i in range(chunks):
-        d = _threefry.normal(_threefry.fold_in(key, i), (2, cx, nzh, ny), device)
+        d = _threefry.normal_at(_threefry.fold_in(key, i), idx)
         re[i * cx:(i + 1) * cx] = d[0].transpose(1, 2)
         im[i * cx:(i + 1) * cx] = d[1].transpose(1, 2)
     return re, im

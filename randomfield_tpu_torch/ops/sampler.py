@@ -14,7 +14,11 @@ in log10 k (``csrc/sigma_common.cuh``):
   writing the spectrum in one pass;
 * K5 :func:`sample_power_bins` (``csrc/sample_power_bins.cu``): the same
   draws binned in log10 |k| as (sum w, sum w |c|^2 V, sum w |k|) with no
-  spectrum written, plus the raw kz = 0 / Nyquist planes.
+  spectrum written, plus the raw kz = 0 / Nyquist planes;
+* K7 :func:`scale_shard` and K8 :func:`sample_shard`: K2 and K1 on the ky
+  rows [y_off, y_off + ny_loc) of a slab mesh's shard, at the global
+  indices (the same sources; the union over the shards is the whole-grid
+  result bit for bit).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain PyTorch version beside it (``*_plain``), which repeats
@@ -26,7 +30,8 @@ the same knot count as the JAX 'xzy' table, ``m (w - 1) + 1`` with
 ``w = min(ny, 128)``, and the same padding, so its default table equals
 the JAX one value for value with the shared knots de-duplicated.
 
-The launch counts are ``K1_LAUNCHES``, ``K2_LAUNCHES`` and ``K5_LAUNCHES``.
+The launch counts are ``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K5_LAUNCHES``,
+``K7_LAUNCHES`` and ``K8_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -57,17 +62,23 @@ __all__ = [
     "sample_power_bins",
     "power_bins_plain",
     "seeded_power_bins_plain",
+    "scale_shard",
+    "sample_shard",
     "K1_LAUNCHES",
     "K2_LAUNCHES",
     "K5_LAUNCHES",
+    "K7_LAUNCHES",
+    "K8_LAUNCHES",
     "MAX_KERNEL_BINS",
 ]
 
-# kernel launches by sample_modes, scale_sigma and sample_power_bins (the
-# CPU paths do not count)
+# kernel launches by sample_modes, scale_sigma, sample_power_bins,
+# scale_shard and sample_shard (the CPU paths do not count)
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K5_LAUNCHES = 0
+K7_LAUNCHES = 0
+K8_LAUNCHES = 0
 
 # K5 bins at most this many (the TPU kernel's lane count); callers fall back
 # to K1 and binning the spectrum above it
@@ -245,23 +256,44 @@ def scale_sigma(re, im, table, shape, spacing, smoothing_length=0.0,
     :func:`scale_sigma_plain`.  Returns (re, im).
     """
     global K2_LAUNCHES
-    _check_block(re, im, table, shape, x_off, y_off)
-    if re.device.type == "cpu":
-        return scale_sigma_plain(re, im, table, shape, spacing,
-                                 smoothing_length, x_off, y_off, gain)
-    if re.device.type != "cuda":
-        raise ValueError(f"scale_sigma runs on cpu or cuda, not {re.device}")
-    if not (re.is_contiguous() and im.is_contiguous()
-            and table.knots.is_contiguous()):
-        raise ValueError("scale_sigma's CUDA kernel needs contiguous tensors")
-    _launch_scale_sigma(re, im, table, shape, spacing, smoothing_length,
-                        x_off, y_off, gain)
-    K2_LAUNCHES += 1
+    if _scale(re, im, table, shape, spacing, smoothing_length, x_off, y_off,
+              gain, "scale_sigma"):
+        K2_LAUNCHES += 1
     return re, im
 
 
-def _launch_scale_sigma(re, im, table, shape, spacing, smoothing_length,
-                        x_off, y_off, gain):
+def scale_shard(re, im, table, shape, spacing, smoothing_length=0.0, y_off=0,
+                gain=1.0):
+    """K7: :func:`scale_sigma` on a slab mesh's shard, IN PLACE.
+
+    ``re``/``im``: float32 (nx, ny_loc, nz//2+1) blocks, the ky rows
+    [y_off, y_off + ny_loc) of the spectrum; every mode is scaled by the
+    amplitude of its global index, so the union of the shards equals K2
+    on the whole grid bit for bit.  The counterpart of
+    ``pallas_sampler.scale_shard_pallas_reim``; on CUDA it launches
+    ``csrc/scale_sigma.cu`` at the shard's offset.  Returns (re, im).
+    """
+    global K7_LAUNCHES
+    if _scale(re, im, table, shape, spacing, smoothing_length, 0, y_off,
+              gain, "scale_shard"):
+        K7_LAUNCHES += 1
+    return re, im
+
+
+def _scale(re, im, table, shape, spacing, smoothing_length, x_off, y_off,
+           gain, name):
+    """K2's body: checks, then the plain version on the CPU (returns False)
+    or one launch on CUDA (returns True)."""
+    _check_block(re, im, table, shape, x_off, y_off)
+    if re.device.type == "cpu":
+        scale_sigma_plain(re, im, table, shape, spacing, smoothing_length,
+                          x_off, y_off, gain)
+        return False
+    if re.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {re.device}")
+    if not (re.is_contiguous() and im.is_contiguous()
+            and table.knots.is_contiguous()):
+        raise ValueError(f"{name}'s CUDA kernel needs contiguous tensors")
     nx, ny, nz = shape
     c = _constants(table, shape, spacing)
     status = _build.library().rf_scale_sigma(
@@ -273,7 +305,8 @@ def _launch_scale_sigma(re, im, table, shape, spacing, smoothing_length,
         float(np.float32(smoothing_length)), float(np.float32(gain)),
         _build.current_stream(re),
     )
-    _build.check(status, "scale_sigma")
+    _build.check(status, name)
+    return True
 
 
 def load_reference_state(stab_rows, lk0, dlk, lightcone_weights, power_k,
@@ -299,20 +332,23 @@ def load_reference_state(stab_rows, lk0, dlk, lightcone_weights, power_k,
 
 # ---- K1 and K5: the sampler='pallas' kernels -------------------------------------
 
-def _sampler_ksq(c, shape, x_off, nx_loc, dev):
-    """|k|^2 of x rows [x_off, x_off + nx_loc) in the TPU sampler's float32
-    order, (kx^2 + kz^2) + ky^2 (csrc/threefry.cuh:sampler_ksq)."""
-    kx, ky, kz = _axis_k(c, shape, x_off, nx_loc, 0, shape[1], dev)
+def _sampler_ksq(c, shape, x_off, nx_loc, dev, y_off=0, ny_loc=None):
+    """|k|^2 of x rows [x_off, x_off + nx_loc) and ky rows [y_off, y_off +
+    ny_loc) in the TPU sampler's float32 order, (kx^2 + kz^2) + ky^2
+    (csrc/threefry.cuh:sampler_ksq)."""
+    ny_loc = shape[1] - y_off if ny_loc is None else ny_loc
+    kx, ky, kz = _axis_k(c, shape, x_off, nx_loc, y_off, ny_loc, dev)
     ksq = (kx * kx)[:, None, None] + (kz * kz)[None, None, :]
     return ksq + (ky * ky)[None, :, None]
 
 
 def _mode_amplitude(table, c, shape, x_off, nx_loc, smoothing_length,
-                    always_filter):
+                    always_filter, y_off=0, ny_loc=None):
     """(|k|^2, log10|k|, amp) of a block: amp = sigma / sqrt(2) times the
     filter, which K1 applies only when s != 0 and K5 always (exp(0) = 1, so
     the two agree)."""
-    ksq = _sampler_ksq(c, shape, x_off, nx_loc, table.knots.device)
+    ksq = _sampler_ksq(c, shape, x_off, nx_loc, table.knots.device, y_off,
+                       ny_loc)
     lk, sig = _interp_sigma(table.knots, ksq, c)
     amp = sig * float(_INV_SQRT2)
     s = float(np.float32(smoothing_length))
@@ -328,9 +364,10 @@ def _uniforms(b1, b2):
     return u1, u2
 
 
-def _check_bits(b1, b2, table, shape, x_off):
+def _check_bits(b1, b2, table, shape, x_off, y_off=0, ny_loc=None):
     nx, ny, nz = shape
-    want = (ny, nz // 2 + 1)
+    ny_loc = ny if ny_loc is None else ny_loc
+    want = (ny_loc, nz // 2 + 1)
     if (b1.shape != b2.shape or b1.ndim != 3 or tuple(b1.shape[1:]) != want
             or b1.dtype != torch.int64 or b2.dtype != torch.int64):
         raise ValueError(f"b1/b2 must be equal int64 (nx_loc, {want[0]}, "
@@ -338,6 +375,9 @@ def _check_bits(b1, b2, table, shape, x_off):
                          f"{b1.dtype} and {tuple(b2.shape)} {b2.dtype}")
     if not 0 <= x_off <= nx - b1.shape[0]:
         raise ValueError(f"x rows [{x_off}, {x_off + b1.shape[0]}) lie "
+                         f"outside the grid {shape}")
+    if not 0 <= y_off <= ny - ny_loc:
+        raise ValueError(f"ky rows [{y_off}, {y_off + ny_loc}) lie "
                          f"outside the grid {shape}")
     if b1.device != b2.device or table.knots.device != b1.device:
         raise ValueError("b1, b2 and the table's knots must share a device")
@@ -355,23 +395,26 @@ def _check_table(table, name):
 
 
 def sample_modes_plain(b1, b2, table, shape, spacing, smoothing_length=0.0,
-                       x_off=0):
-    """K1 in plain PyTorch on given bits, any device.
+                       x_off=0, y_off=0):
+    """K1 (and K8) in plain PyTorch on given bits, any device.
 
     ``b1``/``b2``: int64 tensors of uint32 values, the bits of the modes of
-    x rows [x_off, x_off + nx_loc), shaped (nx_loc, ny, nz//2+1).  Returns
-    float32 (re, im) of the same shape, before the Hermitian fix: the
-    float32 operations of ``csrc/sample_modes.cu`` (and of the TPU kernel)
-    in their order, x-slab by x-slab.
+    x rows [x_off, x_off + nx_loc) and ky rows [y_off, y_off + ny_loc),
+    shaped (nx_loc, ny_loc, nz//2+1).  Returns float32 (re, im) of the same
+    shape, before the Hermitian fix: the float32 operations of
+    ``csrc/sample_modes.cu`` (and of the TPU kernel) in their order, x-slab
+    by x-slab.
     """
-    _check_bits(b1, b2, table, shape, x_off)
+    ny_loc = b1.shape[1]
+    _check_bits(b1, b2, table, shape, x_off, y_off, ny_loc)
     c = _constants(table, shape, spacing)
     re = torch.empty(b1.shape, dtype=torch.float32, device=b1.device)
     im = torch.empty_like(re)
     for x0 in range(0, b1.shape[0], _PLAIN_X_CHUNK):
         x1 = min(b1.shape[0], x0 + _PLAIN_X_CHUNK)
         _, _, amp = _mode_amplitude(table, c, shape, x_off + x0, x1 - x0,
-                                    smoothing_length, always_filter=False)
+                                    smoothing_length, always_filter=False,
+                                    y_off=y_off, ny_loc=ny_loc)
         u1, u2 = _uniforms(b1[x0:x1], b2[x0:x1])
         r = torch.sqrt(-2.0 * torch.log(u1))
         theta = float(_TWO_PI32) * u2
@@ -380,20 +423,24 @@ def sample_modes_plain(b1, b2, table, shape, spacing, smoothing_length=0.0,
     return re, im
 
 
-def seeded_modes_plain(seed, table, shape, spacing, smoothing_length=0.0):
-    """K1's function in plain PyTorch: :func:`sample_modes_plain` on the
-    seed's stream (:mod:`.modestream`), drawn x-slab by x-slab on the
-    table's device."""
+def seeded_modes_plain(seed, table, shape, spacing, smoothing_length=0.0,
+                       y_off=0, ny_loc=None):
+    """K1's (and K8's) function in plain PyTorch: :func:`sample_modes_plain`
+    on the seed's stream (:mod:`.modestream`) over ky rows [y_off, y_off +
+    ny_loc) (all by default), drawn x-slab by x-slab on the table's
+    device."""
     nx, ny, nz = shape
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
     key = _modestream.mode_key(seed)
     dev = table.knots.device
-    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=dev)
+    re = torch.empty((nx, ny_loc, nz // 2 + 1), dtype=torch.float32,
+                     device=dev)
     im = torch.empty_like(re)
     for x0 in range(0, nx, _PLAIN_X_CHUNK):
         n = min(_PLAIN_X_CHUNK, nx - x0)
-        b1, b2 = _modestream.mode_bits(key, shape, x0, n, dev)
+        b1, b2 = _modestream.mode_bits(key, shape, x0, n, dev, y_off, ny_loc)
         re[x0:x0 + n], im[x0:x0 + n] = sample_modes_plain(
-            b1, b2, table, shape, spacing, smoothing_length, x0)
+            b1, b2, table, shape, spacing, smoothing_length, x0, y_off)
     return re, im
 
 
@@ -408,25 +455,58 @@ def sample_modes(seed, table, shape, spacing, smoothing_length=0.0):
     :func:`seeded_modes_plain`.
     """
     global K1_LAUNCHES
-    dev = _check_table(table, "sample_modes")
+    out, launched = _sample(seed, table, shape, spacing, smoothing_length, 0,
+                            shape[1], "sample_modes")
+    K1_LAUNCHES += launched
+    return out
+
+
+def sample_shard(seed, table, shape, spacing, smoothing_length=0.0, y_off=0,
+                 ny_loc=None):
+    """K8: :func:`sample_modes` for a slab mesh's shard, ky rows [y_off,
+    y_off + ny_loc).
+
+    Returns float32 (nx, ny_loc, nz//2+1) (re, im): every mode drawn at its
+    global counter and scaled at its global |k|, so the union of the
+    shards equals K1 on the whole grid bit for bit.  The counterpart of
+    ``pallas_sampler.sample_shard_pallas_reim``; on CUDA it launches
+    ``csrc/sample_modes.cu`` over the shard's rows.
+    """
+    global K8_LAUNCHES
+    ny_loc = shape[1] - y_off if ny_loc is None else ny_loc
+    out, launched = _sample(seed, table, shape, spacing, smoothing_length,
+                            y_off, ny_loc, "sample_shard")
+    K8_LAUNCHES += launched
+    return out
+
+
+def _sample(seed, table, shape, spacing, smoothing_length, y_off, ny_loc,
+            name):
+    """K1's body: ((re, im), launches) with the plain version on the CPU
+    (0 launches) or one launch on CUDA."""
+    dev = _check_table(table, name)
+    nx, ny, nz = shape
+    if not 0 <= y_off <= ny - ny_loc:
+        raise ValueError(f"{name}: ky rows [{y_off}, {y_off + ny_loc}) lie "
+                         f"outside the grid {shape}")
     if dev.type == "cpu":
         return seeded_modes_plain(seed, table, shape, spacing,
-                                  smoothing_length)
-    nx, ny, nz = shape
-    re = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32, device=dev)
+                                  smoothing_length, y_off, ny_loc), 0
+    re = torch.empty((nx, ny_loc, nz // 2 + 1), dtype=torch.float32,
+                     device=dev)
     im = torch.empty_like(re)
     c = _constants(table, shape, spacing)
     k0, k1 = _modestream.mode_key(seed)
     status = _build.library().rf_sample_modes(
         re.data_ptr(), im.data_ptr(), table.knots.data_ptr(),
-        table.knots.numel(), nx, ny, nz // 2 + 1, k0, k1,
-        float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
-        float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
-        float(np.float32(smoothing_length)), _build.current_stream(re),
+        table.knots.numel(), nx, ny, nz // 2 + 1, int(y_off), int(ny_loc),
+        k0, k1, float(c["kx_scale"]), float(c["ky_scale"]),
+        float(c["kz_scale"]), float(_HALF_INV_LN10), float(c["lk0"]),
+        float(c["inv_dlk"]), float(np.float32(smoothing_length)),
+        _build.current_stream(re),
     )
-    _build.check(status, "sample_modes")
-    K1_LAUNCHES += 1
-    return re, im
+    _build.check(status, name)
+    return (re, im), 1
 
 
 def sample_spectrum(seed, table, shape, spacing, smoothing_length=0.0):

@@ -35,7 +35,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key_from_seed", "fold_in", "threefry2x32", "random_bits", "normal"]
+__all__ = ["key_from_seed", "fold_in", "threefry2x32", "random_bits",
+           "bits_at", "normal", "normal_at"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -91,12 +92,19 @@ def fold_in(key, data: int) -> tuple[int, int]:
     return threefry2x32(key, 0, int(data) & _MASK)
 
 
+def bits_at(key, idx: torch.Tensor) -> torch.Tensor:
+    """The bits ``jax.random.bits(key, shape)`` holds at the flat indices
+    ``idx`` (an int64 tensor) of its ``shape``: a pure function of the
+    index, so any block of an array can be drawn on its own."""
+    b1, b2 = threefry2x32(key, idx >> 32, idx & _MASK)
+    return b1 ^ b2
+
+
 def random_bits(key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.bits(key, shape)`` as an int64 tensor of uint32 values."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(key, idx >> 32, idx & _MASK)
-    return (b1 ^ b2).reshape(shape)
+    return bits_at(key, torch.arange(n, dtype=torch.int64,
+                                     device=device)).reshape(shape)
 
 
 def _erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -113,7 +121,16 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
 
 def normal(key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` (to a few ulps)."""
-    bits = random_bits(key, shape, device)
+    return _normal_from_bits(random_bits(key, shape, device))
+
+
+def normal_at(key, idx: torch.Tensor) -> torch.Tensor:
+    """The values of ``jax.random.normal(key, shape, float32)`` at the flat
+    indices ``idx`` of its ``shape`` (:func:`bits_at`), shaped as ``idx``."""
+    return _normal_from_bits(bits_at(key, idx))
+
+
+def _normal_from_bits(bits):
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     u = mant.view(torch.float32) - 1.0
     u = torch.clamp_min(u * float(_WIDTH) + float(_LO), float(_LO))

@@ -20,7 +20,8 @@ import torch
 
 from randomfield_tpu_torch.ops import grid as _grid
 
-__all__ = ["symmetrize_plane_reim", "symmetrize_with_shape_reim", "irfftn"]
+__all__ = ["symmetrize_plane_reim", "symmetrize_with_shape_reim",
+           "symmetrize_slab_reim", "irfftn"]
 
 _SQRT2 = float(np.sqrt(2.0))
 
@@ -62,6 +63,30 @@ def symmetrize_with_shape_reim(re, im, nz, scale_self_conjugate=True):
                                           scale_self_conjugate)
         re[..., p] = fre
         im[..., p] = fim
+    return re, im
+
+
+def symmetrize_slab_reim(re, im, nz, mesh, scale_self_conjugate=True):
+    """:func:`symmetrize_with_shape_reim` on a slab mesh's ky rows.
+
+    ``re``/``im``: this rank's (nx, ny/P, nzh) block of a spectrum sharded
+    along ky (:class:`..parallel.mesh.SlabMesh`).  The conjugate partner
+    (-kx, -ky) of a mode lies on another rank, so the kz = 0 and Nyquist
+    planes are gathered whole (one ``all_gather`` of 2 nx ny float32 pairs,
+    16 MB at 1024^3), fixed exactly as on one device and cut back to the
+    local rows: the result equals the single-device fix bit for bit.  The
+    TPU lowers the same fix to collective permutes
+    (``parallel/render.py``).  Updates ``re`` and ``im`` IN PLACE.
+    """
+    planes = _grid.self_conjugate_kz_planes(nz)
+    y_off, ny_loc = mesh.rows(re.shape[-2] * mesh.size)
+    local = torch.stack([t[..., p] for p in planes for t in (re, im)])
+    full = mesh.all_gather(local, dim=-1)
+    for i, p in enumerate(planes):
+        fre, fim = symmetrize_plane_reim(full[2 * i], full[2 * i + 1],
+                                         scale_self_conjugate)
+        re[..., p] = fre[..., y_off:y_off + ny_loc]
+        im[..., p] = fim[..., y_off:y_off + ny_loc]
     return re, im
 
 

@@ -1,0 +1,64 @@
+"""Sharded renders on a slab mesh: both samplers, and the binned spectrum.
+
+Port of the slab paths of ``randomfield_tpu/parallel/render.py``.  Every
+rank draws only its ky rows of the spectrum, at the counters they have in
+the whole grid, so a mesh render equals the single-device render of the
+same seed on any number of ranks:
+
+* ``sampler='threefry'`` (``_sampled_spectrum_reim``,
+  ``make_sharded_render``): the canonical Threefry draws of the rank's ky
+  rows (:func:`..ops.sample.unit_draws_reim`), the sharded Hermitian fix
+  (:func:`..ops.transform.symmetrize_slab_reim`), then K7 at the rank's
+  offset (:func:`..ops.sampler.scale_shard`), with the 1/sqrt(2) of the
+  draws folded into its gain as the single-device render folds it into K2;
+* ``sampler='pallas'`` (``make_sharded_render_pallas``): K8 over the rank's
+  ky rows (:func:`..ops.sampler.sample_shard`), then the sharded fix;
+
+then the distributed inverse (:func:`.dfft.irfftn_slab_reim`) turns the
+rank's spectrum into its x slab of the field.
+:func:`spectrum_bins` is ``make_sharded_spectrum_bins``: a Threefry
+``sample_power`` binned shard by shard and summed with one all-reduce.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from randomfield_tpu_torch.ops import sample as _sample
+from randomfield_tpu_torch.ops import sampler as _sampler
+from randomfield_tpu_torch.ops import threefry as _threefry
+from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.validate import stats as _stats
+
+__all__ = ["threefry_spectrum", "pallas_spectrum", "spectrum_bins"]
+
+_INV_SQRT2 = float(np.float32(0.7071067811865476))
+
+
+def threefry_spectrum(seed, table, shape, spacing, smoothing_length, mesh):
+    """This rank's (nx, ny/P, nzh) ky slab of the seed's Threefry spectrum,
+    as float32 (re, im)."""
+    y_off, ny_loc = mesh.rows(shape[1])
+    re, im = _sample.unit_draws_reim(_threefry.key_from_seed(seed), shape,
+                                     mesh.device, y_off, ny_loc)
+    _transform.symmetrize_slab_reim(re, im, shape[2], mesh)
+    return _sampler.scale_shard(re, im, table, shape, spacing,
+                                smoothing_length, y_off, gain=_INV_SQRT2)
+
+
+def pallas_spectrum(seed, table, shape, spacing, smoothing_length, mesh):
+    """This rank's (nx, ny/P, nzh) ky slab of the seed's
+    ``sampler='pallas'`` spectrum, as float32 (re, im)."""
+    y_off, ny_loc = mesh.rows(shape[1])
+    re, im = _sampler.sample_shard(seed, table, shape, spacing,
+                                   smoothing_length, y_off, ny_loc)
+    return _transform.symmetrize_slab_reim(re, im, shape[2], mesh)
+
+
+def spectrum_bins(spectrum, shape, spacing, nbins, mesh):
+    """float64 (3, nbins + 1) sums of |c|^2 V over a ky-slab spectrum
+    (:func:`..validate.stats.spectrum_sums` of the rank's rows), summed
+    over the ranks: every rank returns the whole grid's sums."""
+    y_off, _ = mesh.rows(shape[1])
+    out = _stats.spectrum_sums(*spectrum, shape, spacing, nbins, y_off)
+    return mesh.all_reduce_sum(out)

@@ -17,7 +17,11 @@ tensor's device.
 
 The JAX package bins in XLA outside any Pallas kernel, so this is plain
 PyTorch; the forward transform of :func:`calculate_power` is
-``torch.fft.rfftn``.  Results come back as host float64 numpy arrays.
+``torch.fft.rfftn`` on one device and, on a slab mesh, the distributed
+transform of the hand kernels (K6, then forward K3;
+:func:`..parallel.dfft.rfftn_slab`), binned shard by shard and summed with
+one all-reduce (``validate/stats.py:_make_sharded_binned``).  Results come
+back as host float64 numpy arrays, the same on every rank.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch
 from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import transform as _transform
 
-__all__ = ["calculate_power", "spectrum_power", "bin_power_grid", "bin_setup",
-           "plane_bins", "masked_bins", "bins_to_host"]
+__all__ = ["calculate_power", "spectrum_power", "spectrum_sums",
+           "bin_power_grid", "bin_setup", "plane_bins", "masked_bins",
+           "bins_to_host"]
 
 # x planes binned per step: bounds the |k| / index temporaries at any size
 _X_CHUNK = 16
@@ -78,21 +83,31 @@ def bins_to_host(acc, nbins):
         return ksum / counts, psum / counts, counts
 
 
-def _binned_spectrum_reim(cre, cim, shape, spacing, nbins):
-    """float64 (3, nbins + 1) sums of |c|^2 V over a packed 'xyz' spectrum,
+def spectrum_sums(cre, cim, shape, spacing, nbins, y_off=0):
+    """float64 (3, nbins + 1) sums of |c|^2 V over a packed 'xyz' spectrum
+    or its ky rows [y_off, y_off + ny_loc) (a slab mesh's shard),
     x-slab by x-slab."""
-    nx, ny, nz = shape
+    return _binned_sums(cre, cim, shape, spacing, nbins, y_off,
+                        float(np.float32(shape[0] * shape[1] * shape[2]
+                                         * float(spacing) ** 3)))
+
+
+def _binned_sums(cre, cim, shape, spacing, nbins, y_off, factor):
+    """float64 (3, nbins + 1) sums of |c|^2 factor over the ky rows
+    [y_off, y_off + ny_loc) of a packed 'xyz' spectrum."""
+    nx = shape[0]
+    ny_loc = cre.shape[1]
     dev = cre.device
-    volume = float(np.float32(nx * ny * nz * float(spacing) ** 3))
     edges, mult = bin_setup(shape, spacing, nbins)
     edges_t = torch.as_tensor(edges, dtype=torch.float32, device=dev)
     mult_t = torch.as_tensor(mult, device=dev)
     out = torch.zeros((3, nbins + 1), dtype=torch.float64, device=dev)
     for x0 in range(0, nx, _X_CHUNK):
         x1 = min(nx, x0 + _X_CHUNK)
-        km = _grid.kmag(shape, spacing, torch.float32, dev, x0, x1 - x0)
+        km = _grid.kmag(shape, spacing, torch.float32, dev, x0, x1 - x0,
+                        y_off, ny_loc)
         re, im = cre[x0:x1], cim[x0:x1]
-        p = (re * re + im * im) * volume
+        p = (re * re + im * im) * factor
         masked_bins(km, mult_t[None, None, :], p, edges_t, nbins, out)
     return out
 
@@ -140,7 +155,7 @@ def spectrum_power(c, shape, spacing, nbins=32, layout="xyz"):
     if tuple(re.shape) != want or tuple(im.shape) != want:
         raise ValueError(f"spectrum must have shape {want}, got "
                          f"{tuple(re.shape)}")
-    acc = _binned_spectrum_reim(re, im, shape, float(spacing), int(nbins))
+    acc = spectrum_sums(re, im, shape, float(spacing), int(nbins))
     return bins_to_host(acc, int(nbins))
 
 
@@ -173,13 +188,13 @@ def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
     Returns host float64 ``(k_mean, p_hat, n_modes)``: per bin the
     mode-weighted mean |k|, the mean <|c_k|^2> / V with c_k = a^3 rfftn(delta),
     and the number of full-spectrum modes; empty bins give NaN.  Runs on
-    ``delta``'s device.  ``mesh``, ``window`` and ``interlaced_with`` are
-    not ported yet and raise NotImplementedError.
+    ``delta``'s device.  With ``mesh`` (a :class:`..parallel.mesh.SlabMesh`)
+    ``delta`` is this rank's (nx/P, ny, nz) x slab of the field: the
+    distributed forward transform runs on the hand kernels, each rank bins
+    its ky rows and one all-reduce sums them, so every rank returns the
+    whole field's result.  ``window`` and ``interlaced_with`` are not
+    ported yet and raise NotImplementedError.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "calculate_power(mesh=...) is not ported to randomfield_tpu_torch "
-            "yet: torch.distributed meshes (ROADMAP.md, Queue 1 item 11)")
     if window is not None or interlaced_with is not None:
         raise NotImplementedError(
             "calculate_power(window=..., interlaced_with=...) is not ported "
@@ -189,22 +204,25 @@ def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
     if delta.dtype != torch.float32 or delta.ndim != 3:
         raise ValueError(f"delta must be one float32 (nx, ny, nz) field, got "
                          f"{delta.dtype} {tuple(delta.shape)}")
-    shape = tuple(int(s) for s in delta.shape)
-    nx, ny, nz = shape
     spacing = float(spacing)
     nbins = int(nbins)
-    c = torch.fft.rfftn(delta) * float(np.float32(spacing ** 3))
-    volume = float(np.float32(nx * ny * nz * spacing ** 3))
-    edges, mult = bin_setup(shape, spacing, nbins)
-    dev = delta.device
-    edges_t = torch.as_tensor(edges, dtype=torch.float32, device=dev)
-    mult_t = torch.as_tensor(mult, device=dev)
-    out = torch.zeros((3, nbins + 1), dtype=torch.float64, device=dev)
-    for x0 in range(0, nx, _X_CHUNK):
-        x1 = min(nx, x0 + _X_CHUNK)
-        cs = c[x0:x1]
-        re, im = cs.real, cs.imag
-        p = (re * re + im * im) / volume
-        km = _grid.kmag(shape, spacing, torch.float32, dev, x0, x1 - x0)
-        masked_bins(km, mult_t[None, None, :], p, edges_t, nbins, out)
+    a3 = float(np.float32(spacing ** 3))
+    if mesh is None:
+        shape = tuple(int(s) for s in delta.shape)
+        c = torch.fft.rfftn(delta) * a3
+        re, im, y_off = c.real, c.imag, 0
+    else:
+        from randomfield_tpu_torch.parallel import dfft as _dfft
+        from randomfield_tpu_torch.parallel import mesh as _mesh
+
+        mesh = _mesh.require_slab(mesh)
+        shape = (delta.shape[0] * mesh.size, delta.shape[1], delta.shape[2])
+        re, im = _dfft.rfftn_slab(delta, shape, mesh)
+        re.mul_(a3)
+        im.mul_(a3)
+        y_off, _ = mesh.rows(shape[1])
+    volume = float(np.float32(shape[0] * shape[1] * shape[2] * spacing ** 3))
+    out = _binned_sums(re, im, shape, spacing, nbins, y_off, 1.0 / volume)
+    if mesh is not None:
+        mesh.all_reduce_sum(out)
     return bins_to_host(out, nbins)

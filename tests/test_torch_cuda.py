@@ -207,3 +207,101 @@ def test_pallas_cuda_render_matches_cpu(cuda, shape, smoothing):
     live = n > 0
     np.testing.assert_allclose(p[live], pc[live], rtol=1e-5)
     np.testing.assert_allclose(k[live], kc[live], rtol=1e-6)
+
+
+# ---- the slab mesh: K6, forward K3, K7, K8 and a one-rank mesh render --------------
+
+# K6 vs plain: the same float32 unfold after an m-point FFT of two
+# libraries; the K4 bar
+K6_TOL = 5e-6
+
+
+@pytest.mark.parametrize("lead,nz", [((3, 5), 32), ((2, 8), 256), ((4, 64), 1024),
+                                     ((1, 3), 4096)])
+def test_r2c_head_matches_plain(cuda, lead, nz):
+    x = _randn((*lead, nz), cuda, 7)
+    before = fft.K6_LAUNCHES
+    re, im = fft.r2c_head(x)
+    assert fft.K6_LAUNCHES == before + 1
+    c = torch.fft.rfft(x)
+    scale = max(float(c.real.abs().max()), float(c.imag.abs().max()))
+    for want in (fft.r2c_head_plain(x), (c.real, c.imag)):
+        assert max(float((re - want[0]).abs().max()),
+                   float((im - want[1]).abs().max())) <= K6_TOL * scale
+
+
+@pytest.mark.parametrize("view", [(1, 16, 100), (2, 128, 513), (3, 2048, 5)])
+def test_fft_axis_forward_matches_plain(cuda, view):
+    re0, im0 = _randn(view, cuda, 8), _randn(view, cuda, 9)
+    before = fft.K3_LAUNCHES
+    a, b = fft.fft_axis(re0.clone(), im0.clone(), *view)
+    assert fft.K3_LAUNCHES == before + 1
+    c, d = fft.fft_axis_plain(re0.clone(), im0.clone(), *view)
+    scale = max(float(c.abs().max()), float(d.abs().max()))
+    assert max(float((a - c).abs().max()), float((b - d).abs().max())) <= K3_TOL * scale
+
+
+@pytest.mark.parametrize("shape,ranks", [((32, 64, 32), 4), ((16, 32, 30), 2)])
+@pytest.mark.parametrize("smoothing", [0.0, 3.0])
+def test_k7_shards_match_plain_and_their_union_is_k2(cuda, shape, ranks, smoothing):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    nzh = shape[2] // 2 + 1
+    re0 = _randn((shape[0], shape[1], nzh), cuda, 10)
+    im0 = _randn((shape[0], shape[1], nzh), cuda, 11)
+    whole = sampler.scale_sigma(re0.clone(), im0.clone(), table, shape, SPACING,
+                                smoothing, gain=0.5 ** 0.5)
+    ny_loc = shape[1] // ranks
+    for r in range(ranks):
+        rows = slice(r * ny_loc, (r + 1) * ny_loc)
+        before = sampler.K7_LAUNCHES
+        a, b = sampler.scale_shard(re0[:, rows].contiguous(),
+                                   im0[:, rows].contiguous(), table, shape,
+                                   SPACING, smoothing, r * ny_loc, 0.5 ** 0.5)
+        assert sampler.K7_LAUNCHES == before + 1
+        c, d = sampler.scale_sigma_plain(re0[:, rows].clone(), im0[:, rows].clone(),
+                                         table, shape, SPACING, smoothing, 0,
+                                         r * ny_loc, 0.5 ** 0.5)
+        assert _rel(a, c) <= K2_TOL and _rel(b, d) <= K2_TOL
+        assert torch.equal(a, whole[0][:, rows]) and torch.equal(b, whole[1][:, rows])
+
+
+@pytest.mark.parametrize("shape,ranks", [((16, 64, 32), 4), ((32, 16, 30), 2)])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_k8_shards_match_plain_and_their_union_is_k1(cuda, shape, ranks, smoothing):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    whole = sampler.sample_modes(5, table, shape, SPACING, smoothing)
+    ny_loc = shape[1] // ranks
+    for r in range(ranks):
+        before = sampler.K8_LAUNCHES
+        a, b = sampler.sample_shard(5, table, shape, SPACING, smoothing,
+                                    r * ny_loc, ny_loc)
+        assert sampler.K8_LAUNCHES == before + 1
+        c, d = sampler.seeded_modes_plain(5, table, shape, SPACING, smoothing,
+                                          r * ny_loc, ny_loc)
+        assert _rel(a, c) <= K1_TOL and _rel(b, d) <= K1_TOL
+        rows = slice(r * ny_loc, (r + 1) * ny_loc)
+        assert torch.equal(a, whole[0][:, rows]) and torch.equal(b, whole[1][:, rows])
+
+
+@pytest.mark.parametrize("name", ["threefry", "pallas"])
+def test_one_rank_mesh_render_equals_single_device(cuda, name):
+    from randomfield_tpu_torch.parallel.mesh import make_mesh
+
+    shape = (32, 32, 64)
+    mesh = make_mesh(device=cuda)  # no process group: one rank
+    g = rft.Generator(*shape, grid_spacing=SPACING, mesh=mesh, sampler=name)
+    one = rft.Generator(*shape, grid_spacing=SPACING, device=cuda, sampler=name)
+    kernel = "K7_LAUNCHES" if name == "threefry" else "K8_LAUNCHES"
+    before = getattr(sampler, kernel)
+    field = g.generate_delta_field(3, smoothing_length=5.0)
+    assert getattr(sampler, kernel) == before + 1
+    assert torch.equal(field, one.generate_delta_field(3, smoothing_length=5.0))
+    before = fft.K6_LAUNCHES
+    k, p, n = g.calculate_power(field, nbins=12)
+    assert fft.K6_LAUNCHES == before + 1
+    kw, pw, nw = one.calculate_power(field, nbins=12)
+    np.testing.assert_array_equal(n, nw)
+    live = nw > 0
+    np.testing.assert_allclose(p[live], pw[live], rtol=1e-5)

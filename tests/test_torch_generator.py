@@ -29,6 +29,7 @@ from randomfield_tpu.ops import sample as jsample  # noqa: E402
 from randomfield_tpu.ops import transform as jtransform  # noqa: E402
 from randomfield_tpu.validate import oracle  # noqa: E402
 from randomfield_tpu_torch.ops import sampler  # noqa: E402
+from randomfield_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPACING = 16.0
@@ -194,13 +195,15 @@ def test_cuda_rejects_shapes_the_kernels_do_not_take(shape):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(sampler="nested"), "sampler='nested'"),
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh=pmesh.make_pencil_mesh(spx=2, spy=2)), "mesh"),
     (dict(pipeline="staged"), "pipeline='staged'"),
 ])
 def test_unported_options_raise(kw, what):
     with pytest.raises(NotImplementedError) as err:
         rft.Generator(16, 16, 16, grid_spacing=SPACING, device="cpu", **kw)
     assert what in str(err.value) and "ROADMAP.md" in str(err.value)
+    with pytest.raises(TypeError, match="SlabMesh"):
+        rft.Generator(16, 16, 16, grid_spacing=SPACING, mesh=object())
 
 
 def test_unknown_options_raise():

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from randomfield_tpu.validate import stats as jstats  # noqa: E402
+from randomfield_tpu_torch.parallel.mesh import make_pencil_mesh  # noqa: E402
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
 SPACING = 8.0
@@ -97,7 +98,7 @@ def test_one_k_for_every_binning():
 
 def test_unported_estimator_options_raise():
     delta = torch.zeros((8, 8, 8))
-    for kw, what in ((dict(mesh=object()), "Queue 1 item 11"),
+    for kw, what in ((dict(mesh=make_pencil_mesh(spx=2, spy=2)), "ROADMAP.md"),
                      (dict(window="cic"), "Queue 1 item 9"),
                      (dict(interlaced_with=delta), "Queue 1 item 9")):
         with pytest.raises(NotImplementedError, match=what):

@@ -27,6 +27,7 @@ from randomfield_tpu.ops import transform as jtransform  # noqa: E402
 from randomfield_tpu.validate import stats as jstats  # noqa: E402
 from randomfield_tpu_torch.ops import modestream, sample, sampler, threefry  # noqa: E402
 from randomfield_tpu_torch.ops import transform  # noqa: E402
+from randomfield_tpu_torch.parallel.mesh import make_pencil_mesh  # noqa: E402
 from randomfield_tpu_torch.validate import sampler_gate  # noqa: E402
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
@@ -306,9 +307,13 @@ def test_pallas_scene_rejects_noise_io_and_keeps_its_table(gen16):
 def test_pallas_scene_accepts_any_pipeline_and_rejects_meshes():
     rft.Generator(16, 16, 16, grid_spacing=SPACING, device="cpu",
                   sampler="pallas", pipeline="staged")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="pencil mesh"):
         rft.Generator(16, 16, 16, grid_spacing=SPACING, device="cpu",
-                      sampler="pallas", mesh=object())
+                      sampler="pallas",
+                      mesh=make_pencil_mesh(data=1, spx=2, spy=2))
+    with pytest.raises(TypeError, match="SlabMesh"):
+        rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="pallas",
+                      mesh=object())
 
 
 # ---- 7. the statistical gate -----------------------------------------------------
