@@ -19,10 +19,14 @@ non-zero with no result line:
    slab mesh's K6 r2c_head and forward K3 at the 1024^3 forward transform's
    shapes (and a sweep), K7 scale_shard and K8 sample_shard on each of the
    four (1024, 256, 513) shards of a four-rank mesh, their unions equal to
-   whole-grid K2 and K1 bit for bit;
-2. the slices at 128^3, both samplers: CUDA render vs the CPU render (plain
-   versions) at the same seed, which the CPU tests hold to the JAX package;
-   the sampler='pallas' statistical gate (2000 seeds at 16^3); sample_power
+   whole-grid K2 and K1 bit for bit; the staged variants' K9 ifft_rotate at
+   the v4 render's x and y passes on a render's own spectrum (and a sweep of
+   lengths and groups) and K10 sample_fftx (s = 0 and 8; bulk rows and plane
+   rows apart);
+2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
+   render vs the CPU render (plain versions) at the same seed, which the CPU
+   tests hold to the JAX package; the sampler='pallas' statistical gate (2000
+   seeds at 16^3) on K1's stream and on the v6 stream of K10; sample_power
    vs calculate_power of the same seed's field at 256^3;
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
@@ -35,12 +39,21 @@ non-zero with no result line:
    each rank's x slab equal to the same rows of the single-device render
    and calculate_power(mesh=...) equal to the single-device estimator; and
    a one-rank NCCL mesh through the public API (render and estimator);
+   then the staged variants through the public API, RF_STAGED_PIPELINE set
+   around each render and restored after it: the v4 render (K9 twice) held
+   to the default render of the seed, the v6 render (K10; repeatable,
+   another field than the default, variance and calculate_power against the
+   predictions), and generate_delta_fields of 4 seeds at 512^3 through the
+   in-program seed batch, its rows bit-equal to single renders;
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
-   1024^3 render for both samplers, of each kernel beside its plain version
-   and, for K3, K4 and K6, beside the cuFFT call that computes the same
-   function; each kernel's bound from its bytes and operations; the device's
-   idle share during a 1024^3 render (torch.profiler) and its peak device
-   memory; the one-rank mesh render beside the single-device render, and
+   1024^3 render for both samplers and for the v4 and v6 variants, of each
+   kernel beside its plain version and, for K3, K4 and K6, beside the cuFFT
+   call that computes the same function (K9: beside cuFFT plus the copy of
+   the transpose, two calls); each kernel's bound from its bytes and
+   operations; the device's idle share during a 1024^3 render
+   (torch.profiler) and its peak device memory; the seed batch beside the
+   loop of single renders; the one-rank mesh render beside the single-device
+   render, and
    the four-rank run's per-rank stage times (host clock; the exchanges are
    gloo's through host memory, not the card's).
 
@@ -50,6 +63,7 @@ The line before the last is a JSON object of the kernels; the last is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -85,15 +99,22 @@ KERNELS = {
     "K8": dict(name="sample_shard", route="cuda",
                source="randomfield_tpu_torch/csrc/sample_modes.cu",
                replaces="randomfield_tpu/ops/pallas_sampler.py:685"),
+    "K9": dict(name="ifft_rotate", route="cuda",
+               source="randomfield_tpu_torch/csrc/fft_rotate.cu",
+               replaces="randomfield_tpu/ops/pallas_fft.py:215"),
+    "K10": dict(name="sample_fftx", route="cuda",
+                source="randomfield_tpu_torch/csrc/sample_fftx.cu",
+                replaces="randomfield_tpu/ops/pallas_genfft.py:76"),
 }
-KERNEL_ORDER = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+KERNEL_ORDER = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller and K2, and K8 and K7 that are they on a shard;
 # libdevice logf/sincosf on both sides) and of a log2(n)-stage FFT against
 # cuFFT's (K3, and K4 and its mirror K6 as the c2r tail test of the JAX
-# package's tests/test_pallas_fft.py)
+# package's tests/test_pallas_fft.py; K9 is K3 stored rotated and K10 K1's
+# draws through such a transform, both at the K4 bar)
 BARS = {"K1": 2e-6, "K2": 2e-6, "K3": 2e-6, "K4": 5e-6, "K6": 5e-6,
-        "K7": 2e-6, "K8": 2e-6}
+        "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6}
 # K5 vs plain: the same float32 per-mode terms, added in float64 in another
 # order (per-run and per-block partials vs index_add_); counts exactly
 K5_SUM_RTOL = 1e-6
@@ -122,9 +143,10 @@ FP32_OPS_PER_S = 67e12
 # |k|^2 (7), the sigma lookup (12), Box-Muller (12) and the amplitude (4).
 # K5: the hash, |k|^2 for sigma and for the bin (12), the lookup (12),
 # u1 and r^2 (6), amplitude, filter and power (8), the bin guess and edge
-# compares (6), the weights and the three float64 adds (6).
+# compares (6), the weights and the three float64 adds (6).  K10: K1's draw
+# per bulk mode (its transform is counted per line, 5 n log2 n).
 OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
-                "K2": 24}
+                "K2": 24, "K10": 74 + 7 + 12 + 12 + 4}
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
 # single-seed variance vs prediction at 1024^3
@@ -132,6 +154,8 @@ VAR_BAR = 0.10
 HEADLINE = (1024, 1024, 1024)
 HEADLINE_SPACING = 2.0  # 2048 / n Mpc/h, as bench.py sizes its grids
 TIMING_REPS = 5
+# repeats of a plain version that takes seconds (K1's, K5's, K10's)
+SLOW_PLAIN_REPS = 2
 # the constant a render folds into K2's amplitude (the draws' 1/sqrt(2))
 RENDER_GAIN = 0.5 ** 0.5
 SAMPLERS = ("threefry", "pallas")
@@ -144,6 +168,15 @@ MESH_BAR = 1e-6
 MESH_P_RTOL = 1e-5
 MESH_TIMEOUT_S = 600.0
 MESH_STAGE_REPS = 2
+# the staged variants: the switch, the v4 field against the default field of
+# the seed (the same butterflies on the same numbers; bit-equal expected),
+# a single field's binned power against the prediction in sampling sigmas,
+# and the seed batch
+PIPELINE_ENV = "RF_STAGED_PIPELINE"
+V4_BAR = 1e-6
+FIELD_POWER_SIGMAS = 6.0
+BATCH_SHAPE, BATCH_SPACING, BATCH_SEEDS = (512, 512, 512), 4.0, 4
+BATCH_PAIRS = 10
 
 
 def log(msg):
@@ -174,6 +207,21 @@ def check_close(errs, kid, what, got, want):
         f"(bar {BARS[kid]:g})")
     if not r <= BARS[kid]:
         raise AssertionError(f"{kid} {what} disagrees: rel {r:.3e}")
+
+
+@contextlib.contextmanager
+def staged_variant(name):
+    """RF_STAGED_PIPELINE set to ``name`` inside the block (unset for None)
+    and restored after it."""
+    old = os.environ.pop(PIPELINE_ENV, None)
+    if name is not None:
+        os.environ[PIPELINE_ENV] = name
+    try:
+        yield
+    finally:
+        os.environ.pop(PIPELINE_ENV, None)
+        if old is not None:
+            os.environ[PIPELINE_ENV] = old
 
 
 def cuda_ms(torch, fn, reps=TIMING_REPS, setup=None):
@@ -426,21 +474,79 @@ def phase1_mesh_kernels(torch, g, gp, errs):
     torch.cuda.empty_cache()
 
 
+def phase1_staged_kernels(torch, gp, errs):
+    """K9 and K10 vs their plain versions at the shapes the 1024^3 v4 and v6
+    renders of the scene ``gp`` give them: K9 on a render's own spectrum (the
+    x pass, then the y pass on the x pass's result) and over a sweep of
+    lengths with several groups; K10 on the seed's own bits and planes, bulk
+    rows and plane rows apart, with and without smoothing."""
+    from randomfield_tpu_torch.ops import fft, genfft, sampler
+
+    dev = gp.device
+    seed, table = 17, gp.state.table
+    shape, spacing = gp.shape, gp.grid_spacing
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+
+    re, im = sampler.sample_spectrum(seed, table, shape, spacing)
+    for what, n, cols in (("x", nx, ny * nzh), ("y", ny, nzh * nx)):
+        got = fft.ifft_rotate(re, im, 1, n, cols)
+        want = fft.ifft_rotate_plain(re, im, 1, n, cols)
+        torch.cuda.synchronize()
+        check_close(errs, "K9", f"{what} pass (1 group, n = {n}, {cols} columns)",
+                    got, want)
+        del re, im, want
+        re, im = got  # (ny nzh, nx) after x: the y pass's input
+        del got
+    del re, im
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for n in (16, 32, 64, 128, 256, 512, 1024, 2048):
+        groups, cols = 3, 2**22 // (3 * n) + 3
+        re = torch.randn((groups * n, cols), generator=gen, device=dev)
+        im = torch.randn((groups * n, cols), generator=gen, device=dev)
+        got = fft.ifft_rotate(re, im, groups, n, cols)
+        want = fft.ifft_rotate_plain(re, im, groups, n, cols)
+        torch.cuda.synchronize()
+        check_close(errs, "K9", f"({groups} groups, n = {n}, {cols} columns)",
+                    got, want)
+    del re, im, got, want
+    torch.cuda.empty_cache()
+
+    m = nz // 2
+    for s in (0.0, 8.0):
+        planes = genfft.plane_spectra(seed, table, shape, spacing, s)
+        a, b = genfft.sample_fftx(seed, table, shape, spacing, s, planes=planes)
+        c, d = genfft.seeded_fftx_plain(seed, table, shape, spacing, s,
+                                        planes=planes)
+        torch.cuda.synchronize()
+        bulk = slice(ny, m * ny)
+        check_close(errs, "K10", f"{tuple(a.shape)} s={s} bulk rows",
+                    (a[bulk], b[bulk]), (c[bulk], d[bulk]))
+        lo, hi = slice(0, ny), slice(m * ny, None)
+        check_close(errs, "K10", f"{tuple(a.shape)} s={s} plane rows",
+                    (a[lo], a[hi], b[lo], b[hi]), (c[lo], c[hi], d[lo], d[hi]))
+        del a, b, c, d, planes
+        torch.cuda.empty_cache()
+
+
 def reset_counts():
-    from randomfield_tpu_torch.ops import fft, sampler
+    from randomfield_tpu_torch.ops import fft, genfft, sampler
 
     sampler.K1_LAUNCHES = sampler.K2_LAUNCHES = sampler.K5_LAUNCHES = 0
     sampler.K7_LAUNCHES = sampler.K8_LAUNCHES = 0
     fft.K3_LAUNCHES = fft.K4_LAUNCHES = fft.K6_LAUNCHES = 0
+    fft.K9_LAUNCHES = genfft.K10_LAUNCHES = 0
 
 
 def read_counts():
-    from randomfield_tpu_torch.ops import fft, sampler
+    from randomfield_tpu_torch.ops import fft, genfft, sampler
 
     return {"K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
             "K3": fft.K3_LAUNCHES, "K4": fft.K4_LAUNCHES,
             "K5": sampler.K5_LAUNCHES, "K6": fft.K6_LAUNCHES,
-            "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES}
+            "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES,
+            "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES}
 
 
 def require_launches(counts, least, what):
@@ -473,13 +579,42 @@ def phase2_slice(torch, rft, dev):
             require_launches(counts, {kernel: 1, "K3": 2, "K4": 1}, "render")
 
 
-def phase2_gate(torch, dev):
-    """The sampler='pallas' statistical gate on the card."""
+def phase2_variants(torch, rft, dev):
+    """The v4 and v6 renders on the card vs the CPU (plain) render of the
+    same variant at 128^3, seed 7; the switch is set around each."""
+    shape, spacing, seed = (128, 128, 128), 16.0, 7
+    g_dev = rft.Generator(*shape, grid_spacing=spacing, device=dev,
+                          sampler="pallas")
+    g_cpu = rft.Generator(*shape, grid_spacing=spacing, device="cpu",
+                          sampler="pallas")
+    need = {"v4": {"K1": 1, "K9": 2, "K4": 1}, "v6": {"K10": 1, "K3": 1, "K4": 1}}
+    for variant, least in need.items():
+        for s in (0.0, 20.0):
+            with staged_variant(variant):
+                reset_counts()
+                got = g_dev.generate_delta_field(seed, smoothing_length=s)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = g_cpu.generate_delta_field(seed, smoothing_length=s)
+            _, r = rel_err((got.cpu(),), (want,))
+            log(f"phase 2 slice pallas {variant} {shape} seed {seed} s={s}: rel "
+                f"{r:.3e} (bar {SLICE_BAR:g}), launches {counts}")
+            if not r <= SLICE_BAR:
+                raise AssertionError(f"CUDA {variant} render disagrees with "
+                                     f"CPU: rel {r:.3e}")
+            require_launches(counts, least, f"{variant} render")
+
+
+def phase2_gate(torch, dev, stream="modes"):
+    """The sampler='pallas' statistical gate on the card: K1's stream, or
+    (``stream='genfft'``) the v6 stream of K10."""
     from randomfield_tpu_torch.validate import sampler_gate
 
     t0 = time.perf_counter()
-    out = sampler_gate.run_checks(GATE_SEEDS, GATE_SHAPE, device=dev)
-    log(f"phase 2 sampler gate {GATE_SHAPE}, {GATE_SEEDS} seeds: per-mode max "
+    out = sampler_gate.run_checks(GATE_SEEDS, GATE_SHAPE, device=dev,
+                                  stream=stream)
+    which = "" if stream == "modes" else " (v6 stream, K10)"
+    log(f"phase 2 sampler gate{which} {GATE_SHAPE}, {GATE_SEEDS} seeds: per-mode max "
         f"|var/exp - 1| {out['per_mode_max']:.4f} (bar "
         f"{out['per_mode_tol']:.4f}), pooled shell {out['pooled_shell_max']:.5f}, "
         f"skew {out['skew']:+.5f}, kurtosis {out['kurtosis']:.4f}; "
@@ -584,6 +719,109 @@ def phase3_config4(torch, g, card):
     if not np.all(np.abs(z) <= ENSEMBLE_SIGMAS):
         raise AssertionError(f"ensemble P(k) off prediction: z {z}")
     return counts, total
+
+
+def phase3_variants(torch, rft, gp, card):
+    """This slice's paths at 1024^3 through the public API of the
+    sampler='pallas' scene ``gp``, the switch set around each render: v4
+    against the default field of the seed, v6 against its predictions; then
+    a 4-seed 512^3 batch against single renders.  Returns the launch counts
+    of the three runs, summed."""
+    from randomfield_tpu_torch.ops import genfft
+
+    seed = 1
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+
+    def add(counts):
+        for k in KERNEL_ORDER:
+            total[k] += counts[k]
+
+    with staged_variant(None):
+        default = gp.generate_delta_field(seed)
+    peak = float(default.abs().max())
+    with staged_variant("v4"):
+        torch.cuda.synchronize()
+        reset_counts()
+        f4 = gp.generate_delta_field(seed)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    diff = float((f4 - default).abs().max())
+    log(f"phase 3 main path sampler='pallas' v4 {HEADLINE}: vs the default "
+        f"(v5) field of seed {seed}, max|d| {diff:.3e}, max|d| / max|delta| "
+        f"{diff / peak:.3e} (bar {V4_BAR:g}), "
+        f"{'bit-equal' if torch.equal(f4, default) else 'not bit-equal'}; "
+        f"launches {counts}")
+    if tuple(f4.shape) != HEADLINE or not diff <= V4_BAR * peak:
+        raise AssertionError("the v4 render is not the default render")
+    require_launches(counts, {"K1": 1, "K9": 2, "K4": 1}, "v4 main path")
+    add(counts)
+    del f4
+
+    with staged_variant("v6"):
+        torch.cuda.synchronize()
+        reset_counts()
+        f6 = gp.generate_delta_field(seed)
+        again = gp.generate_delta_field(seed)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if not torch.equal(f6, again):
+            raise AssertionError("v6: same seed, different fields")
+        del again
+        unweighted = gp.generate_delta_field(seed, apply_lightcone=False)
+    if tuple(f6.shape) != HEADLINE or not bool(torch.isfinite(f6).all()):
+        raise AssertionError("v6 field has the wrong shape or non-finite values")
+    apart = float((f6 - default).abs().max()) / peak
+    del default
+    var = field_variance(torch, f6)
+    pred = gp.predicted_variance(apply_lightcone=True)
+    del f6
+    k, p, n = gp.calculate_power(unweighted, nbins=NBINS)
+    del unweighted
+    kt, pt, nt = predicted_bins(torch, gp)
+    if not np.array_equal(n, nt):
+        raise AssertionError("the v6 field and the prediction bin different modes")
+    pop = n > 0
+    # per bin, n/2 independent complex modes with exponential |c|^2
+    z = (p[pop] - pt[pop]) / (pt[pop] * np.sqrt(2.0 / n[pop]))
+    log(f"phase 3 main path sampler='pallas' v6 {HEADLINE} (stream "
+        f"{genfft.STREAM}): same seed twice bit-equal; max|v6 - v5| / "
+        f"max|delta| {apart:.3f}; var {var:.6g}, predicted {pred:.6g}, ratio "
+        f"{var / pred:.5f} (bar {VAR_BAR:g}); calculate_power vs the binned "
+        f"prediction max |z| {np.abs(z).max():.3f} over {int(pop.sum())} bins "
+        f"(bar {FIELD_POWER_SIGMAS:g}); launches {counts}")
+    if not apart > 0.1:
+        raise AssertionError("v6 drew the default family's field")
+    if not abs(var / pred - 1.0) <= VAR_BAR:
+        raise AssertionError(f"v6 variance off prediction: {var / pred:.4f}")
+    if not np.all(np.abs(z) <= FIELD_POWER_SIGMAS):
+        raise AssertionError(f"v6 P(k) off prediction: z {z}")
+    require_launches(counts, {"K10": 2, "K3": 2, "K4": 2}, "v6 main path")
+    add(counts)
+    torch.cuda.empty_cache()
+
+    gb = rft.Generator(*BATCH_SHAPE, grid_spacing=BATCH_SPACING,
+                       device=gp.device, sampler="pallas")
+    seeds = list(range(BATCH_SEEDS))
+    with staged_variant(None):
+        torch.cuda.synchronize()
+        reset_counts()
+        batch = gb.generate_delta_fields(seeds)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rows_equal = all(torch.equal(row, gb.generate_delta_field(s_))
+                         for row, s_ in zip(batch, seeds))
+    log(f"phase 3 seed batch sampler='pallas' {BATCH_SHAPE}: "
+        f"generate_delta_fields of {BATCH_SEEDS} seeds -> {tuple(batch.shape)}, "
+        f"rows {'bit-equal to' if rows_equal else 'DIFFER from'} single "
+        f"renders; launches {counts} [{card}]")
+    if tuple(batch.shape) != (BATCH_SEEDS, *BATCH_SHAPE) or not rows_equal:
+        raise AssertionError("the seed batch is not its single renders")
+    require_launches(counts, {"K1": BATCH_SEEDS, "K3": 2 * BATCH_SEEDS,
+                              "K4": BATCH_SEEDS}, "seed batch")
+    add(counts)
+    del batch
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---- the slab mesh: four ranks on the card (gloo), one rank (NCCL) ----------
@@ -868,29 +1106,30 @@ def nccl_one_rank_mesh(dev):
 
 
 def render_stages(g, seed):
-    """The calls of ``g.generate_delta_field(seed)``, one by one, by name."""
+    """The calls of ``g.generate_delta_field(seed)``, one by one, by name:
+    for a sampler='pallas' scene the staged render's own list, in the
+    variant the switch selects now."""
+    from randomfield_tpu_torch.engine import staged
     from randomfield_tpu_torch.ops import fft, sample, sampler, threefry, transform
 
     nx, ny, nz = g.shape
     nzh = nz // 2 + 1
     if g.sampler == "pallas":
-        stages = {"K1 sample_modes": lambda _: sampler.sample_modes(
-            seed, g.state.table, g.shape, g.grid_spacing)}
-    else:
-        stages = {
-            "Threefry draws (plain PyTorch)": lambda _: sample.unit_draws_reim(
-                threefry.key_from_seed(seed), g.shape, g.device),
-        }
-    stages["Hermitian symmetrize (plain)"] = lambda ri: (
-        transform.symmetrize_with_shape_reim(*ri, nz), ri)[1]
-    if g.sampler != "pallas":
-        stages["K2 scale_sigma"] = lambda ri: sampler.scale_sigma(
-            *ri, g.state.table, g.shape, g.grid_spacing, gain=RENDER_GAIN)
-    stages["K3 fft_axis x pass"] = lambda ri: fft.ifft_axis(*ri, 1, nx, ny * nzh)
-    stages["K3 fft_axis y pass"] = lambda ri: fft.ifft_axis(*ri, nx, ny, nzh)
-    stages["K4 c2r_tail"] = lambda ri: fft.c2r_tail(*ri, nz,
-                                                    g.state.lightcone_weights)
-    return stages
+        return staged.variant_stages(
+            staged.selected_variant(g.shape), seed, g.state.table, g.shape,
+            g.grid_spacing, g.state.lightcone_weights)
+    return {
+        "Threefry draws (plain PyTorch)": lambda _: sample.unit_draws_reim(
+            threefry.key_from_seed(seed), g.shape, g.device),
+        "Hermitian symmetrize (plain)": lambda ri: (
+            transform.symmetrize_with_shape_reim(*ri, nz), ri)[1],
+        "K2 scale_sigma": lambda ri: sampler.scale_sigma(
+            *ri, g.state.table, g.shape, g.grid_spacing, gain=RENDER_GAIN),
+        "K3 fft_axis x pass": lambda ri: fft.ifft_axis(*ri, 1, nx, ny * nzh),
+        "K3 fft_axis y pass": lambda ri: fft.ifft_axis(*ri, nx, ny, nzh),
+        "K4 c2r_tail": lambda ri: fft.c2r_tail(*ri, nz,
+                                               g.state.lightcone_weights),
+    }
 
 
 def stage_breakdown(torch, g, seed):
@@ -948,8 +1187,10 @@ def device_idle_share(torch, g, seed):
 
 def render_profile(torch, g, card):
     """Stage breakdown, device idle share and peak memory of a 1024^3 render
-    of ``g``."""
-    tag = f"sampler={g.sampler!r} {HEADLINE}"
+    of ``g`` (in the staged variant the switch selects now)."""
+    variant = os.environ.get(PIPELINE_ENV)
+    tag = (f"sampler={g.sampler!r} {HEADLINE}"
+           + (f" variant {variant}" if variant else ""))
     stage_ms = stage_breakdown(torch, g, seed=2)
     total = sum(stage_ms.values())
     for name, ms in stage_ms.items():
@@ -978,7 +1219,7 @@ def render_profile(torch, g, card):
 def phase4_times(torch, rft, dev, g, gp, card):
     """Times at the main paths' shapes; returns {K: (ms, plain_ms,
     library_ms or None)}."""
-    from randomfield_tpu_torch.ops import fft, sampler
+    from randomfield_tpu_torch.ops import fft, genfft, sampler
     from randomfield_tpu_torch.validate import stats
 
     nx, ny, nz = HEADLINE
@@ -991,6 +1232,16 @@ def phase4_times(torch, rft, dev, g, gp, card):
             f"ms, {n / ms / 1e6:.4f} Gcells/s [{card}]")
     render_profile(torch, g, card)
     render_profile(torch, gp, card)
+    variant_ms = {"v5": cuda_ms(torch, lambda: gp.generate_delta_field(seed=2))}
+    for variant in ("v4", "v6"):
+        with staged_variant(variant):
+            variant_ms[variant] = cuda_ms(
+                torch, lambda: gp.generate_delta_field(seed=2))
+            render_profile(torch, gp, card)
+    log(f"phase 4 render sampler='pallas' {HEADLINE} by variant: "
+        + ", ".join(f"{v} {ms:.3f} ms" for v, ms in variant_ms.items())
+        + f" [{card}]")
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(4)
     src_re = torch.randn((nx, ny, nzh), generator=gen, device=dev)
@@ -1007,11 +1258,27 @@ def phase4_times(torch, rft, dev, g, gp, card):
     t, w = g.state.table, g.state.lightcone_weights
     edges, _ = stats.bin_setup(HEADLINE, HEADLINE_SPACING, NBINS)
     ifft = torch.fft.ifft
+    planes = genfft.plane_spectra(2, t, HEADLINE, HEADLINE_SPACING)
+    slow = dict(plain_reps=SLOW_PLAIN_REPS)
+
+    def rotate_library(n, cols):
+        """cuFFT down the rows, then the copy of the transpose: two calls."""
+        out = ifft(spec.view(1, n, cols), dim=1, norm="forward")
+        return out.transpose(1, 2).contiguous()
+
+    # torch.fft.ifft may return its result laid out with the transformed
+    # axis minor already; the second call then moves nothing, and the one
+    # ifft call computes K9's function
+    one_call = ifft(spec.view(1, nx, ny * nzh), dim=1,
+                    norm="forward").transpose(1, 2).is_contiguous()
+    two_calls = ("torch.fft.ifft + transpose().contiguous(), two calls"
+                 + (" (the transposed view is contiguous already: the second "
+                    "moves nothing)," if one_call else ","))
     runs = {
         "K1": (lambda: sampler.sample_modes(2, t, HEADLINE, HEADLINE_SPACING),
                lambda: sampler.seeded_modes_plain(2, t, HEADLINE,
                                                   HEADLINE_SPACING),
-               None),
+               None, slow),
         "K2": (lambda: sampler.scale_sigma(re, im, t, HEADLINE, HEADLINE_SPACING,
                                            gain=RENDER_GAIN),
                lambda: sampler.scale_sigma_plain(re, im, t, HEADLINE,
@@ -1032,25 +1299,91 @@ def phase4_times(torch, rft, dev, g, gp, card):
                lambda: sampler.seeded_power_bins_plain(2, t, HEADLINE,
                                                        HEADLINE_SPACING, 0.0,
                                                        edges),
-               None),
+               None, slow),
+        "K9 x pass": (lambda: fft.ifft_rotate(re, im, 1, nx, ny * nzh),
+                      lambda: fft.ifft_rotate_plain(re, im, 1, nx, ny * nzh),
+                      lambda: rotate_library(nx, ny * nzh),
+                      dict(lib_label=two_calls)),
+        "K9 y pass": (lambda: fft.ifft_rotate(re, im, 1, ny, nzh * nx),
+                      lambda: fft.ifft_rotate_plain(re, im, 1, ny, nzh * nx),
+                      lambda: rotate_library(ny, nzh * nx),
+                      dict(lib_label=two_calls)),
+        "K10": (lambda: genfft.sample_fftx(2, t, HEADLINE, HEADLINE_SPACING,
+                                           planes=planes),
+                lambda: genfft.seeded_fftx_plain(2, t, HEADLINE,
+                                                 HEADLINE_SPACING,
+                                                 planes=planes),
+                None, slow),
     }
-    times = {what: time_kernel(torch, what, *run, fresh, HEADLINE, card)
-             for what, run in runs.items()}
+    times = {}
+    for what, (kernel, plain, library, *opts) in runs.items():
+        times[what] = time_kernel(torch, what, kernel, plain, library, fresh,
+                                  HEADLINE, card, **(opts[0] if opts else {}))
     x, y = times.pop("K3 x pass"), times.pop("K3 y pass")
     times["K3"] = (x[0] + y[0], x[1] + y[1], x[2] + y[2])
+    # K9: a library time only where the one ifft call computed it all
+    x, y = times.pop("K9 x pass"), times.pop("K9 y pass")
+    times["K9"] = (x[0] + y[0], x[1] + y[1], x[2] + y[2] if one_call else None)
+    del src_re, src_im, re, im, spec, planes
+    torch.cuda.empty_cache()
+    batch_times(torch, rft, dev, card)
     return times
 
 
-def time_kernel(torch, what, kernel, plain, library, setup, shape, card):
+def batch_times(torch, rft, dev, card):
+    """The in-program seed batch beside the loop of single renders and
+    torch.stack: BATCH_PAIRS pairs of one call each, the side that runs
+    first alternating (a 512^3 render is short enough for the host's
+    scheduling to show, so two medians of five are not enough)."""
+    gb = rft.Generator(*BATCH_SHAPE, grid_spacing=BATCH_SPACING, device=dev,
+                       sampler="pallas")
+    seeds = list(range(BATCH_SEEDS))
+    sides = {
+        "loop": lambda: torch.stack([gb.generate_delta_field(s_)
+                                     for s_ in seeds]),
+        "batch": lambda: gb.generate_delta_fields(seeds),
+    }
+    def once(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    for fn in sides.values():  # warm-up
+        once(fn)
+    ms = {name: [] for name in sides}
+    for pair in range(BATCH_PAIRS):
+        for name in (("loop", "batch") if pair % 2 else ("batch", "loop")):
+            ms[name].append(once(sides[name]))
+    wins = sum(b < l for b, l in zip(ms["batch"], ms["loop"]))
+    med = {name: statistics.median(t) for name, t in ms.items()}
+    spread = {name: (min(t), max(t)) for name, t in ms.items()}
+    log(f"phase 4 seed batch sampler='pallas' {BATCH_SHAPE}, {BATCH_SEEDS} "
+        f"seeds, {BATCH_PAIRS} alternating pairs: render_v3_batch "
+        f"{med['batch'] / BATCH_SEEDS:.3f} ms per seed (median "
+        f"{med['batch']:.3f} ms per batch, {spread['batch'][0]:.3f}-"
+        f"{spread['batch'][1]:.3f}), loop + torch.stack "
+        f"{med['loop'] / BATCH_SEEDS:.3f} ms per seed (median "
+        f"{med['loop']:.3f}, {spread['loop'][0]:.3f}-{spread['loop'][1]:.3f}), "
+        f"batch / loop {med['batch'] / med['loop']:.4f}, the batch faster in "
+        f"{wins} of {BATCH_PAIRS} pairs [{card}]")
+    torch.cuda.empty_cache()
+
+
+def time_kernel(torch, what, kernel, plain, library, setup, shape, card,
+                plain_reps=TIMING_REPS, lib_label="cuFFT call"):
     """(kernel ms, plain ms, library ms or None): in turns plain, kernel,
     kernel, plain, the mean of each pair; then the library call."""
-    p1 = cuda_ms(torch, plain, setup=setup)
+    p1 = cuda_ms(torch, plain, plain_reps, setup=setup)
     k1 = cuda_ms(torch, kernel, setup=setup)
     k2 = cuda_ms(torch, kernel, setup=setup)
-    p2 = cuda_ms(torch, plain, setup=setup)
+    p2 = cuda_ms(torch, plain, plain_reps, setup=setup)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     lib_ms = None if library is None else cuda_ms(torch, library)
-    lib = "" if lib_ms is None else f", cuFFT call {lib_ms:.3f} ms"
+    lib = "" if lib_ms is None else f", {lib_label} {lib_ms:.3f} ms"
     log(f"phase 4 {what} at {shape}: kernel {k_ms:.3f} ms "
         f"({k1:.3f}, {k2:.3f}), plain {p_ms:.3f} ms ({p1:.3f}, {p2:.3f})"
         f"{lib} [{card}]")
@@ -1160,6 +1493,14 @@ def kernel_bounds(g):
                fft_ops(m, nx * ny) + 16.0 * modes),
         "K7": (16 * shard + knots, OPS_PER_MODE["K2"] * shard),
         "K8": (8 * shard + knots, OPS_PER_MODE["K1"] * shard),
+        # both passes of a v4 render: each lattice read and written once
+        "K9": (2 * 16 * modes + 4 * (nx + ny),
+               fft_ops(nx, ny * nzh) + fft_ops(ny, nzh * nx)),
+        # the lattices written, the two planes, the knots and the twiddles
+        # read; the draw of each bulk mode and the transform of every line
+        "K10": (8 * modes + 16 * nx * ny + knots + 4 * nx,
+                OPS_PER_MODE["K10"] * nx * ny * (nzh - 2)
+                + fft_ops(nx, ny * nzh)),
     }
     out = {}
     for k, (nbytes, ops) in work.items():
@@ -1201,6 +1542,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # the default phases run with the switch unset; the variants' phases set
+    # it around each render
+    os.environ.pop(PIPELINE_ENV, None)
     try:
         card = card_line()
         log(card)
@@ -1224,8 +1568,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase1_sampler(torch, gp, errs)
         phase1_mesh_kernels(torch, g, gp, errs)
+        phase1_staged_kernels(torch, gp, errs)
         phase2_slice(torch, rft, dev)
+        phase2_variants(torch, rft, dev)
         phase2_gate(torch, dev)
+        phase2_gate(torch, dev, stream="genfft")
         phase2_consistency(torch, rft, dev)
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
@@ -1235,6 +1582,8 @@ def main() -> int:
         main_paths.append(phase3_four_ranks(torch, dev, card))
         mesh = nccl_one_rank_mesh(dev)
         main_paths.append(phase3_one_rank(torch, rft, dev, mesh))
+        torch.cuda.empty_cache()
+        main_paths.append(phase3_variants(torch, rft, gp, card))
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]

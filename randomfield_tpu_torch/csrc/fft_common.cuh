@@ -1,6 +1,8 @@
 // Shared-memory radix-2 complex FFT: the device routine that the axis FFT
-// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4) and the r2c head
-// (r2c_head.cu, K6) share.  Its direction is its twiddles' sign: a caller
+// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4), the r2c head
+// (r2c_head.cu, K6), the rotating axis FFT (fft_rotate.cu, K9) and the fused
+// sample + x-FFT (sample_fftx.cu, K10) share.  Its direction is its
+// twiddles' sign: a caller
 // passes exp(+2 pi i k / n) for the inverse and their conjugates for the
 // forward transform, so both directions cost the same single pass.
 //

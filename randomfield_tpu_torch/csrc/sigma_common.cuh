@@ -1,6 +1,7 @@
 // sigma(|k|) by linear interpolation in log10 k over the uniform knot table:
-// the device code that K1 (sample_modes.cu), K2 (scale_sigma.cu) and K5
-// (sample_power_bins.cu) share, so the three interpolate identically.
+// the device code that K1 (sample_modes.cu), K2 (scale_sigma.cu), K5
+// (sample_power_bins.cu) and K10 (sample_fftx.cu) share, so all of them
+// interpolate identically.
 //
 // Counterpart of randomfield_tpu/ops/pallas_sampler.py:_interp_sigma_tile.
 // The TPU keeps the knots as overlapping 128-wide segment rows for Mosaic's

@@ -13,7 +13,10 @@ on the scene's device, one of two samplers:
   (:func:`.ops.sampler.scale_sigma`);
 * ``sampler='pallas'``: K1 draws and scales every mode in one pass from
   its own counter-based stream (:func:`.ops.sampler.sample_modes`,
-  :mod:`.ops.modestream`); then the Hermitian fix of the two planes.
+  :mod:`.ops.modestream`); then the Hermitian fix of the two planes.  On
+  one device this is the staged render (:func:`.staged.render_v3`), whose
+  ``RF_STAGED_PIPELINE=v4`` and ``=v6`` variants run the transforms below
+  through K9, or draw through K10 (a realization family of its own).
 
 and then, for both:
 
@@ -44,13 +47,13 @@ import numpy as np
 import torch
 
 from randomfield_tpu_torch.engine import scene as _scene
+from randomfield_tpu_torch.engine import staged as _staged
 from randomfield_tpu_torch.models import cosmology as _cosmo
 from randomfield_tpu_torch.models.powerspec import resolve_power
 from randomfield_tpu_torch.ops import fft as _fft
 from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
 from randomfield_tpu_torch.ops import threefry as _threefry
-from randomfield_tpu_torch.ops import transform as _transform
 from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.parallel import mesh as _mesh
 from randomfield_tpu_torch.parallel import render as _render
@@ -58,12 +61,8 @@ from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["Generator"]
 
-_INV_SQRT2 = float(np.float32(0.7071067811865476))
-
 _NOT_PORTED = {
     "sampler='nested'": "the nested stream (ROADMAP.md, Queue 1 item 4)",
-    "pipeline='staged'": ("the staged (x, kz, y) pipeline, not needed on an "
-                          "80 GB card (ROADMAP.md, Queue 1 item 7)"),
     "noise I/O on a mesh": ("generate_noise and generate_from_noise run on "
                             "one device (ROADMAP.md, Queue 1 item 11)"),
 }
@@ -96,9 +95,12 @@ class Generator:
         (:func:`randomfield_tpu_torch.parallel.mesh.make_mesh`): nx and ny
         must divide by its size; renders return the rank's (nx/P, ny, nz)
         x slab.  A pencil mesh raises NotImplementedError.
-    pipeline : accepted for API parity; ``pipeline='staged'`` raises
-        NotImplementedError except with ``sampler='pallas'``, which ignores
-        the pipeline as the JAX package does.
+    pipeline : 'auto', 'fused' or 'staged'.  ``sampler='pallas'`` ignores it,
+        as the JAX package does (its single-device render is always the
+        staged one).  With ``sampler='threefry'``, 'staged' renders through
+        :func:`.staged.render_v3_threefry`, the same field as 'auto' (one
+        canonical stream); with a mesh 'staged' raises ValueError (the
+        sharded render is a pipeline of its own).
     device : where renders run: the mesh's device with a mesh, else "cuda"
         by default.  On CUDA every axis the kernels transform must be a
         power of two: nx, ny and nz/2 in [16, 2048]; other shapes raise
@@ -112,10 +114,13 @@ class Generator:
             raise ValueError(f"unknown sampler {sampler!r}")
         if sampler == "nested":
             raise _not_ported("sampler='nested'")
-        if pipeline == "staged" and sampler != "pallas":
-            raise _not_ported("pipeline='staged'")
         if pipeline not in ("auto", "fused", "staged"):
             raise ValueError(f"unknown pipeline {pipeline!r}")
+        if pipeline == "staged" and mesh is not None:
+            raise ValueError(
+                "pipeline='staged' is incompatible with mesh mode (the "
+                "sharded render is its own pipeline); use pipeline='auto' "
+                "or 'fused'")
         shape = (int(nx), int(ny), int(nz))
         if mesh is not None:
             mesh = _mesh.require_slab(mesh)
@@ -126,6 +131,7 @@ class Generator:
             _mesh.check_divisible(shape, mesh.size)
         self.mesh = mesh
         self.sampler = sampler
+        self.pipeline = pipeline
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda":
             _check_kernel_shape(shape)
@@ -211,11 +217,8 @@ class Generator:
 
     def _scaled_draws(self, re, im, smoothing_length):
         """Unit draws -> spectrum, in place: symmetrize, then K2."""
-        _transform.symmetrize_with_shape_reim(re, im, self.shape[2])
-        _sampler.scale_sigma(re, im, self.state.table, self.shape,
-                             self.grid_spacing, smoothing_length,
-                             gain=_INV_SQRT2)
-        return re, im
+        return _staged.scaled_draws(re, im, self.state.table, self.shape,
+                                    self.grid_spacing, smoothing_length)
 
     def _sampled_spectrum(self, seed, smoothing_length):
         """The seed's packed 'xyz' spectrum as (re, im) float32 lattices
@@ -239,27 +242,46 @@ class Generator:
         if self.mesh is not None:
             return _dfft.irfftn_slab_reim(re, im, self.shape, self.mesh,
                                           self._weights(apply_lightcone))
-        nx, ny, nz = self.shape
-        nzh = nz // 2 + 1
-        _fft.ifft_axis(re, im, 1, nx, ny * nzh)
-        _fft.ifft_axis(re, im, nx, ny, nzh)
-        return _fft.c2r_tail(re, im, nz, self._weights(apply_lightcone))
+        return _staged.finish_staged_reim(
+            re, im, self._weights(apply_lightcone), self.shape)
 
     def generate_delta_field(self, seed=0, smoothing_length=0.0,
                              apply_lightcone=True):
         """Render one realization: an (nx, ny, nz) float32 tensor on the
         scene's device (on a mesh, this rank's (nx/P, ny, nz) x slab).  A
         fixed seed gives a bit-identical field; with ``sampler='threefry'``
-        the stream is the JAX package's at the same seed."""
+        the stream is the JAX package's at the same seed.  A single-device
+        ``sampler='pallas'`` render is the staged one, in the variant
+        ``RF_STAGED_PIPELINE`` selects (:mod:`.staged`)."""
+        if self.mesh is None and self.sampler == "pallas":
+            return _staged.render_v3(
+                seed, self.state.table, self.shape, self.grid_spacing,
+                self._weights(apply_lightcone), smoothing_length)
+        if self.mesh is None and self.pipeline == "staged":
+            return _staged.render_v3_threefry(
+                _threefry.key_from_seed(seed), self.state.table, self.shape,
+                self.grid_spacing, self._weights(apply_lightcone),
+                smoothing_length)
         re, im = self._sampled_spectrum(seed, smoothing_length)
         return self._spectrum_to_field(re, im, apply_lightcone)
 
     def generate_delta_fields(self, seeds, smoothing_length=0.0,
                               apply_lightcone=True):
-        """A batch of seeds (leading axis = seed), one render per seed."""
+        """A batch of seeds (leading axis = seed), each row the render of
+        its seed.  A single-device ``sampler='pallas'`` scene renders the
+        batch into one stack with no copy and no host round trip per seed
+        (:func:`.staged.render_v3_batch`) when the stack fits
+        (:func:`.staged.can_batch_staged`); else one render per seed."""
+        seeds = np.asarray(seeds).ravel()
+        if (self.mesh is None and self.sampler == "pallas"
+                and _staged.can_batch_staged(self.shape, len(seeds),
+                                             self.device)):
+            return _staged.render_v3_batch(
+                seeds, self.state.table, self.shape, self.grid_spacing,
+                self._weights(apply_lightcone), smoothing_length)
         return torch.stack([
             self.generate_delta_field(s, smoothing_length, apply_lightcone)
-            for s in np.asarray(seeds).ravel()
+            for s in seeds
         ])
 
     def _require_threefry(self, what):
@@ -367,10 +389,7 @@ class Generator:
 
 def _check_kernel_shape(shape):
     """Raise ValueError unless the CUDA kernels take this grid."""
-    nx, ny, nz = shape
-    ok = (_fft.kernel_length_ok(nx) and _fft.kernel_length_ok(ny)
-          and nz % 2 == 0 and _fft.kernel_length_ok(nz // 2))
-    if not ok:
+    if not _staged.can_v5(shape):
         raise ValueError(
             f"grid {shape} is not supported on CUDA: nx, ny and nz/2 must be "
             f"powers of two in [{_fft.MIN_LENGTH}, {_fft.MAX_LENGTH}] (a "

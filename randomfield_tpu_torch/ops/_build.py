@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
 At first use, ``nvcc`` compiles every ``randomfield_tpu_torch/csrc/*.cu``
-for ``sm_90a`` into one ``.so`` with a plain C interface, which ``ctypes``
+for ``sm_90a`` (one ``nvcc`` per source, all started together) and links
+the objects into one ``.so`` with a plain C interface, which ``ctypes``
 loads.  No PyTorch header is compiled, so the build takes seconds.  The
 library's file name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the earlier build.  Processes that
@@ -34,7 +35,7 @@ __all__ = ["library", "check", "current_stream", "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -45,10 +46,13 @@ _SIGNATURES = {
     "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_fft_axis": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
+    "rf_fft_rotate": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P],
     "rf_r2c_head": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "rf_c2r_tail": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _U32, _U32,
+                       _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
                              _I, _I, _U32, _U32, _F, _F, _F, _F, _F, _F,
                              _F, _F, _I, _F, _F, _P],
@@ -100,17 +104,36 @@ def _build() -> pathlib.Path:
 
 
 def _compile(out: pathlib.Path) -> None:
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    work.mkdir()
+    try:
+        # one nvcc per source, all at once; then one link
+        jobs = []
+        for src in _sources():
+            if src.suffix == ".cu":
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                       str(work / f"{src.stem}.o"), str(src)]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        results = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in jobs]
+        lib = work / out.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                *(cmd[-2] for cmd, _ in jobs)]
+        if not any(rc for _, _, rc in results):
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            results.append((link, proc.stdout, proc.returncode))
+        failed = [(cmd, log, rc) for cmd, log, rc in results if rc]
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}"
+                for cmd, log, rc in failed))
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _declare(lib):

@@ -1,17 +1,21 @@
-"""The hand FFT kernels: axis FFT (K3), c2r tail (K4) and r2c head (K6).
+"""The hand FFT kernels: axis FFT (K3), c2r tail (K4), r2c head (K6) and
+the rotating axis FFT (K9).
 
 Counterpart of ``randomfield_tpu/ops/pallas_fft.py``.  A render's inverse
 3-D c2r runs as two passes of :func:`ifft_axis` (x, then y) over the packed
 (nx, ny, nzh) re/im spectrum, in place, and one :func:`c2r_tail` along kz
 that also applies the per-plane lightcone weights and writes the field.
 The distributed forward transform (:mod:`..parallel.dfft`) is the reverse:
-:func:`r2c_head` along z, then :func:`fft_axis` along y and x.
+:func:`r2c_head` along z, then :func:`fft_axis` along y and x.  The staged
+v4 render (:mod:`..engine.staged`) runs its x and y passes as two
+:func:`ifft_rotate` calls instead, each of which writes its output with the
+transformed axis minor.
 
 On CUDA tensors the wrappers launch the hand kernels built from
-``csrc/fft_axis.cu`` (both directions), ``csrc/c2r_tail.cu`` and
-``csrc/r2c_head.cu``; on CPU tensors they run the plain PyTorch versions
-beside them (``torch.fft``).  Launch counts are ``K3_LAUNCHES``,
-``K4_LAUNCHES`` and ``K6_LAUNCHES``.
+``csrc/fft_axis.cu`` (both directions), ``csrc/c2r_tail.cu``,
+``csrc/r2c_head.cu`` and ``csrc/fft_rotate.cu``; on CPU tensors they run the
+plain PyTorch versions beside them (``torch.fft``).  Launch counts are
+``K3_LAUNCHES``, ``K4_LAUNCHES``, ``K6_LAUNCHES`` and ``K9_LAUNCHES``.
 
 The kernels take power-of-two transform lengths from 16 to 2048
 (:func:`kernel_length_ok`); a mixed-radix version is a later step.
@@ -35,21 +39,25 @@ __all__ = [
     "c2r_tail_plain",
     "r2c_head",
     "r2c_head_plain",
+    "ifft_rotate",
+    "ifft_rotate_plain",
     "kernel_length_ok",
     "K3_LAUNCHES",
     "K4_LAUNCHES",
     "K6_LAUNCHES",
+    "K9_LAUNCHES",
 ]
 
-# kernel launches by ifft_axis and fft_axis / c2r_tail / r2c_head (the CPU
-# paths do not count)
+# kernel launches by ifft_axis and fft_axis / c2r_tail / r2c_head /
+# ifft_rotate (the CPU paths do not count)
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
 K6_LAUNCHES = 0
+K9_LAUNCHES = 0
 
 MIN_LENGTH, MAX_LENGTH = 16, 2048
-_MAX_OUTER = 65535  # the kernel's grid.y
-# complex elements one K3 block transforms (sets the panel width) and one
+_MAX_OUTER = 65535  # the kernels' grid.y
+# complex elements one K3 or K9 block transforms (sets the panel width) and one
 # K4 or K6 block holds: 32-64 KB of shared memory, several blocks per SM
 _K3_PANEL_ELEMS = 4096
 _K4_BLOCK_ELEMS = 2048
@@ -165,13 +173,15 @@ def c2r_tail_plain(re, im, nz, weights):
     return torch.fft.irfft(c, n=nz, dim=-1, norm="forward") * weights
 
 
-def c2r_tail(re, im, nz, weights):
+def c2r_tail(re, im, nz, weights, out=None):
     """K4: c2r along the minor axis plus per-plane weights, one pass.
 
     ``re``/``im``: float32 (..., nz//2+1) packed spectra, natural order on
-    every axis; ``weights``: float32 (nz,).  Returns a new float32
-    (..., nz) tensor, the unnormalized inverse real transform along the
-    last axis times ``weights``.  On CUDA, nz must be even with
+    every axis; ``weights``: float32 (nz,).  Returns a float32 (..., nz)
+    tensor, the unnormalized inverse real transform along the last axis
+    times ``weights``: a new one, or ``out`` (contiguous, of that shape, on
+    the same device), which the kernel then writes directly (a row of a
+    seed batch's stack).  On CUDA, nz must be even with
     ``kernel_length_ok(nz // 2)``; the half-pack it uses is exact for
     Hermitian input (real kz = 0 and Nyquist terms), as a symmetrized
     spectrum is after its x and y passes.
@@ -183,8 +193,14 @@ def c2r_tail(re, im, nz, weights):
                          f"nz//2 + 1 = {nz // 2 + 1}")
     if weights.shape != (nz,) or weights.device != re.device:
         raise ValueError(f"c2r_tail: weights must be ({nz},) on {re.device}")
+    if out is not None and not (
+            out.shape == (*re.shape[:-1], nz) and out.dtype == torch.float32
+            and out.device == re.device and out.is_contiguous()):
+        raise ValueError(f"c2r_tail: out must be a contiguous float32 "
+                         f"{(*re.shape[:-1], nz)} tensor on {re.device}")
     if re.device.type == "cpu":
-        return c2r_tail_plain(re, im, nz, weights)
+        field = c2r_tail_plain(re, im, nz, weights)
+        return field if out is None else out.copy_(field)
     if re.device.type != "cuda":
         raise ValueError(f"c2r_tail runs on cpu or cuda, not {re.device}")
     m = nz // 2
@@ -197,15 +213,16 @@ def c2r_tail(re, im, nz, weights):
     if not (re.is_contiguous() and im.is_contiguous()
             and weights.is_contiguous()):
         raise ValueError("c2r_tail's CUDA kernel needs contiguous tensors")
-    out = _launch_c2r_tail(re, im, nz, weights)
+    out = _launch_c2r_tail(re, im, nz, weights, out)
     K4_LAUNCHES += 1
     return out
 
 
-def _launch_c2r_tail(re, im, nz, weights):
+def _launch_c2r_tail(re, im, nz, weights, out=None):
     m = nz // 2
-    out = torch.empty((*re.shape[:-1], nz), dtype=torch.float32,
-                      device=re.device)
+    if out is None:
+        out = torch.empty((*re.shape[:-1], nz), dtype=torch.float32,
+                          device=re.device)
     status = _build.library().rf_c2r_tail(
         re.data_ptr(), im.data_ptr(), weights.data_ptr(),
         _twiddles(nz, m, str(re.device)).data_ptr(), out.data_ptr(),
@@ -288,3 +305,65 @@ def r2c_head(x):
     _build.check(status, "r2c_head")
     K6_LAUNCHES += 1
     return re, im
+
+
+# ---- K9 --------------------------------------------------------------------
+
+def _view_groups(re, groups, n, cols, name):
+    if re.numel() != groups * n * cols:
+        raise ValueError(f"{name}: {tuple(re.shape)} is not a "
+                         f"({groups} * {n}, {cols}) lattice")
+    return re.view(groups, n, cols)
+
+
+def ifft_rotate_plain(re, im, groups, n, cols):
+    """K9 in plain PyTorch: ``torch.fft.ifft(norm='forward')`` down the n
+    rows of each group of the (groups, n, cols) view, then the rotation:
+    new (re, im) tensors (groups * cols, n)."""
+    c = torch.complex(_view_groups(re, groups, n, cols, "ifft_rotate"),
+                      _view_groups(im, groups, n, cols, "ifft_rotate"))
+    out = torch.fft.ifft(c, dim=1, norm="forward").transpose(1, 2)
+    return (out.real.reshape(groups * cols, n).contiguous(),
+            out.imag.reshape(groups * cols, n).contiguous())
+
+
+def ifft_rotate(re, im, groups, n, cols):
+    """K9: unnormalized inverse FFT down the rows of each group, output
+    rotated.
+
+    ``re``/``im``: contiguous float32 lattices viewed as (groups * n, cols);
+    each run of n rows is one group, a batch of length-n signals down its
+    columns.  Returns new float32 (re, im) tensors (groups * cols, n): row
+    ``g * cols + col`` holds X[j] = sum_k x[g, k, col] exp(+2 pi i jk/n) in
+    natural order.  A transform of a non-minor axis and the transpose that
+    brings it minor, as one pass over device memory; the inputs are left
+    as they were.  The staged v4 render's x pass is (1, nx, ny * nzh) and
+    its y pass (1, ny, nzh * nx).  CUDA tensors need
+    ``kernel_length_ok(n)`` and groups <= 65535; CPU tensors run
+    :func:`ifft_rotate_plain`.
+    """
+    global K9_LAUNCHES
+    _check_pair(re, im, "ifft_rotate")
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError("ifft_rotate reads contiguous tensors")
+    _view_groups(re, groups, n, cols, "ifft_rotate")
+    if re.device.type == "cpu":
+        return ifft_rotate_plain(re, im, groups, n, cols)
+    if re.device.type != "cuda":
+        raise ValueError(f"ifft_rotate runs on cpu or cuda, not {re.device}")
+    if not kernel_length_ok(n):
+        raise ValueError(f"ifft_rotate: n={n} unsupported on CUDA (need a "
+                         f"power of two in [{MIN_LENGTH}, {MAX_LENGTH}])")
+    if groups > _MAX_OUTER:
+        raise ValueError(f"ifft_rotate: groups={groups} > {_MAX_OUTER}")
+    out_re = torch.empty((groups * cols, n), dtype=torch.float32,
+                         device=re.device)
+    out_im = torch.empty_like(out_re)
+    status = _build.library().rf_fft_rotate(
+        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        _twiddles(n, n // 2, str(re.device)).data_ptr(), int(groups), int(n),
+        int(cols), max(8, _K3_PANEL_ELEMS // n), _build.current_stream(re),
+    )
+    _build.check(status, "ifft_rotate")
+    K9_LAUNCHES += 1
+    return out_re, out_im

@@ -2,8 +2,9 @@
 
 Counterpart of ``randomfield_tpu/ops/pallas_sampler.py``.  Scene setup
 resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
-(:func:`make_sigma_table`), which every kernel here interpolates linearly
-in log10 k (``csrc/sigma_common.cuh``):
+(:func:`make_sigma_table`), which every kernel here (and K10,
+:mod:`.genfft`) interpolates linearly in log10 k
+(``csrc/sigma_common.cuh``):
 
 * K2 :func:`scale_sigma` (``csrc/scale_sigma.cu``): the default sampler's
   Threefry unit draws, in place, times sigma(|k|) * exp(-k^2 s^2 / 2) *

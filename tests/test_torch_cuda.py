@@ -17,7 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import randomfield_tpu_torch as rft  # noqa: E402
-from randomfield_tpu_torch.ops import fft, grid, sampler  # noqa: E402
+from randomfield_tpu_torch.engine import staged  # noqa: E402
+from randomfield_tpu_torch.ops import fft, genfft, grid, sampler  # noqa: E402
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -305,3 +306,109 @@ def test_one_rank_mesh_render_equals_single_device(cuda, name):
     np.testing.assert_array_equal(n, nw)
     live = nw > 0
     np.testing.assert_allclose(p[live], pw[live], rtol=1e-5)
+
+
+# ---- the staged variants: K9, K10, the v4 and v6 renders, the seed batch ----------
+
+# K9 vs plain: K3's transform, stored rotated (K3's bar); K10 vs plain: K1's
+# draws through an nx-point transform of two libraries (the K4 bar)
+K9_TOL, K10_TOL = 2e-6, 5e-6
+
+
+@pytest.mark.parametrize("groups,n,cols", [(1, 16, 100), (3, 32, 5), (2, 128, 513),
+                                           (1, 1024, 96), (2, 2048, 7), (5, 64, 1),
+                                           (1, 64, 33 * 32)])
+def test_ifft_rotate_matches_plain(cuda, groups, n, cols):
+    re0 = _randn((groups * n, cols), cuda, 12)
+    im0 = _randn((groups * n, cols), cuda, 13)
+    keep = re0.clone(), im0.clone()
+    before = fft.K9_LAUNCHES
+    a, b = fft.ifft_rotate(re0, im0, groups, n, cols)
+    assert fft.K9_LAUNCHES == before + 1
+    assert tuple(a.shape) == tuple(b.shape) == (groups * cols, n)
+    assert torch.equal(re0, keep[0]) and torch.equal(im0, keep[1])
+    c, d = fft.ifft_rotate_plain(re0, im0, groups, n, cols)
+    scale = max(float(c.abs().max()), float(d.abs().max()))
+    assert max(float((a - c).abs().max()), float((b - d).abs().max())) <= K9_TOL * scale
+    # the same numbers as K3 on the same view, rotated
+    e, f = fft.ifft_axis(re0.clone(), im0.clone(), groups, n, cols)
+    assert torch.equal(a.view(groups, cols, n), e.view(groups, n, cols).transpose(1, 2))
+    assert torch.equal(b.view(groups, cols, n), f.view(groups, n, cols).transpose(1, 2))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 12, 30), (256, 8, 6),
+                                   (2048, 3, 4)])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_sample_fftx_matches_plain(cuda, shape, smoothing):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    before = genfft.K10_LAUNCHES
+    a, b = genfft.sample_fftx(5, table, shape, SPACING, smoothing)
+    assert genfft.K10_LAUNCHES == before + 1
+    nx, ny, nz = shape
+    assert tuple(a.shape) == ((nz // 2 + 1) * ny, nx)
+    c, d = genfft.seeded_fftx_plain(5, table, shape, SPACING, smoothing)
+    scale = max(float(c.abs().max()), float(d.abs().max()))
+    assert max(float((a - c).abs().max()), float((b - d).abs().max())) <= K10_TOL * scale
+    again = genfft.sample_fftx(5, table, shape, SPACING, smoothing)
+    assert torch.equal(a, again[0]) and torch.equal(b, again[1])
+
+
+def test_k9_k10_raise_on_grids_the_kernels_do_not_take(cuda):
+    z = torch.zeros((48, 8), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        fft.ifft_rotate(z, z.clone(), 1, 48, 8)
+    table = sampler.make_sigma_table(rft.load_default_power(), (48, 16, 16),
+                                     SPACING, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        genfft.sample_fftx(1, table, (48, 16, 16), SPACING)
+    with pytest.raises(ValueError, match="even"):
+        genfft.sample_fftx(1, table, (16, 16, 15), SPACING)
+
+
+@pytest.mark.parametrize("variant,kernels", [
+    ("v4", {"K1": 1, "K9": 2, "K3": 0, "K4": 1, "K10": 0}),
+    ("v6", {"K1": 0, "K9": 0, "K3": 1, "K4": 1, "K10": 1}),
+])
+@pytest.mark.parametrize("shape,smoothing", [((32, 32, 64), 10.0),
+                                             ((64, 16, 32), 0.0)])
+def test_staged_variant_cuda_render_matches_cpu(cuda, monkeypatch, variant,
+                                                kernels, shape, smoothing):
+    def counts():
+        return {"K1": sampler.K1_LAUNCHES, "K3": fft.K3_LAUNCHES,
+                "K4": fft.K4_LAUNCHES, "K9": fft.K9_LAUNCHES,
+                "K10": genfft.K10_LAUNCHES}
+
+    seed = 11
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda,
+                      sampler="pallas")
+    default = g.generate_delta_field(seed, smoothing_length=smoothing)
+    monkeypatch.setenv(staged.PIPELINE_ENV, variant)
+    before = counts()
+    got = g.generate_delta_field(seed, smoothing_length=smoothing)
+    after = counts()
+    assert {k: after[k] - before[k] for k in kernels} == kernels
+    assert torch.equal(g.generate_delta_field(seed, smoothing_length=smoothing), got)
+    cpu = rft.Generator(*shape, grid_spacing=SPACING, device="cpu",
+                        sampler="pallas")
+    want = cpu.generate_delta_field(seed, smoothing_length=smoothing)
+    assert _rel(got.cpu(), want) <= RENDER_TOL
+    if variant == "v4":
+        assert _rel(got, default) <= 1e-6
+    else:
+        assert _rel(got, default) > 0.1
+    batch = g.generate_delta_fields([seed, seed + 1], smoothing_length=smoothing)
+    assert tuple(batch.shape) == (2, *shape) and torch.equal(batch[0], got)
+    assert torch.equal(batch[1], g.generate_delta_field(
+        seed + 1, smoothing_length=smoothing))
+
+
+def test_staged_threefry_cuda_render_equals_auto(cuda):
+    shape = (32, 32, 64)
+    a = rft.Generator(*shape, grid_spacing=SPACING, device=cuda,
+                      pipeline="staged").generate_delta_field(4)
+    b = rft.Generator(*shape, grid_spacing=SPACING,
+                      device=cuda).generate_delta_field(4)
+    assert torch.equal(a, b)
+    assert staged.can_batch_staged(shape, 4, cuda)
+    assert not staged.can_batch_staged((2048, 2048, 2048), 4, cuda)

@@ -196,7 +196,6 @@ def test_cuda_rejects_shapes_the_kernels_do_not_take(shape):
 @pytest.mark.parametrize("kw,what", [
     (dict(sampler="nested"), "sampler='nested'"),
     (dict(mesh=pmesh.make_pencil_mesh(spx=2, spy=2)), "mesh"),
-    (dict(pipeline="staged"), "pipeline='staged'"),
 ])
 def test_unported_options_raise(kw, what):
     with pytest.raises(NotImplementedError) as err:
