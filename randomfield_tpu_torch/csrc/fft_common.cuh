@@ -1,7 +1,8 @@
 // Shared-memory radix-2 complex FFT: the device routine that the axis FFT
-// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4), the r2c head
-// (r2c_head.cu, K6), the rotating axis FFT (fft_rotate.cu, K9) and the fused
-// sample + x-FFT (sample_fftx.cu, K10) share.  Its direction is its
+// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4) and the fused sample +
+// x-FFT (sample_fftx.cu, K10) share; the r2c head (K6) and the rotating axis
+// FFT (K9) run the register-radix routine of fft_radix.cuh, which takes
+// cmul and conj_if from here.  Its direction is its
 // twiddles' sign: a caller
 // passes exp(+2 pi i k / n) for the inverse and their conjugates for the
 // forward transform, so both directions cost the same single pass.

@@ -19,10 +19,19 @@ plain PyTorch versions beside them (``torch.fft``).  Launch counts are
 
 The kernels take power-of-two transform lengths from 16 to 2048
 (:func:`kernel_length_ok`); a mixed-radix version is a later step.
+
+K6 and K9 run on the register-radix Stockham core of ``csrc/fft_radix.cuh``:
+:func:`radix_plan` is the one place where a length is split into passes,
+:func:`pass_twiddles` builds the per-pass tables the launchers hand the
+kernels, and :func:`stockham_emulated` replays the kernel's passes on plain
+tensors from the same plan and tables (for the CPU tests of the algebra; no
+entry point calls it).  K3 and K4 still run the radix-2 routine of
+``csrc/fft_common.cuh``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -42,6 +51,13 @@ __all__ = [
     "ifft_rotate",
     "ifft_rotate_plain",
     "kernel_length_ok",
+    "radix_plan",
+    "pass_twiddles",
+    "rotate_panel",
+    "kernel_attributes",
+    "stockham_emulated",
+    "r2c_head_emulated",
+    "ifft_rotate_emulated",
     "K3_LAUNCHES",
     "K4_LAUNCHES",
     "K6_LAUNCHES",
@@ -57,8 +73,8 @@ K9_LAUNCHES = 0
 
 MIN_LENGTH, MAX_LENGTH = 16, 2048
 _MAX_OUTER = 65535  # the kernels' grid.y
-# complex elements one K3 or K9 block transforms (sets the panel width) and one
-# K4 or K6 block holds: 32-64 KB of shared memory, several blocks per SM
+# complex elements one K3 block transforms (sets the panel width) and one K4
+# block holds: 32-64 KB of shared memory, several blocks per SM
 _K3_PANEL_ELEMS = 4096
 _K4_BLOCK_ELEMS = 2048
 
@@ -74,6 +90,164 @@ def _twiddles(n: int, count: int, device: str) -> torch.Tensor:
     theta = 2.0 * np.pi * np.arange(count) / n
     tw = np.stack([np.cos(theta), np.sin(theta)], axis=-1).astype(np.float32)
     return torch.as_tensor(tw, device=device)
+
+
+# ---- the register-radix Stockham core (K6, K9) -------------------------------
+
+def radix_plan(n: int) -> tuple[int, ...]:
+    """The radices of the passes of an n-point transform, first pass first.
+
+    n = 2^k, 16..2048.  Two or three passes of radix 4, 8 or 16, so that a
+    thread's butterfly fits its registers: the first pass takes radix 16
+    whenever the rest still fills a pass (n >= 128), which makes every
+    later exchange write runs of at least 16 consecutive elements (no
+    shared-memory bank conflict); the remaining bits are split as evenly as
+    they go, the larger radix first.  16 = 4*4, 32 = 8*4, 64 = 8*8, 128 =
+    16*8, 256 = 16*16, 512 = 16*8*4, 1024 = 16*8*8, 2048 = 16*16*8.  A
+    thread holds E = plan[0] elements (every radix divides it) and n / E
+    threads share a line.
+    """
+    if not kernel_length_ok(n):
+        raise ValueError(f"radix_plan: n={n} is not a power of two in "
+                         f"[{MIN_LENGTH}, {MAX_LENGTH}]")
+    bits = n.bit_length() - 1
+    first = []
+    if bits >= 7:
+        first, bits = [4], bits - 4
+    passes = max(1 if first else 2, -(-bits // 4))
+    q, r = divmod(bits, passes)
+    return tuple(1 << b for b in first + [q + 1] * r + [q] * (passes - r))
+
+
+def _plan3(n: int) -> tuple[int, int, int]:
+    """radix_plan(n) as the three integers the C entries take (1 = no pass)."""
+    plan = radix_plan(n)
+    return (*plan, 1)[:3]
+
+
+def rotate_panel(n: int) -> int:
+    """The columns a K9 block owns: 256 threads' worth of lines and at least
+    8 (32-byte segments of the strided load); 16 at n = 1024, where one
+    1024-thread block an SM measured faster on an H100 than two of 8 columns
+    (3.4 against 3.9 ms a 1024^3 pass; at 512 points, where both fit twice,
+    8 and 16 columns measured alike).  The library holds this one instance
+    a length."""
+    if n == 1024:
+        return 16
+    return max(8, 256 * radix_plan(n)[0] // n)
+
+
+def kernel_attributes(kernel: str, n: int):
+    """(registers a thread, blocks an SM holds, threads a block, dynamic
+    shared-memory bytes) of the ``'r2c_head'`` or ``'ifft_rotate'`` instance
+    for an n-point plan, as ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` report them; builds
+    the library."""
+    out = [ctypes.c_int() for _ in range(4)]
+    refs = [ctypes.byref(v) for v in out]
+    lib = _build.library()
+    if kernel == "r2c_head":
+        status = lib.rf_r2c_head_attributes(int(n), *_plan3(n), *refs)
+    elif kernel == "ifft_rotate":
+        status = lib.rf_fft_rotate_attributes(
+            int(n), *_plan3(n), rotate_panel(n), *refs)
+    else:
+        raise ValueError(f"kernel_attributes: no kernel {kernel!r}")
+    _build.check(status, f"{kernel} attributes")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def pass_twiddles(n: int, sign: int, device: str) -> torch.Tensor:
+    """The twiddle tables of the passes after the first, back to back.
+
+    The pass of radix R that follows Ns = (product of the earlier radices)
+    points multiplies input r of the butterfly at j by exp(sign 2 pi i r
+    (j mod Ns) / (Ns R)); its table holds that at [(r - 1) Ns + (j mod
+    Ns)], r = 1..R-1, so the threads of a warp (consecutive j) read
+    consecutive entries for each r.  float32 (cos, sin) pairs built in
+    float64; the first pass (Ns = 1) has none.
+    """
+    plan = radix_plan(n)
+    tables, ns = [], plan[0]
+    for radix in plan[1:]:
+        r = np.arange(1, radix)[:, None]
+        k = np.arange(ns)[None, :]
+        theta = sign * 2.0 * np.pi * (r * k) / (ns * radix)
+        tables.append(np.stack([np.cos(theta), np.sin(theta)], axis=-1)
+                      .reshape(-1, 2))
+        ns *= radix
+    return torch.as_tensor(np.concatenate(tables).astype(np.float32),
+                           device=device)
+
+
+def _root16(k: int, sign: int) -> complex:
+    return complex(np.float32(np.cos(np.pi * k / 8)),
+                   sign * np.float32(np.sin(np.pi * k / 8)))
+
+
+def _dft_registers(a, sign):
+    """The kernel's R-point butterfly (R = 4, 8, 16) along axis -2 of a
+    complex64 tensor, step by step as ``rf::dft`` does it: A = R / 4
+    four-point transforms, the constant twiddles, four A-point transforms,
+    natural order out."""
+    radix = a.shape[-2]
+    A = radix // 4
+    w = 1j * sign
+
+    def dft4(v0, v1, v2, v3):
+        a0, a1, b0, b1 = v0 + v2, v0 - v2, v1 + v3, (v1 - v3) * w
+        return a0 + b0, a1 + b1, a0 - b0, a1 - b1
+
+    a = list(a.unbind(-2))
+    for n1 in range(A):
+        a[n1::A] = dft4(*a[n1::A])
+    if A == 1:
+        return torch.stack(a, -2)
+    for n1 in range(1, A):
+        for k2 in range(1, 4):
+            a[n1 + A * k2] = a[n1 + A * k2] * _root16(n1 * k2 * (16 // radix), sign)
+    out = [None] * radix
+    for k2 in range(4):
+        part = a[A * k2:A * k2 + A]
+        part = (part[0] + part[1], part[0] - part[1]) if A == 2 else dft4(*part)
+        for k1 in range(A):
+            out[4 * k1 + k2] = part[k1]
+    return torch.stack(out, -2)
+
+
+def stockham_emulated(x: torch.Tensor, sign: int) -> torch.Tensor:
+    """The kernel core's passes on a plain complex64 tensor (..., n).
+
+    The Stockham self-sorting transform of ``csrc/fft_radix.cuh`` from the
+    same :func:`radix_plan` and the same :func:`pass_twiddles` tables: the
+    pass of radix R after Ns points reads element j + r n/R as input r of
+    butterfly j < n/R, multiplies by the table, transforms R points and
+    writes output r to (j - j mod Ns) R + j mod Ns + r Ns.  Natural order
+    in and out, no bit reversal; X[j] = sum_k x[k] exp(sign 2 pi i jk/n).
+    Used by the tests of the algebra, by no entry point.
+    """
+    n = x.shape[-1]
+    plan = radix_plan(n)
+    table = pass_twiddles(n, int(sign), "cpu")
+    table = torch.complex(table[:, 0], table[:, 1]).to(x.device)
+    x = x.to(torch.complex64)
+    ns, offset = 1, 0
+    for radix in plan:
+        j = torch.arange(n // radix, device=x.device)
+        k = j % ns
+        a = x.reshape(*x.shape[:-1], radix, n // radix)  # [r, j] = x[j + r n/R]
+        if ns > 1:
+            tw = table[offset:offset + (radix - 1) * ns].view(radix - 1, ns)
+            a = torch.cat([a[..., :1, :], a[..., 1:, :] * tw[:, k]], dim=-2)
+            offset += (radix - 1) * ns
+        a = _dft_registers(a, sign)
+        dest = ((j - k) * radix + k)[None, :] + ns * torch.arange(
+            radix, device=x.device)[:, None]
+        out = torch.empty_like(x)
+        out[..., dest.reshape(-1)] = a.reshape(*x.shape[:-1], n)
+        x, ns = out, ns * radix
+    return x
 
 
 def _check_pair(re, im, name):
@@ -245,10 +419,20 @@ def r2c_head_plain(x):
     unnormalized forward real transform along the last axis
     (``torch.fft.rfft``).
     """
+    return _half_pack(x, lambda z: torch.fft.fft(z, dim=-1))
+
+
+def r2c_head_emulated(x):
+    """K6's algebra with the kernel core's passes (:func:`stockham_emulated`)
+    as the half-length transform; for the tests, like it."""
+    return _half_pack(x, lambda z: stockham_emulated(z, -1))
+
+
+def _half_pack(x, transform):
     nz = x.shape[-1]
     m = nz // 2
     pair = x.reshape(*x.shape[:-1], m, 2)
-    z = torch.fft.fft(torch.complex(pair[..., 0], pair[..., 1]), dim=-1)
+    z = transform(torch.complex(pair[..., 0], pair[..., 1]))
     zre, zim = z.real, z.imag
     # Z*[m-k]: index-reversed with wraparound (k = 0 -> Z[0])
     rev = torch.cat([torch.zeros(1, dtype=torch.int64),
@@ -298,9 +482,10 @@ def r2c_head(x):
                      device=x.device)
     im = torch.empty_like(re)
     status = _build.library().rf_r2c_head(
-        x.data_ptr(), _twiddles(nz, m, str(x.device)).data_ptr(),
-        re.data_ptr(), im.data_ptr(), x.numel() // nz, int(m),
-        max(1, _K4_BLOCK_ELEMS // m), _build.current_stream(x),
+        x.data_ptr(), pass_twiddles(m, -1, str(x.device)).data_ptr(),
+        _twiddles(nz, m, str(x.device)).data_ptr(), re.data_ptr(),
+        im.data_ptr(), x.numel() // nz, int(m), *_plan3(m),
+        _build.current_stream(x),
     )
     _build.check(status, "r2c_head")
     K6_LAUNCHES += 1
@@ -323,6 +508,16 @@ def ifft_rotate_plain(re, im, groups, n, cols):
     c = torch.complex(_view_groups(re, groups, n, cols, "ifft_rotate"),
                       _view_groups(im, groups, n, cols, "ifft_rotate"))
     out = torch.fft.ifft(c, dim=1, norm="forward").transpose(1, 2)
+    return (out.real.reshape(groups * cols, n).contiguous(),
+            out.imag.reshape(groups * cols, n).contiguous())
+
+
+def ifft_rotate_emulated(re, im, groups, n, cols):
+    """K9's function with the kernel core's passes
+    (:func:`stockham_emulated`) as the transform; for the tests, like it."""
+    c = torch.complex(_view_groups(re, groups, n, cols, "ifft_rotate"),
+                      _view_groups(im, groups, n, cols, "ifft_rotate"))
+    out = stockham_emulated(c.transpose(1, 2).contiguous(), +1)
     return (out.real.reshape(groups * cols, n).contiguous(),
             out.imag.reshape(groups * cols, n).contiguous())
 
@@ -361,8 +556,8 @@ def ifft_rotate(re, im, groups, n, cols):
     out_im = torch.empty_like(out_re)
     status = _build.library().rf_fft_rotate(
         re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        _twiddles(n, n // 2, str(re.device)).data_ptr(), int(groups), int(n),
-        int(cols), max(8, _K3_PANEL_ELEMS // n), _build.current_stream(re),
+        pass_twiddles(n, +1, str(re.device)).data_ptr(), int(groups), int(n),
+        int(cols), *_plan3(n), rotate_panel(n), _build.current_stream(re),
     )
     _build.check(status, "ifft_rotate")
     K9_LAUNCHES += 1

@@ -217,8 +217,13 @@ def test_pallas_cuda_render_matches_cpu(cuda, shape, smoothing):
 K6_TOL = 5e-6
 
 
+# every length the kernel takes (nz / 2 = 16..2048); line counts that fill
+# no block's lines (a block owns 256 E / m of them: 64 at nz = 32, 8 at 1024,
+# 2 at 4096), and one line
 @pytest.mark.parametrize("lead,nz", [((3, 5), 32), ((2, 8), 256), ((4, 64), 1024),
-                                     ((1, 3), 4096)])
+                                     ((1, 3), 4096), ((1,), 32), ((3, 7), 64),
+                                     ((70,), 128), ((5,), 512), ((1,), 1024),
+                                     ((37,), 1024), ((9,), 2048), ((1,), 4096)])
 def test_r2c_head_matches_plain(cuda, lead, nz):
     x = _randn((*lead, nz), cuda, 7)
     before = fft.K6_LAUNCHES
@@ -310,14 +315,24 @@ def test_one_rank_mesh_render_equals_single_device(cuda, name):
 
 # ---- the staged variants: K9, K10, the v4 and v6 renders, the seed batch ----------
 
-# K9 vs plain: K3's transform, stored rotated (K3's bar); K10 vs plain: K1's
-# draws through an nx-point transform of two libraries (the K4 bar)
+# K9 vs plain: a two- or three-pass float32 Stockham transform against
+# cuFFT's (K3's bar; measured 2-4e-7); K10 vs plain: K1's draws through an
+# nx-point transform of two libraries (the K4 bar)
 K9_TOL, K10_TOL = 2e-6, 5e-6
+# the v4 render vs the default render: the same spectrum through K9's passes
+# and through K3's radix-2 stages, two float32 transforms of another
+# summation order (RENDER_TOL's class; bit-equal while K9 ran K3's stages)
+V4_TOL = 1e-5
 
 
+# every length 16..2048; column counts that fill no panel (8..64 columns a
+# block), and one column
 @pytest.mark.parametrize("groups,n,cols", [(1, 16, 100), (3, 32, 5), (2, 128, 513),
                                            (1, 1024, 96), (2, 2048, 7), (5, 64, 1),
-                                           (1, 64, 33 * 32)])
+                                           (1, 64, 33 * 32), (2, 256, 19),
+                                           (3, 512, 9), (1, 1024, 1),
+                                           (2, 1024, 21), (1, 2048, 1),
+                                           (1, 16, 1)])
 def test_ifft_rotate_matches_plain(cuda, groups, n, cols):
     re0 = _randn((groups * n, cols), cuda, 12)
     im0 = _randn((groups * n, cols), cuda, 13)
@@ -330,10 +345,21 @@ def test_ifft_rotate_matches_plain(cuda, groups, n, cols):
     c, d = fft.ifft_rotate_plain(re0, im0, groups, n, cols)
     scale = max(float(c.abs().max()), float(d.abs().max()))
     assert max(float((a - c).abs().max()), float((b - d).abs().max())) <= K9_TOL * scale
-    # the same numbers as K3 on the same view, rotated
+    # K3's transform of the same view, rotated: radix-2 stages against K9's
+    # Stockham passes, each within its bar of cuFFT, so within their sum
     e, f = fft.ifft_axis(re0.clone(), im0.clone(), groups, n, cols)
-    assert torch.equal(a.view(groups, cols, n), e.view(groups, n, cols).transpose(1, 2))
-    assert torch.equal(b.view(groups, cols, n), f.view(groups, n, cols).transpose(1, 2))
+    apart = max(
+        float((a.view(groups, cols, n) - e.view(groups, n, cols).transpose(1, 2)).abs().max()),
+        float((b.view(groups, cols, n) - f.view(groups, n, cols).transpose(1, 2)).abs().max()))
+    assert apart <= (K9_TOL + K3_TOL) * scale
+
+
+@pytest.mark.parametrize("kernel", ["r2c_head", "ifft_rotate"])
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_register_radix_instances_fit_an_sm(cuda, kernel, n):
+    regs, blocks, threads, smem = fft.kernel_attributes(kernel, n)
+    assert 0 < regs <= 64 and blocks >= 1 and blocks * threads <= 2048
+    assert threads <= 1024 and smem <= 227 * 1024
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 16), (32, 12, 30), (256, 8, 6),
@@ -394,7 +420,7 @@ def test_staged_variant_cuda_render_matches_cpu(cuda, monkeypatch, variant,
     want = cpu.generate_delta_field(seed, smoothing_length=smoothing)
     assert _rel(got.cpu(), want) <= RENDER_TOL
     if variant == "v4":
-        assert _rel(got, default) <= 1e-6
+        assert _rel(got, default) <= V4_TOL
     else:
         assert _rel(got, default) > 0.1
     batch = g.generate_delta_fields([seed, seed + 1], smoothing_length=smoothing)
