@@ -11,14 +11,17 @@ or the randomfield_tpu package.  Phases, any failure of which exits
 non-zero with no result line:
 
 0. the card's name and power limit (nvidia-smi), CUDA version, kernel build;
-   registers a thread and blocks an SM of every K6 and K9 instance;
+   registers a thread and blocks an SM of every instance of the kernels on
+   the register-radix FFT core: K3 (both signs), K4, K6 and K9;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: K2
-   scale_sigma, K3 fft_axis, K4 c2r_tail (and over a sweep of lengths), K1
+   scale_sigma, K3 fft_axis (and every length 16..2048, both signs, one and
+   several outer groups, inner = 1, 513 and ragged counts), K4 c2r_tail (and
+   every nz / 2 = 16..2048, ragged line counts, one line), K1
    sample_modes (s = 0 and 8), K5 sample_power_bins (nbins = 32; counts
    exact, repeatable bit for bit, and equal to binning K1's spectrum); the
    slab mesh's K6 r2c_head and forward K3 at the 1024^3 forward transform's
-   shapes (and every length 16..2048, ragged line counts, one line), K7
+   shapes (K6 also at every length 16..2048, ragged line counts, one line), K7
    scale_shard and K8 sample_shard on each of the
    four (1024, 256, 513) shards of a four-rank mesh, their unions equal to
    whole-grid K2 and K1 bit for bit; the staged variants' K9 ifft_rotate at
@@ -111,11 +114,11 @@ KERNELS = {
 KERNEL_ORDER = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller and K2, and K8 and K7 that are they on a shard;
-# libdevice logf/sincosf on both sides) and of a log2(n)-stage FFT against
-# cuFFT's (K3, and K4 and its mirror K6 as the c2r tail test of the JAX
-# package's tests/test_pallas_fft.py; K9 is a two- or three-pass Stockham
-# transform against cuFFT's and K10 K1's draws through a radix-2 one, both
-# at the K4 bar)
+# libdevice logf/sincosf on both sides) and of a float32 FFT against
+# cuFFT's (K3, a two- or three-pass Stockham transform, and K4 and its
+# mirror K6 as the c2r tail test of the JAX package's
+# tests/test_pallas_fft.py; K9 is K3's transform written rotated and K10
+# K1's draws through a radix-2 one, both at the K4 bar)
 BARS = {"K1": 2e-6, "K2": 2e-6, "K3": 2e-6, "K4": 5e-6, "K6": 5e-6,
         "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6}
 # K5 vs plain: the same float32 per-mode terms, added in float64 in another
@@ -174,9 +177,9 @@ MESH_P_RTOL = 1e-5
 MESH_TIMEOUT_S = 600.0
 MESH_STAGE_REPS = 2
 # the staged variants: the switch, the v4 field against the default field of
-# the seed (the same spectrum through K9's Stockham passes and through K3's
-# radix-2 stages: two float32 FFT implementations of another summation
-# order, the class of SLICE_BAR; the difference is printed), a single
+# the seed (the same spectrum through K9's passes and K3's, the same plans
+# and tables in two kernels, and a reordering copy; the class of SLICE_BAR,
+# the difference is printed), a single
 # field's binned power against the prediction in sampling sigmas, and the
 # seed batch
 PIPELINE_ENV = "RF_STAGED_PIPELINE"
@@ -250,16 +253,24 @@ def cuda_ms(torch, fn, reps=TIMING_REPS, setup=None):
 
 
 def phase0_attributes(card):
-    """Registers a thread and blocks an SM of every K6 and K9 instance, as
-    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    report them (registers are what the register-radix core runs short of)."""
+    """Registers a thread and blocks an SM of every instance of K3 (both
+    signs), K4, K6 and K9, as cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor report them (registers
+    are what the register-radix core runs short of)."""
     from randomfield_tpu_torch.ops import fft
 
     for n in FFT_LENGTHS:
         plan = "*".join(map(str, fft.radix_plan(n)))
-        rows = [("K6 r2c_head", f"nz = {2 * n}",
+        panel = f"panel {fft.rotate_panel(n)}"
+        rows = [("K3 fft_axis inverse", panel,
+                 fft.kernel_attributes("fft_axis", n, +1)),
+                ("K3 fft_axis forward", panel,
+                 fft.kernel_attributes("fft_axis", n, -1)),
+                ("K4 c2r_tail", f"nz = {2 * n}",
+                 fft.kernel_attributes("c2r_tail", n)),
+                ("K6 r2c_head", f"nz = {2 * n}",
                  fft.kernel_attributes("r2c_head", n)),
-                ("K9 ifft_rotate", f"panel {fft.rotate_panel(n)}",
+                ("K9 ifft_rotate", panel,
                  fft.kernel_attributes("ifft_rotate", n))]
         for name, what, (regs, blocks, threads, smem) in rows:
             log(f"phase 0 {name} n = {n} = {plan}, {what}: {regs} registers a "
@@ -285,12 +296,15 @@ def phase1_kernels(torch, g, errs):
     def record(kid, what, got, want):
         check_close(errs, kid, what, got, want)
 
-    def check_k3(outer, n, inner):
+    def check_k3(outer, n, inner, sign=+1):
+        kernel, plain = ((fft.ifft_axis, fft.ifft_axis_plain) if sign > 0
+                         else (fft.fft_axis, fft.fft_axis_plain))
         re, im = randn(outer, n, inner), randn(outer, n, inner)
-        a, b = fft.ifft_axis(re.clone(), im.clone(), outer, n, inner)
-        c, d = fft.ifft_axis_plain(re.clone(), im.clone(), outer, n, inner)
+        a, b = kernel(re.clone(), im.clone(), outer, n, inner)
+        c, d = plain(re.clone(), im.clone(), outer, n, inner)
         torch.cuda.synchronize()
-        record("K3", f"({outer}, {n}, {inner})", (a, b), (c, d))
+        record("K3", f"{'inverse' if sign > 0 else 'forward'} ({outer}, {n}, "
+               f"{inner})", (a, b), (c, d))
 
     def check_k4(lead, nz_, w):
         nzh = nz_ // 2 + 1
@@ -323,14 +337,20 @@ def phase1_kernels(torch, g, errs):
     check_k4((nx, ny), nz, g.state.lightcone_weights)
     torch.cuda.empty_cache()
 
-    # the other lengths the kernels take, at smaller sizes
-    for n in (128, 256, 512, 1024, 2048):
-        for outer, inner in ((1, 2**24 // n), (max(1, 2**24 // (n * 513)), 513)):
-            check_k3(outer, n, inner)
-    for nz_ in (256, 1024, 2048):
-        lines = 2**23 // (nz_ // 2 + 1)
-        check_k4((lines // 64, 64), nz_,
-                 torch.rand(nz_, generator=gen, device=dev) + 0.5)
+    # every length the kernels take, at smaller sizes.  K3, both signs: one
+    # outer group and several; inner counts that fill no panel (8..64
+    # columns a block), inner = 513 (a render's y pass) and one column
+    for n in FFT_LENGTHS:
+        panel = fft.rotate_panel(n)
+        for outer, inner in ((1, 2**22 // n + 5), (max(2, 2**22 // (n * 513)), 513),
+                             (max(2, 2**16 // n), 1), (5, 3 * panel + 7)):
+            for sign in (+1, -1):
+                check_k3(outer, n, inner, sign)
+    # K4: line counts that fill no block (256 E / m lines a block), one line
+    for m in FFT_LENGTHS:
+        w = torch.rand(2 * m, generator=gen, device=dev) + 0.5
+        for lines in (2**22 // m + 3, 1):
+            check_k4((lines,), 2 * m, w)
 
 
 def phase1_sampler(torch, g, errs):
@@ -473,10 +493,9 @@ def phase1_mesh_kernels(torch, g, gp, errs):
         torch.cuda.synchronize()
         check_close(errs, "K3", f"forward ({outer}, {n}, {inner})", got, want)
 
-    check_forward(nx, ny, nzh)      # y pass
-    check_forward(1, nx, ny * nzh)  # x pass
-    for n in (128, 256, 512, 2048):
-        check_forward(max(1, 2**24 // (n * 513)), n, 513)
+    # the y and x passes (the other lengths: phase 1's sweep of both signs)
+    check_forward(nx, ny, nzh)
+    check_forward(1, nx, ny * nzh)
     torch.cuda.empty_cache()
 
     ny_loc = ny // MESH_RANKS
@@ -1543,6 +1562,10 @@ def kernel_bounds(g):
                 OPS_PER_MODE["K10"] * nx * ny * (nzh - 2)
                 + fft_ops(nx, ny * nzh)),
     }
+    for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
+        t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
+                     fft_ops(n, lines) / FP32_OPS_PER_S)
+        log(f"phase 4 K3 bound of the {what} pass alone: {1e3 * t_pass:.4f} ms")
     out = {}
     for k, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S

@@ -11,93 +11,151 @@
 //
 // The TPU kernel reverses lanes with in-vreg gathers and undoes the CT digit
 // order with a second gather per output block; here the reversal is an index
-// (c[m-j] read from shared memory), the G values are written at bit-reversed
-// positions, and the radix-2 routine of fft_common.cuh leaves z in natural
-// order, so the even/odd interleave is a plain indexed store.
+// into shared memory and the transform is self-sorting, so the even/odd
+// interleave is one float2 store from the registers.
 //
 // What bounds it on the H100: device-memory bytes, one read of the spectrum
-// (8 bytes per packed mode) and one write of the field (4 bytes per cell),
-// plus log2(m) shared-memory butterfly stages.  Design: a block owns
-// `lines_per_block` consecutive (x, y) lines, which lie contiguous in both the
-// spectrum and the field, so the load and the store are fully coalesced and
-// nothing between them touches device memory.
-#include "fft_common.cuh"
+// (8 bytes per packed mode) and one write of the field (4 bytes per cell);
+// the transform must stay out of their way, which barrier-closed radix-2
+// stages in shared memory do not (fft_radix.cuh has the reckoning).  Design:
+// the r2c head (r2c_head.cu, K6) mirrored on the register-radix core of
+// fft_radix.cuh.  m / E threads share a line (32 at nz = 1024: one warp, so
+// the line's syncs are warp syncs and the block never meets); a block of 256
+// threads owns 256 E / m consecutive lines, 35 KB of shared memory, so
+// several blocks fit an SM.  The fold needs c[m - j] beside c[j], which
+// another thread loads: the line's m + 1 packed modes go coalesced into its
+// shared-memory row, each thread folds its own j = t + k m/E (no division:
+// the line and j come from the thread index) straight into the registers the
+// first pass starts from, and the last pass leaves z[t + k m/E] in the
+// registers, stored as one float2 (the pair out[2j], out[2j+1]) a thread and
+// element: consecutive threads, consecutive 8 bytes, no exchange after the
+// transform.  The spectrum's rows of m + 1 floats start unaligned, as K6's
+// output rows do; K6's measured tries at that (streaming loads, twiddles in
+// shared memory) were slower and are not repeated.
+#include "fft_radix.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+template <class P>
+struct Tail {
+  static constexpr int kLines = kThreads / P::T;  // lines a block owns
+  // m + 1 modes a row; the rows a half-warp touches at once (16 / T of
+  // them when T < 16) spread over the banks
+  static constexpr int kStride = rf::row_stride(P::N + 1, P::T < 16 ? P::T : 0);
+  static constexpr size_t kSmem = sizeof(float2) * kLines * kStride;
+};
+
+template <class P>
+__global__ void __launch_bounds__(kThreads, 4)
 c2r_tail_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                const float* __restrict__ weights,
-                const float2* __restrict__ tw_global, float* __restrict__ out,
-                long long lines, int m, int log2m, int lines_per_block) {
+                const float2* __restrict__ weights,
+                const float2* __restrict__ tw_fft,
+                const float2* __restrict__ tw_fold, float2* __restrict__ out,
+                long long lines) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nzh = m + 1;
-  const int nz = 2 * m;
-  float2* tw = reinterpret_cast<float2*>(smem_raw);  // m twiddles W^j
-  float2* spec = tw + m;                               // packed input lines
-  float2* g = spec + lines_per_block * nzh;            // half-pack lines
-  const long long line0 = static_cast<long long>(blockIdx.x) * lines_per_block;
-  const long long left = lines - line0;
-  const int nlines = left < lines_per_block ? static_cast<int>(left)
-                                            : lines_per_block;
+  constexpr int m = P::N, E = P::E, T = P::T;
+  const int t = threadIdx.x % T;
+  const int b = threadIdx.x / T;
+  const long long line =
+      static_cast<long long>(blockIdx.x) * Tail<P>::kLines + b;
+  const bool live = line < lines;
+  float2* row = reinterpret_cast<float2*>(smem_raw) + b * Tail<P>::kStride;
 
-  for (int k = threadIdx.x; k < m; k += blockDim.x) tw[k] = tw_global[k];
-  const long long in0 = line0 * nzh;
-  for (int e = threadIdx.x; e < nlines * nzh; e += blockDim.x) {
-    spec[e] = make_float2(re[in0 + e], im[in0 + e]);
+  const long long in0 = line * (m + 1);
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int i = t + k * T;
+      row[rf::pad16(i)] = make_float2(re[in0 + i], im[in0 + i]);
+    }
+    if (t == 0) row[rf::pad16(m)] = make_float2(re[in0 + m], im[in0 + m]);
   }
-  __syncthreads();
+  P::sync();
 
-  for (int e = threadIdx.x; e < nlines * m; e += blockDim.x) {
-    const int b = e >> log2m;
-    const int j = e & (m - 1);
-    const float2 c = spec[b * nzh + j];
-    const float2 r = spec[b * nzh + m - j];
+  float2 v[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int j = t + k * T;
+    const float2 c = row[rf::pad16(j)];
+    const float2 r = row[rf::pad16(m - j)];
     const float er = c.x + r.x;
     const float ei = c.y - r.y;
     const float orr = c.x - r.x;
     const float oi = c.y + r.y;
-    const float2 w = tw[j];
-    g[b * nzh + rf::bit_reverse(j, log2m)] =
-        make_float2(er - (w.x * oi + w.y * orr), ei + (w.x * orr - w.y * oi));
+    const float2 w = __ldg(tw_fold + j);  // W^j
+    v[k] = make_float2(er - (w.x * oi + w.y * orr), ei + (w.x * orr - w.y * oi));
   }
-  __syncthreads();
+  // the line's threads have all read the row before the first pass writes it
+  P::sync();
 
-  // the m-point transform needs exp(+2 pi i k / m) = W^(2k): stride 2
-  rf::fft_lines(g, nlines, m, log2m, nzh, tw, 2);
+  rf::fft_registers<P, +1>(v, row, t, tw_fft);  // v[k] = z[t + k T]
+  if (!live) return;
 
-  float* dst = out + line0 * nz;
-  for (int e = threadIdx.x; e < nlines * nz; e += blockDim.x) {
-    const int b = e >> (log2m + 1);
-    const int p = e & (nz - 1);
-    const float2 z = g[b * nzh + (p >> 1)];
-    dst[e] = ((p & 1) ? z.y : z.x) * weights[p];
+  float2* dst = out + line * m;
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int j = t + k * T;
+    const float2 w = __ldg(weights + j);  // (w[2j], w[2j+1])
+    dst[j] = make_float2(v[k].x * w.x, v[k].y * w.y);
   }
+}
+
+template <class P>
+int launch(const void* re, const void* im, const void* weights,
+           const void* tw_fft, const void* tw_fold, void* out,
+           long long lines, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      c2r_tail_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Tail<P>::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>(
+      (lines + Tail<P>::kLines - 1) / Tail<P>::kLines);
+  c2r_tail_kernel<P><<<blocks, kThreads, Tail<P>::kSmem, stream>>>(
+      static_cast<const float*>(re), static_cast<const float*>(im),
+      static_cast<const float2*>(weights), static_cast<const float2*>(tw_fft),
+      static_cast<const float2*>(tw_fold), static_cast<float2*>(out), lines);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// re, im: float32 (lines, m + 1) packed spectra; weights: float32 (2m,);
-// tw: m float2 twiddles exp(+2 pi i j / (2m)); out: float32 (lines, 2m).
-// m and lines_per_block are powers of two, 16 <= m <= 2048; the caller
-// checks.  Returns the CUDA error of the launch (0 on success).
+// re, im: float32 (lines, m + 1) packed spectra; weights: float32 (2m,) and
+// out: float32 (lines, 2m), both 8-byte aligned.  (r0, r1, r2) is
+// ops/fft.py:radix_plan(m), r2 = 1 for two passes; tw_fft its inverse
+// tables (pass_twiddles(m, +1)); tw_fold: m float2 twiddles
+// exp(+2 pi i j / (2m)).  Returns the CUDA error of the launch (0 on
+// success), cudaErrorNotSupported for a plan with no instance.
 extern "C" int rf_c2r_tail(const void* re, const void* im, const void* weights,
-                           const void* tw, void* out, long long lines, int m,
-                           int lines_per_block, void* stream) {
-  const size_t smem =
-      sizeof(float2) * (static_cast<size_t>(m) +
-                        2 * static_cast<size_t>(lines_per_block) * (m + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      c2r_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks =
-      static_cast<unsigned>((lines + lines_per_block - 1) / lines_per_block);
-  c2r_tail_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(re), static_cast<const float*>(im),
-      static_cast<const float*>(weights), static_cast<const float2*>(tw),
-      static_cast<float*>(out), lines, m, rf::log2_of(m), lines_per_block);
-  return static_cast<int>(cudaGetLastError());
+                           const void* tw_fft, const void* tw_fold, void* out,
+                           long long lines, int m, int r0, int r1, int r2,
+                           void* stream) {
+#define RF_CASE(N, R0, R1, R2)                                            \
+  if (m == N && r0 == R0 && r1 == R1 && r2 == R2) {                       \
+    return launch<rf::Plan<N, R0, R1, R2>>(                               \
+        re, im, weights, tw_fft, tw_fold, out, lines,                     \
+        static_cast<cudaStream_t>(stream));                               \
+  }
+  RF_RADIX_PLANS(RF_CASE)
+#undef RF_CASE
+  return rf::kNoSuchPlan;
+}
+
+// Registers a thread, blocks an SM holds, threads a block and dynamic
+// shared-memory bytes of the instance for an m-point plan; returns 0, or
+// cudaErrorNotSupported.
+extern "C" int rf_c2r_tail_attributes(int m, int r0, int r1, int r2,
+                                      void* registers, void* blocks_per_sm,
+                                      void* threads, void* smem) {
+#define RF_CASE(N, R0, R1, R2)                                            \
+  if (m == N && r0 == R0 && r1 == R1 && r2 == R2) {                       \
+    using P = rf::Plan<N, R0, R1, R2>;                                    \
+    return rf::kernel_attributes(c2r_tail_kernel<P>, kThreads,            \
+                                 Tail<P>::kSmem, registers,               \
+                                 blocks_per_sm, threads, smem);           \
+  }
+  RF_RADIX_PLANS(RF_CASE)
+#undef RF_CASE
+  return rf::kNoSuchPlan;
 }

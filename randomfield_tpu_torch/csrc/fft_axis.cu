@@ -1,97 +1,168 @@
-// K3: unnormalized complex FFT, inverse (sign = +1) or forward (sign = -1),
+// K3: unnormalized complex FFT, inverse (SIGN = +1) or forward (SIGN = -1),
 // along the middle axis of a float32 re/im pair viewed as (outer, n, inner),
 // in place, natural order out.
 //
 // Replaces randomfield_tpu/ops/pallas_fft.py:_make_kernel + _ct_core, reached
 // through _ifft2d (ifft_minor_pallas_reim).  The TPU's forward transform
 // (fft_minor_pallas_reim) conjugates around the inverse kernel; here the
-// sign conjugates the twiddles as the block loads them, so the forward pass
-// of the distributed forward transform costs what the inverse costs.  The
-// TPU kernel transforms the MINOR axis only, so the TPU pipeline pays a
-// physical transpose before each of its x and y passes.  Here the transform
-// axis is the middle one of any (outer, n, inner) view: the x pass of an
-// (nx, ny, nzh) spectrum is the view (1, nx, ny * nzh) and the y pass is
-// (nx, ny, nzh), with no transpose.
+// sign is a template parameter (its own tables, pass_twiddles(n, -1), and
+// compile-time roots), so the forward pass of the distributed forward
+// transform costs what the inverse costs.  The TPU kernel transforms the
+// MINOR axis only, so the TPU pipeline pays a physical transpose before
+// each of its x and y passes.  Here the transform axis is the middle one of
+// any (outer, n, inner) view: the x pass of an (nx, ny, nzh) spectrum is the
+// view (1, nx, ny * nzh) and the y pass is (nx, ny, nzh), with no transpose.
 //
-// What bounds it on the H100: device-memory bytes (one read and one write of
-// each lattice, 16 bytes per complex mode) and the shared-memory traffic of
-// log2(n) butterfly stages.  Design: a block owns a panel of `panel`
-// consecutive inner columns by all n rows.  Its loads and stores run along
-// `inner`, so a warp touches contiguous 32-byte segments (panel >= 8), and the
-// whole transform of the panel stays in shared memory between one read and
-// one write.  Lines are padded by one element (stride n + 1) so the
-// column-major scatter of the load spreads over the banks.
-#include "fft_common.cuh"
+// What bounds it on the H100: device-memory bytes, one read and one write of
+// each lattice (16 bytes per complex mode), in segments of PANEL floats a
+// row; the transform must stay out of their way, which barrier-closed
+// radix-2 stages in shared memory do not (fft_radix.cuh has the reckoning).
+// Design: the register-radix core of fft_radix.cuh, with K9's load and
+// first pass (fft_rotate.cu).  A block owns PANEL consecutive inner columns
+// by all n rows of one outer group, with PANEL * n / E threads standing
+// along the columns (consecutive threads, consecutive columns: PANEL
+// contiguous floats a row, E rows a thread, all loads in flight together).
+// The thread that reads rows t + k n/E of column c holds what the core's
+// first pass wants at place t of line c; it runs that pass and writes the
+// first exchange into the line's shared-memory row.  The threads keep that
+// place for every later pass, so the last pass leaves X[t + k n/E] of
+// column c in the registers: the store is the load's own segments, with no
+// shared-memory trip after the transform.  The price is that a line's
+// threads are strided by PANEL across the block, so they meet at block
+// barriers (three at 1024 points) where K9's meet in a warp or a named
+// barrier.  Measured on an H100 at a 1024^3 pass, this design took 3.48
+// (x) and 3.71 ms (y) against 3.85 and 4.05 for K9's later passes plus an
+// exchange back to the column-standing threads (PERF.md, section 6); 8 columns a
+// block (two blocks an SM) took 5.45 and 4.68 ms.  The row stride is 2
+// (PANEL = 8) or 1 (PANEL >= 16) modulo 16, so the PANEL lines a half-warp
+// touches at once fall into distinct banks.  The columns ride grid.x and
+// the outer groups grid.y; indices are 64-bit.  A render's y pass (inner =
+// 513) ends each group with a panel of one live column; taking a block's
+// columns across the group boundary measured no faster.
+#include "fft_radix.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+template <class P, int PANEL>
+struct Axis {
+  static constexpr int kThreads = PANEL * P::T;
+  static_assert(kThreads <= 1024, "a block has at most 1024 threads");
+  static constexpr int kStride = rf::row_stride(P::N, PANEL >= 16 ? 1 : 16 / PANEL);
+  static constexpr size_t kSmem = sizeof(float2) * PANEL * kStride;
+  // 64 registers a thread: 1024 threads an SM whatever the block size
+  static constexpr int kMinBlocks = 1024 / kThreads;
+};
 
-__global__ void __launch_bounds__(kThreads)
+template <class P, int PANEL, int SIGN>
+__global__ void __launch_bounds__(Axis<P, PANEL>::kThreads,
+                                  Axis<P, PANEL>::kMinBlocks)
 fft_axis_kernel(float* __restrict__ re, float* __restrict__ im,
-                const float2* __restrict__ tw_global, int sign, int n,
-                int log2n, long long inner, int panel, int log2panel) {
+                const float2* __restrict__ tw, long long inner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* tw = reinterpret_cast<float2*>(smem_raw);  // n / 2 twiddles
-  float2* buf = tw + (n >> 1);                         // panel lines of n + 1
-  const int stride = n + 1;
-  const long long col0 = static_cast<long long>(blockIdx.x) * panel;
-  const long long base = static_cast<long long>(blockIdx.y) * n * inner;
-  const int count = n << log2panel;
-
-  for (int k = threadIdx.x; k < (n >> 1); k += blockDim.x) {
-    tw[k] = rf::conj_if(tw_global[k], sign < 0);
+  constexpr int n = P::N, E = P::E, T = P::T;
+  constexpr int stride = Axis<P, PANEL>::kStride;
+  float2* buf = reinterpret_cast<float2*>(smem_raw);
+  // along the columns: thread (place t, column c) reads rows t + k T of
+  // column c, which are the elements the first pass wants at place t of
+  // line c
+  const int c = threadIdx.x % PANEL;
+  const int t = threadIdx.x / PANEL;
+  const long long col = static_cast<long long>(blockIdx.x) * PANEL + c;
+  const bool live = col < inner;
+  const long long first =
+      (static_cast<long long>(blockIdx.y) * n + t) * inner + col;
+  float2 v[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const long long idx = first + static_cast<long long>(k * T) * inner;
+    v[k] = live ? make_float2(re[idx], im[idx]) : make_float2(0.f, 0.f);
   }
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int r = e >> log2panel;
-    const int c = e & (panel - 1);
-    const long long col = col0 + c;
-    float2 v = make_float2(0.f, 0.f);
-    if (col < inner) {
-      const long long idx = base + r * inner + col;
-      v = make_float2(re[idx], im[idx]);
-    }
-    buf[c * stride + rf::bit_reverse(r, log2n)] = v;
-  }
+  rf::first_pass<P, SIGN>(v, buf + c * stride, t);
   __syncthreads();
 
-  rf::fft_lines(buf, panel, n, log2n, stride, tw, 1);
+  // column-standing throughout: a line's threads are strided by PANEL
+  // across the block, so they meet at block barriers
+  rf::later_passes<P, SIGN, rf::BlockSync>(v, buf + c * stride, t, tw);
 
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int r = e >> log2panel;
-    const int c = e & (panel - 1);
-    const long long col = col0 + c;
-    if (col < inner) {
-      const long long idx = base + r * inner + col;
-      const float2 v = buf[c * stride + r];
-      re[idx] = v.x;
-      im[idx] = v.y;
+  // v[k] = X[t + k T] of column c: the store is the load's own segments.
+  // In place is safe: every element is written by the thread that read it,
+  // after it read it, and no other block touches the panel.
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const long long idx = first + static_cast<long long>(k * T) * inner;
+      re[idx] = v[k].x;
+      im[idx] = v[k].y;
     }
   }
 }
 
+template <class P, int PANEL, int SIGN>
+int launch(void* re, void* im, const void* tw, int outer, long long inner,
+           cudaStream_t stream) {
+  using K = Axis<P, PANEL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fft_axis_kernel<P, PANEL, SIGN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(K::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((inner + PANEL - 1) / PANEL),
+                  static_cast<unsigned>(outer));
+  fft_axis_kernel<P, PANEL, SIGN><<<grid, K::kThreads, K::kSmem, stream>>>(
+      static_cast<float*>(re), static_cast<float*>(im),
+      static_cast<const float2*>(tw), inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instances, one for each length (and sign): X(n, r0, r1, r2, panel),
+// the plan ops/fft.py:radix_plan(n) and the panel ops/fft.py:rotate_panel(n).
+#define RF_AXIS_INSTANCES(X)                                               \
+  X(16, 4, 4, 1, 64) X(32, 8, 4, 1, 64) X(64, 8, 8, 1, 32)                 \
+  X(128, 16, 8, 1, 32) X(256, 16, 16, 1, 16) X(512, 16, 8, 4, 8)           \
+  X(1024, 16, 8, 8, 16) X(2048, 16, 16, 8, 8)
+
 }  // namespace
 
 // re, im: float32 (outer, n, inner), contiguous, transformed in place:
-// X[j] = sum_k x[k] exp(sign 2 pi i j k / n).  tw: n / 2 float2 twiddles
-// exp(+2 pi i k / n) (either sign).  n and panel are powers of two, 16 <= n
-// <= 2048, outer <= 65535; the caller checks.  Returns the CUDA error of the
-// launch (0 on success).
+// X[j] = sum_k x[k] exp(sign 2 pi i j k / n).  (r0, r1, r2) is
+// ops/fft.py:radix_plan(n), r2 = 1 for two passes; tw its tables for the
+// sign (pass_twiddles(n, sign)); panel the columns a block owns
+// (ops/fft.py:rotate_panel(n)).  outer <= 65535; the caller checks.
+// Returns the CUDA error of the launch (0 on success),
+// cudaErrorNotSupported for a sign, plan and panel with no instance.
 extern "C" int rf_fft_axis(void* re, void* im, const void* tw, int sign,
-                           int outer, int n, long long inner, int panel,
-                           void* stream) {
-  const size_t smem = sizeof(float2) *
-                      (static_cast<size_t>(n >> 1) +
-                       static_cast<size_t>(panel) * (n + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      fft_axis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((inner + panel - 1) / panel),
-                  static_cast<unsigned>(outer));
-  fft_axis_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(re), static_cast<float*>(im),
-      static_cast<const float2*>(tw), sign, n, rf::log2_of(n), inner, panel,
-      rf::log2_of(panel));
-  return static_cast<int>(cudaGetLastError());
+                           int outer, int n, long long inner, int r0, int r1,
+                           int r2, int panel, void* stream) {
+#define RF_CASE(N, R0, R1, R2, PANEL)                                      \
+  if (n == N && r0 == R0 && r1 == R1 && r2 == R2 && panel == PANEL) {      \
+    using P = rf::Plan<N, R0, R1, R2>;                                     \
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);              \
+    if (sign == 1) return launch<P, PANEL, 1>(re, im, tw, outer, inner, s);   \
+    if (sign == -1) return launch<P, PANEL, -1>(re, im, tw, outer, inner, s); \
+  }
+  RF_AXIS_INSTANCES(RF_CASE)
+#undef RF_CASE
+  return rf::kNoSuchPlan;
+}
+
+// Registers a thread, blocks an SM holds, threads a block and dynamic
+// shared-memory bytes of the instance for a sign, plan and panel; returns
+// 0, or cudaErrorNotSupported.
+extern "C" int rf_fft_axis_attributes(int sign, int n, int r0, int r1, int r2,
+                                      int panel, void* registers,
+                                      void* blocks_per_sm, void* threads,
+                                      void* smem) {
+#define RF_ATTR(PANEL, SIGN)                                               \
+  rf::kernel_attributes(fft_axis_kernel<P, PANEL, SIGN>, K::kThreads,      \
+                        K::kSmem, registers, blocks_per_sm, threads, smem)
+#define RF_CASE(N, R0, R1, R2, PANEL)                                      \
+  if (n == N && r0 == R0 && r1 == R1 && r2 == R2 && panel == PANEL) {      \
+    using P = rf::Plan<N, R0, R1, R2>;                                     \
+    using K = Axis<P, PANEL>;                                              \
+    if (sign == 1) return RF_ATTR(PANEL, 1);                               \
+    if (sign == -1) return RF_ATTR(PANEL, -1);                             \
+  }
+  RF_AXIS_INSTANCES(RF_CASE)
+#undef RF_CASE
+#undef RF_ATTR
+  return rf::kNoSuchPlan;
 }

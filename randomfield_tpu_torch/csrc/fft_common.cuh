@@ -1,11 +1,10 @@
-// Shared-memory radix-2 complex FFT: the device routine that the axis FFT
-// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4) and the fused sample +
-// x-FFT (sample_fftx.cu, K10) share; the r2c head (K6) and the rotating axis
-// FFT (K9) run the register-radix routine of fft_radix.cuh, which takes
-// cmul and conj_if from here.  Its direction is its
-// twiddles' sign: a caller
-// passes exp(+2 pi i k / n) for the inverse and their conjugates for the
-// forward transform, so both directions cost the same single pass.
+// Shared-memory radix-2 complex FFT: the device routine of the fused sample +
+// x-FFT (sample_fftx.cu, K10), its only caller.  The axis FFT (K3), the c2r
+// tail (K4), the r2c head (K6) and the rotating axis FFT (K9) run the
+// register-radix routine of fft_radix.cuh, from which this one takes cmul
+// and conj_if.  Its direction is its twiddles' sign: a caller passes
+// exp(+2 pi i k / n) for the inverse and their conjugates for the forward
+// transform.
 //
 // Counterpart of randomfield_tpu/ops/pallas_fft.py:_ct_core, which the TPU's
 // minor-axis FFT and c2r tail kernels share in the same way.  The TPU version
@@ -24,6 +23,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_radix.cuh"
+
 namespace rf {
 
 // The low `log2n` bits of `v` in reverse order.
@@ -36,14 +37,6 @@ inline int log2_of(long long v) {
   int k = 0;
   while ((1LL << k) < v) ++k;
   return k;
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ float2 conj_if(float2 a, bool conjugate) {
-  return conjugate ? make_float2(a.x, -a.y) : a;
 }
 
 // Unnormalized FFT, X[j] = sum_k x[k] exp(sign 2 pi i j k / n), of `lines`

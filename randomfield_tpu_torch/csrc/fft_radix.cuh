@@ -1,7 +1,7 @@
-// Register-radix Stockham complex FFT: the device routine of the r2c head
-// (r2c_head.cu, K6) and the rotating axis FFT (fft_rotate.cu, K9).  The axis
-// FFT, the c2r tail and the fused sample + x-FFT (K3, K4, K10) still run the
-// radix-2 routine of fft_common.cuh.
+// Register-radix Stockham complex FFT: the device routine of the axis FFT
+// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4), the r2c head
+// (r2c_head.cu, K6) and the rotating axis FFT (fft_rotate.cu, K9).  The fused
+// sample + x-FFT (K10) still runs the radix-2 routine of fft_common.cuh.
 //
 // Counterpart of randomfield_tpu/ops/pallas_fft.py:_ct_core, as fft_common.cuh
 // is; this is the same transform thought through for what is scarce on Hopper.
@@ -28,7 +28,9 @@
 //   * only the threads of a line meet, once before an exchange is read and
 //     once before its row is written again: in a warp-level sync where a
 //     line belongs to one warp (n / E <= 32), else at a named barrier of the
-//     four warps the line lies in, so no pass stalls the whole block.
+//     four warps the line lies in, so no pass stalls the whole block (a
+//     kernel whose lines' threads are strided across the block, as K3's
+//     column-standing ones are, passes BlockSync instead).
 // Bank conflicts: element i of a line lives at i + i / 16.  The first
 // exchange writes with stride R0 between consecutive threads, which the
 // padding turns into an odd stride for R0 = 16 and into distinct banks for
@@ -46,15 +48,21 @@
 // temporaries; the kernels cap themselves at 64 registers a thread with
 // __launch_bounds__ so that 1024 threads fit an SM.
 //
-// Accuracy: float32 throughout, as fft_common.cuh: about 1e-7 of the largest
+// Accuracy: float32 throughout, as fft_common.cuh's: about 1e-7 of the largest
 // output for random input (fewer roundings per element than radix 2).
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "fft_common.cuh"
-
 namespace rf {
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 conj_if(float2 a, bool conjugate) {
+  return conjugate ? make_float2(a.x, -a.y) : a;
+}
 
 // where element i of a line lives in its shared-memory row
 __device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
@@ -222,11 +230,20 @@ __device__ __forceinline__ void first_pass(float2 (&v)[P::E], float2* row, int t
   radix_pass<P, P::R0, 1, SIGN, false>(v, row, t, nullptr);
 }
 
+// The threads of a line meet at a barrier of the whole block: the sync
+// policy of kernels whose lines' threads do not lie together in a warp or
+// an aligned group of 128 threads.
+struct BlockSync {
+  __device__ static __forceinline__ void sync() { __syncthreads(); }
+};
+
 // The passes after the first, once every thread that ran first_pass on the
 // line has been waited for: on return v[k] = X[t + k T].  The thread at
 // place t here need not be the one that was at place t in first_pass (a
-// kernel may regroup its threads in between, behind a block barrier).
-template <class P, int SIGN>
+// kernel may regroup its threads in between, behind a block barrier).  S
+// is how the line's threads meet between passes: P (a warp or a named
+// barrier of 128 threads, P::sync) or BlockSync.
+template <class P, int SIGN, class S = P>
 __device__ __forceinline__ void later_passes(float2 (&v)[P::E], float2* row,
                                              int t, const float2* __restrict__ tw) {
   constexpr int E = P::E, T = P::T;
@@ -234,10 +251,10 @@ __device__ __forceinline__ void later_passes(float2 (&v)[P::E], float2* row,
   for (int k = 0; k < E; ++k) v[k] = row[pad16(t + k * T)];
   // before the second exchange overwrites the row, the line's threads have
   // all read the first
-  if constexpr (P::R2 > 1) P::sync();
+  if constexpr (P::R2 > 1) S::sync();
   radix_pass<P, P::R1, P::R0, SIGN, P::R2 == 1>(v, row, t, tw);
   if constexpr (P::R2 > 1) {
-    P::sync();
+    S::sync();
 #pragma unroll
     for (int k = 0; k < E; ++k) v[k] = row[pad16(t + k * T)];
     radix_pass<P, P::R2, P::R0 * P::R1, SIGN, true>(

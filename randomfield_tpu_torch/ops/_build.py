@@ -45,12 +45,14 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "rf_fft_axis": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
+    "rf_fft_axis": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _P],
+    "rf_fft_axis_attributes": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_fft_rotate": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
     "rf_fft_rotate_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_r2c_head": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "rf_r2c_head_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
-    "rf_c2r_tail": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "rf_c2r_tail": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "rf_c2r_tail_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
     "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _U32, _U32,

@@ -20,13 +20,14 @@ plain PyTorch versions beside them (``torch.fft``).  Launch counts are
 The kernels take power-of-two transform lengths from 16 to 2048
 (:func:`kernel_length_ok`); a mixed-radix version is a later step.
 
-K6 and K9 run on the register-radix Stockham core of ``csrc/fft_radix.cuh``:
+All four run on the register-radix Stockham core of ``csrc/fft_radix.cuh``:
 :func:`radix_plan` is the one place where a length is split into passes,
 :func:`pass_twiddles` builds the per-pass tables the launchers hand the
 kernels, and :func:`stockham_emulated` replays the kernel's passes on plain
-tensors from the same plan and tables (for the CPU tests of the algebra; no
-entry point calls it).  K3 and K4 still run the radix-2 routine of
-``csrc/fft_common.cuh``.
+tensors from the same plan and tables; :func:`axis_emulated`,
+:func:`c2r_tail_emulated`, :func:`r2c_head_emulated` and
+:func:`ifft_rotate_emulated` compose it with each kernel's own algebra (for
+the CPU tests; no entry point calls them).
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ __all__ = [
     "rotate_panel",
     "kernel_attributes",
     "stockham_emulated",
+    "axis_emulated",
+    "c2r_tail_emulated",
     "r2c_head_emulated",
     "ifft_rotate_emulated",
     "K3_LAUNCHES",
@@ -73,10 +76,6 @@ K9_LAUNCHES = 0
 
 MIN_LENGTH, MAX_LENGTH = 16, 2048
 _MAX_OUTER = 65535  # the kernels' grid.y
-# complex elements one K3 block transforms (sets the panel width) and one K4
-# block holds: 32-64 KB of shared memory, several blocks per SM
-_K3_PANEL_ELEMS = 4096
-_K4_BLOCK_ELEMS = 2048
 
 
 def kernel_length_ok(n: int) -> bool:
@@ -92,7 +91,7 @@ def _twiddles(n: int, count: int, device: str) -> torch.Tensor:
     return torch.as_tensor(tw, device=device)
 
 
-# ---- the register-radix Stockham core (K6, K9) -------------------------------
+# ---- the register-radix Stockham core (K3, K4, K6, K9) -----------------------
 
 def radix_plan(n: int) -> tuple[int, ...]:
     """The radices of the passes of an n-point transform, first pass first.
@@ -126,27 +125,35 @@ def _plan3(n: int) -> tuple[int, int, int]:
 
 
 def rotate_panel(n: int) -> int:
-    """The columns a K9 block owns: 256 threads' worth of lines and at least
-    8 (32-byte segments of the strided load); 16 at n = 1024, where one
-    1024-thread block an SM measured faster on an H100 than two of 8 columns
-    (3.4 against 3.9 ms a 1024^3 pass; at 512 points, where both fit twice,
-    8 and 16 columns measured alike).  The library holds this one instance
-    a length."""
+    """The columns a K9 or K3 block owns: 256 threads' worth of lines and
+    at least 8 (32-byte segments of the strided load); 16 at n = 1024,
+    where one 1024-thread block an SM measured faster on an H100 than two of
+    8 columns (K9: 3.4 against 3.9 ms a 1024^3 pass; at 512 points, where
+    both fit twice, 8 and 16 columns measured alike).  The library holds
+    this one instance a length (K3: one a length and sign), and K3 the
+    same rule: at 1024 points 8 columns measured 5.45 against 3.48 ms a
+    1024^3 x pass."""
     if n == 1024:
         return 16
     return max(8, 256 * radix_plan(n)[0] // n)
 
 
-def kernel_attributes(kernel: str, n: int):
+def kernel_attributes(kernel: str, n: int, sign: int = +1):
     """(registers a thread, blocks an SM holds, threads a block, dynamic
-    shared-memory bytes) of the ``'r2c_head'`` or ``'ifft_rotate'`` instance
-    for an n-point plan, as ``cudaFuncGetAttributes`` and
+    shared-memory bytes) of the ``'fft_axis'`` (of ``sign``), ``'c2r_tail'``,
+    ``'r2c_head'`` or ``'ifft_rotate'`` instance for an n-point plan (K4 and
+    K6: m = nz / 2 points), as ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` report them; builds
     the library."""
     out = [ctypes.c_int() for _ in range(4)]
     refs = [ctypes.byref(v) for v in out]
     lib = _build.library()
-    if kernel == "r2c_head":
+    if kernel == "fft_axis":
+        status = lib.rf_fft_axis_attributes(
+            int(sign), int(n), *_plan3(n), rotate_panel(n), *refs)
+    elif kernel == "c2r_tail":
+        status = lib.rf_c2r_tail_attributes(int(n), *_plan3(n), *refs)
+    elif kernel == "r2c_head":
         status = lib.rf_r2c_head_attributes(int(n), *_plan3(n), *refs)
     elif kernel == "ifft_rotate":
         status = lib.rf_fft_rotate_attributes(
@@ -289,6 +296,18 @@ def fft_axis_plain(re, im, outer, n, inner):
     return _axis_plain(re, im, outer, n, inner, torch.fft.fft, "fft_axis")
 
 
+def axis_emulated(re, im, outer, n, inner, sign):
+    """K3's function with the kernel core's passes
+    (:func:`stockham_emulated`) as the transform, written back in place;
+    for the tests, like it."""
+    c = torch.complex(_view3(re, outer, n, inner, "axis_emulated"),
+                      _view3(im, outer, n, inner, "axis_emulated"))
+    out = stockham_emulated(c.transpose(1, 2), sign).transpose(1, 2)
+    re.view(outer, n, inner).copy_(out.real)
+    im.view(outer, n, inner).copy_(out.imag)
+    return re, im
+
+
 def ifft_axis(re, im, outer, n, inner):
     """K3: unnormalized inverse complex FFT along the middle axis, IN PLACE.
 
@@ -304,8 +323,8 @@ def ifft_axis(re, im, outer, n, inner):
 def fft_axis(re, im, outer, n, inner):
     """K3 forward: X[j] = sum_k x[k] exp(-2 pi i jk/n), IN PLACE.
 
-    :func:`ifft_axis` with the other sign (the same kernel, its twiddles
-    conjugated as they load); CPU tensors run :func:`fft_axis_plain`.
+    :func:`ifft_axis` with the other sign (the kernel's instance for it,
+    with the forward tables); CPU tensors run :func:`fft_axis_plain`.
     Returns (re, im).
     """
     return _axis(re, im, outer, n, inner, -1)
@@ -330,8 +349,8 @@ def _axis(re, im, outer, n, inner, sign):
         raise ValueError(f"{name}: outer={outer} > {_MAX_OUTER}")
     status = _build.library().rf_fft_axis(
         re.data_ptr(), im.data_ptr(),
-        _twiddles(n, n // 2, str(re.device)).data_ptr(), int(sign),
-        int(outer), int(n), int(inner), max(8, _K3_PANEL_ELEMS // n),
+        pass_twiddles(n, sign, str(re.device)).data_ptr(), int(sign),
+        int(outer), int(n), int(inner), *_plan3(n), rotate_panel(n),
         _build.current_stream(re),
     )
     _build.check(status, name)
@@ -347,6 +366,25 @@ def c2r_tail_plain(re, im, nz, weights):
     return torch.fft.irfft(c, n=nz, dim=-1, norm="forward") * weights
 
 
+def c2r_tail_emulated(re, im, nz, weights):
+    """K4's algebra with the kernel core's passes (:func:`stockham_emulated`)
+    as the m-point transform: the fold G[j] = E[j] + i W^j O[j] in float32
+    as the kernel computes it, z = IFFT_m(G), the pairs (Re z[j], Im z[j])
+    times the weights; for the tests, like it."""
+    m = nz // 2
+    c_re, c_im = re[..., :m], im[..., :m]
+    rev = torch.arange(m, 0, -1, device=re.device)  # m - j
+    r_re, r_im = re[..., rev], im[..., rev]
+    er, ei = c_re + r_re, c_im - r_im
+    orr, oi = c_re - r_re, c_im + r_im
+    tw = _twiddles(nz, m, str(re.device))
+    wre, wim = tw[:, 0], tw[:, 1]  # W^j = exp(+2 pi i j / nz)
+    g = torch.complex(er - (wre * oi + wim * orr), ei + (wre * orr - wim * oi))
+    z = stockham_emulated(g, +1)
+    pairs = torch.stack([z.real, z.imag], dim=-1)
+    return pairs.reshape(*re.shape[:-1], nz) * weights
+
+
 def c2r_tail(re, im, nz, weights, out=None):
     """K4: c2r along the minor axis plus per-plane weights, one pass.
 
@@ -355,7 +393,9 @@ def c2r_tail(re, im, nz, weights, out=None):
     tensor, the unnormalized inverse real transform along the last axis
     times ``weights``: a new one, or ``out`` (contiguous, of that shape, on
     the same device), which the kernel then writes directly (a row of a
-    seed batch's stack).  On CUDA, nz must be even with
+    seed batch's stack; on CUDA it must be 8-byte aligned, as every
+    allocation and every row of a float32 stack of even nz is).  On CUDA,
+    nz must be even with
     ``kernel_length_ok(nz // 2)``; the half-pack it uses is exact for
     Hermitian input (real kz = 0 and Nyquist terms), as a symmetrized
     spectrum is after its x and y passes.
@@ -397,11 +437,17 @@ def _launch_c2r_tail(re, im, nz, weights, out=None):
     if out is None:
         out = torch.empty((*re.shape[:-1], nz), dtype=torch.float32,
                           device=re.device)
+    elif out.data_ptr() % 8:
+        raise ValueError("c2r_tail: out must be 8-byte aligned (the kernel "
+                         "stores float pairs)")
+    if weights.data_ptr() % 8:
+        weights = weights.clone()  # read as float pairs too
+    device = str(re.device)
     status = _build.library().rf_c2r_tail(
         re.data_ptr(), im.data_ptr(), weights.data_ptr(),
-        _twiddles(nz, m, str(re.device)).data_ptr(), out.data_ptr(),
-        re.numel() // (m + 1), int(m), max(1, _K4_BLOCK_ELEMS // m),
-        _build.current_stream(re),
+        pass_twiddles(m, +1, device).data_ptr(),
+        _twiddles(nz, m, device).data_ptr(), out.data_ptr(),
+        re.numel() // (m + 1), int(m), *_plan3(m), _build.current_stream(re),
     )
     _build.check(status, "c2r_tail")
     return out

@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# xdist runs six workers on the host: two threads each keep them off one
+# another's cores
+torch.set_num_threads(2)
+
 import randomfield_tpu_torch as rft  # noqa: E402
 from randomfield_tpu_torch.engine import staged  # noqa: E402
 from randomfield_tpu_torch.ops import fft, genfft, grid, sampler  # noqa: E402
@@ -25,7 +29,7 @@ pytestmark = pytest.mark.gpu
 
 SPACING = 16.0
 # max|kernel - plain| / max|plain|: float32 rounding of a scale (K2) and of
-# a log2(n)-stage FFT against cuFFT's; K4 at the bar of
+# a two- or three-pass Stockham FFT against cuFFT's; K4 at the bar of
 # tests/test_pallas_fft.py:test_irfft_tail_matches_numpy
 K2_TOL, K3_TOL, K4_TOL = 2e-6, 2e-6, 5e-6
 # CUDA render vs CPU render: float32 FFTs of two libraries
@@ -93,6 +97,51 @@ def test_c2r_tail_matches_plain(cuda, lead, nz):
     assert _rel(got, fft.c2r_tail_plain(re0, im0, nz, w)) <= K4_TOL
 
 
+FFT_LENGTHS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+# every length, both signs; inner counts that fill no panel (8..64 columns
+# a block: the rotate_panel rule), inner = 513 (a render's y pass) and one
+# column
+@pytest.mark.parametrize("sign", [+1, -1])
+@pytest.mark.parametrize("n", FFT_LENGTHS)
+def test_fft_axis_every_length_and_sign(cuda, n, sign):
+    kernel, plain = ((fft.ifft_axis, fft.ifft_axis_plain) if sign > 0
+                     else (fft.fft_axis, fft.fft_axis_plain))
+    for view in ((2, n, fft.rotate_panel(n) + 3), (1, n, 513), (3, n, 1)):
+        re0, im0 = _randn(view, cuda, 14), _randn(view, cuda, 15)
+        before = fft.K3_LAUNCHES
+        a, b = kernel(re0.clone(), im0.clone(), *view)
+        assert fft.K3_LAUNCHES == before + 1
+        c, d = plain(re0.clone(), im0.clone(), *view)
+        scale = max(float(c.abs().max()), float(d.abs().max()))
+        assert max(float((a - c).abs().max()),
+                   float((b - d).abs().max())) <= K3_TOL * scale, view
+
+
+# every m = nz / 2 = 16..2048; line counts that fill no block (256 E / m
+# lines a block) and one line; with out= (a row of a stack) and without
+@pytest.mark.parametrize("into", [False, True])
+@pytest.mark.parametrize("m", FFT_LENGTHS)
+def test_c2r_tail_every_length(cuda, m, into):
+    nz = 2 * m
+    w = torch.rand(nz, device=cuda) + 0.5
+    for lines in (2**16 // m + 3, 1):
+        re0 = _randn((lines, m + 1), cuda, 16)
+        im0 = _randn((lines, m + 1), cuda, 17)
+        im0[..., 0] = 0.0
+        im0[..., -1] = 0.0
+        stack = torch.full((3, lines, nz), float("nan"), device=cuda)
+        before = fft.K4_LAUNCHES
+        got = fft.c2r_tail(re0, im0, nz, w, out=stack[1] if into else None)
+        assert fft.K4_LAUNCHES == before + 1
+        want = fft.c2r_tail_plain(re0, im0, nz, w)
+        assert _rel(got, want) <= K4_TOL, lines
+        if into:
+            assert got.data_ptr() == stack[1].data_ptr()
+            assert torch.isnan(stack[0]).all() and torch.isnan(stack[2]).all()
+
+
 def test_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
     z = torch.zeros((1, 48, 8), device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
@@ -103,6 +152,14 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
     z = torch.zeros((18, 16), device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         fft.ifft_axis(z, z.clone(), 1, 16, 18)
+    z = torch.zeros((2, 17), device=cuda)
+    out = torch.zeros(2 * 32 + 1, device=cuda)[1:].view(2, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        fft.c2r_tail(z, z.clone(), 32, torch.ones(32, device=cuda), out=out)
+    # weights that start off an 8-byte boundary are copied, not refused
+    w = torch.rand(33, device=cuda)[1:]
+    got = fft.c2r_tail(z + 1.0, z.clone(), 32, w)
+    assert _rel(got, fft.c2r_tail_plain(z + 1.0, z.clone(), 32, w)) <= K4_TOL
 
 
 @pytest.mark.parametrize("shape,smoothing", [((32, 32, 64), 10.0),
@@ -320,8 +377,8 @@ def test_one_rank_mesh_render_equals_single_device(cuda, name):
 # nx-point transform of two libraries (the K4 bar)
 K9_TOL, K10_TOL = 2e-6, 5e-6
 # the v4 render vs the default render: the same spectrum through K9's passes
-# and through K3's radix-2 stages, two float32 transforms of another
-# summation order (RENDER_TOL's class; bit-equal while K9 ran K3's stages)
+# and through K3's, the same plans and tables in two kernels (RENDER_TOL's
+# class; bit-equal on an H100 while both ran the same stages)
 V4_TOL = 1e-5
 
 
@@ -345,8 +402,8 @@ def test_ifft_rotate_matches_plain(cuda, groups, n, cols):
     c, d = fft.ifft_rotate_plain(re0, im0, groups, n, cols)
     scale = max(float(c.abs().max()), float(d.abs().max()))
     assert max(float((a - c).abs().max()), float((b - d).abs().max())) <= K9_TOL * scale
-    # K3's transform of the same view, rotated: radix-2 stages against K9's
-    # Stockham passes, each within its bar of cuFFT, so within their sum
+    # K3's transform of the same view, rotated: the same plan and tables in
+    # two kernels, each within its bar of cuFFT, so within their sum
     e, f = fft.ifft_axis(re0.clone(), im0.clone(), groups, n, cols)
     apart = max(
         float((a.view(groups, cols, n) - e.view(groups, n, cols).transpose(1, 2)).abs().max()),
@@ -354,10 +411,12 @@ def test_ifft_rotate_matches_plain(cuda, groups, n, cols):
     assert apart <= (K9_TOL + K3_TOL) * scale
 
 
-@pytest.mark.parametrize("kernel", ["r2c_head", "ifft_rotate"])
+@pytest.mark.parametrize("kernel,sign", [("r2c_head", 1), ("ifft_rotate", 1),
+                                         ("fft_axis", 1), ("fft_axis", -1),
+                                         ("c2r_tail", 1)])
 @pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048])
-def test_register_radix_instances_fit_an_sm(cuda, kernel, n):
-    regs, blocks, threads, smem = fft.kernel_attributes(kernel, n)
+def test_register_radix_instances_fit_an_sm(cuda, kernel, sign, n):
+    regs, blocks, threads, smem = fft.kernel_attributes(kernel, n, sign)
     assert 0 < regs <= 64 and blocks >= 1 and blocks * threads <= 2048
     assert threads <= 1024 and smem <= 227 * 1024
 

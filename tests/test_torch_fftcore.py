@@ -4,15 +4,18 @@ plain tensors from the same ``radix_plan`` and the same ``pass_twiddles``
 tables the launchers hand the kernels.
 
 It is held to numpy's float64 transforms for every length and both signs,
-and, composed with K6's pack and unfold and with K9's rotation, to the JAX
-package's kernels in interpret mode, as tests/test_torch_r2c.py and
+and, composed with each kernel's own algebra (K3's middle-axis views, K4's
+fold and interleave, K6's pack and unfold, K9's rotation), to numpy, to
+the plain versions and to the JAX package's kernels in interpret mode, as
+tests/test_torch_kernels.py, tests/test_torch_r2c.py and
 tests/test_torch_staged.py hold the plain versions.
 
-Tolerances, relative to the largest output: 2e-6 against numpy (float32
-butterflies against float64), 1e-6 against the JAX r2c head (the same
-float32 unfold after an m-point transform of another summation order), 3e-6
-against the JAX sublane kernel (the bar of
-tests/test_pallas_fft.py:test_sublane_matches_numpy).
+Tolerances, relative to the largest output: 2e-6 against numpy and the
+plain versions (float32 butterflies against float64 or cuFFT's float32),
+5e-6 for K4 (the bar of tests/test_pallas_fft.py:test_irfft_tail_matches_
+numpy), 1e-6 against the JAX r2c head (the same float32 unfold after an
+m-point transform of another summation order), 3e-6 against the JAX
+minor-axis and sublane kernels (the bars of tests/test_pallas_fft.py).
 """
 
 import numpy as np
@@ -22,10 +25,16 @@ torch = pytest.importorskip("torch")
 
 from randomfield_tpu_torch.ops import fft  # noqa: E402
 
+# xdist runs six workers on the host: two threads each keep them off one
+# another's cores
+torch.set_num_threads(2)
+
 LENGTHS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 NUMPY_TOL = 2e-6
+K4_TOL = 5e-6
 JAX_HEAD_TOL = 1e-6
 JAX_SUBLANE_TOL = 3e-6
+JAX_MINOR_TOL = 3e-6
 
 
 def _complex(shape, seed):
@@ -164,3 +173,85 @@ def test_ifft_rotate_on_the_core_matches_plain(groups, n, cols):
     c, d = fft.ifft_rotate_plain(*args)
     assert a.is_contiguous() and tuple(a.shape) == (groups * cols, n)
     assert _rel(a.numpy() + 1j * b.numpy(), c.numpy() + 1j * d.numpy()) <= NUMPY_TOL
+
+
+# ---- K3: the core along the middle axis of (outer, n, inner) views ----------
+
+def _axis_views(n):
+    # inner = 1, a ragged inner (no whole K3 panel) and inner = 513 (a
+    # render's y pass) at the smaller lengths
+    views = [(3, n, 1), (2, n, fft.rotate_panel(n) + 3)]
+    return views + [(2, n, 513)] if n <= 64 else views
+
+
+@pytest.mark.parametrize("sign", (+1, -1))
+@pytest.mark.parametrize("n", LENGTHS)
+def test_axis_on_the_core_matches_numpy_and_plain(n, sign):
+    plain = fft.ifft_axis_plain if sign > 0 else fft.fft_axis_plain
+    for view in _axis_views(n):
+        x = _complex(view, n + view[2])
+        re, im = torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy())
+        got = fft.axis_emulated(re, im, *view, sign)
+        assert got[0] is re and got[1] is im  # in place, as the kernel
+        got = re.numpy() + 1j * im.numpy()
+        wide = x.astype(np.complex128)
+        want = (np.fft.ifft(wide, axis=1, norm="forward") if sign > 0
+                else np.fft.fft(wide, axis=1))
+        assert _rel(got, want) <= NUMPY_TOL, view
+        pre, pim = plain(torch.as_tensor(x.real.copy()),
+                         torch.as_tensor(x.imag.copy()), *view)
+        assert _rel(got, pre.numpy() + 1j * pim.numpy()) <= NUMPY_TOL, view
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (2, 256)])
+def test_axis_on_the_core_matches_pallas_minor(shape):
+    import jax.numpy as jnp
+
+    from randomfield_tpu.ops import pallas_fft as jfft
+
+    x = _complex(shape, 3)
+    gre, gim = jfft.ifft_minor_pallas_reim(jnp.asarray(x.real), jnp.asarray(x.imag),
+                                           interpret=True)
+    want = np.asarray(gre) + 1j * np.asarray(gim)
+    re, im = torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy())
+    fft.axis_emulated(re, im, shape[0], shape[1], 1, +1)
+    assert _rel(re.numpy() + 1j * im.numpy(), want) <= JAX_MINOR_TOL
+
+
+# ---- K4: the fold, the m-point core, the interleave and the weights ---------
+
+def _hermitian_lines(lead, m, seed):
+    c = _complex((*lead, m + 1), seed)
+    c[..., 0] = c[..., 0].real    # a packed half-spectrum's DC and
+    c[..., -1] = c[..., -1].real  # Nyquist terms are real
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, size=2 * m)
+    return c, w.astype(np.float32)
+
+
+@pytest.mark.parametrize("m", LENGTHS)
+def test_c2r_tail_on_the_core_matches_numpy_and_plain(m):
+    c, w = _hermitian_lines((2, 3), m, m)
+    nz = 2 * m
+    args = (torch.as_tensor(c.real.copy()), torch.as_tensor(c.imag.copy()), nz,
+            torch.as_tensor(w))
+    got = fft.c2r_tail_emulated(*args)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 3, nz)
+    want = np.fft.irfft(c.astype(np.complex128), n=nz, axis=-1, norm="forward") * w
+    assert _rel(got.numpy(), want) <= K4_TOL
+    assert _rel(got.numpy(), fft.c2r_tail_plain(*args).numpy()) <= K4_TOL
+
+
+@pytest.mark.parametrize("nz", (256, 512))
+def test_c2r_tail_on_the_core_matches_pallas_tail(nz):
+    import jax.numpy as jnp
+
+    from randomfield_tpu.ops import pallas_fft as jfft
+
+    c, w = _hermitian_lines((2, 8), nz // 2, 5)
+    want = np.asarray(jfft.irfft_tail_pallas(
+        jnp.asarray(c.real), jnp.asarray(c.imag), nz, jnp.asarray(w),
+        interpret=True))
+    got = fft.c2r_tail_emulated(torch.as_tensor(c.real.copy()),
+                                torch.as_tensor(c.imag.copy()), nz,
+                                torch.as_tensor(w))
+    assert _rel(got.numpy(), want) <= K4_TOL

@@ -11,6 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# xdist runs six workers on the host: two threads each keep them off one
+# another's cores
+torch.set_num_threads(2)
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 

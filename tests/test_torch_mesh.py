@@ -31,6 +31,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# xdist runs six workers on the host: two threads each keep them off one
+# another's cores
+torch.set_num_threads(2)
+
 import randomfield_tpu_torch as rft  # noqa: E402
 from randomfield_tpu_torch.ops import modestream, sample, sampler  # noqa: E402
 from randomfield_tpu_torch.ops import threefry, transform  # noqa: E402
@@ -91,6 +95,8 @@ def _rank_work(m):
 
 
 def _rank_main(rank, size, store, out_dir):
+    # the ranks run beside the xdist workers: one thread each
+    torch.set_num_threads(1)
     from randomfield_tpu_torch.parallel import multihost
 
     multihost.initialize("gloo", f"file://{store}", size, rank, "cpu")

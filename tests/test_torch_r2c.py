@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# xdist runs six workers on the host: two threads each keep them off one
+# another's cores
+torch.set_num_threads(2)
+
 from randomfield_tpu_torch.ops import fft  # noqa: E402
 from randomfield_tpu_torch.parallel import dfft  # noqa: E402
 from randomfield_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
