@@ -14,7 +14,9 @@ non-zero with no result line:
    registers a thread and blocks an SM of every instance of the kernels on
    the register-radix FFT core: K3 (both signs), K4, K6 and K9;
 1. each hand kernel against its plain PyTorch version on the card, at the
-   exact shapes, table and weights the 1024^3 main paths give it: K2
+   exact shapes, table and weights the 1024^3 main paths give it: the
+   default render's fused K2 draw_scale (the bits of its hash exact, its
+   unit normals within 3 ulps, the spectrum at s = 0 and 8), K2
    scale_sigma, K3 fft_axis (and every length 16..2048, both signs, one and
    several outer groups, inner = 1, 513 and ragged counts), K4 c2r_tail (and
    every nz / 2 = 16..2048, ragged line counts, one line), K1
@@ -22,12 +24,13 @@ non-zero with no result line:
    exact, repeatable bit for bit, and equal to binning K1's spectrum); the
    slab mesh's K6 r2c_head and forward K3 at the 1024^3 forward transform's
    shapes (K6 also at every length 16..2048, ragged line counts, one line), K7
-   scale_shard and K8 sample_shard on each of the
+   draw_scale_shard and K8 sample_shard on each of the
    four (1024, 256, 513) shards of a four-rank mesh, their unions equal to
-   whole-grid K2 and K1 bit for bit; the staged variants' K9 ifft_rotate at
-   the v4 render's x and y passes on a render's own spectrum (and every length
-   16..2048 with several groups, ragged column counts, one column) and K10 sample_fftx (s = 0 and 8; bulk rows and plane
-   rows apart);
+   whole-grid draw_scale and K1 bit for bit; the staged variants' K9
+   ifft_rotate at the v4 render's x and y passes on a render's own spectrum
+   (and every length 16..2048 with several groups, ragged column counts,
+   one column) and K10 sample_fftx (s = 0 and 8; bulk rows and plane rows
+   apart);
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -36,8 +39,9 @@ non-zero with no result line:
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
-   predicted_variance), and the config-4 ensemble, sample_power_batch of 64
-   seeds (nbins = 32), whose mean P(k) must match the binned prediction
+   predicted_variance), generate_noise -> generate_from_noise held to the
+   default render bit for bit, and the config-4 ensemble, sample_power_batch
+   of 64 seeds (nbins = 32), whose mean P(k) must match the binned prediction
    within 6 sigma of its sampling noise; then the slab mesh at 1024^3, both
    samplers: four ranks in a gloo group share the card (spawned processes;
    gloo stages the CUDA tensors of its collectives through host memory),
@@ -51,7 +55,8 @@ non-zero with no result line:
    predictions), and generate_delta_fields of 4 seeds at 512^3 through the
    in-program seed batch, its rows bit-equal to single renders;
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
-   1024^3 render for both samplers and for the v4 and v6 variants, of each
+   1024^3 render for both samplers and for the v4 and v6 variants, of
+   generate_noise beside the plain draws, of each
    kernel beside its plain version and, for K3, K4 and K6, beside the cuFFT
    call that computes the same function (K9: beside cuFFT plus the copy of
    the transpose, two calls); each kernel's bound from its bytes and
@@ -86,6 +91,11 @@ KERNELS = {
     "K2": dict(name="scale_sigma", route="cuda",
                source="randomfield_tpu_torch/csrc/scale_sigma.cu",
                replaces="randomfield_tpu/ops/pallas_sampler.py:491"),
+    # K2 fused with the jax.random draw in front of it
+    # (randomfield_tpu/engine/staged.py:214) and the Hermitian fix
+    "K2F": dict(name="draw_scale", route="cuda",
+                source="randomfield_tpu_torch/csrc/draw_scale.cu",
+                replaces="randomfield_tpu/ops/pallas_sampler.py:491"),
     "K3": dict(name="fft_axis", route="cuda",
                source="randomfield_tpu_torch/csrc/fft_axis.cu",
                replaces="randomfield_tpu/ops/pallas_fft.py:135"),
@@ -98,8 +108,8 @@ KERNELS = {
     "K6": dict(name="r2c_head", route="cuda",
                source="randomfield_tpu_torch/csrc/r2c_head.cu",
                replaces="randomfield_tpu/ops/pallas_fft.py:490"),
-    "K7": dict(name="scale_shard", route="cuda",
-               source="randomfield_tpu_torch/csrc/scale_sigma.cu",
+    "K7": dict(name="draw_scale_shard", route="cuda",
+               source="randomfield_tpu_torch/csrc/draw_scale.cu",
                replaces="randomfield_tpu/ops/pallas_sampler.py:573"),
     "K8": dict(name="sample_shard", route="cuda",
                source="randomfield_tpu_torch/csrc/sample_modes.cu",
@@ -111,16 +121,21 @@ KERNELS = {
                 source="randomfield_tpu_torch/csrc/sample_fftx.cu",
                 replaces="randomfield_tpu/ops/pallas_genfft.py:76"),
 }
-KERNEL_ORDER = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
+KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
+                "K10")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
-# scale (K1's Box-Muller and K2, and K8 and K7 that are they on a shard;
-# libdevice logf/sincosf on both sides) and of a float32 FFT against
+# scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
+# and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
+# float32 FFT against
 # cuFFT's (K3, a two- or three-pass Stockham transform, and K4 and its
 # mirror K6 as the c2r tail test of the JAX package's
 # tests/test_pallas_fft.py; K9 is K3's transform written rotated and K10
 # K1's draws through a radix-2 one, both at the K4 bar)
-BARS = {"K1": 2e-6, "K2": 2e-6, "K3": 2e-6, "K4": 5e-6, "K6": 5e-6,
-        "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6}
+BARS = {"K1": 2e-6, "K2": 2e-6, "K2F": 2e-6, "K3": 2e-6, "K4": 5e-6,
+        "K6": 5e-6, "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6}
+# the fused K2's unit normals vs threefry.normal_at on the card (the same
+# float32 operations and libdevice calls: 0 expected)
+DRAW_ULPS = 3
 # K5 vs plain: the same float32 per-mode terms, added in float64 in another
 # order (per-run and per-block partials vs index_add_); counts exactly
 K5_SUM_RTOL = 1e-6
@@ -150,9 +165,14 @@ FP32_OPS_PER_S = 67e12
 # K5: the hash, |k|^2 for sigma and for the bin (12), the lookup (12),
 # u1 and r^2 (6), amplitude, filter and power (8), the bin guess and edge
 # compares (6), the weights and the three float64 adds (6).  K10: K1's draw
-# per bulk mode (its transform is counted per line, 5 n log2 n).
+# per bulk mode (its transform is counted per line, 5 n log2 n).  K2F (and
+# K7, which is K2F on a shard): two hashes, each mapped to a normal (the
+# mantissa uniform and its clamp 6, erfinv's log1p, sqrt and branch
+# arithmetic 9, the 9-term polynomial with its selects 25, two multiplies
+# 2: 42), the plane fix's selects (6) and K2's amplitude and multiplies (24).
 OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
-                "K2": 24, "K10": 74 + 7 + 12 + 12 + 4}
+                "K2": 24, "K2F": 2 * (74 + 42) + 6 + 24,
+                "K10": 74 + 7 + 12 + 12 + 4}
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
 # single-seed variance vs prediction at 1024^3
@@ -164,7 +184,8 @@ TIMING_REPS = 5
 FFT_LENGTHS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 # repeats of a plain version that takes seconds (K1's, K5's, K10's)
 SLOW_PLAIN_REPS = 2
-# the constant a render folds into K2's amplitude (the draws' 1/sqrt(2))
+# the constant generate_from_noise folds into K2's amplitude (the draws'
+# 1/sqrt(2); the fused K2F folds in the same)
 RENDER_GAIN = 0.5 ** 0.5
 SAMPLERS = ("threefry", "pallas")
 # the slab mesh: four ranks share the one card in a gloo group; a mesh
@@ -353,6 +374,59 @@ def phase1_kernels(torch, g, errs):
             check_k4((lines,), 2 * m, w)
 
 
+def max_ulps(torch, a, b):
+    """The largest float32 ulp distance between two equal-shaped tensors of
+    finite values of one sign pattern, slab by slab along the second axis."""
+    worst = 0
+    for x0 in range(0, a.shape[1], 64):
+        d = (a[:, x0:x0 + 64].view(torch.int32).long()
+             - b[:, x0:x0 + 64].view(torch.int32).long())
+        worst = max(worst, int(d.abs().max()))
+    return worst
+
+
+def phase1_draw_scale(torch, g, errs):
+    """The fused K2 (draw_scale) vs its plain chain on the card at the
+    1024^3 main path's shapes, table and gain: the bits of its hash equal to
+    threefry.bits_at's, its unit normals within DRAW_ULPS of
+    threefry.normal_at's, its spectrum (s = 0 and 8) within the K2 bar of
+    draw_scale_plain's (unit draws -> Hermitian fix -> scale_sigma_plain);
+    fills errs["K2F"]."""
+    from randomfield_tpu_torch.ops import sample, sampler, threefry
+
+    seed, table, shape, spacing = 17, g.state.table, g.shape, g.grid_spacing
+    key = threefry.key_from_seed(seed)
+    got = sampler.draw_bits(seed, table, shape)
+    want = torch.stack(sample.canonical_bits_reim(key, shape, g.device))
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    log(f"phase 1 K2F draw_scale bits {tuple(got.shape)} vs threefry.bits_at: "
+        f"{'equal' if exact else 'DIFFER'}")
+    if not exact:
+        raise AssertionError("draw_scale's hash is not JAX's Threefry")
+    del got, want
+    torch.cuda.empty_cache()
+    got = sampler.draw_scale(seed, table, shape, spacing, unit=True)
+    want = torch.stack(sample.unit_draws_reim(key, shape, g.device))
+    torch.cuda.synchronize()
+    ulps = max_ulps(torch, got, want)
+    log(f"phase 1 K2F draw_scale unit normals {tuple(got.shape)} vs "
+        f"threefry.normal_at: max {ulps} ulps (bar {DRAW_ULPS})")
+    if not ulps <= DRAW_ULPS:
+        raise AssertionError(f"draw_scale's normals are {ulps} ulps off")
+    del got, want
+    torch.cuda.empty_cache()
+    for s_ in (0.0, 8.0):
+        got = sampler.draw_scale(seed, table, shape, spacing, s_)
+        want = sampler.draw_scale_plain(seed, table, shape, spacing, s_)
+        torch.cuda.synchronize()
+        same = "bit-equal" if torch.equal(got, want) else "not bit-equal"
+        check_close(errs, "K2F", f"{tuple(got.shape)} s={s_} ({same})",
+                    (got[0], got[1]), (want[0], want[1]))
+        del got, want
+        torch.cuda.empty_cache()
+
+
 def phase1_sampler(torch, g, errs):
     """K1 and K5 vs their plain versions at the 1024^3 shapes and table of
     the sampler='pallas' scene ``g``; fills errs["K1"], errs["K5"]."""
@@ -455,8 +529,8 @@ def phase1_mesh_kernels(torch, g, gp, errs):
     """The slab mesh's kernels vs their plain versions at the 1024^3 mesh
     paths' shapes: K6 and forward K3 where the one-rank forward transform
     runs them (and forward K3 over a sweep of lengths), K7 and K8 on each
-    shard of a four-rank mesh, whose unions must equal whole-grid K2 (on
-    the same draws) and K1 (of the same seed) bit for bit."""
+    shard of a four-rank mesh, whose unions must equal whole-grid
+    draw_scale and K1 of the same seed bit for bit."""
     from randomfield_tpu_torch.ops import fft, sampler
 
     dev = g.device
@@ -499,23 +573,21 @@ def phase1_mesh_kernels(torch, g, gp, errs):
     torch.cuda.empty_cache()
 
     ny_loc = ny // MESH_RANKS
-    re, im = randn(nx, ny, nzh), randn(nx, ny, nzh)
-    k2 = sampler.scale_sigma(re.clone(), im.clone(), g.state.table, g.shape,
-                             g.grid_spacing, gain=RENDER_GAIN)
+    whole = sampler.draw_scale(17, g.state.table, g.shape, g.grid_spacing)
     k1 = sampler.sample_modes(17, gp.state.table, gp.shape, gp.grid_spacing)
     for r in range(MESH_RANKS):
         rows = slice(r * ny_loc, (r + 1) * ny_loc)
-        shard = (re[:, rows].contiguous(), im[:, rows].contiguous())
-        got = sampler.scale_shard(*(t.clone() for t in shard), g.state.table,
-                                  g.shape, g.grid_spacing, 0.0, r * ny_loc,
-                                  RENDER_GAIN)
-        want = sampler.scale_sigma_plain(*shard, g.state.table, g.shape,
-                                         g.grid_spacing, 0.0, 0, r * ny_loc,
-                                         RENDER_GAIN)
+        got = sampler.draw_scale_shard(17, g.state.table, g.shape,
+                                       g.grid_spacing, 0.0, r * ny_loc, ny_loc)
+        want = sampler.draw_scale_plain(17, g.state.table, g.shape,
+                                        g.grid_spacing, 0.0, 0, r * ny_loc,
+                                        None, ny_loc)
         torch.cuda.synchronize()
-        check_close(errs, "K7", f"shard {r} {tuple(got[0].shape)}", got, want)
-        if not all(torch.equal(a, b[:, rows]) for a, b in zip(got, k2)):
-            raise AssertionError(f"K7 shard {r} is not whole-grid K2's rows")
+        check_close(errs, "K7", f"shard {r} {tuple(got[0].shape)}",
+                    (got[0], got[1]), (want[0], want[1]))
+        if not torch.equal(got, whole[:, :, rows]):
+            raise AssertionError(f"K7 shard {r} is not whole-grid "
+                                 f"draw_scale's rows")
         got = sampler.sample_shard(17, gp.state.table, gp.shape,
                                    gp.grid_spacing, 0.0, r * ny_loc, ny_loc)
         want = sampler.seeded_modes_plain(17, gp.state.table, gp.shape,
@@ -526,8 +598,8 @@ def phase1_mesh_kernels(torch, g, gp, errs):
         if not all(torch.equal(a, b[:, rows]) for a, b in zip(got, k1)):
             raise AssertionError(f"K8 shard {r} is not whole-grid K1's rows")
     log(f"phase 1 K7 and K8: the union of the {MESH_RANKS} shards equals "
-        f"whole-grid K2 and K1 bit for bit")
-    del re, im, k1, k2, got, want, shard
+        f"whole-grid draw_scale and K1 bit for bit")
+    del whole, k1, got, want
     torch.cuda.empty_cache()
 
 
@@ -593,6 +665,7 @@ def reset_counts():
     from randomfield_tpu_torch.ops import fft, genfft, sampler
 
     sampler.K1_LAUNCHES = sampler.K2_LAUNCHES = sampler.K5_LAUNCHES = 0
+    sampler.K2F_LAUNCHES = 0
     sampler.K7_LAUNCHES = sampler.K8_LAUNCHES = 0
     fft.K3_LAUNCHES = fft.K4_LAUNCHES = fft.K6_LAUNCHES = 0
     fft.K9_LAUNCHES = genfft.K10_LAUNCHES = 0
@@ -602,8 +675,9 @@ def read_counts():
     from randomfield_tpu_torch.ops import fft, genfft, sampler
 
     return {"K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
-            "K3": fft.K3_LAUNCHES, "K4": fft.K4_LAUNCHES,
-            "K5": sampler.K5_LAUNCHES, "K6": fft.K6_LAUNCHES,
+            "K2F": sampler.K2F_LAUNCHES, "K3": fft.K3_LAUNCHES,
+            "K4": fft.K4_LAUNCHES, "K5": sampler.K5_LAUNCHES,
+            "K6": fft.K6_LAUNCHES,
             "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES,
             "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES}
 
@@ -618,7 +692,7 @@ def require_launches(counts, least, what):
 def phase2_slice(torch, rft, dev):
     """CUDA render vs CPU (plain) render at 128^3, seed 7, both samplers."""
     shape, spacing, seed = (128, 128, 128), 16.0, 7
-    first = {"threefry": "K2", "pallas": "K1"}
+    first = {"threefry": "K2F", "pallas": "K1"}
     for name, kernel in first.items():
         g_dev = rft.Generator(*shape, grid_spacing=spacing, device=dev,
                               sampler=name)
@@ -728,8 +802,36 @@ def phase3_main(torch, g):
         f"predicted {pred:.6g}, ratio {var / pred:.5f}, launches {counts}")
     if not abs(var / pred - 1.0) <= VAR_BAR:
         raise AssertionError(f"variance off prediction: {var / pred:.4f}")
-    first = "K1" if g.sampler == "pallas" else "K2"
+    first = "K1" if g.sampler == "pallas" else "K2F"
     require_launches(counts, {first: 2, "K3": 4, "K4": 2}, "main path")
+    return counts
+
+
+def phase3_noise(torch, g):
+    """generate_noise -> generate_from_noise at 1024^3 through the public
+    API of the threefry scene ``g``, held to generate_delta_field of the seed
+    bit for bit: the fused kernel's unit mode, then the Hermitian fix and K2
+    scale_sigma on the caller's draws; returns the launch counts."""
+    nx, ny, nz = g.shape
+    want = g.generate_delta_field(seed=4)
+    torch.cuda.synchronize()
+    reset_counts()
+    noise = g.generate_noise(seed=4)
+    got = g.generate_from_noise(noise)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    equal = torch.equal(got, want)
+    log(f"phase 3 main path generate_noise -> generate_from_noise {g.shape}: "
+        f"noise {tuple(noise.shape)} {noise.dtype}, field "
+        f"{'bit-equal to' if equal else 'DIFFERS from'} "
+        f"generate_delta_field(4); launches {counts}")
+    if tuple(noise.shape) != (2, nx, ny, nz // 2 + 1) or not equal:
+        raise AssertionError("generate_from_noise(generate_noise(s)) is not "
+                             "generate_delta_field(s)")
+    require_launches(counts, {"K2F": 1, "K2": 1, "K3": 2, "K4": 1},
+                     "noise round trip")
+    del want, noise, got
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -908,7 +1010,7 @@ def host_stage_times(torch, stages, first, reps):
 
 def mesh_render_stages(g, seed):
     """The calls of a mesh ``g.generate_delta_field(seed)``, one by one."""
-    from randomfield_tpu_torch.ops import fft, sample, sampler, threefry, transform
+    from randomfield_tpu_torch.ops import fft, sampler, transform
     from randomfield_tpu_torch.parallel import dfft
 
     mesh = g.mesh
@@ -918,17 +1020,13 @@ def mesh_render_stages(g, seed):
     if g.sampler == "pallas":
         stages = {"K8 sample_shard": lambda _: sampler.sample_shard(
             seed, g.state.table, g.shape, g.grid_spacing, 0.0, y_off, ny_loc)}
+        stages["Hermitian symmetrize, all_gather of two planes" + GLOO] = (
+            lambda ri: transform.symmetrize_slab_reim(*ri, nz, mesh))
     else:
-        stages = {"Threefry draws of the ky slab (plain PyTorch)":
-                  lambda _: sample.unit_draws_reim(
-                      threefry.key_from_seed(seed), g.shape, g.device, y_off,
-                      ny_loc)}
-    stages["Hermitian symmetrize, all_gather of two planes" + GLOO] = (
-        lambda ri: transform.symmetrize_slab_reim(*ri, nz, mesh))
-    if g.sampler != "pallas":
-        stages["K7 scale_shard"] = lambda ri: sampler.scale_shard(
-            *ri, g.state.table, g.shape, g.grid_spacing, 0.0, y_off,
-            RENDER_GAIN)
+        stages = {"K7 draw_scale_shard (draw, Hermitian fix, scale)":
+                  lambda _: tuple(sampler.draw_scale_shard(
+                      seed, g.state.table, g.shape, g.grid_spacing, 0.0,
+                      y_off, ny_loc))}
     stages["K3 fft_axis x pass"] = lambda ri: fft.ifft_axis(
         *ri, 1, nx, ny_loc * nzh)
     stages["exchange to x slabs, all_to_all" + GLOO] = lambda ri: tuple(
@@ -1170,7 +1268,7 @@ def render_stages(g, seed):
     for a sampler='pallas' scene the staged render's own list, in the
     variant the switch selects now."""
     from randomfield_tpu_torch.engine import staged
-    from randomfield_tpu_torch.ops import fft, sample, sampler, threefry, transform
+    from randomfield_tpu_torch.ops import fft, sampler
 
     nx, ny, nz = g.shape
     nzh = nz // 2 + 1
@@ -1179,12 +1277,8 @@ def render_stages(g, seed):
             staged.selected_variant(g.shape), seed, g.state.table, g.shape,
             g.grid_spacing, g.state.lightcone_weights)
     return {
-        "Threefry draws (plain PyTorch)": lambda _: sample.unit_draws_reim(
-            threefry.key_from_seed(seed), g.shape, g.device),
-        "Hermitian symmetrize (plain)": lambda ri: (
-            transform.symmetrize_with_shape_reim(*ri, nz), ri)[1],
-        "K2 scale_sigma": lambda ri: sampler.scale_sigma(
-            *ri, g.state.table, g.shape, g.grid_spacing, gain=RENDER_GAIN),
+        "K2F draw_scale (draw, Hermitian fix, scale)": lambda _: tuple(
+            sampler.draw_scale(seed, g.state.table, g.shape, g.grid_spacing)),
         "K3 fft_axis x pass": lambda ri: fft.ifft_axis(*ri, 1, nx, ny * nzh),
         "K3 fft_axis y pass": lambda ri: fft.ifft_axis(*ri, nx, ny, nzh),
         "K4 c2r_tail": lambda ri: fft.c2r_tail(*ri, nz,
@@ -1279,7 +1373,8 @@ def render_profile(torch, g, card):
 def phase4_times(torch, rft, dev, g, gp, card):
     """Times at the main paths' shapes; returns {K: (ms, plain_ms,
     library_ms or None)}."""
-    from randomfield_tpu_torch.ops import fft, genfft, sampler
+    from randomfield_tpu_torch.ops import (fft, genfft, sample, sampler,
+                                           threefry)
     from randomfield_tpu_torch.validate import stats
 
     nx, ny, nz = HEADLINE
@@ -1335,6 +1430,10 @@ def phase4_times(torch, rft, dev, g, gp, card):
                  + (" (the transposed view is contiguous already: the second "
                     "moves nothing)," if one_call else ","))
     runs = {
+        "K2F": (lambda: sampler.draw_scale(2, t, HEADLINE, HEADLINE_SPACING),
+                lambda: sampler.draw_scale_plain(2, t, HEADLINE,
+                                                 HEADLINE_SPACING),
+                None, slow),
         "K1": (lambda: sampler.sample_modes(2, t, HEADLINE, HEADLINE_SPACING),
                lambda: sampler.seeded_modes_plain(2, t, HEADLINE,
                                                   HEADLINE_SPACING),
@@ -1386,6 +1485,14 @@ def phase4_times(torch, rft, dev, g, gp, card):
     times["K9"] = (x[0] + y[0], x[1] + y[1], x[2] + y[2] if one_call else None)
     del src_re, src_im, re, im, spec, planes
     torch.cuda.empty_cache()
+    # generate_noise is the fused kernel's unit mode; its plain form is the
+    # draw stage a render ran before it
+    key = threefry.key_from_seed(2)
+    time_kernel(torch, "generate_noise (K2F unit mode)",
+                lambda: g.generate_noise(2),
+                lambda: torch.stack(sample.unit_draws_reim(key, HEADLINE,
+                                                           dev)),
+                None, None, HEADLINE, card, plain_reps=SLOW_PLAIN_REPS)
     batch_times(torch, rft, dev, card)
     return times
 
@@ -1499,18 +1606,14 @@ def phase4_mesh(torch, rft, dev, g, gp, mesh, card):
 
     ny_loc = ny // MESH_RANKS
     shard = (nx, ny_loc, nzh)
-    src_re = torch.randn(shard, generator=gen, device=dev)
-    src_im = torch.randn(shard, generator=gen, device=dev)
-    re, im = torch.empty_like(src_re), torch.empty_like(src_im)
     t = g.state.table
     times["K7"] = time_kernel(
         torch, "K7 (shard 1 of 4)",
-        lambda: sampler.scale_shard(re, im, t, HEADLINE, HEADLINE_SPACING,
-                                    0.0, ny_loc, RENDER_GAIN),
-        lambda: sampler.scale_sigma_plain(re, im, t, HEADLINE,
-                                          HEADLINE_SPACING, 0.0, 0, ny_loc,
-                                          RENDER_GAIN),
-        None, fresh, shard, card)
+        lambda: sampler.draw_scale_shard(2, t, HEADLINE, HEADLINE_SPACING,
+                                         0.0, ny_loc, ny_loc),
+        lambda: sampler.draw_scale_plain(2, t, HEADLINE, HEADLINE_SPACING,
+                                         0.0, 0, ny_loc, None, ny_loc),
+        None, None, shard, card, plain_reps=SLOW_PLAIN_REPS)
     tp = gp.state.table
     times["K8"] = time_kernel(
         torch, "K8 (shard 1 of 4)",
@@ -1541,6 +1644,8 @@ def kernel_bounds(g):
     work = {  # (bytes, operations)
         "K1": (8 * modes + knots, OPS_PER_MODE["K1"] * modes),
         "K2": (16 * modes + knots, OPS_PER_MODE["K2"] * modes),
+        # the lattices written and the knots read; two hashes a mode
+        "K2F": (8 * modes + knots, OPS_PER_MODE["K2F"] * modes),
         "K3": (2 * 16 * modes + 4 * (nx + ny),
                fft_ops(nx, ny * nzh) + fft_ops(ny, nx * nzh)),
         "K4": (8 * modes + 4 * cells + 4 * nz + 4 * m,
@@ -1551,7 +1656,7 @@ def kernel_bounds(g):
         # FFTs and the unfold (8 adds and 8 multiplies per packed mode)
         "K6": (4 * cells + 8 * modes + 8 * m,
                fft_ops(m, nx * ny) + 16.0 * modes),
-        "K7": (16 * shard + knots, OPS_PER_MODE["K2"] * shard),
+        "K7": (8 * shard + knots, OPS_PER_MODE["K2F"] * shard),
         "K8": (8 * shard + knots, OPS_PER_MODE["K1"] * shard),
         # both passes of a v4 render: each lattice read and written once
         "K9": (2 * 16 * modes + 4 * (nx + ny),
@@ -1629,6 +1734,8 @@ def main() -> int:
                            device=dev, sampler="pallas")
 
         errs = {}
+        phase1_draw_scale(torch, g, errs)
+        torch.cuda.empty_cache()
         phase1_kernels(torch, g, errs)
         torch.cuda.empty_cache()
         phase1_sampler(torch, gp, errs)
@@ -1641,7 +1748,8 @@ def main() -> int:
         phase2_consistency(torch, rft, dev)
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
-        main_paths = [phase3_main(torch, g), phase3_main(torch, gp),
+        main_paths = [phase3_main(torch, g), phase3_noise(torch, g),
+                      phase3_main(torch, gp),
                       phase3_config4(torch, gp, card)[0]]
         torch.cuda.empty_cache()
         main_paths.append(phase3_four_ranks(torch, dev, card))

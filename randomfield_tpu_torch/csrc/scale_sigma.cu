@@ -4,13 +4,15 @@
 // draws need no pass of their own for it.
 //
 // Replaces randomfield_tpu/ops/pallas_sampler.py:_scale_jit_reim (the 'xzy'
-// single-device kernel) and, through the (x_off, y_off) arguments, its
-// per-shard form scale_shard_pallas_reim.  Same arithmetic, step for step:
+// single-device kernel) on draws the caller supplies; (x_off, y_off) place
+// a block of the grid.  Same arithmetic, step for step:
 // |k|^2 from the signed global indices, log10|k| = (0.5 / ln 10) ln|k|^2,
 // t = (log10|k| - lk0) / dlk clipped to [0, n_knots - 1], i0 = min(int(t),
 // n_knots - 2), sigma = s[i0] (1 - frac) + s[i0 + 1] frac, sigma(0) = 0, the
-// filter only when s != 0, then the gain.  The interpolation is the one K1
-// and K5 use (sigma_common.cuh).
+// filter only when s != 0, then the gain (sigma_common.cuh:k2_amplitude,
+// which the fused draw_scale.cu calls too; the interpolation is the one K1
+// and K5 use).  The default render draws, fixes and scales in draw_scale.cu;
+// this kernel scales the caller's draws of generate_from_noise.
 //
 // What bounds it on the H100: device-memory bytes, one read and one write of
 // each lattice (16 bytes per mode); per mode it adds one logf and, when
@@ -51,15 +53,9 @@ scale_sigma_kernel(float* __restrict__ re, float* __restrict__ im,
     const int z = p - y * nzh;
     const float ky = ky_scale * static_cast<float>(rf::signed_index(y + y_off, ny));
     const float kz = kz_scale * static_cast<float>(z);
-    const float ksq =
-        __fadd_rn(__fadd_rn(kx2, __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
-    float amp = 0.f;
-    if (ksq > 0.f) {
-      amp = rf::interp_sigma(tab, n_knots, rf::log10_k(ksq, half_inv_ln10),
-                             lk0, inv_dlk);
-      if (smoothing != 0.f) amp = amp * expf(-0.5f * ksq * smoothing * smoothing);
-      amp = amp * gain;
-    }
+    const float amp = rf::k2_amplitude(tab, n_knots, kx2, ky, kz,
+                                       half_inv_ln10, lk0, inv_dlk, smoothing,
+                                       gain);
     rp[p] = rp[p] * amp;
     ip[p] = ip[p] * amp;
   }

@@ -1,7 +1,7 @@
 // sigma(|k|) by linear interpolation in log10 k over the uniform knot table:
-// the device code that K1 (sample_modes.cu), K2 (scale_sigma.cu), K5
-// (sample_power_bins.cu) and K10 (sample_fftx.cu) share, so all of them
-// interpolate identically.
+// the device code that K1 (sample_modes.cu), K2 (scale_sigma.cu and its
+// fused form draw_scale.cu), K5 (sample_power_bins.cu) and K10
+// (sample_fftx.cu) share, so all of them interpolate identically.
 //
 // Counterpart of randomfield_tpu/ops/pallas_sampler.py:_interp_sigma_tile.
 // The TPU keeps the knots as overlapping 128-wide segment rows for Mosaic's
@@ -45,6 +45,27 @@ __device__ __forceinline__ float interp_sigma(const float* tab, int n_knots,
   const float frac = t - static_cast<float>(i0);
   return __fadd_rn(__fmul_rn(tab[i0], 1.f - frac),
                    __fmul_rn(tab[i0 + 1], frac));
+}
+
+// K2's per-mode amplitude, which scale_sigma.cu and draw_scale.cu share:
+// sigma(|k|) * exp(-k^2 s^2 / 2) * gain with sigma(0) = 0, |k|^2 summed
+// (kx^2 + ky^2) + kz^2 as the JAX package's 'xyz' lattice sums it, the
+// filter only when s != 0.
+__device__ __forceinline__ float k2_amplitude(const float* tab, int n_knots,
+                                              float kx2, float ky, float kz,
+                                              float half_inv_ln10, float lk0,
+                                              float inv_dlk, float smoothing,
+                                              float gain) {
+  const float ksq =
+      __fadd_rn(__fadd_rn(kx2, __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
+  float amp = 0.f;
+  if (ksq > 0.f) {
+    amp = interp_sigma(tab, n_knots, log10_k(ksq, half_inv_ln10), lk0,
+                       inv_dlk);
+    if (smoothing != 0.f) amp = amp * expf(-0.5f * ksq * smoothing * smoothing);
+    amp = amp * gain;
+  }
+  return amp;
 }
 
 }  // namespace rf

@@ -5,12 +5,12 @@ constructor does the scene setup once (power table, uniform sigma(k)
 table, lightcone weights); each ``generate_delta_field(seed)`` then runs,
 on the scene's device, one of two samplers:
 
-* ``sampler='threefry'`` (default): the canonical Threefry unit draws
-  (:mod:`.ops.sample`), bit for bit the JAX package's stream at the same
-  seed, with the kz = 0 and Nyquist planes made Hermitian
-  (:mod:`.ops.transform`); then K2, in place: sigma(|k|) * exp(-k^2 s^2 /
-  2) / sqrt(2), the last factor the draws' complex normalization
-  (:func:`.ops.sampler.scale_sigma`);
+* ``sampler='threefry'`` (default): K2 fused with its draws
+  (:func:`.ops.sampler.draw_scale`), one pass: the canonical Threefry unit
+  draws (:mod:`.ops.sample`), bit for bit the JAX package's stream at the
+  same seed, with the kz = 0 and Nyquist planes made Hermitian, times
+  sigma(|k|) * exp(-k^2 s^2 / 2) / sqrt(2), the last factor the draws'
+  complex normalization;
 * ``sampler='pallas'``: K1 draws and scales every mode in one pass from
   its own counter-based stream (:func:`.ops.sampler.sample_modes`,
   :mod:`.ops.modestream`); then the Hermitian fix of the two planes.  On
@@ -30,15 +30,17 @@ writes no spectrum (:func:`.ops.sampler.sample_power_bins`), the config-4
 covariance-ensemble path; ``calculate_power(delta)`` is the FFT estimator.
 
 On CUDA the spectrum is two float32 lattices updated in place up to K4;
-a render's peak is those two lattices, the field and (Threefry) one
-draw chunk's temporaries.  On the CPU every step runs its plain PyTorch
-version.
+a render's peak is those two lattices and the field.  On the CPU every
+step runs its plain PyTorch version.  ``generate_noise`` is the fused
+kernel's unit mode; ``generate_from_noise`` runs the Hermitian fix and K2
+(:func:`.ops.sampler.scale_sigma`) on the caller's draws.
 
 With ``mesh`` (a :class:`..parallel.mesh.SlabMesh`) every rank builds the
 same Generator and calls the same methods; each rank draws its ky slab of
-the spectrum (K7 or K8 in place of K2 or K1), and the distributed inverse
-(:mod:`..parallel.dfft`) returns its x slab of the field, equal to the
-same rows of the single-device render (:mod:`..parallel.render`).
+the spectrum (K7 or K8 in place of the fused K2 or K1), and the
+distributed inverse (:mod:`..parallel.dfft`) returns its x slab of the
+field, equal to the same rows of the single-device render
+(:mod:`..parallel.render`).
 """
 
 from __future__ import annotations
@@ -51,9 +53,7 @@ from randomfield_tpu_torch.engine import staged as _staged
 from randomfield_tpu_torch.models import cosmology as _cosmo
 from randomfield_tpu_torch.models.powerspec import resolve_power
 from randomfield_tpu_torch.ops import fft as _fft
-from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
-from randomfield_tpu_torch.ops import threefry as _threefry
 from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.parallel import mesh as _mesh
 from randomfield_tpu_torch.parallel import render as _render
@@ -215,11 +215,6 @@ class Generator:
         w = self.state.lightcone_weights
         return w if apply_lightcone else torch.ones_like(w)
 
-    def _scaled_draws(self, re, im, smoothing_length):
-        """Unit draws -> spectrum, in place: symmetrize, then K2."""
-        return _staged.scaled_draws(re, im, self.state.table, self.shape,
-                                    self.grid_spacing, smoothing_length)
-
     def _sampled_spectrum(self, seed, smoothing_length):
         """The seed's packed 'xyz' spectrum as (re, im) float32 lattices
         (on a mesh, this rank's ky slab)."""
@@ -232,10 +227,9 @@ class Generator:
             return _sampler.sample_spectrum(
                 seed, self.state.table, self.shape, self.grid_spacing,
                 smoothing_length)
-        re, im = _sample.unit_draws_reim(
-            _threefry.key_from_seed(seed), self.shape, self.device
-        )
-        return self._scaled_draws(re, im, smoothing_length)
+        re, im = _sampler.draw_scale(seed, self.state.table, self.shape,
+                                     self.grid_spacing, smoothing_length)
+        return re, im
 
     def _spectrum_to_field(self, re, im, apply_lightcone):
         """Spectrum (consumed in place) -> field: K3 x, K3 y, K4."""
@@ -259,9 +253,8 @@ class Generator:
                 self._weights(apply_lightcone), smoothing_length)
         if self.mesh is None and self.pipeline == "staged":
             return _staged.render_v3_threefry(
-                _threefry.key_from_seed(seed), self.state.table, self.shape,
-                self.grid_spacing, self._weights(apply_lightcone),
-                smoothing_length)
+                seed, self.state.table, self.shape, self.grid_spacing,
+                self._weights(apply_lightcone), smoothing_length)
         re, im = self._sampled_spectrum(seed, smoothing_length)
         return self._spectrum_to_field(re, im, apply_lightcone)
 
@@ -294,12 +287,11 @@ class Generator:
     def generate_noise(self, seed=0):
         """A seed's raw unit normal draws, shape (2, nx, ny, nz//2+1): the
         state before symmetrization and scaling.  ``generate_from_noise``
-        of it equals ``generate_delta_field(seed)`` exactly."""
+        of it equals ``generate_delta_field(seed)`` exactly.  On CUDA the
+        fused K2 kernel writes them (its unit mode)."""
         self._require_threefry("there is no exportable pre-kernel noise state")
-        re, im = _sample.unit_draws_reim(
-            _threefry.key_from_seed(seed), self.shape, self.device
-        )
-        return torch.stack([re, im])
+        return _sampler.draw_scale(seed, self.state.table, self.shape,
+                                   self.grid_spacing, unit=True)
 
     def generate_from_noise(self, draws, smoothing_length=0.0,
                             apply_lightcone=True):
@@ -320,7 +312,8 @@ class Generator:
             )
         re = draws[0].clone(memory_format=torch.contiguous_format)
         im = draws[1].clone(memory_format=torch.contiguous_format)
-        re, im = self._scaled_draws(re, im, smoothing_length)
+        re, im = _staged.scaled_draws(re, im, self.state.table, self.shape,
+                                      self.grid_spacing, smoothing_length)
         return self._spectrum_to_field(re, im, apply_lightcone)
 
     # ---- power spectra ---------------------------------------------------------

@@ -29,8 +29,8 @@ the default as well.
 :func:`render_v3_batch` renders a seed batch into one preallocated stack,
 K4 writing each field into its row, with no host synchronization between
 the seeds; :func:`render_v3_threefry` is the Threefry scene's staged render
-(canonical draws -> K2 -> the default transforms), the same field as the
-Generator's default path.
+(the canonical draws fused into K2 -> the default transforms), the same
+field as the Generator's default path.
 
 Not ported: the JAX package's chunked v1/v2/v3 variants,
 ``RF_STAGED_V3_MERGE``, its ``optimization_barrier`` pins and the
@@ -47,7 +47,6 @@ import torch
 
 from randomfield_tpu_torch.ops import fft as _fft
 from randomfield_tpu_torch.ops import genfft as _genfft
-from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
 from randomfield_tpu_torch.ops import transform as _transform
 
@@ -178,8 +177,10 @@ def finish_staged_reim(re, im, weights, shape, out=None):
 
 
 def scaled_draws(re, im, table, shape, spacing, smoothing_length=0.0):
-    """Unit draws -> spectrum, in place: the Hermitian fix, then K2 with
-    the draws' 1/sqrt(2) folded into its amplitude."""
+    """Unit draws the caller supplies -> spectrum, in place: the Hermitian
+    fix, then K2 with the draws' 1/sqrt(2) folded into its amplitude
+    (``generate_from_noise``; a seeded render fuses all three,
+    :func:`..ops.sampler.draw_scale`)."""
     _transform.symmetrize_with_shape_reim(re, im, shape[2])
     return _sampler.scale_sigma(re, im, table, shape, spacing,
                                 smoothing_length, gain=_INV_SQRT2)
@@ -234,13 +235,12 @@ def render_v3_batch(seeds, table, shape, spacing, weights,
     return stack
 
 
-def render_v3_threefry(key, table, shape, spacing, weights,
+def render_v3_threefry(seed, table, shape, spacing, weights,
                        smoothing_length=0.0, out=None):
-    """The staged render of a Threefry scene: the canonical unit draws of
-    ``key`` (:func:`..ops.sample.unit_draws_reim`) -> Hermitian fix -> K2
-    in place -> the default transforms.  One canonical stream: the same
-    field as the Generator's default (``pipeline='auto'``) render."""
+    """The staged render of a Threefry scene: the seed's canonical draws,
+    Hermitian fix and K2 in one pass (:func:`..ops.sampler.draw_scale`) ->
+    the default transforms.  One canonical stream: the same field as the
+    Generator's default (``pipeline='auto'``) render."""
     shape = tuple(int(n) for n in shape)
-    re, im = _sample.unit_draws_reim(key, shape, table.knots.device)
-    scaled_draws(re, im, table, shape, spacing, smoothing_length)
+    re, im = _sampler.draw_scale(seed, table, shape, spacing, smoothing_length)
     return finish_staged_reim(re, im, weights, shape, out)

@@ -45,6 +45,8 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_draw_scale": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "rf_fft_axis": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _P],
     "rf_fft_axis_attributes": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_fft_rotate": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],

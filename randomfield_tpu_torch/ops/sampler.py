@@ -1,4 +1,4 @@
-"""The sigma(k) table and the sampler kernels: K2 scale, K1 sample, K5 bin.
+"""The sigma(k) table and the sampler kernels: K2 draw + scale, K1 sample, K5 bin.
 
 Counterpart of ``randomfield_tpu/ops/pallas_sampler.py``.  Scene setup
 resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
@@ -6,9 +6,13 @@ resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
 :mod:`.genfft`) interpolates linearly in log10 k
 (``csrc/sigma_common.cuh``):
 
-* K2 :func:`scale_sigma` (``csrc/scale_sigma.cu``): the default sampler's
-  Threefry unit draws, in place, times sigma(|k|) * exp(-k^2 s^2 / 2) *
-  gain;
+* K2, fused with its draws, :func:`draw_scale` (``csrc/draw_scale.cu``):
+  the default sampler's spectrum in one pass, JAX's canonical Threefry
+  stream (:mod:`.sample`) drawn in the kernel, the kz = 0 / Nyquist planes
+  made Hermitian in the thread, times sigma(|k|) * exp(-k^2 s^2 / 2) /
+  sqrt(2); ``unit=True`` writes the raw unit draws (``generate_noise``);
+* K2 :func:`scale_sigma` (``csrc/scale_sigma.cu``): the same amplitude
+  times draws the caller supplies, in place (``generate_from_noise``);
 * K1 :func:`sample_modes` (``csrc/sample_modes.cu``): ``sampler='pallas'``
   draws each mode from its own counter-based stream
   (:mod:`~randomfield_tpu_torch.ops.modestream`), Box-Muller, and scales it,
@@ -16,10 +20,11 @@ resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
 * K5 :func:`sample_power_bins` (``csrc/sample_power_bins.cu``): the same
   draws binned in log10 |k| as (sum w, sum w |c|^2 V, sum w |k|) with no
   spectrum written, plus the raw kz = 0 / Nyquist planes;
-* K7 :func:`scale_shard` and K8 :func:`sample_shard`: K2 and K1 on the ky
-  rows [y_off, y_off + ny_loc) of a slab mesh's shard, at the global
-  indices (the same sources; the union over the shards is the whole-grid
-  result bit for bit).
+* K7 :func:`draw_scale_shard` and K8 :func:`sample_shard`: the fused K2 and
+  K1 on the ky rows [y_off, y_off + ny_loc) of a slab mesh's shard, at the
+  global counters and indices (the same sources; the union over the shards
+  is the whole-grid result bit for bit, and K7 needs no exchange for the
+  Hermitian fix).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain PyTorch version beside it (``*_plain``), which repeats
@@ -31,12 +36,14 @@ the same knot count as the JAX 'xzy' table, ``m (w - 1) + 1`` with
 ``w = min(ny, 128)``, and the same padding, so its default table equals
 the JAX one value for value with the shared knots de-duplicated.
 
-The launch counts are ``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K5_LAUNCHES``,
-``K7_LAUNCHES`` and ``K8_LAUNCHES``.
+The launch counts are ``K1_LAUNCHES``, ``K2_LAUNCHES`` (:func:`scale_sigma`),
+``K2F_LAUNCHES`` (:func:`draw_scale` and :func:`draw_bits`),
+``K5_LAUNCHES``, ``K7_LAUNCHES`` and ``K8_LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import typing
 
 import numpy as np
@@ -46,6 +53,8 @@ from randomfield_tpu_torch.ops import _build
 from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import modestream as _modestream
 from randomfield_tpu_torch.ops import power as _power
+from randomfield_tpu_torch.ops import sample as _canon
+from randomfield_tpu_torch.ops import threefry as _threefry
 from randomfield_tpu_torch.ops import transform as _transform
 
 __all__ = [
@@ -54,6 +63,10 @@ __all__ = [
     "flat_knots",
     "scale_sigma",
     "scale_sigma_plain",
+    "draw_scale",
+    "draw_scale_shard",
+    "draw_scale_plain",
+    "draw_bits",
     "sigma_amplitude",
     "load_reference_state",
     "sample_modes",
@@ -63,20 +76,22 @@ __all__ = [
     "sample_power_bins",
     "power_bins_plain",
     "seeded_power_bins_plain",
-    "scale_shard",
     "sample_shard",
     "K1_LAUNCHES",
     "K2_LAUNCHES",
+    "K2F_LAUNCHES",
     "K5_LAUNCHES",
     "K7_LAUNCHES",
     "K8_LAUNCHES",
     "MAX_KERNEL_BINS",
 ]
 
-# kernel launches by sample_modes, scale_sigma, sample_power_bins,
-# scale_shard and sample_shard (the CPU paths do not count)
+# kernel launches by sample_modes, scale_sigma, draw_scale (and draw_bits),
+# sample_power_bins, draw_scale_shard and sample_shard (the CPU paths do not
+# count)
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K2F_LAUNCHES = 0
 K5_LAUNCHES = 0
 K7_LAUNCHES = 0
 K8_LAUNCHES = 0
@@ -87,11 +102,15 @@ MAX_KERNEL_BINS = 128
 
 _MIN_KNOTS = 513  # >= the default table's information content
 _HALF_INV_LN10 = np.float32(0.5 / np.log(10.0))
-# Box-Muller constants of the TPU sampler, rounded to float32 as JAX rounds them
+# Box-Muller constants of the TPU sampler, rounded to float32 as JAX rounds
+# them; 1/sqrt(2) is also the Threefry draws' complex normalization, the gain
+# of the fused K2
 _TWO_PI32 = np.float32(6.283185307179586)
 _INV_SQRT2 = np.float32(0.7071067811865476)
 _INV_2_24 = np.float32(2.0 ** -24)
 _HALF_INV_2_24 = np.float32(2.0 ** -25)
+# csrc/draw_scale.cu's modes
+_SPECTRUM, _UNIT, _BITS = 0, 1, 2
 # y rows of one K5 block (csrc/sample_power_bins.cu kThreads)
 _K5_ROWS = 128
 # x planes per step of the plain version (bounds its temporaries)
@@ -251,50 +270,22 @@ def scale_sigma(re, im, table, shape, spacing, smoothing_length=0.0,
     ``re``/``im``: float32 (nx_loc, ny_loc, nz//2+1) 'xyz' blocks covering
     global rows [x_off, x_off + nx_loc) x [y_off, y_off + ny_loc) of an
     ``shape`` scene (the whole spectrum by default).  ``gain`` is a float32
-    constant folded into the per-mode amplitude (a render passes 1/sqrt(2)
-    for its unit draws).  On CUDA tensors this
-    launches ``csrc/scale_sigma.cu``; on CPU tensors it runs
+    constant folded into the per-mode amplitude (``generate_from_noise``
+    passes 1/sqrt(2) for its unit draws; a seeded render draws and scales
+    in :func:`draw_scale`).  On CUDA tensors this launches
+    ``csrc/scale_sigma.cu``; on CPU tensors it runs
     :func:`scale_sigma_plain`.  Returns (re, im).
     """
     global K2_LAUNCHES
-    if _scale(re, im, table, shape, spacing, smoothing_length, x_off, y_off,
-              gain, "scale_sigma"):
-        K2_LAUNCHES += 1
-    return re, im
-
-
-def scale_shard(re, im, table, shape, spacing, smoothing_length=0.0, y_off=0,
-                gain=1.0):
-    """K7: :func:`scale_sigma` on a slab mesh's shard, IN PLACE.
-
-    ``re``/``im``: float32 (nx, ny_loc, nz//2+1) blocks, the ky rows
-    [y_off, y_off + ny_loc) of the spectrum; every mode is scaled by the
-    amplitude of its global index, so the union of the shards equals K2
-    on the whole grid bit for bit.  The counterpart of
-    ``pallas_sampler.scale_shard_pallas_reim``; on CUDA it launches
-    ``csrc/scale_sigma.cu`` at the shard's offset.  Returns (re, im).
-    """
-    global K7_LAUNCHES
-    if _scale(re, im, table, shape, spacing, smoothing_length, 0, y_off,
-              gain, "scale_shard"):
-        K7_LAUNCHES += 1
-    return re, im
-
-
-def _scale(re, im, table, shape, spacing, smoothing_length, x_off, y_off,
-           gain, name):
-    """K2's body: checks, then the plain version on the CPU (returns False)
-    or one launch on CUDA (returns True)."""
     _check_block(re, im, table, shape, x_off, y_off)
     if re.device.type == "cpu":
-        scale_sigma_plain(re, im, table, shape, spacing, smoothing_length,
-                          x_off, y_off, gain)
-        return False
+        return scale_sigma_plain(re, im, table, shape, spacing,
+                                 smoothing_length, x_off, y_off, gain)
     if re.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {re.device}")
+        raise ValueError(f"scale_sigma runs on cpu or cuda, not {re.device}")
     if not (re.is_contiguous() and im.is_contiguous()
             and table.knots.is_contiguous()):
-        raise ValueError(f"{name}'s CUDA kernel needs contiguous tensors")
+        raise ValueError("scale_sigma's CUDA kernel needs contiguous tensors")
     nx, ny, nz = shape
     c = _constants(table, shape, spacing)
     status = _build.library().rf_scale_sigma(
@@ -306,8 +297,152 @@ def _scale(re, im, table, shape, spacing, smoothing_length, x_off, y_off,
         float(np.float32(smoothing_length)), float(np.float32(gain)),
         _build.current_stream(re),
     )
+    _build.check(status, "scale_sigma")
+    K2_LAUNCHES += 1
+    return re, im
+
+
+# ---- K2 fused with its draws: the default sampler's spectrum in one pass ------------
+
+def draw_scale_plain(seed, table, shape, spacing, smoothing_length=0.0,
+                     x_off=0, y_off=0, nx_loc=None, ny_loc=None, unit=False):
+    """:func:`draw_scale` in plain PyTorch on the table's device.
+
+    The chain a render ran before the fused kernel: the canonical unit
+    draws (:func:`.sample.unit_draws_reim`) -> the Hermitian fix of the
+    kz = 0 / Nyquist planes (:func:`.transform.symmetrize_plane_reim`) ->
+    :func:`scale_sigma_plain` with gain 1/sqrt(2).  A block of fewer ky rows
+    than the grid's is fixed from its whole planes, drawn at their own
+    counters (:func:`.sample.plane_draws_reim`), so it needs no mesh.
+    Returns float32 (2, nx_loc, ny_loc, nzh): re and im.
+    """
+    nx, ny, nz = shape
+    nx_loc, ny_loc = _block_rows(shape, x_off, y_off, nx_loc, ny_loc)
+    dev = table.knots.device
+    key = _threefry.key_from_seed(seed)
+    re, im = _canon.unit_draws_reim(key, shape, dev, y_off, ny_loc)
+    if not unit:
+        rows = slice(y_off, y_off + ny_loc)
+        for p in _grid.self_conjugate_kz_planes(nz):
+            whole = ((re[..., p], im[..., p]) if ny_loc == ny
+                     else _canon.plane_draws_reim(key, shape, p, dev))
+            fre, fim = _transform.symmetrize_plane_reim(*whole)
+            re[..., p] = fre[:, rows]
+            im[..., p] = fim[:, rows]
+    out = torch.stack([re[x_off:x_off + nx_loc], im[x_off:x_off + nx_loc]])
+    if not unit:
+        scale_sigma_plain(out[0], out[1], table, shape, spacing,
+                          smoothing_length, x_off, y_off, float(_INV_SQRT2))
+    return out
+
+
+def draw_scale(seed, table, shape, spacing, smoothing_length=0.0, x_off=0,
+               y_off=0, nx_loc=None, ny_loc=None, unit=False):
+    """K2, fused with its draws: the seed's ``sampler='threefry'`` spectrum.
+
+    Returns float32 (2, nx_loc, ny_loc, nz//2+1), re and im, on the table's
+    device for x rows [x_off, x_off + nx_loc) and ky rows [y_off, y_off +
+    ny_loc) (the whole grid by default): JAX's canonical Threefry normals
+    of the seed (:mod:`.sample`), Hermitian on the kz = 0 / Nyquist planes,
+    times sigma(|k|) * exp(-k^2 s^2 / 2) / sqrt(2).  ``unit=True`` returns
+    the raw unit draws instead (no fix, no scale).  On CUDA this launches
+    ``csrc/draw_scale.cu``, which draws every mode (and a plane mode's
+    partner) at its counter in the thread; on the CPU it runs
+    :func:`draw_scale_plain`.
+    """
+    global K2F_LAUNCHES
+    out, launched = _draw(seed, table, shape, spacing, smoothing_length,
+                          x_off, y_off, nx_loc, ny_loc,
+                          _UNIT if unit else _SPECTRUM, "draw_scale")
+    K2F_LAUNCHES += launched
+    return out
+
+
+def draw_scale_shard(seed, table, shape, spacing, smoothing_length=0.0,
+                     y_off=0, ny_loc=None):
+    """K7: :func:`draw_scale` for a slab mesh's shard, ky rows [y_off,
+    y_off + ny_loc), all x rows.
+
+    Every mode is drawn at its global counter and scaled at its global |k|,
+    and a plane mode whose conjugate partner lies on another rank draws the
+    partner's counter itself, so the union of the shards equals
+    :func:`draw_scale` on the whole grid bit for bit with no exchange.  The
+    counterpart of ``pallas_sampler.scale_shard_pallas_reim`` and of the
+    sharded draw and fix in front of it; on CUDA it launches
+    ``csrc/draw_scale.cu`` over the shard's rows.
+    """
+    global K7_LAUNCHES
+    out, launched = _draw(seed, table, shape, spacing, smoothing_length, 0,
+                          y_off, None, ny_loc, _SPECTRUM, "draw_scale_shard")
+    K7_LAUNCHES += launched
+    return out
+
+
+def draw_bits(seed, table, shape, x_off=0, y_off=0, nx_loc=None,
+              ny_loc=None):
+    """The bits under :func:`draw_scale`'s unit draws: int64 (2, nx_loc,
+    ny_loc, nz//2+1) uint32 values, ``jax.random.bits`` of the canonical
+    stream, on the table's device.  On CUDA the fused kernel writes them
+    (a check of its hash alone, counted in ``K2F_LAUNCHES``); on the CPU
+    :func:`.sample.canonical_bits_reim`."""
+    global K2F_LAUNCHES
+    out, launched = _draw(seed, table, shape, 1.0, 0.0, x_off, y_off, nx_loc,
+                          ny_loc, _BITS, "draw_bits")
+    K2F_LAUNCHES += launched
+    return out
+
+
+def _block_rows(shape, x_off, y_off, nx_loc, ny_loc):
+    """(nx_loc, ny_loc) of a block, the rest of the grid by default; raises
+    ValueError unless the block lies inside the grid."""
+    nx, ny, _ = shape
+    nx_loc = nx - x_off if nx_loc is None else int(nx_loc)
+    ny_loc = ny - y_off if ny_loc is None else int(ny_loc)
+    if not (0 <= x_off and 0 < nx_loc and x_off + nx_loc <= nx
+            and 0 <= y_off and 0 < ny_loc and y_off + ny_loc <= ny):
+        raise ValueError(f"block of x rows [{x_off}, {x_off + nx_loc}) and ky "
+                         f"rows [{y_off}, {y_off + ny_loc}) lies outside the "
+                         f"grid {tuple(shape)}")
+    return nx_loc, ny_loc
+
+
+def _draw(seed, table, shape, spacing, smoothing_length, x_off, y_off,
+          nx_loc, ny_loc, mode, name):
+    """The fused kernel's body: (output, launches) with the plain version
+    on the CPU (0 launches) or one launch of ``mode`` on CUDA."""
+    dev = _check_table(table, name)
+    nx, ny, nz = shape
+    nx_loc, ny_loc = _block_rows(shape, x_off, y_off, nx_loc, ny_loc)
+    if dev.type == "cpu":
+        if mode == _BITS:
+            bits = _canon.canonical_bits_reim(_threefry.key_from_seed(seed),
+                                               shape, dev, y_off, ny_loc)
+            return torch.stack([b[x_off:x_off + nx_loc] for b in bits]), 0
+        return draw_scale_plain(seed, table, shape, spacing, smoothing_length,
+                                x_off, y_off, nx_loc, ny_loc,
+                                unit=mode == _UNIT), 0
+    key = _threefry.key_from_seed(seed)
+    chunks = _canon.canonical_chunks(nx)
+    keys = [_threefry.fold_in(key, i) for i in range(chunks)]
+    words = (ctypes.c_uint32 * (2 * chunks))(*(k[0] for k in keys),
+                                             *(k[1] for k in keys))
+    out = torch.empty((2, nx_loc, ny_loc, nz // 2 + 1),
+                      dtype=torch.int32 if mode == _BITS else torch.float32,
+                      device=dev)
+    c = _constants(table, shape, spacing)
+    status = _build.library().rf_draw_scale(
+        out[0].data_ptr(), out[1].data_ptr(), table.knots.data_ptr(),
+        table.knots.numel(), ctypes.addressof(words), chunks, nx, ny, nz,
+        int(x_off), nx_loc, int(y_off), ny_loc,
+        float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
+        float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
+        float(np.float32(smoothing_length)), float(_INV_SQRT2), mode,
+        _build.current_stream(out),
+    )
     _build.check(status, name)
-    return True
+    if mode == _BITS:
+        out = out.to(torch.int64) & 0xFFFFFFFF
+    return out, 1
 
 
 def load_reference_state(stab_rows, lk0, dlk, lightcone_weights, power_k,

@@ -24,8 +24,12 @@ tails.
 
 torch's uint32 lacks most operators, so words live in int64 tensors masked
 to 32 bits.  Keys are pairs of Python ints.  This is plain PyTorch, as the
-JAX package leaves Threefry to XLA; fusing it into the sigma-scale kernel
-is a later step on the roadmap.
+JAX package leaves Threefry to XLA.  On the card the default render draws
+the same stream inside the fused sigma-scale kernel (``csrc/draw_scale.cu``
+through ``ops/sampler.py:draw_scale``; the device functions are
+``csrc/threefry.cuh:jax_bits`` and ``jax_normal``, which repeat the float32
+operations below in their order); this module is that kernel's plain
+version and the CPU path.
 """
 
 from __future__ import annotations

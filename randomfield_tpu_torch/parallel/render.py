@@ -6,13 +6,15 @@ the whole grid, so a mesh render equals the single-device render of the
 same seed on any number of ranks:
 
 * ``sampler='threefry'`` (``_sampled_spectrum_reim``,
-  ``make_sharded_render``): the canonical Threefry draws of the rank's ky
-  rows (:func:`..ops.sample.unit_draws_reim`), the sharded Hermitian fix
-  (:func:`..ops.transform.symmetrize_slab_reim`), then K7 at the rank's
-  offset (:func:`..ops.sampler.scale_shard`), with the 1/sqrt(2) of the
-  draws folded into its gain as the single-device render folds it into K2;
+  ``make_sharded_render``): K7 over the rank's ky rows
+  (:func:`..ops.sampler.draw_scale_shard`), which draws the canonical
+  Threefry stream, makes the kz = 0 / Nyquist planes Hermitian and scales
+  in one pass.  A plane mode whose conjugate partner lies on another rank
+  draws the partner's counter itself, so this sampler exchanges nothing;
 * ``sampler='pallas'`` (``make_sharded_render_pallas``): K8 over the rank's
-  ky rows (:func:`..ops.sampler.sample_shard`), then the sharded fix;
+  ky rows (:func:`..ops.sampler.sample_shard`), then the sharded fix
+  (:func:`..ops.transform.symmetrize_slab_reim`, one ``all_gather`` of the
+  two planes);
 
 then the distributed inverse (:func:`.dfft.irfftn_slab_reim`) turns the
 rank's spectrum into its x slab of the field.
@@ -22,28 +24,20 @@ rank's spectrum into its x slab of the field.
 
 from __future__ import annotations
 
-import numpy as np
-
-from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
-from randomfield_tpu_torch.ops import threefry as _threefry
 from randomfield_tpu_torch.ops import transform as _transform
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["threefry_spectrum", "pallas_spectrum", "spectrum_bins"]
-
-_INV_SQRT2 = float(np.float32(0.7071067811865476))
 
 
 def threefry_spectrum(seed, table, shape, spacing, smoothing_length, mesh):
     """This rank's (nx, ny/P, nzh) ky slab of the seed's Threefry spectrum,
     as float32 (re, im)."""
     y_off, ny_loc = mesh.rows(shape[1])
-    re, im = _sample.unit_draws_reim(_threefry.key_from_seed(seed), shape,
-                                     mesh.device, y_off, ny_loc)
-    _transform.symmetrize_slab_reim(re, im, shape[2], mesh)
-    return _sampler.scale_shard(re, im, table, shape, spacing,
-                                smoothing_length, y_off, gain=_INV_SQRT2)
+    re, im = _sampler.draw_scale_shard(seed, table, shape, spacing,
+                                       smoothing_length, y_off, ny_loc)
+    return re, im
 
 
 def pallas_spectrum(seed, table, shape, spacing, smoothing_length, mesh):

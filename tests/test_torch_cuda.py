@@ -167,16 +167,19 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
 def test_cuda_render_matches_cpu(cuda, shape, smoothing):
     seed = 7
     g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda)
-    before = (sampler.K2_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
+    before = (sampler.K2F_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
     got = g.generate_delta_field(seed, smoothing_length=smoothing)
-    after = (sampler.K2_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
+    after = (sampler.K2F_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES)
     assert [b - a for a, b in zip(before, after)] == [1, 2, 1]
     assert torch.equal(g.generate_delta_field(seed, smoothing_length=smoothing), got)
     cpu = rft.Generator(*shape, grid_spacing=SPACING, device="cpu")
     want = cpu.generate_delta_field(seed, smoothing_length=smoothing)
     assert _rel(got.cpu(), want) <= RENDER_TOL
+    before = (sampler.K2F_LAUNCHES, sampler.K2_LAUNCHES)
     noise = g.generate_noise(seed)
     assert torch.equal(g.generate_from_noise(noise, smoothing), got)
+    assert (sampler.K2F_LAUNCHES, sampler.K2_LAUNCHES) == (before[0] + 1,
+                                                          before[1] + 1)
     np.testing.assert_allclose(g.predicted_variance(smoothing, True),
                                cpu.predicted_variance(smoothing, True), rtol=1e-6)
 
@@ -307,26 +310,58 @@ def test_fft_axis_forward_matches_plain(cuda, view):
 @pytest.mark.parametrize("shape,ranks", [((32, 64, 32), 4), ((16, 32, 30), 2)])
 @pytest.mark.parametrize("smoothing", [0.0, 3.0])
 def test_k7_shards_match_plain_and_their_union_is_k2(cuda, shape, ranks, smoothing):
+    # K7 is the fused K2 on a shard: its union is whole-grid draw_scale
     table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
                                      device=cuda)
-    nzh = shape[2] // 2 + 1
-    re0 = _randn((shape[0], shape[1], nzh), cuda, 10)
-    im0 = _randn((shape[0], shape[1], nzh), cuda, 11)
-    whole = sampler.scale_sigma(re0.clone(), im0.clone(), table, shape, SPACING,
-                                smoothing, gain=0.5 ** 0.5)
+    whole = sampler.draw_scale(4, table, shape, SPACING, smoothing)
     ny_loc = shape[1] // ranks
     for r in range(ranks):
         rows = slice(r * ny_loc, (r + 1) * ny_loc)
         before = sampler.K7_LAUNCHES
-        a, b = sampler.scale_shard(re0[:, rows].contiguous(),
-                                   im0[:, rows].contiguous(), table, shape,
-                                   SPACING, smoothing, r * ny_loc, 0.5 ** 0.5)
+        got = sampler.draw_scale_shard(4, table, shape, SPACING, smoothing,
+                                       r * ny_loc, ny_loc)
         assert sampler.K7_LAUNCHES == before + 1
-        c, d = sampler.scale_sigma_plain(re0[:, rows].clone(), im0[:, rows].clone(),
-                                         table, shape, SPACING, smoothing, 0,
-                                         r * ny_loc, 0.5 ** 0.5)
-        assert _rel(a, c) <= K2_TOL and _rel(b, d) <= K2_TOL
-        assert torch.equal(a, whole[0][:, rows]) and torch.equal(b, whole[1][:, rows])
+        want = sampler.draw_scale_plain(4, table, shape, SPACING, smoothing,
+                                        0, r * ny_loc, None, ny_loc)
+        assert _rel(got, want) <= K2_TOL
+        assert torch.equal(got, whole[:, :, rows])
+
+
+# the fused K2 vs its plain chain on the card: bits exact; unit normals
+# within 3 ulps (the same float32 operations and libdevice log1pf and sqrtf
+# on both sides: 0 measured at 1024^3); the spectrum within K2's bar (its
+# sigma amplitude is K2's, about 2e-7 off the plain version's)
+DRAW_ULPS = 3
+
+
+def _ulps(a, b):
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((16, 16, 16), None), ((64, 32, 64), None), ((32, 16, 30), None),
+    ((48, 16, 32), None), ((64, 32, 64), (8, 5, 24, 13)),
+])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_draw_scale_matches_plain(cuda, shape, block, smoothing):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    x_off, y_off, nx_loc, ny_loc = block or (0, 0, None, None)
+    rows = (x_off, y_off, nx_loc, ny_loc)
+    before = sampler.K2F_LAUNCHES
+    bits = sampler.draw_bits(4, table, shape, *rows)
+    unit = sampler.draw_scale(4, table, shape, SPACING, smoothing, *rows,
+                              unit=True)
+    got = sampler.draw_scale(4, table, shape, SPACING, smoothing, *rows)
+    assert sampler.K2F_LAUNCHES == before + 3
+    cpu_table = sampler.SigmaTable(table.lk0, table.dlk, table.knots.cpu())
+    assert torch.equal(bits.cpu(), sampler.draw_bits(4, cpu_table, shape,
+                                                     *rows))
+    assert _ulps(unit, sampler.draw_scale_plain(
+        4, table, shape, SPACING, smoothing, *rows, unit=True)) <= DRAW_ULPS
+    want = sampler.draw_scale_plain(4, table, shape, SPACING, smoothing, *rows)
+    assert _rel(got, want) <= K2_TOL
 
 
 @pytest.mark.parametrize("shape,ranks", [((16, 64, 32), 4), ((32, 16, 30), 2)])
