@@ -12,7 +12,10 @@ non-zero with no result line:
 
 0. the card's name and power limit (nvidia-smi), CUDA version, kernel build;
    registers a thread and blocks an SM of every instance of the kernels on
-   the register-radix FFT core: K3 (both signs), K4, K6 and K9;
+   the register-radix FFT core: K3 (both signs), K4, K6 and K9; registers
+   and the SASS instructions of the loop body a mode of the hashing kernels
+   K1 (and K8, the same kernel), K2F and K5 (cuobjdump), and the issue-rate
+   time they imply;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (the bits of its hash exact, its
@@ -20,13 +23,16 @@ non-zero with no result line:
    scale_sigma, K3 fft_axis (and every length 16..2048, both signs, one and
    several outer groups, inner = 1, 513 and ragged counts), K4 c2r_tail (and
    every nz / 2 = 16..2048, ragged line counts, one line), K1
-   sample_modes (s = 0 and 8), K5 sample_power_bins (nbins = 32; counts
-   exact, repeatable bit for bit, and equal to binning K1's spectrum); the
+   sample_modes (s = 0 and 8; the raw draws plus the plane fix, the planes
+   exactly Hermitian), K5 sample_power_bins (nbins = 32; against its plain
+   version, power_bins_plain plus plane_bins: counts exact, sums within
+   1e-6, repeatable bit for bit, and equal to binning K1's spectrum); the
    slab mesh's K6 r2c_head and forward K3 at the 1024^3 forward transform's
    shapes (K6 also at every length 16..2048, ragged line counts, one line), K7
    draw_scale_shard and K8 sample_shard on each of the
-   four (1024, 256, 513) shards of a four-rank mesh, their unions equal to
-   whole-grid draw_scale and K1 bit for bit; the staged variants' K9
+   four (1024, 256, 513) shards of a four-rank mesh (K8 against the raw
+   shard plus the plane fix), their unions equal to whole-grid draw_scale
+   and K1 bit for bit; the staged variants' K9
    ifft_rotate at the v4 render's x and y passes on a render's own spectrum
    (and every length 16..2048 with several groups, ragged column counts,
    one column) and K10 sample_fftx (s = 0 and 8; bulk rows and plane rows
@@ -41,8 +47,10 @@ non-zero with no result line:
    sampler='pallas' render (determinism, finite values, variance vs
    predicted_variance), generate_noise -> generate_from_noise held to the
    default render bit for bit, and the config-4 ensemble, sample_power_batch
-   of 64 seeds (nbins = 32), whose mean P(k) must match the binned prediction
-   within 6 sigma of its sampling noise; then the slab mesh at 1024^3, both
+   of 64 seeds (nbins = 32; one K5 launch over the batch into one device
+   block, one transfer), whose mean P(k) must match the binned prediction within 6
+   sigma of its sampling noise and whose rows must equal single sample_power
+   calls bit for bit; then the slab mesh at 1024^3, both
    samplers: four ranks in a gloo group share the card (spawned processes;
    gloo stages the CUDA tensors of its collectives through host memory),
    each rank's x slab equal to the same rows of the single-device render
@@ -59,7 +67,8 @@ non-zero with no result line:
    generate_noise beside the plain draws, of each
    kernel beside its plain version and, for K3, K4 and K6, beside the cuFFT
    call that computes the same function (K9: beside cuFFT plus the copy of
-   the transpose, two calls); each kernel's bound from its bytes and
+   the transpose, two calls); K5's batch as one launch over the batch
+   against one launch a seed, in turns; each kernel's bound from its bytes and
    operations; the device's idle share during a 1024^3 render
    (torch.profiler) and its peak device memory; the seed batch beside the
    loop of single renders; the one-rank mesh render beside the single-device
@@ -76,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -301,6 +311,120 @@ def phase0_attributes(card):
                 raise AssertionError(f"{name} n = {n}: no such instance")
 
 
+# the hashing kernels' SASS: (a fragment of the function's name, hashes a
+# mode); K8 is K1's kernel on a shard
+SASS_KERNELS = {"K1": ("sample_modes_kernel", 1),
+                "K2F": ("draw_scale_kernelILi0E", 2),
+                "K5": ("power_bins_kernel", 1)}
+# rotations of one Threefry-2x32 hash (threefry.cuh), each a funnel shift or
+# a byte permute in SASS
+ROTATIONS_PER_HASH = 20
+
+
+def sass_functions(lib, cuobjdump):
+    """{function: [(address, instruction)]} of a library's SASS, and
+    {function: registers a thread} (``cuobjdump -sass`` and ``-res-usage``:
+    the registers ``nvcc -Xptxas -v`` reports)."""
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    text = subprocess.run([cuobjdump, "-res-usage", str(lib)],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    regs = {m.group(1): int(m.group(2))
+            for m in re.finditer(r"Function (\S+?):?\s+REG:(\d+)", text)}
+    return funcs, regs
+
+
+def hash_loop(instrs):
+    """(span, hot, rotations) of the smallest loop (the span of a backward
+    branch) that holds a hash's rotations: the per-mode loop of a hashing
+    kernel.  ``span`` counts every instruction in it; ``hot`` leaves out
+    each inner loop or call with the smallest range a forward branch skips
+    around it: the cold paths laid out inside the loop (libdevice's slow
+    paths of sincosf and sqrtf, a run's flush in K5, the rare steps of a
+    bin search)."""
+    branches = []
+    for addr, text in instrs:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m:
+            branches.append((addr, int(m.group(1), 16)))
+    calls = [a for a, t in instrs if t.split()[0].startswith("CALL")
+             or (t.startswith("@") and t.split()[1].startswith("CALL"))]
+    best = None
+    for addr, first in branches:
+        if first >= addr:
+            continue
+        body = [(a, t) for a, t in instrs if first <= a <= addr]
+        rot = sum(1 for _, t in body
+                  if re.match(r"(@!?U?P\w+ )?(SHF\.[LR]\.W|PRMT)", t))
+        if rot >= ROTATIONS_PER_HASH // 2 and (best is None
+                                                or len(body) < len(best[0])):
+            best = (body, rot, first, addr)
+    body, rot, first, last = best
+    skips = [(at, to) for at, to in branches if first <= at < to <= last]
+    cold = set()
+    # each inner loop or call, with the smallest forward skip around it
+    inner = [(t, a) for a, t in branches if first < t < a < last]
+    inner += [(c, c) for c in calls if first < c < last]
+    for lo, hi in inner:
+        around = [(at, to) for at, to in skips if at < lo and hi < to]
+        at, to = (min(around, key=lambda r: r[1] - r[0]) if around
+                  else (lo - 1, hi + 1))
+        cold.update(a for a, _ in body if at < a < to)
+    return len(body), len(body) - len(cold), rot
+
+
+def sass_counts(lib, cuobjdump):
+    """{K: (registers, loop span, hot instructions, hashes in the loop,
+    hot instructions a mode)} of the hashing kernels in the library
+    ``lib``."""
+    funcs, regs = sass_functions(lib, cuobjdump)
+    out = {}
+    for kid, (frag, hashes_a_mode) in SASS_KERNELS.items():
+        name = next(f for f in funcs if frag in f)
+        span, hot, rot = hash_loop(funcs[name])
+        hashes = max(1, round(rot / ROTATIONS_PER_HASH))
+        out[kid] = (regs.get(name, -1), span, hot, hashes,
+                    hot * hashes_a_mode / hashes)
+    return out
+
+
+def phase0_sass(torch, card):
+    """Registers and the SASS loop body a mode of K1 (and K8), K2F and K5,
+    and the time the hot instructions take at the card's issue rate: one
+    warp instruction a clock on each of an SM's four schedulers at the
+    maximum SM clock (nvidia-smi), over the 1024^3 modes (K8: a quarter)."""
+    from randomfield_tpu_torch.ops import _build
+
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nx, ny, nz = HEADLINE
+    modes = nx * ny * (nz // 2 + 1)
+    counts = sass_counts(_build.library_path(), _build.cuda_tool("cuobjdump"))
+    counts["K8"] = counts["K1"]
+    for kid, (regs, span, hot, hashes, per_mode) in counts.items():
+        n_modes = modes // MESH_RANKS if kid == "K8" else modes
+        ms = 1e3 * per_mode * n_modes / 32 / (sms * 4 * clock_mhz * 1e6)
+        log(f"phase 0 {kid} SASS: {regs} registers a thread; loop body {span} "
+            f"instructions, {hot} outside its cold paths, for {hashes} "
+            f"hash(es): {per_mode:.1f} a mode; at {sms} SMs x 4 schedulers x "
+            f"{clock_mhz:.0f} MHz those issue in {ms:.3f} ms over {n_modes} "
+            f"modes [{card}]")
+    return counts
+
+
 def phase1_kernels(torch, g, errs):
     """Each kernel vs its plain version on the card, first at the shapes,
     table and weights the main path's scene ``g`` gives it; fills
@@ -429,58 +553,65 @@ def phase1_draw_scale(torch, g, errs):
 
 def phase1_sampler(torch, g, errs):
     """K1 and K5 vs their plain versions at the 1024^3 shapes and table of
-    the sampler='pallas' scene ``g``; fills errs["K1"], errs["K5"]."""
-    from randomfield_tpu_torch.ops import sampler
+    the sampler='pallas' scene ``g``; fills errs["K1"], errs["K5"].  Both
+    plain versions are the raw draws with the plane fix after them: K1's
+    seeded_spectrum_plain (raw draws, the planes made Hermitian), K5's
+    seeded_power_bins_plain (power_bins_plain plus plane_bins)."""
+    from randomfield_tpu_torch.ops import grid, sampler, transform
     from randomfield_tpu_torch.validate import stats
 
     seed, table = 17, g.state.table
     shape, spacing = g.shape, g.grid_spacing
     for s in (0.0, 8.0):
         a, b = sampler.sample_modes(seed, table, shape, spacing, s)
-        c, d = sampler.seeded_modes_plain(seed, table, shape, spacing, s)
+        c, d = sampler.seeded_spectrum_plain(seed, table, shape, spacing, s)
         torch.cuda.synchronize()
         abs_err, r = rel_err((a, b), (c, d))
         errs["K1"] = max(errs.get("K1", 0.0), abs_err)
-        log(f"phase 1 K1 {tuple(a.shape)} s={s}: max|d| {abs_err:.3e}, rel "
-            f"{r:.3e} (bar {BARS['K1']:g})")
-        if not r <= BARS["K1"]:
+        del c, d
+        hermitian = True
+        for p in grid.self_conjugate_kz_planes(shape[2]):
+            fre, fim = transform.symmetrize_plane_reim(a[..., p], b[..., p],
+                                                       False)
+            hermitian &= torch.equal(fre, a[..., p]) and torch.equal(fim,
+                                                                     b[..., p])
+        log(f"phase 1 K1 {tuple(a.shape)} s={s} vs the raw draws plus the "
+            f"plane fix: max|d| {abs_err:.3e}, rel {r:.3e} (bar "
+            f"{BARS['K1']:g}); its kz = 0 and Nyquist planes "
+            f"{'exactly Hermitian' if hermitian else 'NOT Hermitian'}")
+        if not r <= BARS["K1"] or not hermitian:
             raise AssertionError(f"K1 s={s} disagrees: rel {r:.3e}")
-        del a, b, c, d
+        del a, b
         torch.cuda.empty_cache()
 
     edges, _ = stats.bin_setup(shape, spacing, NBINS)
-    acc, pre, pim = sampler.sample_power_bins(seed, table, shape, spacing, 0.0,
-                                              edges)
-    again, _, _ = sampler.sample_power_bins(seed, table, shape, spacing, 0.0,
-                                            edges)
-    want, wpre, wpim = sampler.seeded_power_bins_plain(seed, table, shape,
-                                                       spacing, 0.0, edges)
+    acc = sampler.sample_power_bins(seed, table, shape, spacing, 0.0, edges)
+    again = sampler.sample_power_bins(seed, table, shape, spacing, 0.0, edges)
+    want = sampler.seeded_power_bins_plain(seed, table, shape, spacing, 0.0,
+                                           edges)
     torch.cuda.synchronize()
-    repeat = float((acc - again).abs().max())
     log(f"phase 1 K5 repeatability, two calls of seed {seed}: "
-        f"{'bit-identical' if torch.equal(acc, again) else f'max|d| {repeat:.3e}'}")
-    if not torch.equal(acc[0], again[0]) or repeat > 1e-12 * float(acc.abs().max()):
-        raise AssertionError("K5 is not repeatable")
+        f"{'bit-identical' if torch.equal(acc, again) else 'DIFFERENT'}")
+    if not torch.equal(acc, again):
+        raise AssertionError("K5 is not repeatable bit for bit")
     if not torch.equal(acc[0], want[0]):
         raise AssertionError(f"K5 counts differ from plain: "
                              f"{(acc[0] - want[0]).abs().max()}")
     live = want[0] > 0
     sums_rel = float(((acc[1:] - want[1:]).abs() / want[1:].abs())[:, live].max())
     errs["K5"] = float((acc - want).abs().max())
-    _, planes_rel = rel_err((pre, pim), (wpre, wpim))
-    log(f"phase 1 K5 {shape} nbins={NBINS} vs plain: counts equal (total "
-        f"{float(acc[0].sum()):.0f}), sums max rel {sums_rel:.3e} (bar "
-        f"{K5_SUM_RTOL:g}), max|d| {errs['K5']:.3e}, planes rel "
-        f"{planes_rel:.3e} (bar {BARS['K1']:g})")
-    if not (sums_rel <= K5_SUM_RTOL and planes_rel <= BARS["K1"]):
+    log(f"phase 1 K5 {shape} nbins={NBINS} vs power_bins_plain plus "
+        f"plane_bins: counts equal (total {float(acc[0].sum()):.0f}), sums "
+        f"max rel {sums_rel:.3e} (bar {K5_SUM_RTOL:g}), max|d| "
+        f"{errs['K5']:.3e}")
+    if not sums_rel <= K5_SUM_RTOL:
         raise AssertionError("K5 disagrees with its plain version")
-    del want, wpre, wpim, again
+    del want, again
 
     re, im = sampler.sample_spectrum(seed, table, shape, spacing, 0.0)
     k, p, n = stats.spectrum_power((re, im), shape, spacing, NBINS)
     del re, im
-    counts, psum, ksum = (acc + stats.plane_bins(pre, pim, shape, spacing,
-                                                 NBINS)).cpu().numpy()
+    counts, psum, ksum = acc.cpu().numpy()
     dn = np.abs(counts - n)
     bar = SPEC_COUNT_BAR[0] * n + SPEC_COUNT_BAR[1]
     pop = n > 0
@@ -497,7 +628,7 @@ def phase1_sampler(torch, g, errs):
 def affine_misbins(torch, g, edges, n):
     """Modes the TPU kernel's affine bin index alone, floor((log10|k| -
     le0) inv_dle), puts in another bin than the estimator's edge search
-    (the reason K5 fixes its guess at the edges); logged, not a check."""
+    (the reason K5 bins by the edge search itself); logged, not a check."""
     from randomfield_tpu_torch.ops import grid
 
     nx, ny, nz = g.shape
@@ -590,11 +721,12 @@ def phase1_mesh_kernels(torch, g, gp, errs):
                                  f"draw_scale's rows")
         got = sampler.sample_shard(17, gp.state.table, gp.shape,
                                    gp.grid_spacing, 0.0, r * ny_loc, ny_loc)
-        want = sampler.seeded_modes_plain(17, gp.state.table, gp.shape,
-                                          gp.grid_spacing, 0.0, r * ny_loc,
-                                          ny_loc)
+        want = sampler.seeded_spectrum_plain(17, gp.state.table, gp.shape,
+                                             gp.grid_spacing, 0.0, r * ny_loc,
+                                             ny_loc)
         torch.cuda.synchronize()
-        check_close(errs, "K8", f"shard {r} {tuple(got[0].shape)}", got, want)
+        check_close(errs, "K8", f"shard {r} {tuple(got[0].shape)} (the raw "
+                    f"draws plus the plane fix)", got, want)
         if not all(torch.equal(a, b[:, rows]) for a, b in zip(got, k1)):
             raise AssertionError(f"K8 shard {r} is not whole-grid K1's rows")
     log(f"phase 1 K7 and K8: the union of the {MESH_RANKS} shards equals "
@@ -862,9 +994,19 @@ def phase3_config4(torch, g, card):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = read_counts()
-    require_launches(counts, {"K5": ENSEMBLE_SEEDS}, "config 4")
+    # one K5 launch over the batch (a grid column per seed)
+    require_launches(counts, {"K5": 1}, "config 4")
     if p.shape != (ENSEMBLE_SEEDS, NBINS) or not np.all(np.isfinite(p[:, n > 0])):
         raise AssertionError(f"ensemble p_hat has shape {p.shape} or is not finite")
+    singles = [g.sample_power(s_, nbins=NBINS) for s_ in range(ENSEMBLE_SEEDS)]
+    rows_equal = all(np.array_equal(k, k1) and np.array_equal(row, p1)
+                     and np.array_equal(n, n1)
+                     for row, (k1, p1, n1) in zip(p, singles))
+    log(f"phase 3 config 4: the {ENSEMBLE_SEEDS} rows "
+        f"{'bit-equal to' if rows_equal else 'DIFFER from'} single "
+        f"sample_power calls")
+    if not rows_equal:
+        raise AssertionError("sample_power_batch rows are not sample_power")
     kt, pt, nt = predicted_bins(torch, g)
     if not np.array_equal(n, nt):
         raise AssertionError("ensemble and prediction bin different modes")
@@ -1010,7 +1152,7 @@ def host_stage_times(torch, stages, first, reps):
 
 def mesh_render_stages(g, seed):
     """The calls of a mesh ``g.generate_delta_field(seed)``, one by one."""
-    from randomfield_tpu_torch.ops import fft, sampler, transform
+    from randomfield_tpu_torch.ops import fft, sampler
     from randomfield_tpu_torch.parallel import dfft
 
     mesh = g.mesh
@@ -1018,10 +1160,10 @@ def mesh_render_stages(g, seed):
     nzh = nz // 2 + 1
     y_off, ny_loc = mesh.rows(ny)
     if g.sampler == "pallas":
-        stages = {"K8 sample_shard": lambda _: sampler.sample_shard(
-            seed, g.state.table, g.shape, g.grid_spacing, 0.0, y_off, ny_loc)}
-        stages["Hermitian symmetrize, all_gather of two planes" + GLOO] = (
-            lambda ri: transform.symmetrize_slab_reim(*ri, nz, mesh))
+        stages = {"K8 sample_shard (draw, Hermitian fix, scale)":
+                  lambda _: sampler.sample_shard(
+                      seed, g.state.table, g.shape, g.grid_spacing, 0.0,
+                      y_off, ny_loc)}
     else:
         stages = {"K7 draw_scale_shard (draw, Hermitian fix, scale)":
                   lambda _: tuple(sampler.draw_scale_shard(
@@ -1411,7 +1553,9 @@ def phase4_times(torch, rft, dev, g, gp, card):
         im.copy_(src_im)
 
     t, w = g.state.table, g.state.lightcone_weights
+    tp = gp.state.table
     edges, _ = stats.bin_setup(HEADLINE, HEADLINE_SPACING, NBINS)
+    plan = sampler.bin_plan(HEADLINE, HEADLINE_SPACING, edges, dev)
     ifft = torch.fft.ifft
     planes = genfft.plane_spectra(2, t, HEADLINE, HEADLINE_SPACING)
     slow = dict(plain_reps=SLOW_PLAIN_REPS)
@@ -1434,9 +1578,9 @@ def phase4_times(torch, rft, dev, g, gp, card):
                 lambda: sampler.draw_scale_plain(2, t, HEADLINE,
                                                  HEADLINE_SPACING),
                 None, slow),
-        "K1": (lambda: sampler.sample_modes(2, t, HEADLINE, HEADLINE_SPACING),
-               lambda: sampler.seeded_modes_plain(2, t, HEADLINE,
-                                                  HEADLINE_SPACING),
+        "K1": (lambda: sampler.sample_modes(2, tp, HEADLINE, HEADLINE_SPACING),
+               lambda: sampler.seeded_spectrum_plain(2, tp, HEADLINE,
+                                                     HEADLINE_SPACING),
                None, slow),
         "K2": (lambda: sampler.scale_sigma(re, im, t, HEADLINE, HEADLINE_SPACING,
                                            gain=RENDER_GAIN),
@@ -1453,9 +1597,9 @@ def phase4_times(torch, rft, dev, g, gp, card):
         "K4": (lambda: fft.c2r_tail(re, im, nz, w),
                lambda: fft.c2r_tail_plain(re, im, nz, w),
                lambda: torch.fft.irfft(spec, n=nz, dim=-1, norm="forward")),
-        "K5": (lambda: sampler.sample_power_bins(2, t, HEADLINE,
-                                                 HEADLINE_SPACING, 0.0, edges),
-               lambda: sampler.seeded_power_bins_plain(2, t, HEADLINE,
+        "K5": (lambda: sampler.sample_power_bins_batch(
+                   [2], tp, HEADLINE, HEADLINE_SPACING, 0.0, plan),
+               lambda: sampler.seeded_power_bins_plain(2, tp, HEADLINE,
                                                        HEADLINE_SPACING, 0.0,
                                                        edges),
                None, slow),
@@ -1494,6 +1638,7 @@ def phase4_times(torch, rft, dev, g, gp, card):
                                                            dev)),
                 None, None, HEADLINE, card, plain_reps=SLOW_PLAIN_REPS)
     batch_times(torch, rft, dev, card)
+    k5_batch_forms(torch, gp, card)
     return times
 
 
@@ -1537,6 +1682,44 @@ def batch_times(torch, rft, dev, card):
         f"{med['loop']:.3f}, {spread['loop'][0]:.3f}-{spread['loop'][1]:.3f}), "
         f"batch / loop {med['batch'] / med['loop']:.4f}, the batch faster in "
         f"{wins} of {BATCH_PAIRS} pairs [{card}]")
+    torch.cuda.empty_cache()
+
+
+def k5_batch_forms(torch, gp, card):
+    """The config-4 batch through K5 in its two forms, timed in turns on the
+    device (B A A B, each the median of 3): one launch over the whole batch
+    (a grid column per seed: sample_power_bins_batch, what
+    sample_power_batch runs) and one launch a seed (a batch of one each);
+    the two blocks must be equal bit for bit."""
+    from randomfield_tpu_torch.ops import sampler
+    from randomfield_tpu_torch.validate import stats
+
+    shape, spacing, t = gp.shape, gp.grid_spacing, gp.state.table
+    seeds = list(range(ENSEMBLE_SEEDS))
+    edges, _ = stats.bin_setup(shape, spacing, NBINS)
+    plan = sampler.bin_plan(shape, spacing, edges, gp.device)
+
+    def batch():
+        return sampler.sample_power_bins_batch(seeds, t, shape, spacing, 0.0,
+                                               plan)
+
+    def per_seed():
+        return torch.cat([sampler.sample_power_bins_batch(
+            [s_], t, shape, spacing, 0.0, plan) for s_ in seeds])
+
+    b1 = cuda_ms(torch, per_seed, 3)
+    a1 = cuda_ms(torch, batch, 3)
+    a2 = cuda_ms(torch, batch, 3)
+    b2 = cuda_ms(torch, per_seed, 3)
+    equal = torch.equal(per_seed(), batch())
+    log(f"phase 4 K5 batch of {len(seeds)} seeds {shape} nbins={NBINS}: one "
+        f"launch over the batch {(a1 + a2) / 2:.3f} ms ({a1:.3f}, {a2:.3f}; "
+        f"{(a1 + a2) / 2 / len(seeds):.3f} a seed), one launch a seed "
+        f"{(b1 + b2) / 2:.3f} ms ({b1:.3f}, {b2:.3f}; "
+        f"{(b1 + b2) / 2 / len(seeds):.3f} a seed); blocks "
+        f"{'bit-equal' if equal else 'DIFFERENT'} [{card}]")
+    if not equal:
+        raise AssertionError("K5's two batch forms disagree")
     torch.cuda.empty_cache()
 
 
@@ -1619,8 +1802,9 @@ def phase4_mesh(torch, rft, dev, g, gp, mesh, card):
         torch, "K8 (shard 1 of 4)",
         lambda: sampler.sample_shard(2, tp, HEADLINE, HEADLINE_SPACING, 0.0,
                                      ny_loc, ny_loc),
-        lambda: sampler.seeded_modes_plain(2, tp, HEADLINE, HEADLINE_SPACING,
-                                           0.0, ny_loc, ny_loc),
+        lambda: sampler.seeded_spectrum_plain(2, tp, HEADLINE,
+                                              HEADLINE_SPACING, 0.0, ny_loc,
+                                              ny_loc),
         None, None, shard, card)
     return times
 
@@ -1650,8 +1834,9 @@ def kernel_bounds(g):
                fft_ops(nx, ny * nzh) + fft_ops(ny, nx * nzh)),
         "K4": (8 * modes + 4 * cells + 4 * nz + 4 * m,
                fft_ops(m, nx * ny) + 10.0 * m * nx * ny + cells),
-        "K5": (knots + 4 * (nx + ny + nzh + NBINS + 1) + 16 * nx * ny
-               + 24 * NBINS, OPS_PER_MODE["K5"] * modes),
+        # the knots, k vectors and edges read; the sums written
+        "K5": (knots + 4 * (nx + ny + nzh + NBINS + 1) + 24 * NBINS,
+               OPS_PER_MODE["K5"] * modes),
         # the field read, the spectrum written, the twiddles; the m-point
         # FFTs and the unfold (8 adds and 8 multiplies per packed mode)
         "K6": (4 * cells + 8 * modes + 8 * m,
@@ -1725,6 +1910,7 @@ def main() -> int:
         log(f"phase 0 kernel build: {time.perf_counter() - t0:.1f} s "
             f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
         phase0_attributes(card)
+        phase0_sass(torch, card)
 
         t0 = time.perf_counter()
         g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)

@@ -12,8 +12,9 @@
 // 2. jax.random.normal's float32 value of those bits (threefry.cuh:
 //    jax_normal, XLA's erfinv);
 // 3. on kz = 0, and on kz = nz/2 for even nz, the Hermitian fix in the
-//    thread (ops/grid.py:hermitian_plane_masks): a mode that is not
-//    canonical draws its partner's counters at ((-x) mod nx, (-y) mod ny)
+//    thread (hermitian.cuh, ops/grid.py:hermitian_plane_masks): a mode
+//    that is not canonical draws its partner's counters at ((-x) mod nx,
+//    (-y) mod ny)
 //    and stores (re', -im'); a self-conjugate mode stores (re sqrt(2), 0).
 //    The stream is counter-based, so the partner's draw needs no other
 //    thread, no second pass and, on a slab mesh, no exchange;
@@ -46,6 +47,7 @@
 
 #include <cuda_runtime.h>
 
+#include "hermitian.cuh"
 #include "sigma_common.cuh"
 #include "threefry.cuh"
 
@@ -78,7 +80,7 @@ draw_scale_kernel(float* __restrict__ re, float* __restrict__ im,
   const int top = nz % 2 == 0 ? nzh - 1 : 0;  // the Nyquist plane, if any
   const int plane = ny_loc * nzh;
   const int gx = static_cast<int>(blockIdx.y) + x_off;
-  const int px = gx == 0 ? 0 : nx - gx;  // the partner row, (-x) mod nx
+  const int px = rf::partner_index(gx, nx);
   const int ci = gx / cx;
   const int pci = px / cx;
   const uint32_t ok0 = keys.k0[ci], ok1 = keys.k1[ci];
@@ -100,11 +102,10 @@ draw_scale_kernel(float* __restrict__ re, float* __restrict__ im,
     const int yl = p / nzh;
     const int z = p - yl * nzh;
     const int gy = yl + y_off;
-    const int py = gy == 0 ? 0 : ny - gy;
+    const int py = rf::partner_index(gy, ny);
     const bool fixed = MODE == kSpectrum && (z == 0 || z == top);
-    // not canonical: (x, y) after its partner in (x, then y) order
-    const bool partner = fixed && (gx > px || (gx == px && gy > py));
-    const bool self_conj = fixed && gx == px && gy == py;
+    const bool partner = fixed && rf::not_canonical(gx, gy, px, py);
+    const bool self_conj = fixed && rf::self_conjugate(gx, gy, px, py);
     const unsigned long long idx =
         (partner ? prow : orow) + static_cast<unsigned long long>(z) * ny +
         static_cast<unsigned>(partner ? py : gy);
@@ -122,7 +123,7 @@ draw_scale_kernel(float* __restrict__ re, float* __restrict__ im,
     if (MODE == kSpectrum) {
       if (partner) vim = -vim;
       if (self_conj) {
-        vre = __fmul_rn(vre, 0x1.6a09e6p+0f);  // sqrt(2) in float32
+        vre = __fmul_rn(vre, rf::kSqrt2);
         vim = 0.f;
       }
       const float ky =

@@ -13,8 +13,8 @@ on the scene's device, one of two samplers:
   complex normalization;
 * ``sampler='pallas'``: K1 draws and scales every mode in one pass from
   its own counter-based stream (:func:`.ops.sampler.sample_modes`,
-  :mod:`.ops.modestream`); then the Hermitian fix of the two planes.  On
-  one device this is the staged render (:func:`.staged.render_v3`), whose
+  :mod:`.ops.modestream`), the two planes made Hermitian in the same pass.
+  On one device this is the staged render (:func:`.staged.render_v3`), whose
   ``RF_STAGED_PIPELINE=v4`` and ``=v6`` variants run the transforms below
   through K9, or draw through K10 (a realization family of its own).
 
@@ -26,8 +26,10 @@ and then, for both:
 
 ``sample_power(seed)`` bins the realized power of a seed's spectrum with no
 FFT: for ``sampler='pallas'`` through K5, which regenerates K1's draws and
-writes no spectrum (:func:`.ops.sampler.sample_power_bins`), the config-4
-covariance-ensemble path; ``calculate_power(delta)`` is the FFT estimator.
+writes no spectrum (:func:`.ops.sampler.sample_power_bins_batch`);
+``sample_power_batch(seeds)``, the config-4 covariance-ensemble path, runs
+it for every seed into one device block and moves the block to the host
+once; ``calculate_power(delta)`` is the FFT estimator.
 
 On CUDA the spectrum is two float32 lattices updated in place up to K4;
 a render's peak is those two lattices and the field.  On the CPU every
@@ -144,6 +146,7 @@ class Generator:
         self.state, self._aux = _scene.build_state(
             self.scene, resolve_power(power, self.cosmology), self.device
         )
+        self._bin_plans = {}  # K5's bins by nbins
 
     # ---- introspection ------------------------------------------------------
     @property
@@ -349,9 +352,10 @@ class Generator:
             return _stats.bins_to_host(_render.spectrum_bins(
                 spectrum, self.shape, self.grid_spacing, int(nbins),
                 self.mesh), int(nbins))
-        if self.sampler == "pallas" and nbins <= _sampler.MAX_KERNEL_BINS:
-            return _stats.bins_to_host(self._kernel_bins(seed, smoothing_length,
-                                                     int(nbins)), int(nbins))
+        if self._kernel_binned(nbins):
+            ks, ps, ms = self._kernel_power([seed], smoothing_length,
+                                            int(nbins))
+            return ks, ps[0], ms
         re, im = self._sampled_spectrum(seed, smoothing_length)
         return _stats.spectrum_power((re, im), self.shape, self.grid_spacing,
                                      nbins)
@@ -359,25 +363,39 @@ class Generator:
     def sample_power_batch(self, seeds, smoothing_length=0.0, nbins=32):
         """:meth:`sample_power` for a seed batch: host float64 ``(k_mean,
         p_hat[nseeds, nbins], n_modes)`` in ``seeds`` order (k_mean and
-        n_modes do not depend on the seed)."""
+        n_modes do not depend on the seed).  Through K5 the batch's sums
+        stay in one device block and come to the host in one transfer."""
+        seeds = [int(s) for s in np.asarray(seeds).ravel()]
+        if seeds and self._kernel_binned(nbins):
+            return self._kernel_power(seeds, smoothing_length, int(nbins))
         ks = ms = None
         rows = []
-        for s in np.asarray(seeds).ravel():
-            ks, p, ms = self.sample_power(int(s), smoothing_length, nbins)
+        for s in seeds:
+            ks, p, ms = self.sample_power(s, smoothing_length, nbins)
             rows.append(p)
         return ks, np.asarray(rows), ms
 
-    def _kernel_bins(self, seed, smoothing_length, nbins):
-        """float64 (3, nbins) sums of the seed's spectrum through K5: its
-        interior bins plus its raw planes made Hermitian and binned
-        (:func:`.validate.stats.plane_bins`), as
-        ``engine/staged.py:_sample_power_v3`` does on the TPU."""
-        edges, _ = _stats.bin_setup(self.shape, self.grid_spacing, nbins)
-        acc, pre, pim = _sampler.sample_power_bins(
-            seed, self.state.table, self.shape, self.grid_spacing,
-            smoothing_length, edges)
-        return acc + _stats.plane_bins(pre, pim, self.shape,
-                                       self.grid_spacing, nbins)
+    def _kernel_binned(self, nbins):
+        return (self.mesh is None and self.sampler == "pallas"
+                and nbins <= _sampler.MAX_KERNEL_BINS)
+
+    def _kernel_power(self, seeds, smoothing_length, nbins):
+        """(k_mean, p_hat[nseeds, nbins], n_modes) of the seeds' spectra
+        through K5, which bins the interior and the Hermitian planes as it
+        draws them, each seed into its row of one device block; the bins
+        (edges, k vectors) are made once per scene and nbins."""
+        plan = self._bin_plans.get(nbins)
+        if plan is None:
+            edges, _ = _stats.bin_setup(self.shape, self.grid_spacing, nbins)
+            plan = _sampler.bin_plan(self.shape, self.grid_spacing, edges,
+                                     self.device)
+            self._bin_plans[nbins] = plan
+        acc = _sampler.sample_power_bins_batch(
+            seeds, self.state.table, self.shape, self.grid_spacing,
+            smoothing_length, plan)
+        counts, psum, ksum = acc.cpu().numpy().transpose(1, 0, 2)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return ksum[0] / counts[0], psum / counts, counts[0]
 
 
 def _check_kernel_shape(shape):

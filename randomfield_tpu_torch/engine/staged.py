@@ -6,10 +6,11 @@ Counterpart of the re/im-native part of ``randomfield_tpu/engine/staged.py``
 one of three stage lists, chosen by ``RF_STAGED_PIPELINE`` exactly as in the
 JAX package; the port works in the 'xyz' layout (nx, ny, nzh):
 
-* default, v5: K1 :func:`~..ops.sampler.sample_modes` -> Hermitian fix ->
-  K3 :func:`~..ops.fft.ifft_axis` along x, then y, in place -> K4
+* default, v5: K1 :func:`~..ops.sampler.sample_modes` (which makes the
+  kz = 0 / Nyquist planes Hermitian in the same pass) -> K3
+  :func:`~..ops.fft.ifft_axis` along x, then y, in place -> K4
   :func:`~..ops.fft.c2r_tail`.
-* ``v4``: K1 -> Hermitian fix -> K9 :func:`~..ops.fft.ifft_rotate` on the
+* ``v4``: K1 -> K9 :func:`~..ops.fft.ifft_rotate` on the
   view (1 group, n = nx, cols = ny nzh), which gives (ny nzh, nx); read as
   (1 group, n = ny, cols = nzh nx) -> K9 -> (nzh, nx, ny); one plain
   reordering copy to (nx, ny, nzh) -> K4.  No transform works on a
@@ -138,10 +139,9 @@ def variant_stages(variant, seed, table, shape, spacing, weights,
             "K4 c2r_tail": tail,
         }
     stages = {
-        "K1 sample_modes": lambda _: _sampler.sample_modes(
-            seed, table, shape, spacing, smoothing_length),
-        "Hermitian symmetrize (plain)": lambda ri:
-            _transform.symmetrize_with_shape_reim(*ri, nz),
+        "K1 sample_modes (draw, Hermitian fix, scale)":
+            lambda _: _sampler.sample_modes(seed, table, shape, spacing,
+                                            smoothing_length),
     }
     if variant == "v4":
         stages["K9 ifft_rotate x pass"] = lambda ri: _fft.ifft_rotate(

@@ -31,7 +31,8 @@ import threading
 
 import torch
 
-__all__ = ["library", "check", "current_stream", "NVCC_FLAGS"]
+__all__ = ["library", "library_path", "cuda_tool", "check",
+           "current_stream", "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,9 +60,8 @@ _SIGNATURES = {
                         _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _U32, _U32,
                        _F, _F, _F, _F, _F, _F, _F, _P],
-    "rf_sample_power_bins": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
-                             _I, _I, _U32, _U32, _F, _F, _F, _F, _F, _F,
-                             _F, _F, _I, _F, _F, _P],
+    "rf_sample_power_bins": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                             _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 
@@ -159,6 +159,16 @@ def library():
         if _LIB is None:
             _LIB = _declare(ctypes.CDLL(str(_build())))
         return _LIB
+
+
+def library_path() -> pathlib.Path:
+    """The kernel library's file, built on the first call."""
+    return _build()
+
+
+def cuda_tool(name: str) -> str:
+    """A program of the CUDA toolkit that holds nvcc (``cuobjdump``...)."""
+    return str(pathlib.Path(_nvcc()).parent / name)
 
 
 def check(status: int, name: str) -> None:

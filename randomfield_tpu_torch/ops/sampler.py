@@ -16,15 +16,17 @@ resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
 * K1 :func:`sample_modes` (``csrc/sample_modes.cu``): ``sampler='pallas'``
   draws each mode from its own counter-based stream
   (:mod:`~randomfield_tpu_torch.ops.modestream`), Box-Muller, and scales it,
-  writing the spectrum in one pass;
-* K5 :func:`sample_power_bins` (``csrc/sample_power_bins.cu``): the same
-  draws binned in log10 |k| as (sum w, sum w |c|^2 V, sum w |k|) with no
-  spectrum written, plus the raw kz = 0 / Nyquist planes;
+  the kz = 0 / Nyquist planes made Hermitian in the thread, writing the
+  spectrum in one pass;
+* K5 :func:`sample_power_bins_batch` (``csrc/sample_power_bins.cu``): the
+  same draws, planes fixed as K1 fixes them, binned in log10 |k| as (sum w,
+  sum w |c|^2 V, sum w |k|) with no spectrum written, for a batch of seeds
+  into one device block;
 * K7 :func:`draw_scale_shard` and K8 :func:`sample_shard`: the fused K2 and
   K1 on the ky rows [y_off, y_off + ny_loc) of a slab mesh's shard, at the
   global counters and indices (the same sources; the union over the shards
-  is the whole-grid result bit for bit, and K7 needs no exchange for the
-  Hermitian fix).
+  is the whole-grid result bit for bit, and neither needs an exchange for
+  the Hermitian fix: a plane mode draws its partner's counter itself).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain PyTorch version beside it (``*_plain``), which repeats
@@ -69,11 +71,16 @@ __all__ = [
     "draw_bits",
     "sigma_amplitude",
     "load_reference_state",
+    "plane_partner",
     "sample_modes",
     "sample_modes_plain",
     "sample_spectrum",
     "seeded_modes_plain",
+    "seeded_spectrum_plain",
+    "BinPlan",
+    "bin_plan",
     "sample_power_bins",
+    "sample_power_bins_batch",
     "power_bins_plain",
     "seeded_power_bins_plain",
     "sample_shard",
@@ -111,8 +118,13 @@ _INV_2_24 = np.float32(2.0 ** -24)
 _HALF_INV_2_24 = np.float32(2.0 ** -25)
 # csrc/draw_scale.cu's modes
 _SPECTRUM, _UNIT, _BITS = 0, 1, 2
-# y rows of one K5 block (csrc/sample_power_bins.cu kThreads)
+# ky rows of one K5 block (csrc/sample_power_bins.cu kThreads); the seeds a
+# launch takes: its grid's z limit, and as many as keep the float64 block
+# partials within 256 MiB (85 seeds at 1024^3 and 32 bins)
 _K5_ROWS = 128
+_K5_MAX_GRID_Z = 65535
+_K5_PARTIAL_VALUES = 2 ** 25
+_SQRT2 = float(np.sqrt(2.0))  # a self-conjugate mode's factor, as symmetrized
 # x planes per step of the plain version (bounds its temporaries)
 _PLAIN_X_CHUNK = 64
 
@@ -580,15 +592,75 @@ def seeded_modes_plain(seed, table, shape, spacing, smoothing_length=0.0,
     return re, im
 
 
+def plane_partner(x, y, nx, ny):
+    """The Hermitian fix's selection on a self-conjugate kz plane, as the
+    kernels make it per mode (``csrc/hermitian.cuh``): for integer tensors
+    of rows ``x`` and columns ``y`` (broadcast together), ``(px, py,
+    not_canonical, self_conj)``: the partner ((-x) mod nx, (-y) mod ny),
+    whether (x, y) comes after it in (x, then y) order (the mode that takes
+    its partner's draw, im negated) and whether it is its own partner."""
+    px = torch.where(x == 0, 0, nx - x)
+    py = torch.where(y == 0, 0, ny - y)
+    not_canonical = (x > px) | ((x == px) & (y > py))
+    return px, py, not_canonical, (x == px) & (y == py)
+
+
+def seeded_spectrum_plain(seed, table, shape, spacing, smoothing_length=0.0,
+                          y_off=0, ny_loc=None):
+    """K1's and K8's function in plain PyTorch: the seed's spectrum over ky
+    rows [y_off, y_off + ny_loc) (all by default), Hermitian on the kz = 0
+    and Nyquist planes, x-slab by x-slab on the table's device.
+
+    :func:`sample_modes_plain` of the seed's bits, where on a plane a mode
+    that is not canonical (:func:`plane_partner`) takes the bits of its
+    partner's counter, whose draw then lands at the mode's own |k| (the
+    same |k|^2 bit for bit); then im negated there, and a self-conjugate
+    mode's re times sqrt(2) with im = 0.  The whole grid's result equals
+    :func:`.transform.symmetrize_with_shape_reim` of
+    :func:`seeded_modes_plain` bit for bit, and a block of fewer ky rows
+    needs no other rows (no mesh).  Returns float32 (re, im), (nx, ny_loc,
+    nz//2+1).
+    """
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
+    key = _modestream.mode_key(seed)
+    dev = table.knots.device
+    re = torch.empty((nx, ny_loc, nzh), dtype=torch.float32, device=dev)
+    im = torch.empty_like(re)
+    ys = torch.arange(y_off, y_off + ny_loc, device=dev)
+    for x0 in range(0, nx, _PLAIN_X_CHUNK):
+        n = min(_PLAIN_X_CHUNK, nx - x0)
+        b1, b2 = _modestream.mode_bits(key, shape, x0, n, dev, y_off, ny_loc)
+        xs = torch.arange(x0, x0 + n, device=dev)
+        px, py, moved, self_conj = plane_partner(xs[:, None], ys[None, :],
+                                                 nx, ny)
+        planes = _grid.self_conjugate_kz_planes(nz)
+        for p in planes:
+            idx = (px * ny + py) * nzh + p
+            pb1, pb2 = _threefry.threefry2x32(key, idx >> 32, idx & 0xFFFFFFFF)
+            b1[..., p] = torch.where(moved, pb1, b1[..., p])
+            b2[..., p] = torch.where(moved, pb2, b2[..., p])
+        r, i = sample_modes_plain(b1, b2, table, shape, spacing,
+                                  smoothing_length, x0, y_off)
+        for p in planes:
+            i[..., p] = torch.where(moved, -i[..., p], i[..., p])
+            r[..., p] = torch.where(self_conj, r[..., p] * _SQRT2, r[..., p])
+            i[..., p] = torch.where(self_conj, 0.0, i[..., p])
+        re[x0:x0 + n], im[x0:x0 + n] = r, i
+    return re, im
+
+
 def sample_modes(seed, table, shape, spacing, smoothing_length=0.0):
     """K1: the ``sampler='pallas'`` spectrum of ``seed``, in one pass.
 
     Returns float32 (nx, ny, nz//2+1) 'xyz' (re, im) lattices on the
     table's device: each mode's Box-Muller draw from the seed's
     counter-based stream times sigma(|k|) / sqrt(2) times the filter, DC
-    zero, the kz = 0 / Nyquist planes not yet Hermitian.  On CUDA this
-    launches ``csrc/sample_modes.cu``; on the CPU it runs
-    :func:`seeded_modes_plain`.
+    zero, the kz = 0 / Nyquist planes Hermitian (self-conjugate modes times
+    sqrt(2)).  On CUDA this launches ``csrc/sample_modes.cu``, which fixes
+    the planes in the thread; on the CPU it runs
+    :func:`seeded_spectrum_plain`.
     """
     global K1_LAUNCHES
     out, launched = _sample(seed, table, shape, spacing, smoothing_length, 0,
@@ -603,9 +675,11 @@ def sample_shard(seed, table, shape, spacing, smoothing_length=0.0, y_off=0,
     y_off + ny_loc).
 
     Returns float32 (nx, ny_loc, nz//2+1) (re, im): every mode drawn at its
-    global counter and scaled at its global |k|, so the union of the
-    shards equals K1 on the whole grid bit for bit.  The counterpart of
-    ``pallas_sampler.sample_shard_pallas_reim``; on CUDA it launches
+    global counter and scaled at its global |k|, and a plane mode whose
+    partner row lies on another rank drawn at the partner's counter, so the
+    union of the shards equals K1 on the whole grid bit for bit with no
+    exchange.  The counterpart of ``pallas_sampler.sample_shard_pallas_reim``
+    and of the sharded fix after it; on CUDA it launches
     ``csrc/sample_modes.cu`` over the shard's rows.
     """
     global K8_LAUNCHES
@@ -626,8 +700,8 @@ def _sample(seed, table, shape, spacing, smoothing_length, y_off, ny_loc,
         raise ValueError(f"{name}: ky rows [{y_off}, {y_off + ny_loc}) lie "
                          f"outside the grid {shape}")
     if dev.type == "cpu":
-        return seeded_modes_plain(seed, table, shape, spacing,
-                                  smoothing_length, y_off, ny_loc), 0
+        return seeded_spectrum_plain(seed, table, shape, spacing,
+                                     smoothing_length, y_off, ny_loc), 0
     re = torch.empty((nx, ny_loc, nz // 2 + 1), dtype=torch.float32,
                      device=dev)
     im = torch.empty_like(re)
@@ -635,7 +709,7 @@ def _sample(seed, table, shape, spacing, smoothing_length, y_off, ny_loc,
     k0, k1 = _modestream.mode_key(seed)
     status = _build.library().rf_sample_modes(
         re.data_ptr(), im.data_ptr(), table.knots.data_ptr(),
-        table.knots.numel(), nx, ny, nz // 2 + 1, int(y_off), int(ny_loc),
+        table.knots.numel(), nx, ny, nz, int(y_off), int(ny_loc),
         k0, k1, float(c["kx_scale"]), float(c["ky_scale"]),
         float(c["kz_scale"]), float(_HALF_INV_LN10), float(c["lk0"]),
         float(c["inv_dlk"]), float(np.float32(smoothing_length)),
@@ -646,25 +720,20 @@ def _sample(seed, table, shape, spacing, smoothing_length, y_off, ny_loc,
 
 
 def sample_spectrum(seed, table, shape, spacing, smoothing_length=0.0):
-    """The ``sampler='pallas'`` spectrum of ``seed``: K1, then the Hermitian
-    fix of the kz = 0 / Nyquist planes (self-conjugate modes times sqrt(2)),
-    as (re, im) float32 'xyz' lattices.  The counterpart of
-    ``pallas_sampler.sample_spectrum_pallas_reim``."""
-    re, im = sample_modes(seed, table, shape, spacing, smoothing_length)
-    return _transform.symmetrize_with_shape_reim(re, im, shape[2])
+    """The ``sampler='pallas'`` spectrum of ``seed`` as (re, im) float32
+    'xyz' lattices: K1 alone, which makes the planes Hermitian itself.  The
+    counterpart of ``pallas_sampler.sample_spectrum_pallas_reim``."""
+    return sample_modes(seed, table, shape, spacing, smoothing_length)
 
 
 def _bin_edges(edges, dev):
-    """(nbins, float32 edges on ``dev``, le0, inv_dle) of ascending |k| edges;
-    (le0, inv_dle) place the affine first guess of K5's bin search."""
+    """(nbins, float32 edges on ``dev``) of ascending |k| edges."""
     edges = np.asarray(edges, np.float64)
     nbins = edges.size - 1
     if not 1 <= nbins <= MAX_KERNEL_BINS or np.any(np.diff(edges) <= 0):
         raise ValueError(f"the binned sampler takes 2 to {MAX_KERNEL_BINS + 1} "
                          f"ascending edges, got {edges.size}")
-    ledges = np.log10(edges)
-    return (nbins, torch.as_tensor(edges, dtype=torch.float32, device=dev),
-            np.float32(ledges[0]), np.float32(nbins / (ledges[-1] - ledges[0])))
+    return nbins, torch.as_tensor(edges, dtype=torch.float32, device=dev)
 
 
 def _volume32(shape, spacing):
@@ -686,7 +755,7 @@ def power_bins_plain(b1, b2, table, shape, spacing, smoothing_length, edges,
     """
     _check_bits(b1, b2, table, shape, x_off)
     dev = b1.device
-    nbins, edges_t, _, _ = _bin_edges(edges, dev)
+    nbins, edges_t = _bin_edges(edges, dev)
     vol = float(_volume32(shape, spacing))
     c = _constants(table, shape, spacing)
     nx, ny, nz = shape
@@ -721,8 +790,15 @@ def power_bins_plain(b1, b2, table, shape, spacing, smoothing_length, edges,
 
 def seeded_power_bins_plain(seed, table, shape, spacing, smoothing_length,
                             edges):
-    """K5's function in plain PyTorch: :func:`power_bins_plain` on the
-    seed's stream, x-slab by x-slab on the table's device."""
+    """K5's function in plain PyTorch for one seed: :func:`power_bins_plain`
+    on the seed's stream, x-slab by x-slab on the table's device, plus its
+    raw planes made Hermitian and binned with multiplicity 1
+    (:func:`..validate.stats.plane_bins`), as
+    ``engine/staged.py:_sample_power_v3`` assembles them on the TPU.
+    Returns float64 (3, nbins): (sum w, sum w |c|^2 V, sum w |k|) over
+    every mode of the half-spectrum."""
+    from randomfield_tpu_torch.validate import stats as _stats
+
     nx = shape[0]
     key = _modestream.mode_key(seed)
     dev = table.knots.device
@@ -735,47 +811,85 @@ def seeded_power_bins_plain(seed, table, shape, spacing, smoothing_length,
         acc = a if acc is None else acc + a
         pres.append(pre)
         pims.append(pim)
-    return acc, torch.cat(pres), torch.cat(pims)
+    nbins = acc.shape[1]
+    return acc + _stats.plane_bins(torch.cat(pres), torch.cat(pims), shape,
+                                   spacing, nbins, edges)
+
+
+class BinPlan(typing.NamedTuple):
+    """What K5 needs per (scene, bins), made once on the device."""
+
+    edges: np.ndarray       # float64 (nbins + 1,), ascending
+    edges_t: torch.Tensor   # float32 (nbins + 1,) on the device
+    kvec: torch.Tensor      # float32 (nx + ny + nz//2+1,), the estimator's k
+
+
+def bin_plan(shape, spacing, edges, device) -> BinPlan:
+    """K5's :class:`BinPlan` of the |k| ``edges`` (nbins + 1 ascending,
+    nbins <= ``MAX_KERNEL_BINS``) on ``device``; raises ValueError on
+    other edges."""
+    _, edges_t = _bin_edges(edges, device)
+    kvec = torch.cat(_grid.kvectors(shape, spacing, torch.float32, device))
+    return BinPlan(np.asarray(edges, np.float64), edges_t, kvec)
 
 
 def sample_power_bins(seed, table, shape, spacing, smoothing_length, edges):
-    """K5: the binned power of ``seed``'s ``sampler='pallas'`` spectrum.
+    """K5 for one seed: float64 (3, nbins), as :func:`seeded_power_bins_plain`
+    returns it, on the table's device (:func:`sample_power_bins_batch` of
+    one seed)."""
+    plan = bin_plan(shape, spacing, edges, table.knots.device)
+    return sample_power_bins_batch([seed], table, shape, spacing,
+                                   smoothing_length, plan)[0]
 
-    The draws are K1's (the same stream and amplitude); no spectrum is
-    written.  ``edges``: the nbins + 1 ascending |k| edges, nbins <=
-    ``MAX_KERNEL_BINS``.  Returns ``(acc, plane_re, plane_im)`` as
-    :func:`power_bins_plain` does, for the whole grid, on the table's
-    device.  On CUDA this launches ``csrc/sample_power_bins.cu``, whose sums
-    run in float64 in an order fixed by the shapes (two calls agree bit for
-    bit); on the CPU it runs :func:`seeded_power_bins_plain`.
+
+def sample_power_bins_batch(seeds, table, shape, spacing, smoothing_length,
+                            plan):
+    """K5: the binned power of each seed's ``sampler='pallas'`` spectrum.
+
+    The draws are K1's (the same stream, amplitude and plane fix); no
+    spectrum is written.  ``plan``: the :class:`BinPlan` of the bins on the
+    table's device.  Returns float64 (len(seeds), 3, nbins) on the table's
+    device, row i the sums of ``seeds[i]`` (every mode of the half-spectrum
+    in the bin of the estimator's edge search on its |k|, interior modes
+    with weight 2, the kz = 0 / Nyquist plane modes 1).  On CUDA this
+    launches ``csrc/sample_power_bins.cu`` over the whole batch at once (a
+    grid column per seed), in as few launches as keep its block partials
+    within 256 MiB; the sums run in float64 in an order fixed by the shapes
+    (two calls agree bit for bit, and a seed's row does not depend on the
+    batch around it).  On the CPU it stacks :func:`seeded_power_bins_plain`.
     """
     global K5_LAUNCHES
     dev = _check_table(table, "sample_power_bins")
-    nbins, edges_t, le0, inv_dle = _bin_edges(edges, dev)
+    seeds = [int(s) for s in np.asarray(seeds).ravel()]
+    nbins = plan.edges.size - 1
     if dev.type == "cpu":
-        return seeded_power_bins_plain(seed, table, shape, spacing,
-                                       smoothing_length, edges)
+        return torch.stack([
+            seeded_power_bins_plain(s, table, shape, spacing,
+                                    smoothing_length, plan.edges)
+            for s in seeds])
     nx, ny, nz = shape
-    n_planes = len(_grid.self_conjugate_kz_planes(nz))
-    n_blocks = nx * -(-ny // _K5_ROWS)
-    acc = torch.empty((3, nbins), dtype=torch.float64, device=dev)
-    partials = torch.empty(n_blocks * 3 * nbins, dtype=torch.float64,
-                           device=dev)
-    pre = torch.empty((nx, n_planes, ny), dtype=torch.float32, device=dev)
-    pim = torch.empty_like(pre)
-    kvec = torch.cat(_grid.kvectors(shape, spacing, torch.float32, dev))
+    n_blocks = (nx // 2 + 1) * -(-ny // _K5_ROWS)
+    per_seed = n_blocks * 3 * nbins
+    chunk = max(1, min(len(seeds), _K5_MAX_GRID_Z,
+                       _K5_PARTIAL_VALUES // per_seed))
+    keys = torch.tensor([_modestream.mode_key(s) for s in seeds],
+                        dtype=torch.int64).to(torch.int32).to(dev)
+    acc = torch.empty((len(seeds), 3, nbins), dtype=torch.float64, device=dev)
+    partials = torch.empty(chunk * per_seed, dtype=torch.float64, device=dev)
     c = _constants(table, shape, spacing)
-    k0, k1 = _modestream.mode_key(seed)
-    status = _build.library().rf_sample_power_bins(
-        acc.data_ptr(), partials.data_ptr(), n_blocks, pre.data_ptr(),
-        pim.data_ptr(), table.knots.data_ptr(), table.knots.numel(),
-        kvec.data_ptr(), edges_t.data_ptr(), nx, ny, nz // 2 + 1,
-        int(n_planes == 2), k0, k1,
-        float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
-        float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
-        float(np.float32(smoothing_length)), float(_volume32(shape, spacing)),
-        nbins, float(le0), float(inv_dle), _build.current_stream(acc),
-    )
-    _build.check(status, "sample_power_bins")
-    K5_LAUNCHES += 1
-    return acc, pre, pim
+    lib = _build.library()
+    for i in range(0, len(seeds), chunk):
+        status = lib.rf_sample_power_bins(
+            acc[i].data_ptr(), partials.data_ptr(), n_blocks,
+            keys[i].data_ptr(), min(chunk, len(seeds) - i),
+            table.knots.data_ptr(), table.knots.numel(),
+            plan.kvec.data_ptr(), plan.edges_t.data_ptr(), nx, ny, nz,
+            float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
+            float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
+            float(np.float32(smoothing_length)),
+            float(_volume32(shape, spacing)), nbins,
+            _build.current_stream(acc),
+        )
+        _build.check(status, "sample_power_bins")
+        K5_LAUNCHES += 1
+    return acc

@@ -12,9 +12,11 @@ same seed on any number of ranks:
   in one pass.  A plane mode whose conjugate partner lies on another rank
   draws the partner's counter itself, so this sampler exchanges nothing;
 * ``sampler='pallas'`` (``make_sharded_render_pallas``): K8 over the rank's
-  ky rows (:func:`..ops.sampler.sample_shard`), then the sharded fix
-  (:func:`..ops.transform.symmetrize_slab_reim`, one ``all_gather`` of the
-  two planes);
+  ky rows (:func:`..ops.sampler.sample_shard`), which draws, fixes the
+  planes and scales in one pass the same way, so this sampler exchanges
+  nothing either (:func:`..ops.transform.symmetrize_slab_reim`, the
+  gathered fix the JAX mesh lowers to collectives, stays as the plain
+  version it is checked against);
 
 then the distributed inverse (:func:`.dfft.irfftn_slab_reim`) turns the
 rank's spectrum into its x slab of the field.
@@ -25,7 +27,6 @@ rank's spectrum into its x slab of the field.
 from __future__ import annotations
 
 from randomfield_tpu_torch.ops import sampler as _sampler
-from randomfield_tpu_torch.ops import transform as _transform
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["threefry_spectrum", "pallas_spectrum", "spectrum_bins"]
@@ -42,11 +43,10 @@ def threefry_spectrum(seed, table, shape, spacing, smoothing_length, mesh):
 
 def pallas_spectrum(seed, table, shape, spacing, smoothing_length, mesh):
     """This rank's (nx, ny/P, nzh) ky slab of the seed's
-    ``sampler='pallas'`` spectrum, as float32 (re, im)."""
+    ``sampler='pallas'`` spectrum, as float32 (re, im), with no exchange."""
     y_off, ny_loc = mesh.rows(shape[1])
-    re, im = _sampler.sample_shard(seed, table, shape, spacing,
-                                   smoothing_length, y_off, ny_loc)
-    return _transform.symmetrize_slab_reim(re, im, shape[2], mesh)
+    return _sampler.sample_shard(seed, table, shape, spacing,
+                                 smoothing_length, y_off, ny_loc)
 
 
 def spectrum_bins(spectrum, shape, spacing, nbins, mesh):

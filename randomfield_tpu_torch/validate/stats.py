@@ -112,19 +112,22 @@ def _binned_sums(cre, cim, shape, spacing, nbins, y_off, factor):
     return out
 
 
-def plane_bins(plane_re, plane_im, shape, spacing, nbins):
+def plane_bins(plane_re, plane_im, shape, spacing, nbins, edges=None):
     """float64 (3, nbins) sums of the self-conjugate kz planes' power.
 
     ``plane_re``/``plane_im``: float32 (nx, n_planes, ny) raw draws of the
-    kz = 0 (and, for even nz, Nyquist) planes, as the binned sampler K5
-    returns them.  Each plane is made Hermitian (self-conjugate modes times
-    sqrt(2)) and binned with multiplicity 1, as
-    ``engine/staged.py:_sample_power_v3`` does on the TPU.
+    kz = 0 (and, for even nz, Nyquist) planes, as the plain binned sampler
+    (:func:`..ops.sampler.power_bins_plain`) returns them.  Each plane is
+    made Hermitian (self-conjugate modes times sqrt(2)) and binned with
+    multiplicity 1, as ``engine/staged.py:_sample_power_v3`` does on the
+    TPU; the plain version of K5, which does this in the kernel.  ``edges``:
+    the nbins + 1 |k| edges, :func:`bin_setup`'s by default.
     """
     nx, ny, nz = shape
     dev = plane_re.device
     kx, ky, kz = _grid.kvectors(shape, spacing, torch.float32, dev)
-    edges, _ = bin_setup(shape, spacing, nbins)
+    if edges is None:
+        edges, _ = bin_setup(shape, spacing, nbins)
     edges_t = torch.as_tensor(edges, dtype=torch.float32, device=dev)
     volume = float(np.float32(nx * ny * nz * float(spacing) ** 3))
     one = torch.ones((), dtype=torch.float32, device=dev)

@@ -23,6 +23,7 @@ torch.set_num_threads(2)
 import randomfield_tpu_torch as rft  # noqa: E402
 from randomfield_tpu_torch.engine import staged  # noqa: E402
 from randomfield_tpu_torch.ops import fft, genfft, grid, sampler  # noqa: E402
+from randomfield_tpu_torch.ops import transform  # noqa: E402
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -202,9 +203,16 @@ def test_sample_modes_matches_plain(cuda, shape, smoothing):
     before = sampler.K1_LAUNCHES
     a, b = sampler.sample_modes(5, table, shape, SPACING, smoothing)
     assert sampler.K1_LAUNCHES == before + 1
-    c, d = sampler.seeded_modes_plain(5, table, shape, SPACING, smoothing)
+    # the fused plain version: the raw draws with the planes symmetrized
+    c, d = sampler.seeded_spectrum_plain(5, table, shape, SPACING, smoothing)
     assert _rel(a, c) <= K1_TOL and _rel(b, d) <= K1_TOL
     assert float(a[0, 0, 0]) == 0.0 and float(b[0, 0, 0]) == 0.0
+    # the planes are exactly Hermitian: a non-canonical mode is its
+    # partner's conjugate, a self-conjugate one real
+    for p in grid.self_conjugate_kz_planes(shape[2]):
+        fre, fim = (t.cpu() for t in (a[..., p], b[..., p]))
+        sre, sim = transform.symmetrize_plane_reim(fre, fim, False)
+        assert torch.equal(sre, fre) and torch.equal(sim, fim)
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 16), (32, 200, 30), (16, 16, 15)])
@@ -215,32 +223,53 @@ def test_sample_power_bins_matches_plain(cuda, shape, smoothing):
     edges, _ = stats.bin_setup(shape, SPACING, 12)
     args = (9, table, shape, SPACING, smoothing, edges)
     before = sampler.K5_LAUNCHES
-    acc, pre, pim = sampler.sample_power_bins(*args)
+    acc = sampler.sample_power_bins(*args)
     assert sampler.K5_LAUNCHES == before + 1
-    acc2, pre2, pim2 = sampler.sample_power_bins(*args)
+    acc2 = sampler.sample_power_bins(*args)
     assert torch.equal(acc, acc2), "K5 is not repeatable bit for bit"
-    want, wpre, wpim = sampler.seeded_power_bins_plain(*args)
+    # the fused plain version: interior bins plus the planes fixed and binned
+    want = sampler.seeded_power_bins_plain(*args)
     assert torch.equal(acc[0], want[0])
     torch.testing.assert_close(acc[1:], want[1:], rtol=K5_RTOL, atol=0)
-    assert _rel(pre, wpre) <= K1_TOL and _rel(pim, wpim) <= K1_TOL
-    # the planes are K1's draws
+    # and binning K1's spectrum: every mode but DC, in the same bins
     re, im = sampler.sample_modes(9, table, shape, SPACING, smoothing)
-    assert torch.equal(pre[:, 0], re[..., 0]) and torch.equal(pim[:, 0], im[..., 0])
+    k, p, n = stats.spectrum_power((re, im), shape, SPACING, 12)
+    np.testing.assert_array_equal(acc[0].cpu().numpy(), n)
+    live = n > 0
+    np.testing.assert_allclose(acc[1].cpu().numpy()[live] / n[live], p[live],
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 200, 30)])
+def test_sample_power_bins_batch_rows_are_single_seeds(cuda, shape):
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    edges, _ = stats.bin_setup(shape, SPACING, 12)
+    plan = sampler.bin_plan(shape, SPACING, edges, cuda)
+    before = sampler.K5_LAUNCHES
+    block = sampler.sample_power_bins_batch([3, 8, 3], table, shape, SPACING,
+                                            2.0, plan)
+    assert sampler.K5_LAUNCHES == before + 1  # one launch over the batch
+    assert tuple(block.shape) == (3, 3, 12)
+    for row, seed in zip(block, (3, 8, 3)):
+        assert torch.equal(row, sampler.sample_power_bins(seed, table, shape,
+                                                          SPACING, 2.0, edges))
+    assert not torch.equal(block[0], block[1])
 
 
 def test_sample_power_bins_fixes_the_affine_guess_at_edges(cuda):
-    # edges placed exactly on float32 |k| of lattice shells, and not
-    # log-uniform: the kernel's affine guess is off, its edge search must
-    # still put every mode where the plain edge search does
+    # edges placed exactly on float32 |k| of lattice shells, not
+    # log-uniform, and modes above the last edge: the bin the kernel
+    # carries along kz must still be where the plain edge search puts it
     shape = (32, 32, 32)
     table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
                                      device=cuda)
     km = np.unique(grid.kmag(shape, SPACING).numpy())
     edges = np.concatenate([[km[1] * 0.999], km[[3, 8, 20, 60, 200]],
                             [km[-1] * 1.001]]).astype(np.float32).astype(np.float64)
-    acc, _, _ = sampler.sample_power_bins(2, table, shape, SPACING, 0.0, edges)
-    want, _, _ = sampler.seeded_power_bins_plain(2, table, shape, SPACING, 0.0,
-                                                 edges)
+    acc = sampler.sample_power_bins(2, table, shape, SPACING, 0.0, edges)
+    want = sampler.seeded_power_bins_plain(2, table, shape, SPACING, 0.0,
+                                           edges)
     assert torch.equal(acc[0], want[0])
     torch.testing.assert_close(acc[1:], want[1:], rtol=K5_RTOL, atol=0)
 
@@ -376,8 +405,8 @@ def test_k8_shards_match_plain_and_their_union_is_k1(cuda, shape, ranks, smoothi
         a, b = sampler.sample_shard(5, table, shape, SPACING, smoothing,
                                     r * ny_loc, ny_loc)
         assert sampler.K8_LAUNCHES == before + 1
-        c, d = sampler.seeded_modes_plain(5, table, shape, SPACING, smoothing,
-                                          r * ny_loc, ny_loc)
+        c, d = sampler.seeded_spectrum_plain(5, table, shape, SPACING,
+                                             smoothing, r * ny_loc, ny_loc)
         assert _rel(a, c) <= K1_TOL and _rel(b, d) <= K1_TOL
         rows = slice(r * ny_loc, (r + 1) * ny_loc)
         assert torch.equal(a, whole[0][:, rows]) and torch.equal(b, whole[1][:, rows])

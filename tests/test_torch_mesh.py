@@ -11,7 +11,8 @@ it computed, and the tests compare those slabs.  A one-rank mesh needs no
 process group and runs in the test's own process.
 
 Tolerances:
-* slab draws, the K8 plain union and the sharded Hermitian fix: exact;
+* slab draws, the K8 plain union, the sharded Hermitian fix and K8's fix
+  in the thread against it: exact;
 * a mesh render vs the single-device render of the same seed: bit-equal
   expected, bar 1e-6 max|delta| (the CPU FFT of a slab batches its lines
   differently);
@@ -78,6 +79,9 @@ def _rank_work(m):
     out["symmetrized"] = transform.symmetrize_slab_reim(re, im, SHAPE[2], m)
     out["modes"] = sampler.sample_shard(SEED, g.state.table, SHAPE, SPACING,
                                         SMOOTHING, y_off, ny_loc)
+    raw = sampler.seeded_modes_plain(SEED, g.state.table, SHAPE, SPACING,
+                                     SMOOTHING, y_off, ny_loc)
+    out["modes_gathered"] = transform.symmetrize_slab_reim(*raw, SHAPE[2], m)
     errors = {}
     for what, call in (
             ("indivisible", lambda: rft.Generator(
@@ -231,6 +235,16 @@ def test_sharded_symmetrize_and_k8_equal_single_device(tmp_path_factory, size):
     k1 = sampler.sample_modes(SEED, g.state.table, SHAPE, SPACING, SMOOTHING)
     assert torch.equal(torch.cat([r["modes"][0] for r in results], 1), k1[0])
     assert torch.equal(torch.cat([r["modes"][1] for r in results], 1), k1[1])
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_k8_fix_needs_no_gather(tmp_path_factory, size):
+    # K8 fixes its shard's planes by drawing partners' counters; the
+    # gathered fix of the raw shard (one all_gather of the planes) agrees
+    results = _mesh_results(size, tmp_path_factory)
+    for r in results:
+        assert torch.equal(r["modes"][0], r["modes_gathered"][0])
+        assert torch.equal(r["modes"][1], r["modes_gathered"][1])
 
 
 def _assert_bins(got, want):

@@ -152,11 +152,16 @@ def test_plain_k1_on_real_bits_is_box_muller_times_pallas_scale(shape, smoothing
 def test_seeded_plain_k1_is_its_slabs_and_its_bits():
     shape = (70, 8, 6)  # two slabs of the plain version
     table = _port_table(_jax_table(shape))
-    re, im = sampler.sample_modes(4, table, shape, SPACING, 1.0)
+    re, im = sampler.seeded_modes_plain(4, table, shape, SPACING, 1.0)
     b1, b2 = modestream.mode_bits(modestream.mode_key(4), shape, 66, 4)
     r2, i2 = sampler.sample_modes_plain(b1, b2, table, shape, SPACING, 1.0, 66)
     assert torch.equal(re[66:], r2) and torch.equal(im[66:], i2)
-    assert float(re[0, 0, 0]) == 0.0 and float(im[0, 0, 0]) == 0.0
+    # K1 (its CPU path) fixes the planes and leaves every other mode alone
+    fre, fim = sampler.sample_modes(4, table, shape, SPACING, 1.0)
+    assert torch.equal(fre[..., 1:3], re[..., 1:3])
+    assert torch.equal(fim[..., 1:3], im[..., 1:3])
+    for t in (re, im, fre, fim):
+        assert float(t[0, 0, 0]) == 0.0
 
 
 # ---- 4-5. K5 ---------------------------------------------------------------------
@@ -226,15 +231,24 @@ def test_plain_k5_matches_binning_the_k1_spectrum(shape, smoothing):
 
 
 def test_k5_wrapper_planes_are_k1_draws_and_bins_are_capped():
+    # K5 returns the fused sums: its interior bins plus its planes, drawn as
+    # K1 draws them, made Hermitian and binned with multiplicity 1
     shape = (8, 12, 10)
     table = _port_table(_jax_table(shape))
     edges, _ = stats.bin_setup(shape, SPACING, NBINS)
-    acc, pre, pim = sampler.sample_power_bins(3, table, shape, SPACING, 2.0,
-                                              edges)
+    acc = sampler.sample_power_bins(3, table, shape, SPACING, 2.0, edges)
+    assert tuple(acc.shape) == (3, NBINS) and acc.dtype == torch.float64
+    b1, b2 = modestream.mode_bits(modestream.mode_key(3), shape)
+    assert np.array_equal(acc.numpy(), _port_binned(b1, b2, table, shape, 2.0))
+    raw, pre, pim = sampler.power_bins_plain(b1, b2, table, shape, SPACING,
+                                             2.0, edges)
     re, im = sampler.sample_modes(3, table, shape, SPACING, 2.0)
-    assert tuple(pre.shape) == (8, 2, 12) and acc.dtype == torch.float64
+    assert tuple(pre.shape) == (8, 2, 12)
     for i, p in enumerate((0, 5)):
-        assert torch.equal(pre[:, i], re[..., p]) and torch.equal(pim[:, i], im[..., p])
+        fre, fim = transform.symmetrize_plane_reim(pre[:, i], pim[:, i])
+        assert torch.equal(fre, re[..., p]) and torch.equal(fim, im[..., p])
+    # the planes add every plane mode but DC once
+    assert float((acc[0] - raw[0]).sum()) == 2 * 8 * 12 - 1
     with pytest.raises(ValueError, match="ascending edges"):
         sampler.sample_power_bins(3, table, shape, SPACING, 0.0,
                                   np.logspace(-2, 0, 131))
