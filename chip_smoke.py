@@ -12,14 +12,16 @@ non-zero with no result line:
 
 0. the card's name and power limit (nvidia-smi), CUDA version, kernel build;
    registers a thread and blocks an SM of every instance of the kernels on
-   the register-radix FFT core: K3 (both signs), K4, K6 and K9; registers
-   and the SASS instructions of the loop body a mode of the hashing kernels
-   K1 (and K8, the same kernel), K2F and K5 (cuobjdump), and the issue-rate
-   time they imply;
+   the register-radix FFT core: K3 (both signs), K4, K6, K9 and K10;
+   registers and the SASS instructions of the loop body a mode of the
+   hashing kernels K1 (and K8, the same kernel), K2F (and K7) and K5
+   (cuobjdump), and the issue-rate time they imply;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
-   default render's fused K2 draw_scale (the bits of its hash exact, its
-   unit normals within 3 ulps, the spectrum at s = 0 and 8), K2
+   default render's fused K2 draw_scale (its device normal over all 2^23
+   inputs it can take within 3 ulps of the plain normal, the bits of its
+   hash exact, its unit normals within 3 ulps, the spectrum at s = 0 and
+   8), K2
    scale_sigma, K3 fft_axis (and every length 16..2048, both signs, one and
    several outer groups, inner = 1, 513 and ragged counts), K4 c2r_tail (and
    every nz / 2 = 16..2048, ragged line counts, one line), K1
@@ -140,7 +142,7 @@ KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
 # cuFFT's (K3, a two- or three-pass Stockham transform, and K4 and its
 # mirror K6 as the c2r tail test of the JAX package's
 # tests/test_pallas_fft.py; K9 is K3's transform written rotated and K10
-# K1's draws through a radix-2 one, both at the K4 bar)
+# K1's draws through the same core, both at the K4 bar)
 BARS = {"K1": 2e-6, "K2": 2e-6, "K2F": 2e-6, "K3": 2e-6, "K4": 5e-6,
         "K6": 5e-6, "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6}
 # the fused K2's unit normals vs threefry.normal_at on the card (the same
@@ -175,14 +177,17 @@ FP32_OPS_PER_S = 67e12
 # K5: the hash, |k|^2 for sigma and for the bin (12), the lookup (12),
 # u1 and r^2 (6), amplitude, filter and power (8), the bin guess and edge
 # compares (6), the weights and the three float64 adds (6).  K10: K1's draw
-# per bulk mode (its transform is counted per line, 5 n log2 n).  K2F (and
+# per bulk mode (K10_DRAW_OPS; the plane modes are loaded, not drawn) and
+# the x transform's 5 log2(nx) floating-point operations per mode, at the
+# main path's nx = 1024.  K2F (and
 # K7, which is K2F on a shard): two hashes, each mapped to a normal (the
 # mantissa uniform and its clamp 6, erfinv's log1p, sqrt and branch
 # arithmetic 9, the 9-term polynomial with its selects 25, two multiplies
 # 2: 42), the plane fix's selects (6) and K2's amplitude and multiplies (24).
+K10_DRAW_OPS = 74 + 7 + 12 + 12 + 4
 OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
                 "K2": 24, "K2F": 2 * (74 + 42) + 6 + 24,
-                "K10": 74 + 7 + 12 + 12 + 4}
+                "K10": K10_DRAW_OPS + 5 * 10}
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
 # single-seed variance vs prediction at 1024^3
@@ -285,10 +290,13 @@ def cuda_ms(torch, fn, reps=TIMING_REPS, setup=None):
 
 def phase0_attributes(card):
     """Registers a thread and blocks an SM of every instance of K3 (both
-    signs), K4, K6 and K9, as cudaFuncGetAttributes and
+    signs), K4, K6, K9 and K10, as cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor report them (registers
-    are what the register-radix core runs short of)."""
-    from randomfield_tpu_torch.ops import fft
+    are what the register-radix core runs short of; K10 with the knots of
+    the 1024^3 scene's table)."""
+    from randomfield_tpu_torch.ops import fft, genfft, sampler
+
+    knots = sampler.table_knot_count(HEADLINE)
 
     for n in FFT_LENGTHS:
         plan = "*".join(map(str, fft.radix_plan(n)))
@@ -302,7 +310,9 @@ def phase0_attributes(card):
                 ("K6 r2c_head", f"nz = {2 * n}",
                  fft.kernel_attributes("r2c_head", n)),
                 ("K9 ifft_rotate", panel,
-                 fft.kernel_attributes("ifft_rotate", n))]
+                 fft.kernel_attributes("ifft_rotate", n)),
+                ("K10 sample_fftx", f"nx = {n}, {knots} knots",
+                 genfft.kernel_attributes(n, knots))]
         for name, what, (regs, blocks, threads, smem) in rows:
             log(f"phase 0 {name} n = {n} = {plan}, {what}: {regs} registers a "
                 f"thread, {blocks} blocks an SM of {threads} threads and "
@@ -311,10 +321,14 @@ def phase0_attributes(card):
                 raise AssertionError(f"{name} n = {n}: no such instance")
 
 
-# the hashing kernels' SASS: (a fragment of the function's name, hashes a
-# mode); K8 is K1's kernel on a shard
+# the hashing kernels' SASS: (a pattern of the function's name, hashes a
+# mode); K8 is K1's kernel on a shard and K7 K2F's.  K2F's pattern is its
+# spectrum instance with 32-bit counters, the one a 1024^3 render runs
+# (draw_scale_kernel<0, false>), or the one instance of spectrum mode
+# before the counter width was a template parameter; its loop holds two
+# modes, four hashes
 SASS_KERNELS = {"K1": ("sample_modes_kernel", 1),
-                "K2F": ("draw_scale_kernelILi0E", 2),
+                "K2F": (r"draw_scale_kernelILi0E(?:Lb0E)?E", 2),
                 "K5": ("power_bins_kernel", 1)}
 # rotations of one Threefry-2x32 hash (threefry.cuh), each a funnel shift or
 # a byte permute in SASS
@@ -390,7 +404,7 @@ def sass_counts(lib, cuobjdump):
     funcs, regs = sass_functions(lib, cuobjdump)
     out = {}
     for kid, (frag, hashes_a_mode) in SASS_KERNELS.items():
-        name = next(f for f in funcs if frag in f)
+        name = next(f for f in funcs if re.search(frag, f))
         span, hot, rot = hash_loop(funcs[name])
         hashes = max(1, round(rot / ROTATIONS_PER_HASH))
         out[kid] = (regs.get(name, -1), span, hot, hashes,
@@ -399,10 +413,11 @@ def sass_counts(lib, cuobjdump):
 
 
 def phase0_sass(torch, card):
-    """Registers and the SASS loop body a mode of K1 (and K8), K2F and K5,
-    and the time the hot instructions take at the card's issue rate: one
-    warp instruction a clock on each of an SM's four schedulers at the
-    maximum SM clock (nvidia-smi), over the 1024^3 modes (K8: a quarter)."""
+    """Registers and the SASS loop body a mode of K1 (and K8), K2F (and K7)
+    and K5, and the time the hot instructions take at the card's issue
+    rate: one warp instruction a clock on each of an SM's four schedulers
+    at the maximum SM clock (nvidia-smi), over the 1024^3 modes (K7 and
+    K8: a quarter)."""
     from randomfield_tpu_torch.ops import _build
 
     clock_mhz = float(subprocess.run(
@@ -414,8 +429,9 @@ def phase0_sass(torch, card):
     modes = nx * ny * (nz // 2 + 1)
     counts = sass_counts(_build.library_path(), _build.cuda_tool("cuobjdump"))
     counts["K8"] = counts["K1"]
+    counts["K7"] = counts["K2F"]
     for kid, (regs, span, hot, hashes, per_mode) in counts.items():
-        n_modes = modes // MESH_RANKS if kid == "K8" else modes
+        n_modes = modes // MESH_RANKS if kid in ("K7", "K8") else modes
         ms = 1e3 * per_mode * n_modes / 32 / (sms * 4 * clock_mhz * 1e6)
         log(f"phase 0 {kid} SASS: {regs} registers a thread; loop body {span} "
             f"instructions, {hot} outside its cold paths, for {hashes} "
@@ -511,14 +527,29 @@ def max_ulps(torch, a, b):
 
 def phase1_draw_scale(torch, g, errs):
     """The fused K2 (draw_scale) vs its plain chain on the card at the
-    1024^3 main path's shapes, table and gain: the bits of its hash equal to
-    threefry.bits_at's, its unit normals within DRAW_ULPS of
+    1024^3 main path's shapes, table and gain: its device normal
+    (draw_normals) over all 2^23 inputs within DRAW_ULPS of the plain
+    normal, with the count of inputs that differ; the bits of its hash
+    equal to threefry.bits_at's, its unit normals within DRAW_ULPS of
     threefry.normal_at's, its spectrum (s = 0 and 8) within the K2 bar of
     draw_scale_plain's (unit draws -> Hermitian fix -> scale_sigma_plain);
     fills errs["K2F"]."""
     from randomfield_tpu_torch.ops import sample, sampler, threefry
 
     seed, table, shape, spacing = 17, g.state.table, g.shape, g.grid_spacing
+    # the device normal alone, over every input it can take: it reads only
+    # bits >> 9, so the 2^23 words v << 9 cover erfinv's tail branch too
+    bits = torch.arange(2**23, dtype=torch.int64, device=g.device) << 9
+    got = sampler.draw_normals(bits)
+    want = threefry._normal_from_bits(bits)
+    torch.cuda.synchronize()
+    d = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    ulps, differ = int(d.max()), int((d > 0).sum())
+    log(f"phase 1 K2F jax_normal over all 2^23 inputs vs the plain normal: "
+        f"{differ} differ, max {ulps} ulps (bar {DRAW_ULPS})")
+    if not ulps <= DRAW_ULPS:
+        raise AssertionError(f"draw_scale's jax_normal is {ulps} ulps off")
+    del bits, got, want, d
     key = threefry.key_from_seed(seed)
     got = sampler.draw_bits(seed, table, shape)
     want = torch.stack(sample.canonical_bits_reim(key, shape, g.device))
@@ -1819,6 +1850,8 @@ def kernel_bounds(g):
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
     shard = nx * (ny // MESH_RANKS) * nzh
+    from randomfield_tpu_torch.ops import fft
+
     knots = 4 * g.state.table.knots.numel()
     m = nz // 2
 
@@ -1848,9 +1881,9 @@ def kernel_bounds(g):
                fft_ops(nx, ny * nzh) + fft_ops(ny, nzh * nx)),
         # the lattices written, the two planes, the knots and the twiddles
         # read; the draw of each bulk mode and the transform of every line
-        "K10": (8 * modes + 16 * nx * ny + knots + 4 * nx,
-                OPS_PER_MODE["K10"] * nx * ny * (nzh - 2)
-                + fft_ops(nx, ny * nzh)),
+        "K10": (8 * modes + 16 * nx * ny + knots
+                + 8 * fft.pass_twiddles(nx, +1, "cpu").shape[0],
+                OPS_PER_MODE["K10"] * modes - K10_DRAW_OPS * 2 * nx * ny),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,

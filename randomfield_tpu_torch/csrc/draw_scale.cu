@@ -19,7 +19,8 @@
 //    The stream is counter-based, so the partner's draw needs no other
 //    thread, no second pass and, on a slab mesh, no exchange;
 // 4. K2's amplitude sigma(|k|) exp(-k^2 s^2 / 2) gain (sigma_common.cuh:
-//    k2_amplitude, the arithmetic of scale_sigma.cu) at the mode's own k.
+//    k2_amplitude_ksq, the arithmetic of scale_sigma.cu) at the mode's own
+//    |k|^2, summed (kx^2 + ky^2) + kz^2.
 //
 // Unit mode skips 3 and 4 and writes the raw unit normals (generate_noise);
 // bits mode writes step 1's bits, for checking the hash alone.
@@ -34,16 +35,36 @@
 // ops/transform.py:symmetrize_with_shape_reim -> ops/sampler.py:
 // scale_sigma_plain) bit for bit.
 //
-// What bounds it on the H100: operations.  It writes 8 bytes a mode (4.303
-// GB at 1024^3, 1.285 ms at 3.35 TB/s) and hashes twice a mode, about 150
-// 32-bit integer operations, plus two log1pf and the erfinv polynomials, and
-// a logf (and expf) for sigma.  Design: blockIdx.y is the x plane, so the
-// chunk keys of the plane and of its partner plane, the counter's x part and
-// kx are computed once per block; the threads stride over the plane's
-// (y, kz) modes, which lie contiguous in the output, so the stores are
-// coalesced.  The two hashes of a mode are independent (ILP 2); the plane
-// fix is a selection of the counter's coordinates, not a branch.
+// What bounds it on the H100: the instruction issue rate.  It writes 8
+// bytes a mode (4.303 GB at 1024^3, 1.285 ms at 3.35 TB/s) and hashes twice
+// a mode, about 150 32-bit integer operations, plus two log1pf and the
+// erfinv polynomial, and a logf (and expf) for sigma.  Design, to issue
+// fewer instructions a mode (the walk of K1, sample_modes.cu):
+// - a thread draws the x rows gx and px = (-gx) mod nx of one ky row
+//   together: the two share |k|^2 bit for bit (signed_index negates), so
+//   one amplitude (the logf, the lookup, the filter) serves two modes; each
+//   row keeps its own chunk key (gx and px may lie in different chunks), so
+//   the pair runs four independent hashes; and a plane mode's partner lies
+//   in the other row of its pair, so the plane fix selects between the
+//   pair's own keys and counters;
+// - a warp walks a row pair's kz with its 32 lanes on 32 consecutive kz:
+//   the stores stay coalesced, there is no division a mode, kz^2 comes from
+//   a table in shared memory, and the rows' keys, counters and partner
+//   selection are computed once a row; only the 32 kz that hold a plane
+//   (kz = 0, and the Nyquist kz) run the plane fix's selections;
+// - the kz left over when nz/2 + 1 is not a multiple of 32 (the Nyquist
+//   column at 1024^3) are drawn one lane per row pair over the warp's 32
+//   row pairs;
+// - the counter is 32-bit where every counter of a chunk fits (2 cx nzh ny
+//   <= 2^32: 6.7e7 at 1024^3), so the hash's high word is the constant 0;
+//   the launcher picks the 64-bit instance for grids where it does not fit;
+// - erfinv's tail polynomial is a branch taken by 0.34% of the draws, and
+//   its log1pf is libdevice's without the branch for arguments outside
+//   (-1, 0] (threefry.cuh:erfinv_xla, log1pf_neg).
+// Rows x = 0 and nx/2 pair with themselves and are drawn once; in a block
+// of x rows, the rows of a pair outside it are drawn and not stored.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -54,8 +75,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocksPerPlane = 32;
-constexpr int kMaxChunks = 16;  // ops/sample.py:CANONICAL_CHUNK_TARGET
+constexpr int kWarps = kThreads / 32;
+constexpr int kPairsPerWarp = 32;  // row pairs a warp owns: one per lane
+constexpr int kMaxChunks = 16;     // ops/sample.py:CANONICAL_CHUNK_TARGET
 
 enum Mode : int { kSpectrum = 0, kUnit = 1, kBits = 2 };
 
@@ -64,105 +86,201 @@ struct ChunkKeys {
   uint32_t k1[kMaxChunks];
 };
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-draw_scale_kernel(float* __restrict__ re, float* __restrict__ im,
-                  const float* __restrict__ knots, int n_knots,
-                  const __grid_constant__ ChunkKeys keys, int cx, int nx,
-                  int ny, int nz, int x_off, int y_off, int ny_loc,
-                  float kx_scale, float ky_scale, float kz_scale,
-                  float half_inv_ln10, float lk0, float inv_dlk,
-                  float smoothing, float gain) {
-  extern __shared__ float tab[];
-  if (MODE == kSpectrum) rf::load_knots(tab, knots, n_knots);
+struct Params {
+  float* re;
+  float* im;
+  const float* tab;  // the knots, in shared memory
+  const float* kz2;  // (kz_scale kz)^2 for kz in [0, nzh), in shared memory
+  unsigned long long c_stride;  // cx nzh ny: the im draws' counter offset
+  int n_knots, cx, nx, ny, nzh, top, x_off, nx_loc, y_off, ny_loc;
+  float kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain;
+};
 
-  const int nzh = nz / 2 + 1;
-  const int top = nz % 2 == 0 ? nzh - 1 : 0;  // the Nyquist plane, if any
-  const int plane = ny_loc * nzh;
-  const int gx = static_cast<int>(blockIdx.y) + x_off;
-  const int px = rf::partner_index(gx, nx);
-  const int ci = gx / cx;
-  const int pci = px / cx;
-  const uint32_t ok0 = keys.k0[ci], ok1 = keys.k1[ci];
-  const uint32_t pk0 = keys.k0[pci], pk1 = keys.k1[pci];
-  // counters: c * c_stride + row + kz ny + y within the chunk
-  const unsigned long long c_stride =
-      static_cast<unsigned long long>(cx) * nzh * ny;
-  const unsigned long long orow =
-      static_cast<unsigned long long>(gx - ci * cx) * nzh * ny;
-  const unsigned long long prow =
-      static_cast<unsigned long long>(px - pci * cx) * nzh * ny;
-  const float kx = kx_scale * static_cast<float>(rf::signed_index(gx, nx));
-  const float kx2 = kx * kx;
-  float* rp = re + static_cast<long long>(blockIdx.y) * plane;
-  float* ip = im + static_cast<long long>(blockIdx.y) * plane;
+// The rows x[0] = gx and x[1] = (-gx) mod nx of ky row y, gx <= nx / 2,
+// and their modes' counters: within a chunk of cx x rows the counter of
+// (x, y, kz) is (x mod cx) nzh ny + kz ny + y, and the im draw's is cx nzh
+// ny further.  WIDE: 64-bit counters (a chunk of more than 2^32 draws).
+template <int MODE, bool WIDE>
+struct RowPair {
+  using Counter =
+      typename std::conditional<WIDE, unsigned long long, uint32_t>::type;
+  uint32_t k0[2], k1[2];  // each row's chunk key
+  Counter base[2];        // each row's counter at kz = 0
+  Counter to_py;          // (-y) mod ny - y: a plane partner's counter shift
+  float kxy;              // kx^2 + ky^2, the pair's
+  bool nc[2], sc[2];      // not canonical / self-conjugate on a plane
+  bool live[2];           // stored: inside the block, row 1 not row 0
+  float* rp[2];
+  float* ip[2];
 
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < plane;
-       p += gridDim.x * blockDim.x) {
-    const int yl = p / nzh;
-    const int z = p - yl * nzh;
-    const int gy = yl + y_off;
-    const int py = rf::partner_index(gy, ny);
-    const bool fixed = MODE == kSpectrum && (z == 0 || z == top);
-    const bool partner = fixed && rf::not_canonical(gx, gy, px, py);
-    const bool self_conj = fixed && rf::self_conjugate(gx, gy, px, py);
-    const unsigned long long idx =
-        (partner ? prow : orow) + static_cast<unsigned long long>(z) * ny +
-        static_cast<unsigned>(partner ? py : gy);
-    const uint32_t k0 = partner ? pk0 : ok0;
-    const uint32_t k1 = partner ? pk1 : ok1;
-    const uint32_t bre = rf::jax_bits(k0, k1, idx);
-    const uint32_t bim = rf::jax_bits(k0, k1, idx + c_stride);
+  __device__ __forceinline__ RowPair(const Params& p, const ChunkKeys& keys,
+                                     int q) {
+    const int gx = q / p.ny_loc;
+    const int yl = q - gx * p.ny_loc;
+    const int y = yl + p.y_off;
+    const int x[2] = {gx, rf::partner_index(gx, p.nx)};
+    const int py = rf::partner_index(y, p.ny);
+    const float kx =
+        p.kx_scale * static_cast<float>(rf::signed_index(gx, p.nx));
+    const float ky = p.ky_scale * static_cast<float>(rf::signed_index(y, p.ny));
+    kxy = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky));
+    to_py = static_cast<Counter>(py) - static_cast<Counter>(y);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ci = x[r] / p.cx;
+      k0[r] = keys.k0[ci];
+      k1[r] = keys.k1[ci];
+      base[r] = static_cast<Counter>(x[r] - ci * p.cx) *
+                    static_cast<Counter>(p.nzh) * static_cast<Counter>(p.ny) +
+                static_cast<Counter>(y);
+      // the partner of row r is the pair's other row
+      nc[r] = rf::not_canonical(x[r], y, x[1 - r], py);
+      sc[r] = rf::self_conjugate(x[r], y, x[1 - r], py);
+      live[r] = p.x_off <= x[r] && x[r] < p.x_off + p.nx_loc;
+      const long long out =
+          (static_cast<long long>(x[r] - p.x_off) * p.ny_loc + yl) * p.nzh;
+      rp[r] = p.re + out;
+      ip[r] = p.im + out;
+    }
+    live[1] = live[1] && x[1] != x[0];
+  }
+
+  // Draw, fix, scale and store both rows' mode at kz = z.  PLANES: z may
+  // be a plane's (0 or the Nyquist kz); without it the draw has no
+  // selection to make.
+  template <bool PLANES>
+  __device__ __forceinline__ void draw(const Params& p, int z) const {
+    const Counter zc = static_cast<Counter>(z) * static_cast<Counter>(p.ny);
+    const Counter c_stride = static_cast<Counter>(p.c_stride);
+    const bool fixed =
+        PLANES && MODE == kSpectrum && (z == 0 || z == p.top);
+    uint32_t bre[2], bim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // a plane mode that is not canonical hashes its partner's counters:
+      // the other row's, at (-y) mod ny
+      const bool partner = fixed && nc[r];
+      const Counter idx = (partner ? base[1 - r] + to_py : base[r]) + zc;
+      const uint32_t c0 = partner ? k0[1 - r] : k0[r];
+      const uint32_t c1 = partner ? k1[1 - r] : k1[r];
+      bre[r] = rf::jax_bits(c0, c1, idx);
+      bim[r] = rf::jax_bits(c0, c1, static_cast<Counter>(idx + c_stride));
+    }
     if (MODE == kBits) {
-      reinterpret_cast<uint32_t*>(rp)[p] = bre;
-      reinterpret_cast<uint32_t*>(ip)[p] = bim;
-      continue;
-    }
-    float vre = rf::jax_normal(bre);
-    float vim = rf::jax_normal(bim);
-    if (MODE == kSpectrum) {
-      if (partner) vim = -vim;
-      if (self_conj) {
-        vre = __fmul_rn(vre, rf::kSqrt2);
-        vim = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (live[r]) {
+          reinterpret_cast<uint32_t*>(rp[r])[z] = bre[r];
+          reinterpret_cast<uint32_t*>(ip[r])[z] = bim[r];
+        }
       }
-      const float ky =
-          ky_scale * static_cast<float>(rf::signed_index(gy, ny));
-      const float kz = kz_scale * static_cast<float>(z);
-      const float amp = rf::k2_amplitude(tab, n_knots, kx2, ky, kz,
-                                         half_inv_ln10, lk0, inv_dlk,
-                                         smoothing, gain);
-      vre = __fmul_rn(vre, amp);
-      vim = __fmul_rn(vim, amp);
+      return;
     }
-    rp[p] = vre;
-    ip[p] = vim;
+    float amp = 0.f;
+    if (MODE == kSpectrum) {
+      amp = rf::k2_amplitude_ksq(p.tab, p.n_knots, __fadd_rn(kxy, p.kz2[z]),
+                                 p.half_inv_ln10, p.lk0, p.inv_dlk,
+                                 p.smoothing, p.gain);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float vre = rf::jax_normal(bre[r]);
+      float vim = rf::jax_normal(bim[r]);
+      if (MODE == kSpectrum) {
+        if (fixed && nc[r]) vim = -vim;
+        if (fixed && sc[r]) {
+          vre = __fmul_rn(vre, rf::kSqrt2);
+          vim = 0.f;
+        }
+        vre = __fmul_rn(vre, amp);
+        vim = __fmul_rn(vim, amp);
+      }
+      if (live[r]) {
+        rp[r][z] = vre;
+        ip[r][z] = vim;
+      }
+    }
+  }
+};
+
+template <int MODE, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 4)
+draw_scale_kernel(Params args, float kz_scale,
+                  const __grid_constant__ ChunkKeys keys) {
+  extern __shared__ float smem[];
+  Params p = args;
+  p.tab = smem;
+  p.kz2 = smem + p.n_knots;
+  if (MODE == kSpectrum) {
+    float* kz2 = smem + p.n_knots;
+    for (int z = threadIdx.x; z < p.nzh; z += blockDim.x) {
+      const float kz = kz_scale * static_cast<float>(z);
+      kz2[z] = __fmul_rn(kz, kz);
+    }
+    rf::load_knots(smem, args.tab, p.n_knots);  // and the block's barrier
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int n_pairs = (p.nx / 2 + 1) * p.ny_loc;
+  const int bulk = p.nzh & ~31;  // the kz a warp draws 32 at a time
+  // the 32 kz that hold the Nyquist plane, when the bulk holds it (nz/2 + 1
+  // a multiple of 32); the first 32 hold kz = 0
+  const int top32 = p.top >= 32 && p.top < bulk ? p.top & ~31 : bulk;
+  const int stride = gridDim.x * kWarps * kPairsPerWarp;
+  for (int g = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPairsPerWarp;
+       g < n_pairs; g += stride) {
+    const int end = min(g + kPairsPerWarp, n_pairs);
+    for (int q = g; q < end; ++q) {
+      const RowPair<MODE, WIDE> rows(p, keys, q);
+      if (bulk > 0) rows.template draw<true>(p, lane);
+      for (int z = 32 + lane; z < top32; z += 32) {
+        rows.template draw<false>(p, z);
+      }
+      if (top32 < bulk) rows.template draw<true>(p, top32 + lane);
+    }
+    if (bulk < p.nzh && g + lane < end) {
+      const RowPair<MODE, WIDE> rows(p, keys, g + lane);
+      for (int z = bulk; z < p.nzh; ++z) rows.template draw<true>(p, z);
+    }
   }
 }
 
-template <int MODE>
-cudaError_t launch(float* re, float* im, const float* knots, int n_knots,
-                   const ChunkKeys& keys, int cx, int nx, int ny, int nz,
-                   int x_off, int nx_loc, int y_off, int ny_loc,
-                   float kx_scale, float ky_scale, float kz_scale,
-                   float half_inv_ln10, float lk0, float inv_dlk,
-                   float smoothing, float gain, cudaStream_t stream) {
+template <int MODE, bool WIDE>
+cudaError_t launch(const Params& p, float kz_scale, const ChunkKeys& keys,
+                   cudaStream_t stream) {
   const size_t smem =
-      MODE == kSpectrum ? sizeof(float) * static_cast<size_t>(n_knots) : 0;
+      MODE == kSpectrum
+          ? sizeof(float) * (static_cast<size_t>(p.n_knots) + p.nzh)
+          : 0;
   cudaError_t err = cudaFuncSetAttribute(
-      draw_scale_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      draw_scale_kernel<MODE, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int plane = ny_loc * (nz / 2 + 1);
-  int per_plane = (plane + kThreads - 1) / kThreads;
-  if (per_plane > kMaxBlocksPerPlane) per_plane = kMaxBlocksPerPlane;
-  const dim3 grid(static_cast<unsigned>(per_plane),
-                  static_cast<unsigned>(nx_loc));
-  draw_scale_kernel<MODE><<<grid, kThreads, smem, stream>>>(
-      re, im, knots, n_knots, keys, cx, nx, ny, nz, x_off, y_off, ny_loc,
-      kx_scale, ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing,
-      gain);
+  const long long groups =
+      (static_cast<long long>(p.nx / 2 + 1) * p.ny_loc + kPairsPerWarp - 1) /
+      kPairsPerWarp;
+  long long blocks = (groups + kWarps - 1) / kWarps;
+  if (blocks > 65535) blocks = 65535;  // the warps then stride over the rest
+  draw_scale_kernel<MODE, WIDE>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p, kz_scale,
+                                                                  keys);
   return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mode(const Params& p, float kz_scale,
+                        const ChunkKeys& keys, cudaStream_t stream) {
+  // every counter of a chunk, im draws included, is below 2 cx nzh ny
+  const bool wide = 2ull * p.c_stride > (1ull << 32);
+  return wide ? launch<MODE, true>(p, kz_scale, keys, stream)
+              : launch<MODE, false>(p, kz_scale, keys, stream);
+}
+
+__global__ void jax_normal_kernel(const uint32_t* __restrict__ bits,
+                                  float* __restrict__ out, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i < n) out[i] = rf::jax_normal(bits[i]);
 }
 
 }  // namespace
@@ -195,30 +313,40 @@ extern "C" int rf_draw_scale(void* re, void* im, const void* knots,
     keys.k1[i] = host[n_chunks + i];
   }
   const int cx = nx / n_chunks;
-  auto* r = static_cast<float*>(re);
-  auto* m = static_cast<float*>(im);
-  auto* k = static_cast<const float*>(knots);
+  const int nzh = nz / 2 + 1;
+  Params p{static_cast<float*>(re), static_cast<float*>(im),
+           static_cast<const float*>(knots), nullptr,
+           static_cast<unsigned long long>(cx) * nzh * ny, n_knots, cx, nx,
+           ny, nzh, nz % 2 == 0 ? nzh - 1 : 0, x_off, nx_loc, y_off, ny_loc,
+           kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain};
   auto* s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (mode) {
     case kSpectrum:
-      err = launch<kSpectrum>(r, m, k, n_knots, keys, cx, nx, ny, nz, x_off,
-                              nx_loc, y_off, ny_loc, kx_scale, ky_scale,
-                              kz_scale, half_inv_ln10, lk0, inv_dlk,
-                              smoothing, gain, s);
+      err = launch_mode<kSpectrum>(p, kz_scale, keys, s);
       break;
     case kUnit:
-      err = launch<kUnit>(r, m, k, n_knots, keys, cx, nx, ny, nz, x_off,
-                          nx_loc, y_off, ny_loc, kx_scale, ky_scale, kz_scale,
-                          half_inv_ln10, lk0, inv_dlk, smoothing, gain, s);
+      err = launch_mode<kUnit>(p, kz_scale, keys, s);
       break;
     case kBits:
-      err = launch<kBits>(r, m, k, n_knots, keys, cx, nx, ny, nz, x_off,
-                          nx_loc, y_off, ny_loc, kx_scale, ky_scale, kz_scale,
-                          half_inv_ln10, lk0, inv_dlk, smoothing, gain, s);
+      err = launch_mode<kBits>(p, kz_scale, keys, s);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// jax_normal of each of n uint32 words, as the kernels above map their bits:
+// a check of the device function alone (the exhaustive comparison in
+// chip_smoke.py), on no render's path.  bits: uint32 (n,); out: float32
+// (n,).  Returns the CUDA error of the launch.
+extern "C" int rf_jax_normal(const void* bits, void* out, long long n,
+                             void* stream) {
+  if (n <= 0) return 0;
+  constexpr int threads = 256;
+  jax_normal_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
+                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(bits), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,14 @@
-// Register-radix Stockham complex FFT: the device routine of the axis FFT
-// (fft_axis.cu, K3), the c2r tail (c2r_tail.cu, K4), the r2c head
-// (r2c_head.cu, K6) and the rotating axis FFT (fft_rotate.cu, K9).  The fused
-// sample + x-FFT (K10) still runs the radix-2 routine of fft_common.cuh.
+// Register-radix Stockham complex FFT: the device routine of every FFT
+// kernel of the port: the axis FFT (fft_axis.cu, K3), the c2r tail
+// (c2r_tail.cu, K4), the r2c head (r2c_head.cu, K6), the rotating axis FFT
+// (fft_rotate.cu, K9) and the fused sample + x-FFT (sample_fftx.cu, K10).
 //
-// Counterpart of randomfield_tpu/ops/pallas_fft.py:_ct_core, as fft_common.cuh
-// is; this is the same transform thought through for what is scarce on Hopper.
+// Counterpart of randomfield_tpu/ops/pallas_fft.py:_ct_core: the same
+// transform thought through for what is scarce on Hopper.
 //
-// What bounded the radix-2 routine: log2(n) stages, each of which read and
+// What bounded the radix-2 routine it replaced (an iterative radix-2
+// decimation-in-time FFT over lines in shared memory, which the port ran
+// until K10 moved off it): log2(n) stages, each of which read and
 // wrote every element in shared memory (20 bytes per element and stage with
 // the twiddle, 200 bytes for a 1024-point line against 16 through device
 // memory), closed each stage with a block barrier, read twiddles that fell
@@ -48,8 +50,8 @@
 // temporaries; the kernels cap themselves at 64 registers a thread with
 // __launch_bounds__ so that 1024 threads fit an SM.
 //
-// Accuracy: float32 throughout, as fft_common.cuh's: about 1e-7 of the largest
-// output for random input (fewer roundings per element than radix 2).
+// Accuracy: float32 butterflies with twiddles built in float64 on the host and
+// rounded once: about 1e-7 of the largest output for random input.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -47,17 +47,16 @@ __device__ __forceinline__ float interp_sigma(const float* tab, int n_knots,
                    __fmul_rn(tab[i0 + 1], frac));
 }
 
-// K2's per-mode amplitude, which scale_sigma.cu and draw_scale.cu share:
-// sigma(|k|) * exp(-k^2 s^2 / 2) * gain with sigma(0) = 0, |k|^2 summed
-// (kx^2 + ky^2) + kz^2 as the JAX package's 'xyz' lattice sums it, the
-// filter only when s != 0.
-__device__ __forceinline__ float k2_amplitude(const float* tab, int n_knots,
-                                              float kx2, float ky, float kz,
-                                              float half_inv_ln10, float lk0,
-                                              float inv_dlk, float smoothing,
-                                              float gain) {
-  const float ksq =
-      __fadd_rn(__fadd_rn(kx2, __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
+// K2's amplitude at |k|^2 = ksq: sigma(|k|) * exp(-k^2 s^2 / 2) * gain with
+// sigma(0) = 0, the filter only when s != 0.  The fused K2 (draw_scale.cu)
+// calls it once for the two x rows of a row pair, whose |k|^2 agree bit for
+// bit.
+__device__ __forceinline__ float k2_amplitude_ksq(const float* tab,
+                                                  int n_knots, float ksq,
+                                                  float half_inv_ln10,
+                                                  float lk0, float inv_dlk,
+                                                  float smoothing,
+                                                  float gain) {
   float amp = 0.f;
   if (ksq > 0.f) {
     amp = interp_sigma(tab, n_knots, log10_k(ksq, half_inv_ln10), lk0,
@@ -66,6 +65,19 @@ __device__ __forceinline__ float k2_amplitude(const float* tab, int n_knots,
     amp = amp * gain;
   }
   return amp;
+}
+
+// K2's per-mode amplitude (scale_sigma.cu): k2_amplitude_ksq at |k|^2
+// summed (kx^2 + ky^2) + kz^2 as the JAX package's 'xyz' lattice sums it.
+__device__ __forceinline__ float k2_amplitude(const float* tab, int n_knots,
+                                              float kx2, float ky, float kz,
+                                              float half_inv_ln10, float lk0,
+                                              float inv_dlk, float smoothing,
+                                              float gain) {
+  const float ksq =
+      __fadd_rn(__fadd_rn(kx2, __fmul_rn(ky, ky)), __fmul_rn(kz, kz));
+  return k2_amplitude_ksq(tab, n_knots, ksq, half_inv_ln10, lk0, inv_dlk,
+                          smoothing, gain);
 }
 
 }  // namespace rf

@@ -58,8 +58,10 @@ _SIGNATURES = {
     "rf_c2r_tail_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
     "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
-    "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _U32, _U32,
-                       _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                       _U32, _U32, _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_sample_fftx_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "rf_jax_normal": [_P, _P, _LL, _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }

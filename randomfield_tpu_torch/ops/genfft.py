@@ -35,6 +35,8 @@ tensors it runs :func:`seeded_fftx_plain`.  The launch count is
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -55,6 +57,8 @@ __all__ = [
     "plane_spectra",
     "sample_fftx",
     "sample_fftx_plain",
+    "sample_fftx_emulated",
+    "kernel_attributes",
     "seeded_fftx_plain",
     "K10_LAUNCHES",
 ]
@@ -71,8 +75,6 @@ _MASK = 0xFFFFFFFF
 # kernel launches by sample_fftx (the CPU path does not count)
 K10_LAUNCHES = 0
 
-# complex elements one K10 block holds (sets its lines per block)
-_K10_BLOCK_ELEMS = 4096
 # kz rows per step of the plain version (bounds its temporaries)
 _PLAIN_KZ_CHUNK = 16
 
@@ -163,6 +165,56 @@ def _check_planes(pre, pim, shape, dev):
                              f"({2 * ny}, {nx}) planes on {dev}")
 
 
+def _check_bits(b1, b2, shape, kz_off, name):
+    nx, ny, nz = shape
+    if (b1.shape != b2.shape or tuple(b1.shape[1:]) != (ny, nx)
+            or b1.dtype != torch.int64 or b2.dtype != torch.int64
+            or not 0 <= kz_off <= nz // 2 + 1 - b1.shape[0]):
+        raise ValueError(f"{name}: b1/b2 must be equal int64 (nkz, {ny}, {nx}) "
+                         f"blocks of kz rows inside the grid {shape}, got "
+                         f"{tuple(b1.shape)} {b1.dtype} at kz {kz_off}")
+
+
+def _drawn_lines(b1, b2, pre, pim, table, shape, spacing, smoothing_length,
+                 kz_off, xs):
+    """The sampled spectrum of kz rows [kz_off, kz_off + nkz) at the x
+    indices ``xs`` (any int64 tensor of them): float32 (re, im) shaped
+    (nkz, ny, *xs.shape), bulk rows drawn from the bits in
+    ``csrc/sample_fftx.cu``'s order of float32 operations, plane rows
+    taken from ``pre``/``pim``."""
+    nx, ny, nz = shape
+    dev = b1.device
+    nkz = b1.shape[0]
+    c = _sampler._constants(table, shape, spacing)
+    kx = _sampler._signed(xs.to(dev), nx).to(torch.float32)
+    kx = kx * float(c["kx_scale"])
+    ky = _sampler._signed(torch.arange(ny, device=dev), ny).to(torch.float32)
+    ky = ky * float(c["ky_scale"])
+    kz = torch.arange(kz_off, kz_off + nkz, device=dev).to(torch.float32)
+    kz = kz * float(c["kz_scale"])
+    lead = (1,) * xs.dim()
+    ksq = (kx * kx)[None, None] + (ky * ky).view(1, ny, *lead)
+    ksq = ksq + (kz * kz).view(nkz, 1, *lead)
+    _, sig = _sampler._interp_sigma(table.knots, ksq, c)
+    flat = xs.to(dev).reshape(-1)
+    u1, u2 = _sampler._uniforms(b1[..., flat].view(nkz, ny, *xs.shape),
+                                b2[..., flat].view(nkz, ny, *xs.shape))
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = float(_sampler._TWO_PI32) * u2
+    amp = sig * float(_sampler._INV_SQRT2)
+    re = amp * (r * torch.cos(theta))
+    im = amp * (r * torch.sin(theta))
+    s = float(np.float32(smoothing_length))
+    if s != 0.0:
+        filt = torch.exp(-0.5 * ksq * s * s)
+        re, im = re * filt, im * filt
+    for kzi, rows in ((0, slice(0, ny)), (nz // 2, slice(ny, 2 * ny))):
+        if kz_off <= kzi < kz_off + nkz:
+            re[kzi - kz_off] = pre[rows][:, flat].view(ny, *xs.shape)
+            im[kzi - kz_off] = pim[rows][:, flat].view(ny, *xs.shape)
+    return re, im
+
+
 def sample_fftx_plain(b1, b2, pre, pim, table, shape, spacing,
                       smoothing_length=0.0, kz_off=0):
     """K10 in plain PyTorch on given bits, any device.
@@ -176,42 +228,58 @@ def sample_fftx_plain(b1, b2, pre, pim, table, shape, spacing,
     """
     _check_shape(shape, "sample_fftx_plain")
     nx, ny, nz = shape
-    dev = b1.device
-    nkz = b1.shape[0]
-    if (b1.shape != b2.shape or tuple(b1.shape[1:]) != (ny, nx)
-            or b1.dtype != torch.int64 or b2.dtype != torch.int64
-            or not 0 <= kz_off <= nz // 2 + 1 - nkz):
-        raise ValueError(f"b1/b2 must be equal int64 (nkz, {ny}, {nx}) blocks "
-                         f"of kz rows inside the grid {shape}, got "
-                         f"{tuple(b1.shape)} {b1.dtype} at kz {kz_off}")
-    _check_planes(pre, pim, shape, dev)
-    c = _sampler._constants(table, shape, spacing)
-    kx = _sampler._signed(torch.arange(nx, device=dev), nx).to(torch.float32)
-    kx = kx * float(c["kx_scale"])
-    ky = _sampler._signed(torch.arange(ny, device=dev), ny).to(torch.float32)
-    ky = ky * float(c["ky_scale"])
-    kz = torch.arange(kz_off, kz_off + nkz, device=dev).to(torch.float32)
-    kz = kz * float(c["kz_scale"])
-    ksq = (kx * kx)[None, None, :] + (ky * ky)[None, :, None]
-    ksq = ksq + (kz * kz)[:, None, None]
-    _, sig = _sampler._interp_sigma(table.knots, ksq, c)
-    u1, u2 = _sampler._uniforms(b1, b2)
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    theta = float(_sampler._TWO_PI32) * u2
-    amp = sig * float(_sampler._INV_SQRT2)
-    re = amp * (r * torch.cos(theta))
-    im = amp * (r * torch.sin(theta))
-    s = float(np.float32(smoothing_length))
-    if s != 0.0:
-        filt = torch.exp(-0.5 * ksq * s * s)
-        re, im = re * filt, im * filt
-    for kzi, rows in ((0, slice(0, ny)), (nz // 2, slice(ny, 2 * ny))):
-        if kz_off <= kzi < kz_off + nkz:
-            re[kzi - kz_off] = pre[rows]
-            im[kzi - kz_off] = pim[rows]
+    _check_bits(b1, b2, shape, kz_off, "sample_fftx_plain")
+    _check_planes(pre, pim, shape, b1.device)
+    re, im = _drawn_lines(b1, b2, pre, pim, table, shape, spacing,
+                          smoothing_length, kz_off, torch.arange(nx))
     out = torch.fft.ifft(torch.complex(re, im), dim=-1, norm="forward")
-    return (out.real.reshape(nkz * ny, nx).contiguous(),
-            out.imag.reshape(nkz * ny, nx).contiguous())
+    return (out.real.reshape(-1, nx).contiguous(),
+            out.imag.reshape(-1, nx).contiguous())
+
+
+def sample_fftx_emulated(b1, b2, pre, pim, table, shape, spacing,
+                         smoothing_length=0.0, kz_off=0):
+    """K10's data flow on the kernel core, in plain PyTorch (for the
+    tests, like :func:`.fft.stockham_emulated`; no entry point calls it).
+
+    Takes and returns what :func:`sample_fftx_plain` does.  As
+    ``csrc/sample_fftx.cu``: of the T = nx / E threads of a line (E the
+    first radix of :func:`.fft.radix_plan`), thread t draws the elements
+    x = t + k T, k < E, into its registers v[k]; the register-radix passes
+    (:func:`.fft.stockham_emulated`, the same plan and tables) leave
+    X[t + k T] in v[k], which is stored at column t + k T of the line's row.
+    """
+    _check_shape(shape, "sample_fftx_emulated")
+    nx, ny, nz = shape
+    _check_bits(b1, b2, shape, kz_off, "sample_fftx_emulated")
+    _check_planes(pre, pim, shape, b1.device)
+    e = _fft.radix_plan(nx)[0]
+    t = nx // e
+    xs = torch.arange(t)[:, None] + t * torch.arange(e)[None, :]  # [t, k]
+    re, im = _drawn_lines(b1, b2, pre, pim, table, shape, spacing,
+                          smoothing_length, kz_off, xs)
+    v = torch.complex(re, im)  # (nkz, ny, T, E): each thread's registers
+    # the first pass reads v[k] of thread t as element t + k T of the line
+    line = v.transpose(-1, -2).reshape(*v.shape[:2], nx)
+    out = _fft.stockham_emulated(line, +1)
+    v = out.reshape(*v.shape[:2], e, t).transpose(-1, -2)  # v[k] = X[t + k T]
+    store = torch.empty_like(out)
+    store[..., xs.reshape(-1).to(out.device)] = v.reshape(*v.shape[:2], nx)
+    return (store.real.reshape(-1, nx).contiguous(),
+            store.imag.reshape(-1, nx).contiguous())
+
+
+def kernel_attributes(nx: int, n_knots: int):
+    """(registers a thread, blocks an SM holds, threads a block, dynamic
+    shared-memory bytes) of K10's instance for an nx-point line and a
+    table of ``n_knots`` knots, as :func:`.fft.kernel_attributes` reports
+    the FFT kernels'; builds the library."""
+    out = [ctypes.c_int() for _ in range(4)]
+    status = _build.library().rf_sample_fftx_attributes(
+        int(nx), *_fft._plan3(nx), int(n_knots),
+        *[ctypes.byref(v) for v in out])
+    _build.check(status, "sample_fftx attributes")
+    return tuple(v.value for v in out)
 
 
 def seeded_fftx_plain(seed, table, shape, spacing, smoothing_length=0.0,
@@ -274,8 +342,8 @@ def sample_fftx(seed, table, shape, spacing, smoothing_length=0.0,
     status = _build.library().rf_sample_fftx(
         re.data_ptr(), im.data_ptr(), pre.data_ptr(), pim.data_ptr(),
         table.knots.data_ptr(), table.knots.numel(),
-        _fft._twiddles(nx, nx // 2, str(dev)).data_ptr(), nx, ny, nz,
-        max(1, _K10_BLOCK_ELEMS // nx), k0, k1,
+        _fft.pass_twiddles(nx, +1, str(dev)).data_ptr(), nx, ny, nz,
+        *_fft._plan3(nx), k0, k1,
         float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
         float(_sampler._HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
         float(np.float32(smoothing_length)), _build.current_stream(re),

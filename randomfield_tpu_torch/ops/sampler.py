@@ -69,6 +69,7 @@ __all__ = [
     "draw_scale_shard",
     "draw_scale_plain",
     "draw_bits",
+    "draw_normals",
     "sigma_amplitude",
     "load_reference_state",
     "plane_partner",
@@ -401,6 +402,30 @@ def draw_bits(seed, table, shape, x_off=0, y_off=0, nx_loc=None,
     out, launched = _draw(seed, table, shape, 1.0, 0.0, x_off, y_off, nx_loc,
                           ny_loc, _BITS, "draw_bits")
     K2F_LAUNCHES += launched
+    return out
+
+
+def draw_normals(bits):
+    """The fused kernel's normal of each 32-bit word: ``jax.random.normal``'s
+    float32 value of those bits.
+
+    ``bits``: int64 tensor of uint32 values.  Returns float32 of its shape.
+    On CUDA this launches ``csrc/draw_scale.cu``'s ``rf_jax_normal``, the
+    device function ``threefry.cuh:jax_normal`` alone over the words (a
+    check of that function, on no render's path, counted nowhere); on the
+    CPU it runs its plain version, :mod:`.threefry`'s.
+    """
+    if bits.dtype != torch.int64:
+        raise ValueError(f"draw_normals: bits must be int64, got {bits.dtype}")
+    if bits.device.type == "cpu":
+        return _threefry._normal_from_bits(bits)
+    words = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    words = words.contiguous()
+    out = torch.empty(words.shape, dtype=torch.float32, device=bits.device)
+    status = _build.library().rf_jax_normal(
+        words.data_ptr(), out.data_ptr(), words.numel(),
+        _build.current_stream(out))
+    _build.check(status, "draw_normals")
     return out
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's hashing kernels against another checkout's, in turns.
+"""Time the port's drawing kernels against another checkout's, in turns.
 
 On a machine with one CUDA card, from the repository root, with REF another
 commit unpacked by ``git archive`` into a directory ``.gitignore`` lists:
@@ -12,14 +12,16 @@ checkout, REF; each imports its own checkout's ``randomfield_tpu_torch``,
 builds its kernels, counts the SASS of the hashing kernels' per-mode loops
 (``chip_smoke.sass_counts``: registers, loop instructions, instructions a
 mode) and times with CUDA events (median of 5 after a warm-up) at 1024^3,
-2 Mpc/h, seed 2, through the public wrappers: K1 ``sample_modes``, K8
-``sample_shard`` on the second of four ky shards, K5 ``sample_power_bins``
-(one seed, 32 bins), and K2F ``draw_scale`` and K7
-``draw_scale_shard`` (the second of four shards) as controls.  The workers also
-save K1's and K2F's spectra and K5's sums at 256^3; the parent process
-holds this checkout's K1 to REF's K1 with the plane fix after it, its K5 to
-REF's K5 with the planes binned after it, where REF leaves them to the
-caller, and its K2F to REF's bit for bit.
+2 Mpc/h, seed 2, through the public wrappers: K2F ``draw_scale``, its unit
+mode (``generate_noise``'s draw), K7 ``draw_scale_shard`` on the second of
+four ky shards and K10 ``genfft.sample_fftx`` (the planes made before the
+timing), with K1 ``sample_modes``, K8 ``sample_shard`` on the second shard
+and K5 ``sample_power_bins`` (one seed, 32 bins) as controls.  The workers
+also save K2F's spectrum (s = 0 and 8) and unit normals, K1's spectrum,
+K5's sums and K10's lines at 256^3; the parent process holds this
+checkout's K2F, K1 and K5 to REF's bit for bit and its K10 to REF's within
+K10's bar (5e-6 of the largest output: the transform's rounding may move,
+the draws may not).
 Prints each kernel's two turns a side and their means with the card's name
 and power limit.
 It never imports JAX.
@@ -35,6 +37,8 @@ import sys
 
 HEADLINE, SPACING, SEED, NBINS = (1024, 1024, 1024), 2.0, 2, 32
 CHECK_SHAPE = (256, 256, 256)
+# K10 against REF's: chip_smoke.py's BARS["K10"]
+K10_BAR = 5e-6
 REPS = 5
 RANKS = 4
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,7 +66,7 @@ def worker(root, out_dir, tag):
     import torch
 
     import randomfield_tpu_torch as rft
-    from randomfield_tpu_torch.ops import _build, sampler
+    from randomfield_tpu_torch.ops import _build, genfft, sampler
     from randomfield_tpu_torch.validate import stats
 
     if not rft.__file__.startswith(os.path.abspath(root)):
@@ -79,26 +83,38 @@ def worker(root, out_dir, tag):
                                      SPACING, device=dev)
     edges, _ = stats.bin_setup(HEADLINE, SPACING, NBINS)
     ny_loc = HEADLINE[1] // RANKS
+    planes = genfft.plane_spectra(SEED, table, HEADLINE, SPACING)
     runs = {
+        "K2F": lambda: sampler.draw_scale(SEED, table, HEADLINE, SPACING),
+        "K2F unit": lambda: sampler.draw_scale(SEED, table, HEADLINE, SPACING,
+                                               unit=True),
+        "K7": lambda: sampler.draw_scale_shard(SEED, table, HEADLINE, SPACING,
+                                               0.0, ny_loc, ny_loc),
+        "K10": lambda: genfft.sample_fftx(SEED, table, HEADLINE, SPACING,
+                                          planes=planes),
         "K1": lambda: sampler.sample_modes(SEED, table, HEADLINE, SPACING),
         "K8": lambda: sampler.sample_shard(SEED, table, HEADLINE, SPACING,
                                            0.0, ny_loc, ny_loc),
         "K5": lambda: sampler.sample_power_bins(SEED, table, HEADLINE,
                                                 SPACING, 0.0, edges),
-        "K2F": lambda: sampler.draw_scale(SEED, table, HEADLINE, SPACING),
-        "K7": lambda: sampler.draw_scale_shard(SEED, table, HEADLINE, SPACING,
-                                               0.0, ny_loc, ny_loc),
     }
     ms = {k: cuda_ms(torch, fn) for k, fn in runs.items()}
+    del planes
     small = sampler.make_sigma_table(rft.load_default_power(), CHECK_SHAPE,
                                      8.0, device=dev)
-    k1 = sampler.sample_modes(SEED, small, CHECK_SHAPE, 8.0, 8.0)
     edges, _ = stats.bin_setup(CHECK_SHAPE, 8.0, NBINS)
-    k5 = sampler.sample_power_bins(SEED, small, CHECK_SHAPE, 8.0, 8.0, edges)
-    k2f = sampler.draw_scale(SEED, small, CHECK_SHAPE, 8.0, 8.0)
-    torch.save({"k1": tuple(t.cpu() for t in k1), "k2f": k2f.cpu(),
-                "k5": (k5.cpu() if isinstance(k5, torch.Tensor)
-                       else tuple(t.cpu() for t in k5))},
+    out = {
+        "k1": sampler.sample_modes(SEED, small, CHECK_SHAPE, 8.0, 8.0),
+        "k5": sampler.sample_power_bins(SEED, small, CHECK_SHAPE, 8.0, 8.0,
+                                        edges),
+        "k2f s=0": sampler.draw_scale(SEED, small, CHECK_SHAPE, 8.0),
+        "k2f s=8": sampler.draw_scale(SEED, small, CHECK_SHAPE, 8.0, 8.0),
+        "k2f unit": sampler.draw_scale(SEED, small, CHECK_SHAPE, 8.0,
+                                       unit=True),
+        "k10": genfft.sample_fftx(SEED, small, CHECK_SHAPE, 8.0, 8.0),
+    }
+    torch.save({k: (v.cpu() if isinstance(v, torch.Tensor)
+                    else torch.stack(v).cpu()) for k, v in out.items()},
                os.path.join(out_dir, f"{tag}.pt"))
     with open(os.path.join(out_dir, f"{tag}.json"), "w") as fh:
         json.dump({"ms": ms, "sass": sass,
@@ -121,9 +137,6 @@ def main(ref):
 def _turns(ref, tmp, card):
     """The four turns, their files in ``tmp``, and what they print."""
     import torch
-
-    from randomfield_tpu_torch.ops import transform
-    from randomfield_tpu_torch.validate import stats
 
     turns = [("ref", ref), ("this", HERE), ("this", HERE), ("ref", ref)]
     results = []
@@ -156,26 +169,14 @@ def _turns(ref, tmp, card):
 
     ref_out = torch.load(os.path.join(tmp, "0_ref.pt"))
     new_out = torch.load(os.path.join(tmp, "1_this.pt"))
-    old_re, old_im = (t.clone() for t in ref_out["k1"])
-    if not isinstance(ref_out["k5"], torch.Tensor):  # raw planes: fix them
-        old_re, old_im = transform.symmetrize_with_shape_reim(
-            old_re, old_im, CHECK_SHAPE[2])
-        acc, pre, pim = ref_out["k5"]
-        ref_k5 = acc + stats.plane_bins(pre, pim, CHECK_SHAPE, 8.0, NBINS)
-    else:
-        ref_k5 = ref_out["k5"]
-    re, im = new_out["k1"]
-    d = max(float((re - old_re).abs().max()), float((im - old_im).abs().max()))
-    same = torch.equal(re, old_re) and torch.equal(im, old_im)
-    k5 = new_out["k5"]
-    live = ref_k5[0] > 0
-    rel = float(((k5[1:] - ref_k5[1:]).abs() / ref_k5[1:].abs())[:, live].max())
-    k2f_same = torch.equal(new_out["k2f"], ref_out["k2f"])
-    print(f"K1 {CHECK_SHAPE} s=8: this vs ref with the plane fix "
-          f"{'bit-equal' if same else f'max|d| {d:.3e}'}; K5: counts "
-          f"{'equal' if torch.equal(k5[0], ref_k5[0]) else 'DIFFER'}, sums "
-          f"max rel {rel:.3e}; K2F: "
-          f"{'bit-equal' if k2f_same else 'DIFFERENT'}", flush=True)
+    same = {k: torch.equal(new_out[k], ref_out[k]) for k in ref_out}
+    k10 = (new_out["k10"] - ref_out["k10"]).abs().max() / ref_out["k10"].abs().max()
+    print(f"at {CHECK_SHAPE}, this vs ref: " + ", ".join(
+        f"{k} {'bit-equal' if v else 'DIFFERENT'}" for k, v in same.items()
+        if k != "k10") + f"; k10 max|d| / max|ref| {float(k10):.3e} (bar "
+        f"{K10_BAR:g})", flush=True)
+    if not all(v for k, v in same.items() if k != "k10") or not k10 <= K10_BAR:
+        raise SystemExit("this checkout's draws moved from REF's")
 
 
 if __name__ == "__main__":

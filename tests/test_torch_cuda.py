@@ -23,7 +23,7 @@ torch.set_num_threads(2)
 import randomfield_tpu_torch as rft  # noqa: E402
 from randomfield_tpu_torch.engine import staged  # noqa: E402
 from randomfield_tpu_torch.ops import fft, genfft, grid, sampler  # noqa: E402
-from randomfield_tpu_torch.ops import transform  # noqa: E402
+from randomfield_tpu_torch.ops import threefry, transform  # noqa: E402
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -368,6 +368,16 @@ def _ulps(a, b):
                .abs().max())
 
 
+def test_draw_normals_match_plain_on_every_mantissa(cuda):
+    # the fused kernel's jax_normal reads bits >> 9: all 2^23 inputs
+    bits = torch.arange(2**23, dtype=torch.int64, device=cuda) << 9
+    got = sampler.draw_normals(bits)
+    want = threefry._normal_from_bits(bits)  # the plain version, on the card
+    # the same float32 operations and libdevice calls (log1pf's own
+    # operations, in threefry.cuh:log1pf_neg): equal on every input
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape,block", [
     ((16, 16, 16), None), ((64, 32, 64), None), ((32, 16, 30), None),
     ((48, 16, 32), None), ((64, 32, 64), (8, 5, 24, 13)),
@@ -485,8 +495,17 @@ def test_register_radix_instances_fit_an_sm(cuda, kernel, sign, n):
     assert threads <= 1024 and smem <= 227 * 1024
 
 
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_sample_fftx_instances_fit_an_sm(cuda, n):
+    knots = sampler.table_knot_count((n, 1024, 1024))
+    regs, blocks, threads, smem = genfft.kernel_attributes(n, knots)
+    assert 0 < regs <= 64 and blocks >= 1 and blocks * threads <= 2048
+    assert threads == 256 and smem <= 227 * 1024
+
+
 @pytest.mark.parametrize("shape", [(16, 16, 16), (32, 12, 30), (256, 8, 6),
-                                   (2048, 3, 4)])
+                                   (2048, 3, 4), (64, 5, 10), (128, 7, 6),
+                                   (512, 3, 6), (1024, 5, 8)])
 @pytest.mark.parametrize("smoothing", [0.0, 8.0])
 def test_sample_fftx_matches_plain(cuda, shape, smoothing):
     table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,

@@ -174,3 +174,16 @@ def test_wrappers_raise_on_blocks_outside_the_grid():
                                block[1], block[2], block[3])
     with pytest.raises(ValueError, match="outside the grid"):
         sampler.draw_scale_shard(SEED, table, shape, SPACING, 0.0, 6, 4)
+
+
+def test_draw_normals_on_the_cpu_are_the_plain_normals():
+    # the check entry of the fused kernel's jax_normal runs its plain
+    # version on CPU tensors, launching nothing
+    bits = torch.arange(0, 2**32, 2**20 + 7, dtype=torch.int64)
+    before = sampler.K2F_LAUNCHES
+    got = sampler.draw_normals(bits)
+    assert sampler.K2F_LAUNCHES == before
+    assert got.dtype == torch.float32 and got.shape == bits.shape
+    assert torch.equal(got, threefry._normal_from_bits(bits))
+    with pytest.raises(ValueError, match="int64"):
+        sampler.draw_normals(bits.to(torch.int32))

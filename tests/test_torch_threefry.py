@@ -63,6 +63,39 @@ def test_normal_matches_jax_to_ulps(seed, shape):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
 
+@jax.jit
+def _jax_normal_of_bits(bits):
+    """jax.random.normal's float32 value of uint32 ``bits``: the steps of
+    jax.random._uniform (the mantissa trick on [nextafter(-1, 0), 1)) and
+    _normal_real (sqrt(2) erf_inv), as XLA compiles them."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    word = jax.lax.shift_right_logical(bits, jnp.uint32(9)) | jnp.uint32(
+        0x3F800000)
+    f = jax.lax.bitcast_convert_type(word, jnp.float32) - jnp.float32(1.0)
+    u = jax.lax.max(jnp.float32(lo), f * (jnp.float32(1.0) - lo) + lo)
+    return jnp.float32(np.sqrt(2.0)) * jax.lax.erf_inv(u)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_normal_of_bits_is_jax_random_normal(seed):
+    key = jax.random.key(seed)
+    bits = jax.random.bits(key, (4096,), jnp.uint32)
+    want = np.asarray(jax.random.normal(key, (4096,), jnp.float32))
+    np.testing.assert_array_equal(np.asarray(_jax_normal_of_bits(bits)), want)
+
+
+def test_normal_of_every_mantissa_matches_jax():
+    # a normal reads only bits >> 9: all 2^23 inputs, erfinv's tail (|u| >=
+    # 0.99663) included, are these words
+    worst = 0
+    for lo in range(0, 2**23, 2**21):
+        v = np.arange(lo, lo + 2**21, dtype=np.uint32) << np.uint32(9)
+        want = np.asarray(_jax_normal_of_bits(jnp.asarray(v)))
+        got = threefry._normal_from_bits(torch.from_numpy(v.astype(np.int64)))
+        worst = max(worst, _ulps(got.numpy(), want))
+    assert worst <= MAX_ULPS
+
+
 @pytest.mark.parametrize("shape", [(8, 8, 8), (12, 6, 10), (32, 16, 9)])
 def test_unit_draws_reim_match_jax(shape):
     want_re, want_im = jsample.unit_draws_reim(jax.random.key(3), shape)
