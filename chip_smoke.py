@@ -14,8 +14,10 @@ non-zero with no result line:
    registers a thread and blocks an SM of every instance of the kernels on
    the register-radix FFT core: K3 (both signs), K4, K6, K9 and K10;
    registers and the SASS instructions of the loop body a mode of the
-   hashing kernels K1 (and K8, the same kernel), K2F (and K7) and K5
-   (cuobjdump), and the issue-rate time they imply;
+   hashing kernels K1 (and K8, the same kernel), K2F (and K7), K5, KN (K1's
+   kernel on the nested stream) and K2F's fixed mode (cuobjdump), and the
+   issue-rate time they imply; K2F's spectrum instance held to its
+   registers and instructions a mode (K2F_SPECTRUM_SASS);
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -38,12 +40,15 @@ non-zero with no result line:
    ifft_rotate at the v4 render's x and y passes on a render's own spectrum
    (and every length 16..2048 with several groups, ragged column counts,
    one column) and K10 sample_fftx (s = 0 and 8; bulk rows and plane rows
-   apart);
+   apart); KN sample_nested (bits exact; spectrum, unit normals and the
+   fixed field), K2F's fixed mode draw_fixed (|c| = sigma filter, the paired
+   field the exact negation) and KD apply_kernel (each kind and component);
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
    seeds at 16^3) on K1's stream and on the v6 stream of K10; sample_power
-   vs calculate_power of the same seed's field at 256^3;
+   vs calculate_power of the same seed's field at 256^3; the nested render,
+   fixed and paired fields and every derived field, CUDA vs CPU at 128^3;
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
@@ -63,7 +68,12 @@ non-zero with no result line:
    to the default render of the seed, the v6 render (K10; repeatable,
    another field than the default, variance and calculate_power against the
    predictions), and generate_delta_fields of 4 seeds at 512^3 through the
-   in-program seed batch, its rows bit-equal to single renders;
+   in-program seed batch, its rows bit-equal to single renders; then the
+   nested render (determinism, variance, zoom against 512^3 over the same
+   box), its generate_noise -> generate_from_noise bit-equal to it, the
+   fixed field (variance within 1e-4, paired = -fixed bit for bit),
+   -div(psi) of the displacement against delta, the velocity, tidal and
+   Kaiser fields, and 2LPT and classify_web at 512^3 with their peak memory;
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers and for the v4 and v6 variants, of
    generate_noise beside the plain draws, of each
@@ -76,7 +86,9 @@ non-zero with no result line:
    loop of single renders; the one-rank mesh render beside the single-device
    render, and
    the four-rank run's per-rank stage times (host clock; the exchanges are
-   gloo's through host memory, not the card's).
+   gloo's through host memory, not the card's); KN (three modes), K2F fixed
+   and KD beside their plain versions, the nested, fixed and displacement
+   renders and their stages.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -132,9 +144,21 @@ KERNELS = {
     "K10": dict(name="sample_fftx", route="cuda",
                 source="randomfield_tpu_torch/csrc/sample_fftx.cu",
                 replaces="randomfield_tpu/ops/pallas_genfft.py:76"),
+    # three kernels of work the JAX package does in XLA, not in Pallas: the
+    # nested draw (K1's kernel on that stream), K2F's fixed mode and the
+    # derived fields' spectral kernel
+    "KN": dict(name="sample_nested", route="cuda",
+               source="randomfield_tpu_torch/csrc/sample_modes.cu",
+               replaces="randomfield_tpu/ops/sample.py:207"),
+    "K2FX": dict(name="draw_fixed", route="cuda",
+                 source="randomfield_tpu_torch/csrc/draw_scale.cu",
+                 replaces="randomfield_tpu/ops/sample.py:241"),
+    "KD": dict(name="apply_kernel", route="cuda",
+               source="randomfield_tpu_torch/csrc/spectral_kernel.cu",
+               replaces="randomfield_tpu/ops/derived.py:265"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10")
+                "K10", "KN", "K2FX", "KD")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -143,8 +167,12 @@ KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
 # mirror K6 as the c2r tail test of the JAX package's
 # tests/test_pallas_fft.py; K9 is K3's transform written rotated and K10
 # K1's draws through the same core, both at the K4 bar)
+# KN is K1's Box-Muller on another stream and K2F fixed K2F's draw over
+# its own modulus, both at K1's bar; KD repeats its plain version's float32
+# operations in their order (0 expected)
 BARS = {"K1": 2e-6, "K2": 2e-6, "K2F": 2e-6, "K3": 2e-6, "K4": 5e-6,
-        "K6": 5e-6, "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6}
+        "K6": 5e-6, "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6,
+        "KN": 2e-6, "K2FX": 2e-6, "KD": 2e-6}
 # the fused K2's unit normals vs threefry.normal_at on the card (the same
 # float32 operations and libdevice calls: 0 expected)
 DRAW_ULPS = 3
@@ -184,10 +212,14 @@ FP32_OPS_PER_S = 67e12
 # mantissa uniform and its clamp 6, erfinv's log1p, sqrt and branch
 # arithmetic 9, the 9-term polynomial with its selects 25, two multiplies
 # 2: 42), the plane fix's selects (6) and K2's amplitude and multiplies (24).
+# KN: K1's count (its hash, Box-Muller and K2's amplitude).  K2F fixed: K2F's
+# and the modulus (two multiplies, an add, a sqrtf, two divisions, a compare:
+# 7).  KD: |k|^2 (3), the division, the kernel's factor (3), two multiplies.
 K10_DRAW_OPS = 74 + 7 + 12 + 12 + 4
 OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
                 "K2": 24, "K2F": 2 * (74 + 42) + 6 + 24,
-                "K10": K10_DRAW_OPS + 5 * 10}
+                "K10": K10_DRAW_OPS + 5 * 10, "KN": 74 + 7 + 12 + 12 + 4,
+                "K2FX": 2 * (74 + 42) + 6 + 24 + 7, "KD": 9}
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
 # single-seed variance vs prediction at 1024^3
@@ -329,7 +361,14 @@ def phase0_attributes(card):
 # modes, four hashes
 SASS_KERNELS = {"K1": ("sample_modes_kernel", 1),
                 "K2F": (r"draw_scale_kernelILi0E(?:Lb0E)?E", 2),
-                "K5": ("power_bins_kernel", 1)}
+                "K5": ("power_bins_kernel", 1),
+                "KN": (r"nested_modes_kernelILi0EE", 1),
+                "K2FX": (r"draw_scale_kernelILi3ELb0EE", 2)}
+# K2F's spectrum instance (draw_scale_kernel<0, false>, the one a 1024^3
+# render runs): its registers and hot SASS instructions a mode as built for
+# sm_90a since its x-row-pair walk; the other modes of the same template
+# must not move them
+K2F_SPECTRUM_SASS = (54, 363.0)
 # rotations of one Threefry-2x32 hash (threefry.cuh), each a funnel shift or
 # a byte permute in SASS
 ROTATIONS_PER_HASH = 20
@@ -400,11 +439,13 @@ def hash_loop(instrs):
 def sass_counts(lib, cuobjdump):
     """{K: (registers, loop span, hot instructions, hashes in the loop,
     hot instructions a mode)} of the hashing kernels in the library
-    ``lib``."""
+    ``lib`` (those it holds: another commit's may lack the newer ones)."""
     funcs, regs = sass_functions(lib, cuobjdump)
     out = {}
     for kid, (frag, hashes_a_mode) in SASS_KERNELS.items():
-        name = next(f for f in funcs if re.search(frag, f))
+        name = next((f for f in funcs if re.search(frag, f)), None)
+        if name is None:
+            continue
         span, hot, rot = hash_loop(funcs[name])
         hashes = max(1, round(rot / ROTATIONS_PER_HASH))
         out[kid] = (regs.get(name, -1), span, hot, hashes,
@@ -428,8 +469,18 @@ def phase0_sass(torch, card):
     nx, ny, nz = HEADLINE
     modes = nx * ny * (nz // 2 + 1)
     counts = sass_counts(_build.library_path(), _build.cuda_tool("cuobjdump"))
+    missing = set(SASS_KERNELS) - set(counts)
+    if missing:
+        raise AssertionError(f"no SASS function of {sorted(missing)}")
     counts["K8"] = counts["K1"]
     counts["K7"] = counts["K2F"]
+    regs, hot = counts["K2F"][0], counts["K2F"][4]
+    log(f"phase 0 K2F spectrum instance: {regs} registers, {hot:.1f} hot "
+        f"instructions a mode; expected {K2F_SPECTRUM_SASS[0]}, "
+        f"{K2F_SPECTRUM_SASS[1]:.1f}")
+    if (regs, hot) != K2F_SPECTRUM_SASS:
+        raise AssertionError("adding K2F's fixed mode moved its spectrum "
+                             "instance")
     for kid, (regs, span, hot, hashes, per_mode) in counts.items():
         n_modes = modes // MESH_RANKS if kid in ("K7", "K8") else modes
         ms = 1e3 * per_mode * n_modes / 32 / (sms * 4 * clock_mhz * 1e6)
@@ -827,22 +878,29 @@ def phase1_staged_kernels(torch, gp, errs):
 def reset_counts():
     from randomfield_tpu_torch.ops import fft, genfft, sampler
 
+    from randomfield_tpu_torch.ops import derived
+
     sampler.K1_LAUNCHES = sampler.K2_LAUNCHES = sampler.K5_LAUNCHES = 0
     sampler.K2F_LAUNCHES = 0
     sampler.K7_LAUNCHES = sampler.K8_LAUNCHES = 0
     fft.K3_LAUNCHES = fft.K4_LAUNCHES = fft.K6_LAUNCHES = 0
     fft.K9_LAUNCHES = genfft.K10_LAUNCHES = 0
+    sampler.KN_LAUNCHES = sampler.K2FX_LAUNCHES = derived.KD_LAUNCHES = 0
 
 
 def read_counts():
     from randomfield_tpu_torch.ops import fft, genfft, sampler
+
+    from randomfield_tpu_torch.ops import derived
 
     return {"K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
             "K2F": sampler.K2F_LAUNCHES, "K3": fft.K3_LAUNCHES,
             "K4": fft.K4_LAUNCHES, "K5": sampler.K5_LAUNCHES,
             "K6": fft.K6_LAUNCHES,
             "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES,
-            "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES}
+            "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES,
+            "KN": sampler.KN_LAUNCHES, "K2FX": sampler.K2FX_LAUNCHES,
+            "KD": derived.KD_LAUNCHES}
 
 
 def require_launches(counts, least, what):
@@ -1459,11 +1517,14 @@ def render_stages(g, seed):
     }
 
 
-def stage_breakdown(torch, g, seed):
+def stage_breakdown(torch, g, seed, stages=None, public=None):
     """Median device ms of each stage of ``g``'s render, timed with CUDA
-    events between the stages (:func:`render_stages`); the field they give
-    must equal ``generate_delta_field``'s bit for bit."""
-    stages = render_stages(g, seed)
+    events between the stages (:func:`render_stages`, or ``stages``); the
+    field they give must equal ``generate_delta_field``'s (or ``public()``'s)
+    bit for bit."""
+    if stages is None:
+        stages = render_stages(g, seed)
+        public = lambda: g.generate_delta_field(seed)  # noqa: E731
     times = {name: [] for name in stages}
     for rep in range(TIMING_REPS + 1):
         events = [torch.cuda.Event(enable_timing=True)
@@ -1477,7 +1538,7 @@ def stage_breakdown(torch, g, seed):
         if rep:
             for i, name in enumerate(stages):
                 times[name].append(events[i].elapsed_time(events[i + 1]))
-    if not torch.equal(out, g.generate_delta_field(seed)):
+    if not torch.equal(out, public()):
         raise AssertionError("the timed stages are not the render's")
     return {name: statistics.median(t) for name, t in times.items()}
 
@@ -1840,6 +1901,510 @@ def phase4_mesh(torch, rft, dev, g, gp, mesh, card):
     return times
 
 
+# ---- the nested stream (KN), fixed fields (K2F fixed), derived fields (KD) ---
+
+# |c| of a fixed field against sigma times the filter, over max sigma
+FIXED_MOD_BAR = 3e-6
+# the fixed field's variance against the prediction (tests/test_fixed.py)
+FIXED_VAR_BAR = 1e-4
+# the nested zoom: the modes two grids over one box share, the bar of the
+# CPU tests (tests/test_nested.py, tests/test_torch_nested.py)
+ZOOM_ATOL, ZOOM_RTOL = 2e-4, 2e-3
+# -div(psi) and trace(T) against delta (tests/test_derived.py:51); the
+# gradient zeroes the Nyquist modes, so the field is smoothed to ten cells
+DIV_RTOL, DIV_ATOL = 1e-3, 1e-4
+DIV_SMOOTH_CELLS = 10
+# 2LPT and the T-web at 512^3: a stacked 1024^3 tidal field alone is 26 GB
+WEB_SHAPE, WEB_SPACING = (512, 512, 512), 4.0
+# KD's kinds and components, and the 2LPT source's diagonals
+KD_CASES = ([("scalar", 0, False)] + [("grad", a, False) for a in range(3)]
+            + [("tidal", c, False) for c in range(6)]
+            + [("kaiser", 2, False)]
+            + [("tidal", c, True) for c in range(3)])
+
+
+def fixed_modulus(torch, spec, table, shape, spacing, s):
+    """max | |c| - sigma filter | / max(sigma filter) of a fixed spectrum."""
+    from randomfield_tpu_torch.ops import sampler
+
+    worst = top = 0.0
+    for x0 in range(0, shape[0], 64):
+        n = min(64, shape[0] - x0)
+        amp = sampler.sigma_amplitude(table, shape, spacing, s, x0, n)
+        mag = torch.sqrt(spec[0, x0:x0 + n] ** 2 + spec[1, x0:x0 + n] ** 2)
+        worst = max(worst, float((mag - amp.abs()).abs().max()))
+        top = max(top, float(amp.abs().max()))
+    return worst / top
+
+
+def phase1_slice(torch, g, gn, errs):
+    """KN, K2F's fixed mode and KD vs their plain versions on the card at
+    the 1024^3 shapes and tables of the threefry scene ``g`` and the nested
+    scene ``gn``: KN's bits exact, its spectrum (s = 0, 8), unit normals and
+    fixed field (s = 0, 8) within the K1 bar, the paired field the exact
+    negation; K2F fixed (s = 0, 8) within the bar, |c| = sigma filter, the
+    paired field the exact negation; KD in each kind and component (and
+    the 2LPT diagonals) within the bar."""
+    from randomfield_tpu_torch.ops import derived, sampler
+
+    seed = 17
+    t, shape, sp = gn.state.table, gn.shape, gn.grid_spacing
+    got = sampler.sample_nested(seed, t, shape, sp, mode="bits")
+    want = sampler.sample_nested_plain(seed, t, shape, sp, mode="bits")
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    log(f"phase 1 KN bits {tuple(got.shape)} vs threefry2x32 of the lattice "
+        f"codes: {'equal' if exact else 'DIFFER'}")
+    if not exact:
+        raise AssertionError("KN's hash is not the nested stream's")
+    del got, want
+    torch.cuda.empty_cache()
+    for mode, s_ in (("spectrum", 0.0), ("spectrum", 8.0), ("unit", 0.0),
+                     ("fixed", 0.0), ("fixed", 8.0)):
+        got = sampler.sample_nested(seed, t, shape, sp, s_, mode=mode)
+        want = sampler.sample_nested_plain(seed, t, shape, sp, s_, mode=mode)
+        torch.cuda.synchronize()
+        check_close(errs, "KN", f"{mode} {tuple(got.shape)} s={s_}",
+                    (got[0], got[1]), (want[0], want[1]))
+        del want
+        if mode == "fixed":
+            paired = sampler.sample_nested(seed, t, shape, sp, s_,
+                                           mode="fixed", flip=True)
+            negated = torch.equal(paired, -got)
+            del paired
+            mod = fixed_modulus(torch, got, t, shape, sp, s_)
+            log(f"phase 1 KN fixed s={s_}: | |c| - sigma filter | / max "
+                f"{mod:.3e} (bar {FIXED_MOD_BAR:g}); paired "
+                f"{'= -fixed bit for bit' if negated else 'NOT -fixed'}")
+            if not negated or not mod <= FIXED_MOD_BAR:
+                raise AssertionError("KN's fixed field is off")
+        del got
+        torch.cuda.empty_cache()
+
+    t, shape, sp = g.state.table, g.shape, g.grid_spacing
+    for s_ in (0.0, 8.0):
+        got = sampler.draw_fixed(seed, t, shape, sp, s_)
+        want = sampler.draw_fixed_plain(seed, t, shape, sp, s_)
+        torch.cuda.synchronize()
+        check_close(errs, "K2FX", f"{tuple(got.shape)} s={s_} "
+                    f"({'bit-equal' if torch.equal(got, want) else 'not bit-equal'})",
+                    (got[0], got[1]), (want[0], want[1]))
+        del want
+        paired = sampler.draw_fixed(seed, t, shape, sp, s_, flip=True)
+        negated = torch.equal(paired, -got)
+        del paired
+        mod = fixed_modulus(torch, got, t, shape, sp, s_)
+        log(f"phase 1 K2FX s={s_}: | |c| - sigma filter | / max {mod:.3e} "
+            f"(bar {FIXED_MOD_BAR:g}); paired "
+            f"{'= -fixed bit for bit' if negated else 'NOT -fixed'}")
+        if not negated or not mod <= FIXED_MOD_BAR:
+            raise AssertionError("K2F's fixed mode is off")
+        del got
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=g.device).manual_seed(7)
+    nzh = shape[2] // 2 + 1
+    re = torch.randn((shape[0], shape[1], nzh), generator=gen, device=g.device)
+    im = torch.randn((shape[0], shape[1], nzh), generator=gen, device=g.device)
+    for kind, comp, grad_diag in KD_CASES:
+        pref = (1.3, 0.7) if kind == "kaiser" else 0.37
+        a, b = derived.apply_kernel(re.clone(), im.clone(), shape, sp, kind,
+                                    comp, pref, grad_diag)
+        c, d = derived.apply_kernel_plain(re.clone(), im.clone(), shape, sp,
+                                          kind, comp, pref, grad_diag)
+        torch.cuda.synchronize()
+        same = torch.equal(a, c) and torch.equal(b, d)
+        check_close(errs, "KD", f"{kind} {comp}{' (2LPT diagonal)' if grad_diag else ''} "
+                    f"{tuple(a.shape)} ({'bit-equal' if same else 'not bit-equal'})",
+                    (a, b), (c, d))
+        del a, b, c, d
+    del re, im
+    torch.cuda.empty_cache()
+
+
+def phase2_slice_fields(torch, rft, dev):
+    """The nested render, fixed and paired fields and every derived field on
+    the card vs the CPU (plain) versions at 128^3, seed 7, for the three
+    samplers (fixed fields: threefry and nested, as in the JAX package)."""
+    shape, spacing, seed, s = (128, 128, 128), 16.0, 7, 20.0
+    draw = {"threefry": "K2F", "pallas": "K1", "nested": "KN"}
+    derived_calls = [("generate_potential", dict(z=0.5)),
+                     ("generate_displacement", {}),
+                     ("generate_displacement", dict(order=2)),
+                     ("generate_velocity", dict(z=1.0)),
+                     ("generate_tidal_field", {}),
+                     ("generate_kaiser_field", dict(z=0.3, bias=1.4))]
+    for name, first in draw.items():
+        g_dev = rft.Generator(*shape, grid_spacing=spacing, device=dev,
+                              sampler=name)
+        g_cpu = rft.Generator(*shape, grid_spacing=spacing, device="cpu",
+                              sampler=name)
+        calls = [(m, kw, {first: 1, "KD": 1, "K3": 2, "K4": 1})
+                 for m, kw in derived_calls]
+        if name == "nested":
+            calls.insert(0, ("generate_delta_field", {},
+                             {"KN": 1, "K3": 2, "K4": 1}))
+        if name != "pallas":
+            fixed = "KN" if name == "nested" else "K2FX"
+            calls += [("generate_fixed_field", dict(flip=flip),
+                       {fixed: 1, "K3": 2, "K4": 1}) for flip in (False, True)]
+        for method, kw, least in calls:
+            reset_counts()
+            got = getattr(g_dev, method)(seed, smoothing_length=s, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = getattr(g_cpu, method)(seed, smoothing_length=s, **kw)
+            _, r = rel_err((got.cpu(),), (want,))
+            log(f"phase 2 slice {name} {method}({kw}) {shape} seed {seed} "
+                f"s={s}: rel {r:.3e} (bar {SLICE_BAR:g}), launches "
+                f"{ {k: n for k, n in counts.items() if n} }")
+            if not r <= SLICE_BAR:
+                raise AssertionError(f"CUDA {method} disagrees with CPU: "
+                                     f"rel {r:.3e}")
+            require_launches(counts, least, f"{name} {method}")
+
+
+def spectral_divergence(torch, psi, shape, spacing):
+    """-div(psi) of a (3, nx, ny, nz) displacement, through torch.fft (a
+    check, not the port's path)."""
+    from randomfield_tpu_torch.ops import grid
+
+    kx, ky, kz = grid.kvectors(shape, spacing, torch.float32, psi.device)
+    div = None
+    for comp, k in zip(psi, (kx[:, None, None], ky[None, :, None],
+                             kz[None, None, :])):
+        c = torch.fft.rfftn(comp)
+        c = torch.complex(-c.imag * k, c.real * k)  # i k c
+        div = c if div is None else div.add_(c)
+        del c
+    return -torch.fft.irfftn(div, s=shape)
+
+
+def within(torch, got, want, rtol, atol):
+    """(ok, max |got - want| / atol) of |got - want| <= atol + rtol |want|,
+    slab by slab."""
+    ok, worst = True, 0.0
+    for a, b in zip(got.split(64), want.split(64)):
+        d = (a - b).abs()
+        ok &= bool((d <= atol + rtol * b.abs()).all())
+        worst = max(worst, float(d.max()) / atol)
+    return ok, worst
+
+
+def phase3_slice(torch, rft, dev, g, card):
+    """This slice's paths through the public API at 1024^3, each with the
+    launch counts set to 0 before it and read after it: the nested render
+    (determinism, variance, zoom against 512^3 over the same box),
+    generate_noise -> generate_from_noise of the nested scene bit-equal to
+    its render, the fixed field (variance within 1e-4, the paired field its
+    exact negation), the displacement's -div(psi) against delta, the
+    velocity, tidal and Kaiser fields; then 2LPT and classify_web at 512^3
+    with their peak memory.  Returns the launch counts, summed."""
+    from randomfield_tpu_torch.models import web
+    from randomfield_tpu_torch.validate import stats
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+
+    def run(what, fn, least):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require_launches(counts, least, what)
+        for k in KERNEL_ORDER:
+            total[k] += counts[k]
+        return out, {k: n for k, n in counts.items() if n}
+
+    seed = 5
+    gn = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev,
+                       sampler="nested")
+    (f1, f2), counts = run("nested render", lambda: (
+        gn.generate_delta_field(seed, apply_lightcone=False),
+        gn.generate_delta_field(seed, apply_lightcone=False)),
+        {"KN": 2, "K3": 4, "K4": 2})
+    same = torch.equal(f1, f2)
+    del f2
+    if tuple(f1.shape) != HEADLINE or not bool(torch.isfinite(f1).all()):
+        raise AssertionError("nested field has the wrong shape or non-finite values")
+    _, var = stats.field_moments(f1)
+    pred = gn.predicted_variance()
+    log(f"phase 3 main path sampler='nested' {HEADLINE}: same seed twice "
+        f"{'bit-equal' if same else 'DIFFERENT'}; var {var:.6g}, predicted "
+        f"{pred:.6g}, ratio {var / pred:.5f} (bar {VAR_BAR:g}); launches "
+        f"{counts}")
+    if not same or not abs(var / pred - 1.0) <= VAR_BAR:
+        raise AssertionError("the nested render is off")
+    coarse_shape = tuple(n // 2 for n in HEADLINE)
+    gz = rft.Generator(*coarse_shape, grid_spacing=2 * HEADLINE_SPACING,
+                       device=dev, sampler="nested")
+    coarse, _ = run("nested coarse render", lambda: gz.generate_delta_field(
+        seed, apply_lightcone=False), {"KN": 1})
+    m = coarse_shape[0]
+    s_idx = torch.cat([torch.arange(0, m // 2, device=dev),
+                       torch.arange(-(m // 2) + 1, 0, device=dev)])
+    c_lo = torch.fft.rfftn(coarse, norm="forward")[s_idx % m][:, s_idx % m][
+        :, :, :m // 2]
+    del coarse
+    c_hi = torch.fft.rfftn(f1, norm="forward")
+    c_hi = c_hi[s_idx % HEADLINE[0]][:, s_idx % HEADLINE[1]][:, :, :m // 2]
+    scale = float(c_lo.abs().max())
+    d = (c_lo - c_hi).abs()
+    ok = bool((d <= ZOOM_ATOL * scale + ZOOM_RTOL * c_hi.abs()).all())
+    gap = float(d.max()) / scale
+    log(f"phase 3 nested zoom {coarse_shape} vs {HEADLINE} over one "
+        f"{HEADLINE[0] * HEADLINE_SPACING:g} Mpc/h box: the "
+        f"{c_lo.numel()} modes both hold, max|dc| / max|c| {gap:.3e} (bar "
+        f"atol {ZOOM_ATOL:g} max|c| + rtol {ZOOM_RTOL:g})")
+    del c_lo, c_hi, d, f1
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the nested renders do not share their modes")
+
+    def round_trip():
+        noise = gn.generate_noise(4)
+        return noise, gn.generate_from_noise(noise)
+
+    want = gn.generate_delta_field(4)
+    (noise, got), counts = run("nested noise round trip", round_trip,
+                               {"KN": 1, "K2": 1, "K3": 2, "K4": 1})
+    equal = torch.equal(got, want)
+    log(f"phase 3 main path sampler='nested' generate_noise -> "
+        f"generate_from_noise {HEADLINE}: noise {tuple(noise.shape)}, field "
+        f"{'bit-equal to' if equal else 'DIFFERS from'} generate_delta_field(4); "
+        f"launches {counts}")
+    del want, noise, got
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("nested generate_from_noise(generate_noise(s)) "
+                             "is not the render of s")
+
+    (fixed, paired), counts = run("fixed field", lambda: (
+        g.generate_fixed_field(2, apply_lightcone=False),
+        g.generate_fixed_field(2, apply_lightcone=False, flip=True)),
+        {"K2FX": 2, "K3": 4, "K4": 2})
+    negated = torch.equal(paired, -fixed)
+    del paired
+    _, var = stats.field_moments(fixed)
+    pred = g.predicted_variance()
+    log(f"phase 3 main path generate_fixed_field {HEADLINE}: var {var:.8g}, "
+        f"predicted {pred:.8g}, ratio - 1 {var / pred - 1.0:.3e} (bar "
+        f"{FIXED_VAR_BAR:g}); paired {'= -fixed bit for bit' if negated else 'NOT -fixed'}; "
+        f"launches {counts}")
+    del fixed
+    torch.cuda.empty_cache()
+    if not negated or not abs(var / pred - 1.0) <= FIXED_VAR_BAR:
+        raise AssertionError("the fixed field is off")
+
+    s_ = DIV_SMOOTH_CELLS * HEADLINE_SPACING
+    psi, counts = run("displacement", lambda: g.generate_displacement(
+        3, smoothing_length=s_), {"K2F": 1, "KD": 3, "K3": 6, "K4": 3})
+    delta = g.generate_delta_field(3, smoothing_length=s_,
+                                   apply_lightcone=False)
+    std = float(stats.field_moments(delta)[1]) ** 0.5
+    div = spectral_divergence(torch, psi, HEADLINE, HEADLINE_SPACING)
+    del psi
+    ok, worst = within(torch, div, delta, DIV_RTOL, DIV_ATOL * std)
+    log(f"phase 3 main path generate_displacement {HEADLINE} s={s_:g}: "
+        f"-div(psi) vs delta, max|d| / (1e-4 std) {worst:.3f} (bar: rtol "
+        f"{DIV_RTOL:g}, atol {DIV_ATOL:g} std); launches {counts}")
+    del div, delta
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("-div(psi) is not delta")
+
+    (v1, v2), counts = run("velocity", lambda: (
+        g.generate_velocity(3, z=1.0), g.generate_velocity(3, z=1.0)),
+        {"K2F": 2, "KD": 6, "K3": 12, "K4": 6})
+    ok = torch.equal(v1, v2) and bool(torch.isfinite(v1).all())
+    log(f"phase 3 main path generate_velocity {tuple(v1.shape)}: "
+        f"{'finite and deterministic' if ok else 'NOT finite or deterministic'}; "
+        f"launches {counts}")
+    del v1, v2
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the velocity field is off")
+
+    tidal, counts = run("tidal", lambda: g.generate_tidal_field(3),
+                        {"K2F": 1, "KD": 6, "K3": 12, "K4": 6})
+    ok = bool(torch.isfinite(tidal).all())
+    for c in range(6):
+        ok &= torch.equal(tidal[c], g.generate_tidal_field(3, component=c))
+    delta = g.generate_delta_field(3, apply_lightcone=False)
+    std = float(stats.field_moments(delta)[1]) ** 0.5
+    trace = tidal[0] + tidal[1] + tidal[2]
+    del tidal
+    tr_ok, worst = within(torch, trace, delta, DIV_RTOL, DIV_ATOL * std)
+    log(f"phase 3 main path generate_tidal_field (6, {HEADLINE}): "
+        f"{'finite, each component equal to its own call' if ok else 'NOT finite or deterministic'}; "
+        f"trace vs delta max|d| / (1e-4 std) {worst:.3f}; launches {counts}")
+    del trace, delta
+    torch.cuda.empty_cache()
+    if not ok or not tr_ok:
+        raise AssertionError("the tidal field is off")
+
+    (k1, k2), counts = run("kaiser", lambda: (
+        g.generate_kaiser_field(3, z=0.5, bias=1.3),
+        g.generate_kaiser_field(3, z=0.5, bias=1.3)),
+        {"K2F": 2, "KD": 2, "K3": 4, "K4": 2})
+    ok = torch.equal(k1, k2) and bool(torch.isfinite(k1).all())
+    log(f"phase 3 main path generate_kaiser_field {HEADLINE}: "
+        f"{'finite and deterministic' if ok else 'NOT finite or deterministic'}; "
+        f"launches {counts}")
+    del k1, k2
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the Kaiser field is off")
+
+    gw = rft.Generator(*WEB_SHAPE, grid_spacing=WEB_SPACING, device=dev)
+    s_ = 2 * WEB_SPACING
+    for what, fn, least in (
+            ("2LPT displacement", lambda: gw.generate_displacement(
+                1, smoothing_length=s_, order=2),
+             {"K2F": 2, "KD": 12, "K6": 2, "K3": 30, "K4": 13}),
+            ("classify_web", lambda: gw.classify_web(1, smoothing_length=s_),
+             {"K2F": 1, "KD": 6, "K3": 12, "K4": 6})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, counts = run(what, fn, least)
+        peak = torch.cuda.max_memory_allocated()
+        if what == "classify_web":
+            frac = web.web_fractions(out)
+            ok = out.dtype == torch.int8 and bool((torch.tensor(frac) > 0).all())
+            detail = ("web fractions " + ", ".join(
+                f"{name} {f:.4f}" for name, f in zip(web.WEB_TYPES, frac)))
+        else:
+            ok = tuple(out.shape) == (3, *WEB_SHAPE) and bool(
+                torch.isfinite(out).all())
+            psi1 = gw.generate_displacement(1, smoothing_length=s_)
+            detail = (f"rms psi(1) + psi(2) {float(out.double().pow(2).mean()) ** 0.5:.5g}, "
+                      f"rms psi(1) {float(psi1.double().pow(2).mean()) ** 0.5:.5g} Mpc/h")
+            del psi1
+        log(f"phase 3 {what} {WEB_SHAPE} s={s_:g}: {detail}; peak device "
+            f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+            f"above the {base / 2**30:.3f} held before it); launches "
+            f"{counts} [{card}]")
+        del out
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"{what} is off")
+    return total
+
+
+def slice_stages(torch, g, gn, seed):
+    """{render: (stages by name, the public call they must equal)} of the
+    nested render, the fixed field and one displacement component (the
+    draw, the copy each component but the last gets, KD, the transforms)."""
+    from randomfield_tpu_torch.ops import derived, fft, sampler
+
+    nx, ny, nz = HEADLINE
+    nzh = nz // 2 + 1
+
+    def tail(weights):
+        return {
+            "K3 fft_axis x pass": lambda ri: fft.ifft_axis(*ri, 1, nx, ny * nzh),
+            "K3 fft_axis y pass": lambda ri: fft.ifft_axis(*ri, nx, ny, nzh),
+            "K4 c2r_tail": lambda ri: fft.c2r_tail(*ri, nz, weights),
+        }
+
+    t, tn, sp = g.state.table, gn.state.table, g.grid_spacing
+    nested = {"KN sample_nested (draw, Hermitian fix, scale)": lambda _: tuple(
+        sampler.sample_nested(seed, tn, HEADLINE, sp))}
+    nested.update(tail(gn.state.lightcone_weights))
+    fixed = {"K2FX draw_fixed (draw, fix, z/|z|, scale)": lambda _: tuple(
+        sampler.draw_fixed(seed, t, HEADLINE, sp))}
+    fixed.update(tail(g.state.lightcone_weights))
+    disp = {
+        "K2F draw_scale": lambda _: tuple(sampler.draw_scale(seed, t, HEADLINE,
+                                                             sp)),
+        "copy of the spectrum (plain clone)": lambda ri: (ri[0].clone(),
+                                                          ri[1].clone()),
+        "KD apply_kernel grad x": lambda ri: derived.apply_kernel(
+            *ri, HEADLINE, sp, "grad", 0, 1.0),
+    }
+    disp.update(tail(torch.ones(nz, dtype=torch.float32, device=g.device)))
+    return {
+        "nested render": (nested, lambda: gn.generate_delta_field(seed)),
+        "fixed render": (fixed, lambda: g.generate_fixed_field(seed)),
+        "displacement component x": (disp, lambda: g.generate_displacement(
+            seed, component=0)),
+    }
+
+
+def phase4_slice(torch, rft, dev, g, card):
+    """Times of this slice at 1024^3: KN (spectrum; unit and fixed mode
+    printed), K2F fixed and KD (grad) beside their plain versions, the
+    nested, fixed and displacement renders, and the stages of each;
+    returns {K: (ms, plain_ms, None)}."""
+    from randomfield_tpu_torch.ops import derived, sampler
+
+    nx, ny, nz = HEADLINE
+    nzh = nz // 2 + 1
+    gn = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev,
+                       sampler="nested")
+    t, tn, sp = g.state.table, gn.state.table, HEADLINE_SPACING
+    slow = dict(plain_reps=SLOW_PLAIN_REPS)
+    times = {}
+    for mode in ("spectrum", "unit", "fixed"):
+        ms = time_kernel(
+            torch, f"KN sample_nested {mode} mode",
+            lambda: sampler.sample_nested(2, tn, HEADLINE, sp, mode=mode),
+            lambda: sampler.sample_nested_plain(2, tn, HEADLINE, sp,
+                                                mode=mode),
+            None, None, HEADLINE, card, **slow)
+        if mode == "spectrum":
+            times["KN"] = ms
+    times["K2FX"] = time_kernel(
+        torch, "K2FX draw_fixed",
+        lambda: sampler.draw_fixed(2, t, HEADLINE, sp),
+        lambda: sampler.draw_fixed_plain(2, t, HEADLINE, sp),
+        None, None, HEADLINE, card, **slow)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    src_re = torch.randn((nx, ny, nzh), generator=gen, device=dev)
+    src_im = torch.randn((nx, ny, nzh), generator=gen, device=dev)
+    re, im = torch.empty_like(src_re), torch.empty_like(src_im)
+
+    def fresh():
+        re.copy_(src_re)
+        im.copy_(src_im)
+
+    for kind, comp, pref in (("grad", 0, 1.0), ("scalar", 0, 1.0),
+                             ("tidal", 3, 1.0), ("kaiser", 2, (1.3, 0.7))):
+        ms = time_kernel(
+            torch, f"KD apply_kernel {kind} {comp}",
+            lambda: derived.apply_kernel(re, im, HEADLINE, sp, kind, comp,
+                                         pref),
+            lambda: derived.apply_kernel_plain(re, im, HEADLINE, sp, kind,
+                                               comp, pref),
+            None, fresh, HEADLINE, card)
+        if kind == "grad":
+            times["KD"] = ms
+    del src_re, src_im, re, im
+    torch.cuda.empty_cache()
+
+    for what, fn in (
+            ("nested render", lambda: gn.generate_delta_field(seed=2)),
+            ("fixed render", lambda: g.generate_fixed_field(seed=2)),
+            ("displacement render, 3 components",
+             lambda: g.generate_displacement(seed=2))):
+        ms = cuda_ms(torch, fn)
+        log(f"phase 4 {what} {HEADLINE}: {ms:.3f} ms [{card}]")
+        torch.cuda.empty_cache()
+    for what, (stages, public) in slice_stages(torch, g, gn, 2).items():
+        stage_ms = stage_breakdown(torch, g, 2, stages, public)
+        total = sum(stage_ms.values())
+        for name, ms in stage_ms.items():
+            log(f"phase 4 stage {name} of the {what} {HEADLINE}: {ms:.3f} ms, "
+                f"{100 * ms / total:.2f}% of the {total:.3f} ms stage sum "
+                f"[{card}]")
+        torch.cuda.empty_cache()
+    del gn
+    torch.cuda.empty_cache()
+    return times
+
+
+
 def kernel_bounds(g):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
@@ -1884,6 +2449,11 @@ def kernel_bounds(g):
         "K10": (8 * modes + 16 * nx * ny + knots
                 + 8 * fft.pass_twiddles(nx, +1, "cpu").shape[0],
                 OPS_PER_MODE["K10"] * modes - K10_DRAW_OPS * 2 * nx * ny),
+        # the lattices written and the knots read (KN, K2F fixed); the
+        # lattices read and written once (KD)
+        "KN": (8 * modes + knots, OPS_PER_MODE["KN"] * modes),
+        "K2FX": (8 * modes + knots, OPS_PER_MODE["K2FX"] * modes),
+        "KD": (16 * modes, OPS_PER_MODE["KD"] * modes),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -1960,7 +2530,13 @@ def main() -> int:
         phase1_sampler(torch, gp, errs)
         phase1_mesh_kernels(torch, g, gp, errs)
         phase1_staged_kernels(torch, gp, errs)
+        gn = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                           device=dev, sampler="nested")
+        phase1_slice(torch, g, gn, errs)
+        del gn
+        torch.cuda.empty_cache()
         phase2_slice(torch, rft, dev)
+        phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
         phase2_gate(torch, dev)
         phase2_gate(torch, dev, stream="genfft")
@@ -1976,12 +2552,15 @@ def main() -> int:
         main_paths.append(phase3_one_rank(torch, rft, dev, mesh))
         torch.cuda.empty_cache()
         main_paths.append(phase3_variants(torch, rft, gp, card))
+        torch.cuda.empty_cache()
+        main_paths.append(phase3_slice(torch, rft, dev, g, card))
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
         torch.cuda.empty_cache()
         times = phase4_times(torch, rft, dev, g, gp, card)
         times.update(phase4_mesh(torch, rft, dev, g, gp, mesh, card))
+        times.update(phase4_slice(torch, rft, dev, g, card))
         bounds = kernel_bounds(g)
     except Exception:
         traceback.print_exc()

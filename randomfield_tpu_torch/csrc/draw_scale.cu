@@ -23,7 +23,12 @@
 //    |k|^2, summed (kx^2 + ky^2) + kz^2.
 //
 // Unit mode skips 3 and 4 and writes the raw unit normals (generate_noise);
-// bits mode writes step 1's bits, for checking the hash alone.
+// bits mode writes step 1's bits, for checking the hash alone.  Fixed mode
+// (generate_fixed_field, Angulo & Pontzen 2016; the JAX package computes it
+// in XLA, randomfield_tpu/ops/sample.py:258-263) replaces each mode after
+// step 3 by z / |z|, |z| = sqrt(re^2 + im^2) rounded as written (1 where
+// |z| = 0; a self-conjugate mode becomes its sign), before step 4 with gain
+// 1, or -1 for the paired field, so |c| is sigma times the filter exactly.
 //
 // Replaces randomfield_tpu/ops/pallas_sampler.py:_scale_jit_reim together
 // with the jax.random draw in front of it (randomfield_tpu/engine/staged.py:
@@ -79,7 +84,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPairsPerWarp = 32;  // row pairs a warp owns: one per lane
 constexpr int kMaxChunks = 16;     // ops/sample.py:CANONICAL_CHUNK_TARGET
 
-enum Mode : int { kSpectrum = 0, kUnit = 1, kBits = 2 };
+enum Mode : int { kSpectrum = 0, kUnit = 1, kBits = 2, kFixed = 3 };
+
+// The modes that fix the planes and scale: the spectrum and the fixed field.
+__host__ __device__ constexpr bool scaled(int mode) {
+  return mode == kSpectrum || mode == kFixed;
+}
 
 struct ChunkKeys {
   uint32_t k0[kMaxChunks];
@@ -153,7 +163,7 @@ struct RowPair {
     const Counter zc = static_cast<Counter>(z) * static_cast<Counter>(p.ny);
     const Counter c_stride = static_cast<Counter>(p.c_stride);
     const bool fixed =
-        PLANES && MODE == kSpectrum && (z == 0 || z == p.top);
+        PLANES && scaled(MODE) && (z == 0 || z == p.top);
     uint32_t bre[2], bim[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -177,7 +187,7 @@ struct RowPair {
       return;
     }
     float amp = 0.f;
-    if (MODE == kSpectrum) {
+    if (scaled(MODE)) {
       amp = rf::k2_amplitude_ksq(p.tab, p.n_knots, __fadd_rn(kxy, p.kz2[z]),
                                  p.half_inv_ln10, p.lk0, p.inv_dlk,
                                  p.smoothing, p.gain);
@@ -186,11 +196,17 @@ struct RowPair {
     for (int r = 0; r < 2; ++r) {
       float vre = rf::jax_normal(bre[r]);
       float vim = rf::jax_normal(bim[r]);
-      if (MODE == kSpectrum) {
+      if (scaled(MODE)) {
         if (fixed && nc[r]) vim = -vim;
         if (fixed && sc[r]) {
           vre = __fmul_rn(vre, rf::kSqrt2);
           vim = 0.f;
+        }
+        if (MODE == kFixed) {
+          const float mag =
+              __fsqrt_rn(__fadd_rn(__fmul_rn(vre, vre), __fmul_rn(vim, vim)));
+          vre = mag > 0.f ? __fdiv_rn(vre, mag) : 1.f;
+          vim = mag > 0.f ? __fdiv_rn(vim, mag) : 0.f;
         }
         vre = __fmul_rn(vre, amp);
         vim = __fmul_rn(vim, amp);
@@ -211,7 +227,7 @@ draw_scale_kernel(Params args, float kz_scale,
   Params p = args;
   p.tab = smem;
   p.kz2 = smem + p.n_knots;
-  if (MODE == kSpectrum) {
+  if (scaled(MODE)) {
     float* kz2 = smem + p.n_knots;
     for (int z = threadIdx.x; z < p.nzh; z += blockDim.x) {
       const float kz = kz_scale * static_cast<float>(z);
@@ -249,7 +265,7 @@ template <int MODE, bool WIDE>
 cudaError_t launch(const Params& p, float kz_scale, const ChunkKeys& keys,
                    cudaStream_t stream) {
   const size_t smem =
-      MODE == kSpectrum
+      scaled(MODE)
           ? sizeof(float) * (static_cast<size_t>(p.n_knots) + p.nzh)
           : 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -293,8 +309,9 @@ __global__ void jax_normal_kernel(const uint32_t* __restrict__ bits,
 // fold_in(key(seed), i), all k0 words and then all k1 words; n_chunks
 // divides nx.  k_scale = 2 pi / (spacing * n) per axis and the table
 // constants rounded to float32 as for rf_scale_sigma; gain is the float32
-// factor folded into the amplitude (a render passes 1/sqrt(2)).  mode: 0
-// spectrum, 1 unit normals, 2 bits.  Returns the CUDA error of the launch.
+// factor folded into the amplitude (a render passes 1/sqrt(2); the fixed
+// field 1, the paired field -1).  mode: 0 spectrum, 1 unit normals, 2 bits,
+// 3 fixed.  Returns the CUDA error of the launch.
 extern "C" int rf_draw_scale(void* re, void* im, const void* knots,
                              int n_knots, const void* chunk_keys,
                              int n_chunks, int nx, int ny, int nz, int x_off,
@@ -330,6 +347,9 @@ extern "C" int rf_draw_scale(void* re, void* im, const void* knots,
       break;
     case kBits:
       err = launch_mode<kBits>(p, kz_scale, keys, s);
+      break;
+    case kFixed:
+      err = launch_mode<kFixed>(p, kz_scale, keys, s);
       break;
     default:
       err = cudaErrorInvalidValue;

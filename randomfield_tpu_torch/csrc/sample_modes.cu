@@ -49,6 +49,26 @@
 // - the plane fix is a selection of the counter and two selects after the
 //   draw, not a branch or a second hash.
 // The mode index is 64-bit (2048^3 has more than 2^32 modes).
+//
+// KN, the same kernel on the resolution-nested stream of sampler='nested'
+// (ops/sample.py:nested_unit_draws; the JAX package draws it in XLA, not in
+// Pallas).  What differs from K1, mode by mode:
+// - the key is key(seed) itself, with no stream tag folded in, and the
+//   counter words are (code, 0), code = (sx & 1023) << 20 | (sy & 1023) << 10
+//   | kz of the signed lattice indices (sx, sy) (the Nyquist row is -n/2),
+//   so grids of different size over one box share every common mode;
+// - both uniforms carry the half-ulp offset, u = (b >> 8) 2^-24 + 2^-25;
+// - a non-canonical plane mode hashes its partner's code;
+// - the amplitude is K2's (sigma_common.cuh:k2_amplitude_ksq at |k|^2
+//   summed (kx^2 + ky^2) + kz^2, times the gain), so the spectrum equals
+//   the Hermitian fix and scale_sigma.cu applied to the unit mode's
+//   normals bit for bit (generate_from_noise(generate_noise(s)) is the
+//   render of s), and every product of the draw is rounded as written.
+// Its modes: the spectrum (gain 1/sqrt(2)); the raw unit normals, no fix
+// and no scale (generate_noise); the fixed field, z / |z| after the fix
+// (1 where |z| = 0; a self-conjugate mode becomes its sign), times the
+// amplitude with gain 1, or -1 for the paired field; and the bits, a
+// check of the hash alone.  The same bound and walk as K1.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -70,7 +90,7 @@ struct Params {
   const float* kz2;  // (kz_scale kz)^2 for kz in [0, nzh), in shared memory
   int n_knots, nx, ny, nzh, top, y_off, ny_loc;
   uint32_t k0, k1;
-  float kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing;
+  float kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain;
 };
 
 // The rows x and (-x) mod nx of ky row y (one row when the two coincide,
@@ -141,6 +161,136 @@ struct RowPair {
   }
 };
 
+// KN's modes
+enum NestedMode : int { kSpectrum = 0, kUnit = 1, kFixed = 2, kBits = 3 };
+
+// The nested stream's code of row x, column y at kz = 0: the signed indices
+// (the array index, or index - n from (n + 1) / 2 on) as 10-bit fields.
+__device__ __forceinline__ uint32_t lattice_code(int x, int y, int nx,
+                                                 int ny) {
+  const int sx = x < (nx + 1) / 2 ? x : x - nx;
+  const int sy = y < (ny + 1) / 2 ? y : y - ny;
+  return (static_cast<uint32_t>(sx & 1023) << 20) |
+         (static_cast<uint32_t>(sy & 1023) << 10);
+}
+
+// KN's row pair: RowPair's rows, walk and plane selection, with the nested
+// stream's codes in place of the counters and K2's |k|^2 and amplitude.
+template <int MODE>
+struct NestedRows {
+  float kxy;           // kx^2 + ky^2, the pair's
+  uint32_t code[2];    // own code at kz = 0
+  uint32_t pcode[2];   // the plane partner's code at kz = 0
+  bool nc[2], sc[2];   // not canonical / self-conjugate on a plane
+  long long out[2];    // output offset at kz = 0
+
+  __device__ __forceinline__ NestedRows(const Params& p, int q) {
+    const int xp = q / p.ny_loc;
+    const int yl = q - xp * p.ny_loc;
+    const int y = yl + p.y_off;
+    const int x[2] = {xp, rf::partner_index(xp, p.nx)};
+    const int py = rf::partner_index(y, p.ny);
+    const float kx =
+        p.kx_scale * static_cast<float>(rf::signed_index(xp, p.nx));
+    const float ky = p.ky_scale * static_cast<float>(rf::signed_index(y, p.ny));
+    kxy = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int px = x[1 - r];  // (-x) mod nx of this row is the other row
+      code[r] = lattice_code(x[r], y, p.nx, p.ny);
+      pcode[r] = lattice_code(px, py, p.nx, p.ny);
+      nc[r] = rf::not_canonical(x[r], y, px, py);
+      sc[r] = rf::self_conjugate(x[r], y, px, py);
+      out[r] = (static_cast<long long>(x[r]) * p.ny_loc + yl) * p.nzh;
+    }
+  }
+
+  // Draw (and for the spectrum and fixed modes fix and scale) and store
+  // both rows' mode at kz = z.
+  __device__ __forceinline__ void draw(const Params& p, int z) const {
+    constexpr bool kFix = MODE == kSpectrum || MODE == kFixed;
+    const bool fixed = kFix && (z == 0 || z == p.top);
+    float amp = 0.f;
+    if (kFix) {
+      amp = rf::k2_amplitude_ksq(p.tab, p.n_knots, __fadd_rn(kxy, p.kz2[z]),
+                                 p.half_inv_ln10, p.lk0, p.inv_dlk,
+                                 p.smoothing, p.gain);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool partner = fixed && nc[r];
+      const uint2 b = rf::threefry2x32(
+          p.k0, p.k1, (partner ? pcode[r] : code[r]) + static_cast<uint32_t>(z),
+          0u);
+      if (MODE == kBits) {
+        reinterpret_cast<uint32_t*>(p.re)[out[r] + z] = b.x;
+        reinterpret_cast<uint32_t*>(p.im)[out[r] + z] = b.y;
+        continue;
+      }
+      const float rr = sqrtf(__fmul_rn(-2.f, logf(rf::uniform_u1(b.x))));
+      const float theta =
+          __fmul_rn(6.28318530717958648f, rf::uniform_u1(b.y));
+      float s, c;
+      sincosf(theta, &s, &c);
+      float vre = __fmul_rn(rr, c);
+      float vim = __fmul_rn(rr, s);
+      if (kFix) {
+        if (partner) vim = -vim;
+        if (fixed && sc[r]) {
+          vre = __fmul_rn(vre, rf::kSqrt2);
+          vim = 0.f;
+        }
+        if (MODE == kFixed) {
+          const float mag =
+              __fsqrt_rn(__fadd_rn(__fmul_rn(vre, vre), __fmul_rn(vim, vim)));
+          vre = mag > 0.f ? __fdiv_rn(vre, mag) : 1.f;
+          vim = mag > 0.f ? __fdiv_rn(vim, mag) : 0.f;
+        }
+        vre = __fmul_rn(vre, amp);
+        vim = __fmul_rn(vim, amp);
+      }
+      p.re[out[r] + z] = vre;
+      p.im[out[r] + z] = vim;
+    }
+  }
+};
+
+// The walk both kernels share: a warp owns 32 row pairs and walks each
+// pair's kz with its 32 lanes; the kz left over past a multiple of 32 are
+// drawn lane by row pair.
+template <class Rows>
+__device__ __forceinline__ void walk_row_pairs(const Params& p) {
+  const int lane = threadIdx.x & 31;
+  const int n_pairs = (p.nx / 2 + 1) * p.ny_loc;
+  const int bulk = p.nzh & ~31;  // the kz a warp draws 32 at a time
+  const int stride = gridDim.x * kWarps * kPairsPerWarp;
+  for (int g = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPairsPerWarp;
+       g < n_pairs; g += stride) {
+    const int end = min(g + kPairsPerWarp, n_pairs);
+    for (int q = g; q < end; ++q) {
+      const Rows rows(p, q);
+      for (int z = lane; z < bulk; z += 32) rows.draw(p, z);
+    }
+    if (bulk < p.nzh && g + lane < end) {
+      const Rows rows(p, g + lane);
+      for (int z = bulk; z < p.nzh; ++z) rows.draw(p, z);
+    }
+  }
+}
+
+// Fill the block's kz^2 table and knots (and the block's barrier).
+__device__ __forceinline__ float* load_tables(float* smem,
+                                              const float* knots, int n_knots,
+                                              int nzh, float kz_scale) {
+  float* kz2 = smem + n_knots;
+  for (int z = threadIdx.x; z < nzh; z += blockDim.x) {
+    const float kz = kz_scale * static_cast<float>(z);
+    kz2[z] = __fmul_rn(kz, kz);
+  }
+  rf::load_knots(smem, knots, n_knots);
+  return kz2;
+}
+
 __global__ void __launch_bounds__(kThreads)
 sample_modes_kernel(float* __restrict__ re, float* __restrict__ im,
                     const float* __restrict__ knots, int n_knots, int nx,
@@ -150,32 +300,57 @@ sample_modes_kernel(float* __restrict__ re, float* __restrict__ im,
                     float inv_dlk, float smoothing) {
   extern __shared__ float smem[];
   const int nzh = nz / 2 + 1;
-  float* kz2 = smem + n_knots;
-  for (int z = threadIdx.x; z < nzh; z += blockDim.x) {
-    const float kz = kz_scale * static_cast<float>(z);
-    kz2[z] = __fmul_rn(kz, kz);
-  }
-  rf::load_knots(smem, knots, n_knots);  // and the block's barrier
-
+  const float* kz2 = load_tables(smem, knots, n_knots, nzh, kz_scale);
   const Params p{re, im, smem, kz2, n_knots, nx, ny, nzh,
                  nz % 2 == 0 ? nzh - 1 : 0, y_off, ny_loc, k0, k1,
-                 kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing};
-  const int lane = threadIdx.x & 31;
-  const int n_pairs = (nx / 2 + 1) * ny_loc;
-  const int bulk = nzh & ~31;  // the kz a warp draws 32 at a time
-  const int stride = gridDim.x * kWarps * kPairsPerWarp;
-  for (int g = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPairsPerWarp;
-       g < n_pairs; g += stride) {
-    const int end = min(g + kPairsPerWarp, n_pairs);
-    for (int q = g; q < end; ++q) {
-      const RowPair rows(p, q);
-      for (int z = lane; z < bulk; z += 32) rows.draw(p, z);
-    }
-    if (bulk < nzh && g + lane < end) {
-      const RowPair rows(p, g + lane);
-      for (int z = bulk; z < nzh; ++z) rows.draw(p, z);
-    }
-  }
+                 kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing,
+                 1.f};
+  walk_row_pairs<RowPair>(p);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+nested_modes_kernel(float* __restrict__ re, float* __restrict__ im,
+                    const float* __restrict__ knots, int n_knots, int nx,
+                    int ny, int nz, uint32_t k0, uint32_t k1, float kx_scale,
+                    float ky_scale, float kz_scale, float half_inv_ln10,
+                    float lk0, float inv_dlk, float smoothing, float gain) {
+  extern __shared__ float smem[];
+  const int nzh = nz / 2 + 1;
+  const float* kz2 = load_tables(smem, knots, n_knots, nzh, kz_scale);
+  const Params p{re, im, smem, kz2, n_knots, nx, ny, nzh,
+                 nz % 2 == 0 ? nzh - 1 : 0, 0, ny, k0, k1, kx_scale,
+                 ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain};
+  walk_row_pairs<NestedRows<MODE>>(p);
+}
+
+// The grid of a walk over (nx/2 + 1) ny_loc row pairs.
+unsigned walk_blocks(int nx, int ny_loc) {
+  const long long groups =
+      (static_cast<long long>(nx / 2 + 1) * ny_loc + kPairsPerWarp - 1) /
+      kPairsPerWarp;
+  long long blocks = (groups + kWarps - 1) / kWarps;
+  if (blocks > 65535) blocks = 65535;  // the warps then stride over the rest
+  return static_cast<unsigned>(blocks);
+}
+
+template <int MODE>
+cudaError_t launch_nested(float* re, float* im, const float* knots,
+                          int n_knots, int nx, int ny, int nz, uint32_t k0,
+                          uint32_t k1, float kx_scale, float ky_scale,
+                          float kz_scale, float half_inv_ln10, float lk0,
+                          float inv_dlk, float smoothing, float gain,
+                          cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(n_knots) + nz / 2 + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      nested_modes_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  nested_modes_kernel<MODE><<<walk_blocks(nx, ny), kThreads, smem, stream>>>(
+      re, im, knots, n_knots, nx, ny, nz, k0, k1, kx_scale, ky_scale,
+      kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -198,16 +373,57 @@ extern "C" int rf_sample_modes(void* re, void* im, const void* knots,
       sample_modes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long groups =
-      (static_cast<long long>(nx / 2 + 1) * ny_loc + kPairsPerWarp - 1) /
-      kPairsPerWarp;
-  long long blocks = (groups + kWarps - 1) / kWarps;
-  if (blocks > 65535) blocks = 65535;  // the warps then stride over the rest
-  sample_modes_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+  sample_modes_kernel<<<walk_blocks(nx, ny_loc), kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(re), static_cast<float*>(im),
       static_cast<const float*>(knots), n_knots, nx, ny, nz, y_off, ny_loc,
       k0, k1, kx_scale, ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk,
       smoothing);
   return static_cast<int>(cudaGetLastError());
+}
+
+// KN: re, im float32 (nx, ny, nz/2 + 1) outputs, contiguous (bits mode:
+// uint32 bits in the same storage).  knots: float32 (n_knots,), n_knots >=
+// 2.  (k0, k1): key(seed) itself.  k_scale and the table constants as for
+// rf_sample_modes; gain folded into K2's amplitude (spectrum: 1/sqrt(2);
+// fixed: 1, or -1 for the paired field).  mode: 0 spectrum, 1 unit
+// normals, 2 fixed, 3 bits.  Returns the CUDA error of the launch.
+extern "C" int rf_sample_nested(void* re, void* im, const void* knots,
+                                int n_knots, int nx, int ny, int nz,
+                                uint32_t k0, uint32_t k1, float kx_scale,
+                                float ky_scale, float kz_scale,
+                                float half_inv_ln10, float lk0, float inv_dlk,
+                                float smoothing, float gain, int mode,
+                                void* stream) {
+  auto* r = static_cast<float*>(re);
+  auto* i = static_cast<float*>(im);
+  const auto* t = static_cast<const float*>(knots);
+  auto* s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (mode) {
+    case kSpectrum:
+      err = launch_nested<kSpectrum>(r, i, t, n_knots, nx, ny, nz, k0, k1,
+                                     kx_scale, ky_scale, kz_scale,
+                                     half_inv_ln10, lk0, inv_dlk, smoothing,
+                                     gain, s);
+      break;
+    case kUnit:
+      err = launch_nested<kUnit>(r, i, t, n_knots, nx, ny, nz, k0, k1,
+                                 kx_scale, ky_scale, kz_scale, half_inv_ln10,
+                                 lk0, inv_dlk, smoothing, gain, s);
+      break;
+    case kFixed:
+      err = launch_nested<kFixed>(r, i, t, n_knots, nx, ny, nz, k0, k1,
+                                  kx_scale, ky_scale, kz_scale, half_inv_ln10,
+                                  lk0, inv_dlk, smoothing, gain, s);
+      break;
+    case kBits:
+      err = launch_nested<kBits>(r, i, t, n_knots, nx, ny, nz, k0, k1,
+                                 kx_scale, ky_scale, kz_scale, half_inv_ln10,
+                                 lk0, inv_dlk, smoothing, gain, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -3,7 +3,7 @@
 Port of the core of ``randomfield_tpu/engine/generator.py``.  The
 constructor does the scene setup once (power table, uniform sigma(k)
 table, lightcone weights); each ``generate_delta_field(seed)`` then runs,
-on the scene's device, one of two samplers:
+on the scene's device, one of three samplers:
 
 * ``sampler='threefry'`` (default): K2 fused with its draws
   (:func:`.ops.sampler.draw_scale`), one pass: the canonical Threefry unit
@@ -16,13 +16,27 @@ on the scene's device, one of two samplers:
   :mod:`.ops.modestream`), the two planes made Hermitian in the same pass.
   On one device this is the staged render (:func:`.staged.render_v3`), whose
   ``RF_STAGED_PIPELINE=v4`` and ``=v6`` variants run the transforms below
-  through K9, or draw through K10 (a realization family of its own).
+  through K9, or draw through K10 (a realization family of its own);
+* ``sampler='nested'``: KN, K1's kernel on the resolution-nested stream
+  (:func:`.ops.sampler.sample_nested`): each mode drawn from its signed
+  lattice indices, so grids of different size over one box share their
+  common modes (zoom matching), with K2's amplitude; the JAX package's
+  nested stream bit for bit;
 
-and then, for both:
+and then, for all three:
 
 1. K3, in place: inverse FFT along x, then along y (:func:`.ops.fft.ifft_axis`);
 2. K4: c2r along kz times the plane weights D(z)/D(0), which writes the
    field (:func:`.ops.fft.c2r_tail`).
+
+``generate_fixed_field(seed)`` renders the fixed field (|c_k| pinned to
+sigma(k), the seed's phases; ``flip=True`` the paired one) through K2F's
+fixed mode (KN's for a nested scene).  The derived fields
+(``generate_potential``, ``generate_displacement``, ``generate_velocity``,
+``generate_tidal_field``, ``classify_web``, ``generate_kaiser_field``) draw
+the seed's spectrum (K2F, K1 or KN), apply KD
+(:func:`.ops.derived.apply_kernel`) and run K3, K3 and K4 with unit
+weights: no forward transform (2LPT adds the field-first second order).
 
 ``sample_power(seed)`` bins the realized power of a seed's spectrum with no
 FFT: for ``sampler='pallas'`` through K5, which regenerates K1's draws and
@@ -53,8 +67,12 @@ import torch
 from randomfield_tpu_torch.engine import scene as _scene
 from randomfield_tpu_torch.engine import staged as _staged
 from randomfield_tpu_torch.models import cosmology as _cosmo
+from randomfield_tpu_torch.models import web as _web
 from randomfield_tpu_torch.models.powerspec import resolve_power
+from randomfield_tpu_torch.ops import derived as _derived
 from randomfield_tpu_torch.ops import fft as _fft
+from randomfield_tpu_torch.ops import power as _power
+from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
 from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.parallel import mesh as _mesh
@@ -64,9 +82,16 @@ from randomfield_tpu_torch.validate import stats as _stats
 __all__ = ["Generator"]
 
 _NOT_PORTED = {
-    "sampler='nested'": "the nested stream (ROADMAP.md, Queue 1 item 4)",
     "noise I/O on a mesh": ("generate_noise and generate_from_noise run on "
-                            "one device (ROADMAP.md, Queue 1 item 11)"),
+                            "one device (ROADMAP.md, Queue 1 item 5)"),
+    "sampler='nested' on a mesh": ("the nested stream runs on one device "
+                                   "(ROADMAP.md, Queue 1 item 8)"),
+    "fixed fields on a mesh": ("generate_fixed_field(s) run on one device "
+                               "(ROADMAP.md, Queue 1 item 8)"),
+    "derived fields on a mesh": ("the derived fields run on one device "
+                                 "(ROADMAP.md, Queue 1 item 8)"),
+    "sigmas on a mesh": ("the sigma grid is built on one device "
+                         "(ROADMAP.md, Queue 1 item 8)"),
 }
 
 
@@ -89,10 +114,11 @@ class Generator:
         ('default', 'eh98', 'bbks'), or None for the default table.
     interpolation : 'log10k' (P linear in log10 k) or 'loglog'.
     z0 : redshift of the nearest lightcone plane.
-    sampler : 'threefry' (the JAX package's stream, bit for bit) or
-        'pallas' (the fused sampler K1: its own counter-based stream,
-        :mod:`~randomfield_tpu_torch.ops.modestream`); 'nested' raises
-        NotImplementedError.
+    sampler : 'threefry' (the JAX package's stream, bit for bit), 'pallas'
+        (the fused sampler K1: its own counter-based stream,
+        :mod:`~randomfield_tpu_torch.ops.modestream`) or 'nested' (the
+        resolution-nested stream, the JAX package's bit for bit; every axis
+        at most 1024, one device, not with ``pipeline='staged'``).
     mesh : None for one device, or this rank's slab mesh
         (:func:`randomfield_tpu_torch.parallel.mesh.make_mesh`): nx and ny
         must divide by its size; renders return the rank's (nx/P, ny, nz)
@@ -114,8 +140,6 @@ class Generator:
                  sampler="threefry", device=None):
         if sampler not in ("threefry", "pallas", "nested"):
             raise ValueError(f"unknown sampler {sampler!r}")
-        if sampler == "nested":
-            raise _not_ported("sampler='nested'")
         if pipeline not in ("auto", "fused", "staged"):
             raise ValueError(f"unknown pipeline {pipeline!r}")
         if pipeline == "staged" and mesh is not None:
@@ -124,6 +148,19 @@ class Generator:
                 "sharded render is its own pipeline); use pipeline='auto' "
                 "or 'fused'")
         shape = (int(nx), int(ny), int(nz))
+        if sampler == "nested":
+            if pipeline == "staged":
+                raise ValueError(
+                    "sampler='nested' needs the fused pipeline (the staged "
+                    "pipeline draws in a different, positional order); use "
+                    "pipeline='auto' or 'fused'")
+            if max(shape) > _sample.NESTED_MAX_DIM:
+                raise ValueError(
+                    f"sampler='nested' packs signed mode indices into 10 "
+                    f"bits per axis (max dim {_sample.NESTED_MAX_DIM}); got "
+                    f"{shape}")
+            if mesh is not None:
+                raise _not_ported("sampler='nested' on a mesh")
         if mesh is not None:
             mesh = _mesh.require_slab(mesh)
             if device is not None and torch.device(device) != mesh.device:
@@ -147,6 +184,7 @@ class Generator:
             self.scene, resolve_power(power, self.cosmology), self.device
         )
         self._bin_plans = {}  # K5's bins by nbins
+        self._sigmas = None  # the per-mode sigma grid, built on first read
 
     # ---- introspection ------------------------------------------------------
     @property
@@ -179,6 +217,21 @@ class Generator:
     @property
     def k_max(self):
         return self.scene.k_bounds[1]
+
+    @property
+    def sigmas(self):
+        """The per-mode sigma(k) grid, float32 (nx, ny, nz//2+1) on the
+        scene's device: ``ops.power.tabulate_sigmas`` of the scene's power
+        table (its own interpolant, evaluated in float64), built on the first
+        read and cached.  The renders read the uniform table instead; this
+        is the grid the JAX package's fused scenes hold."""
+        if self.mesh is not None:
+            raise _not_ported("sigmas on a mesh")
+        if self._sigmas is None:
+            self._sigmas = _power.tabulate_sigmas(
+                self.shape, self.grid_spacing, self.power,
+                self.scene.interpolation, self.device)
+        return self._sigmas
 
     def predicted_variance(self, smoothing_length=0.0, apply_lightcone=False):
         """Expected variance of a rendered field, from the table sigma.
@@ -230,8 +283,10 @@ class Generator:
             return _sampler.sample_spectrum(
                 seed, self.state.table, self.shape, self.grid_spacing,
                 smoothing_length)
-        re, im = _sampler.draw_scale(seed, self.state.table, self.shape,
-                                     self.grid_spacing, smoothing_length)
+        draw = (_sampler.sample_nested if self.sampler == "nested"
+                else _sampler.draw_scale)
+        re, im = draw(seed, self.state.table, self.shape, self.grid_spacing,
+                      smoothing_length)
         return re, im
 
     def _spectrum_to_field(self, re, im, apply_lightcone):
@@ -291,8 +346,12 @@ class Generator:
         """A seed's raw unit normal draws, shape (2, nx, ny, nz//2+1): the
         state before symmetrization and scaling.  ``generate_from_noise``
         of it equals ``generate_delta_field(seed)`` exactly.  On CUDA the
-        fused K2 kernel writes them (its unit mode)."""
+        fused K2 kernel writes them (its unit mode), or for a nested scene
+        KN (its unit mode)."""
         self._require_threefry("there is no exportable pre-kernel noise state")
+        if self.sampler == "nested":
+            return _sampler.sample_nested(seed, self.state.table, self.shape,
+                                          self.grid_spacing, mode="unit")
         return _sampler.draw_scale(seed, self.state.table, self.shape,
                                    self.grid_spacing, unit=True)
 
@@ -304,7 +363,7 @@ class Generator:
         filter, c2r, lightcone.  ``draws`` is copied, not consumed.
         """
         self._require_threefry("generate_from_noise needs a scene with "
-                               "sampler='threefry'")
+                               "sampler='threefry' or 'nested'")
         nx, ny, nz = self.shape
         want = (2, nx, ny, nz // 2 + 1)
         draws = torch.as_tensor(draws, dtype=torch.float32, device=self.device)
@@ -318,6 +377,142 @@ class Generator:
         re, im = _staged.scaled_draws(re, im, self.state.table, self.shape,
                                       self.grid_spacing, smoothing_length)
         return self._spectrum_to_field(re, im, apply_lightcone)
+
+    def _require_fixed(self):
+        if self.sampler == "pallas" or self.pipeline == "staged":
+            raise ValueError(
+                "fixed fields need the Threefry or nested fused path (the "
+                "Pallas/staged pipelines stream the spectrum); build the "
+                "Generator with sampler='threefry', pipeline='auto' or "
+                "'fused'")
+        if self.mesh is not None:
+            raise _not_ported("fixed fields on a mesh")
+
+    def generate_fixed_field(self, seed=0, smoothing_length=0.0,
+                             apply_lightcone=True, flip=False):
+        """Variance-suppressed 'fixed' realization (Angulo & Pontzen 2016).
+
+        Every mode's amplitude is pinned to sigma(k) times the filter
+        exactly and only its phase, the seed's Hermitian draw's, is random,
+        so the field variance equals ``predicted_variance()`` to rounding.
+        ``flip=True`` renders the paired realization (every phase shifted by
+        pi: for the Gaussian field the exact negation).  On CUDA the draw is
+        K2F's fixed mode (KN's for a nested scene), then K3, K3, K4.
+        ``sampler='pallas'`` and ``pipeline='staged'`` raise ValueError, as
+        in the JAX package.
+        """
+        self._require_fixed()
+        if self.sampler == "nested":
+            spec = _sampler.sample_nested(
+                seed, self.state.table, self.shape, self.grid_spacing,
+                smoothing_length, mode="fixed", flip=flip)
+        else:
+            spec = _sampler.draw_fixed(seed, self.state.table, self.shape,
+                                       self.grid_spacing, smoothing_length,
+                                       flip)
+        return self._spectrum_to_field(spec[0], spec[1], apply_lightcone)
+
+    def generate_fixed_fields(self, seeds, smoothing_length=0.0,
+                              apply_lightcone=True, flip=False):
+        """A batch of fixed fields (leading axis = seed), row i
+        ``generate_fixed_field(seeds[i], ...)``; for 'fixed & paired'
+        ensembles render the batch with ``flip=False`` and ``flip=True``."""
+        self._require_fixed()
+        seeds = np.asarray(seeds).ravel()
+        return torch.stack([
+            self.generate_fixed_field(s, smoothing_length, apply_lightcone,
+                                      flip)
+            for s in seeds
+        ])
+
+    # ---- derived fields (seed-direct: no forward transform) --------------------
+    def _derived(self, seed, kind, components, prefactor, smoothing_length):
+        """Snapshot fields (no lightcone weights) of one kind: the seed's
+        spectrum drawn once (K2F, K1 or KN; a pallas scene's draw is K1
+        whatever ``RF_STAGED_PIPELINE`` says), each component KD on a
+        copy of it (the last on the spectrum itself), then K3, K3 and K4.
+        Returns a list of float32 (nx, ny, nz) fields."""
+        if self.mesh is not None:
+            raise _not_ported("derived fields on a mesh")
+        re, im = self._sampled_spectrum(seed, smoothing_length)
+        return _derived.fields_from_spectrum(re, im, self.shape,
+                                             self.grid_spacing, kind,
+                                             components, prefactor)
+
+    def _components(self, seed, kind, count, component, prefactor,
+                    smoothing_length):
+        """One component, or all ``count`` stacked on a leading axis."""
+        comps = range(count) if component is None else [int(component)]
+        out = self._derived(seed, kind, comps, prefactor, smoothing_length)
+        return out[0] if component is not None else torch.stack(out)
+
+    def generate_potential(self, seed=0, z=0.0, smoothing_length=0.0):
+        """Dimensionless peculiar potential Phi/c^2 of a seed (snapshot): the
+        realization of ``generate_delta_field(seed)`` through the comoving
+        Poisson equation, computed on the spectrum."""
+        pref = _derived.potential_prefactor(self.cosmology, z)
+        return self._derived(seed, "scalar", [0], pref, smoothing_length)[0]
+
+    def generate_displacement(self, seed=0, component=None,
+                              smoothing_length=0.0, order=1):
+        """Lagrangian displacement psi [Mpc/h] of a seed (snapshot).
+
+        ``order=1``: Zel'dovich, psi_k = i k delta_k / k^2.  ``order=2``:
+        adds the 2LPT correction of the same realization
+        (:func:`..ops.derived.delta_to_displacement_2lpt` of its unweighted
+        field).  ``component`` 0/1/2 returns one (nx, ny, nz) component;
+        None stacks all three.
+        """
+        if order not in (1, 2):
+            raise ValueError(f"order must be 1 or 2, got {order!r}")
+        psi = self._components(seed, "grad", 3, component, 1.0,
+                               smoothing_length)
+        if order == 2:
+            if self.mesh is not None:
+                raise _not_ported("derived fields on a mesh")
+            delta = self.generate_delta_field(
+                seed, smoothing_length=smoothing_length, apply_lightcone=False)
+            psi2 = _derived.delta_to_displacement_2lpt(delta,
+                                                       self.grid_spacing)
+            psi = psi + (psi2 if component is None else psi2[int(component)])
+        return psi
+
+    def generate_velocity(self, seed=0, z=0.0, component=None,
+                          smoothing_length=0.0):
+        """Linear peculiar velocity [km/s] of a seed (snapshot): v = a H(a)
+        f(a) psi."""
+        pref = _derived.velocity_prefactor(self.cosmology, z)
+        return self._components(seed, "grad", 3, component, pref,
+                                smoothing_length)
+
+    def generate_tidal_field(self, seed=0, component=None,
+                             smoothing_length=0.0):
+        """Tidal (T-web) tensor T_ij = d_i d_j phi, grad^2 phi = delta, of a
+        seed: ``component`` indexes ``ops.derived.TIDAL_PAIRS`` (xx, yy, zz,
+        xy, xz, yz); None stacks all six (6, nx, ny, nz).  The diagonal sums
+        to the seed's unweighted density field."""
+        return self._components(seed, "tidal", 6, component, 1.0,
+                                smoothing_length)
+
+    def classify_web(self, seed=0, smoothing_length=0.0, threshold=0.0):
+        """Per-voxel T-web class of a realization, int8 0..3 = void / sheet
+        / filament / knot (the count of tidal eigenvalues above
+        ``threshold``; :mod:`..models.web`)."""
+        t = self.generate_tidal_field(seed, smoothing_length=smoothing_length)
+        return _web.classify_web(t, threshold)
+
+    def generate_kaiser_field(self, seed=0, z=0.0, bias=1.0, f=None,
+                              los_axis=2, smoothing_length=0.0):
+        """Linear redshift-space density (b + f mu^2) delta_k of a seed,
+        mu = k_los / |k| along ``los_axis``, ``f`` the growth rate
+        (default ``cosmology.growth_rate(z)``); snapshot, no lightcone
+        weights."""
+        b = float(bias)
+        if b == 0.0:
+            raise ValueError("bias must be nonzero for a Kaiser field")
+        f = self.cosmology.growth_rate(float(z)) if f is None else f
+        return self._derived(seed, "kaiser", [int(los_axis)], (b, float(f)),
+                             smoothing_length)[0]
 
     # ---- power spectra ---------------------------------------------------------
     def calculate_power(self, delta, nbins=32):

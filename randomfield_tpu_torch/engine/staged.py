@@ -36,7 +36,7 @@ field as the Generator's default path.
 Not ported: the JAX package's chunked v1/v2/v3 variants,
 ``RF_STAGED_V3_MERGE``, its ``optimization_barrier`` pins and the
 auto-staging threshold, which manage a memory ceiling this device does not
-have (ROADMAP.md, Queue 1 item 7).
+have (ROADMAP.md, Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -169,11 +169,7 @@ def _run(stages):
 def finish_staged_reim(re, im, weights, shape, out=None):
     """Spectrum -> field by the default transforms: K3 along x, K3 along y
     (both in place: the (nx, ny, nzh) lattices are consumed), K4."""
-    nx, ny, nz = shape
-    nzh = nz // 2 + 1
-    _fft.ifft_axis(re, im, 1, nx, ny * nzh)
-    _fft.ifft_axis(re, im, nx, ny, nzh)
-    return _fft.c2r_tail(re, im, nz, weights, out=out)
+    return _transform.irfftn_reim(re, im, shape, weights, out)
 
 
 def scaled_draws(re, im, table, shape, spacing, smoothing_length=0.0):

@@ -4,9 +4,9 @@ The scene-setup part of ``randomfield_tpu/models/cosmology.py``, copied
 (host float64 numpy, no JAX): the port needs it without importing the JAX
 package, whose ``__init__`` imports jax.  Keep the two in step; the
 port's tests hold the plane redshifts and growth weights to the JAX
-package's exactly.  Distances, growth and the presets only; the growth
-rate, transverse distances and densities come with the models that use
-them.
+package's exactly.  Distances, growth, the growth rate (for the velocity
+and Kaiser fields) and the presets only; transverse distances and
+densities come with the models that use them.
 
 Reference parity: ``randomfield/cosmotools.py`` (``create_cosmology``,
 ``get_redshifts``, ``get_growth_function``).  The reference leans on
@@ -186,6 +186,19 @@ class Cosmology:
         lna, d_unnorm = self._growth_table
         d_of_a = lambda aq: np.interp(np.log(aq), lna, d_unnorm)
         return d_of_a(a_eval) / d_of_a(1.0)
+
+    def growth_rate(self, z):
+        """Logarithmic growth rate f = dlnD/dlna (central difference).
+
+        In matter domination f -> 1; at z = 0 for Planck-like parameters
+        f ~ Om(z)^0.55 ~ 0.52.
+        """
+        z = np.asarray(z, dtype=np.float64)
+        a = 1.0 / (1.0 + z)
+        eps = 1e-4
+        d_hi = self.growth_function(1.0 / (a * np.exp(eps)) - 1.0)
+        d_lo = self.growth_function(1.0 / (a * np.exp(-eps)) - 1.0)
+        return (np.log(d_hi) - np.log(d_lo)) / (2 * eps)
 
     @functools.cached_property
     def _growth_table(self):

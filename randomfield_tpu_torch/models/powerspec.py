@@ -188,7 +188,7 @@ def resolve_power(power, cosmology=None):
         if name == "halofit":
             raise NotImplementedError(
                 "power='halofit' needs models/halofit.py, not ported yet "
-                "(ROADMAP.md, Queue 1 item 12)"
+                "(ROADMAP.md, Queue 1 item 9)"
             )
         raise ValueError(
             f"unknown power model {power!r}: expected 'default', "

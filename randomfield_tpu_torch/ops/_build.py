@@ -42,6 +42,7 @@ _LOCK = threading.Lock()
 _LIB = None
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_D = ctypes.c_double
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "rf_scale_sigma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -58,6 +59,10 @@ _SIGNATURES = {
     "rf_c2r_tail_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
     "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
+    "rf_sample_nested": [_P, _P, _P, _I, _I, _I, _I, _U32, _U32,
+                         _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "rf_spectral_kernel": [_P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _I, _I,
+                           _F, _F, _P],
     "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _U32, _U32, _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_fftx_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],

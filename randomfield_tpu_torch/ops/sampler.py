@@ -22,6 +22,12 @@ resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
   same draws, planes fixed as K1 fixes them, binned in log10 |k| as (sum w,
   sum w |c|^2 V, sum w |k|) with no spectrum written, for a batch of seeds
   into one device block;
+* K2F's fixed mode :func:`draw_fixed`: the same draws and plane fix, each
+  mode then z / |z| times the amplitude with gain 1 (or -1, the paired
+  field): ``generate_fixed_field``;
+* KN :func:`sample_nested` (K1's kernel, ``csrc/sample_modes.cu``, on the
+  resolution-nested stream of ``sampler='nested'``): the spectrum, the raw
+  unit normals, the fixed field, or the bits;
 * K7 :func:`draw_scale_shard` and K8 :func:`sample_shard`: the fused K2 and
   K1 on the ky rows [y_off, y_off + ny_loc) of a slab mesh's shard, at the
   global counters and indices (the same sources; the union over the shards
@@ -40,7 +46,8 @@ the JAX one value for value with the shared knots de-duplicated.
 
 The launch counts are ``K1_LAUNCHES``, ``K2_LAUNCHES`` (:func:`scale_sigma`),
 ``K2F_LAUNCHES`` (:func:`draw_scale` and :func:`draw_bits`),
-``K5_LAUNCHES``, ``K7_LAUNCHES`` and ``K8_LAUNCHES``.
+``K2FX_LAUNCHES`` (:func:`draw_fixed`), ``K5_LAUNCHES``, ``K7_LAUNCHES``,
+``K8_LAUNCHES`` and ``KN_LAUNCHES`` (:func:`sample_nested`).
 """
 
 from __future__ import annotations
@@ -69,7 +76,11 @@ __all__ = [
     "draw_scale_shard",
     "draw_scale_plain",
     "draw_bits",
+    "draw_fixed",
+    "draw_fixed_plain",
     "draw_normals",
+    "sample_nested",
+    "sample_nested_plain",
     "sigma_amplitude",
     "load_reference_state",
     "plane_partner",
@@ -91,18 +102,22 @@ __all__ = [
     "K5_LAUNCHES",
     "K7_LAUNCHES",
     "K8_LAUNCHES",
+    "K2FX_LAUNCHES",
+    "KN_LAUNCHES",
     "MAX_KERNEL_BINS",
 ]
 
 # kernel launches by sample_modes, scale_sigma, draw_scale (and draw_bits),
-# sample_power_bins, draw_scale_shard and sample_shard (the CPU paths do not
-# count)
+# sample_power_bins, draw_scale_shard, sample_shard, draw_fixed and
+# sample_nested (the CPU paths do not count)
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K2F_LAUNCHES = 0
 K5_LAUNCHES = 0
 K7_LAUNCHES = 0
 K8_LAUNCHES = 0
+K2FX_LAUNCHES = 0
+KN_LAUNCHES = 0
 
 # K5 bins at most this many (the TPU kernel's lane count); callers fall back
 # to K1 and binning the spectrum above it
@@ -118,7 +133,9 @@ _INV_SQRT2 = np.float32(0.7071067811865476)
 _INV_2_24 = np.float32(2.0 ** -24)
 _HALF_INV_2_24 = np.float32(2.0 ** -25)
 # csrc/draw_scale.cu's modes
-_SPECTRUM, _UNIT, _BITS = 0, 1, 2
+_SPECTRUM, _UNIT, _BITS, _FIXED = 0, 1, 2, 3
+# csrc/sample_modes.cu's KN modes, by name
+NESTED_MODES = {"spectrum": 0, "unit": 1, "fixed": 2, "bits": 3}
 # ky rows of one K5 block (csrc/sample_power_bins.cu kThreads); the seeds a
 # launch takes: its grid's z limit, and as many as keep the float64 block
 # partials within 256 MiB (85 seeds at 1024^3 and 32 bins)
@@ -371,6 +388,39 @@ def draw_scale(seed, table, shape, spacing, smoothing_length=0.0, x_off=0,
     return out
 
 
+def draw_fixed_plain(seed, table, shape, spacing, smoothing_length=0.0,
+                     flip=False):
+    """:func:`draw_fixed` in plain PyTorch on the table's device: the
+    canonical unit draws -> the Hermitian fix -> z / |z| -> K2's amplitude
+    with gain 1, or -1 with ``flip`` (:func:`.sample.sample_fixed_spectrum`).
+    Returns float32 (2, nx, ny, nzh)."""
+    return torch.stack(_canon.sample_fixed_spectrum(
+        _threefry.key_from_seed(seed), table, shape, spacing,
+        smoothing_length, flip))
+
+
+def draw_fixed(seed, table, shape, spacing, smoothing_length=0.0,
+               flip=False):
+    """K2F's fixed mode: the seed's 'fixed' spectrum (Angulo & Pontzen
+    2016), ``sampler='threefry'``'s stream.
+
+    Returns float32 (2, nx, ny, nz//2+1), re and im, on the table's device:
+    :func:`draw_scale`'s draws after the Hermitian fix, each mode replaced by
+    z / |z| (1 where |z| = 0; a self-conjugate mode by its sign), times
+    sigma(|k|) * exp(-k^2 s^2 / 2), so |c| is exactly the target amplitude;
+    ``flip`` negates it (the paired field, every phase shifted by pi).  On
+    CUDA this launches ``csrc/draw_scale.cu`` in its fixed mode with gain
+    -1 for ``flip`` (counted in ``K2FX_LAUNCHES``); on the CPU it runs
+    :func:`draw_fixed_plain`.
+    """
+    global K2FX_LAUNCHES
+    out, launched = _draw(seed, table, shape, spacing, smoothing_length, 0,
+                          0, None, None, _FIXED, "draw_fixed",
+                          gain=-1.0 if flip else 1.0)
+    K2FX_LAUNCHES += launched
+    return out
+
+
 def draw_scale_shard(seed, table, shape, spacing, smoothing_length=0.0,
                      y_off=0, ny_loc=None):
     """K7: :func:`draw_scale` for a slab mesh's shard, ky rows [y_off,
@@ -444,13 +494,18 @@ def _block_rows(shape, x_off, y_off, nx_loc, ny_loc):
 
 
 def _draw(seed, table, shape, spacing, smoothing_length, x_off, y_off,
-          nx_loc, ny_loc, mode, name):
+          nx_loc, ny_loc, mode, name, gain=float(_INV_SQRT2)):
     """The fused kernel's body: (output, launches) with the plain version
-    on the CPU (0 launches) or one launch of ``mode`` on CUDA."""
+    on the CPU (0 launches) or one launch of ``mode`` on CUDA; ``gain`` is
+    folded into the amplitude (the spectrum's 1/sqrt(2), the fixed field's
+    1 or -1; the fixed mode takes the whole grid)."""
     dev = _check_table(table, name)
     nx, ny, nz = shape
     nx_loc, ny_loc = _block_rows(shape, x_off, y_off, nx_loc, ny_loc)
     if dev.type == "cpu":
+        if mode == _FIXED:
+            return draw_fixed_plain(seed, table, shape, spacing,
+                                    smoothing_length, gain < 0), 0
         if mode == _BITS:
             bits = _canon.canonical_bits_reim(_threefry.key_from_seed(seed),
                                                shape, dev, y_off, ny_loc)
@@ -473,7 +528,7 @@ def _draw(seed, table, shape, spacing, smoothing_length, x_off, y_off,
         int(x_off), nx_loc, int(y_off), ny_loc,
         float(c["kx_scale"]), float(c["ky_scale"]), float(c["kz_scale"]),
         float(_HALF_INV_LN10), float(c["lk0"]), float(c["inv_dlk"]),
-        float(np.float32(smoothing_length)), float(_INV_SQRT2), mode,
+        float(np.float32(smoothing_length)), float(np.float32(gain)), mode,
         _build.current_stream(out),
     )
     _build.check(status, name)
@@ -742,6 +797,78 @@ def _sample(seed, table, shape, spacing, smoothing_length, y_off, ny_loc,
     )
     _build.check(status, name)
     return (re, im), 1
+
+
+def sample_nested_plain(seed, table, shape, spacing, smoothing_length=0.0,
+                        mode="spectrum", flip=False):
+    """:func:`sample_nested` in plain PyTorch on the table's device
+    (:mod:`.sample`'s nested stream, x-slab by x-slab): float32 (2, nx, ny,
+    nzh), or for ``mode='bits'`` int64 uint32 words."""
+    key = _threefry.key_from_seed(seed)
+    dev = table.knots.device
+    if mode == "spectrum":
+        out = _canon.sample_spectrum_nested(key, table, shape, spacing,
+                                            smoothing_length)
+    elif mode == "unit":
+        out = _canon.nested_unit_draws(key, shape, dev)
+    elif mode == "fixed":
+        out = _canon.sample_fixed_spectrum(key, table, shape, spacing,
+                                           smoothing_length, flip,
+                                           nested=True)
+    else:
+        out = _canon.nested_bits(key, _canon.lattice_codes(shape, dev))
+    return torch.stack(out)
+
+
+def sample_nested(seed, table, shape, spacing, smoothing_length=0.0,
+                  mode="spectrum", flip=False):
+    """KN: the ``sampler='nested'`` draws of ``seed`` in one pass.
+
+    Returns float32 (2, nx, ny, nz//2+1), re and im, on the table's device.
+    Each mode's Threefry-2x32 words are the hash of (its lattice code, 0)
+    under ``key_from_seed(seed)`` (:func:`.sample.lattice_codes`), its unit
+    normals their Box-Muller pair (:func:`.sample.nested_unit_draws`).
+    ``mode``: 'spectrum', the kz = 0 / Nyquist planes made Hermitian (a
+    non-canonical mode at its partner's code) times sigma(|k|) *
+    exp(-k^2 s^2 / 2) / sqrt(2), K2's amplitude; 'unit', the raw normals
+    (``generate_noise``); 'fixed', after the fix z / |z| times the
+    amplitude with gain 1, or -1 with ``flip``; 'bits', the two words as
+    int64 uint32 values (a check of the hash).  Every axis at most
+    :data:`.sample.NESTED_MAX_DIM`.  On CUDA this launches
+    ``csrc/sample_modes.cu``'s nested instance; on the CPU it runs
+    :func:`sample_nested_plain`.
+    """
+    global KN_LAUNCHES
+    dev = _check_table(table, "sample_nested")
+    if mode not in NESTED_MODES:
+        raise ValueError(f"sample_nested: unknown mode {mode!r}")
+    if max(shape) > _canon.NESTED_MAX_DIM:
+        raise ValueError(f"nested sampling packs signed indices into 10 bits "
+                         f"per axis: max dim is {_canon.NESTED_MAX_DIM}, got "
+                         f"{tuple(shape)}")
+    if dev.type == "cpu":
+        return sample_nested_plain(seed, table, shape, spacing,
+                                   smoothing_length, mode, flip)
+    nx, ny, nz = shape
+    out = torch.empty((2, nx, ny, nz // 2 + 1),
+                      dtype=torch.int32 if mode == "bits" else torch.float32,
+                      device=dev)
+    gain = {"spectrum": float(_INV_SQRT2), "fixed": -1.0 if flip else 1.0}
+    c = _constants(table, shape, spacing)
+    k0, k1 = _threefry.key_from_seed(seed)
+    status = _build.library().rf_sample_nested(
+        out[0].data_ptr(), out[1].data_ptr(), table.knots.data_ptr(),
+        table.knots.numel(), nx, ny, nz, k0, k1, float(c["kx_scale"]),
+        float(c["ky_scale"]), float(c["kz_scale"]), float(_HALF_INV_LN10),
+        float(c["lk0"]), float(c["inv_dlk"]),
+        float(np.float32(smoothing_length)), gain.get(mode, 1.0),
+        NESTED_MODES[mode], _build.current_stream(out),
+    )
+    _build.check(status, "sample_nested")
+    KN_LAUNCHES += 1
+    if mode == "bits":
+        out = out.to(torch.int64) & 0xFFFFFFFF
+    return out
 
 
 def sample_spectrum(seed, table, shape, spacing, smoothing_length=0.0):

@@ -1,4 +1,4 @@
-"""Hermitian symmetrization of packed re/im spectra, and a plain c2r.
+"""Hermitian symmetrization of packed re/im spectra, and the 3-D transforms.
 
 Port of the render's subset of ``randomfield_tpu/ops/transform.py`` with
 its physical conventions: a real field on an (nx, ny, nz) grid of spacing
@@ -11,6 +11,11 @@ sum, ``norm='forward'``.  Spectra travel as separate float32 re/im
 lattices, never as complex tensors: the kernels read and write them that
 way.  The TPU package's ``'safe'``/``'ct'`` FFT backends work around a
 defect of one TPU runtime and are not ported.
+
+On CUDA tensors the 3-D transforms run the hand kernels of
+:mod:`.fft`: :func:`irfftn_reim` K3 along x, K3 along y and K4 (a render's
+tail), :func:`rfftn` K6 along z and forward K3 along y and x (the kernels
+of the one-rank mesh's forward transform, ``parallel/dfft.py``).
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from randomfield_tpu_torch.ops import fft as _fft
 from randomfield_tpu_torch.ops import grid as _grid
 
 __all__ = ["symmetrize_plane_reim", "symmetrize_with_shape_reim",
-           "symmetrize_slab_reim", "irfftn"]
+           "symmetrize_slab_reim", "irfftn", "irfftn_reim", "rfftn",
+           "is_hermitian"]
 
 _SQRT2 = float(np.sqrt(2.0))
 
@@ -94,3 +101,54 @@ def irfftn(re, im, shape):
     """Plain packed c2r, ``norm='forward'`` (no 1/N), through ``torch.fft``."""
     return torch.fft.irfftn(torch.complex(re, im), s=tuple(shape),
                             dim=(-3, -2, -1), norm="forward")
+
+
+def irfftn_reim(re, im, shape, weights=None, out=None):
+    """Hermitian packed c2r, ``norm='forward'``, times per-plane ``weights``
+    (float32 (nz,); ones by default): K3 along x, then along y (both in
+    place: the (nx, ny, nzh) lattices are consumed), then K4, which writes
+    the float32 (nx, ny, nz) field (``out`` when given).  CPU tensors run
+    each kernel's plain version."""
+    nx, ny, nz = shape
+    nzh = nz // 2 + 1
+    if weights is None:
+        weights = torch.ones(nz, dtype=torch.float32, device=re.device)
+    _fft.ifft_axis(re, im, 1, nx, ny * nzh)
+    _fft.ifft_axis(re, im, nx, ny, nzh)
+    return _fft.c2r_tail(re, im, nz, weights, out=out)
+
+
+def rfftn(delta):
+    """Packed r2c of a float32 (nx, ny, nz) field, unnormalized
+    (``norm='backward'``): new float32 (re, im) (nx, ny, nz//2+1) lattices.
+
+    On CUDA: K6 along z, then forward K3 along y and along x, in place.  On
+    the CPU: ``torch.fft.rfftn``.  The JAX package's ``norm='forward'``
+    result is this over nx ny nz.
+    """
+    delta = torch.as_tensor(delta)
+    if delta.dtype != torch.float32 or delta.ndim != 3:
+        raise ValueError(f"rfftn takes one float32 (nx, ny, nz) field, got "
+                         f"{delta.dtype} {tuple(delta.shape)}")
+    if delta.device.type == "cpu":
+        c = torch.fft.rfftn(delta)
+        return c.real.contiguous(), c.imag.contiguous()
+    nx, ny, nz = delta.shape
+    re, im = _fft.r2c_head(delta.contiguous())
+    _fft.fft_axis(re, im, nx, ny, nz // 2 + 1)
+    _fft.fft_axis(re, im, 1, nx, ny * (nz // 2 + 1))
+    return re, im
+
+
+def is_hermitian(re, im, nz=None, rtol=1e-5, atol=1e-6):
+    """Whether a packed (..., nx, ny, nzh) spectrum is that of a real
+    field: its kz = 0 and (even nz) Nyquist planes unchanged, within the
+    tolerances, by the Hermitian projection (no sqrt(2) scale)."""
+    if nz is None:
+        nz = 2 * (re.shape[-1] - 1)
+    for p in _grid.self_conjugate_kz_planes(nz):
+        fre, fim = symmetrize_plane_reim(re[..., p], im[..., p], False)
+        if not (torch.allclose(re[..., p], fre, rtol=rtol, atol=atol)
+                and torch.allclose(im[..., p], fim, rtol=rtol, atol=atol)):
+            return False
+    return True

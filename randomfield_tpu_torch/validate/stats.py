@@ -34,7 +34,7 @@ from randomfield_tpu_torch.ops import transform as _transform
 
 __all__ = ["calculate_power", "spectrum_power", "spectrum_sums",
            "bin_power_grid", "bin_setup", "plane_bins", "masked_bins",
-           "bins_to_host"]
+           "bins_to_host", "field_moments"]
 
 # x planes binned per step: bounds the |k| / index temporaries at any size
 _X_CHUNK = 16
@@ -202,7 +202,7 @@ def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
         raise NotImplementedError(
             "calculate_power(window=..., interlaced_with=...) is not ported "
             "to randomfield_tpu_torch yet: the catalog estimators "
-            "(ROADMAP.md, Queue 1 item 9)")
+            "(ROADMAP.md, Queue 1 item 6)")
     delta = torch.as_tensor(delta)
     if delta.dtype != torch.float32 or delta.ndim != 3:
         raise ValueError(f"delta must be one float32 (nx, ny, nz) field, got "
@@ -229,3 +229,28 @@ def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
     if mesh is not None:
         mesh.all_reduce_sum(out)
     return bins_to_host(out, nbins)
+
+
+def field_moments(delta, mesh=None):
+    """(mean, variance) of a field as host floats.
+
+    Two passes over x slabs of ``delta`` on its device, each slab summed in
+    float64, so no float32 running sum saturates at any grid size (the
+    reason of the JAX package's axiswise reductions).  One device only: a
+    slab ``mesh`` raises NotImplementedError.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "field_moments of a mesh field is not ported to "
+            "randomfield_tpu_torch yet: the mesh versions (ROADMAP.md, "
+            "Queue 1 item 8)")
+    delta = torch.as_tensor(delta)
+    n = delta.numel()
+    total = torch.zeros((), dtype=torch.float64, device=delta.device)
+    for chunk in delta.split(_X_CHUNK):
+        total += chunk.to(torch.float64).sum()
+    mean = total / n
+    total.zero_()
+    for chunk in delta.split(_X_CHUNK):
+        total += ((chunk.to(torch.float64) - mean) ** 2).sum()
+    return float(mean), float(total / n)

@@ -22,7 +22,9 @@ torch.set_num_threads(2)
 
 import randomfield_tpu_torch as rft  # noqa: E402
 from randomfield_tpu_torch.engine import staged  # noqa: E402
-from randomfield_tpu_torch.ops import fft, genfft, grid, sampler  # noqa: E402
+from randomfield_tpu_torch.models import web  # noqa: E402
+from randomfield_tpu_torch.ops import derived, fft, genfft, grid  # noqa: E402
+from randomfield_tpu_torch.ops import sample, sampler  # noqa: E402
 from randomfield_tpu_torch.ops import threefry, transform  # noqa: E402
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
@@ -580,3 +582,147 @@ def test_staged_threefry_cuda_render_equals_auto(cuda):
     assert torch.equal(a, b)
     assert staged.can_batch_staged(shape, 4, cuda)
     assert not staged.can_batch_staged((2048, 2048, 2048), 4, cuda)
+
+
+# ---- KN (the nested stream), K2F's fixed mode, KD (the derived fields) -------
+
+NESTED_SHAPES = [(16, 16, 16), (64, 32, 64), (32, 16, 30), (32, 64, 18)]
+
+
+def _table(shape, dev):
+    return sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                    device=dev)
+
+
+@pytest.mark.parametrize("shape", NESTED_SHAPES)
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_nested_kernel_matches_plain(cuda, shape, smoothing):
+    table = _table(shape, cuda)
+    before = sampler.KN_LAUNCHES
+    got = {m: sampler.sample_nested(4, table, shape, SPACING, smoothing,
+                                    mode=m)
+           for m in sampler.NESTED_MODES}
+    assert sampler.KN_LAUNCHES == before + len(sampler.NESTED_MODES)
+    for m, out in got.items():
+        want = sampler.sample_nested_plain(4, table, shape, SPACING,
+                                           smoothing, mode=m)
+        if m == "bits":
+            assert torch.equal(out, want)
+        else:
+            # Box-Muller's libdevice logf/sincosf against torch's
+            assert _rel(out, want) <= K2_TOL, m
+    # the render's spectrum is the fix and K2 on the unit mode, bit for bit
+    re, im = got["unit"][0].clone(), got["unit"][1].clone()
+    re, im = staged.scaled_draws(re, im, table, shape, SPACING, smoothing)
+    assert torch.equal(torch.stack([re, im]), got["spectrum"])
+    flip = sampler.sample_nested(4, table, shape, SPACING, smoothing,
+                                 mode="fixed", flip=True)
+    assert torch.equal(flip, -got["fixed"])
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (64, 32, 64), (32, 16, 30)])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_draw_fixed_matches_plain(cuda, shape, smoothing):
+    table = _table(shape, cuda)
+    before = sampler.K2FX_LAUNCHES
+    got = sampler.draw_fixed(4, table, shape, SPACING, smoothing)
+    flip = sampler.draw_fixed(4, table, shape, SPACING, smoothing, flip=True)
+    assert sampler.K2FX_LAUNCHES == before + 2
+    want = sampler.draw_fixed_plain(4, table, shape, SPACING, smoothing)
+    assert _rel(got, want) <= K2_TOL
+    assert torch.equal(flip, -got)
+    # |c| is the amplitude the spectrum mode applies, up to the 1/sqrt(2)
+    amp = sampler.sigma_amplitude(table, shape, SPACING, smoothing)
+    mag = torch.sqrt(got[0] ** 2 + got[1] ** 2)
+    assert float((mag - amp).abs().max()) <= 3e-6 * float(amp.abs().max())
+
+
+KD_CASES = ([("scalar", 0)] + [("grad", a) for a in range(3)]
+            + [("tidal", c) for c in range(6)] + [("kaiser", a) for a in range(3)])
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 64, 30), (64, 16, 9)])
+@pytest.mark.parametrize("kind,comp", KD_CASES)
+def test_spectral_kernel_matches_plain(cuda, shape, kind, comp):
+    nzh = shape[2] // 2 + 1
+    re0 = _randn((shape[0], shape[1], nzh), cuda, 21)
+    im0 = _randn((shape[0], shape[1], nzh), cuda, 22)
+    pref = (1.5, 0.6) if kind == "kaiser" else -0.37
+    before = derived.KD_LAUNCHES
+    a, b = derived.apply_kernel(re0.clone(), im0.clone(), shape, SPACING,
+                                kind, comp, pref)
+    assert derived.KD_LAUNCHES == before + 1
+    c, d = derived.apply_kernel_plain(re0.clone(), im0.clone(), shape,
+                                      SPACING, kind, comp, pref)
+    # the same float32 operations in the same order
+    assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_spectral_kernel_2lpt_diagonals_match_plain(cuda):
+    shape = (32, 16, 32)
+    re0, im0 = _randn((32, 16, 17), cuda, 23), _randn((32, 16, 17), cuda, 24)
+    for comp in range(3):
+        a, b = derived.apply_kernel(re0.clone(), im0.clone(), shape, SPACING,
+                                    "tidal", comp, 0.5, grad_diag=True)
+        c, d = derived.apply_kernel_plain(re0.clone(), im0.clone(), shape,
+                                          SPACING, "tidal", comp, 0.5,
+                                          grad_diag=True)
+        assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_rfftn_runs_k6_and_forward_k3(cuda):
+    x = _randn((32, 16, 64), cuda, 25)
+    before = (fft.K6_LAUNCHES, fft.K3_LAUNCHES)
+    re, im = transform.rfftn(x)
+    assert (fft.K6_LAUNCHES, fft.K3_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    want = torch.fft.rfftn(x)
+    assert _rel(torch.stack([re, im]),
+                torch.stack([want.real, want.imag])) <= K4_TOL
+    assert transform.is_hermitian(re, im, 64, atol=1e-4)
+
+
+@pytest.mark.parametrize("sampler_name", ["threefry", "pallas", "nested"])
+def test_derived_cuda_matches_cpu(cuda, sampler_name):
+    shape, seed, s = (32, 32, 64), 6, 20.0
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda,
+                      sampler=sampler_name)
+    gc = rft.Generator(*shape, grid_spacing=SPACING, device="cpu",
+                       sampler=sampler_name)
+    before = derived.KD_LAUNCHES
+    for name, kw in (("generate_potential", dict(z=0.5)),
+                     ("generate_displacement", {}),
+                     ("generate_displacement", dict(order=2)),
+                     ("generate_velocity", dict(z=1.0)),
+                     ("generate_tidal_field", {}),
+                     ("generate_kaiser_field", dict(z=0.3, bias=1.4))):
+        got = getattr(g, name)(seed, smoothing_length=s, **kw)
+        want = getattr(gc, name)(seed, smoothing_length=s, **kw)
+        assert _rel(got.cpu(), want) <= RENDER_TOL, (name, kw)
+    assert derived.KD_LAUNCHES >= before + 1 + 3 + 3 + 9 + 3 + 6 + 1
+    if sampler_name != "pallas":
+        for flip in (False, True):
+            got = g.generate_fixed_field(seed, smoothing_length=s, flip=flip)
+            want = gc.generate_fixed_field(seed, smoothing_length=s, flip=flip)
+            assert _rel(got.cpu(), want) <= RENDER_TOL
+    classes = g.classify_web(seed, smoothing_length=s)
+    assert classes.dtype == torch.int8 and classes.device.type == "cuda"
+    assert abs(web.web_fractions(classes).sum() - 1.0) < 1e-12
+
+
+def test_nested_cuda_render_and_noise(cuda):
+    shape = (32, 32, 64)
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda,
+                      sampler="nested")
+    gc = rft.Generator(*shape, grid_spacing=SPACING, device="cpu",
+                       sampler="nested")
+    before = sampler.KN_LAUNCHES
+    field = g.generate_delta_field(3, smoothing_length=10.0)
+    assert sampler.KN_LAUNCHES == before + 1
+    assert _rel(field.cpu(), gc.generate_delta_field(
+        3, smoothing_length=10.0)) <= RENDER_TOL
+    noise = g.generate_noise(3)
+    assert torch.equal(g.generate_from_noise(noise, smoothing_length=10.0),
+                       field)
+    key = threefry.key_from_seed(3)
+    want = torch.stack(sample.nested_unit_draws(key, shape))
+    assert _rel(noise.cpu(), want) <= K2_TOL

@@ -324,7 +324,8 @@ def test_c_entries_match_ctypes_signatures():
 
     c_types = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p,
                "int": ctypes.c_int, "long long": ctypes.c_longlong,
-               "float": ctypes.c_float, "uint32_t": ctypes.c_uint32}
+               "float": ctypes.c_float, "uint32_t": ctypes.c_uint32,
+               "double": ctypes.c_double}
     sources = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
     entries = dict(_re.findall(r'extern "C" int (rf_\w+)\(([^)]*)\)', sources))
     assert set(entries) == set(_build._SIGNATURES)

@@ -103,8 +103,8 @@ def test_one_k_for_every_binning():
 def test_unported_estimator_options_raise():
     delta = torch.zeros((8, 8, 8))
     for kw, what in ((dict(mesh=make_pencil_mesh(spx=2, spy=2)), "ROADMAP.md"),
-                     (dict(window="cic"), "Queue 1 item 9"),
-                     (dict(interlaced_with=delta), "Queue 1 item 9")):
+                     (dict(window="cic"), "Queue 1 item 6"),
+                     (dict(interlaced_with=delta), "Queue 1 item 6")):
         with pytest.raises(NotImplementedError, match=what):
             stats.calculate_power(delta, SPACING, 4, **kw)
     with pytest.raises(ValueError, match="float32"):
