@@ -17,7 +17,9 @@ non-zero with no result line:
    hashing kernels K1 (and K8, the same kernel), K2F (and K7), K5, KN (K1's
    kernel on the nested stream) and K2F's fixed mode (cuobjdump), and the
    issue-rate time they imply; K2F's spectrum instance held to its
-   registers and instructions a mode (K2F_SPECTRUM_SASS);
+   registers and instructions a mode (K2F_SPECTRUM_SASS), and K5 to its
+   (K5_SASS: its binning code is now shared with KB); the registers of
+   KB's twelve instances;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -43,12 +45,28 @@ non-zero with no result line:
    apart); KN sample_nested (bits exact; spectrum, unit normals and the
    fixed field), K2F's fixed mode draw_fixed (|c| = sigma filter, the paired
    field the exact negation) and KD apply_kernel (each kind and component);
+   KB bin_spectrum on the forward transforms of two 1024^3 renders (and the
+   Kaiser expectation grid): auto, cross, interlaced and grid, each
+   isotropic, with ells (0, 2, 4), with nmu = 4 wedges and with the cic
+   window, counts equal to the plain version's, sums within 1e-10, two
+   calls bit-equal; K5's block at 256^3 against its stored digest; the
+   threefry and pallas scenes' sigma tables unchanged, the nested tables
+   of 512^3 and 1024^3 over one box sharing their knots;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
    seeds at 16^3) on K1's stream and on the v6 stream of K10; sample_power
    vs calculate_power of the same seed's field at 256^3; the nested render,
    fixed and paired fields and every derived field, CUDA vs CPU at 128^3;
+   the estimators' gates: Kaiser multipoles and wedges of 8 renders at
+   512^3 against predicted_kaiser_multipoles / _wedges (5 sigma of the mean
+   + 5e-3 of the scale), the cross power of a field with itself bit-equal
+   to its power, xi of 6 renders at 256^3 against predicted_correlation,
+   the local f_NL bispectrum of 2 renders at 256^3 against
+   predicted_ng_bispectrum (slope, |z| < 5, SNR) and a fixed Gaussian
+   field's against 0, sample_power_ensemble resumed from its checkpoint
+   equal to the uninterrupted run, and each estimator on the card against
+   the same on the CPU at 128^3;
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
@@ -57,7 +75,9 @@ non-zero with no result line:
    of 64 seeds (nbins = 32; one K5 launch over the batch into one device
    block, one transfer), whose mean P(k) must match the binned prediction within 6
    sigma of its sampling noise and whose rows must equal single sample_power
-   calls bit for bit; then the slab mesh at 1024^3, both
+   calls bit for bit; the estimator paths (calculate_power, the
+   multipoles, the bispectrum, the potential f_NL render), each launching
+   K6, K3, K4 or KB and never torch.fft; then the slab mesh at 1024^3, both
    samplers: four ranks in a gloo group share the card (spawned processes;
    gloo stages the CUDA tensors of its collectives through host memory),
    each rank's x slab equal to the same rows of the single-device render
@@ -70,7 +90,7 @@ non-zero with no result line:
    predictions), and generate_delta_fields of 4 seeds at 512^3 through the
    in-program seed batch, its rows bit-equal to single renders; then the
    nested render (determinism, variance, zoom against 512^3 over the same
-   box), its generate_noise -> generate_from_noise bit-equal to it, the
+   box within 1e-6 of max|c|), its generate_noise -> generate_from_noise bit-equal to it, the
    fixed field (variance within 1e-4, paired = -fixed bit for bit),
    -div(psi) of the displacement against delta, the velocity, tidal and
    Kaiser fields, and 2LPT and classify_web at 512^3 with their peak memory;
@@ -88,7 +108,11 @@ non-zero with no result line:
    the four-rank run's per-rank stage times (host clock; the exchanges are
    gloo's through host memory, not the card's); KN (three modes), K2F fixed
    and KD beside their plain versions, the nested, fixed and displacement
-   renders and their stages.
+   renders and their stages; calculate_power split into its transform and
+   KB, KB beside its plain version (index_add_) and in its other kinds and
+   outputs, the multipoles, wedges, cross and interlaced estimators, the
+   bispectrum (nbins = 8: first call and cached, its peak memory), xi and
+   both f_NL renders.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -97,6 +121,7 @@ The line before the last is a JSON object of the kernels; the last is
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -156,9 +181,14 @@ KERNELS = {
     "KD": dict(name="apply_kernel", route="cuda",
                source="randomfield_tpu_torch/csrc/spectral_kernel.cu",
                replaces="randomfield_tpu/ops/derived.py:265"),
+    # the estimators' binning: XLA's one-hot contraction _dot_bin behind
+    # _masked_bins and its callers, no pl.pallas_call
+    "KB": dict(name="bin_spectrum", route="cuda",
+               source="randomfield_tpu_torch/csrc/bin_spectrum.cu",
+               replaces="randomfield_tpu/validate/stats.py:77"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10", "KN", "K2FX", "KD")
+                "K10", "KN", "K2FX", "KD", "KB")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -215,11 +245,13 @@ FP32_OPS_PER_S = 67e12
 # KN: K1's count (its hash, Box-Muller and K2's amplitude).  K2F fixed: K2F's
 # and the modulus (two multiplies, an add, a sqrtf, two divisions, a compare:
 # 7).  KD: |k|^2 (3), the division, the kernel's factor (3), two multiplies.
+# KB (auto, isotropic): |k|^2 and its sqrtf (3), the edge compare and the
+# mask (3), the power (4), the weight and the three float64 adds (5).
 K10_DRAW_OPS = 74 + 7 + 12 + 12 + 4
 OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
                 "K2": 24, "K2F": 2 * (74 + 42) + 6 + 24,
                 "K10": K10_DRAW_OPS + 5 * 10, "KN": 74 + 7 + 12 + 12 + 4,
-                "K2FX": 2 * (74 + 42) + 6 + 24 + 7, "KD": 9}
+                "K2FX": 2 * (74 + 42) + 6 + 24 + 7, "KD": 9, "KB": 15}
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
 # single-seed variance vs prediction at 1024^3
@@ -389,12 +421,17 @@ def sass_functions(lib, cuobjdump):
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if m and cur is not None:
             cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs, res_usage(lib, cuobjdump)
+
+
+def res_usage(lib, cuobjdump):
+    """{function: registers a thread} of a library (``cuobjdump
+    -res-usage``: the registers ``nvcc -Xptxas -v`` reports)."""
     text = subprocess.run([cuobjdump, "-res-usage", str(lib)],
                           capture_output=True, text=True, timeout=600,
                           check=True).stdout
-    regs = {m.group(1): int(m.group(2))
+    return {m.group(1): int(m.group(2))
             for m in re.finditer(r"Function (\S+?):?\s+REG:(\d+)", text)}
-    return funcs, regs
 
 
 def hash_loop(instrs):
@@ -481,6 +518,22 @@ def phase0_sass(torch, card):
     if (regs, hot) != K2F_SPECTRUM_SASS:
         raise AssertionError("adding K2F's fixed mode moved its spectrum "
                              "instance")
+    regs, hot = counts["K5"][0], counts["K5"][4]
+    log(f"phase 0 K5: {regs} registers, {hot:.1f} hot instructions a mode; "
+        f"expected {K5_SASS[0]}, {K5_SASS[1]:.1f} (its binning code now in "
+        f"csrc/bins_common.cuh, shared with KB)")
+    if (regs, hot) != K5_SASS:
+        raise AssertionError("sharing the binning code moved K5")
+    instances = []
+    for f, r in sorted(res_usage(_build.library_path(),
+                                 _build.cuda_tool("cuobjdump")).items()):
+        m = re.search(r"bin_spectrum_kernelILi(\d)ELi(\d)E", f)
+        if m:
+            instances.append(f"<{m.group(1)}, {m.group(2)}> {r}")
+    log(f"phase 0 KB bin_spectrum_kernel<KIND, OUT>: registers a thread, "
+        f"{', '.join(instances)} [{card}]")
+    if len(instances) != 12:
+        raise AssertionError("KB's instances are missing from the library")
     for kid, (regs, span, hot, hashes, per_mode) in counts.items():
         n_modes = modes // MESH_RANKS if kid in ("K7", "K8") else modes
         ms = 1e3 * per_mode * n_modes / 32 / (sms * 4 * clock_mhz * 1e6)
@@ -886,14 +939,22 @@ def reset_counts():
     fft.K3_LAUNCHES = fft.K4_LAUNCHES = fft.K6_LAUNCHES = 0
     fft.K9_LAUNCHES = genfft.K10_LAUNCHES = 0
     sampler.KN_LAUNCHES = sampler.K2FX_LAUNCHES = derived.KD_LAUNCHES = 0
+    from randomfield_tpu_torch.ops import binning, transform
+
+    binning.KB_LAUNCHES = transform.TORCH_FFT_CALLS = 0
 
 
 def read_counts():
-    from randomfield_tpu_torch.ops import fft, genfft, sampler
+    """The launches of every kernel, and "torch.fft": the 3-D transforms of
+    CUDA tensors that went to torch.fft (grids the kernels do not take)."""
+    from randomfield_tpu_torch.ops import binning, fft, genfft, sampler
+    from randomfield_tpu_torch.ops import transform
 
     from randomfield_tpu_torch.ops import derived
 
-    return {"K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
+    return {"KB": binning.KB_LAUNCHES,
+            "torch.fft": transform.TORCH_FFT_CALLS,
+            "K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
             "K2F": sampler.K2F_LAUNCHES, "K3": fft.K3_LAUNCHES,
             "K4": fft.K4_LAUNCHES, "K5": sampler.K5_LAUNCHES,
             "K6": fft.K6_LAUNCHES,
@@ -1907,9 +1968,6 @@ def phase4_mesh(torch, rft, dev, g, gp, mesh, card):
 FIXED_MOD_BAR = 3e-6
 # the fixed field's variance against the prediction (tests/test_fixed.py)
 FIXED_VAR_BAR = 1e-4
-# the nested zoom: the modes two grids over one box share, the bar of the
-# CPU tests (tests/test_nested.py, tests/test_torch_nested.py)
-ZOOM_ATOL, ZOOM_RTOL = 2e-4, 2e-3
 # -div(psi) and trace(T) against delta (tests/test_derived.py:51); the
 # gradient zeroes the Nyquist modes, so the field is smoothed to ten cells
 DIV_RTOL, DIV_ATOL = 1e-3, 1e-4
@@ -2150,12 +2208,12 @@ def phase3_slice(torch, rft, dev, g, card):
     c_hi = c_hi[s_idx % HEADLINE[0]][:, s_idx % HEADLINE[1]][:, :, :m // 2]
     scale = float(c_lo.abs().max())
     d = (c_lo - c_hi).abs()
-    ok = bool((d <= ZOOM_ATOL * scale + ZOOM_RTOL * c_hi.abs()).all())
     gap = float(d.max()) / scale
+    ok = gap <= ZOOM_GAP
     log(f"phase 3 nested zoom {coarse_shape} vs {HEADLINE} over one "
         f"{HEADLINE[0] * HEADLINE_SPACING:g} Mpc/h box: the "
         f"{c_lo.numel()} modes both hold, max|dc| / max|c| {gap:.3e} (bar "
-        f"atol {ZOOM_ATOL:g} max|c| + rtol {ZOOM_RTOL:g})")
+        f"{ZOOM_GAP:g})")
     del c_lo, c_hi, d, f1
     torch.cuda.empty_cache()
     if not ok:
@@ -2405,6 +2463,483 @@ def phase4_slice(torch, rft, dev, g, card):
 
 
 
+# ---- the measurement surface: KB, the estimators, the bispectrum, f_NL -------
+
+# KB against its plain version at the 1024^3 main path's spectra: the same
+# float32 terms a mode, added in float64 in another order; counts exactly,
+# two calls bit for bit
+KB_SUM_RTOL = 1e-10
+KB_KINDS = ("auto", "cross", "interlaced", "grid")
+KB_OUTPUTS = {"isotropic": {}, "ells (0, 2, 4)": dict(ells=(0, 2, 4)),
+              "nmu = 4 wedges": dict(nmu=4), "window cic": dict(order=2)}
+# K5's float64 block at 256^3 (pallas, seed 3, NBINS bins, no smoothing):
+# the sha256 of its bytes as the kernel computed it before it shared its
+# binning code with KB (csrc/bins_common.cuh); K5's registers and hot SASS
+# instructions a mode, which that must not move either
+K5_DIGEST_SHAPE, K5_DIGEST_SPACING, K5_DIGEST_SEED = (256, 256, 256), 8.0, 3
+K5_DIGEST = "5cec6ddee1deb2ac9edf9a3397db969f09092784c7ea8a1608de6e561ed093d7"
+K5_SASS = (48, 169.5)
+# the nested zoom with the box-anchored sigma table: max|dc| / max|c| over
+# the modes two grids of one box share (the class of the JAX package's
+# per-mode sigma grid)
+ZOOM_GAP = 1e-6
+# Kaiser multipoles and wedges of 512^3 renders against their exact
+# expectations, in sampling sigmas of the seeds' mean with a floor
+# (tests/test_kaiser.py, tests/test_wedges.py)
+RSD_SHAPE, RSD_SPACING, RSD_SEEDS, RSD_BINS = (512, 512, 512), 4.0, 8, 16
+KAISER_BIAS, KAISER_F = 1.3, 0.8
+RSD_SIGMAS, RSD_FLOOR = 5.0, 5e-3
+# xi at 256^3 against its prediction (tests/test_correlation.py)
+XI_SHAPE, XI_SPACING, XI_SEEDS, XI_BINS, XI_FLOOR = ((256, 256, 256), 4.0,
+                                                     6, 24, 1e-4)
+# local f_NL against the tree prediction at 256^3 (16 shells), and a fixed
+# Gaussian field's bispectrum against 0 (tests/test_nongaussian.py,
+# tests/test_bispectrum.py).  f_NL is a fifth of the JAX test's 0.05: at
+# 256^3 the tree signal stands ~1400 sigma above the noise, so its O(f_NL^3)
+# loop term (+1.7% at 0.05, measured) would alone exceed 5 sigma; it falls
+# as f_NL^2
+NG_SHAPE, NG_SPACING, NG_FNL, NG_NBINS, NG_SEEDS = ((256, 256, 256), 4.0,
+                                                    0.01, 8, 2)
+NG_SLOPE, NG_Z, NG_SNR = (0.93, 1.07), 5.0, 50.0
+ZERO_Z, ZERO_RMS = 5.0, (0.4, 2.0)
+# checkpointed ensemble: seeds, checkpoint cadence
+ENSEMBLE_CK_SHAPE, ENSEMBLE_CK_SEEDS = (256, 256, 256), 6
+# each CUDA estimator against the same on the CPU at 128^3: the hand FFTs
+# against torch.fft (float32 rounding of the spectrum), sums in float64;
+# the bispectrum's float32 shells at its own bars (tests/test_bispectrum.py),
+# of the largest triad count and |B|: a thin triple's count is the small
+# remainder of large float32 shell products (1.1e-3 relative measured at
+# 128^3)
+ESTIMATOR_SHAPE, ESTIMATOR_SPACING, ESTIMATOR_RTOL = (128, 128, 128), 8.0, 1e-5
+BISPECTRUM_NTRI_RTOL, BISPECTRUM_B_TOL = 1e-4, 1e-3
+# the 1024^3 bispectrum's bins
+BISPECTRUM_NBINS = 8
+
+
+def k5_digest(torch, rft, dev):
+    """sha256 of K5's float64 (1, 3, NBINS) block at K5_DIGEST_SHAPE."""
+    from randomfield_tpu_torch.ops import sampler
+    from randomfield_tpu_torch.validate import stats
+
+    g = rft.Generator(*K5_DIGEST_SHAPE, grid_spacing=K5_DIGEST_SPACING,
+                      device=dev, sampler="pallas")
+    edges, _ = stats.bin_setup(g.shape, g.grid_spacing, NBINS)
+    plan = sampler.bin_plan(g.shape, g.grid_spacing, edges, dev)
+    acc = sampler.sample_power_bins_batch([K5_DIGEST_SEED], g.state.table,
+                                          g.shape, g.grid_spacing, 0.0, plan)
+    return hashlib.sha256(acc.cpu().numpy().tobytes()).hexdigest()
+
+
+def phase1_measure(torch, rft, dev, g, gp, errs):
+    """KB against its plain version at 1024^3 on the main path's spectra
+    (the forward transforms of two renders; the Kaiser expectation grid
+    for 'grid'), every kind isotropic, with ells (0, 2, 4), with nmu = 4
+    wedges and with the cic window: counts exactly equal, sums within
+    KB_SUM_RTOL, two calls bit-equal; K5's block at 256^3 against its
+    stored digest; the sigma tables of the three samplers."""
+    from randomfield_tpu_torch.ops import binning, sampler, transform
+    from randomfield_tpu_torch.validate import fourier, stats
+
+    spacing = HEADLINE_SPACING
+    f1 = g.generate_delta_field(1, apply_lightcone=False)
+    re1, im1 = transform.rfftn(f1)
+    del f1
+    f2 = g.generate_delta_field(2, apply_lightcone=False)
+    re2, im2 = transform.rfftn(f2)
+    del f2
+    grid = g._kaiser_pgrid(0.0, KAISER_BIAS, KAISER_F, 2, 0.0)
+    inputs = {"auto": (re1, im1), "cross": (re1, im1, re2, im2),
+              "interlaced": (re1, im1, re2, im2), "grid": (grid,)}
+    edges, _ = stats.bin_setup(HEADLINE, spacing, NBINS)
+    factor = fourier._factor(HEADLINE, spacing)
+    for kind in KB_KINDS:
+        for what, kw in KB_OUTPUTS.items():
+            args = (kind, inputs[kind], HEADLINE, spacing, edges)
+            got = binning.bin_spectrum(*args, factor=factor, **kw)
+            again = binning.bin_spectrum(*args, factor=factor, **kw)
+            want = binning.bin_spectrum_plain(*args, factor=factor, **kw)
+            counts = torch.equal(got[:, 0], want[:, 0])
+            rel = max(float((got[:, r] - want[:, r]).abs().max()
+                            / want[:, r].abs().max()) for r in (1, 2))
+            errs["KB"] = max(errs.get("KB", 0.0),
+                             float((got - want).abs().max()))
+            bit = torch.equal(got, again)
+            log(f"phase 1 KB {kind} {what} {HEADLINE} nbins={NBINS}: counts "
+                f"{'equal' if counts else 'DIFFER'}, sums rel {rel:.3e} (bar "
+                f"{KB_SUM_RTOL:g}), two calls "
+                f"{'bit-equal' if bit else 'DIFFERENT'}")
+            if not (counts and bit and rel <= KB_SUM_RTOL):
+                raise AssertionError(f"KB {kind} {what} disagrees")
+    del inputs, re1, im1, re2, im2, grid
+    torch.cuda.empty_cache()
+    digest = k5_digest(torch, rft, dev)
+    log(f"phase 1 K5 {K5_DIGEST_SHAPE} seed {K5_DIGEST_SEED} block sha256 "
+        f"{digest} (stored {K5_DIGEST})")
+    if digest != K5_DIGEST:
+        raise AssertionError("K5's output moved")
+    power = g.power
+    same = []
+    for gen_, make in ((g, sampler.make_sigma_table),
+                       (gp, sampler.make_sigma_table)):
+        t = make(power, HEADLINE, spacing, device=dev)
+        same.append(torch.equal(gen_.state.table.knots, t.knots)
+                    and (gen_.state.table.lk0, gen_.state.table.dlk)
+                    == (t.lk0, t.dlk))
+    fine = sampler.make_box_sigma_table(power, HEADLINE, spacing)
+    coarse = sampler.make_box_sigma_table(
+        power, tuple(n // 2 for n in HEADLINE), 2 * spacing)
+    m = coarse.knots.numel()
+    shared = (torch.equal(fine.knots[:m], coarse.knots)
+              and (fine.lk0, fine.dlk) == (coarse.lk0, coarse.dlk))
+    log(f"phase 1 sigma tables: threefry and pallas scenes "
+        f"{'the grid table' if all(same) else 'CHANGED'}; nested "
+        f"{tuple(n // 2 for n in HEADLINE)} and {HEADLINE} over one box "
+        f"{'share' if shared else 'DO NOT share'} their {m} knots "
+        f"({fine.knots.numel()} in the finer table)")
+    if not (all(same) and shared):
+        raise AssertionError("the sigma tables are off")
+
+
+def _seed_mean(stack):
+    a = np.asarray(stack, np.float64)
+    return a.mean(axis=0), a.std(axis=0, ddof=1) / np.sqrt(a.shape[0])
+
+
+def _rsd_gate(what, mean, sd, pred, counts, scale):
+    """Seed-averaged estimates against the exact expectation: within
+    RSD_SIGMAS of the mean's scatter plus RSD_FLOOR of ``scale`` (the
+    monopole for the multipoles, a shell's largest wedge for the wedges),
+    in the bins with more than 4 modes."""
+    m = np.broadcast_to(counts > 4, pred.shape)
+    budget = RSD_SIGMAS * sd + RSD_FLOOR * np.broadcast_to(scale, pred.shape)
+    worst = float(np.max((np.abs(mean - pred) / budget)[m]))
+    log(f"phase 2 {what}: max |mean - predicted| / budget {worst:.3f} over "
+        f"{int(m.sum())} bins (budget {RSD_SIGMAS:g} sigma of the mean of "
+        f"{RSD_SEEDS} seeds + {RSD_FLOOR:g} of the scale)")
+    if not worst < 1.0:
+        raise AssertionError(f"{what} misses its expectation")
+
+
+def _gaussian_bispectrum_sigma(kc, tri, ntri, power, volume, nseeds):
+    """The Gaussian noise of a binned B: s V P1 P2 P3 / Ntri / nseeds, s =
+    6, 2, 1 for equilateral, isoceles and scalene triples."""
+    pk = np.interp(np.log10(kc), np.log10(power.k), power.Pk)
+    s = np.array([{1: 6, 2: 2, 3: 1}[len(set(t))] for t in map(tuple, tri)],
+                 np.float64)
+    return np.sqrt(s * volume * pk[tri[:, 0]] * pk[tri[:, 1]] * pk[tri[:, 2]]
+                   / ntri / nseeds)
+
+
+def phase2_measure(torch, rft, dev):
+    """The estimators' gates on the card: Kaiser multipoles and wedges at
+    512^3, the cross power of a field with itself, xi at 256^3, the local
+    f_NL bispectrum and a fixed Gaussian field's at 256^3, the checkpointed
+    ensemble, and each CUDA estimator against the CPU at 128^3."""
+    import tempfile
+
+    from randomfield_tpu_torch.validate import bispectrum, ensemble, stats
+
+    g = rft.Generator(*RSD_SHAPE, grid_spacing=RSD_SPACING, device=dev)
+    kw = dict(bias=KAISER_BIAS, f=KAISER_F)
+    poles, wedges = [], []
+    for s in range(RSD_SEEDS):
+        rs = g.generate_kaiser_field(s, **kw)
+        poles.append(stats.calculate_power_multipoles(rs, RSD_SPACING,
+                                                      RSD_BINS)[1])
+        wedges.append(stats.calculate_power_wedges(rs, RSD_SPACING, RSD_BINS,
+                                                   nmu=4)[1])
+        if s == 0:
+            auto = stats.calculate_power(rs, RSD_SPACING, RSD_BINS)
+            cross = stats.calculate_cross_power(rs, rs, RSD_SPACING, RSD_BINS)
+            same = all(np.array_equal(a, b, equal_nan=True)
+                       for a, b in zip(auto, cross))
+            log(f"phase 2 calculate_cross_power(d, d) vs calculate_power(d) "
+                f"{RSD_SHAPE}: {'bit-equal' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError("the cross power of a field with itself "
+                                     "is not its power")
+        del rs
+    _, p_pred, cnt = g.predicted_kaiser_multipoles(nbins=RSD_BINS, **kw)
+    mean, sd = _seed_mean(poles)
+    _rsd_gate(f"Kaiser multipoles {RSD_SHAPE} vs predicted_kaiser_multipoles",
+              mean, sd, p_pred, cnt, np.abs(p_pred[0]))
+    _, w_pred, wcnt = g.predicted_kaiser_wedges(nbins=RSD_BINS, nmu=4, **kw)
+    mean, sd = _seed_mean(wedges)
+    _rsd_gate(f"Kaiser wedges {RSD_SHAPE} vs predicted_kaiser_wedges",
+              mean, sd, w_pred, wcnt,
+              np.nanmax(np.abs(w_pred), axis=1, keepdims=True))
+    del g
+    torch.cuda.empty_cache()
+
+    g = rft.Generator(*XI_SHAPE, grid_spacing=XI_SPACING, device=dev)
+    r_pred, xi_pred, n_pred = stats.predicted_correlation(
+        g.power, XI_SHAPE, XI_SPACING, XI_BINS, device=dev)
+    acc = [stats.calculate_correlation(g.generate_delta_field(
+        s, apply_lightcone=False), XI_SPACING, XI_BINS)[1]
+        for s in range(XI_SEEDS)]
+    mean, sd = _seed_mean(acc)
+    mask = n_pred > 0
+    worst = float(np.max(np.abs(mean - xi_pred)[mask] / (
+        5.0 * sd[mask] + XI_FLOOR * np.nanmax(np.abs(xi_pred)))))
+    log(f"phase 2 calculate_correlation vs predicted_correlation {XI_SHAPE}, "
+        f"{XI_SEEDS} seeds: max |mean - predicted| / budget {worst:.3f} (budget "
+        f"5 sigma + {XI_FLOOR:g} max|xi|)")
+    if not worst < 1.0:
+        raise AssertionError("xi misses its prediction")
+
+    g = rft.Generator(*NG_SHAPE, grid_spacing=NG_SPACING, device=dev)
+    volume = float(np.prod(NG_SHAPE)) * NG_SPACING ** 3
+    acc = None
+    for s in range(NG_SEEDS):
+        d = g.generate_nongaussian_field(s, NG_FNL)
+        kc, tri, b, ntri = g.calculate_bispectrum(d, nbins=NG_NBINS)
+        acc = b if acc is None else acc + b
+    b = acc / NG_SEEDS
+    _, trip, bp, ntrip = g.predicted_ng_bispectrum(NG_FNL, nbins=NG_NBINS)
+    if not np.array_equal(tri, trip):
+        raise AssertionError("the prediction's triples differ")
+    sig = _gaussian_bispectrum_sigma(kc, tri, ntri, g.power, volume, NG_SEEDS)
+    z = (b - bp) / sig
+    w = 1.0 / sig ** 2
+    slope = float(np.sum(w * b * bp) / np.sum(w * bp * bp))
+    snr = float(np.sqrt(np.sum((bp / sig) ** 2)))
+    log(f"phase 2 local f_NL = {NG_FNL:g} bispectrum {NG_SHAPE} nbins="
+        f"{NG_NBINS}, {NG_SEEDS} seeds, {len(tri)} triples: slope "
+        f"{slope:.4f} (bar {NG_SLOPE}), max|z| {np.abs(z).max():.3f} (bar "
+        f"{NG_Z:g}), SNR {snr:.1f} (bar > {NG_SNR:g})")
+    if not (NG_SLOPE[0] < slope < NG_SLOPE[1] and np.abs(z).max() < NG_Z
+            and snr > NG_SNR):
+        raise AssertionError("the f_NL bispectrum misses its prediction")
+    d = g.generate_fixed_field(11, apply_lightcone=False)
+    kc, tri, b, ntri = bispectrum.calculate_bispectrum(d, NG_SPACING,
+                                                       nbins=NG_NBINS)
+    kp, pp, _ = g.calculate_power(d, nbins=2 * NG_NBINS)
+    ok = np.isfinite(pp)
+    pk = np.interp(kc[tri], kp[ok], pp[ok])
+    s = np.array([{1: 6, 2: 2, 3: 1}[len(set(t))] for t in map(tuple, tri)])
+    z = b / np.sqrt(s * volume * pk[:, 0] * pk[:, 1] * pk[:, 2] / ntri)
+    rms = float(np.sqrt(np.mean(z ** 2)))
+    log(f"phase 2 fixed Gaussian field bispectrum {NG_SHAPE}: max|z| "
+        f"{np.abs(z).max():.3f} (bar {ZERO_Z:g}), rms {rms:.3f} (bar "
+        f"{ZERO_RMS})")
+    if not (np.abs(z).max() < ZERO_Z and ZERO_RMS[0] < rms < ZERO_RMS[1]):
+        raise AssertionError("a Gaussian field's bispectrum is not 0")
+    del d, g
+    torch.cuda.empty_cache()
+
+    g = rft.Generator(*ENSEMBLE_CK_SHAPE, grid_spacing=8.0, device=dev,
+                      sampler="pallas")
+    seeds = list(range(ENSEMBLE_CK_SEEDS))
+    whole = ensemble.sample_power_ensemble(g, seeds, nbins=NBINS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ensemble.npz")
+        ensemble.sample_power_ensemble(g, seeds[:2], nbins=NBINS,
+                                       checkpoint_path=ckpt,
+                                       checkpoint_every=1)
+        resumed = ensemble.sample_power_ensemble(g, seeds, nbins=NBINS,
+                                                 checkpoint_path=ckpt,
+                                                 checkpoint_every=2)
+    equal = all(np.array_equal(a, b, equal_nan=True)
+                for a, b in zip(whole, resumed))
+    log(f"phase 2 sample_power_ensemble {ENSEMBLE_CK_SHAPE}, "
+        f"{ENSEMBLE_CK_SEEDS} seeds, resumed from its checkpoint after 2: "
+        f"{'equal' if equal else 'DIFFERS from'} the uninterrupted run")
+    if not equal:
+        raise AssertionError("the resumed ensemble differs")
+
+    phase2_estimators_vs_cpu(torch, dev)
+
+
+def phase2_estimators_vs_cpu(torch, dev):
+    """Each estimator on the card against the same on the CPU, one 128^3
+    field (and a second for the cross and interlaced spectra)."""
+    from randomfield_tpu_torch.validate import bispectrum, stats
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    d = torch.randn(ESTIMATOR_SHAPE, generator=gen, device=dev)
+    d2 = torch.randn(ESTIMATOR_SHAPE, generator=gen, device=dev)
+    sp = ESTIMATOR_SPACING
+    calls = {
+        "calculate_power": lambda a, b: stats.calculate_power(a, sp),
+        "calculate_power cic interlaced": lambda a, b: stats.calculate_power(
+            a, sp, window="cic", interlaced_with=b),
+        "calculate_power_multipoles": lambda a, b:
+            stats.calculate_power_multipoles(a, sp),
+        "calculate_power_wedges": lambda a, b: stats.calculate_power_wedges(
+            a, sp),
+        "calculate_cross_power": lambda a, b: stats.calculate_cross_power(
+            a, b, sp),
+        "calculate_correlation": lambda a, b: stats.calculate_correlation(
+            a, sp),
+        "calculate_correlation_multipoles": lambda a, b:
+            stats.calculate_correlation_multipoles(a, sp),
+        "calculate_power_1d": lambda a, b: stats.calculate_power_1d(a, sp),
+    }
+    for name, call in calls.items():
+        got, want = call(d, d2), call(d.cpu(), d2.cpu())
+        worst = 0.0
+        for a, b in zip(got, want):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            ok = np.isfinite(b)
+            if not np.array_equal(ok, np.isfinite(a)):
+                raise AssertionError(f"{name}: other empty bins on the card")
+            worst = max(worst, float(np.max(np.abs(a[ok] - b[ok]))
+                                     / max(np.max(np.abs(b[ok])), 1e-300)))
+        log(f"phase 2 {name} {ESTIMATOR_SHAPE} CUDA vs CPU: max |d| / max "
+            f"{worst:.3e} (bar {ESTIMATOR_RTOL:g})")
+        if not worst <= ESTIMATOR_RTOL:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+    got = bispectrum.calculate_bispectrum(d, sp, nbins=4)
+    want = bispectrum.calculate_bispectrum(d.cpu(), sp, nbins=4)
+    ntri = float(np.max(np.abs(got[3] - want[3])) / np.max(want[3]))
+    b_err = float(np.max(np.abs(got[2] - want[2])) / np.abs(want[2]).max())
+    log(f"phase 2 calculate_bispectrum {ESTIMATOR_SHAPE} CUDA vs CPU: triples "
+        f"{'equal' if np.array_equal(got[1], want[1]) else 'DIFFER'}, ntri "
+        f"{ntri:.3e} of the largest (bar {BISPECTRUM_NTRI_RTOL:g}; the largest "
+        f"relative gap {np.max(np.abs(got[3] / want[3] - 1.0)):.3e}, on the "
+        f"thinnest triples), B {b_err:.3e} of max|B| (bar "
+        f"{BISPECTRUM_B_TOL:g})")
+    if not (np.array_equal(got[1], want[1]) and ntri <= BISPECTRUM_NTRI_RTOL
+            and b_err <= BISPECTRUM_B_TOL):
+        raise AssertionError("the bispectrum on the card disagrees")
+
+
+def phase3_measure(torch, rft, dev, g, card):
+    """The estimator paths at 1024^3 through the public API, each with the
+    launch counts set to 0 before it and read after it: calculate_power,
+    the multipoles (K6, forward K3 twice, KB), the bispectrum (its shells
+    and unit shells: K3 twice and K4 a shell) and the potential f_NL render
+    (the render, two forward and two inverse transforms), none of them
+    through torch.fft.  Returns the launch counts, summed."""
+    from randomfield_tpu_torch.validate import stats
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    field = g.generate_delta_field(7, apply_lightcone=False)
+    shells = 2 * BISPECTRUM_NBINS
+    paths = (
+        ("calculate_power", lambda: g.calculate_power(field, NBINS),
+         {"K6": 1, "K3": 2, "KB": 1}),
+        ("calculate_power_multipoles", lambda: stats.calculate_power_multipoles(
+            field, HEADLINE_SPACING, NBINS), {"K6": 1, "K3": 2, "KB": 1}),
+        ("calculate_bispectrum", lambda: g.calculate_bispectrum(
+            field, nbins=BISPECTRUM_NBINS),
+         {"K6": 1, "K3": 2 + 2 * shells, "K4": shells}),
+        ("generate_nongaussian_field(kind='potential')",
+         lambda: g.generate_nongaussian_field(3, 2e3, kind="potential"),
+         {"K2F": 1, "K6": 2, "K3": 10, "K4": 3}),
+    )
+    for what, fn, least in paths:
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require_launches(counts, least, what)
+        if counts["torch.fft"]:
+            raise AssertionError(f"{what} went through torch.fft")
+        for k in KERNEL_ORDER:
+            total[k] += counts[k]
+        log(f"phase 3 main path {what} {HEADLINE}: launches "
+            f"{ {k: n for k, n in counts.items() if n} }, torch.fft calls 0")
+        del out
+    del field
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase4_measure(torch, rft, dev, g, card):
+    """Times at 1024^3: calculate_power split into its transform and KB,
+    KB against its plain version on the card, KB's other kinds (the grid
+    kind on the Kaiser expectation) and outputs, the multipoles, wedges and cross power, the
+    bispectrum (its first call with the unit shells, then cached) with its
+    peak memory, xi, and the f_NL renders.  Returns {"KB": (ms, plain_ms,
+    None)}."""
+    from randomfield_tpu_torch.ops import binning, transform
+    from randomfield_tpu_torch.validate import bispectrum, fourier, stats
+
+    sp = HEADLINE_SPACING
+    field = g.generate_delta_field(7, apply_lightcone=False)
+    field2 = g.generate_delta_field(8, apply_lightcone=False)
+    fwd = cuda_ms(torch, lambda: transform.rfftn(field))
+    re, im = transform.rfftn(field)
+    re2, im2 = transform.rfftn(field2)
+    edges, _ = stats.bin_setup(HEADLINE, sp, NBINS)
+    factor = fourier._factor(HEADLINE, sp)
+    args = ("auto", (re, im), HEADLINE, sp, edges)
+    k_ms, p_ms, _ = time_kernel(
+        torch, f"KB bin_spectrum auto nbins={NBINS}",
+        lambda: binning.bin_spectrum(*args, factor=factor),
+        lambda: binning.bin_spectrum_plain(*args, factor=factor), None, None,
+        HEADLINE, card, plain_reps=SLOW_PLAIN_REPS)
+    for kind, arrays in (("cross", (re, im, re2, im2)),
+                         ("interlaced", (re, im, re2, im2))):
+        ms = cuda_ms(torch, lambda: binning.bin_spectrum(
+            kind, arrays, HEADLINE, sp, edges, factor=factor))
+        log(f"phase 4 KB {kind} {HEADLINE}: {ms:.3f} ms [{card}]")
+    for what, kw in (("ells (0, 2, 4)", dict(ells=(0, 2, 4))),
+                     ("nmu = 4 wedges", dict(nmu=4)),
+                     ("window cic", dict(order=2))):
+        ms = cuda_ms(torch, lambda: binning.bin_spectrum(*args, factor=factor,
+                                                         **kw))
+        log(f"phase 4 KB auto {what} {HEADLINE}: {ms:.3f} ms [{card}]")
+    del re, im, re2, im2
+    grid = g._kaiser_pgrid(0.0, KAISER_BIAS, KAISER_F, 2, 0.0)
+    ms = cuda_ms(torch, lambda: binning.bin_spectrum(
+        "grid", (grid,), HEADLINE, sp, edges))
+    log(f"phase 4 KB grid (the Kaiser expectation) {HEADLINE}: {ms:.3f} ms "
+        f"[{card}]")
+    del grid
+    torch.cuda.empty_cache()
+    total = cuda_ms(torch, lambda: stats.calculate_power(field, sp, NBINS))
+    log(f"phase 4 calculate_power {HEADLINE}: {total:.3f} ms = transform "
+        f"(K6, K3 y, K3 x) {fwd:.3f} + KB {k_ms:.3f} + the rest "
+        f"{total - fwd - k_ms:.3f}; with the plain binning it would take "
+        f"{fwd + p_ms:.3f} [{card}]")
+    for what, fn in (
+            ("calculate_power_multipoles", lambda: stats.calculate_power_multipoles(
+                field, sp, NBINS)),
+            ("calculate_power_wedges", lambda: stats.calculate_power_wedges(
+                field, sp, NBINS)),
+            ("calculate_cross_power", lambda: stats.calculate_cross_power(
+                field, field2, sp, NBINS)),
+            ("calculate_power(window='cic', interlaced_with=...)",
+             lambda: stats.calculate_power(field, sp, NBINS, window="cic",
+                                           interlaced_with=field2))):
+        log(f"phase 4 {what} {HEADLINE}: {cuda_ms(torch, fn):.3f} ms [{card}]")
+    del field2
+    torch.cuda.empty_cache()
+    bispectrum._triangle_counts.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bispectrum.calculate_bispectrum(field, sp, nbins=BISPECTRUM_NBINS)
+    torch.cuda.synchronize()
+    first = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    cached = cuda_ms(torch, lambda: bispectrum.calculate_bispectrum(
+        field, sp, nbins=BISPECTRUM_NBINS), reps=3)
+    _, tri = bispectrum.bispectrum_bins(HEADLINE, sp, BISPECTRUM_NBINS)
+    log(f"phase 4 calculate_bispectrum {HEADLINE} nbins={BISPECTRUM_NBINS} "
+        f"({len(tri)} triples, {len({(i, j) for i, j, _ in tri})} pair "
+        f"products): first call {first:.1f} ms (host clock, with the "
+        f"denominator's unit shells), cached {cached:.1f} ms; peak device "
+        f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB held) [{card}]")
+    ms = cuda_ms(torch, lambda: stats.calculate_correlation(field, sp),
+                 reps=3)
+    log(f"phase 4 calculate_correlation {HEADLINE}: {ms:.3f} ms [{card}]")
+    del field
+    torch.cuda.empty_cache()
+    for kind, fnl in (("field", 50.0), ("potential", 2e3)):
+        ms = cuda_ms(torch, lambda: g.generate_nongaussian_field(
+            3, fnl, kind=kind))
+        log(f"phase 4 generate_nongaussian_field(kind={kind!r}) {HEADLINE}: "
+            f"{ms:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+    return {"KB": (k_ms, p_ms, None)}
+
+
 def kernel_bounds(g):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
@@ -2454,6 +2989,10 @@ def kernel_bounds(g):
         "KN": (8 * modes + knots, OPS_PER_MODE["KN"] * modes),
         "K2FX": (8 * modes + knots, OPS_PER_MODE["K2FX"] * modes),
         "KD": (16 * modes, OPS_PER_MODE["KD"] * modes),
+        # auto: the spectrum read once, the k vectors and edges; the sums
+        # written
+        "KB": (8 * modes + 4 * (nx + ny + nzh + NBINS + 1) + 24 * NBINS,
+               OPS_PER_MODE["KB"] * modes),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -2535,12 +3074,16 @@ def main() -> int:
         phase1_slice(torch, g, gn, errs)
         del gn
         torch.cuda.empty_cache()
+        phase1_measure(torch, rft, dev, g, gp, errs)
+        torch.cuda.empty_cache()
         phase2_slice(torch, rft, dev)
         phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
         phase2_gate(torch, dev)
         phase2_gate(torch, dev, stream="genfft")
         phase2_consistency(torch, rft, dev)
+        torch.cuda.empty_cache()
+        phase2_measure(torch, rft, dev)
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
         main_paths = [phase3_main(torch, g), phase3_noise(torch, g),
@@ -2554,6 +3097,8 @@ def main() -> int:
         main_paths.append(phase3_variants(torch, rft, gp, card))
         torch.cuda.empty_cache()
         main_paths.append(phase3_slice(torch, rft, dev, g, card))
+        torch.cuda.empty_cache()
+        main_paths.append(phase3_measure(torch, rft, dev, g, card))
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
@@ -2561,6 +3106,7 @@ def main() -> int:
         times = phase4_times(torch, rft, dev, g, gp, card)
         times.update(phase4_mesh(torch, rft, dev, g, gp, mesh, card))
         times.update(phase4_slice(torch, rft, dev, g, card))
+        times.update(phase4_measure(torch, rft, dev, g, card))
         bounds = kernel_bounds(g)
     except Exception:
         traceback.print_exc()

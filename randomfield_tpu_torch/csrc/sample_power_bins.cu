@@ -49,10 +49,13 @@
 //   the per-mode cost of the sums is a float64 add a mode and one for |k|;
 // - the planes are binned where they are drawn, so nothing leaves the
 //   kernel but the sums.
+// The edge walk and the warp flush are bins_common.cuh's, shared with KB
+// (bin_spectrum.cu), which bins spectra that lie in device memory.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "bins_common.cuh"
 #include "hermitian.cuh"
 #include "sigma_common.cuh"
 #include "threefry.cuh"
@@ -61,37 +64,8 @@ namespace {
 
 constexpr int kThreads = 128;  // ky rows per block: one x-row pair, 128 rows
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned kFull = rf::kFullWarp;
 constexpr int kReduceThreads = 128;
-
-// Add each flushing lane's run (bin, count n, sums p and k) to the warp's
-// accumulator acc[3][nbins].  Every lane of the warp calls it together.
-// Lanes that flush one bin are summed by a butterfly over the whole warp
-// (zeros elsewhere): the order of every addition is fixed.
-__device__ __forceinline__ void flush_runs(double* acc, int nbins, bool flush,
-                                           int bin, int n, double p,
-                                           double k) {
-  unsigned want = __ballot_sync(kFull, flush);
-  while (want) {
-    const int leader = __ffs(want) - 1;
-    const int b = __shfl_sync(kFull, bin, leader);
-    const bool mine = flush && bin == b;
-    int vn = mine ? n : 0;
-    double vp = mine ? p : 0.0, vk = mine ? k : 0.0;
-    for (int off = 16; off > 0; off >>= 1) {
-      vn += __shfl_xor_sync(kFull, vn, off);
-      vp += __shfl_xor_sync(kFull, vp, off);
-      vk += __shfl_xor_sync(kFull, vk, off);
-    }
-    if ((threadIdx.x & 31) == leader) {
-      acc[b] += static_cast<double>(vn);
-      acc[nbins + b] += vp;
-      acc[2 * nbins + b] += vk;
-    }
-    __syncwarp();  // the next leader may add to the same bin
-    want &= ~__ballot_sync(kFull, mine);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 power_bins_kernel(double* __restrict__ partials,
@@ -168,9 +142,7 @@ power_bins_kernel(double* __restrict__ partials,
   // cnt: the edges below |k| (the bin is cnt - 1); |k| never falls along kz
   int cnt = 0;
   float next = edges[0];
-  auto advance = [&](float km) {
-    while (next < km) next = edges[++cnt];
-  };
+  auto advance = [&](float km) { rf::advance_edges(edges, cnt, next, km); };
   auto in_range = [&](int c) { return live && c >= 1 && c <= nbins; };
 
   // a self-conjugate plane: both rows' modes drawn and fixed as K1 draws
@@ -197,7 +169,7 @@ power_bins_kernel(double* __restrict__ partials,
       psum += static_cast<double>(__fmul_rn(
           __fadd_rn(__fmul_rn(vre, vre), __fmul_rn(vim, vim)), volume));
     }
-    flush_runs(acc, nbins, in_range(cnt) && km > 0.f, cnt - 1, mult, psum,
+    rf::flush_runs(acc, nbins, in_range(cnt) && km > 0.f, cnt - 1, mult, psum,
                mult * static_cast<double>(km));
   };
 
@@ -211,7 +183,7 @@ power_bins_kernel(double* __restrict__ partials,
     advance(km);
     const bool ends = cnt != cur;
     if (__any_sync(kFull, ends)) {
-      flush_runs(acc, nbins, ends && in_range(cur) && run_n > 0, cur - 1,
+      rf::flush_runs(acc, nbins, ends && in_range(cur) && run_n > 0, cur - 1,
                  2 * mult * run_n, 2.0 * run_p, 2.0 * mult * run_k);
       if (ends) {
         cur = cnt;
@@ -229,7 +201,7 @@ power_bins_kernel(double* __restrict__ partials,
     ++run_n;
     run_k += static_cast<double>(km);
   }
-  flush_runs(acc, nbins, in_range(cur) && run_n > 0, cur - 1,
+  rf::flush_runs(acc, nbins, in_range(cur) && run_n > 0, cur - 1,
              2 * mult * run_n, 2.0 * run_p, 2.0 * mult * run_k);
   if (nz % 2 == 0) plane(nzh - 1);
   __syncthreads();

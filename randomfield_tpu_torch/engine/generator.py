@@ -66,6 +66,7 @@ import torch
 
 from randomfield_tpu_torch.engine import scene as _scene
 from randomfield_tpu_torch.engine import staged as _staged
+from randomfield_tpu_torch.engine.measure import MeasurementMixin
 from randomfield_tpu_torch.models import cosmology as _cosmo
 from randomfield_tpu_torch.models import web as _web
 from randomfield_tpu_torch.models.powerspec import resolve_power
@@ -101,8 +102,12 @@ def _not_ported(what):
     )
 
 
-class Generator:
+class Generator(MeasurementMixin):
     """Generate 3-D Gaussian random density fields with a given P(k).
+
+    The measurement and prediction methods (``calculate_power``,
+    ``calculate_bispectrum``, ``predicted_kaiser_multipoles``...) come from
+    :class:`.measure.MeasurementMixin`.
 
     Parameters follow ``randomfield_tpu.Generator``:
 
@@ -181,7 +186,8 @@ class Generator:
             interpolation=interpolation, z0=float(z0),
         )
         self.state, self._aux = _scene.build_state(
-            self.scene, resolve_power(power, self.cosmology), self.device
+            self.scene, resolve_power(power, self.cosmology), self.device,
+            box_table=sampler == "nested",
         )
         self._bin_plans = {}  # K5's bins by nbins
         self._sigmas = None  # the per-mode sigma grid, built on first read
@@ -507,21 +513,25 @@ class Generator:
         mu = k_los / |k| along ``los_axis``, ``f`` the growth rate
         (default ``cosmology.growth_rate(z)``); snapshot, no lightcone
         weights."""
-        b = float(bias)
-        if b == 0.0:
-            raise ValueError("bias must be nonzero for a Kaiser field")
-        f = self.cosmology.growth_rate(float(z)) if f is None else f
-        return self._derived(seed, "kaiser", [int(los_axis)], (b, float(f)),
+        b, fv = self._kaiser_bf(z, bias, f)
+        return self._derived(seed, "kaiser", [int(los_axis)], (b, fv),
                              smoothing_length)[0]
 
+    def generate_nongaussian_field(self, seed, fnl, kind="field",
+                                   smoothing_length=0.0):
+        """Local-f_NL non-Gaussian realization (:mod:`..models.nongaussian`):
+        ``kind='field'`` is delta = g + f_NL (g^2 - <g^2>) on this scene's
+        Gaussian render g (no lightcone weights), ``kind='potential'`` f_NL on
+        the Bardeen-sign linear potential.  f_NL = 0 returns
+        ``generate_delta_field(seed, apply_lightcone=False)`` exactly.  Gate
+        with :meth:`calculate_bispectrum` against
+        :meth:`predicted_ng_bispectrum`."""
+        from randomfield_tpu_torch.models import nongaussian as _ng
+
+        return _ng.generate_local_ng_field(self, seed, fnl, kind=kind,
+                                           smoothing_length=smoothing_length)
+
     # ---- power spectra ---------------------------------------------------------
-    def calculate_power(self, delta, nbins=32):
-        """Realized binned P(k) of a rendered field: host float64
-        ``(k_mean, p_hat, n_modes)`` (:func:`.validate.stats.calculate_power`;
-        on a mesh ``delta`` is this rank's x slab, and every rank gets the
-        whole field's result)."""
-        return _stats.calculate_power(delta, self.grid_spacing, nbins,
-                                      mesh=self.mesh)
 
     def sample_power(self, seed=0, smoothing_length=0.0, nbins=32):
         """Realized binned P(k) of a seed's spectrum, with no FFT.

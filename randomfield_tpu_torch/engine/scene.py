@@ -50,14 +50,20 @@ class State(typing.NamedTuple):
     power: _power.PowerTable  # the validated input table
 
 
-def build_state(scene: Scene, power, device="cpu") -> tuple[State, dict]:
+def build_state(scene: Scene, power, device="cpu",
+                box_table=False) -> tuple[State, dict]:
     """The sigma table and lightcone weights of a scene.
 
+    ``box_table=True`` (a nested scene) builds the box-anchored table of
+    :func:`..ops.sampler.make_box_sigma_table`, so grids of one box share
+    their knots; otherwise the grid's own :func:`make_sigma_table`.
     Returns ``(state, aux)``; ``aux`` holds the host float64 plane
     redshifts and growth factors.
     """
     table = _power.validate_power(power)
-    sigma_table = _sampler.make_sigma_table(
+    make = (_sampler.make_box_sigma_table if box_table
+            else _sampler.make_sigma_table)
+    sigma_table = make(
         table, scene.shape, scene.grid_spacing, scene.interpolation, device
     )
     redshifts = _cosmo.get_redshifts(

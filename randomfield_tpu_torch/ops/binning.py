@@ -1,0 +1,317 @@
+"""KB: the spectrum binning of every Fourier-space estimator.
+
+:func:`bin_spectrum` bins one packed 'xyz' half-spectrum pass (or a slab
+mesh's ky rows of one) in the estimator's log |k| bins: per mode the
+Hermitian multiplicity w (1 on the kz = 0 and, for even nz, Nyquist planes,
+2 elsewhere) and its value p,
+
+* ``'auto'``: (re, im), p = (re^2 + im^2) factor;
+* ``'cross'``: (re1, im1, re2, im2), p = (re1 re2 + im1 im2) factor;
+* ``'interlaced'``: the same four, c = (c1 + c2 e^{i phi}) / 2 with phi =
+  (kx + ky + kz) a / 2 (the JAX package's ``_interlaced_mode_power``),
+  p = |c|^2 factor;
+* ``'grid'``: (p,), a float32 power grid (the predictions);
+
+divided by W^(2 order) for a mass-assignment window (``order`` 1, 2, 3 for
+ngp, cic, tsc; W = prod_i sinc(k_i a / 2)), and summed as (w, w p, w |k|)
+per bin: isotropic, weighted by (2l + 1) L_l(mu^2) for up to three even
+multipoles (``ells``), or in ``nmu`` |mu| wedges (the bin index k_bin nmu
++ mu_bin), mu = k_los / |k|.  The result is float64 (n_out, 3, nb + 1)
+on the spectrum's device (n_out = len(ells) or 1, nb = nbins or nbins
+nmu), the last column for the masked modes (always zero here: a masked
+mode adds nothing).
+
+The bin is the estimator's edge search on the float32 |k| of
+:func:`.grid.kmag`, and every float32 operation of a mode is rounded in
+the order :func:`bin_spectrum_plain` writes it, so on the card the kernel
+(``csrc/bin_spectrum.cu``) and its plain version count the same modes in
+every bin and add the same float32 terms, in float64 in another order.
+On CUDA tensors :func:`bin_spectrum` launches the kernel (counter
+``KB_LAUNCHES``) or raises; on CPU tensors it runs the plain version.  The
+per-axis tables (k vectors, sinc, the phase's cos and sin) are built in
+float64 on the host and rounded to float32 once, for both versions.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from randomfield_tpu_torch.ops import _build
+
+__all__ = ["bin_spectrum", "bin_spectrum_plain", "mode_terms", "line_sums",
+           "axis_tables",
+           "legendre_weighted", "WINDOW_ORDERS", "KINDS", "MAX_BINS",
+           "KB_LAUNCHES"]
+
+# kernel launches by bin_spectrum (the CPU path does not count)
+KB_LAUNCHES = 0
+
+KINDS = {"auto": (0, 2), "cross": (1, 4), "interlaced": (2, 4),
+         "grid": (3, 1)}  # name: (the kernel's code, lattices taken)
+WINDOW_ORDERS = {None: 0, "ngp": 1, "cic": 2, "tsc": 3}
+_ISO, _POLES, _WEDGES = 0, 1, 2
+# bins (nbins, or nbins nmu) the kernel's per-warp float64 accumulators
+# hold in shared memory
+MAX_BINS = 1024
+# x planes a step of the plain version (bounds its temporaries)
+_X_CHUNK = 16
+# the kernel's block (4 warps) and its grid's cap
+_WARPS = 4
+_MAX_BLOCKS = 2048
+
+
+@functools.lru_cache(maxsize=16)
+def _host_tables(shape, spacing):
+    """float32 (kvec, sinc, cos, sin), each nx + ny + nz//2+1 long: the
+    estimator's k vectors, sinc(k a / 2), cos and sin of k a / 2."""
+    nx, ny, nz = shape
+    k = np.concatenate([2.0 * np.pi * np.fft.fftfreq(nx, d=spacing),
+                        2.0 * np.pi * np.fft.fftfreq(ny, d=spacing),
+                        2.0 * np.pi * np.fft.rfftfreq(nz, d=spacing)])
+    half = k * (spacing / 2.0)
+    safe = np.where(half != 0, half, 1.0)
+    sinc = np.where(half != 0, np.sin(half) / safe, 1.0)
+    return tuple(a.astype(np.float32) for a in
+                 (k, sinc, np.cos(half), np.sin(half)))
+
+
+@functools.lru_cache(maxsize=32)
+def axis_tables(shape, spacing, device):
+    """(kvec, sinc, phase) float32 tensors on ``device``: the per-axis k
+    vectors (equal to :func:`.grid.kvectors`), sinc tables and the cos then
+    sin tables of the interlacing phase, each axis after the other."""
+    k, sinc, cos, sin = _host_tables(tuple(int(n) for n in shape),
+                                     float(spacing))
+    dev = torch.device(device)
+    return (torch.as_tensor(k, device=dev), torch.as_tensor(sinc, device=dev),
+            torch.as_tensor(np.concatenate([cos, sin]), device=dev))
+
+
+def _layout(ells, nmu, nbins):
+    """(output mode, nb, n_out, ells as a tuple)."""
+    if ells is not None and nmu is not None:
+        raise ValueError("bin_spectrum takes ells or nmu, not both")
+    if ells is not None:
+        ells = tuple(int(e) for e in ells)
+        if not 1 <= len(ells) <= 3 or any(e not in (0, 2, 4) for e in ells):
+            raise ValueError(f"ells must be one to three of 0, 2, 4; got {ells}")
+        return _POLES, nbins, len(ells), ells
+    if nmu is not None:
+        if int(nmu) < 1:
+            raise ValueError(f"nmu must be >= 1, got {nmu}")
+        return _WEDGES, nbins * int(nmu), 1, None
+    return _ISO, nbins, 1, None
+
+
+def _check(kind, arrays, shape, y_off):
+    if kind not in KINDS:
+        raise ValueError(f"bin_spectrum: unknown kind {kind!r}")
+    if len(arrays) != KINDS[kind][1]:
+        raise ValueError(f"bin_spectrum: {kind!r} takes {KINDS[kind][1]} "
+                         f"lattices, got {len(arrays)}")
+    nx, ny, nz = shape
+    a0 = arrays[0]
+    ny_loc = a0.shape[1] if a0.ndim == 3 else -1
+    want = (nx, ny_loc, nz // 2 + 1)
+    for a in arrays:
+        if (a.dtype != torch.float32 or tuple(a.shape) != want
+                or a.device != a0.device):
+            raise ValueError(f"bin_spectrum: every lattice must be float32 "
+                             f"{want} on one device, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+    if not (0 <= y_off and y_off + ny_loc <= ny):
+        raise ValueError(f"bin_spectrum: rows [{y_off}, {y_off + ny_loc}) "
+                         f"outside ny = {ny}")
+    return ny_loc
+
+
+def legendre_weighted(ell, mu2, v):
+    """v (2l + 1) L_l(mu^2) in float32, rounded as the kernel rounds it."""
+    if ell == 0:
+        return v
+    if ell == 2:
+        return v * (5.0 * (0.5 * (3.0 * mu2 - 1.0)))
+    return v * (9.0 * (0.125 * (((35.0 * mu2) * mu2 - 30.0 * mu2) + 3.0)))
+
+
+def _values(kind, arrays, sl, factor, tabs, x0, x1, y0, y1, nxy):
+    """The float32 value of each mode of x rows [x0, x1) (before the
+    window)."""
+    if kind == "grid":
+        return arrays[0][sl]
+    if kind == "auto":
+        re, im = arrays[0][sl], arrays[1][sl]
+        return (re * re + im * im) * factor
+    r1, i1, r2, i2 = (a[sl] for a in arrays)
+    if kind == "cross":
+        return (r1 * r2 + i1 * i2) * factor
+    _, _, phase = tabs
+    n = phase.numel() // 2
+    cos, sin = phase[:n], phase[n:]
+    nx, ny = nxy
+    cx, sx = cos[x0:x1, None], sin[x0:x1, None]
+    cy, sy = cos[nx + y0:nx + y1][None, :], sin[nx + y0:nx + y1][None, :]
+    cz, sz = cos[nx + ny:], sin[nx + ny:]
+    exy_re = (cx * cy - sx * sy)[:, :, None]
+    exy_im = (cx * sy + sx * cy)[:, :, None]
+    e_re = exy_re * cz - exy_im * sz
+    e_im = exy_re * sz + exy_im * cz
+    t_re = r2 * e_re - i2 * e_im
+    t_im = r2 * e_im + i2 * e_re
+    c_re = 0.5 * (r1 + t_re)
+    c_im = 0.5 * (i1 + t_im)
+    return (c_re * c_re + c_im * c_im) * factor
+
+
+def line_sums(idx, values, n):
+    """float64 (n,) sums of ``values`` by the index ``idx`` (in [0, n)),
+    each line of the last axis first into slots of its own, then the lines
+    summed: ``index_add_`` with a few modes an address, where one slot a
+    bin for a whole block would take millions of colliding float64 atomics
+    on the card."""
+    lines = max(1, idx.numel() // max(1, idx.shape[-1]))
+    offsets = torch.arange(lines, device=idx.device) * n
+    flat = (idx.reshape(lines, -1) + offsets[:, None]).flatten()
+    acc = torch.zeros(lines * n, dtype=torch.float64, device=idx.device)
+    acc.index_add_(0, flat, values.reshape(-1).to(torch.float64))
+    return acc.view(lines, n).sum(dim=0)
+
+
+def mode_terms(kind, arrays, shape, spacing, edges, x0, x1, y_off=0,
+               factor=1.0, order=0, ells=None, nmu=None, los_axis=2):
+    """The terms of each mode of x rows [x0, x1), the kernel's float32
+    operations in its order: (|k|, bin index (nb where masked), weight w
+    (the multiplicity, 0 where masked), [float32 value of each output])."""
+    nx, ny, nz = shape
+    ny_loc = arrays[0].shape[1]
+    nbins = len(edges) - 1
+    mode, nb, _, ells = _layout(ells, nmu, nbins)
+    dev = arrays[0].device
+    tabs = axis_tables(shape, float(spacing), str(dev))
+    kvec, sinc, _ = tabs
+    kx, ky, kz = kvec[:nx], kvec[nx + y_off:nx + y_off + ny_loc], kvec[nx + ny:]
+    bx, by, bz = kx[x0:x1, None, None], ky[None, :, None], kz[None, None, :]
+    km = torch.sqrt((bx * bx + by * by) + bz * bz)
+    v = _values(kind, arrays, slice(x0, x1), float(np.float32(factor)), tabs,
+                x0, x1, y_off, y_off + ny_loc, (nx, ny))
+    if order:
+        wxy = sinc[x0:x1, None] * sinc[nx + y_off:nx + y_off + ny_loc][None, :]
+        w = wxy[:, :, None] * sinc[nx + ny:]
+        w2 = w * w
+        wp = w2
+        for _ in range(order - 1):
+            wp = wp * w2
+        v = v / wp
+    edges_t = torch.as_tensor(np.asarray(edges, np.float64),
+                              dtype=torch.float32, device=dev)
+    idx = torch.searchsorted(edges_t, km.contiguous()) - 1
+    valid = (idx >= 0) & (idx < nbins) & (km > 0)
+    pos = km > 0
+    safe = torch.where(pos, km, 1.0)
+    klos = torch.broadcast_to((bx, by, bz)[int(los_axis)], km.shape)
+    if mode == _POLES:
+        t = klos / safe
+        mu2 = torch.where(pos, t * t, 0.0)
+        vals = [legendre_weighted(e, mu2, v) for e in ells]
+    else:
+        vals = [v]
+    if mode == _WEDGES:
+        mu = torch.where(pos, klos.abs() / safe, 0.0)
+        mi = (mu * float(nmu)).to(torch.int32).clamp(0, int(nmu) - 1)
+        idx = idx * int(nmu) + mi
+    mult = torch.full((nz // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
+    mult[0] = 1.0
+    if nz % 2 == 0:
+        mult[-1] = 1.0
+    w = torch.where(valid, mult, 0.0)
+    vals = [torch.where(valid, val, 0.0) for val in vals]
+    return km, torch.where(valid, idx, nb), w, vals
+
+
+def bin_spectrum_plain(kind, arrays, shape, spacing, edges, y_off=0,
+                       factor=1.0, order=0, ells=None, nmu=None, los_axis=2):
+    """:func:`bin_spectrum` in plain PyTorch on the arrays' device: the
+    terms of :func:`mode_terms`, x-slab by x-slab, summed in float64 by
+    :func:`line_sums`."""
+    shape = tuple(int(n) for n in shape)
+    _check(kind, arrays, shape, y_off)
+    edges = np.asarray(edges, np.float64)
+    _, nb, n_out, _ = _layout(ells, nmu, edges.size - 1)
+    dev = arrays[0].device
+    out = torch.zeros((n_out, 3, nb + 1), dtype=torch.float64, device=dev)
+    for x0 in range(0, shape[0], _X_CHUNK):
+        x1 = min(shape[0], x0 + _X_CHUNK)
+        km, idx, w, vals = mode_terms(kind, arrays, shape, spacing, edges, x0,
+                                      x1, y_off, factor, order, ells, nmu,
+                                      los_axis)
+        w = torch.broadcast_to(w, idx.shape)
+        counts = line_sums(idx, w, nb + 1)
+        ksum = line_sums(idx, w * km.to(torch.float64), nb + 1)
+        for o, val in enumerate(vals):
+            out[o, 0] += counts
+            out[o, 1] += line_sums(idx, w * val.to(torch.float64), nb + 1)
+            out[o, 2] += ksum
+    return out
+
+
+def bin_spectrum(kind, arrays, shape, spacing, edges, y_off=0, factor=1.0,
+                 order=0, ells=None, nmu=None, los_axis=2):
+    """KB: float64 (n_out, 3, nb + 1) bin sums of a packed spectrum.
+
+    ``kind``: 'auto', 'cross', 'interlaced' or 'grid' (the module
+    docstring); ``arrays``: its float32 (nx, ny_loc, nz//2+1) lattices, the
+    ky rows [y_off, y_off + ny_loc) of an (nx, ny, nz) grid; ``edges``: the
+    nbins + 1 ascending |k| edges (host float64, searched in float32);
+    ``factor``: the float32 scale of auto, cross and interlaced values;
+    ``order``: the window's (0 none); ``ells`` (multipoles) or ``nmu``
+    (wedges) or neither (isotropic); ``los_axis``: mu's axis.  On CUDA
+    tensors this launches ``csrc/bin_spectrum.cu`` (at most
+    :data:`MAX_BINS` bins); CPU tensors run :func:`bin_spectrum_plain`.
+    """
+    global KB_LAUNCHES
+    shape = tuple(int(n) for n in shape)
+    ny_loc = _check(kind, arrays, shape, y_off)
+    dev = arrays[0].device
+    if dev.type == "cpu":
+        return bin_spectrum_plain(kind, arrays, shape, spacing, edges, y_off,
+                                  factor, order, ells, nmu, los_axis)
+    if dev.type != "cuda":
+        raise ValueError(f"bin_spectrum runs on cpu or cuda, not {dev}")
+    edges = np.asarray(edges, np.float64)
+    nbins = edges.size - 1
+    if nbins < 1 or np.any(np.diff(edges) <= 0):
+        raise ValueError("bin_spectrum needs ascending edges")
+    mode, nb, n_out, ells = _layout(ells, nmu, nbins)
+    if nb > MAX_BINS:
+        raise ValueError(f"bin_spectrum: {nb} bins on CUDA, the kernel holds "
+                         f"at most {MAX_BINS}")
+    if int(order) not in (0, 1, 2, 3) or int(los_axis) not in (0, 1, 2):
+        raise ValueError(f"bin_spectrum: order {order}, los_axis {los_axis}")
+    arrays = [a.contiguous() for a in arrays]
+    nx, ny, nz = shape
+    kvec, sinc, phase = axis_tables(shape, float(spacing), str(dev))
+    edges_t = torch.as_tensor(edges, dtype=torch.float32, device=dev)
+    np_ = 3 if mode == _POLES else 1
+    n_vals = (2 + np_) * nb
+    n_blocks = max(1, min(_MAX_BLOCKS, -(-nx * ny_loc // _WARPS)))
+    acc = torch.empty(n_vals, dtype=torch.float64, device=dev)
+    partials = torch.empty(n_blocks * n_vals, dtype=torch.float64, device=dev)
+    ptrs = [a.data_ptr() for a in arrays] + [0] * (4 - len(arrays))
+    ell_codes = list(ells or ()) + [-1] * (3 - len(ells or ()))
+    status = _build.library().rf_bin_spectrum(
+        KINDS[kind][0], mode, *ptrs, kvec.data_ptr(), sinc.data_ptr(),
+        phase.data_ptr(), edges_t.data_ptr(), acc.data_ptr(),
+        partials.data_ptr(), n_blocks, nx, ny, nz, int(y_off), ny_loc, nbins,
+        int(nmu or 1), int(los_axis), int(order), *ell_codes,
+        float(np.float32(factor)), _build.current_stream(arrays[0]))
+    _build.check(status, "bin_spectrum")
+    KB_LAUNCHES += 1
+    rows = acc.view(2 + np_, nb)
+    out = torch.zeros((n_out, 3, nb + 1), dtype=torch.float64, device=dev)
+    out[:, 0, :nb] = rows[0]
+    out[:, 1, :nb] = rows[1:1 + n_out]
+    out[:, 2, :nb] = rows[1 + np_]
+    return out

@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 __all__ = [
+    "half_shape",
     "kvectors",
     "ksq",
     "kmag",
+    "fill_with_log10k",
     "get_k_bounds",
     "conjugate_plane",
     "hermitian_plane_masks",
@@ -27,6 +29,12 @@ __all__ = [
 ]
 
 TWO_PI = 2.0 * np.pi
+
+
+def half_shape(shape) -> tuple[int, int, int]:
+    """Shape of the packed rfft half-spectrum of a real field of ``shape``."""
+    nx, ny, nz = shape
+    return (nx, ny, nz // 2 + 1)
 
 
 def kvectors(shape, spacing, dtype=torch.float32, device="cpu"):
@@ -61,6 +69,24 @@ def kmag(shape, spacing, dtype=torch.float32, device="cpu", x_off=0,
     """|k| on the packed half-spectrum (rows as :func:`ksq`)."""
     return torch.sqrt(ksq(shape, spacing, dtype, device, x_off, nx_loc,
                           y_off, ny_loc))
+
+
+def fill_with_log10k(shape, spacing, dtype=torch.float32, dc_value=None,
+                     device="cpu"):
+    """log10|k| per packed mode, on ``device``.
+
+    |k|^2 in float32 (float64 for ``dtype=torch.float64``), 0.5 log10 of
+    it; the DC mode gets ``dc_value`` (default: log10 of the fundamental
+    minus 20 decades, a finite sentinel below any tabulated k), as the JAX
+    package's ``fill_with_log10k``.
+    """
+    k2 = ksq(shape, spacing,
+             torch.float64 if dtype == torch.float64 else torch.float32,
+             device)
+    if dc_value is None:
+        dc_value = np.log10(get_k_bounds(shape, spacing)[0]) - 20.0
+    out = 0.5 * torch.log10(torch.where(k2 > 0, k2, 1.0))
+    return torch.where(k2 > 0, out, float(dc_value)).to(dtype)
 
 
 def get_k_bounds(shape, spacing) -> tuple[float, float]:

@@ -69,6 +69,7 @@ from randomfield_tpu_torch.ops import transform as _transform
 __all__ = [
     "SigmaTable",
     "make_sigma_table",
+    "make_box_sigma_table",
     "flat_knots",
     "scale_sigma",
     "scale_sigma_plain",
@@ -177,18 +178,59 @@ def make_sigma_table(power, shape, spacing, interpolation="log10k",
     volume = nx * ny * nz * float(spacing) ** 3
     kmin, kmax = _grid.get_k_bounds(shape, spacing)
     lk = np.linspace(np.log10(kmin) - 1e-4, np.log10(kmax) + 1e-4, n_knots)
-    lk_tab = np.log10(table.k)
-    if interpolation == "log10k":
-        pk = np.interp(lk, lk_tab, table.Pk)
-    elif interpolation == "loglog":
-        if np.any(table.Pk <= 0):
-            raise ValueError("loglog interpolation requires strictly positive P(k)")
-        pk = 10.0 ** np.interp(lk, lk_tab, np.log10(table.Pk))
-    else:
-        raise ValueError(f"unknown interpolation {interpolation!r}")
+    pk = _interp_table(table, lk, interpolation)
     sig = np.sqrt(pk / volume).astype(np.float32)
     return SigmaTable(float(lk[0]), float(lk[1] - lk[0]),
                       torch.as_tensor(sig, device=device))
+
+
+# the knot step of a box-anchored table (decades of k): finer than the
+# default table's at every grid the nested stream takes (2.2e-3 at 16^3,
+# 4.6e-3 at 1024^3), so it keeps the same 2e-3 bar against tabulate_sigmas
+BOX_TABLE_DLK = 1.0 / 400.0
+
+
+def make_box_sigma_table(power, shape, spacing, interpolation="log10k",
+                         device="cpu") -> SigmaTable:
+    """The sigma table of a nested scene: knots that depend on the box, not
+    on the grid.
+
+    Knot i sits at log10 k = lk0 + i dlk with lk0 = log10(2 pi / L) - 1e-4
+    (L the box's longest side, so 2 pi / L is its fundamental) and dlk =
+    :data:`BOX_TABLE_DLK` for every grid; the table runs up to the grid's
+    k_max (padded by 1e-4 decades).  Two grids over one box then hold the
+    same knots where their k ranges overlap (the finer grid simply has
+    more), and a mode both grids hold, whose |k|^2 both kernels compute
+    from the same float32 steps 2 pi / L, takes its sigma from the same two
+    knots bit for bit: the zoom match of the JAX package, which multiplies
+    by the per-mode sigma grid (``ops/sample.py:sample_spectrum_nested``).
+    sigma = sqrt(P / V) with V the product of the box's sides.
+    """
+    table = _power.validate_power(power)
+    _power.require_coverage(table, shape, spacing)
+    spacing = float(spacing)
+    sides = [n * spacing for n in shape]
+    _, kmax = _grid.get_k_bounds(shape, spacing)
+    lk0 = np.log10(2.0 * np.pi / max(sides)) - 1e-4
+    n_knots = int(np.ceil((np.log10(kmax) + 1e-4 - lk0) / BOX_TABLE_DLK)) + 1
+    lk = lk0 + np.arange(n_knots) * BOX_TABLE_DLK
+    pk = _interp_table(table, lk, interpolation)
+    volume = sides[0] * sides[1] * sides[2]
+    sig = np.sqrt(pk / volume).astype(np.float32)
+    return SigmaTable(float(lk0), BOX_TABLE_DLK,
+                      torch.as_tensor(sig, device=device))
+
+
+def _interp_table(table, lk, interpolation):
+    """P at log10 k = lk (host float64) by the scene's interpolant."""
+    lk_tab = np.log10(table.k)
+    if interpolation == "log10k":
+        return np.interp(lk, lk_tab, table.Pk)
+    if interpolation == "loglog":
+        if np.any(table.Pk <= 0):
+            raise ValueError("loglog interpolation requires strictly positive P(k)")
+        return 10.0 ** np.interp(lk, lk_tab, np.log10(table.Pk))
+    raise ValueError(f"unknown interpolation {interpolation!r}")
 
 
 def flat_knots(rows) -> np.ndarray:

@@ -1,43 +1,102 @@
-"""Binned isotropic power spectra: the estimator, and the binning it shares.
+"""Field statistics: the binning core of every estimator, and the estimators.
 
-Port of the single-device subset of ``randomfield_tpu/validate/stats.py``:
-``_bin_setup``, ``_masked_bins``, ``_binned_spectrum_reim`` ('xyz' layout),
-``spectrum_power``, ``bin_power_grid`` and ``calculate_power``, with the JAX
-package's bins, masks and multiplicities.  Every binning here places a mode
-by the same float32 |k| (:func:`.ops.grid.kmag`, the |k| of the JAX
-estimator's ``calculate_power``) against the same float32 edges, and so
-does the binned sampler K5: a seed's ``sample_power``, ``spectrum_power``
-of its spectrum and ``calculate_power`` of its field count the same modes
-in every bin.  (The JAX package builds |k| three ways, squaring kx before
-or after rounding it to float32; the ways differ by an ulp, which moves
-whole lattice shells of one |k|^2 that lie on an edge.)  The sums differ
-from the JAX package's on purpose: it contracts float32 values against a
-one-hot matrix, the port adds them in float64 (``index_add_``) on the
-tensor's device.
+Port of the single-device ``randomfield_tpu/validate/stats.py`` with its
+names, arguments, bins, masks and returns.  The reference is one module of
+2,468 lines; here this module keeps the binning core and the public names,
+and the estimators live by topic beside it:
 
-The JAX package bins in XLA outside any Pallas kernel, so this is plain
-PyTorch; the forward transform of :func:`calculate_power` is
-``torch.fft.rfftn`` on one device and, on a slab mesh, the distributed
-transform of the hand kernels (K6, then forward K3;
-:func:`..parallel.dfft.rfftn_slab`), binned shard by shard and summed with
-one all-reduce (``validate/stats.py:_make_sharded_binned``).  Results come
-back as host float64 numpy arrays, the same on every rank.
+* :mod:`.fourier`: ``calculate_power`` (with ``window=`` and
+  ``interlaced_with=``), ``calculate_power_multipoles``,
+  ``calculate_power_wedges``, ``calculate_cross_power``,
+  ``calculate_masked_power``, ``predicted_masked_power``,
+  ``calculate_power_1d`` and ``predicted_power_1d``;
+* :mod:`.correlation`: xi, xi_ell and w_p, measured and predicted;
+* :mod:`.onepoint`: ``field_moments``, ``field_pdf``, ``cell_variance``
+  and ``predicted_cell_variance``.
+
+Every Fourier-space binning goes through :func:`..ops.binning.bin_spectrum`
+(KB on CUDA tensors, its plain version on the CPU): it places a mode by the
+same float32 |k| (:func:`.ops.grid.kmag`, the |k| of the JAX estimator's
+``calculate_power``) against the same float32 edges as the binned sampler
+K5, so a seed's ``sample_power``, ``spectrum_power`` of its spectrum and
+``calculate_power`` of its field count the same modes in every bin.  (The
+JAX package builds |k| three ways, squaring kx before or after rounding it
+to float32; the ways differ by an ulp, which moves whole lattice shells of
+one |k|^2 that lie on an edge.)  The sums differ from the JAX package's on
+purpose: it contracts float32 values against a one-hot matrix on the MXU
+(``_dot_bin``), the port adds them in float64.  The real-space binnings
+(xi, w_p) keep :func:`masked_bins` in plain PyTorch, float64 sums by
+:func:`..ops.binning.line_sums`.
+
+Results come back as host float64 numpy arrays.  With ``mesh=`` only
+``calculate_power`` (no window, no interlacing) runs on a slab mesh; every
+other estimator raises NotImplementedError naming the ROADMAP item of its
+mesh version.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
+from randomfield_tpu_torch.ops import binning as _binning
 from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import transform as _transform
 
-__all__ = ["calculate_power", "spectrum_power", "spectrum_sums",
-           "bin_power_grid", "bin_setup", "plane_bins", "masked_bins",
-           "bins_to_host", "field_moments"]
+_TOPICS = {
+    "fourier": ("calculate_power", "calculate_power_multipoles",
+                "calculate_power_wedges", "calculate_cross_power",
+                "calculate_masked_power", "predicted_masked_power",
+                "calculate_power_1d", "predicted_power_1d"),
+    "correlation": ("calculate_correlation", "predicted_correlation",
+                    "calculate_correlation_multipoles",
+                    "predicted_correlation_multipoles",
+                    "calculate_projected_correlation",
+                    "predicted_projected_correlation"),
+    "onepoint": ("field_moments", "field_pdf", "cell_variance",
+                 "predicted_cell_variance"),
+}
+_HOME = {name: topic for topic, names in _TOPICS.items() for name in names}
 
-# x planes binned per step: bounds the |k| / index temporaries at any size
-_X_CHUNK = 16
+__all__ = ["spectrum_power", "spectrum_sums", "bin_power_grid",
+           "bin_power_multipoles_grid", "bin_power_wedges_grid", "bin_setup",
+           "plane_bins", "masked_bins", "bins_to_host", "poles_to_host",
+           "wedges_to_host", "mesh_not_ported", *_HOME]
+
+LEGENDRE_ELLS = (0, 2, 4)
+
+
+def __getattr__(name):
+    """The estimators of the topic modules, as names of this module."""
+    topic = _HOME.get(name)
+    if topic is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"randomfield_tpu_torch.validate.{topic}")
+    return getattr(module, name)
+
+
+def mesh_not_ported(what, mesh):
+    """The NotImplementedError of an estimator called with a mesh it has no
+    version for: the slab mesh's item 8, the pencil mesh's item 5."""
+    from randomfield_tpu_torch.parallel import mesh as _mesh
+
+    pencil = isinstance(mesh, _mesh.PencilMesh)
+    return NotImplementedError(
+        f"{what} with mesh= is not ported to randomfield_tpu_torch yet: the "
+        f"{'pencil' if pencil else 'slab'}-mesh estimators (ROADMAP.md, "
+        f"Queue 1 item {5 if pencil else 8})")
+
+
+def check_ells(ells, why="for an autocorrelation"):
+    """``ells`` as a tuple of ints, each of 0, 2, 4 (ValueError else)."""
+    ells = tuple(int(e) for e in ells)
+    for e in ells:
+        if e not in LEGENDRE_ELLS:
+            raise ValueError(f"ell={e} unsupported: even multipoles 0/2/4 "
+                             f"only (odd ones vanish {why})")
+    return ells
 
 
 def bin_setup(shape, spacing, nbins):
@@ -62,16 +121,20 @@ def masked_bins(km, w, p, edges, nbins, out):
     float32 on the block's device; ``out``: float64 (3, nbins + 1), whose
     last column takes the masked modes.  The bin is the edge search of the
     JAX package (``searchsorted`` on the left); out-of-range |k|, DC and
-    zero weights are masked.
+    zero weights are masked.  The real-space binnings (xi by |r|) and the
+    plane part of K5's plain version use it; spectra go through KB.  The
+    sums are :func:`..ops.binning.line_sums` (float64).
     """
     idx = torch.searchsorted(edges, km.contiguous()) - 1
     wb = torch.broadcast_to(w, km.shape)
     valid = (idx >= 0) & (idx < nbins) & (km > 0) & (wb > 0)
-    idx = torch.where(valid, idx, nbins).flatten()
-    wv = torch.where(valid, wb, 0.0).flatten().to(torch.float64)
-    out[0].index_add_(0, idx, wv)
-    out[1].index_add_(0, idx, wv * p.flatten().to(torch.float64))
-    out[2].index_add_(0, idx, wv * km.flatten().to(torch.float64))
+    idx = torch.where(valid, idx, nbins)
+    wv = torch.where(valid, wb, 0.0).to(torch.float64)
+    pv = torch.where(valid, torch.broadcast_to(p, km.shape), 0.0)
+    n = out.shape[-1]
+    out[0] += _binning.line_sums(idx, wv, n)
+    out[1] += _binning.line_sums(idx, wv * pv.to(torch.float64), n)
+    out[2] += _binning.line_sums(idx, wv * km.to(torch.float64), n)
     return out
 
 
@@ -83,10 +146,27 @@ def bins_to_host(acc, nbins):
         return ksum / counts, psum / counts, counts
 
 
+def poles_to_host(acc, nbins):
+    """(k_mean, p_ell (n_ells, nbins), n_modes) from KB's (n_ells, 3,
+    nbins + 1) multipole sums."""
+    a = acc[:, :, :nbins].cpu().numpy()
+    counts, ksum = a[0, 0], a[0, 2]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return ksum / counts, a[:, 1] / counts, counts
+
+
+def wedges_to_host(acc, nbins, nmu):
+    """(k_mean (nbins,), p (nbins, nmu), n_modes (nbins, nmu)) from KB's
+    (1, 3, nbins nmu + 1) wedge sums; k_mean over each shell's wedges."""
+    a = acc[0, :, :nbins * nmu].cpu().numpy().reshape(3, nbins, nmu)
+    counts, psum, ksum = a
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return ksum.sum(axis=1) / counts.sum(axis=1), psum / counts, counts
+
+
 def spectrum_sums(cre, cim, shape, spacing, nbins, y_off=0):
     """float64 (3, nbins + 1) sums of |c|^2 V over a packed 'xyz' spectrum
-    or its ky rows [y_off, y_off + ny_loc) (a slab mesh's shard),
-    x-slab by x-slab."""
+    or its ky rows [y_off, y_off + ny_loc) (a slab mesh's shard): KB."""
     return _binned_sums(cre, cim, shape, spacing, nbins, y_off,
                         float(np.float32(shape[0] * shape[1] * shape[2]
                                          * float(spacing) ** 3)))
@@ -94,22 +174,10 @@ def spectrum_sums(cre, cim, shape, spacing, nbins, y_off=0):
 
 def _binned_sums(cre, cim, shape, spacing, nbins, y_off, factor):
     """float64 (3, nbins + 1) sums of |c|^2 factor over the ky rows
-    [y_off, y_off + ny_loc) of a packed 'xyz' spectrum."""
-    nx = shape[0]
-    ny_loc = cre.shape[1]
-    dev = cre.device
-    edges, mult = bin_setup(shape, spacing, nbins)
-    edges_t = torch.as_tensor(edges, dtype=torch.float32, device=dev)
-    mult_t = torch.as_tensor(mult, device=dev)
-    out = torch.zeros((3, nbins + 1), dtype=torch.float64, device=dev)
-    for x0 in range(0, nx, _X_CHUNK):
-        x1 = min(nx, x0 + _X_CHUNK)
-        km = _grid.kmag(shape, spacing, torch.float32, dev, x0, x1 - x0,
-                        y_off, ny_loc)
-        re, im = cre[x0:x1], cim[x0:x1]
-        p = (re * re + im * im) * factor
-        masked_bins(km, mult_t[None, None, :], p, edges_t, nbins, out)
-    return out
+    [y_off, y_off + ny_loc) of a packed 'xyz' spectrum (KB 'auto')."""
+    edges, _ = bin_setup(shape, spacing, nbins)
+    return _binning.bin_spectrum("auto", (cre, cim), shape, spacing, edges,
+                                 y_off=y_off, factor=factor)[0]
 
 
 def plane_bins(plane_re, plane_im, shape, spacing, nbins, edges=None):
@@ -147,7 +215,7 @@ def spectrum_power(c, shape, spacing, nbins=32, layout="xyz"):
 
     ``c``: a complex (nx, ny, nz//2+1) tensor or an (re, im) pair of float32
     ones, the render's convention (P_hat = |c_k|^2 V); no FFT.  Returns host
-    float64 ``(k_mean, p_hat, n_modes)`` like :func:`calculate_power`.
+    float64 ``(k_mean, p_hat, n_modes)`` like ``calculate_power``.
     """
     if layout != "xyz":
         raise NotImplementedError(
@@ -162,95 +230,46 @@ def spectrum_power(c, shape, spacing, nbins=32, layout="xyz"):
     return bins_to_host(acc, int(nbins))
 
 
+def _grid_sums(pgrid, shape, spacing, nbins, **out):
+    """KB 'grid' sums of a per-mode float32 half-grid (float64 grids are
+    rounded to float32, as the JAX package holds them)."""
+    shape = tuple(int(s) for s in shape)
+    p = torch.as_tensor(pgrid)
+    p = p.to(torch.float32) if p.dtype != torch.float32 else p
+    edges, _ = bin_setup(shape, float(spacing), int(nbins))
+    return _binning.bin_spectrum("grid", (p,), shape, float(spacing), edges,
+                                 **out)
+
+
 def bin_power_grid(pgrid, shape, spacing, nbins=32):
     """Shell-average a per-mode power half-grid into the estimator's bins.
 
-    The bins, multiplicities and masks of :func:`calculate_power`, so a
-    theory grid and a measured spectrum compare bin for bin.  Returns
+    The bins, multiplicities and masks of ``calculate_power``, so a theory
+    grid and a measured spectrum compare bin for bin.  Returns
     ``(k_mean, p_mean, n_modes)``.
     """
-    shape = tuple(int(s) for s in shape)
-    p = torch.as_tensor(pgrid)
-    edges, mult = bin_setup(shape, float(spacing), int(nbins))
-    dev = p.device
-    edges_t = torch.as_tensor(edges, dtype=p.dtype, device=dev)
-    mult_t = torch.as_tensor(mult, dtype=p.dtype, device=dev)
-    out = torch.zeros((3, int(nbins) + 1), dtype=torch.float64, device=dev)
-    for x0 in range(0, shape[0], _X_CHUNK):
-        x1 = min(shape[0], x0 + _X_CHUNK)
-        km = _grid.kmag(shape, float(spacing), p.dtype, dev, x0, x1 - x0)
-        masked_bins(km, mult_t[None, None, :], p[x0:x1], edges_t, int(nbins),
-                     out)
-    return bins_to_host(out, int(nbins))
+    return bins_to_host(_grid_sums(pgrid, shape, spacing, nbins)[0],
+                        int(nbins))
 
 
-def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
-                    interlaced_with=None):
-    """Realized isotropic P(k) of a field, binned in log |k|.
-
-    Returns host float64 ``(k_mean, p_hat, n_modes)``: per bin the
-    mode-weighted mean |k|, the mean <|c_k|^2> / V with c_k = a^3 rfftn(delta),
-    and the number of full-spectrum modes; empty bins give NaN.  Runs on
-    ``delta``'s device.  With ``mesh`` (a :class:`..parallel.mesh.SlabMesh`)
-    ``delta`` is this rank's (nx/P, ny, nz) x slab of the field: the
-    distributed forward transform runs on the hand kernels, each rank bins
-    its ky rows and one all-reduce sums them, so every rank returns the
-    whole field's result.  ``window`` and ``interlaced_with`` are not
-    ported yet and raise NotImplementedError.
-    """
-    if window is not None or interlaced_with is not None:
-        raise NotImplementedError(
-            "calculate_power(window=..., interlaced_with=...) is not ported "
-            "to randomfield_tpu_torch yet: the catalog estimators "
-            "(ROADMAP.md, Queue 1 item 6)")
-    delta = torch.as_tensor(delta)
-    if delta.dtype != torch.float32 or delta.ndim != 3:
-        raise ValueError(f"delta must be one float32 (nx, ny, nz) field, got "
-                         f"{delta.dtype} {tuple(delta.shape)}")
-    spacing = float(spacing)
-    nbins = int(nbins)
-    a3 = float(np.float32(spacing ** 3))
-    if mesh is None:
-        shape = tuple(int(s) for s in delta.shape)
-        c = torch.fft.rfftn(delta) * a3
-        re, im, y_off = c.real, c.imag, 0
-    else:
-        from randomfield_tpu_torch.parallel import dfft as _dfft
-        from randomfield_tpu_torch.parallel import mesh as _mesh
-
-        mesh = _mesh.require_slab(mesh)
-        shape = (delta.shape[0] * mesh.size, delta.shape[1], delta.shape[2])
-        re, im = _dfft.rfftn_slab(delta, shape, mesh)
-        re.mul_(a3)
-        im.mul_(a3)
-        y_off, _ = mesh.rows(shape[1])
-    volume = float(np.float32(shape[0] * shape[1] * shape[2] * spacing ** 3))
-    out = _binned_sums(re, im, shape, spacing, nbins, y_off, 1.0 / volume)
-    if mesh is not None:
-        mesh.all_reduce_sum(out)
-    return bins_to_host(out, nbins)
+def bin_power_multipoles_grid(pgrid, shape, spacing, nbins=32,
+                              ells=(0, 2, 4), los_axis=2):
+    """Multipole-average a per-mode power half-grid into estimator bins:
+    the Legendre weights, bins, multiplicities and masks of
+    ``calculate_power_multipoles``.  Returns ``(k_mean, p_ell, n_modes)``
+    with ``p_ell`` shaped ``(len(ells), nbins)``."""
+    ells = check_ells(ells, "under Hermitian symmetry")
+    acc = _grid_sums(pgrid, shape, spacing, nbins, ells=ells,
+                     los_axis=int(los_axis))
+    return poles_to_host(acc, int(nbins))
 
 
-def field_moments(delta, mesh=None):
-    """(mean, variance) of a field as host floats.
-
-    Two passes over x slabs of ``delta`` on its device, each slab summed in
-    float64, so no float32 running sum saturates at any grid size (the
-    reason of the JAX package's axiswise reductions).  One device only: a
-    slab ``mesh`` raises NotImplementedError.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "field_moments of a mesh field is not ported to "
-            "randomfield_tpu_torch yet: the mesh versions (ROADMAP.md, "
-            "Queue 1 item 8)")
-    delta = torch.as_tensor(delta)
-    n = delta.numel()
-    total = torch.zeros((), dtype=torch.float64, device=delta.device)
-    for chunk in delta.split(_X_CHUNK):
-        total += chunk.to(torch.float64).sum()
-    mean = total / n
-    total.zero_()
-    for chunk in delta.split(_X_CHUNK):
-        total += ((chunk.to(torch.float64) - mean) ** 2).sum()
-    return float(mean), float(total / n)
+def bin_power_wedges_grid(pgrid, shape, spacing, nbins=32, nmu=4,
+                          los_axis=2):
+    """Wedge-average a per-mode power half-grid into estimator bins: the
+    joint (|k|, |mu|) bins, multiplicities and masks of
+    ``calculate_power_wedges``.  Returns ``(k_mean, p, n_modes)`` with
+    ``p`` and ``n_modes`` shaped ``(nbins, nmu)``."""
+    acc = _grid_sums(pgrid, shape, spacing, nbins, nmu=int(nmu),
+                     los_axis=int(los_axis))
+    return wedges_to_host(acc, int(nbins), int(nmu))

@@ -726,3 +726,129 @@ def test_nested_cuda_render_and_noise(cuda):
     key = threefry.key_from_seed(3)
     want = torch.stack(sample.nested_unit_draws(key, shape))
     assert _rel(noise.cpu(), want) <= K2_TOL
+
+
+# ---- KB and the estimators on the card ---------------------------------------
+
+# KB vs its plain version: the same float32 terms a mode, added in float64
+# in another order (runs, warps, blocks vs index_add_); counts exactly
+KB_SUM_RTOL = 1e-10
+# a CUDA estimator vs the same estimator on the CPU: the hand FFTs against
+# torch.fft (float32 rounding of the spectrum), the sums in float64 both
+ESTIMATOR_RTOL = 1e-5
+
+KB_CASES = [
+    ("auto", (64, 32, 64), {}),
+    ("auto", (64, 32, 64), dict(order=2)),
+    ("auto", (32, 48, 30), dict(ells=(0, 2, 4), los_axis=1)),
+    ("cross", (64, 32, 64), dict(nmu=4)),
+    ("interlaced", (32, 32, 66), dict(order=3, ells=(2, 4))),
+    ("grid", (48, 32, 40), dict(nmu=3, los_axis=0)),
+    ("auto", (64, 64, 32), dict(y_off=16)),
+]
+
+
+@pytest.mark.parametrize("kind,shape,kw", KB_CASES)
+def test_bin_spectrum_matches_plain(cuda, kind, shape, kw):
+    from randomfield_tpu_torch.ops import binning
+
+    nx, ny, nz = shape
+    rows = ny - kw.get("y_off", 0)
+    arrays = [_randn((nx, rows, nz // 2 + 1), cuda, 40 + i)
+              for i in range(binning.KINDS[kind][1])]
+    if kind == "grid":
+        arrays = [a.abs() for a in arrays]
+    edges, _ = stats.bin_setup(shape, SPACING, 12)
+    before = binning.KB_LAUNCHES
+    got = binning.bin_spectrum(kind, arrays, shape, SPACING, edges,
+                               factor=0.25, **kw)
+    again = binning.bin_spectrum(kind, arrays, shape, SPACING, edges,
+                                 factor=0.25, **kw)
+    assert binning.KB_LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    want = binning.bin_spectrum_plain(kind, arrays, shape, SPACING, edges,
+                                      factor=0.25, **kw)
+    assert torch.equal(got[:, 0], want[:, 0])
+    scale = float(want[:, 1:].abs().max())
+    assert float((got[:, 1:] - want[:, 1:]).abs().max()) <= KB_SUM_RTOL * scale
+
+
+def test_bin_spectrum_raises_above_its_bins(cuda):
+    from randomfield_tpu_torch.ops import binning
+
+    re = torch.zeros((16, 16, 9), device=cuda)
+    edges, _ = stats.bin_setup((16, 16, 16), SPACING, 300)
+    with pytest.raises(ValueError, match="at most"):
+        binning.bin_spectrum("auto", (re, re), (16, 16, 16), SPACING, edges,
+                             nmu=4)
+
+
+def test_estimators_on_the_card_match_the_cpu(cuda):
+    from randomfield_tpu_torch.ops import binning
+    from randomfield_tpu_torch.validate import bispectrum
+
+    shape = (32, 32, 64)
+    d, d2 = _randn(shape, cuda, 50), _randn(shape, cuda, 51)
+    dc, d2c = d.cpu(), d2.cpu()
+    calls = [
+        lambda a, b: stats.calculate_power(a, SPACING, 10),
+        lambda a, b: stats.calculate_power(a, SPACING, 10, window="cic",
+                                           interlaced_with=b),
+        lambda a, b: stats.calculate_power_multipoles(a, SPACING, 10),
+        lambda a, b: stats.calculate_power_wedges(a, SPACING, 10, nmu=3),
+        lambda a, b: stats.calculate_cross_power(a, b, SPACING, 10),
+    ]
+    before = (binning.KB_LAUNCHES, fft.K6_LAUNCHES, transform.TORCH_FFT_CALLS)
+    for call in calls:
+        for got, want in zip(call(d, d2), call(dc, d2c)):
+            # of the largest value: a quadrupole bin may sit near 0
+            np.testing.assert_allclose(
+                got, want, rtol=ESTIMATOR_RTOL,
+                atol=ESTIMATOR_RTOL * np.nanmax(np.abs(want)))
+    assert binning.KB_LAUNCHES == before[0] + len(calls)
+    assert fft.K6_LAUNCHES >= before[1] + len(calls)
+    assert transform.TORCH_FFT_CALLS == before[2]
+    for got, want in zip(stats.calculate_correlation(d, SPACING, 8),
+                         stats.calculate_correlation(dc, SPACING, 8)):
+        np.testing.assert_allclose(got, want, rtol=ESTIMATOR_RTOL,
+                                   atol=ESTIMATOR_RTOL * np.abs(want).max())
+    got = bispectrum.calculate_bispectrum(d, SPACING, nbins=4)
+    want = bispectrum.calculate_bispectrum(dc, SPACING, nbins=4)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-4)
+    np.testing.assert_allclose(got[2], want[2], rtol=0,
+                               atol=1e-3 * np.abs(want[2]).max())
+
+
+def test_transforms_of_other_grids_go_to_torch_fft(cuda):
+    x = _randn((24, 16, 20), cuda, 52)
+    before = (transform.TORCH_FFT_CALLS, fft.K6_LAUNCHES)
+    re, im = transform.rfftn(x)
+    assert transform.TORCH_FFT_CALLS == before[0] + 1
+    assert fft.K6_LAUNCHES == before[1]
+    want = torch.fft.rfftn(x)
+    assert torch.equal(re, want.real) and torch.equal(im, want.imag)
+    k, p, n = stats.calculate_power(x, SPACING, 6)
+    kc, pc, nc = stats.calculate_power(x.cpu(), SPACING, 6)
+    np.testing.assert_array_equal(n, nc)
+    np.testing.assert_allclose(p, pc, rtol=ESTIMATOR_RTOL)
+
+
+def test_nongaussian_and_measure_methods_on_the_card(cuda):
+    shape = (32, 32, 64)
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda)
+    gc = rft.Generator(*shape, grid_spacing=SPACING, device="cpu")
+    for kind, fnl in (("field", 100.0), ("potential", 2e3)):
+        got = g.generate_nongaussian_field(2, fnl, kind=kind)
+        want = gc.generate_nongaussian_field(2, fnl, kind=kind)
+        assert _rel(got.cpu(), want) <= RENDER_TOL
+    assert torch.equal(g.generate_nongaussian_field(2, 0.0),
+                       g.generate_delta_field(2, apply_lightcone=False))
+    for name, kw in (("predicted_kaiser_multipoles", {}),
+                     ("predicted_kaiser_wedges", dict(nmu=3)),
+                     ("predicted_derived_power", dict(kind="velocity"))):
+        got = getattr(g, name)(nbins=10, **kw)
+        want = getattr(gc, name)(nbins=10, **kw)
+        np.testing.assert_array_equal(got[2], want[2])
+        # the table interpolated in float32 by two libraries' log10
+        np.testing.assert_allclose(got[1], want[1], rtol=ESTIMATOR_RTOL)

@@ -21,7 +21,8 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from randomfield_tpu.validate import stats as jstats  # noqa: E402
-from randomfield_tpu_torch.parallel.mesh import make_pencil_mesh  # noqa: E402
+from randomfield_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_mesh, make_pencil_mesh)
 from randomfield_tpu_torch.validate import stats  # noqa: E402
 
 SPACING = 8.0
@@ -101,10 +102,15 @@ def test_one_k_for_every_binning():
 
 
 def test_unported_estimator_options_raise():
+    # window= and interlaced_with= run on one device; on a mesh they wait
+    # for the slab-mesh estimators (item 8), and a pencil mesh for item 5
     delta = torch.zeros((8, 8, 8))
+    slab = make_mesh(device="cpu")
     for kw, what in ((dict(mesh=make_pencil_mesh(spx=2, spy=2)), "ROADMAP.md"),
-                     (dict(window="cic"), "Queue 1 item 6"),
-                     (dict(interlaced_with=delta), "Queue 1 item 6")):
+                     (dict(mesh=slab, window="cic"), "Queue 1 item 8"),
+                     (dict(mesh=slab, interlaced_with=delta), "Queue 1 item 8"),
+                     (dict(mesh=make_pencil_mesh(spx=2, spy=2),
+                           interlaced_with=delta), "Queue 1 item 5")):
         with pytest.raises(NotImplementedError, match=what):
             stats.calculate_power(delta, SPACING, 4, **kw)
     with pytest.raises(ValueError, match="float32"):
