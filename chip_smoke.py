@@ -19,7 +19,9 @@ non-zero with no result line:
    issue-rate time they imply; K2F's spectrum instance held to its
    registers and instructions a mode (K2F_SPECTRUM_SASS), and K5 to its
    (K5_SASS: its binning code is now shared with KB); the registers of
-   KB's twelve instances;
+   KB's twelve instances; K4's 1024^3 instance held to its registers and
+   SASS count (K4_SASS_512) with K4L in its template, and the registers of
+   KP's, KC's and K4L's instances;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -51,7 +53,11 @@ non-zero with no result line:
    window, counts equal to the plain version's, sums within 1e-10, two
    calls bit-equal; K5's block at 256^3 against its stored digest; the
    threefry and pallas scenes' sigma tables unchanged, the nested tables
-   of 512^3 and 1024^3 over one box sharing their knots;
+   of 512^3 and 1024^3 over one box sharing their knots; KP on 1024^3
+   particles (plus particles on faces, at L and below 0; NGP, CIC, TSC,
+   scalar and per-particle weights, the interlacing shift) bit-equal to
+   its plain version and to a second call, KC (M = 1, 8, 40, s = 0 and 8)
+   MEASURE within 1e-10 and CORRECT bit-equal, K4L within K4's bar;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -66,7 +72,12 @@ non-zero with no result line:
    predicted_ng_bispectrum (slope, |z| < 5, SNR) and a fixed Gaussian
    field's against 0, sample_power_ensemble resumed from its checkpoint
    equal to the uninterrupted run, and each estimator on the card against
-   the same on the CPU at 128^3;
+   the same on the CPU at 128^3; the mock makers' gates at 128^3 (the
+   lognormal P(k) of 8 seeds against its target, its mean, minimum and
+   per-plane variance; the displaced lattice's P(k), the Kaiser monopole
+   and quadrupole, interlaced TSC against the field; 8 constraints met,
+   the conditional mean and variance, the Wiener MSE, the posterior mean)
+   and each mock path on the card against the CPU;
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
@@ -94,6 +105,12 @@ non-zero with no result line:
    fixed field (variance within 1e-4, paired = -fixed bit for bit),
    -div(psi) of the displacement against delta, the velocity, tidal and
    Kaiser fields, and 2LPT and classify_web at 512^3 with their peak memory;
+   then the mock makers at 1024^3: the lognormal render (its transformed
+   spectrum on the card), displacement -> redshift-space positions ->
+   interlaced TSC catalog multipoles, an 8-constraint field checked by
+   measure_constraints, the Wiener filter and the posterior sample, each
+   with its launches (KP, KC, K4L among them, never torch.fft) and peak
+   memory;
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers and for the v4 and v6 variants, of
    generate_noise beside the plain draws, of each
@@ -112,7 +129,10 @@ non-zero with no result line:
    KB, KB beside its plain version (index_add_) and in its other kinds and
    outputs, the multipoles, wedges, cross and interlaced estimators, the
    bispectrum (nbins = 8: first call and cached, its peak memory), xi and
-   both f_NL renders.
+   both f_NL renders; KP beside its plain version and index_add_, KC's
+   two passes beside theirs, K4L beside its plain version and irfft, the
+   stages of the lognormal, constrained and Zel'dovich paths, and the
+   whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -186,9 +206,25 @@ KERNELS = {
     "KB": dict(name="bin_spectrum", route="cuda",
                source="randomfield_tpu_torch/csrc/bin_spectrum.cu",
                replaces="randomfield_tpu/validate/stats.py:77"),
+    # the mock makers' XLA stages: the scatter-add painting, the chunked
+    # constraint functionals (and :250 _correction_chunked) and the
+    # lognormal exp map, fused into K4's tail
+    "KP": dict(name="deposit", route="cuda",
+               source="randomfield_tpu_torch/csrc/paint.cu",
+               replaces="randomfield_tpu/models/zeldovich.py:118"),
+    # the painting's contrast, mass / mean - 1 of the reference's paint
+    "KPC": dict(name="contrast", route="cuda",
+                source="randomfield_tpu_torch/csrc/paint.cu",
+                replaces="randomfield_tpu/models/zeldovich.py:186"),
+    "KC": dict(name="constraint_measure_correct", route="cuda",
+               source="randomfield_tpu_torch/csrc/constraint_kernel.cu",
+               replaces="randomfield_tpu/models/constrained.py:224"),
+    "K4L": dict(name="c2r_tail_exp", route="cuda",
+                source="randomfield_tpu_torch/csrc/c2r_tail.cu",
+                replaces="randomfield_tpu/models/lognormal.py:130"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10", "KN", "K2FX", "KD", "KB")
+                "K10", "KN", "K2FX", "KD", "KB", "KP", "KPC", "KC", "K4L")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -202,7 +238,7 @@ KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
 # operations in their order (0 expected)
 BARS = {"K1": 2e-6, "K2": 2e-6, "K2F": 2e-6, "K3": 2e-6, "K4": 5e-6,
         "K6": 5e-6, "K7": 2e-6, "K8": 2e-6, "K9": 5e-6, "K10": 5e-6,
-        "KN": 2e-6, "K2FX": 2e-6, "KD": 2e-6}
+        "KN": 2e-6, "K2FX": 2e-6, "KD": 2e-6, "K4L": 5e-6}
 # the fused K2's unit normals vs threefry.normal_at on the card (the same
 # float32 operations and libdevice calls: 0 expected)
 DRAW_ULPS = 3
@@ -227,6 +263,8 @@ CONSISTENCY_SHAPE, CONSISTENCY_SPACING, CONSISTENCY_RTOL = (256, 256, 256), 8.0,
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# float64 operations/s outside the tensor cores (the same data sheet)
+FP64_OPS_PER_S = 34e12
 # 32-bit operations per mode, counted from the kernels' source: Threefry-2x32
 # is 20 rounds of add, rotate, xor plus 5 key injections of two adds and the
 # two initial adds (72), plus the counter split (2); each transcendental
@@ -252,6 +290,18 @@ OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
                 "K2": 24, "K2F": 2 * (74 + 42) + 6 + 24,
                 "K10": K10_DRAW_OPS + 5 * 10, "KN": 74 + 7 + 12 + 12 + 4,
                 "K2FX": 2 * (74 + 42) + 6 + 24 + 7, "KD": 9, "KB": 15}
+# KP, a particle (CIC): u = (x + shift) / a, uc, floor and fraction (12 over
+# the three axes), the 1 - f (3), and a corner's two weight products, its
+# conversion to 2^-s units (multiply, round) and its index (4 more): 8 x 6.
+# KC, a mode and constraint of each pass: the two complex products of the
+# tables (12) and the mode's term or the alpha sum (4): 16 M a pass.  K4L:
+# K4's, plus a multiply, a subtract and expm1f a cell.  KPC, a cell: the
+# int64 conversion, two multiplies and a subtract in float64, and the
+# rounding to float32 (the total's sum is one add a cell more).
+KP_OPS_PER_PARTICLE = 12 + 3 + 8 * 6
+KPC_FP64_OPS_PER_CELL = 6
+KC_OPS_PER_MODE_AND_CONSTRAINT = 16
+K4L_OPS_PER_CELL = 3
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
 # single-seed variance vs prediction at 1024^3
@@ -942,6 +992,10 @@ def reset_counts():
     from randomfield_tpu_torch.ops import binning, transform
 
     binning.KB_LAUNCHES = transform.TORCH_FFT_CALLS = 0
+    from randomfield_tpu_torch.ops import constraint, paint
+
+    paint.KP_LAUNCHES = paint.KPC_LAUNCHES = 0
+    constraint.KC_LAUNCHES = fft.K4L_LAUNCHES = 0
 
 
 def read_counts():
@@ -961,7 +1015,7 @@ def read_counts():
             "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES,
             "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES,
             "KN": sampler.KN_LAUNCHES, "K2FX": sampler.K2FX_LAUNCHES,
-            "KD": derived.KD_LAUNCHES}
+            "KD": derived.KD_LAUNCHES, **mock_counts()}
 
 
 def require_launches(counts, least, what):
@@ -2940,6 +2994,784 @@ def phase4_measure(torch, rft, dev, g, card):
     return {"KB": (k_ms, p_ms, None)}
 
 
+# ---- the mock makers: KP (paint), KC (constraint functionals), K4L --------------
+
+# K4's instance at the 1024^3 render's nz / 2 = 512 (Plan<512, 16, 8, 4>): its
+# registers and SASS instructions as built for sm_90a before K4L joined its
+# template; the lognormal instance must not move them
+K4_SASS_512 = (64, 1224)
+# KC MEASURE vs its plain version (the same float64 terms, summed in another
+# order), relative to the sum of |terms|; CORRECT bit-equal
+KC_MEASURE_RTOL = 1e-10
+KC_COUNTS = (1, 8, 40)
+MOCK_CONSTRAINTS = 8
+# particles a block of KP's library timing (its 8 corners' terms, 1 GiB each)
+KP_LIB_BLOCK = 1 << 27
+# the 1024^3 constrained render: constraints met within the reference's
+# bar (tests/test_constrained.py:89-100)
+CONSTRAINT_BAR = 2e-3
+# phase 2's grids and seeds
+MOCK_SHAPE, MOCK_SPACING = (128, 128, 128), 8.0
+LOGNORMAL_SEEDS = 8
+KAISER_SEEDS = 4
+COND_SHAPE, COND_SPACING, COND_SEEDS = (32, 32, 32), 16.0, 128
+POSTERIOR_SEEDS = 32
+# a mock path's field on the card against the CPU one at 128^3
+MOCK_SLICE_BAR = 1e-5
+
+
+def mock_counts():
+    from randomfield_tpu_torch.ops import constraint, fft, paint
+
+    return {"KP": paint.KP_LAUNCHES, "KPC": paint.KPC_LAUNCHES,
+            "KC": constraint.KC_LAUNCHES, "K4L": fft.K4L_LAUNCHES}
+
+
+def phase0_mocks(torch, card):
+    """K4's 1024^3 instance held to its registers and SASS count
+    (K4_SASS_512) with K4L in its template; the registers of KP's, KC's and
+    K4L's instances."""
+    from randomfield_tpu_torch.ops import _build, fft
+
+    lib, tool = _build.library_path(), _build.cuda_tool("cuobjdump")
+    funcs, regs = sass_functions(lib, tool)
+    k4 = [f for f in funcs if "c2r_tail_kernel" in f
+          and "PlanILi512ELi16ELi8ELi4E" in f and "Lb0E" in f]
+    if len(k4) != 1:
+        raise AssertionError(f"no single K4 instance at m = 512: {k4}")
+    got = (regs.get(k4[0], -1), len(funcs[k4[0]]))
+    log(f"phase 0 K4 c2r_tail m = 512: {got[0]} registers, {got[1]} SASS "
+        f"instructions; expected {K4_SASS_512} (the instance before K4L) "
+        f"[{card}]")
+    if got != K4_SASS_512:
+        raise AssertionError("adding K4L moved K4's instance")
+    for n in FFT_LENGTHS:
+        r, b, t, s = fft.kernel_attributes("c2r_tail_exp", n)
+        log(f"phase 0 K4L c2r_tail_exp nz = {2 * n}: {r} registers a thread, "
+            f"{b} blocks an SM of {t} threads, {s} bytes of shared memory "
+            f"[{card}]")
+        if r <= 0 or b <= 0:
+            raise AssertionError(f"K4L n = {n}: no such instance")
+    found = {}
+    for f, r in regs.items():
+        for frag, what in (("paint_kernelILi1E", "KP ngp"),
+                           ("paint_kernelILi2E", "KP cic"),
+                           ("paint_kernelILi3E", "KP tsc"),
+                           ("contrast_kernel", "KP contrast"),
+                           ("measure_kernelILb0E", "KC measure"),
+                           ("measure_kernelILb1E", "KC measure + scale"),
+                           ("correct_kernel", "KC correct")):
+            if frag in f:
+                found[what] = r
+    log(f"phase 0 KP and KC registers a thread: {found} [{card}]")
+    if len(found) != 7:
+        raise AssertionError("KP's or KC's instances are missing")
+
+
+def _particles(torch, shape, spacing, dev, seed=11):
+    """float32 (3, n) positions: one a cell at a random place in the box,
+    then particles exactly on cell faces, at L and at -a/2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape))
+    pos = torch.empty((3, n + 4096), dtype=torch.float32, device=dev)
+    for a in range(3):
+        pos[a, :n].uniform_(0.0, shape[a] * spacing, generator=gen)
+    faces = torch.randint(-2, 2 * shape[0] + 2, (3, 4096), generator=gen,
+                          device=dev).to(torch.float32) * (spacing / 2)
+    faces[:, :8] = shape[0] * spacing
+    faces[:, 8:16] = -spacing / 2
+    pos[:, n:] = faces
+    return pos
+
+
+def _constraint_set(m, shape, spacing, seed):
+    """m constraints: off-grid positions, radii 0..4 cells, the last R = 0
+    and the first on a grid point; values of order 1."""
+    rng = np.random.default_rng(seed)
+    box = np.asarray(shape, np.float64) * spacing
+    pos = rng.uniform(0.0, 1.0, (m, 3)) * box
+    pos[0] = np.round(pos[0] / spacing) * spacing
+    scales = rng.uniform(0.0, 4.0, m) * spacing
+    scales[-1] = 0.0
+    values = rng.normal(0.0, 1.0, m)
+    return [(tuple(p), float(v), float(s))
+            for p, v, s in zip(pos, values, scales)]
+
+
+def projection_misses(torch, g, cons, seed):
+    """(max |Gamma - value| of the corrected spectrum before the Hermitian
+    projection of its self-conjugate kz planes, after it, and of the
+    rendered field by measure_constraints) of one constrained render at
+    s = 0: a constraint off the grid with R = 0 is not Hermitian on those
+    planes' Nyquist rows, and the projection drops that part of it."""
+    from randomfield_tpu_torch.models import constrained
+    from randomfield_tpu_torch.ops import constraint, threefry, transform
+
+    shape, sp = g.shape, g.grid_spacing
+    vals = np.array([c[1] for c in cons])
+    p, r, _ = constrained.pack_constraints(cons, shape, sp)
+    tables = constraint.axis_tables(p, r, shape, sp, g.device)
+    re, im = constrained.unit_hermitian(threefry.as_key(seed), shape, sp,
+                                        g.device)
+    gamma = constraint.measure(re, im, tables, g.sigmas)
+    alpha = constrained._solve(g.constraint_matrix(cons),
+                               vals - gamma.cpu().numpy())
+    constraint.correct(re, im, tables, alpha, g.sigmas)
+    pre = float(np.abs(constraint.measure(re, im, tables).cpu().numpy()
+                       - vals).max())
+    transform.hermitian_part_reim(re, im, shape[2])
+    post = float(np.abs(constraint.measure(re, im, tables).cpu().numpy()
+                        - vals).max())
+    del re, im
+    d = g.generate_constrained_field(seed, cons)
+    field = float(np.abs(g.measure_constraints(d, cons) - vals).max())
+    del d
+    torch.cuda.empty_cache()
+    return pre, post, field
+
+
+def phase1_mocks(torch, g, errs):
+    """KP, KC and K4L against their plain versions on the card at the 1024^3
+    paths' shapes.  KP: 1024^3 particles (plus 4096 on faces, at L, below
+    0), NGP, CIC and TSC, scalar and per-particle weights, the interlacing
+    shift: the int64 sums bit-equal to the plain version's and to a second
+    call, the contrast bit-equal.  KC on the scene's sigma grid and a K2F
+    unit draw with M = 1, 8 and 40 off-grid constraints (R = 0 among them),
+    s = 0 and 8: MEASURE within KC_MEASURE_RTOL, CORRECT bit-equal.  K4L on
+    a render's spectrum after its x and y passes, the lognormal planes' a
+    and c, within K4's bar of c2r_tail_plain then expm1."""
+    from randomfield_tpu_torch.models import constrained
+    from randomfield_tpu_torch.ops import constraint, fft, paint
+
+    dev, sp = g.device, HEADLINE_SPACING
+    pos = _particles(torch, HEADLINE, sp, dev)
+    w = torch.rand(pos.shape[1], device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(3)) * 2
+    for window, weighted, shift in (("cic", False, 0.0),
+                                    ("tsc", True, sp / 2),
+                                    ("ngp", False, sp / 2)):
+        wt = w if weighted else 1.0
+        order = paint.ORDERS[window]
+        s = paint.fixed_point_exponent(paint.total_abs_weight(pos, wt))
+        got = paint.deposit(pos, HEADLINE, sp, wt, order, shift, s)
+        again = paint.deposit(pos, HEADLINE, sp, wt, order, shift, s)
+        same = torch.equal(got, again)
+        del again
+        want = paint.deposit_plain(pos, HEADLINE, sp, wt, order, shift, s)
+        equal = torch.equal(got, want)
+        d, mean = paint.contrast(got, s)
+        dp, mp = paint.contrast_plain(want, s)
+        log(f"phase 1 KP {window} weights={'per particle' if weighted else 1.0}"
+            f" shift={shift} {pos.shape[1]} particles on {HEADLINE}: int64 "
+            f"sums equal to plain {equal}, two calls equal {same}, contrast "
+            f"equal {torch.equal(d, dp) and mean == mp} (2^{s} units)")
+        if not (equal and same and torch.equal(d, dp) and mean == mp):
+            raise AssertionError(f"KP {window} disagrees with its plain "
+                                 f"version")
+        errs["KP"] = 0.0  # the int64 sums are equal (checked above)
+        errs["KPC"] = max(errs.get("KPC", 0.0), float((d - dp).abs().max()))
+        del got, want, d, dp
+        torch.cuda.empty_cache()
+    del pos, w
+    torch.cuda.empty_cache()
+
+    sig = g.sigmas
+    for m in KC_COUNTS:
+        cons = _constraint_set(m, HEADLINE, sp, m)
+        p, r, _ = constrained.pack_constraints(cons, HEADLINE, sp)
+        tables = constraint.axis_tables(p, r, HEADLINE, sp, dev)
+        for s in (0.0, 8.0):
+            re, im = constrained.unit_hermitian(5, HEADLINE, sp, dev)
+            pr, pi = re.clone(), im.clone()
+            got = constraint.measure(re, im, tables, sig, s)
+            want = constraint.measure_plain(pr, pi, tables, sig, s)
+            scaled = torch.equal(re, pr) and torch.equal(im, pi)
+            rel = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-300)
+            alpha = np.random.default_rng(m).normal(size=m).astype(np.float32)
+            constraint.correct(re, im, tables, alpha, sig, s)
+            constraint.correct_plain(pr, pi, tables, alpha, sig, s)
+            equal = torch.equal(re, pr) and torch.equal(im, pi)
+            log(f"phase 1 KC M={m} s={s} {HEADLINE}: measure rel "
+                f"{rel:.3e} (bar {KC_MEASURE_RTOL:g}), scaled draws equal "
+                f"{scaled}, correction bit-equal {equal}")
+            if not (rel <= KC_MEASURE_RTOL and scaled and equal):
+                raise AssertionError(f"KC M={m} s={s} disagrees")
+            errs["KC"] = max(errs.get("KC", 0.0),
+                             float((got - want).abs().max()))
+            del re, im, pr, pi
+            torch.cuda.empty_cache()
+
+    nx, ny, nz = HEADLINE
+    re, im = g._sampled_spectrum(3, 0.0)
+    fft.ifft_axis(re, im, 1, nx, ny * (nz // 2 + 1))
+    fft.ifft_axis(re, im, nx, ny, nz // 2 + 1)
+    wz = g.state.lightcone_weights
+    var = 0.5
+    a = wz.clone()
+    c = (0.5 * (wz.double() ** 2 * var)).float()
+    got = fft.c2r_tail_exp(re, im, nz, a, c)
+    want = fft.c2r_tail_exp_plain(re, im, nz, a, c)
+    check_close(errs, "K4L", f"{HEADLINE} lognormal tail", (got,), (want,))
+    del re, im, got, want
+    torch.cuda.empty_cache()
+
+
+def _power_law(shape, spacing, amplitude):
+    """The reference tests' low-amplitude spectrum (tests/test_zeldovich.py
+    _scaled_default): amplitude A / k over [k_min / 2, 2 k_max], A setting
+    sigma(8 Mpc/h) = 0.8288."""
+    from randomfield_tpu_torch.ops import grid, power
+
+    kmin, kmax = grid.get_k_bounds(shape, spacing)
+    k = np.logspace(np.log10(kmin * 0.5), np.log10(kmax * 2.0), 256)
+    kr = np.logspace(-4.5, 2.5, 4096)
+    a = (0.8288 / power.sigma8((kr, 1.0 / kr))) ** 2
+    return (k, amplitude * a / k)
+
+
+def phase2_mocks(torch, rft, dev):
+    """The reference tests' gates on the card, and each mock path on the
+    card against the CPU at 128^3."""
+    from randomfield_tpu_torch.models import lognormal, zeldovich
+    from randomfield_tpu_torch.ops import power as _power
+    from randomfield_tpu_torch.validate import stats
+
+    shape, sp = MOCK_SHAPE, MOCK_SPACING
+    # lognormal: P(k) of 8 seeds against the target (5 sigma + 6%), mean 0
+    # and min > -1, the per-plane lightcone variance
+    gen = lognormal.LognormalGenerator(*shape, sp, device=dev)
+    acc, mins, means, planes = [], [], [], []
+    for s in range(LOGNORMAL_SEEDS):
+        d = gen.generate_delta_field(s, apply_lightcone=False)
+        mins.append(float(d.min()))
+        means.append(float(d.double().mean()))
+        k, p, cnt = stats.calculate_power(d, sp, nbins=10)
+        acc.append(p)
+        dl = gen.generate_delta_field(s)
+        planes.append(dl.double().var(dim=(0, 1)).cpu().numpy())
+    p_mean, p_sd = _seed_mean(acc)
+    mask = cnt > 4
+    target = np.interp(np.log10(k[mask]), np.log10(gen.power.k),
+                       gen.power.Pk)
+    worst = float(np.max(np.abs(p_mean[mask] - target)
+                         / (5.0 * p_sd[mask] + 0.06 * target)))
+    pred = np.expm1(np.asarray(gen.growth_function) ** 2 * gen.sigma_g2)
+    plane_err = float(np.max(np.abs(np.mean(planes, 0) / pred - 1.0)))
+    mean_bar = 4 * np.sqrt(gen.predicted_variance()
+                           / (LOGNORMAL_SEEDS * np.prod(shape)))
+    log(f"phase 2 lognormal {shape}: P(k) of {LOGNORMAL_SEEDS} seeds vs "
+        f"target, max |resid| / (5 sigma + 6%) {worst:.3f}; min {min(mins):.4f}"
+        f" > -1; mean {np.mean(means):.3e} (bar {mean_bar:.3e}); per-plane "
+        f"lightcone variance vs expm1(D^2 sigma_G^2) max rel {plane_err:.4f} "
+        f"(bar 0.25)")
+    if not (worst < 1.0 and min(mins) > -1.0 and abs(np.mean(means))
+            < mean_bar and plane_err < 0.25):
+        raise AssertionError("the lognormal gates failed")
+
+    # Zel'dovich: the displaced lattice recovers linear P(k) at low k; the
+    # Kaiser monopole boost and quadrupole (same-seed ratios); interlaced
+    # TSC against the field's own P(k)
+    table = _power_law(shape, sp, 3e-3)
+    g = rft.Generator(*shape, grid_spacing=sp, power=table, device=dev)
+    psi = g.generate_displacement(11)
+    pos = zeldovich.zeldovich_positions(psi, sp)
+    k, p, nm = zeldovich.catalog_power(pos, sp, nbins=12, window="cic")
+    ok = np.isfinite(p) & (nm > 60) & (k < 0.5 * np.pi / sp)
+    pexp = _power.interpolate_power(
+        rft.validate_power(table), torch.as_tensor(k[ok], dtype=torch.float32)
+    ).double().numpy()
+    resid = p[ok] / pexp - 1.0
+    lin = float(np.max(np.abs(resid) / (5.0 * np.sqrt(2.0 / nm[ok]) + 0.1)))
+    f = 0.7
+    mono, quad = [], []
+    for seed in range(1, KAISER_SEEDS + 1):
+        psi = g.generate_displacement(seed)
+        pr = zeldovich.catalog_power(
+            zeldovich.zeldovich_positions(psi, sp), sp, nbins=10,
+            window="cic")
+        ps = zeldovich.catalog_power_multipoles(
+            zeldovich.zeldovich_positions(psi, sp, f=f), sp, nbins=10,
+            window="cic")
+        ok2 = np.isfinite(pr[1]) & (pr[2] > 30) & (pr[0] < 0.3 * np.pi / sp)
+        mono.append(ps[1][0][ok2] / pr[1][ok2])
+        quad.append(ps[1][1][ok2] / pr[1][ok2])
+    k0 = 1.0 + 2.0 * f / 3.0 + f * f / 5.0
+    k2 = 4.0 * f / 3.0 + 4.0 * f * f / 7.0
+    m0 = float(np.concatenate(mono).mean()) / k0 - 1.0
+    m2 = float(np.concatenate(quad).mean()) / k2 - 1.0
+    field = g.generate_delta_field(5, apply_lightcone=False)
+    psi = g.generate_displacement(5)
+    pos = zeldovich.zeldovich_positions(psi, sp)
+    kc, pc, nc = zeldovich.catalog_power(pos, sp, nbins=10, window="tsc",
+                                         interlaced=True)
+    kf, pf, _ = stats.calculate_power(field, sp, nbins=10)
+    okf = np.isfinite(pc) & (nc > 30) & (kc < 0.5 * np.pi / sp)
+    tsc = float(np.max(np.abs(pc[okf] / pf[okf] - 1.0)))
+    log(f"phase 2 Zel'dovich {shape}: linear P(k) max |resid| / budget "
+        f"{lin:.3f}; Kaiser monopole / (1 + 2f/3 + f^2/5) - 1 = {m0:+.4f} "
+        f"(bar 0.08), quadrupole / (4f/3 + 4f^2/7) - 1 = {m2:+.4f} (bar "
+        f"0.15) over {KAISER_SEEDS} seeds; interlaced TSC catalog P / field "
+        f"P max |ratio - 1| {tsc:.4f} (bar 0.15)")
+    if not (lin < 1.0 and abs(m0) < 0.08 and abs(m2) < 0.15 and tsc < 0.15):
+        raise AssertionError("the Zel'dovich gates failed")
+    del psi, pos, field
+    torch.cuda.empty_cache()
+
+    # constraints: met exactly at 128^3, the conditional mean and variance,
+    # the Wiener MSE against its prediction, the posterior mean = the filter
+    g = rft.Generator(*shape, grid_spacing=sp, device=dev)
+    cons = _constraint_set(MOCK_CONSTRAINTS, shape, sp, 21)
+    vals = np.array([c[1] for c in cons])
+    d = g.generate_constrained_field(7, cons, smoothing_length=6.0)
+    sat = float(np.max(np.abs(g.measure_constraints(d, cons) - vals)))
+    gc = rft.Generator(*COND_SHAPE, grid_spacing=COND_SPACING, device=dev)
+    c1 = [((64.0, 64.0, 64.0), 2.0, 30.0)]
+    mean_field = gc.constrained_mean_field(c1)
+    fields = torch.stack([gc.generate_constrained_field(s, c1)
+                          for s in range(COND_SEEDS)])
+    sd = np.sqrt(gc.predicted_variance())
+    mres = float((fields.mean(0) - mean_field).abs().max())
+    probe = (192.0, 128.0, 64.0)
+    pi, pj, pk = (int(round(x / COND_SPACING)) for x in probe)
+    xi = gc.constraint_matrix(c1 + [(probe, 0.0, 0.0)])
+    cond_var = xi[1, 1] - xi[1, 0] ** 2 / xi[0, 0]
+    var = float(fields[:, pi, pj, pk].double().var())
+    var_bar = 5.0 * cond_var * np.sqrt(2.0 / COND_SEEDS)
+    log(f"phase 2 constraints: {MOCK_CONSTRAINTS} at {shape} met within "
+        f"{sat:.2e} (bar {CONSTRAINT_BAR:g}); {COND_SEEDS} seeds at "
+        f"{COND_SHAPE}: |mean - conditional mean| {mres:.4f} (bar "
+        f"{6.0 * sd / np.sqrt(COND_SEEDS):.4f}), probe variance {var:.5f} vs "
+        f"conditional {cond_var:.5f} (bar {var_bar:.5f})")
+    if not (sat < CONSTRAINT_BAR and mres < 6.0 * sd / np.sqrt(COND_SEEDS)
+            and abs(var - cond_var) < var_bar):
+        raise AssertionError("the constraint gates failed")
+    # s = 0 with the set's R = 0 constraint off the grid: met before the
+    # Hermitian projection, and the field misses by what it drops
+    pre, post, field = projection_misses(torch, g, cons, 7)
+    log(f"phase 2 constraints at s = 0 {shape} (an R = 0 one off the grid):"
+        f" corrected spectrum misses {pre:.2e} before the Hermitian "
+        f"projection (bar 1e-5), {post:.2e} after it; the field "
+        f"{field:.2e} (bar: the projection's, 1e-5)")
+    if not (pre <= 1e-5 and abs(field - post) <= 1e-5):
+        raise AssertionError("the constraints' miss is not the projection's")
+    del fields
+    truth = g.generate_delta_field(4, apply_lightcone=False)
+    gen_n = torch.Generator(device=dev).manual_seed(0)
+    noise_std = 0.5 * float(truth.std())
+    data = truth + noise_std * torch.randn(truth.shape, device=dev,
+                                           generator=gen_n)
+    npow = noise_std ** 2 * sp ** 3
+    rec = g.wiener_filter(data, npow)
+    mse = float(((rec - truth).double() ** 2).mean())
+    pred = g.predicted_posterior_mse(npow)
+    post = g.generate_posterior_field(9, data, npow)
+    mse_post = float(((post - truth).double() ** 2).mean())
+    gc_truth = gc.generate_delta_field(0, apply_lightcone=False)
+    cstd = float(gc_truth.std())
+    cdata = gc_truth + cstd * torch.randn(gc_truth.shape, device=dev,
+                                          generator=gen_n)
+    cpow = cstd ** 2 * COND_SPACING ** 3
+    crec = gc.wiener_filter(cdata, cpow)
+    mean_post = torch.stack([gc.generate_posterior_field(s, cdata, cpow)
+                             for s in range(POSTERIOR_SEEDS)]).mean(0)
+    scatter = np.sqrt(gc.predicted_posterior_mse(cpow) / POSTERIOR_SEEDS)
+    pm = float((mean_post - crec).abs().max())
+    log(f"phase 2 Wiener {shape}: MSE {mse:.5f} vs predicted {pred:.5f} "
+        f"(bar 20%), posterior MSE / 2 predicted {mse_post / (2 * pred):.4f} "
+        f"(bar 1 +- 0.2); posterior mean of {POSTERIOR_SEEDS} seeds vs the "
+        f"filter at {COND_SHAPE}: max |d| {pm:.4f} (bar {6 * scatter:.4f})")
+    if not (abs(mse - pred) < 0.2 * pred
+            and abs(mse_post - 2 * pred) < 0.4 * pred and pm < 6 * scatter):
+        raise AssertionError("the Wiener / posterior gates failed")
+
+    # each path's field on the card against the CPU one
+    cpu = torch.device("cpu")
+    gcpu = rft.Generator(*shape, grid_spacing=sp, device=cpu)
+    lcpu = lognormal.LognormalGenerator(*shape, sp, device=cpu)
+    dcpu = data.cpu()
+    pairs = (
+        ("lognormal", lambda: gen.generate_delta_field(3),
+         lambda: lcpu.generate_delta_field(3)),
+        ("constrained", lambda: g.generate_constrained_field(7, cons),
+         lambda: gcpu.generate_constrained_field(7, cons)),
+        ("constrained mean", lambda: g.constrained_mean_field(cons),
+         lambda: gcpu.constrained_mean_field(cons)),
+        ("Wiener", lambda: g.wiener_filter(data, npow),
+         lambda: gcpu.wiener_filter(dcpu, npow)),
+        ("posterior", lambda: g.generate_posterior_field(9, data, npow),
+         lambda: gcpu.generate_posterior_field(9, dcpu, npow)),
+    )
+    for what, on_card, on_cpu in pairs:
+        a, b = on_card().cpu(), on_cpu()
+        _, r = rel_err((a,), (b,))
+        log(f"phase 2 {what} {shape}: CUDA vs CPU max|d| / max|cpu| {r:.3e} "
+            f"(bar {MOCK_SLICE_BAR:g})")
+        if not r <= MOCK_SLICE_BAR:
+            raise AssertionError(f"{what}: CUDA and CPU disagree")
+    psi = gcpu.generate_displacement(6)
+    pos = zeldovich.zeldovich_positions(psi, sp, f=0.5)
+    got = zeldovich.catalog_power_multipoles(pos.to(dev), sp, window="tsc",
+                                             interlaced=True, nbins=16)
+    want = zeldovich.catalog_power_multipoles(pos, sp, window="tsc",
+                                              interlaced=True, nbins=16)
+    r = float(np.max(np.abs(got[1] - want[1])) / np.max(np.abs(want[1])))
+    log(f"phase 2 catalog_power_multipoles(tsc, interlaced) {shape}: CUDA vs "
+        f"CPU {r:.3e} (bar 1e-5), counts equal "
+        f"{np.array_equal(got[2], want[2])}")
+    if not (r <= 1e-5 and np.array_equal(got[2], want[2])):
+        raise AssertionError("the catalog power on the card disagrees")
+    torch.cuda.empty_cache()
+
+
+def _path(torch, what, fn, least, total):
+    """Run one 1024^3 mock path with the launch counts zeroed before it and
+    read after it; fail if it skipped a kernel of ``least`` or called
+    torch.fft; print its launches, host seconds and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    require_launches(counts, least, what)
+    if counts["torch.fft"]:
+        raise AssertionError(f"{what} went through torch.fft")
+    for k in KERNEL_ORDER:
+        total[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 3 main path {what} {HEADLINE}: launches "
+        f"{ {k: n for k, n in counts.items() if n} }, torch.fft calls 0; "
+        f"{dt:.3f} s on the host clock (first call), peak device memory "
+        f"{peak:.3f} GiB")
+    return out, peak
+
+
+def phase3_mocks(torch, rft, dev, card):
+    """The mock makers at 1024^3 (2 Mpc/h) through the public API: the
+    lognormal render (its transformed spectrum on the card, K2F, K3, K4L),
+    the Zel'dovich catalog (displacement, redshift-space positions, the
+    interlaced TSC multipoles: KP twice), the constrained field with 8
+    constraints checked by measure_constraints, the Wiener filter and the
+    posterior sample with white noise.  Returns the launch counts, summed,
+    and the peaks."""
+    from randomfield_tpu_torch.models import lognormal, zeldovich
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    peaks = {}
+    sp = HEADLINE_SPACING
+    holder = {}
+
+    def lognormal_path():
+        holder["ln"] = lognormal.LognormalGenerator(*HEADLINE, sp, device=dev)
+        return holder["ln"].generate_delta_field(0)
+
+    d, peaks["lognormal"] = _path(
+        torch, "LognormalGenerator(...).generate_delta_field", lognormal_path,
+        {"K6": 1, "K3": 4, "K4": 1, "KB": 1, "K2F": 1, "K4L": 1}, total)
+    ln = holder.pop("ln")
+    info = ln.transform_info
+    var = float(d.double().var())
+    log(f"phase 3 lognormal {HEADLINE}: sigma_G^2 {ln.sigma_g2:.6f}, "
+        f"clipped_fraction {info['clipped_fraction']:.3e}, variance "
+        f"{var:.6f} vs predicted (lightcone) "
+        f"{float(np.mean(np.expm1(np.asarray(ln.growth_function) ** 2 * ln.sigma_g2))):.6f}"
+        f", min {float(d.min()):.4f}, finite {bool(torch.isfinite(d).all())}")
+    if not (bool(torch.isfinite(d).all()) and float(d.min()) > -1.0):
+        raise AssertionError("the 1024^3 lognormal field is not a density")
+    del d, ln
+    g = rft.Generator(*HEADLINE, grid_spacing=sp, device=dev)
+    f = float(g.cosmology.growth_rate(0.0))
+
+    def zeldovich_path():
+        psi = g.generate_displacement(2)
+        pos = zeldovich.zeldovich_positions(psi, sp, f=f)
+        del psi
+        return zeldovich.catalog_power_multipoles(pos, sp, window="tsc",
+                                                  interlaced=True,
+                                                  nbins=NBINS)
+
+    (k, p_ell, n), peaks["zeldovich"] = _path(
+        torch, "generate_displacement -> zeldovich_positions(f) -> "
+        "catalog_power_multipoles(tsc, interlaced)", zeldovich_path,
+        {"K2F": 1, "KD": 3, "KP": 2, "KPC": 2, "K6": 2, "K3": 4, "KB": 1},
+        total)
+    low = (n > 100) & np.isfinite(p_ell[0])
+    log(f"phase 3 Zel'dovich catalog {HEADLINE}, f = {f:.4f}: P_2 / P_0 at "
+        f"the lowest bins {np.round(p_ell[1][low][:4] / p_ell[0][low][:4], 4)}"
+        f" (Kaiser 4f/3 + 4f^2/7 over 1 + 2f/3 + f^2/5 = "
+        f"{(4 * f / 3 + 4 * f * f / 7) / (1 + 2 * f / 3 + f * f / 5):.4f})")
+    if not np.all(np.isfinite(p_ell[:, low])):
+        raise AssertionError("the 1024^3 catalog multipoles are not finite")
+    torch.cuda.empty_cache()
+
+    cons = _constraint_set(MOCK_CONSTRAINTS, HEADLINE, sp, 8)
+    vals = np.array([c[1] for c in cons])
+    d, peaks["constrained"] = _path(
+        torch, f"generate_constrained_field ({MOCK_CONSTRAINTS} constraints)",
+        lambda: g.generate_constrained_field(3, cons),
+        {"K2F": 1, "KC": 2, "K3": 2, "K4": 1}, total)
+    met, _ = _path(torch, "measure_constraints",
+                   lambda: g.measure_constraints(d, cons),
+                   {"K6": 1, "K3": 2, "KC": 1}, total)
+    err = float(np.max(np.abs(met - vals)))
+    log(f"phase 3 constrained {HEADLINE}: constraints met within {err:.2e} "
+        f"(bar {CONSTRAINT_BAR:g}), finite {bool(torch.isfinite(d).all())}")
+    if not (err < CONSTRAINT_BAR and bool(torch.isfinite(d).all())):
+        raise AssertionError("the 1024^3 constrained field misses its "
+                             "constraints")
+    noise_std = 0.5 * float(d.std())
+    gen_n = torch.Generator(device=dev).manual_seed(1)
+    data = d.add_(noise_std * torch.randn(d.shape, device=dev,
+                                          generator=gen_n))
+    npow = noise_std ** 2 * sp ** 3
+    rec, peaks["wiener"] = _path(torch, "wiener_filter (white noise)",
+                                 lambda: g.wiener_filter(data, npow),
+                                 {"K6": 1, "K3": 4, "K4": 1}, total)
+    del rec
+    post, peaks["posterior"] = _path(
+        torch, "generate_posterior_field (white noise)",
+        lambda: g.generate_posterior_field(4, data, npow),
+        {"K2F": 2, "K6": 1, "K3": 4, "K4": 1}, total)
+    if not bool(torch.isfinite(post).all()):
+        raise AssertionError("the 1024^3 posterior field is not finite")
+    del post, data, d
+    torch.cuda.empty_cache()
+    return total, peaks
+
+
+def phase4_mocks(torch, rft, dev, g, card):
+    """Times at 1024^3: KP (CIC, scalar weight, 1024^3 particles) beside its
+    plain version and index_add_ of the same int64 terms (8 calls); KC's
+    MEASURE (with the scale, M = 8) and CORRECT beside their plain
+    versions; K4L beside c2r_tail_exp_plain and torch.fft.irfft; the stages
+    of the lognormal, constrained and posterior renders, and the
+    Zel'dovich catalog's.  Returns {K: (ms, plain_ms, library_ms)}."""
+    from randomfield_tpu_torch.models import constrained, lognormal
+    from randomfield_tpu_torch.models import zeldovich
+    from randomfield_tpu_torch.ops import constraint, fft, paint, transform
+
+    sp = HEADLINE_SPACING
+    nx, ny, nz = HEADLINE
+    out = {}
+    psi = g.generate_displacement(2)
+    pos = zeldovich.zeldovich_positions(psi, sp).reshape(3, -1)
+    del psi
+    torch.cuda.empty_cache()
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, 1.0))
+    k_ms, p_ms, _ = time_kernel(
+        torch, "KP deposit cic (zero + scatter)",
+        lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 2, 0.0, s),
+        lambda: paint.deposit_plain(pos, HEADLINE, sp, 1.0, 2, 0.0, s),
+        None, None, HEADLINE, card, plain_reps=1)
+    # the library: index_add_ of the same int64 terms, one call a corner
+    # and block of KP_LIB_BLOCK particles (their terms held one at a time)
+    grid = torch.zeros(nx * ny * nz, dtype=torch.int64, device=dev)
+    spacing32 = torch.tensor(sp, dtype=torch.float32, device=dev)
+    lib_ms = 0.0
+    for lo in range(0, pos.shape[1], KP_LIB_BLOCK):
+        u = pos[:, lo:lo + KP_LIB_BLOCK] / spacing32
+        for idx, fac in paint.window_terms(u, 2):
+            wc = fac[0] * fac[1] * fac[2]
+            q = torch.round(wc.double() * 2.0 ** s).long()
+            flat = paint._flat(idx, HEADLINE)
+            del idx, fac, wc
+            lib_ms += cuda_ms(torch, lambda: grid.index_add_(0, flat, q),
+                              reps=1)
+            del q, flat
+        del u
+        torch.cuda.empty_cache()
+    del grid
+    torch.cuda.empty_cache()
+    log(f"phase 4 KP library (index_add_ of the same int64 terms: 8 corners "
+        f"x {-(-pos.shape[1] // KP_LIB_BLOCK)} blocks of {KP_LIB_BLOCK} "
+        f"particles) {HEADLINE}: {lib_ms:.3f} ms [{card}]")
+    out["KP"] = (k_ms, p_ms, lib_ms)
+    tsc = cuda_ms(torch, lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 3,
+                                               sp / 2, s))
+    ngp = cuda_ms(torch, lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 1,
+                                               0.0, s))
+    log(f"phase 4 KP deposit tsc (shifted) {tsc:.3f} ms, ngp {ngp:.3f} ms "
+        f"[{card}]")
+    acc = paint.deposit(pos, HEADLINE, sp, 1.0, 2, 0.0, s)
+    del pos
+    torch.cuda.empty_cache()
+    # KPC: the wrapper (the exact int64 total, summed on the card and read
+    # by the host, then the kernel); the total's share alone
+    out["KPC"] = time_kernel(
+        torch, "KPC contrast (int64 total + kernel)",
+        lambda: paint.contrast(acc, s), lambda: paint.contrast_plain(acc, s),
+        None, None, HEADLINE, card, plain_reps=1)
+    total_ms = cuda_ms(torch, lambda: int(acc.sum()))
+    log(f"phase 4 KPC of which the int64 total (acc.sum() read by the host) "
+        f"{total_ms:.3f} ms [{card}]")
+    del acc
+    torch.cuda.empty_cache()
+
+    sig = g.sigmas
+    cons = _constraint_set(MOCK_CONSTRAINTS, HEADLINE, sp, 8)
+    p, r, _ = constrained.pack_constraints(cons, HEADLINE, sp)
+    tables = constraint.axis_tables(p, r, HEADLINE, sp, dev)
+    re, im = constrained.unit_hermitian(5, HEADLINE, sp, dev)
+    keep = (re.clone(), im.clone())
+
+    def restore():
+        re.copy_(keep[0])
+        im.copy_(keep[1])
+
+    alpha = np.random.default_rng(1).normal(size=MOCK_CONSTRAINTS).astype(
+        np.float32)
+    m_ms, mp_ms, _ = time_kernel(
+        torch, f"KC measure M={MOCK_CONSTRAINTS} (with the scale)",
+        lambda: constraint.measure(re, im, tables, sig),
+        lambda: constraint.measure_plain(re, im, tables, sig), None, restore,
+        HEADLINE, card, plain_reps=1)
+    c_ms, cp_ms, _ = time_kernel(
+        torch, f"KC correct M={MOCK_CONSTRAINTS}",
+        lambda: constraint.correct(re, im, tables, alpha, sig),
+        lambda: constraint.correct_plain(re, im, tables, alpha, sig), None,
+        restore, HEADLINE, card, plain_reps=1)
+    for m in (1, 40):
+        cs = _constraint_set(m, HEADLINE, sp, m)
+        pm, rm, _ = constrained.pack_constraints(cs, HEADLINE, sp)
+        tm = constraint.axis_tables(pm, rm, HEADLINE, sp, dev)
+        am = np.ones(m, np.float32)
+        t1 = cuda_ms(torch, lambda: constraint.measure(re, im, tm))
+        t2 = cuda_ms(torch, lambda: constraint.correct(re, im, tm, am, sig))
+        log(f"phase 4 KC M={m} {HEADLINE}: measure {t1:.3f} ms, correct "
+            f"{t2:.3f} ms [{card}]")
+    out["KC"] = (m_ms + c_ms, mp_ms + cp_ms, None)
+    log(f"phase 4 KC both passes of a render (M={MOCK_CONSTRAINTS}): "
+        f"{m_ms + c_ms:.3f} ms, plain {mp_ms + cp_ms:.3f} ms [{card}]")
+    del re, im, keep
+    torch.cuda.empty_cache()
+
+    spec = g._sampled_spectrum(3, 0.0)
+    fft.ifft_axis(spec[0], spec[1], 1, nx, ny * (nz // 2 + 1))
+    fft.ifft_axis(spec[0], spec[1], nx, ny, nz // 2 + 1)
+    a = g.state.lightcone_weights.clone()
+    c = (0.5 * (a.double() ** 2 * 0.5)).float()
+    cplx = torch.complex(spec[0], spec[1])
+    out["K4L"] = time_kernel(
+        torch, "K4L c2r_tail_exp",
+        lambda: fft.c2r_tail_exp(spec[0], spec[1], nz, a, c),
+        lambda: fft.c2r_tail_exp_plain(spec[0], spec[1], nz, a, c),
+        lambda: torch.fft.irfft(cplx, n=nz, dim=-1, norm="forward"), None,
+        HEADLINE, card)
+    del spec, cplx
+    torch.cuda.empty_cache()
+
+    # the stages of the new paths, by CUDA events between the stages
+    ln = lognormal.LognormalGenerator(*HEADLINE, sp, device=dev)
+    var = ln.gaussian.predicted_variance()
+    a_z, c_z = lognormal._plane_terms(var, ln.growth_function, nz, 1.0, dev)
+    st = {}
+
+    def lognormal_stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        r, i = ln.gaussian._sampled_spectrum(0, 0.0)
+        ev[1].record()
+        fft.ifft_axis(r, i, 1, nx, ny * (nz // 2 + 1))
+        ev[2].record()
+        fft.ifft_axis(r, i, nx, ny, nz // 2 + 1)
+        ev[3].record()
+        fft.c2r_tail_exp(r, i, nz, a_z, c_z)
+        ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[j].elapsed_time(ev[j + 1]) for j in range(4)]
+
+    lognormal_stages()
+    rows = np.median([lognormal_stages() for _ in range(TIMING_REPS)], 0)
+    total = cuda_ms(torch, lambda: ln.generate_delta_field(0))
+    log(f"phase 4 lognormal render {HEADLINE}: {total:.3f} ms = K2F "
+        f"{rows[0]:.3f} + K3 x {rows[1]:.3f} + K3 y {rows[2]:.3f} + K4L "
+        f"{rows[3]:.3f}; the Gaussian render alone "
+        f"{cuda_ms(torch, lambda: ln.gaussian.generate_delta_field(0)):.3f} "
+        f"ms [{card}]")
+    t0 = time.perf_counter()
+    lognormal.transformed_power(ln.power, HEADLINE, sp, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 4 transformed_power {HEADLINE}: "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms (host clock) [{card}]")
+    del ln
+    torch.cuda.empty_cache()
+
+    gram = g._constraint_gram_cached(p, r, 0.0)
+    vals = np.array([c[1] for c in cons])
+
+    def constrained_stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        rr, ii = constrained.unit_hermitian(3, HEADLINE, sp, dev)
+        ev[1].record()
+        gm = constraint.measure(rr, ii, tables, sig)
+        ev[2].record()
+        al = constrained._solve(gram, vals - gm.cpu().numpy())
+        ev[3].record()
+        constraint.correct(rr, ii, tables, al, sig)
+        ev[4].record()
+        transform.hermitian_part_reim(rr, ii, nz)
+        ev[5].record()
+        transform.irfftn_reim(rr, ii, HEADLINE)
+        ev[6].record()
+        torch.cuda.synchronize()
+        return [ev[j].elapsed_time(ev[j + 1]) for j in range(6)]
+
+    constrained_stages()
+    rows = np.median([constrained_stages() for _ in range(TIMING_REPS)], 0)
+    total = cuda_ms(torch, lambda: g.generate_constrained_field(3, cons))
+    t0 = time.perf_counter()
+    constrained.constraint_gram(sig, p, r, 0.0, HEADLINE, sp)
+    torch.cuda.synchronize()
+    gram_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"phase 4 constrained render {HEADLINE} (M={MOCK_CONSTRAINTS}): "
+        f"{total:.3f} ms = K2F unit draw {rows[0]:.3f} + KC measure "
+        f"{rows[1]:.3f} + solve (host) {rows[2]:.3f} + KC correct "
+        f"{rows[3]:.3f} + plane projection {rows[4]:.3f} + K3 K3 K4 "
+        f"{rows[5]:.3f}; the Gram matrix (once a constraint set) "
+        f"{gram_ms:.1f} ms (host clock) [{card}]")
+    pre, post, miss = projection_misses(torch, g, cons, 3)
+    log(f"phase 4 constrained render {HEADLINE} (M={MOCK_CONSTRAINTS}, "
+        f"s = 0): constraints missed by {pre:.2e} before the Hermitian "
+        f"projection, {post:.2e} after it, {miss:.2e} by the field")
+    field = g.generate_delta_field(4, apply_lightcone=False)
+    npow = 0.25 * float(field.var()) * sp ** 3
+    for what, fn in (
+            ("wiener_filter", lambda: g.wiener_filter(field, npow)),
+            ("generate_posterior_field",
+             lambda: g.generate_posterior_field(4, field, npow)),
+            ("measure_constraints",
+             lambda: g.measure_constraints(field, cons))):
+        log(f"phase 4 {what} {HEADLINE}: {cuda_ms(torch, fn, reps=3):.3f} ms "
+            f"[{card}]")
+    del field
+    torch.cuda.empty_cache()
+    f = float(g.cosmology.growth_rate(0.0))
+    psi = g.generate_displacement(2)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    pos = zeldovich.zeldovich_positions(psi, sp, f=f)
+    ev[1].record()
+    d1, _ = zeldovich.paint(pos, HEADLINE, sp, window="tsc")
+    ev[2].record()
+    zeldovich.catalog_power_multipoles(pos, sp, window="tsc",
+                                       interlaced=True, nbins=NBINS)
+    ev[3].record()
+    torch.cuda.synchronize()
+    t = [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
+    log(f"phase 4 Zel'dovich catalog {HEADLINE}: positions {t[0]:.3f} ms, "
+        f"one TSC painting (deposit + contrast) {t[1]:.3f} ms, "
+        f"catalog_power_multipoles(tsc, interlaced) {t[2]:.3f} ms (two "
+        f"paintings, two forward transforms, KB) [{card}]")
+    del psi, pos, d1
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_bounds(g):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
@@ -2993,6 +3825,23 @@ def kernel_bounds(g):
         # written
         "KB": (8 * modes + 4 * (nx + ny + nzh + NBINS + 1) + 24 * NBINS,
                OPS_PER_MODE["KB"] * modes),
+        # KP (CIC, scalar weight, one particle a cell): the positions read
+        # once, the int64 grid written once
+        "KP": (12 * cells + 8 * cells, KP_OPS_PER_PARTICLE * cells),
+        # KPC: the int64 sums read once, the float32 contrast written once;
+        # its float64 operations, counted at the float32 rate's scale
+        "KPC": (8 * cells + 4 * cells,
+                KPC_FP64_OPS_PER_CELL * cells * FP32_OPS_PER_S
+                / FP64_OPS_PER_S),
+        # KC, both passes of a render with M constraints: MEASURE reads the
+        # draws and the sigma grid and writes the scaled draws, CORRECT reads
+        # the spectrum and the sigma grid and writes the spectrum
+        "KC": (2 * 20 * modes + 8 * MOCK_CONSTRAINTS * (nx + ny + nzh),
+               2 * KC_OPS_PER_MODE_AND_CONSTRAINT * MOCK_CONSTRAINTS * modes),
+        # K4L: K4's bytes (and its planes' second array) and operations
+        "K4L": (8 * modes + 4 * cells + 8 * nz + 4 * m,
+                fft_ops(m, nx * ny) + 10.0 * m * nx * ny
+                + K4L_OPS_PER_CELL * cells),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -3036,6 +3885,7 @@ def main() -> int:
         print("chip_smoke: the port pulled in JAX", file=sys.stderr)
         return 1
 
+    wall0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # the default phases run with the switch unset; the variants' phases set
@@ -3053,6 +3903,7 @@ def main() -> int:
             f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
         phase0_attributes(card)
         phase0_sass(torch, card)
+        phase0_mocks(torch, card)
 
         t0 = time.perf_counter()
         g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
@@ -3076,6 +3927,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase1_measure(torch, rft, dev, g, gp, errs)
         torch.cuda.empty_cache()
+        phase1_mocks(torch, g, errs)
+        torch.cuda.empty_cache()
         phase2_slice(torch, rft, dev)
         phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
@@ -3084,6 +3937,8 @@ def main() -> int:
         phase2_consistency(torch, rft, dev)
         torch.cuda.empty_cache()
         phase2_measure(torch, rft, dev)
+        torch.cuda.empty_cache()
+        phase2_mocks(torch, rft, dev)
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
         main_paths = [phase3_main(torch, g), phase3_noise(torch, g),
@@ -3099,6 +3954,9 @@ def main() -> int:
         main_paths.append(phase3_slice(torch, rft, dev, g, card))
         torch.cuda.empty_cache()
         main_paths.append(phase3_measure(torch, rft, dev, g, card))
+        torch.cuda.empty_cache()
+        mock_launches, mock_peaks = phase3_mocks(torch, rft, dev, card)
+        main_paths.append(mock_launches)
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
@@ -3107,7 +3965,13 @@ def main() -> int:
         times.update(phase4_mesh(torch, rft, dev, g, gp, mesh, card))
         times.update(phase4_slice(torch, rft, dev, g, card))
         times.update(phase4_measure(torch, rft, dev, g, card))
+        torch.cuda.empty_cache()
+        times.update(phase4_mocks(torch, rft, dev, g, card))
         bounds = kernel_bounds(g)
+        log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
+            f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
+        log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
+            f"[{card}]")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -32,6 +32,13 @@
 // transform.  The spectrum's rows of m + 1 floats start unaligned, as K6's
 // output rows do; K6's measured tries at that (streaming loads, twiddles in
 // shared memory) were slower and are not repeated.
+//
+// K4L, the lognormal tail (EXP = true): the same kernel with a second
+// per-plane array c, writing expm1(a[z] x - c[z]) where K4 writes x w[z]
+// (a = b w, c = b^2 w^2 sigma_G^2 / 2: the exp map of
+// randomfield_tpu/models/lognormal.py:130 _exp_map fused into the tail, so
+// the field is written once).  The product and the difference are rounded
+// as written; K4's instance (EXP = false) never reads c.
 #include "fft_radix.cuh"
 
 namespace {
@@ -47,13 +54,13 @@ struct Tail {
   static constexpr size_t kSmem = sizeof(float2) * kLines * kStride;
 };
 
-template <class P>
+template <class P, bool EXP>
 __global__ void __launch_bounds__(kThreads, 4)
 c2r_tail_kernel(const float* __restrict__ re, const float* __restrict__ im,
                 const float2* __restrict__ weights,
                 const float2* __restrict__ tw_fft,
                 const float2* __restrict__ tw_fold, float2* __restrict__ out,
-                long long lines) {
+                long long lines, const float2* __restrict__ offsets) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int m = P::N, E = P::E, T = P::T;
   const int t = threadIdx.x % T;
@@ -98,24 +105,31 @@ c2r_tail_kernel(const float* __restrict__ re, const float* __restrict__ im,
   for (int k = 0; k < E; ++k) {
     const int j = t + k * T;
     const float2 w = __ldg(weights + j);  // (w[2j], w[2j+1])
-    dst[j] = make_float2(v[k].x * w.x, v[k].y * w.y);
+    if (EXP) {
+      const float2 c = __ldg(offsets + j);
+      dst[j] = make_float2(expm1f(__fsub_rn(__fmul_rn(v[k].x, w.x), c.x)),
+                           expm1f(__fsub_rn(__fmul_rn(v[k].y, w.y), c.y)));
+    } else {
+      dst[j] = make_float2(v[k].x * w.x, v[k].y * w.y);
+    }
   }
 }
 
-template <class P>
+template <class P, bool EXP>
 int launch(const void* re, const void* im, const void* weights,
            const void* tw_fft, const void* tw_fold, void* out,
-           long long lines, cudaStream_t stream) {
+           long long lines, const void* offsets, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      c2r_tail_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      c2r_tail_kernel<P, EXP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Tail<P>::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(
       (lines + Tail<P>::kLines - 1) / Tail<P>::kLines);
-  c2r_tail_kernel<P><<<blocks, kThreads, Tail<P>::kSmem, stream>>>(
+  c2r_tail_kernel<P, EXP><<<blocks, kThreads, Tail<P>::kSmem, stream>>>(
       static_cast<const float*>(re), static_cast<const float*>(im),
       static_cast<const float2*>(weights), static_cast<const float2*>(tw_fft),
-      static_cast<const float2*>(tw_fold), static_cast<float2*>(out), lines);
+      static_cast<const float2*>(tw_fold), static_cast<float2*>(out), lines,
+      static_cast<const float2*>(offsets));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -125,17 +139,23 @@ int launch(const void* re, const void* im, const void* weights,
 // out: float32 (lines, 2m), both 8-byte aligned.  (r0, r1, r2) is
 // ops/fft.py:radix_plan(m), r2 = 1 for two passes; tw_fft its inverse
 // tables (pass_twiddles(m, +1)); tw_fold: m float2 twiddles
-// exp(+2 pi i j / (2m)).  Returns the CUDA error of the launch (0 on
-// success), cudaErrorNotSupported for a plan with no instance.
+// exp(+2 pi i j / (2m)).  offsets: null for K4 (out = x w), or K4L's
+// float32 (2m,) c, 8-byte aligned (out = expm1(w x - c)).  Returns the CUDA
+// error of the launch (0 on success), cudaErrorNotSupported for a plan with
+// no instance.
 extern "C" int rf_c2r_tail(const void* re, const void* im, const void* weights,
-                           const void* tw_fft, const void* tw_fold, void* out,
-                           long long lines, int m, int r0, int r1, int r2,
-                           void* stream) {
+                           const void* offsets, const void* tw_fft,
+                           const void* tw_fold, void* out, long long lines,
+                           int m, int r0, int r1, int r2, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RF_CASE(N, R0, R1, R2)                                            \
   if (m == N && r0 == R0 && r1 == R1 && r2 == R2) {                       \
-    return launch<rf::Plan<N, R0, R1, R2>>(                               \
-        re, im, weights, tw_fft, tw_fold, out, lines,                     \
-        static_cast<cudaStream_t>(stream));                               \
+    using P = rf::Plan<N, R0, R1, R2>;                                    \
+    return offsets == nullptr                                             \
+               ? launch<P, false>(re, im, weights, tw_fft, tw_fold, out,  \
+                                  lines, nullptr, st)                     \
+               : launch<P, true>(re, im, weights, tw_fft, tw_fold, out,   \
+                                 lines, offsets, st);                     \
   }
   RF_RADIX_PLANS(RF_CASE)
 #undef RF_CASE
@@ -143,17 +163,22 @@ extern "C" int rf_c2r_tail(const void* re, const void* im, const void* weights,
 }
 
 // Registers a thread, blocks an SM holds, threads a block and dynamic
-// shared-memory bytes of the instance for an m-point plan; returns 0, or
-// cudaErrorNotSupported.
-extern "C" int rf_c2r_tail_attributes(int m, int r0, int r1, int r2,
+// shared-memory bytes of K4's (exp = 0) or K4L's (exp != 0) instance for an
+// m-point plan; returns 0, or cudaErrorNotSupported.
+extern "C" int rf_c2r_tail_attributes(int exp, int m, int r0, int r1, int r2,
                                       void* registers, void* blocks_per_sm,
                                       void* threads, void* smem) {
 #define RF_CASE(N, R0, R1, R2)                                            \
   if (m == N && r0 == R0 && r1 == R1 && r2 == R2) {                       \
     using P = rf::Plan<N, R0, R1, R2>;                                    \
-    return rf::kernel_attributes(c2r_tail_kernel<P>, kThreads,            \
-                                 Tail<P>::kSmem, registers,               \
-                                 blocks_per_sm, threads, smem);           \
+    return exp ? rf::kernel_attributes(c2r_tail_kernel<P, true>,          \
+                                       kThreads, Tail<P>::kSmem,          \
+                                       registers, blocks_per_sm, threads, \
+                                       smem)                              \
+               : rf::kernel_attributes(c2r_tail_kernel<P, false>,         \
+                                       kThreads, Tail<P>::kSmem,          \
+                                       registers, blocks_per_sm, threads, \
+                                       smem);                             \
   }
   RF_RADIX_PLANS(RF_CASE)
 #undef RF_CASE

@@ -66,12 +66,14 @@ import torch
 
 from randomfield_tpu_torch.engine import scene as _scene
 from randomfield_tpu_torch.engine import staged as _staged
+from randomfield_tpu_torch.engine.constrained_api import ConstrainedMixin
 from randomfield_tpu_torch.engine.measure import MeasurementMixin
 from randomfield_tpu_torch.models import cosmology as _cosmo
 from randomfield_tpu_torch.models import web as _web
 from randomfield_tpu_torch.models.powerspec import resolve_power
 from randomfield_tpu_torch.ops import derived as _derived
 from randomfield_tpu_torch.ops import fft as _fft
+from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import power as _power
 from randomfield_tpu_torch.ops import sample as _sample
 from randomfield_tpu_torch.ops import sampler as _sampler
@@ -102,12 +104,13 @@ def _not_ported(what):
     )
 
 
-class Generator(MeasurementMixin):
+class Generator(MeasurementMixin, ConstrainedMixin):
     """Generate 3-D Gaussian random density fields with a given P(k).
 
     The measurement and prediction methods (``calculate_power``,
     ``calculate_bispectrum``, ``predicted_kaiser_multipoles``...) come from
-    :class:`.measure.MeasurementMixin`.
+    :class:`.measure.MeasurementMixin`; the constrained, Wiener and
+    posterior methods from :class:`.constrained_api.ConstrainedMixin`.
 
     Parameters follow ``randomfield_tpu.Generator``:
 
@@ -250,12 +253,8 @@ class Generator(MeasurementMixin):
         unweighted variance.
         """
         nx, ny, nz = self.shape
-        nzh = nz // 2 + 1
         y_off, ny_loc = (0, ny) if self.mesh is None else self.mesh.rows(ny)
-        mult = torch.full((nzh,), 2.0, dtype=torch.float64, device=self.device)
-        mult[0] = 1.0
-        if nz % 2 == 0:
-            mult[-1] = 1.0
+        mult = _grid.kz_multiplicity(nz, self.device)
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         step = 64  # x planes per pass: bounds the temporaries at any size
         for x0 in range(0, nx, step):
@@ -407,6 +406,11 @@ class Generator(MeasurementMixin):
         ``sampler='pallas'`` and ``pipeline='staged'`` raise ValueError, as
         in the JAX package.
         """
+        re, im = self._fixed_spectrum(seed, smoothing_length, flip)
+        return self._spectrum_to_field(re, im, apply_lightcone)
+
+    def _fixed_spectrum(self, seed, smoothing_length, flip):
+        """The seed's fixed spectrum (re, im): K2F's fixed mode, or KN's."""
         self._require_fixed()
         if self.sampler == "nested":
             spec = _sampler.sample_nested(
@@ -416,7 +420,7 @@ class Generator(MeasurementMixin):
             spec = _sampler.draw_fixed(seed, self.state.table, self.shape,
                                        self.grid_spacing, smoothing_length,
                                        flip)
-        return self._spectrum_to_field(spec[0], spec[1], apply_lightcone)
+        return spec[0], spec[1]
 
     def generate_fixed_fields(self, seeds, smoothing_length=0.0,
                               apply_lightcone=True, flip=False):

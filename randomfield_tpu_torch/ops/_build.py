@@ -55,8 +55,8 @@ _SIGNATURES = {
     "rf_fft_rotate_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_r2c_head": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "rf_r2c_head_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
-    "rf_c2r_tail": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "rf_c2r_tail_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
+    "rf_c2r_tail": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "rf_c2r_tail_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_nested": [_P, _P, _P, _I, _I, _I, _I, _U32, _U32,
@@ -70,6 +70,12 @@ _SIGNATURES = {
     "rf_bin_spectrum": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _P],
+    "rf_paint": [_P, _P, _F, _LL, _I, _I, _I, _F, _F, _D, _I, _P, _P],
+    "rf_paint_contrast": [_P, _P, _LL, _D, _D, _P],
+    "rf_constraint_measure": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _P],
+    "rf_constraint_correct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                              _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }

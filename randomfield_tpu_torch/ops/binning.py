@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from randomfield_tpu_torch.ops import _build
+from randomfield_tpu_torch.ops import grid as _grid
 
 __all__ = ["bin_spectrum", "bin_spectrum_plain", "mode_terms", "line_sums",
            "axis_tables",
@@ -222,10 +223,7 @@ def mode_terms(kind, arrays, shape, spacing, edges, x0, x1, y_off=0,
         mu = torch.where(pos, klos.abs() / safe, 0.0)
         mi = (mu * float(nmu)).to(torch.int32).clamp(0, int(nmu) - 1)
         idx = idx * int(nmu) + mi
-    mult = torch.full((nz // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
-    mult[0] = 1.0
-    if nz % 2 == 0:
-        mult[-1] = 1.0
+    mult = _grid.kz_multiplicity(nz, dev)
     w = torch.where(valid, mult, 0.0)
     vals = [torch.where(valid, val, 0.0) for val in vals]
     return km, torch.where(valid, idx, nb), w, vals

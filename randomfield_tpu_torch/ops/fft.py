@@ -16,6 +16,8 @@ On CUDA tensors the wrappers launch the hand kernels built from
 ``csrc/r2c_head.cu`` and ``csrc/fft_rotate.cu``; on CPU tensors they run the
 plain PyTorch versions beside them (``torch.fft``).  Launch counts are
 ``K3_LAUNCHES``, ``K4_LAUNCHES``, ``K6_LAUNCHES`` and ``K9_LAUNCHES``.
+:func:`c2r_tail_exp` (K4L, counter ``K4L_LAUNCHES``) is K4's kernel with
+the lognormal exp map as its last step.
 
 The kernels take power-of-two transform lengths from 16 to 2048
 (:func:`kernel_length_ok`); a mixed-radix version is a later step.
@@ -47,6 +49,8 @@ __all__ = [
     "fft_axis_plain",
     "c2r_tail",
     "c2r_tail_plain",
+    "c2r_tail_exp",
+    "c2r_tail_exp_plain",
     "r2c_head",
     "r2c_head_plain",
     "ifft_rotate",
@@ -65,6 +69,7 @@ __all__ = [
     "K4_LAUNCHES",
     "K6_LAUNCHES",
     "K9_LAUNCHES",
+    "K4L_LAUNCHES",
 ]
 
 # kernel launches by ifft_axis and fft_axis / c2r_tail / r2c_head /
@@ -73,6 +78,7 @@ K3_LAUNCHES = 0
 K4_LAUNCHES = 0
 K6_LAUNCHES = 0
 K9_LAUNCHES = 0
+K4L_LAUNCHES = 0  # c2r_tail_exp
 
 MIN_LENGTH, MAX_LENGTH = 16, 2048
 _MAX_OUTER = 65535  # the kernels' grid.y
@@ -141,7 +147,7 @@ def rotate_panel(n: int) -> int:
 def kernel_attributes(kernel: str, n: int, sign: int = +1):
     """(registers a thread, blocks an SM holds, threads a block, dynamic
     shared-memory bytes) of the ``'fft_axis'`` (of ``sign``), ``'c2r_tail'``,
-    ``'r2c_head'`` or ``'ifft_rotate'`` instance for an n-point plan (K4 and
+    ``'c2r_tail_exp'``, ``'r2c_head'`` or ``'ifft_rotate'`` instance for an n-point plan (K4 and
     K6: m = nz / 2 points), as ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` report them; builds
     the library."""
@@ -151,8 +157,9 @@ def kernel_attributes(kernel: str, n: int, sign: int = +1):
     if kernel == "fft_axis":
         status = lib.rf_fft_axis_attributes(
             int(sign), int(n), *_plan3(n), rotate_panel(n), *refs)
-    elif kernel == "c2r_tail":
-        status = lib.rf_c2r_tail_attributes(int(n), *_plan3(n), *refs)
+    elif kernel in ("c2r_tail", "c2r_tail_exp"):
+        status = lib.rf_c2r_tail_attributes(
+            int(kernel == "c2r_tail_exp"), int(n), *_plan3(n), *refs)
     elif kernel == "r2c_head":
         status = lib.rf_r2c_head_attributes(int(n), *_plan3(n), *refs)
     elif kernel == "ifft_rotate":
@@ -385,7 +392,7 @@ def c2r_tail_emulated(re, im, nz, weights):
     return pairs.reshape(*re.shape[:-1], nz) * weights
 
 
-def c2r_tail(re, im, nz, weights, out=None):
+def c2r_tail(re, im, nz, weights, out=None, offsets=None):
     """K4: c2r along the minor axis plus per-plane weights, one pass.
 
     ``re``/``im``: float32 (..., nz//2+1) packed spectra, natural order on
@@ -399,21 +406,28 @@ def c2r_tail(re, im, nz, weights, out=None):
     ``kernel_length_ok(nz // 2)``; the half-pack it uses is exact for
     Hermitian input (real kz = 0 and Nyquist terms), as a symmetrized
     spectrum is after its x and y passes.
+
+    ``offsets`` (float32 (nz,), K4L): write ``expm1(weights[z] x -
+    offsets[z])`` instead, the same kernel's exp instance, counted in
+    ``K4L_LAUNCHES`` and not in ``K4_LAUNCHES``; see :func:`c2r_tail_exp`.
     """
-    global K4_LAUNCHES
+    global K4_LAUNCHES, K4L_LAUNCHES
     _check_pair(re, im, "c2r_tail")
     if re.shape[-1] != nz // 2 + 1:
         raise ValueError(f"c2r_tail: minor axis {re.shape[-1]} != "
                          f"nz//2 + 1 = {nz // 2 + 1}")
-    if weights.shape != (nz,) or weights.device != re.device:
-        raise ValueError(f"c2r_tail: weights must be ({nz},) on {re.device}")
+    for name, v in (("weights", weights), ("offsets", offsets)):
+        if v is not None and (v.shape != (nz,) or v.device != re.device):
+            raise ValueError(f"c2r_tail: {name} must be ({nz},) on "
+                             f"{re.device}")
     if out is not None and not (
             out.shape == (*re.shape[:-1], nz) and out.dtype == torch.float32
             and out.device == re.device and out.is_contiguous()):
         raise ValueError(f"c2r_tail: out must be a contiguous float32 "
                          f"{(*re.shape[:-1], nz)} tensor on {re.device}")
     if re.device.type == "cpu":
-        field = c2r_tail_plain(re, im, nz, weights)
+        field = (c2r_tail_plain(re, im, nz, weights) if offsets is None
+                 else c2r_tail_exp_plain(re, im, nz, weights, offsets))
         return field if out is None else out.copy_(field)
     if re.device.type != "cuda":
         raise ValueError(f"c2r_tail runs on cpu or cuda, not {re.device}")
@@ -422,17 +436,22 @@ def c2r_tail(re, im, nz, weights, out=None):
         raise ValueError(f"c2r_tail: nz={nz} unsupported on CUDA (need even "
                          f"nz with nz/2 a power of two in "
                          f"[{MIN_LENGTH}, {MAX_LENGTH}])")
-    if weights.dtype != torch.float32:
-        raise ValueError("c2r_tail: weights must be float32")
+    if weights.dtype != torch.float32 or (
+            offsets is not None and offsets.dtype != torch.float32):
+        raise ValueError("c2r_tail: weights and offsets must be float32")
     if not (re.is_contiguous() and im.is_contiguous()
-            and weights.is_contiguous()):
+            and weights.is_contiguous()
+            and (offsets is None or offsets.is_contiguous())):
         raise ValueError("c2r_tail's CUDA kernel needs contiguous tensors")
-    out = _launch_c2r_tail(re, im, nz, weights, out)
-    K4_LAUNCHES += 1
+    out = _launch_c2r_tail(re, im, nz, weights, out, offsets)
+    if offsets is None:
+        K4_LAUNCHES += 1
+    else:
+        K4L_LAUNCHES += 1
     return out
 
 
-def _launch_c2r_tail(re, im, nz, weights, out=None):
+def _launch_c2r_tail(re, im, nz, weights, out=None, offsets=None):
     m = nz // 2
     if out is None:
         out = torch.empty((*re.shape[:-1], nz), dtype=torch.float32,
@@ -442,15 +461,36 @@ def _launch_c2r_tail(re, im, nz, weights, out=None):
                          "stores float pairs)")
     if weights.data_ptr() % 8:
         weights = weights.clone()  # read as float pairs too
+    if offsets is not None and offsets.data_ptr() % 8:
+        offsets = offsets.clone()
     device = str(re.device)
     status = _build.library().rf_c2r_tail(
         re.data_ptr(), im.data_ptr(), weights.data_ptr(),
+        0 if offsets is None else offsets.data_ptr(),
         pass_twiddles(m, +1, device).data_ptr(),
         _twiddles(nz, m, device).data_ptr(), out.data_ptr(),
         re.numel() // (m + 1), int(m), *_plan3(m), _build.current_stream(re),
     )
     _build.check(status, "c2r_tail")
     return out
+
+
+def c2r_tail_exp_plain(re, im, nz, a, c):
+    """K4L in plain PyTorch: :func:`c2r_tail_plain` with weights ``a``,
+    then ``expm1(y - c)``."""
+    return torch.expm1(c2r_tail_plain(re, im, nz, a) - c)
+
+
+def c2r_tail_exp(re, im, nz, a, c, out=None):
+    """K4L: :func:`c2r_tail` with the lognormal exp map fused in, one pass.
+
+    Writes ``expm1(a[z] x - c[z])`` for the unweighted c2r output x, where
+    K4 writes ``x w[z]``: with ``a = b w`` and ``c = b^2 w^2 sigma_G^2 / 2``
+    this is ``models/lognormal.py``'s exp map of a rendered Gaussian field.
+    ``a``, ``c``: float32 (nz,) on the spectra's device; the rest as
+    :func:`c2r_tail`, which this is with ``offsets=c``.
+    """
+    return c2r_tail(re, im, nz, a, out, offsets=c)
 
 
 # ---- K6 --------------------------------------------------------------------

@@ -26,6 +26,7 @@ __all__ = [
     "conjugate_plane",
     "hermitian_plane_masks",
     "self_conjugate_kz_planes",
+    "kz_multiplicity",
 ]
 
 TWO_PI = 2.0 * np.pi
@@ -133,3 +134,14 @@ def self_conjugate_kz_planes(nz: int) -> tuple[int, ...]:
     if nz % 2 == 0:
         return (0, nz // 2)
     return (0,)
+
+
+def kz_multiplicity(nz: int, device="cpu") -> torch.Tensor:
+    """float64 (nz//2 + 1,) count of the modes a packed kz column stands
+    for: 1 on the self-conjugate planes (:func:`self_conjugate_kz_planes`),
+    2 elsewhere."""
+    mult = torch.full((nz // 2 + 1,), 2.0, dtype=torch.float64, device=device)
+    mult[0] = 1.0
+    if nz % 2 == 0:
+        mult[-1] = 1.0
+    return mult

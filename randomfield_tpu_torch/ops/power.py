@@ -154,24 +154,46 @@ def tabulate_sigmas(shape, spacing, power, interpolation="log10k",
                     device="cpu") -> torch.Tensor:
     """Per-mode sigma(k) = sqrt(P(|k|)/V) over the packed half-spectrum.
 
-    Host float64 evaluation of the table's own interpolant, returned as a
-    float32 (nx, ny, nz//2+1) tensor with sigma(0) = 0.  A plain reference
-    for tests and small scenes; renders use the uniform table.
+    The table's own interpolant evaluated in float64 on ``device``, x-slab
+    by x-slab (numpy's ``interp`` arithmetic), returned as a float32 (nx,
+    ny, nz//2+1) tensor with sigma(0) = 0.  The grid the constrained
+    renders read; the other renders use the uniform table.
     """
     power = validate_power(power)
     require_coverage(power, shape, spacing)
     nx, ny, nz = shape
     volume = nx * ny * nz * float(spacing) ** 3
-    kx, ky, kz = _grid.kvectors(shape, spacing, torch.float64)
-    k2 = (kx * kx)[:, None, None] + (ky * ky)[None, :, None] + (kz * kz)[None, None, :]
-    k = np.sqrt(k2.numpy())
-    lk = np.log10(np.maximum(k, 1e-30))
-    lk_tab, val_tab, log_values = table_arrays_host(power, interpolation, np.float64)
-    pk = np.interp(lk, lk_tab, val_tab)
-    if log_values:
-        pk = 10.0 ** pk
-    sig = np.where(k > 0, np.sqrt(pk / volume), 0.0)
-    return torch.as_tensor(sig, dtype=torch.float32, device=device)
+    kx, ky, kz = _grid.kvectors(shape, spacing, torch.float64, device)
+    lk_tab, val_tab, log_values = table_arrays_host(power, interpolation,
+                                                    np.float64)
+    lk_tab = torch.as_tensor(lk_tab, device=device)
+    val_tab = torch.as_tensor(val_tab, device=device)
+    out = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32,
+                      device=device)
+    for x0 in range(0, nx, _SIGMA_X_CHUNK):
+        x1 = min(nx, x0 + _SIGMA_X_CHUNK)
+        k = torch.sqrt((kx[x0:x1] * kx[x0:x1])[:, None, None]
+                       + (ky * ky)[None, :, None] + (kz * kz)[None, None, :])
+        pk = _np_interp(torch.log10(torch.clamp(k, min=1e-30)), lk_tab,
+                        val_tab)
+        if log_values:
+            pk = 10.0 ** pk
+        out[x0:x1] = torch.where(k > 0, torch.sqrt(pk / volume), 0.0)
+    return out
+
+
+_SIGMA_X_CHUNK = 32
+
+
+def _np_interp(x, xp, fp):
+    """numpy's ``interp`` (float64): slope (x - xp[j]) + fp[j] between the
+    nodes, the end values outside."""
+    j = torch.searchsorted(xp, x.contiguous(), right=True).clamp(
+        1, xp.numel() - 1) - 1
+    slope = (fp[j + 1] - fp[j]) / (xp[j + 1] - xp[j])
+    out = slope * (x - xp[j]) + fp[j]
+    out = torch.where(x < xp[0], fp[0], out)
+    return torch.where(x > xp[-1], fp[-1], out)
 
 
 def filter_modes(c, shape, spacing, smoothing_length):

@@ -391,7 +391,7 @@ def draw_scale_plain(seed, table, shape, spacing, smoothing_length=0.0,
     nx, ny, nz = shape
     nx_loc, ny_loc = _block_rows(shape, x_off, y_off, nx_loc, ny_loc)
     dev = table.knots.device
-    key = _threefry.key_from_seed(seed)
+    key = _threefry.as_key(seed)
     re, im = _canon.unit_draws_reim(key, shape, dev, y_off, ny_loc)
     if not unit:
         rows = slice(y_off, y_off + ny_loc)
@@ -420,7 +420,8 @@ def draw_scale(seed, table, shape, spacing, smoothing_length=0.0, x_off=0,
     the raw unit draws instead (no fix, no scale).  On CUDA this launches
     ``csrc/draw_scale.cu``, which draws every mode (and a plane mode's
     partner) at its counter in the thread; on the CPU it runs
-    :func:`draw_scale_plain`.
+    :func:`draw_scale_plain`.  ``seed`` is an int or a Threefry key pair
+    (:func:`.threefry.split`), whose chunk keys are folded in as a seed's.
     """
     global K2F_LAUNCHES
     out, launched = _draw(seed, table, shape, spacing, smoothing_length,
@@ -437,7 +438,7 @@ def draw_fixed_plain(seed, table, shape, spacing, smoothing_length=0.0,
     with gain 1, or -1 with ``flip`` (:func:`.sample.sample_fixed_spectrum`).
     Returns float32 (2, nx, ny, nzh)."""
     return torch.stack(_canon.sample_fixed_spectrum(
-        _threefry.key_from_seed(seed), table, shape, spacing,
+        _threefry.as_key(seed), table, shape, spacing,
         smoothing_length, flip))
 
 
@@ -549,13 +550,13 @@ def _draw(seed, table, shape, spacing, smoothing_length, x_off, y_off,
             return draw_fixed_plain(seed, table, shape, spacing,
                                     smoothing_length, gain < 0), 0
         if mode == _BITS:
-            bits = _canon.canonical_bits_reim(_threefry.key_from_seed(seed),
+            bits = _canon.canonical_bits_reim(_threefry.as_key(seed),
                                                shape, dev, y_off, ny_loc)
             return torch.stack([b[x_off:x_off + nx_loc] for b in bits]), 0
         return draw_scale_plain(seed, table, shape, spacing, smoothing_length,
                                 x_off, y_off, nx_loc, ny_loc,
                                 unit=mode == _UNIT), 0
-    key = _threefry.key_from_seed(seed)
+    key = _threefry.as_key(seed)
     chunks = _canon.canonical_chunks(nx)
     keys = [_threefry.fold_in(key, i) for i in range(chunks)]
     words = (ctypes.c_uint32 * (2 * chunks))(*(k[0] for k in keys),
@@ -846,7 +847,7 @@ def sample_nested_plain(seed, table, shape, spacing, smoothing_length=0.0,
     """:func:`sample_nested` in plain PyTorch on the table's device
     (:mod:`.sample`'s nested stream, x-slab by x-slab): float32 (2, nx, ny,
     nzh), or for ``mode='bits'`` int64 uint32 words."""
-    key = _threefry.key_from_seed(seed)
+    key = _threefry.as_key(seed)
     dev = table.knots.device
     if mode == "spectrum":
         out = _canon.sample_spectrum_nested(key, table, shape, spacing,
@@ -878,7 +879,7 @@ def sample_nested(seed, table, shape, spacing, smoothing_length=0.0,
     int64 uint32 values (a check of the hash).  Every axis at most
     :data:`.sample.NESTED_MAX_DIM`.  On CUDA this launches
     ``csrc/sample_modes.cu``'s nested instance; on the CPU it runs
-    :func:`sample_nested_plain`.
+    :func:`sample_nested_plain`.  ``seed`` may also be a key pair, used raw.
     """
     global KN_LAUNCHES
     dev = _check_table(table, "sample_nested")
@@ -897,7 +898,7 @@ def sample_nested(seed, table, shape, spacing, smoothing_length=0.0,
                       device=dev)
     gain = {"spectrum": float(_INV_SQRT2), "fixed": -1.0 if flip else 1.0}
     c = _constants(table, shape, spacing)
-    k0, k1 = _threefry.key_from_seed(seed)
+    k0, k1 = _threefry.as_key(seed)
     status = _build.library().rf_sample_nested(
         out[0].data_ptr(), out[1].data_ptr(), table.knots.data_ptr(),
         table.knots.numel(), nx, ny, nz, k0, k1, float(c["kx_scale"]),

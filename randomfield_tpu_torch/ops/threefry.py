@@ -7,7 +7,9 @@ JAX 0.9 computes with ``jax_threefry_partitionable`` on (its default):
 * a seed becomes the key ``[0, seed & 0xFFFFFFFF]`` (``jax.random.key``
   in 32-bit mode, then ``jax._src.prng.threefry_seed``);
 * ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``
-  (``prng._threefry_fold_in``);
+  (``prng._threefry_fold_in``), and ``split(key, n)[i]`` hashes the
+  counter words ``(0, i)`` as well (``prng._threefry_split_foldlike`` over
+  the flat index of an (n,) array), so it equals ``fold_in(key, i)``;
 * ``random_bits(key, shape)`` hashes the flat element index ``i``, split
   into ``(i >> 32, i & 0xFFFFFFFF)``, and returns ``bits1 ^ bits2``
   (``prng._threefry_random_bits_partitionable``);
@@ -39,7 +41,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key_from_seed", "fold_in", "threefry2x32", "random_bits",
+__all__ = ["key_from_seed", "as_key", "split", "fold_in", "threefry2x32",
+           "random_bits",
            "bits_at", "normal", "normal_at"]
 
 _MASK = 0xFFFFFFFF
@@ -66,6 +69,23 @@ def key_from_seed(seed: int) -> tuple[int, int]:
     """
     seed = int(np.int64(int(seed)))  # raises OverflowError beyond int64, as JAX
     return (0, seed & _MASK)
+
+
+def as_key(seed_or_key) -> tuple[int, int]:
+    """The key of a seed (:func:`key_from_seed`), or a key pair (two uint32
+    ints, e.g. from :func:`split`) as it is."""
+    if isinstance(seed_or_key, (tuple, list)):
+        if len(seed_or_key) != 2:
+            raise ValueError(f"a Threefry key is two uint32 words, got "
+                             f"{seed_or_key!r}")
+        return (int(seed_or_key[0]) & _MASK, int(seed_or_key[1]) & _MASK)
+    return key_from_seed(seed_or_key)
+
+
+def split(key, n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.key_data(jax.random.split(key, n))`` as ``n`` key pairs:
+    key i is the hash of the counter words (0, i)."""
+    return [threefry2x32(key, 0, i) for i in range(int(n))]
 
 
 def _rotl(x, r):

@@ -36,7 +36,8 @@ from randomfield_tpu_torch.ops import grid as _grid
 
 __all__ = ["symmetrize_plane_reim", "symmetrize_with_shape_reim",
            "symmetrize_slab_reim", "symmetrize", "symmetrize_with_shape",
-           "irfftn", "irfftn_reim", "rfftn", "rfft_last", "kernel_shape_ok",
+           "hermitian_part_reim",
+           "irfftn", "irfftn_reim", "irfftn_reim_exp", "rfftn", "rfft_last", "kernel_shape_ok",
            "spectrum_to_field", "field_to_spectrum", "is_hermitian",
            "TORCH_FFT_CALLS"]
 
@@ -84,6 +85,21 @@ def symmetrize_with_shape_reim(re, im, nz, scale_self_conjugate=True):
                                           scale_self_conjugate)
         re[..., p] = fre
         im[..., p] = fim
+    return re, im
+
+
+def hermitian_part_reim(re, im, nz):
+    """Replace the kz = 0 and (even nz) Nyquist planes of a packed spectrum
+    by their Hermitian parts, (c(k) + conj c(-k)) / 2, IN PLACE: what a
+    c2r transform keeps of them (``torch.fft`` and numpy drop the rest; K4's
+    half-pack reads those planes as Hermitian, so a spectrum whose planes
+    are not goes through this first).  Returns (re, im)."""
+    for p in _grid.self_conjugate_kz_planes(nz):
+        r, i = re[..., p], im[..., p]
+        pr = _grid.conjugate_plane(r)
+        pi = _grid.conjugate_plane(i)
+        re[..., p] = 0.5 * (r + pr)
+        im[..., p] = 0.5 * (i - pi)
     return re, im
 
 
@@ -172,6 +188,20 @@ def irfftn_reim(re, im, shape, weights=None, out=None):
     _fft.ifft_axis(re, im, 1, nx, ny * nzh)
     _fft.ifft_axis(re, im, nx, ny, nzh)
     return _fft.c2r_tail(re, im, nz, weights, out=out)
+
+
+def irfftn_reim_exp(re, im, shape, a, c):
+    """:func:`irfftn_reim` ending in the lognormal exp map: K3 along x and
+    y (in place), then K4L (:func:`.fft.c2r_tail_exp`), which writes
+    ``expm1(a[z] x - c[z])`` of the c2r output x.  ``a``, ``c``: float32
+    (nz,).  A CUDA grid the kernels do not take runs ``torch.fft`` and the
+    map on the card (counted)."""
+    nx, ny, nz = shape
+    if _library_route(re, shape):
+        return torch.expm1(irfftn(re, im, shape) * a - c)
+    _fft.ifft_axis(re, im, 1, nx, ny * (nz // 2 + 1))
+    _fft.ifft_axis(re, im, nx, ny, nz // 2 + 1)
+    return _fft.c2r_tail_exp(re, im, nz, a, c)
 
 
 def rfftn(delta):

@@ -852,3 +852,137 @@ def test_nongaussian_and_measure_methods_on_the_card(cuda):
         np.testing.assert_array_equal(got[2], want[2])
         # the table interpolated in float32 by two libraries' log10
         np.testing.assert_allclose(got[1], want[1], rtol=ESTIMATOR_RTOL)
+
+
+# ---- KP, KC and K4L: the mock makers' kernels ----------------------------------
+
+def _catalog(shape, n_extra, dev, seed=5):
+    """float32 (3, n) positions: one a cell displaced, particles exactly on
+    cell faces and at the box edge L, and a few outside [0, L)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = int(np.prod(shape))
+    box = torch.tensor(shape, dtype=torch.float32)[:, None] * SPACING
+    pos = torch.rand((3, n), generator=g) * box
+    faces = (torch.randint(0, 2 * max(shape) + 1, (3, n_extra), generator=g)
+             .to(torch.float32) * (SPACING / 2))
+    faces[:, :3] = box[:, :1].expand(3, 3)
+    faces[:, 3] = -SPACING / 2
+    return torch.cat([pos, faces], 1).to(dev)
+
+
+@pytest.mark.parametrize("window", ["ngp", "cic", "tsc"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("shift", [0.0, SPACING / 2])
+def test_paint_kernel_equals_plain_bit_for_bit(cuda, window, weighted, shift):
+    from randomfield_tpu_torch.ops import paint
+
+    shape = (16, 32, 24)
+    pos = _catalog(shape, 64, cuda)
+    w = (torch.rand(pos.shape[1], device=cuda) * 2.0 if weighted else 1.5)
+    order = paint.ORDERS[window]
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, w))
+    before = paint.KP_LAUNCHES
+    got = paint.deposit(pos, shape, SPACING, w, order, shift, s)
+    again = paint.deposit(pos, shape, SPACING, w, order, shift, s)
+    assert paint.KP_LAUNCHES == before + 2
+    want = paint.deposit_plain(pos, shape, SPACING, w, order, shift, s)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    kpc = paint.KPC_LAUNCHES
+    d, mean = paint.contrast(got, s)
+    assert paint.KPC_LAUNCHES == kpc + 1
+    dp, mp = paint.contrast_plain(want, s)
+    assert mean == mp and torch.equal(d, dp)
+
+
+def _constraint_case(shape, m, dev, seed=3):
+    from randomfield_tpu_torch.ops import constraint
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 1, (m, 3)) * np.asarray(shape) * SPACING
+    pos[0] = np.asarray(shape) // 2 * SPACING  # on a grid point
+    scales = rng.uniform(0, 3, m) * SPACING
+    scales[-1] = 0.0
+    return constraint.axis_tables(pos.astype(np.float32),
+                                  scales.astype(np.float32), shape, SPACING,
+                                  dev)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 16, 30), (16, 24, 9)])
+@pytest.mark.parametrize("m", [1, 8, 11])
+@pytest.mark.parametrize("smoothing", [0.0, 12.0])
+def test_constraint_kernel_matches_plain(cuda, shape, m, smoothing):
+    from randomfield_tpu_torch.ops import constraint
+
+    tables = _constraint_case(shape, m, cuda)
+    nzh = shape[2] // 2 + 1
+    sig = torch.rand((shape[0], shape[1], nzh), device=cuda)
+    re, im = _randn((shape[0], shape[1], nzh), cuda, 7), \
+        _randn((shape[0], shape[1], nzh), cuda, 8)
+    pr, pi = re.clone(), im.clone()
+    before = constraint.KC_LAUNCHES
+    got = constraint.measure(re, im, tables, sig, smoothing)
+    want = constraint.measure_plain(pr, pi, tables, sig, smoothing)
+    assert constraint.KC_LAUNCHES == before + -(-m // constraint.MEASURE_BLOCK)
+    assert torch.equal(re, pr) and torch.equal(im, pi)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-10, atol=1e-12)
+    alpha = np.random.default_rng(m).normal(size=m).astype(np.float32)
+    constraint.correct(re, im, tables, alpha, sig, smoothing)
+    constraint.correct_plain(pr, pi, tables, alpha, sig, smoothing)
+    assert torch.equal(re, pr) and torch.equal(im, pi)
+
+
+@pytest.mark.parametrize("nz", [32, 64, 256])
+def test_lognormal_tail_matches_plain(cuda, nz):
+    re = _randn((12, 8, nz // 2 + 1), cuda, 3)
+    im = _randn((12, 8, nz // 2 + 1), cuda, 4)
+    re[..., 0] = 0.0
+    im[..., 0] = 0.0
+    im[..., -1] = 0.0
+    a = torch.rand(nz, device=cuda) * 0.01
+    c = torch.rand(nz, device=cuda) * 0.1
+    before, k4 = fft.K4L_LAUNCHES, fft.K4_LAUNCHES
+    got = fft.c2r_tail_exp(re, im, nz, a, c)
+    assert fft.K4L_LAUNCHES == before + 1 and fft.K4_LAUNCHES == k4
+    want = fft.c2r_tail_exp_plain(re, im, nz, a, c)
+    assert _rel(got, want) <= K4_TOL
+    plain = fft.c2r_tail(re, im, nz, a)
+    assert _rel(torch.expm1(plain - c), got) <= K4_TOL
+
+
+def test_mock_makers_on_the_card_match_the_cpu(cuda):
+    from randomfield_tpu_torch.models import lognormal, zeldovich
+
+    shape = (32, 32, 32)
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda)
+    gc = rft.Generator(*shape, grid_spacing=SPACING, device="cpu")
+    cons = [((64.0, 64.0, 64.0), 1.5, 24.0), ((97.3, 20.1, 300.0), -0.5, 0.0)]
+    for name, args in (("generate_constrained_field", (3, cons)),
+                       ("constrained_mean_field", (cons,))):
+        got = getattr(g, name)(*args)
+        want = getattr(gc, name)(*args)
+        assert _rel(got.cpu(), want) <= RENDER_TOL
+    np.testing.assert_allclose(g.measure_constraints(got, cons),
+                               gc.measure_constraints(want, cons), atol=1e-5)
+    data = gc.generate_delta_field(9, apply_lightcone=False)
+    for name, args in (("wiener_filter", (data, 4.0)),
+                       ("generate_posterior_field", (2, data, 4.0))):
+        got = getattr(g, name)(*[a.to(cuda) if torch.is_tensor(a) else a
+                                 for a in args])
+        want = getattr(gc, name)(*args)
+        assert _rel(got.cpu(), want) <= RENDER_TOL
+    lg = lognormal.LognormalGenerator(*shape, SPACING, device=cuda)
+    lc = lognormal.LognormalGenerator(*shape, SPACING, device="cpu")
+    assert _rel(lg.generate_delta_field(4).cpu(),
+                lc.generate_delta_field(4)) <= RENDER_TOL
+    q = zeldovich.lagrangian_positions(shape, SPACING)  # on the card
+    assert q.device.type == "cuda"
+    assert torch.equal(q.cpu(), zeldovich.lagrangian_positions(
+        shape, SPACING, device="cpu"))
+    psi = gc.generate_displacement(6)
+    pos = zeldovich.zeldovich_positions(psi, SPACING, f=0.5)
+    got = zeldovich.catalog_power(pos.to(cuda), SPACING, window="tsc",
+                                  interlaced=True, nbins=8)
+    want = zeldovich.catalog_power(pos, SPACING, window="tsc",
+                                   interlaced=True, nbins=8)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
