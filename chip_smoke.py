@@ -20,8 +20,10 @@ non-zero with no result line:
    registers and instructions a mode (K2F_SPECTRUM_SASS), and K5 to its
    (K5_SASS: its binning code is now shared with KB); the registers of
    KB's twelve instances; K4's 1024^3 instance held to its registers and
-   SASS count (K4_SASS_512) with K4L in its template, and the registers of
-   KP's, KC's and K4L's instances;
+   SASS count (K4_SASS_512) with K4L in its template, the registers of
+   KP's, KC's and K4L's instances, the shared-memory atomics of KP's
+   deposit instances and what a 64-bit atomicAdd on shared memory compiles
+   to;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -54,9 +56,11 @@ non-zero with no result line:
    calls bit-equal; K5's block at 256^3 against its stored digest; the
    threefry and pallas scenes' sigma tables unchanged, the nested tables
    of 512^3 and 1024^3 over one box sharing their knots; KP on 1024^3
-   particles (plus particles on faces, at L and below 0; NGP, CIC, TSC,
+   particles in random order (plus particles on faces, at L and below 0)
+   and on 1024^3 Zel'dovich positions in lattice order (NGP, CIC, TSC,
    scalar and per-particle weights, the interlacing shift) bit-equal to
-   its plain version and to a second call, KC (M = 1, 8, 40, s = 0 and 8)
+   its plain version and to a second call, the deposit's folded total
+   equal to the sums' and KPC on it bit-equal, KC (M = 1, 8, 40, s = 0 and 8)
    MEASURE within 1e-10 and CORRECT bit-equal, K4L within K4's bar;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
@@ -129,7 +133,9 @@ non-zero with no result line:
    KB, KB beside its plain version (index_add_) and in its other kinds and
    outputs, the multipoles, wedges, cross and interlaced estimators, the
    bispectrum (nbins = 8: first call and cached, its peak memory), xi and
-   both f_NL renders; KP beside its plain version and index_add_, KC's
+   both f_NL renders; KP beside its plain version and index_add_ (and
+   NGP, CIC, TSC on both orders, by pass, with the design's bytes), KPC on
+   the deposit's total, KC's
    two passes beside theirs, K4L beside its plain version and irfft, the
    stages of the lognormal, constrained and Zel'dovich paths, and the
    whole run's wall time.
@@ -140,6 +146,7 @@ The line before the last is a JSON object of the kernels; the last is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -3052,20 +3059,66 @@ def phase0_mocks(torch, card):
             f"[{card}]")
         if r <= 0 or b <= 0:
             raise AssertionError(f"K4L n = {n}: no such instance")
-    found = {}
+    wanted = {f"{kind}_kernelILi{o}E{idx}": f"KP {kind} {w}{tag}"
+              for o, w in ((1, "ngp"), (2, "cic"), (3, "tsc"))
+              for kind, idx, tag in (("count", "", ""), ("scatter", "iE", ""),
+                                     ("deposit", "iE", ""),
+                                     ("deposit", "xE", " (int64 index)"),
+                                     ("gather", "", ""))
+              if not (kind == "gather" and o == 1)}
+    wanted.update({"contrast_kernel": "KP contrast",
+                   "measure_kernelILb0E": "KC measure",
+                   "measure_kernelILb1E": "KC measure + scale",
+                   "correct_kernel": "KC correct"})
+    found, atoms = {}, {}
     for f, r in regs.items():
-        for frag, what in (("paint_kernelILi1E", "KP ngp"),
-                           ("paint_kernelILi2E", "KP cic"),
-                           ("paint_kernelILi3E", "KP tsc"),
-                           ("contrast_kernel", "KP contrast"),
-                           ("measure_kernelILb0E", "KC measure"),
-                           ("measure_kernelILb1E", "KC measure + scale"),
-                           ("correct_kernel", "KC correct")):
+        for frag, what in wanted.items():
             if frag in f:
                 found[what] = r
+                if "deposit" in frag:
+                    atoms[what] = collections.Counter(
+                        op for op in (re.sub(r"^@!?U?P\w+ ", "", t).split()[0]
+                                      for _, t in funcs.get(f, ()))
+                        if op.startswith("ATOMS"))
     log(f"phase 0 KP and KC registers a thread: {found} [{card}]")
-    if len(found) != 7:
-        raise AssertionError("KP's or KC's instances are missing")
+    missing = sorted(set(wanted.values()) - set(found))
+    if missing:
+        raise AssertionError(f"KP's or KC's instances are missing: {missing}")
+    log(f"phase 0 KP deposit shared-memory atomics in SASS: "
+        f"{ {k: dict(v) for k, v in atoms.items()} }; a 64-bit atomicAdd "
+        f"on shared memory compiles to {shared_atomic64_sass(tool)}")
+
+
+# a 64-bit add on shared memory, the form KP's deposit does not use
+SHARED_ATOMIC64 = """
+__global__ void probe(unsigned long long* out, const unsigned long long* in) {
+  __shared__ unsigned long long s[256];
+  s[threadIdx.x] = 0;
+  __syncthreads();
+  atomicAdd(&s[in[threadIdx.x] & 255], in[threadIdx.x]);
+  __syncthreads();
+  out[threadIdx.x] = s[threadIdx.x];
+}
+"""
+
+
+def shared_atomic64_sass(cuobjdump):
+    """The shared-memory instructions of SHARED_ATOMIC64 as nvcc builds it
+    for sm_90a (its loop, where the add is a compare-and-swap loop)."""
+    from randomfield_tpu_torch.ops import _build
+
+    work = _build.build_dir() / "probe"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "atomic64.cu").write_text(SHARED_ATOMIC64)
+    subprocess.run([_build.cuda_tool("nvcc"), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-O3", "-cubin", "-o",
+                    str(work / "atomic64.cubin"), str(work / "atomic64.cu")],
+                   check=True, capture_output=True, timeout=300)
+    text = subprocess.run([cuobjdump, "-sass", str(work / "atomic64.cubin")],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    return [m.group(1) for m in re.finditer(
+        r"\*/\s+(?:@!?P\d+\s+)?((?:ATOMS|LDS|BRA)[\w.]*)", text)]
 
 
 def _particles(torch, shape, spacing, dev, seed=11):
@@ -3130,50 +3183,86 @@ def projection_misses(torch, g, cons, seed):
     return pre, post, field
 
 
+# KP's phase-1 checks on each catalog: (window, per-particle weights, the
+# shift in cells)
+KP_CHECKS = (("cic", False, 0.0), ("cic", True, 0.5), ("tsc", False, 0.5),
+             ("tsc", True, 0.0), ("ngp", True, 0.5))
+
+
+def _catalog_positions(torch, g, catalog):
+    """float32 (3, n) positions at 1024^3: ``random``, one a cell at a
+    random place (plus particles on faces, at L and below 0), or
+    ``Zel'dovich``, the lattice displaced by a render's displacement, in
+    lattice order."""
+    from randomfield_tpu_torch.models import zeldovich
+
+    if catalog == "random":
+        return _particles(torch, HEADLINE, HEADLINE_SPACING, g.device)
+    psi = g.generate_displacement(2)
+    pos = zeldovich.zeldovich_positions(psi, HEADLINE_SPACING).reshape(3, -1)
+    del psi
+    torch.cuda.empty_cache()
+    return pos
+
+
+def _check_paint(torch, errs, catalog, pos, wt, window, shift):
+    """KP bit-equal to its plain version and to a second call; the
+    deposit's folded total equal to the sums' own; KPC on that total
+    bit-equal to contrast_plain."""
+    from randomfield_tpu_torch.ops import paint
+
+    sp = HEADLINE_SPACING
+    order = paint.ORDERS[window]
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, wt))
+    got, total = paint._deposit(pos, HEADLINE, sp, wt, order, shift, s)
+    again = paint.deposit(pos, HEADLINE, sp, wt, order, shift, s)
+    same = torch.equal(got, again)
+    del again
+    want = paint.deposit_plain(pos, HEADLINE, sp, wt, order, shift, s)
+    equal = torch.equal(got, want)
+    folded = int(total) == int(want.sum())
+    d, mean = paint._contrast(got, s, total)
+    dp, mp = paint.contrast_plain(want, s)
+    kpc = torch.equal(d, dp) and mean == mp
+    weights = "per particle" if isinstance(wt, torch.Tensor) else wt
+    log(f"phase 1 KP {window} {catalog} weights={weights} shift={shift} "
+        f"{pos.shape[1]} particles on {HEADLINE}: int64 sums equal to plain "
+        f"{equal}, two calls equal {same}, folded total equal {folded}, "
+        f"contrast on it equal {kpc} (2^{s} units)")
+    if not (equal and same and folded and kpc):
+        raise AssertionError(f"KP {window} ({catalog}) disagrees with its "
+                             f"plain version")
+    errs["KP"] = 0.0  # the int64 sums are equal (checked above)
+    errs["KPC"] = max(errs.get("KPC", 0.0), float((d - dp).abs().max()))
+    del got, want, d, dp
+    torch.cuda.empty_cache()
+
+
 def phase1_mocks(torch, g, errs):
     """KP, KC and K4L against their plain versions on the card at the 1024^3
-    paths' shapes.  KP: 1024^3 particles (plus 4096 on faces, at L, below
-    0), NGP, CIC and TSC, scalar and per-particle weights, the interlacing
-    shift: the int64 sums bit-equal to the plain version's and to a second
-    call, the contrast bit-equal.  KC on the scene's sigma grid and a K2F
+    paths' shapes.  KP on two catalogs, 1024^3 particles in random order
+    (plus 4096 on faces, at L, below 0) and a 1024^3 Zel'dovich catalog in
+    lattice order: NGP, CIC and TSC, scalar and per-particle weights, the
+    interlacing shift (KP_CHECKS), the int64 sums bit-equal to the plain
+    version's and to a second call, the folded total exact, the contrast
+    on it bit-equal.  KC on the scene's sigma grid and a K2F
     unit draw with M = 1, 8 and 40 off-grid constraints (R = 0 among them),
     s = 0 and 8: MEASURE within KC_MEASURE_RTOL, CORRECT bit-equal.  K4L on
     a render's spectrum after its x and y passes, the lognormal planes' a
     and c, within K4's bar of c2r_tail_plain then expm1."""
     from randomfield_tpu_torch.models import constrained
-    from randomfield_tpu_torch.ops import constraint, fft, paint
+    from randomfield_tpu_torch.ops import constraint, fft
 
     dev, sp = g.device, HEADLINE_SPACING
-    pos = _particles(torch, HEADLINE, sp, dev)
-    w = torch.rand(pos.shape[1], device=dev,
-                   generator=torch.Generator(device=dev).manual_seed(3)) * 2
-    for window, weighted, shift in (("cic", False, 0.0),
-                                    ("tsc", True, sp / 2),
-                                    ("ngp", False, sp / 2)):
-        wt = w if weighted else 1.0
-        order = paint.ORDERS[window]
-        s = paint.fixed_point_exponent(paint.total_abs_weight(pos, wt))
-        got = paint.deposit(pos, HEADLINE, sp, wt, order, shift, s)
-        again = paint.deposit(pos, HEADLINE, sp, wt, order, shift, s)
-        same = torch.equal(got, again)
-        del again
-        want = paint.deposit_plain(pos, HEADLINE, sp, wt, order, shift, s)
-        equal = torch.equal(got, want)
-        d, mean = paint.contrast(got, s)
-        dp, mp = paint.contrast_plain(want, s)
-        log(f"phase 1 KP {window} weights={'per particle' if weighted else 1.0}"
-            f" shift={shift} {pos.shape[1]} particles on {HEADLINE}: int64 "
-            f"sums equal to plain {equal}, two calls equal {same}, contrast "
-            f"equal {torch.equal(d, dp) and mean == mp} (2^{s} units)")
-        if not (equal and same and torch.equal(d, dp) and mean == mp):
-            raise AssertionError(f"KP {window} disagrees with its plain "
-                                 f"version")
-        errs["KP"] = 0.0  # the int64 sums are equal (checked above)
-        errs["KPC"] = max(errs.get("KPC", 0.0), float((d - dp).abs().max()))
-        del got, want, d, dp
+    for catalog in ("random", "Zel'dovich"):
+        pos = _catalog_positions(torch, g, catalog)
+        w = torch.rand(pos.shape[1], device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3)) * 2
+        for window, weighted, shift in KP_CHECKS:
+            _check_paint(torch, errs, catalog, pos, w if weighted else 1.0,
+                         window, shift * sp)
+        del pos, w
         torch.cuda.empty_cache()
-    del pos, w
-    torch.cuda.empty_cache()
 
     sig = g.sigmas
     for m in KC_COUNTS:
@@ -3544,8 +3633,10 @@ def phase3_mocks(torch, rft, dev, card):
 
 
 def phase4_mocks(torch, rft, dev, g, card):
-    """Times at 1024^3: KP (CIC, scalar weight, 1024^3 particles) beside its
-    plain version and index_add_ of the same int64 terms (8 calls); KC's
+    """Times at 1024^3: KP (CIC, scalar weight, a 1024^3 Zel'dovich
+    catalog) beside its plain version and index_add_ of the same int64
+    terms (8 calls), and NGP, CIC and TSC on it and on a random catalog, by
+    pass; KPC on the deposit's total; KC's
     MEASURE (with the scale, M = 8) and CORRECT beside their plain
     versions; K4L beside c2r_tail_exp_plain and torch.fft.irfft; the stages
     of the lognormal, constrained and posterior renders, and the
@@ -3557,13 +3648,10 @@ def phase4_mocks(torch, rft, dev, g, card):
     sp = HEADLINE_SPACING
     nx, ny, nz = HEADLINE
     out = {}
-    psi = g.generate_displacement(2)
-    pos = zeldovich.zeldovich_positions(psi, sp).reshape(3, -1)
-    del psi
-    torch.cuda.empty_cache()
+    pos = _catalog_positions(torch, g, "Zel'dovich")
     s = paint.fixed_point_exponent(paint.total_abs_weight(pos, 1.0))
     k_ms, p_ms, _ = time_kernel(
-        torch, "KP deposit cic (zero + scatter)",
+        torch, "KP deposit cic, Zel'dovich order (all passes)",
         lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 2, 0.0, s),
         lambda: paint.deposit_plain(pos, HEADLINE, sp, 1.0, 2, 0.0, s),
         None, None, HEADLINE, card, plain_reps=1)
@@ -3590,25 +3678,25 @@ def phase4_mocks(torch, rft, dev, g, card):
         f"x {-(-pos.shape[1] // KP_LIB_BLOCK)} blocks of {KP_LIB_BLOCK} "
         f"particles) {HEADLINE}: {lib_ms:.3f} ms [{card}]")
     out["KP"] = (k_ms, p_ms, lib_ms)
-    tsc = cuda_ms(torch, lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 3,
-                                               sp / 2, s))
-    ngp = cuda_ms(torch, lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 1,
-                                               0.0, s))
-    log(f"phase 4 KP deposit tsc (shifted) {tsc:.3f} ms, ngp {ngp:.3f} ms "
-        f"[{card}]")
-    acc = paint.deposit(pos, HEADLINE, sp, 1.0, 2, 0.0, s)
+    kp_windows(torch, pos, "Zel'dovich", card)
+    acc, total = paint._deposit(pos, HEADLINE, sp, 1.0, 2, 0.0, s)
     del pos
     torch.cuda.empty_cache()
-    # KPC: the wrapper (the exact int64 total, summed on the card and read
-    # by the host, then the kernel); the total's share alone
+    # KPC as paint() runs it: the kernel on the deposit's folded total (one
+    # int64 read by the host); beside it, contrast() summing the grid first
     out["KPC"] = time_kernel(
-        torch, "KPC contrast (int64 total + kernel)",
-        lambda: paint.contrast(acc, s), lambda: paint.contrast_plain(acc, s),
-        None, None, HEADLINE, card, plain_reps=1)
-    total_ms = cuda_ms(torch, lambda: int(acc.sum()))
-    log(f"phase 4 KPC of which the int64 total (acc.sum() read by the host) "
-        f"{total_ms:.3f} ms [{card}]")
-    del acc
+        torch, "KPC contrast on the deposit's total",
+        lambda: paint._contrast(acc, s, total),
+        lambda: paint.contrast_plain(acc, s), None, None, HEADLINE, card,
+        plain_reps=1)
+    summed = cuda_ms(torch, lambda: paint.contrast(acc, s))
+    log(f"phase 4 KPC contrast(acc, s), the total summed from the grid "
+        f"(acc.sum() read by the host) first: {summed:.3f} ms [{card}]")
+    del acc, total
+    torch.cuda.empty_cache()
+    pos = _catalog_positions(torch, g, "random")
+    kp_windows(torch, pos, "random", card)
+    del pos
     torch.cuda.empty_cache()
 
     sig = g.sigmas
@@ -3758,18 +3846,93 @@ def phase4_mocks(torch, rft, dev, g, card):
     ev[1].record()
     d1, _ = zeldovich.paint(pos, HEADLINE, sp, window="tsc")
     ev[2].record()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     zeldovich.catalog_power_multipoles(pos, sp, window="tsc",
                                        interlaced=True, nbins=NBINS)
     ev[3].record()
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     t = [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
     log(f"phase 4 Zel'dovich catalog {HEADLINE}: positions {t[0]:.3f} ms, "
         f"one TSC painting (deposit + contrast) {t[1]:.3f} ms, "
         f"catalog_power_multipoles(tsc, interlaced) {t[2]:.3f} ms (two "
-        f"paintings, two forward transforms, KB) [{card}]")
+        f"paintings, two forward transforms, KB), its peak device memory "
+        f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB held before it) "
+        f"[{card}]")
     del psi, pos, d1
     torch.cuda.empty_cache()
     return out
+
+
+def kp_design_bytes(n, dims, order):
+    """The bytes KP's passes move for n particles (scalar weight) on a
+    grid of ``dims``: the positions read by the count, scatter and deposit
+    passes, the int32 index written and read, the tiles' counts (zeroed,
+    added, scanned, read), the grid written, the shell scratch written and
+    read, and the gather's band cells (a local place below r on some axis)
+    read and written."""
+    from randomfield_tpu_torch.ops import paint
+
+    r = order - 1
+    tiles = int(np.prod(paint.tile_grid(dims)))
+    cells = int(np.prod(dims))
+    inner = int(np.prod([sum(1 for x in range(d) if x % paint.TILE >= r)
+                         for d in dims]))
+    return (3 * 12 * n + 2 * 4 * n + 5 * 8 * tiles + 8 * cells
+            + 2 * 8 * tiles * paint.shell_slots(dims, order)
+            + 2 * 8 * (cells - inner))
+
+
+def kp_passes(torch, fn):
+    """{pass: device ms} of one call of ``fn`` under torch.profiler (its
+    kernels' spans by name), or None when the trace holds no device
+    activity (as it mostly does this deep into the run; a fresh process
+    traces every call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.end_ns() <= e.start_ns()):
+            continue
+        name = next((k for k in ("count", "scatter", "deposit", "gather")
+                     if f"{k}_kernel" in e.name()), "scan and fills")
+        out[name] += (e.end_ns() - e.start_ns()) / 1e6
+    return {k: round(v, 3) for k, v in out.items()} or None
+
+
+def kp_windows(torch, pos, catalog, card):
+    """Times of KP's NGP, CIC and TSC (the interlacing shift) on one
+    catalog at 1024^3, by pass, beside the design's bytes and the bound's."""
+    from randomfield_tpu_torch.ops import paint
+
+    sp, n = HEADLINE_SPACING, pos.shape[1]
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, 1.0))
+    bound = 12 * n + 8 * int(np.prod(HEADLINE))
+    for window, shift in (("ngp", 0.0), ("cic", 0.0), ("tsc", sp / 2)):
+        order = paint.ORDERS[window]
+
+        def run():
+            return paint.deposit(pos, HEADLINE, sp, 1.0, order, shift, s)
+
+        passes = kp_passes(torch, run)
+        ms = cuda_ms(torch, run)
+        design = kp_design_bytes(n, HEADLINE, order)
+        log(f"phase 4 KP deposit {window} shift={shift} {catalog} order, "
+            f"{n} particles on {HEADLINE}: {ms:.3f} ms (all passes); by "
+            f"pass, torch.profiler: {passes}; the design "
+            f"moves {design / 1e9:.3f} GB ({1e3 * design / HBM_BYTES_PER_S:.3f}"
+            f" ms at the HBM rate), the bound's {bound / 1e9:.3f} GB "
+            f"({1e3 * bound / HBM_BYTES_PER_S:.3f} ms); the shell: scratch "
+            f"slots gathered on the owner's side, no atomics [{card}]")
+        torch.cuda.empty_cache()
 
 
 def kernel_bounds(g):

@@ -53,11 +53,10 @@ __all__ = [
 get_k_bounds = _grid.get_k_bounds
 fill_with_log10k = _grid.fill_with_log10k
 
-# the JAX package's shipped table, read by path so its __init__ (which
-# imports jax) never runs
+# the port's own copy of the default table (EH98 at Planck13), byte for
+# byte the JAX package's
 _DEFAULT_POWER = (
-    pathlib.Path(__file__).resolve().parents[2]
-    / "randomfield_tpu" / "data" / "default_power.dat"
+    pathlib.Path(__file__).resolve().parents[1] / "data" / "default_power.dat"
 )
 
 
@@ -111,8 +110,9 @@ def validate_power(power) -> PowerTable:
 
 
 def load_default_power() -> PowerTable:
-    """The default linear P(k) table: ``randomfield_tpu/data/default_power.dat``
-    (EH98 at Planck13), regenerated from the model if the file is missing."""
+    """The default linear P(k) table: the package's
+    ``data/default_power.dat`` (EH98 at Planck13), regenerated from the
+    model if the file is missing."""
     if _DEFAULT_POWER.exists():
         arr = np.loadtxt(_DEFAULT_POWER)
         return PowerTable(arr[:, 0], arr[:, 1])

@@ -894,6 +894,80 @@ def test_paint_kernel_equals_plain_bit_for_bit(cuda, window, weighted, shift):
     assert mean == mp and torch.equal(d, dp)
 
 
+def _paint_case(case, dev):
+    """(float32 (3, n) positions, grid shape, weights) of one of the tiled
+    deposit's edge cases."""
+    g = torch.Generator(device="cpu").manual_seed(len(case))
+    shape = {"edges": (17, 33, 5), "wrap": (32, 16, 20)}.get(case,
+                                                             (16, 32, 24))
+    box = torch.tensor(shape, dtype=torch.float32)[:, None] * SPACING
+    n = int(np.prod(shape))
+    w = 1.0
+    if case in ("edges", "negative", "tiny"):
+        pos = torch.rand((3, n), generator=g) * box
+        w = torch.rand(n, generator=g) * 2.0 - (1.0 if case == "negative"
+                                                else 0.0)
+        if case == "tiny":  # 2^s beyond float32's range: float64 products
+            w = w * 1e-25
+    elif case == "wrap":  # half the particles outside [0, L)
+        pos = (torch.rand((3, n), generator=g) * 2.0 - 0.5) * box
+    elif case == "faces":  # on cell faces, at L and at -a/2
+        pos = _catalog(shape, 4 * n, "cpu")[:, n:]
+    elif case in ("lattice", "random"):  # displaced lattice points
+        axes = [(torch.arange(d) + 0.5) * SPACING for d in shape]
+        q = torch.stack(torch.meshgrid(*axes, indexing="ij")).reshape(3, -1)
+        pos = torch.remainder(q + torch.randn((3, n), generator=g)
+                              * 1.5 * SPACING, box)
+        if case == "random":
+            pos = pos[:, torch.randperm(n, generator=g)]
+    elif case == "one_cell":
+        pos = torch.full((3, 5000), 3.3 * SPACING)
+    elif case == "one":
+        pos = torch.tensor([[0.2], [31.9], [5.0]]) * SPACING
+    else:  # "empty"
+        pos = torch.zeros((3, 0))
+    w = w.to(dev) if isinstance(w, torch.Tensor) else w
+    return pos.to(torch.float32).contiguous().to(dev), shape, w
+
+
+PAINT_CASES = ["edges", "wrap", "faces", "negative", "lattice", "random",
+               "one_cell", "one", "empty", "tiny"]
+
+
+@pytest.mark.parametrize("window", ["ngp", "cic", "tsc"])
+@pytest.mark.parametrize("case", PAINT_CASES)
+def test_paint_tiles_equal_plain_bit_for_bit(cuda, window, case):
+    from randomfield_tpu_torch.ops import paint
+
+    pos, shape, w = _paint_case(case, cuda)
+    order = paint.ORDERS[window]
+    shift = SPACING / 2 if PAINT_CASES.index(case) % 2 else 0.0
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, w))
+    before = paint.KP_LAUNCHES
+    got = paint.deposit(pos, shape, SPACING, w, order, shift, s)
+    again = paint.deposit(pos, shape, SPACING, w, order, shift, s)
+    assert paint.KP_LAUNCHES == before + 2
+    want = paint.deposit_plain(pos, shape, SPACING, w, order, shift, s)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    plan = paint.tile_plan_plain(pos, shape, SPACING, w, order, shift, s)
+    assert torch.equal(plan.grid, want)
+
+
+@pytest.mark.parametrize("window", ["ngp", "cic", "tsc"])
+def test_paint_folded_total_equals_the_sum(cuda, window):
+    from randomfield_tpu_torch.ops import paint
+
+    pos, shape, w = _paint_case("negative", cuda)
+    order = paint.ORDERS[window]
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, w))
+    acc, total = paint._deposit(pos, shape, SPACING, w, order, 0.0, s)
+    assert total.dtype == torch.int64 and total.device.type == "cuda"
+    assert int(total) == int(acc.sum())
+    d, mean = paint.paint(pos, shape, SPACING, w, order)
+    dp, mp = paint.contrast_plain(acc, s)
+    assert mean == mp and torch.equal(d, dp)
+
+
 def _constraint_case(shape, m, dev, seed=3):
     from randomfield_tpu_torch.ops import constraint
 
