@@ -18,12 +18,15 @@ non-zero with no result line:
    kernel on the nested stream) and K2F's fixed mode (cuobjdump), and the
    issue-rate time they imply; K2F's spectrum instance held to its
    registers and instructions a mode (K2F_SPECTRUM_SASS), and K5 to its
-   (K5_SASS: its binning code is now shared with KB); the registers of
-   KB's twelve instances; K4's 1024^3 instance held to its registers and
-   SASS count (K4_SASS_512) with K4L in its template, the registers of
-   KP's, KC's and K4L's instances, the shared-memory atomics of KP's
-   deposit instances and what a 64-bit atomicAdd on shared memory compiles
-   to;
+   (K5_SASS: its binning code, csrc/bins_common.cuh, must not move); the
+   registers of KB's eighteen instances (four kinds and the geometry pass;
+   the outputs and the read probe) and its launch plans at 1024^3; K4's
+   1024^3 instance held to its registers and SASS count (K4_SASS_512) with
+   K4L in its template, the registers of KP's, KC's and K4L's instances,
+   the shared-memory atomics of KP's deposit instances and what a 64-bit
+   atomicAdd on shared memory compiles to; KC MEASURE's loop a kz step
+   (its F2F.F64.F32 and float64 instructions) and KC's plans at M = 1, 8,
+   40;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -51,9 +54,10 @@ non-zero with no result line:
    field the exact negation) and KD apply_kernel (each kind and component);
    KB bin_spectrum on the forward transforms of two 1024^3 renders (and the
    Kaiser expectation grid): auto, cross, interlaced and grid, each
-   isotropic, with ells (0, 2, 4), with nmu = 4 wedges and with the cic
-   window, counts equal to the plain version's, sums within 1e-10, two
-   calls bit-equal; K5's block at 256^3 against its stored digest; the
+   isotropic, with ells (0, 2, 4), with nmu = 4 wedges, with the cic
+   window and at its most bins (1024 with the multipoles, 256 x 4 wedges),
+   counts equal to the plain version's, sums within 1e-10, two calls
+   bit-equal; K5's block at 256^3 against its stored digest; the
    threefry and pallas scenes' sigma tables unchanged, the nested tables
    of 512^3 and 1024^3 over one box sharing their knots; KP on 1024^3
    particles in random order (plus particles on faces, at L and below 0)
@@ -130,15 +134,19 @@ non-zero with no result line:
    gloo's through host memory, not the card's); KN (three modes), K2F fixed
    and KD beside their plain versions, the nested, fixed and displacement
    renders and their stages; calculate_power split into its transform and
-   KB, KB beside its plain version (index_add_) and in its other kinds and
-   outputs, the multipoles, wedges, cross and interlaced estimators, the
+   KB, KB beside its plain version (index_add_), its first call for a
+   geometry (the geometry pass and the data pass), every kind and output,
+   the read-rate yardsticks (torch sums of the lattices, KB's staging
+   alone), the multipoles, wedges, cross and interlaced estimators with
+   their peak memory, the
    bispectrum (nbins = 8: first call and cached, its peak memory), xi and
    both f_NL renders; KP beside its plain version and index_add_ (and
    NGP, CIC, TSC on both orders, by pass, with the design's bytes), KPC on
    the deposit's total, KC's
-   two passes beside theirs, K4L beside its plain version and irfft, the
-   stages of the lognormal, constrained and Zel'dovich paths, and the
-   whole run's wall time.
+   two passes beside theirs and each pass at M = 1, 8, 40, K4L beside its
+   plain version and irfft, the stages of the lognormal, constrained and
+   Zel'dovich paths, the constrained render, measure_constraints, Wiener
+   and posterior with their peak memory, and the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -308,6 +316,11 @@ OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
 KP_OPS_PER_PARTICLE = 12 + 3 + 8 * 6
 KPC_FP64_OPS_PER_CELL = 6
 KC_OPS_PER_MODE_AND_CONSTRAINT = 16
+# what the redesigned kernels issue a mode and constraint: MEASURE the
+# complex product (6), the self-conjugate select, two conversions to float64
+# and three float64 operations; CORRECT the product, the select and the
+# alpha sums' two multiplies and two adds
+KC_DESIGN_OPS = {"measure": 6 + 1 + 2 + 3, "correct": 6 + 1 + 4}
 K4L_OPS_PER_CELL = 3
 # CUDA vs CPU render at one seed: float32 FFTs of two libraries
 SLICE_BAR = 1e-5
@@ -407,6 +420,20 @@ def cuda_ms(torch, fn, reps=TIMING_REPS, setup=None):
         if i:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_peak(torch, fn, reps=TIMING_REPS):
+    """(cuda_ms of fn, "X GiB (Y above the Z held)"): the peak device
+    memory of one call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    text = (f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the "
+            f"{base / 2**30:.3f} held)")
+    return cuda_ms(torch, fn, reps), text
 
 
 def phase0_attributes(card):
@@ -577,20 +604,22 @@ def phase0_sass(torch, card):
                              "instance")
     regs, hot = counts["K5"][0], counts["K5"][4]
     log(f"phase 0 K5: {regs} registers, {hot:.1f} hot instructions a mode; "
-        f"expected {K5_SASS[0]}, {K5_SASS[1]:.1f} (its binning code now in "
-        f"csrc/bins_common.cuh, shared with KB)")
+        f"expected {K5_SASS[0]}, {K5_SASS[1]:.1f} (its binning code in "
+        f"csrc/bins_common.cuh)")
     if (regs, hot) != K5_SASS:
-        raise AssertionError("sharing the binning code moved K5")
+        raise AssertionError("K5's binning code moved")
     instances = []
     for f, r in sorted(res_usage(_build.library_path(),
                                  _build.cuda_tool("cuobjdump")).items()):
         m = re.search(r"bin_spectrum_kernelILi(\d)ELi(\d)E", f)
         if m:
             instances.append(f"<{m.group(1)}, {m.group(2)}> {r}")
-    log(f"phase 0 KB bin_spectrum_kernel<KIND, OUT>: registers a thread, "
+    log(f"phase 0 KB bin_spectrum_kernel<KIND, OUT> (KIND 4: the geometry "
+        f"pass; OUT 3: the read probe): registers a thread, "
         f"{', '.join(instances)} [{card}]")
-    if len(instances) != 12:
+    if len(instances) != 18:
         raise AssertionError("KB's instances are missing from the library")
+    kb_plans(card)
     for kid, (regs, span, hot, hashes, per_mode) in counts.items():
         n_modes = modes // MESH_RANKS if kid in ("K7", "K8") else modes
         ms = 1e3 * per_mode * n_modes / 32 / (sms * 4 * clock_mhz * 1e6)
@@ -600,6 +629,28 @@ def phase0_sass(torch, card):
             f"{clock_mhz:.0f} MHz those issue in {ms:.3f} ms over {n_modes} "
             f"modes [{card}]")
     return counts
+
+
+def kb_plans(card):
+    """KB's launch plan at the 1024^3 estimators' shapes, each kind and
+    output (and MAX_BINS): warps a block, stages, blocks, shared memory."""
+    from randomfield_tpu_torch.ops import binning
+
+    nx, ny, nz = HEADLINE
+    rows = []
+    for kind in KB_KINDS + ("geometry",):
+        for what, mode, nbins, nmu in (
+                ("isotropic", 0, NBINS, 1), ("multipoles", 1, NBINS, 1),
+                ("4 wedges", 2, NBINS, 4), ("probe", 3, 1, 1),
+                ("multipoles at MAX_BINS", 1, binning.MAX_BINS, 1)):
+            if kind == "geometry" and mode in (1, 3):
+                continue
+            w, st, b, sm, ch, nch = binning.launch_plan(kind, mode, nx, ny,
+                                                        nz, nbins, nmu)
+            rows.append(f"{kind} {what}: {w} warps, {st} stages, {b} "
+                        f"blocks, {sm} B, {nch} chunks of {ch} tiles")
+    log(f"phase 0 KB plans at {HEADLINE} (a tile: 4 kz lines): "
+        f"{'; '.join(rows)} [{card}]")
 
 
 def phase1_kernels(torch, g, errs):
@@ -2533,10 +2584,14 @@ KB_SUM_RTOL = 1e-10
 KB_KINDS = ("auto", "cross", "interlaced", "grid")
 KB_OUTPUTS = {"isotropic": {}, "ells (0, 2, 4)": dict(ells=(0, 2, 4)),
               "nmu = 4 wedges": dict(nmu=4), "window cic": dict(order=2)}
+# KB at its most bins (binning.MAX_BINS; the shared memory's budget)
+KB_MAX_OUTPUTS = {"ells (0, 2, 4), 1024 bins": dict(ells=(0, 2, 4),
+                                                    nbins=1024),
+                  "nmu = 4 wedges, 256 x 4 bins": dict(nmu=4, nbins=256)}
 # K5's float64 block at 256^3 (pallas, seed 3, NBINS bins, no smoothing):
-# the sha256 of its bytes as the kernel computed it before it shared its
-# binning code with KB (csrc/bins_common.cuh); K5's registers and hot SASS
-# instructions a mode, which that must not move either
+# the sha256 of its bytes as the kernel computed it before its binning code
+# went to csrc/bins_common.cuh (which KB shared until its redesign); K5's
+# registers and hot SASS instructions a mode, which must not move either
 K5_DIGEST_SHAPE, K5_DIGEST_SPACING, K5_DIGEST_SEED = (256, 256, 256), 8.0, 3
 K5_DIGEST = "5cec6ddee1deb2ac9edf9a3397db969f09092784c7ea8a1608de6e561ed093d7"
 K5_SASS = (48, 169.5)
@@ -2611,10 +2666,12 @@ def phase1_measure(torch, rft, dev, g, gp, errs):
     grid = g._kaiser_pgrid(0.0, KAISER_BIAS, KAISER_F, 2, 0.0)
     inputs = {"auto": (re1, im1), "cross": (re1, im1, re2, im2),
               "interlaced": (re1, im1, re2, im2), "grid": (grid,)}
-    edges, _ = stats.bin_setup(HEADLINE, spacing, NBINS)
     factor = fourier._factor(HEADLINE, spacing)
     for kind in KB_KINDS:
-        for what, kw in KB_OUTPUTS.items():
+        for what, kw in {**KB_OUTPUTS, **KB_MAX_OUTPUTS}.items():
+            kw = dict(kw)
+            edges, _ = stats.bin_setup(HEADLINE, spacing,
+                                       kw.pop("nbins", NBINS))
             args = (kind, inputs[kind], HEADLINE, spacing, edges)
             got = binning.bin_spectrum(*args, factor=factor, **kw)
             again = binning.bin_spectrum(*args, factor=factor, **kw)
@@ -2625,7 +2682,7 @@ def phase1_measure(torch, rft, dev, g, gp, errs):
             errs["KB"] = max(errs.get("KB", 0.0),
                              float((got - want).abs().max()))
             bit = torch.equal(got, again)
-            log(f"phase 1 KB {kind} {what} {HEADLINE} nbins={NBINS}: counts "
+            log(f"phase 1 KB {kind} {what} {HEADLINE}: counts "
                 f"{'equal' if counts else 'DIFFER'}, sums rel {rel:.3e} (bar "
                 f"{KB_SUM_RTOL:g}), two calls "
                 f"{'bit-equal' if bit else 'DIFFERENT'}")
@@ -2932,30 +2989,46 @@ def phase4_measure(torch, rft, dev, g, card):
         lambda: binning.bin_spectrum(*args, factor=factor),
         lambda: binning.bin_spectrum_plain(*args, factor=factor), None, None,
         HEADLINE, card, plain_reps=SLOW_PLAIN_REPS)
-    for kind, arrays in (("cross", (re, im, re2, im2)),
-                         ("interlaced", (re, im, re2, im2))):
-        ms = cuda_ms(torch, lambda: binning.bin_spectrum(
-            kind, arrays, HEADLINE, sp, edges, factor=factor))
-        log(f"phase 4 KB {kind} {HEADLINE}: {ms:.3f} ms [{card}]")
-    for what, kw in (("ells (0, 2, 4)", dict(ells=(0, 2, 4))),
-                     ("nmu = 4 wedges", dict(nmu=4)),
-                     ("window cic", dict(order=2))):
-        ms = cuda_ms(torch, lambda: binning.bin_spectrum(*args, factor=factor,
-                                                         **kw))
-        log(f"phase 4 KB auto {what} {HEADLINE}: {ms:.3f} ms [{card}]")
-    del re, im, re2, im2
+    # every kind and output (the grid kind on the Kaiser expectation),
+    # beside the read-rate yardsticks of its lattices: one torch sum each,
+    # and KB's staging alone (binning.read_probe)
     grid = g._kaiser_pgrid(0.0, KAISER_BIAS, KAISER_F, 2, 0.0)
-    ms = cuda_ms(torch, lambda: binning.bin_spectrum(
-        "grid", (grid,), HEADLINE, sp, edges))
-    log(f"phase 4 KB grid (the Kaiser expectation) {HEADLINE}: {ms:.3f} ms "
-        f"[{card}]")
-    del grid
+    inputs = {"auto": (re, im), "cross": (re, im, re2, im2),
+              "interlaced": (re, im, re2, im2), "grid": (grid,)}
+    for what, kw in (("isotropic", {}), ("nmu = 4 wedges", dict(nmu=4))):
+        cold = cuda_ms(torch, lambda: binning.bin_spectrum(
+            "auto", (re, im), HEADLINE, sp, edges, factor=factor, **kw),
+            setup=binning._geometry.cache_clear)
+        log(f"phase 4 KB auto {what} {HEADLINE}, its first call for the "
+            f"geometry (the geometry pass, then the data pass): {cold:.3f} "
+            f"ms [{card}]")
+    for kind in KB_KINDS:
+        arrays = inputs[kind]
+        kfac = 1.0 if kind == "grid" else factor
+        for what, kw in KB_OUTPUTS.items():
+            if kind != "auto" and what == "window cic":
+                continue
+            ms = cuda_ms(torch, lambda: binning.bin_spectrum(
+                kind, arrays, HEADLINE, sp, edges, factor=kfac, **kw))
+            log(f"phase 4 KB {kind} {what} {HEADLINE}: {ms:.3f} ms "
+                f"[{card}]")
+    for n, arrays in ((1, (grid,)), (2, (re, im)), (4, (re, im, re2, im2))):
+        nbytes = sum(a.numel() * 4 for a in arrays)
+        t_sum = cuda_ms(torch, lambda: [a.sum() for a in arrays])
+        t_probe = cuda_ms(torch, lambda: binning.read_probe(arrays))
+        log(f"phase 4 KB read yardstick, {n} lattice(s) of {HEADLINE}: "
+            f"{nbytes / 1e9:.4f} GB; torch sums {t_sum:.3f} ms "
+            f"({nbytes / t_sum / 1e6:.1f} GB/s), KB's staging alone (read "
+            f"probe) {t_probe:.3f} ms ({nbytes / t_probe / 1e6:.1f} GB/s) "
+            f"[{card}]")
+    del re, im, re2, im2, grid, inputs
     torch.cuda.empty_cache()
-    total = cuda_ms(torch, lambda: stats.calculate_power(field, sp, NBINS))
+    total, peak = timed_peak(torch, lambda: stats.calculate_power(
+        field, sp, NBINS))
     log(f"phase 4 calculate_power {HEADLINE}: {total:.3f} ms = transform "
         f"(K6, K3 y, K3 x) {fwd:.3f} + KB {k_ms:.3f} + the rest "
         f"{total - fwd - k_ms:.3f}; with the plain binning it would take "
-        f"{fwd + p_ms:.3f} [{card}]")
+        f"{fwd + p_ms:.3f}; peak device memory {peak} [{card}]")
     for what, fn in (
             ("calculate_power_multipoles", lambda: stats.calculate_power_multipoles(
                 field, sp, NBINS)),
@@ -2966,7 +3039,9 @@ def phase4_measure(torch, rft, dev, g, card):
             ("calculate_power(window='cic', interlaced_with=...)",
              lambda: stats.calculate_power(field, sp, NBINS, window="cic",
                                            interlaced_with=field2))):
-        log(f"phase 4 {what} {HEADLINE}: {cuda_ms(torch, fn):.3f} ms [{card}]")
+        ms, peak = timed_peak(torch, fn)
+        log(f"phase 4 {what} {HEADLINE}: {ms:.3f} ms; peak device memory "
+            f"{peak} [{card}]")
     del field2
     torch.cuda.empty_cache()
     bispectrum._triangle_counts.cache_clear()
@@ -3069,7 +3144,8 @@ def phase0_mocks(torch, card):
     wanted.update({"contrast_kernel": "KP contrast",
                    "measure_kernelILb0E": "KC measure",
                    "measure_kernelILb1E": "KC measure + scale",
-                   "correct_kernel": "KC correct"})
+                   "correct_kernelILb0E": "KC correct",
+                   "correct_kernelILb1E": "KC correct (tables in blocks)"})
     found, atoms = {}, {}
     for f, r in regs.items():
         for frag, what in wanted.items():
@@ -3087,6 +3163,59 @@ def phase0_mocks(torch, card):
     log(f"phase 0 KP deposit shared-memory atomics in SASS: "
         f"{ {k: dict(v) for k, v in atoms.items()} }; a 64-bit atomicAdd "
         f"on shared memory compiles to {shared_atomic64_sass(tool)}")
+    kc_sass(funcs, regs, card)
+
+
+# KC MEASURE's loops a kz step: their float32 -> float64 conversions and
+# float64 operations
+KC_SASS_OPS = ("F2F.F64.F32", "DFMA", "DMUL", "DADD", "LDS", "FMUL", "FADD")
+
+
+def kc_sass(funcs, regs, card):
+    """Every innermost loop of each KC MEASURE instance that converts
+    float32 to float64 (a lane's kz step through a register block of 1, 4
+    or 8 constraints; each constraint's term is one DMUL): its instructions
+    by opcode; and the plans at 1024^3."""
+    from randomfield_tpu_torch.ops import constraint
+
+    for name, what in (("measure_kernelILb1E", "measure + scale"),
+                       ("measure_kernelILb0E", "measure")):
+        f = next((k for k in funcs if name in k), None)
+        if f is None:
+            raise AssertionError(f"KC {what}: no SASS function")
+        instrs = funcs[f]
+        loops = []
+        for addr, text in instrs:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in instrs if int(m.group(1), 16) <= a <= addr]
+                if any("F2F.F64.F32" in t for t in body):
+                    loops.append((int(m.group(1), 16), addr, body))
+        rows = []
+        for first, last, body in loops:
+            if any(first <= a < b <= last and (a, b) != (first, last)
+                   for a, b, _ in loops):
+                continue  # holds another converting loop
+            ops = collections.Counter()
+            for t in body:
+                op = re.sub(r"^@!?U?P\w+ ", "", t).split()[0]
+                for want in KC_SASS_OPS:
+                    if op.startswith(want):
+                        ops[want] += 1
+            rows.append(f"{len(body)} instructions {dict(ops)}")
+        log(f"phase 0 KC {what}: {regs.get(f, -1)} registers; its innermost "
+            f"loops that convert (a kz step of a lane through a register "
+            f"block; a constraint's term is one DMUL): {'; '.join(rows)} "
+            f"[{card}]")
+    nx, ny, nz = HEADLINE
+    for m in KC_COUNTS:
+        rows = [f"{what} {constraint.launch_plan(c, sc, nx, ny, nz, m)}"
+                for what, c, sc in (("measure", False, False),
+                                    ("measure + scale", False, True),
+                                    ("correct", True, True))]
+        log(f"phase 0 KC plans M={m} at {HEADLINE} (constraints a block of "
+            f"tables, stages, blocks, shared memory): {'; '.join(rows)} "
+            f"[{card}]")
 
 
 # a 64-bit add on shared memory, the form KP's deposit does not use
@@ -3722,15 +3851,24 @@ def phase4_mocks(torch, rft, dev, g, card):
         lambda: constraint.correct(re, im, tables, alpha, sig),
         lambda: constraint.correct_plain(re, im, tables, alpha, sig), None,
         restore, HEADLINE, card, plain_reps=1)
-    for m in (1, 40):
+    for m in KC_COUNTS:
         cs = _constraint_set(m, HEADLINE, sp, m)
         pm, rm, _ = constrained.pack_constraints(cs, HEADLINE, sp)
         tm = constraint.axis_tables(pm, rm, HEADLINE, sp, dev)
         am = np.ones(m, np.float32)
+        t0 = cuda_ms(torch, lambda: constraint.measure(re, im, tm, sig),
+                     setup=restore)
         t1 = cuda_ms(torch, lambda: constraint.measure(re, im, tm))
-        t2 = cuda_ms(torch, lambda: constraint.correct(re, im, tm, am, sig))
-        log(f"phase 4 KC M={m} {HEADLINE}: measure {t1:.3f} ms, correct "
-            f"{t2:.3f} ms [{card}]")
+        t2 = cuda_ms(torch, lambda: constraint.correct(re, im, tm, am, sig),
+                     setup=restore)
+        log(f"phase 4 KC M={m} {HEADLINE}: measure with the scale "
+            f"{t0:.3f} ms, measure {t1:.3f} ms, correct {t2:.3f} ms; both "
+            f"passes of a render {t0 + t2:.3f} ms [{card}]")
+    log(f"phase 4 KC operations of the design, a mode and constraint: "
+        f"measure {KC_DESIGN_OPS['measure']} (of them 2 F2F.F64.F32 at a "
+        f"quarter of the float64 rate, 3 float64), correct "
+        f"{KC_DESIGN_OPS['correct']} float32; the bound counts "
+        f"{KC_OPS_PER_MODE_AND_CONSTRAINT} a pass")
     out["KC"] = (m_ms + c_ms, mp_ms + cp_ms, None)
     log(f"phase 4 KC both passes of a render (M={MOCK_CONSTRAINTS}): "
         f"{m_ms + c_ms:.3f} ms, plain {mp_ms + cp_ms:.3f} ms [{card}]")
@@ -3826,6 +3964,11 @@ def phase4_mocks(torch, rft, dev, g, card):
     log(f"phase 4 constrained render {HEADLINE} (M={MOCK_CONSTRAINTS}, "
         f"s = 0): constraints missed by {pre:.2e} before the Hermitian "
         f"projection, {post:.2e} after it, {miss:.2e} by the field")
+    ms, peak = timed_peak(torch, lambda: g.generate_constrained_field(
+        3, cons), reps=3)
+    log(f"phase 4 generate_constrained_field {HEADLINE} "
+        f"(M={MOCK_CONSTRAINTS}): {ms:.3f} ms; peak device memory {peak} "
+        f"[{card}]")
     field = g.generate_delta_field(4, apply_lightcone=False)
     npow = 0.25 * float(field.var()) * sp ** 3
     for what, fn in (
@@ -3834,8 +3977,9 @@ def phase4_mocks(torch, rft, dev, g, card):
              lambda: g.generate_posterior_field(4, field, npow)),
             ("measure_constraints",
              lambda: g.measure_constraints(field, cons))):
-        log(f"phase 4 {what} {HEADLINE}: {cuda_ms(torch, fn, reps=3):.3f} ms "
-            f"[{card}]")
+        ms, peak = timed_peak(torch, fn, reps=3)
+        log(f"phase 4 {what} {HEADLINE}: {ms:.3f} ms; peak device memory "
+            f"{peak} [{card}]")
     del field
     torch.cuda.empty_cache()
     f = float(g.cosmology.growth_rate(0.0))

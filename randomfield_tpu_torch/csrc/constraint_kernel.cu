@@ -15,13 +15,12 @@
 // array of M x modes exists.
 //
 // MEASURE (rf_constraint_measure): Gamma_i = sum m_k Re(c_k K_i) with m_k
-// the Hermitian multiplicity, each mode's term in float64, summed per block
-// in a fixed order (a warp's shuffles, then the block's warps) into
-// float64 per-block partials that the caller adds in a fixed order.  With
-// ``scale`` it first multiplies the unit draws in place by the per-mode
-// sigma grid and the filter exp(-k^2 s^2 / 2), (c sigma) f, the reference's
-// sample_spectrum then filter_modes.  Any M: the launch takes constraints
-// [c0, c0 + mc), mc <= kMaxBlock, and the caller loops.
+// the Hermitian multiplicity, each mode's term in float64, summed per lane,
+// then per warp (a fixed butterfly), then over the (block, warp) partials
+// in order by a second kernel: one call for any M.  With ``scale`` it first
+// multiplies the unit draws in place by the per-mode sigma grid and the
+// filter exp(-k^2 s^2 / 2), (c sigma) f, the reference's sample_spectrum
+// then filter_modes.
 //
 // CORRECT (rf_constraint_correct): c += se2 sum_i alpha_i conj(K_i) in
 // place, se2 = (sigma f)^2, the sum over i in order in float32, every
@@ -29,17 +28,40 @@
 // ops/constraint.py:correct_plain, which the kernel equals bit for bit.
 //
 // What bounds it on the H100: device-memory bytes, the lattices and the
-// sigma grid read and the lattices written (20 bytes a mode); the
-// operations are about 16 M a mode.  Layout (spectral_kernel.cu's): a block
-// is an x row (blockIdx.y) and eight ky rows (a warp each), the lanes walk
-// kz 32 at a time, so e_x is one value a block, e_y one a warp.
+// sigma grid read and the lattices written (20 bytes a mode), until M grows:
+// then MEASURE's float32 -> float64 conversions (F2F.F64.F32, a quarter of
+// the float64 rate: two a mode and constraint, the kernel's parts, and two
+// a mode and block of 8 for c) and CORRECT's float32 issue (about 12
+// instructions a mode and constraint).  Design: KB's line staging
+// (line_ring.cuh), tiles of four kz lines in a ring of shared-memory stages
+// on a persistent grid, so the lattices are read once a pass for any M; a
+// line to two warps, their lanes on consecutive kz; the kz tables e_z of a
+// block of constraints in shared memory (all M of them when they fit, else
+// a block at a time over each staged tile) and the k vectors there too;
+// e_x e_y once a line and constraint, their loads issued a tile ahead.
+// MEASURE scales a staged line once (with ``scale``), then keeps the sums
+// of 8 constraints in registers, straight-line code (a block of 8 at a
+// time over a line, then a butterfly to the warp's sums when M > 8);
+// CORRECT takes four kz of a lane at once through every constraint.  The
+// zeroing of the self-conjugate modes is compiled only into the code of the
+// four lines that hold them.
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "line_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlock = 8;  // constraints a measure launch sums
+constexpr int kWarps = 8;  // two a line of a tile
+constexpr int kThreads = 32 * kWarps;
+constexpr int kHalves = kWarps / rf::kTileRows;
+constexpr int kRegBlock = 8;  // MEASURE's constraints in registers
+constexpr int kCorrectSteps = 4;  // CORRECT's kz a lane takes at once
+constexpr int kStages = 2;
+constexpr int kReduceThreads = 128;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory, H100
+constexpr size_t kRingOffset = 128;
 
 struct Args {
   float* re;
@@ -48,10 +70,34 @@ struct Args {
   const float* kvec;     // nx + ny + nzh float32 k vectors (the filter)
   const float2* tab;     // (M, nx + ny + nzh) e tables
   const float* alpha;    // (M,) float32 (CORRECT)
-  double* partials;      // (blocks, mc) float64 (MEASURE)
-  int nx, ny, nz, nzh, m, c0, mc;
+  double* partials;      // (blocks, kWarps, M) float64 (MEASURE)
+  int nx, ny, nz, nzh, m, cb;  // cb: constraints a block of tables
   float smoothing;
 };
+
+struct Layout {  // offsets into dynamic shared memory
+  size_t kvec, ztab, alpha, exy, scratch, total;
+};
+
+// MEASURE's scratch: each warp's M float64 sums; CORRECT's (with its tables
+// in blocks): the alpha sums of a tile's modes between two blocks
+__host__ __device__ inline Layout layout_of(int arrays, int nzh, int cb,
+                                            int m, bool correct, int axes) {
+  Layout l;
+  l.kvec = kRingOffset + rf::LineRing::bytes(arrays, kStages, nzh);
+  l.ztab = l.kvec + sizeof(float) * ((static_cast<size_t>(axes) + 1) / 2 * 2);
+  l.alpha = l.ztab + sizeof(float2) * static_cast<size_t>(cb) * nzh;
+  l.exy = l.alpha + sizeof(float2) * ((static_cast<size_t>(cb) + 1) / 2);
+  l.scratch = l.exy + sizeof(float2) * static_cast<size_t>(kWarps) * cb;
+  size_t scratch = 0;
+  if (!correct) {
+    scratch = sizeof(double) * static_cast<size_t>(kWarps) * m;
+  } else if (cb < m) {
+    scratch = sizeof(float2) * rf::kTileRows * static_cast<size_t>(nzh);
+  }
+  l.total = l.scratch + scratch;
+  return l;
+}
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
@@ -72,109 +118,493 @@ __device__ __forceinline__ float filter(const Args& p, float kx, float ky,
                         p.smoothing));
 }
 
-template <bool SCALE>
-__global__ void __launch_bounds__(kThreads)
-measure_kernel(const Args p) {
-  __shared__ double red[kWarps][kMaxBlock];
-  const int x = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int y = blockIdx.x * kWarps + warp;
-  const int len = p.nx + p.ny + p.nzh;
-  double acc[kMaxBlock];
+// v[0..8): a lane's sums of 8 constraints.  After it lane 4j + r (r < 4)
+// holds the warp's sum of constraint j: halves exchanged at distances 16,
+// 8, 4, then whole values at 2 and 1 (an order fixed by the lanes).
+template <int D, int N>
+__device__ __forceinline__ void halve(double (&v)[kRegBlock], int lane) {
+  const bool up = lane & D;
 #pragma unroll
-  for (int j = 0; j < kMaxBlock; ++j) acc[j] = 0.0;
-  if (y < p.ny) {
-    const bool sxy = own_partner(x, p.nx) && own_partner(y, p.ny);
-    const long long row = (static_cast<long long>(x) * p.ny + y) * p.nzh;
-    float2 exy[kMaxBlock];
-#pragma unroll
-    for (int j = 0; j < kMaxBlock; ++j) {
-      if (j < p.mc) {
-        const float2* t = p.tab + static_cast<long long>(p.c0 + j) * len;
-        exy[j] = cmul(__ldg(t + x), __ldg(t + p.nx + y));
-      }
-    }
-    const float kx = p.kvec[x], ky = p.kvec[p.nx + y];
-    for (int z = lane; z < p.nzh; z += 32) {
-      float cr = p.re[row + z];
-      float ci = p.im[row + z];
-      if (SCALE) {
-        const float s = p.sig[row + z];
-        const float f = filter(p, kx, ky, p.kvec[p.nx + p.ny + z]);
-        cr = __fmul_rn(__fmul_rn(cr, s), f);
-        ci = __fmul_rn(__fmul_rn(ci, s), f);
-        p.re[row + z] = cr;
-        p.im[row + z] = ci;
-      }
-      const bool sz = z == 0 || (p.nz % 2 == 0 && z == p.nzh - 1);
-      const bool self_conj = sxy && sz;
-      const double mult = sz ? 1.0 : 2.0;
-#pragma unroll
-      for (int j = 0; j < kMaxBlock; ++j) {
-        if (j < p.mc) {
-          const float2 ez = __ldg(p.tab + static_cast<long long>(p.c0 + j) *
-                                              len + p.nx + p.ny + z);
-          const float2 k = cmul(exy[j], ez);
-          const double ki = self_conj ? 0.0 : static_cast<double>(k.y);
-          acc[j] += mult * (static_cast<double>(cr) * k.x -
-                            static_cast<double>(ci) * ki);
-        }
-      }
-    }
-  }
-  // the block's sums: each warp by shuffles, then the warps in order
-#pragma unroll
-  for (int j = 0; j < kMaxBlock; ++j) {
-    double v = acc[j];
-    for (int off = 16; off > 0; off /= 2) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    }
-    if (lane == 0) red[warp][j] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < p.mc) {
-    double s = 0.0;
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-    const long long b = static_cast<long long>(blockIdx.y) * gridDim.x +
-                        blockIdx.x;
-    p.partials[b * p.mc + threadIdx.x] = s;
+  for (int j = 0; j < N; ++j) {
+    const double send = up ? v[j] : v[j + N];
+    const double keep = up ? v[j + N] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, D);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) correct_kernel(const Args p) {
-  const int x = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int y = blockIdx.x * kWarps + warp;
-  if (y >= p.ny) return;
+__device__ __forceinline__ double warp_sums8(double (&v)[kRegBlock]) {
+  const int lane = threadIdx.x & 31;
+  halve<16, 4>(v, lane);
+  halve<8, 2>(v, lane);
+  halve<4, 1>(v, lane);
+  double s = v[0];
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 2);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 1);
+  return s;
+}
+
+// The shared-memory tables of constraints [c0, c0 + cn): e_z, and alpha.
+__device__ __forceinline__ void load_tables(const Args& p, float2* ztab,
+                                            float* alpha, int c0, int cn) {
   const int len = p.nx + p.ny + p.nzh;
-  const bool sxy = own_partner(x, p.nx) && own_partner(y, p.ny);
-  const long long row = (static_cast<long long>(x) * p.ny + y) * p.nzh;
-  const float kx = p.kvec[x], ky = p.kvec[p.nx + y];
-  for (int z = lane; z < p.nzh; z += 32) {
-    const bool self_conj = sxy && (z == 0 || (p.nz % 2 == 0 &&
-                                              z == p.nzh - 1));
-    float ar = 0.f, ai = 0.f;
-    for (int i = 0; i < p.m; ++i) {
-      const float2* t = p.tab + static_cast<long long>(i) * len;
-      const float2 k = cmul(cmul(__ldg(t + x), __ldg(t + p.nx + y)),
-                            __ldg(t + p.nx + p.ny + z));
-      const float a = __ldg(p.alpha + i);
-      ar = __fadd_rn(ar, __fmul_rn(a, k.x));
-      ai = __fadd_rn(ai, __fmul_rn(a, self_conj ? 0.f : k.y));
-    }
-    const float se = p.sig ? __fmul_rn(p.sig[row + z],
-                                       filter(p, kx, ky,
-                                              p.kvec[p.nx + p.ny + z]))
-                           : 0.f;
-    const float se2 = __fmul_rn(se, se);
-    p.re[row + z] = __fadd_rn(p.re[row + z], __fmul_rn(se2, ar));
-    p.im[row + z] = __fsub_rn(p.im[row + z], __fmul_rn(se2, ai));
+  for (int i = threadIdx.x; i < cn * p.nzh; i += blockDim.x) {
+    const int j = i / p.nzh, z = i - j * p.nzh;
+    ztab[i] = p.tab[static_cast<long long>(c0 + j) * len + p.nx + p.ny + z];
   }
+  if (p.alpha) {
+    for (int j = threadIdx.x; j < cn; j += blockDim.x) {
+      alpha[j] = p.alpha[c0 + j];
+    }
+  }
+}
+
+// e_x e_y of the calling warp's line (x, y) for constraints [c0, c0 + cn).
+__device__ __forceinline__ void line_exy(const Args& p, float2* exy, int x,
+                                         int y, int c0, int cn) {
+  const int len = p.nx + p.ny + p.nzh;
+  for (int j = threadIdx.x & 31; j < cn; j += 32) {
+    const float2* t = p.tab + static_cast<long long>(c0 + j) * len;
+    exy[j] = cmul(t[x], t[p.nx + y]);
+  }
+  __syncwarp();
+}
+
+// With every table in one block and M <= 32 kPrefetch, a warp loads the
+// e_x, e_y of its next tile's line while it works on this one: lane l
+// holds constraints l, l + 32, ...
+constexpr int kPrefetch = 2;
+
+struct ExyLoads {
+  float2 ex[kPrefetch], ey[kPrefetch];
+};
+
+__device__ __forceinline__ ExyLoads load_exy(const Args& p, long long line) {
+  ExyLoads l;
+  const int len = p.nx + p.ny + p.nzh;
+  if (line < static_cast<long long>(p.nx) * p.ny) {
+    const int x = static_cast<int>(line / p.ny);
+    const int y = static_cast<int>(line - static_cast<long long>(x) * p.ny);
+#pragma unroll
+    for (int g = 0; g < kPrefetch; ++g) {
+      const int j = (threadIdx.x & 31) + 32 * g;
+      if (j < p.m) {
+        const float2* t = p.tab + static_cast<long long>(j) * len;
+        l.ex[g] = t[x];
+        l.ey[g] = t[p.nx + y];
+      }
+    }
+  }
+  return l;
+}
+
+__device__ __forceinline__ void store_exy(const Args& p, float2* exy,
+                                          const ExyLoads& l) {
+#pragma unroll
+  for (int g = 0; g < kPrefetch; ++g) {
+    const int j = (threadIdx.x & 31) + 32 * g;
+    if (j < p.m) exy[j] = cmul(l.ex[g], l.ey[g]);
+  }
+  __syncwarp();
+}
+
+// MEASURE over the modes of the calling warp's half line: kz = 32 s + lane
+// for steps s = h, h + 2, ...; constraints [c0, c0 + cn) of the table block
+// at ztab (whose first constraint is tb0), in the first RB slots of acc
+// (RB >= cn).  SELF: the line holds truly self-conjugate modes (x and y
+// each their own partner: 4 lines a grid).
+template <bool SELF, int RB>
+__device__ __forceinline__ void measure_half(
+    const Args& p, const float* re_s, const float* im_s, const float2* ztab,
+    const float2* exy, int h, int c0, int cn, int tb0,
+    double (&acc)[kRegBlock]) {
+  const int lane = threadIdx.x & 31;
+  // a block's unused slots (j >= cn) read constraint cn - 1's table with
+  // e = 0: straight-line code, their sums unused
+  float2 e[RB];
+  int at[RB];
+#pragma unroll
+  for (int j = 0; j < RB; ++j) {
+    e[j] = j < cn ? exy[c0 - tb0 + j] : make_float2(0.f, 0.f);
+    at[j] = (c0 - tb0 + min(j, cn - 1)) * p.nzh;
+  }
+  const int steps = (p.nzh + 31) >> 5;
+  for (int s = h; s < steps; s += kHalves) {
+    const int zr = (s << 5) + lane;
+    const bool act = zr < p.nzh;
+    const int z = act ? zr : p.nzh - 1;
+    const float cr = re_s[z], ci = im_s[z];
+    const bool sz = z == 0 || (p.nz % 2 == 0 && z == p.nzh - 1);
+    const bool self_conj = SELF && sz;
+    const double mult = act ? (sz ? 1.0 : 2.0) : 0.0;
+    const double crd = static_cast<double>(cr);
+    const double cid = static_cast<double>(ci);
+#pragma unroll
+    for (int j = 0; j < RB; ++j) {
+      const float2 k = cmul(e[j], ztab[at[j] + z]);
+      const double ki = self_conj ? 0.0 : static_cast<double>(k.y);
+      const double t = fma(-cid, ki, crd * static_cast<double>(k.x));
+      acc[j] = fma(mult, t, acc[j]);
+    }
+  }
+}
+
+// measure_half with the narrowest register block that holds cn
+__device__ __forceinline__ void measure_block(
+    bool self, int cn, const Args& p, const float* re_s, const float* im_s,
+    const float2* ztab, const float2* exy, int h, int c0, int tb0,
+    double (&acc)[kRegBlock]) {
+  if (self) {
+    measure_half<true, kRegBlock>(p, re_s, im_s, ztab, exy, h, c0, cn, tb0,
+                                  acc);
+  } else if (cn == 1) {
+    measure_half<false, 1>(p, re_s, im_s, ztab, exy, h, c0, cn, tb0, acc);
+  } else if (cn <= 4) {
+    measure_half<false, 4>(p, re_s, im_s, ztab, exy, h, c0, cn, tb0, acc);
+  } else {
+    measure_half<false, kRegBlock>(p, re_s, im_s, ztab, exy, h, c0, cn, tb0,
+                                   acc);
+  }
+}
+
+template <bool SCALE>
+__global__ void __launch_bounds__(kThreads)
+measure_kernel(const Args p) {
+  constexpr int NA = SCALE ? 3 : 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ntb = (p.m + p.cb - 1) / p.cb;
+  const int axes = p.nx + p.ny + p.nzh;
+  const Layout lay = layout_of(NA, p.nzh, p.cb, p.m, false, axes);
+  rf::LineRing ring;
+  ring.bars = reinterpret_cast<uint64_t*>(smem);
+  ring.buf = reinterpret_cast<float*>(smem + kRingOffset);
+  ring.stride = rf::LineRing::stride_of(p.nzh);
+  ring.arrays = NA;
+  ring.stages = kStages;
+  ring.nzh = p.nzh;
+  ring.rows = static_cast<long long>(p.nx) * p.ny;
+  float2* ztab = reinterpret_cast<float2*>(smem + lay.ztab);
+  float2* exy = reinterpret_cast<float2*>(smem + lay.exy) + warp * p.cb;
+  const float* src[3] = {p.re, p.im, p.sig};
+  double* part = reinterpret_cast<double*>(smem + lay.scratch) + warp * p.m;
+  // a single block of tables and registers keeps its sums over every
+  // tile; more add to the warp's sums after each of a line's blocks
+  const bool hold = ntb == 1 && p.m <= kRegBlock;
+  for (int j = lane; j < p.m; j += 32) part[j] = 0.0;
+  float* kv = reinterpret_cast<float*>(smem + lay.kvec);
+  for (int i = threadIdx.x; i < axes; i += blockDim.x) kv[i] = p.kvec[i];
+  if (threadIdx.x == 0) ring.init();
+  if (ntb == 1) load_tables(p, ztab, nullptr, 0, p.m);
+  __syncthreads();
+
+  const long long tiles = rf::tile_count(ring.rows);
+  const long long mine =
+      tiles > blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const auto row0_of = [&](long long i) {
+    return (blockIdx.x + i * gridDim.x) * rf::kTileRows;
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages && i < mine; ++i) {
+      ring.issue(i, src, row0_of(i));
+    }
+  }
+  double acc[kRegBlock];
+#pragma unroll
+  for (int j = 0; j < kRegBlock; ++j) acc[j] = 0.0;
+  const int rr = warp / kHalves, h = warp % kHalves;
+  const bool prefetch = ntb == 1 && p.m <= 32 * kPrefetch;
+  ExyLoads next;
+  if (prefetch && mine > 0) next = load_exy(p, row0_of(0) + rr);
+  for (long long i = 0; i < mine; ++i) {
+    const int s = static_cast<int>(i % kStages);
+    ring.wait(s, static_cast<int>(i / kStages));
+    const long long line = row0_of(i) + rr;
+    const bool mine_line = line < ring.rows;
+    const int x = static_cast<int>(line / p.ny);
+    const int y = static_cast<int>(line - static_cast<long long>(x) * p.ny);
+    float* re_s = ring.stage(s, 0) + rr * p.nzh;
+    float* im_s = ring.stage(s, 1) + rr * p.nzh;
+    const float* sig_s = ring.stage(s, NA - 1) + rr * p.nzh;
+    if (prefetch) {
+      if (mine_line) store_exy(p, exy, next);
+      if (i + 1 < mine) next = load_exy(p, row0_of(i + 1) + rr);
+    }
+    if (SCALE && mine_line) {
+      // the warp's kz of the line scaled once, in the stage and in place
+      const float kx = kv[x], ky = kv[p.nx + y];
+      for (int z = (h << 5) + lane; z < p.nzh; z += kHalves << 5) {
+        const float f = filter(p, kx, ky, kv[p.nx + p.ny + z]);
+        const float sg = sig_s[z];
+        const float cr = __fmul_rn(__fmul_rn(re_s[z], sg), f);
+        const float ci = __fmul_rn(__fmul_rn(im_s[z], sg), f);
+        re_s[z] = cr;
+        im_s[z] = ci;
+        p.re[line * p.nzh + z] = cr;
+        p.im[line * p.nzh + z] = ci;
+      }
+      __syncwarp();
+    }
+    for (int tb = 0; tb < ntb; ++tb) {
+      const int tb0 = tb * p.cb;
+      const int tbn = min(p.cb, p.m - tb0);
+      if (ntb > 1) {
+        __syncthreads();  // the previous block's tables are read
+        load_tables(p, ztab, nullptr, tb0, tbn);
+        __syncthreads();
+      }
+      if (!mine_line) continue;
+      if (!prefetch) line_exy(p, exy, x, y, tb0, tbn);
+      for (int c0 = tb0; c0 < tb0 + tbn; c0 += kRegBlock) {
+        const int cn = min(kRegBlock, tb0 + tbn - c0);
+        const bool self = own_partner(x, p.nx) && own_partner(y, p.ny);
+        measure_block(self, cn, p, re_s, im_s, ztab, exy, h, c0, tb0, acc);
+        if (!hold) {
+          const double v = warp_sums8(acc);
+          if ((lane & 3) == 0 && (lane >> 2) < cn) part[c0 + (lane >> 2)] += v;
+#pragma unroll
+          for (int j = 0; j < kRegBlock; ++j) acc[j] = 0.0;
+        }
+      }
+      __syncwarp();  // exy is rewritten by the next table block
+    }
+    __syncthreads();  // every warp is done with stage s
+    if (threadIdx.x == 0 && i + kStages < mine) {
+      ring.issue(s, src, row0_of(i + kStages));
+    }
+  }
+  if (hold) {
+    const double v = warp_sums8(acc);
+    if ((lane & 3) == 0 && (lane >> 2) < p.m) part[lane >> 2] = v;
+  }
+  __syncwarp();
+  double* out = p.partials +
+                (static_cast<long long>(blockIdx.x) * kWarps + warp) * p.m;
+  for (int j = lane; j < p.m; j += 32) out[j] = part[j];
+}
+
+// CORRECT's sums over the constraints [0, tbn) of the table block, in
+// order, for a lane's kCorrectSteps kz (zc): ar += alpha Re K, ai += alpha
+// Im K, Im K zeroed at the self-conjugate modes of a SELF line.
+template <bool SELF>
+__device__ __forceinline__ void alpha_sums(
+    const float2* exy, const float* alpha, const float2* ztab, int tbn,
+    int nzh, const int (&zc)[kCorrectSteps],
+    const bool (&self_conj)[kCorrectSteps], float (&ar)[kCorrectSteps],
+    float (&ai)[kCorrectSteps]) {
+  for (int j = 0; j < tbn; ++j) {
+    const float2 e = exy[j];
+    const float a = alpha[j];
+    const float2* zt = ztab + static_cast<long long>(j) * nzh;
+    float2 ez[kCorrectSteps];
+#pragma unroll
+    for (int u = 0; u < kCorrectSteps; ++u) ez[u] = zt[zc[u]];
+#pragma unroll
+    for (int u = 0; u < kCorrectSteps; ++u) {
+      const float2 k = cmul(e, ez[u]);
+      ar[u] = __fadd_rn(ar[u], __fmul_rn(a, k.x));
+      ai[u] = __fadd_rn(ai[u],
+                        __fmul_rn(a, SELF && self_conj[u] ? 0.f : k.y));
+    }
+  }
+}
+
+template <bool SCRATCH>
+__global__ void __launch_bounds__(kThreads) correct_kernel(const Args p) {
+  constexpr int NA = 3;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ntb = (p.m + p.cb - 1) / p.cb;
+  const int axes = p.nx + p.ny + p.nzh;
+  const Layout lay = layout_of(NA, p.nzh, p.cb, p.m, true, axes);
+  rf::LineRing ring;
+  ring.bars = reinterpret_cast<uint64_t*>(smem);
+  ring.buf = reinterpret_cast<float*>(smem + kRingOffset);
+  ring.stride = rf::LineRing::stride_of(p.nzh);
+  ring.arrays = NA;
+  ring.stages = kStages;
+  ring.nzh = p.nzh;
+  ring.rows = static_cast<long long>(p.nx) * p.ny;
+  float2* ztab = reinterpret_cast<float2*>(smem + lay.ztab);
+  float* alpha = reinterpret_cast<float*>(smem + lay.alpha);
+  float2* exy = reinterpret_cast<float2*>(smem + lay.exy) + warp * p.cb;
+  const float* src[3] = {p.re, p.im, p.sig};
+  float* kv = reinterpret_cast<float*>(smem + lay.kvec);
+  for (int i = threadIdx.x; i < axes; i += blockDim.x) kv[i] = p.kvec[i];
+  if (threadIdx.x == 0) ring.init();
+  if (ntb == 1) load_tables(p, ztab, alpha, 0, p.m);
+  __syncthreads();
+
+  const long long tiles = rf::tile_count(ring.rows);
+  const long long mine =
+      tiles > blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const auto row0_of = [&](long long i) {
+    return (blockIdx.x + i * gridDim.x) * rf::kTileRows;
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages && i < mine; ++i) {
+      ring.issue(i, src, row0_of(i));
+    }
+  }
+  const int rr = warp / kHalves, h = warp % kHalves;
+  const int steps = (p.nzh + 31) >> 5;
+  const bool prefetch = ntb == 1 && p.m <= 32 * kPrefetch;
+  ExyLoads next;
+  if (prefetch && mine > 0) next = load_exy(p, row0_of(0) + rr);
+  for (long long i = 0; i < mine; ++i) {
+    const int s = static_cast<int>(i % kStages);
+    ring.wait(s, static_cast<int>(i / kStages));
+    const long long line = row0_of(i) + rr;
+    const bool mine_line = line < ring.rows;
+    const int x = static_cast<int>(line / p.ny);
+    const int y = static_cast<int>(line - static_cast<long long>(x) * p.ny);
+    const bool sxy = own_partner(x, p.nx) && own_partner(y, p.ny);
+    const float kx = kv[x], ky = kv[p.nx + y];
+    if (prefetch) {
+      if (mine_line) store_exy(p, exy, next);
+      if (i + 1 < mine) next = load_exy(p, row0_of(i + 1) + rr);
+    }
+    const float* re_s = ring.stage(s, 0) + rr * p.nzh;
+    const float* im_s = ring.stage(s, 1) + rr * p.nzh;
+    const float* sig_s = ring.stage(s, 2) + rr * p.nzh;
+    float2* sums = reinterpret_cast<float2*>(smem + lay.scratch) + rr * p.nzh;
+    for (int tb = 0; tb < ntb; ++tb) {
+      const int tb0 = tb * p.cb;
+      const int tbn = min(p.cb, p.m - tb0);
+      if (ntb > 1) {
+        __syncthreads();
+        load_tables(p, ztab, alpha, tb0, tbn);
+        __syncthreads();
+      }
+      if (!mine_line) continue;
+      if (!prefetch) line_exy(p, exy, x, y, tb0, tbn);
+      const bool last = tb == ntb - 1;
+      // kCorrectSteps of the lane's steps at once through every constraint
+      for (int s0 = h; s0 < steps; s0 += kHalves * kCorrectSteps) {
+        float ar[kCorrectSteps], ai[kCorrectSteps];
+        int zs[kCorrectSteps];
+        bool self_conj[kCorrectSteps];
+#pragma unroll
+        for (int u = 0; u < kCorrectSteps; ++u) {
+          const int z = ((s0 + kHalves * u) << 5) + lane;
+          zs[u] = z < p.nzh ? z : -1;
+          self_conj[u] = sxy && (z == 0 || (p.nz % 2 == 0 && z == p.nzh - 1));
+          ar[u] = 0.f;
+          ai[u] = 0.f;
+          if (SCRATCH && tb > 0 && zs[u] >= 0) {
+            ar[u] = sums[z].x;
+            ai[u] = sums[z].y;
+          }
+        }
+        // the sums of a kz past the line (zs < 0) are computed on its last
+        // kz and dropped: straight-line code
+        int zc[kCorrectSteps];
+#pragma unroll
+        for (int u = 0; u < kCorrectSteps; ++u) {
+          zc[u] = zs[u] >= 0 ? zs[u] : p.nzh - 1;
+        }
+        if (sxy) {
+          alpha_sums<true>(exy, alpha, ztab, tbn, p.nzh, zc, self_conj, ar,
+                           ai);
+        } else {
+          alpha_sums<false>(exy, alpha, ztab, tbn, p.nzh, zc, self_conj, ar,
+                            ai);
+        }
+#pragma unroll
+        for (int u = 0; u < kCorrectSteps; ++u) {
+          const int z = zs[u];
+          if (z < 0) continue;
+          if (SCRATCH && !last) {
+            sums[z] = make_float2(ar[u], ai[u]);
+            continue;
+          }
+          const float se = __fmul_rn(sig_s[z],
+                                     filter(p, kx, ky, kv[p.nx + p.ny + z]));
+          const float se2 = __fmul_rn(se, se);
+          p.re[line * p.nzh + z] = __fadd_rn(re_s[z], __fmul_rn(se2, ar[u]));
+          p.im[line * p.nzh + z] = __fsub_rn(im_s[z], __fmul_rn(se2, ai[u]));
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && i + kStages < mine) {
+      ring.issue(s, src, row0_of(i + kStages));
+    }
+  }
+}
+
+// out[j] = sum over rows r of partials[r][j], rows in order.
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_rows_kernel(const double* __restrict__ partials,
+                   double* __restrict__ out, int rows, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  double sum = 0.0;
+  for (int r = 0; r < rows; ++r) {
+    sum += partials[static_cast<long long>(r) * n + j];
+  }
+  out[j] = sum;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, size_t smem, long long rows,
+                      int* blocks) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return rf::persistent_blocks(kernel, kThreads, smem, rf::tile_count(rows),
+                               blocks);
+}
+
+// constraints a block of tables holds: all M if they fit, else the most
+// that fit (at least 1), or `want` if the caller names fewer
+int table_block(int arrays, int nzh, int m, int want, bool correct,
+                int axes) {
+  int cb = m;
+  if (want > 0 && want < cb) cb = want;
+  while (cb > 1 &&
+         layout_of(arrays, nzh, cb, m, correct, axes).total > kMaxSmem) {
+    --cb;
+  }
+  return cb;
+}
+
+cudaError_t make_plan(bool correct, bool scale, int nx, int ny, int nz,
+                      int m, int want, int* out) {
+  const int nzh = nz / 2 + 1;
+  const int arrays = correct || scale ? 3 : 2;
+  const int axes = nx + ny + nzh;
+  const int cb = table_block(arrays, nzh, m, want, correct, axes);
+  const bool scratch = correct && cb < m;
+  const size_t smem = layout_of(arrays, nzh, cb, m, correct, axes).total;
+  const long long rows = static_cast<long long>(nx) * ny;
+  int blocks = 0;
+  cudaError_t err;
+  if (correct) {
+    err = scratch ? configure(correct_kernel<true>, smem, rows, &blocks)
+                  : configure(correct_kernel<false>, smem, rows, &blocks);
+  } else {
+    err = scale ? configure(measure_kernel<true>, smem, rows, &blocks)
+                : configure(measure_kernel<false>, smem, rows, &blocks);
+  }
+  if (err != cudaSuccess) return err;
+  out[0] = cb;
+  out[1] = kStages;
+  out[2] = blocks;
+  out[3] = static_cast<int>(smem);
+  return cudaSuccess;
 }
 
 Args make_args(void* re, void* im, const void* sig, const void* kvec,
                const void* tab, const void* alpha, void* partials, int nx,
-               int ny, int nz, int m, int c0, int mc, float smoothing) {
+               int ny, int nz, int m, int cb, float smoothing) {
   return Args{static_cast<float*>(re),
               static_cast<float*>(im),
               static_cast<const float*>(sig),
@@ -182,51 +612,97 @@ Args make_args(void* re, void* im, const void* sig, const void* kvec,
               static_cast<const float2*>(tab),
               static_cast<const float*>(alpha),
               static_cast<double*>(partials),
-              nx, ny, nz, nz / 2 + 1, m, c0, mc, smoothing};
+              nx, ny, nz, nz / 2 + 1, m, cb, smoothing};
+}
+
+bool aligned16(const void* p) {
+  return p && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// re, im: float32 (nx, ny, nz/2 + 1) contiguous; sig: the same shape, read
-// when scale != 0 (then re and im are scaled in place first); kvec: float32
-// nx + ny + nz/2 + 1 k vectors; tab: float32 pairs (m, nx + ny + nz/2 + 1);
-// partials: float64 (ceil(ny / 8) nx, mc) for constraints [c0, c0 + mc),
-// mc <= 8.  nx up to 65535.  Returns the CUDA error of the launch.
-extern "C" int rf_constraint_measure(void* re, void* im, const void* sig,
-                                     const void* kvec, const void* tab,
-                                     void* partials, int nx, int ny, int nz,
-                                     int m, int c0, int mc, float smoothing,
-                                     int scale, void* stream) {
-  if (nx < 1 || nx > 65535 || ny < 1 || nz < 1 || mc < 1 ||
-      mc > kMaxBlock || c0 < 0 || c0 + mc > m || (scale && !sig)) {
+// The plan of a pass on (nx, ny, nz/2 + 1) lattices with m constraints:
+// plan[0..4) = constraints a block of shared-memory tables (all m when they
+// fit; at most table_block when that is > 0), stages, blocks, dynamic
+// shared memory in bytes.  correct: the CORRECT pass; scale: MEASURE's
+// scaling first.
+extern "C" int rf_constraint_plan(int correct, int scale, int nx, int ny,
+                                  int nz, int m, int table_block,
+                                  void* plan_out) {
+  int* plan = static_cast<int*>(plan_out);
+  if (nx < 1 || ny < 1 || nz < 1 || m < 1 || !plan) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args args = make_args(re, im, sig, kvec, tab, nullptr, partials, nx,
-                              ny, nz, m, c0, mc, smoothing);
-  const dim3 grid((ny + kWarps - 1) / kWarps, nx);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (scale) {
-    measure_kernel<true><<<grid, kThreads, 0, st>>>(args);
-  } else {
-    measure_kernel<false><<<grid, kThreads, 0, st>>>(args);
+  return static_cast<int>(make_plan(correct != 0, scale != 0, nx, ny, nz,
+                                    m, table_block, plan));
+}
+
+// re, im: float32 (nx, ny, nz/2 + 1) contiguous, 16-byte aligned; sig: the
+// same, read when scale != 0 (then re and im are scaled in place first);
+// kvec: float32 nx + ny + nz/2 + 1 k vectors; tab: float32 pairs (m, nx +
+// ny + nz/2 + 1); out: float64 (m,); partials: float64 scratch of blocks x
+// 8 x m; cb, blocks from rf_constraint_plan.  Returns the CUDA error of the
+// launches.
+extern "C" int rf_constraint_measure(void* re, void* im, const void* sig,
+                                     const void* kvec, const void* tab,
+                                     void* out, void* partials, int nx,
+                                     int ny, int nz, int m, int cb,
+                                     int blocks, float smoothing, int scale,
+                                     void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || m < 1 || cb < 1 || cb > m ||
+      blocks < 1 || !aligned16(re) || !aligned16(im) ||
+      (scale && !aligned16(sig))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Args args = make_args(re, im, scale ? sig : nullptr, kvec, tab,
+                              nullptr, partials, nx, ny, nz, m, cb,
+                              smoothing);
+  const size_t smem =
+      layout_of(scale ? 3 : 2, nz / 2 + 1, cb, m, false, nx + ny + nz / 2 + 1)
+          .total;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = scale ? allow_smem(measure_kernel<true>, smem)
+                          : allow_smem(measure_kernel<false>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (scale) {
+    measure_kernel<true><<<blocks, kThreads, smem, st>>>(args);
+  } else {
+    measure_kernel<false><<<blocks, kThreads, smem, st>>>(args);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_rows_kernel<<<(m + kReduceThreads - 1) / kReduceThreads,
+                       kReduceThreads, 0, st>>>(
+      static_cast<const double*>(partials), static_cast<double*>(out),
+      blocks * kWarps, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 // c += (sigma f)^2 sum_i alpha_i conj(K_i) in place over the whole grid;
-// alpha: float32 (m,) on the device; sig as above (required).
+// alpha: float32 (m,) on the device; sig as above (required); cb, blocks
+// from rf_constraint_plan.
 extern "C" int rf_constraint_correct(void* re, void* im, const void* sig,
                                      const void* kvec, const void* tab,
                                      const void* alpha, int nx, int ny,
-                                     int nz, int m, float smoothing,
-                                     void* stream) {
-  if (nx < 1 || nx > 65535 || ny < 1 || nz < 1 || m < 1 || !sig) {
+                                     int nz, int m, int cb, int blocks,
+                                     float smoothing, void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || m < 1 || cb < 1 || cb > m ||
+      blocks < 1 || !aligned16(re) || !aligned16(im) || !aligned16(sig)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args args = make_args(re, im, sig, kvec, tab, alpha, nullptr, nx, ny,
-                              nz, m, 0, m, smoothing);
-  const dim3 grid((ny + kWarps - 1) / kWarps, nx);
-  correct_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      args);
+                              nz, m, cb, smoothing);
+  const bool scratch = cb < m;
+  const size_t smem =
+      layout_of(3, nz / 2 + 1, cb, m, true, nx + ny + nz / 2 + 1).total;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = scratch ? allow_smem(correct_kernel<true>, smem)
+                            : allow_smem(correct_kernel<false>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (scratch) {
+    correct_kernel<true><<<blocks, kThreads, smem, st>>>(args);
+  } else {
+    correct_kernel<false><<<blocks, kThreads, smem, st>>>(args);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,15 +69,17 @@ _SIGNATURES = {
     "rf_jax_normal": [_P, _P, _LL, _P],
     "rf_bin_spectrum": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P],
+                        _I, _I, _I, _F, _P],
+    "rf_bin_spectrum_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rf_paint_count": [_P, _LL, _I, _I, _I, _F, _F, _I, _I, _P, _P],
     "rf_paint_deposit": [_P, _P, _F, _LL, _I, _I, _I, _F, _F, _D, _I, _I,
                          _P, _P, _P, _I, _P, _P, _P, _P],
     "rf_paint_contrast": [_P, _P, _LL, _D, _D, _P],
-    "rf_constraint_measure": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _I, _P],
-    "rf_constraint_correct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                              _P],
+    "rf_constraint_measure": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _P],
+    "rf_constraint_correct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _P],
+    "rf_constraint_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }

@@ -30,10 +30,23 @@ On CUDA tensors :func:`bin_spectrum` launches the kernel (counter
 ``KB_LAUNCHES``) or raises; on CPU tensors it runs the plain version.  The
 per-axis tables (k vectors, sinc, the phase's cos and sin) are built in
 float64 on the host and rounded to float32 once, for both versions.
+
+The kernel works in two passes.  The counts and |k| sums of the bins
+depend on the grid alone: its geometry pass adds (w, w |k|) by key without
+reading a spectrum, once for each geometry (shape, spacing, edges, rows,
+wedges), and :func:`bin_spectrum` keeps the result on the device (counter
+``KB_GEOMETRY_LAUNCHES``); the data pass adds w p alone.  The bin is the
+float32 k^2 against :func:`edge_thresholds`, the edge search on |k|
+exactly.  The data pass streams tiles of four whole kz lines through shared
+memory (``csrc/line_ring.cuh``) on a persistent grid whose plan (warps a
+block, stages, blocks) :func:`launch_plan` reads from the library.
+:func:`read_probe` streams the same tiles and only sums them: the read
+rate of the staging alone, a measurement that no estimator calls.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -43,12 +56,14 @@ from randomfield_tpu_torch.ops import _build
 from randomfield_tpu_torch.ops import grid as _grid
 
 __all__ = ["bin_spectrum", "bin_spectrum_plain", "mode_terms", "line_sums",
-           "axis_tables",
+           "axis_tables", "edge_thresholds", "launch_plan", "read_probe",
            "legendre_weighted", "WINDOW_ORDERS", "KINDS", "MAX_BINS",
-           "KB_LAUNCHES"]
+           "KB_LAUNCHES", "KB_GEOMETRY_LAUNCHES"]
 
-# kernel launches by bin_spectrum (the CPU path does not count)
+# kernel launches by bin_spectrum, one a call (the CPU path does not count);
+# and of its geometry pass, one a geometry
 KB_LAUNCHES = 0
+KB_GEOMETRY_LAUNCHES = 0
 
 KINDS = {"auto": (0, 2), "cross": (1, 4), "interlaced": (2, 4),
          "grid": (3, 1)}  # name: (the kernel's code, lattices taken)
@@ -59,9 +74,11 @@ _ISO, _POLES, _WEDGES = 0, 1, 2
 MAX_BINS = 1024
 # x planes a step of the plain version (bounds its temporaries)
 _X_CHUNK = 16
-# the kernel's block (4 warps) and its grid's cap
-_WARPS = 4
-_MAX_BLOCKS = 2048
+# the kernel's read-rate probe (csrc/bin_spectrum.cu kProbe) and its
+# geometry pass (kGeo)
+_PROBE = 3
+_PROBE_KINDS = {1: "grid", 2: "auto", 4: "cross"}
+_CODES = {**{k: v[0] for k, v in KINDS.items()}, "geometry": 4}
 
 
 @functools.lru_cache(maxsize=16)
@@ -89,6 +106,53 @@ def axis_tables(shape, spacing, device):
     dev = torch.device(device)
     return (torch.as_tensor(k, device=dev), torch.as_tensor(sinc, device=dev),
             torch.as_tensor(np.concatenate([cos, sin]), device=dev))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(kind, mode, nx, ny_loc, nz, nbins, nmu, ny=None):
+    """(warps a block, stages, blocks, shared-memory bytes, tiles a chunk,
+    chunks) of the kernel
+    of ``kind`` (or 'geometry', its geometry pass) and output ``mode`` (0
+    isotropic, 1 multipoles, 2 wedges, 3 the read probe) on (nx, ny_loc,
+    nz//2+1) lattices of an (nx, ny, nz) grid (ny = ny_loc if None): of
+    the warps and stages that fit, the most warps an SM; a block per chunk
+    at most.  The chunks (consecutive tiles of four lines) depend on the
+    shapes alone: the kernel sums each chunk apart and the chunks in
+    order, so the grid never moves a result."""
+    plan = (ctypes.c_int * 6)()
+    status = _build.library().rf_bin_spectrum_plan(
+        _CODES[kind], int(mode), int(nx), int(ny if ny else ny_loc),
+        int(ny_loc), int(nz), int(nbins), int(nmu), plan)
+    _build.check(status, "bin_spectrum")
+    return tuple(plan)
+
+
+def edge_thresholds(edges):
+    """float32 (nbins + 1,): for each float32 edge e the least float32 k^2
+    whose float32 square root exceeds e, so that sqrtf(k^2) > e exactly when
+    k^2 >= T (the square root is correctly rounded, hence monotone): the
+    kernel's edge search on |k| = sqrtf(k^2) without the square root."""
+    e = np.asarray(edges, np.float64).astype(np.float32)
+    t = (e.astype(np.float64) ** 2).astype(np.float32)
+    while True:  # down while the float32 below still passes the edge
+        below = np.nextafter(t, np.float32(0))
+        lower = np.sqrt(below) > e
+        if not lower.any():
+            break
+        t = np.where(lower, below, t)
+    while True:  # up while t does not pass it
+        short = ~(np.sqrt(t) > e)
+        if not short.any():
+            break
+        t = np.where(short, np.nextafter(t, np.float32(np.inf)), t)
+    return t
+
+
+def _aligned(a):
+    """``a`` contiguous and 16-byte aligned (the bulk copy's rule): a copy
+    where it is not."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _layout(ells, nmu, nbins):
@@ -271,7 +335,7 @@ def bin_spectrum(kind, arrays, shape, spacing, edges, y_off=0, factor=1.0,
     """
     global KB_LAUNCHES
     shape = tuple(int(n) for n in shape)
-    ny_loc = _check(kind, arrays, shape, y_off)
+    _check(kind, arrays, shape, y_off)
     dev = arrays[0].device
     if dev.type == "cpu":
         return bin_spectrum_plain(kind, arrays, shape, spacing, edges, y_off,
@@ -288,28 +352,82 @@ def bin_spectrum(kind, arrays, shape, spacing, edges, y_off=0, factor=1.0,
                          f"at most {MAX_BINS}")
     if int(order) not in (0, 1, 2, 3) or int(los_axis) not in (0, 1, 2):
         raise ValueError(f"bin_spectrum: order {order}, los_axis {los_axis}")
-    arrays = [a.contiguous() for a in arrays]
-    nx, ny, nz = shape
-    kvec, sinc, phase = axis_tables(shape, float(spacing), str(dev))
-    edges_t = torch.as_tensor(edges, dtype=torch.float32, device=dev)
     np_ = 3 if mode == _POLES else 1
-    n_vals = (2 + np_) * nb
-    n_blocks = max(1, min(_MAX_BLOCKS, -(-nx * ny_loc // _WARPS)))
+    arrays = [_aligned(a) for a in arrays]
+    ny_loc = arrays[0].shape[1]
+    wedges = mode == _WEDGES
+    geo = _geometry(shape, float(spacing), edges.tobytes(), int(y_off),
+                    ny_loc, int(nmu) if wedges else 0,
+                    int(los_axis) if wedges else 2, str(dev))
+    acc = _launch(_CODES[kind], mode, arrays, shape, spacing, edges,
+                  np_ * nb, y_off, ny_loc, dev, factor, order, ells, nmu,
+                  los_axis)
+    KB_LAUNCHES += 1
+    out = torch.zeros((n_out, 3, nb + 1), dtype=torch.float64, device=dev)
+    out[:, 0, :nb] = geo[0]
+    out[:, 1, :nb] = acc.view(np_, nb)[:n_out]
+    out[:, 2, :nb] = geo[1]
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _geometry(shape, spacing, edge_bytes, y_off, ny_loc, nmu, los_axis,
+              device):
+    """float64 (2, nb) on ``device``: by key (bin, or bin nmu + mu bin when
+    ``nmu``), sum w and sum w |k| over the modes of the ky rows [y_off,
+    y_off + ny_loc): the kernel's geometry pass, which reads no spectrum,
+    kept for the geometry."""
+    global KB_GEOMETRY_LAUNCHES
+    edges = np.frombuffer(edge_bytes, np.float64)
+    nb = (edges.size - 1) * max(1, nmu)
+    mode = _WEDGES if nmu else _ISO
+    acc = _launch(_CODES["geometry"], mode, [], shape, spacing, edges, 2 * nb,
+                  y_off, ny_loc, torch.device(device), nmu=nmu or None,
+                  los_axis=los_axis)
+    KB_GEOMETRY_LAUNCHES += 1
+    return acc.view(2, nb)
+
+
+def _launch(code, mode, arrays, shape, spacing, edges, n_vals, y_off,
+            ny_loc, dev, factor=1.0, order=0, ells=None, nmu=None,
+            los_axis=2):
+    """One launch of the kernel ``code`` (and its block sum) on ``arrays``
+    (16-byte aligned; none for the geometry pass): float64 (n_vals,)."""
+    nx, ny, nz = shape
+    nbins = edges.size - 1
+    kind = next(k for k, c in _CODES.items() if c == code)
+    warps, stages, n_blocks, _, chunk, chunks = launch_plan(
+        kind, mode, nx, ny_loc, nz, nbins, int(nmu or 1), ny)
+    kvec, sinc, phase = axis_tables(shape, float(spacing), str(dev))
+    thr = torch.as_tensor(edge_thresholds(edges), device=dev)
     acc = torch.empty(n_vals, dtype=torch.float64, device=dev)
-    partials = torch.empty(n_blocks * n_vals, dtype=torch.float64, device=dev)
+    partials = torch.empty(chunks * n_vals, dtype=torch.float64, device=dev)
     ptrs = [a.data_ptr() for a in arrays] + [0] * (4 - len(arrays))
     ell_codes = list(ells or ()) + [-1] * (3 - len(ells or ()))
     status = _build.library().rf_bin_spectrum(
-        KINDS[kind][0], mode, *ptrs, kvec.data_ptr(), sinc.data_ptr(),
-        phase.data_ptr(), edges_t.data_ptr(), acc.data_ptr(),
-        partials.data_ptr(), n_blocks, nx, ny, nz, int(y_off), ny_loc, nbins,
-        int(nmu or 1), int(los_axis), int(order), *ell_codes,
-        float(np.float32(factor)), _build.current_stream(arrays[0]))
+        code, mode, *ptrs, kvec.data_ptr(), sinc.data_ptr(),
+        phase.data_ptr(), thr.data_ptr(), acc.data_ptr(),
+        partials.data_ptr(), warps, stages, n_blocks, chunk, nx, ny, nz,
+        int(y_off),
+        ny_loc, nbins, int(nmu or 1), int(los_axis), int(order), *ell_codes,
+        float(np.float32(factor)), _build.current_stream(kvec))
     _build.check(status, "bin_spectrum")
-    KB_LAUNCHES += 1
-    rows = acc.view(2 + np_, nb)
-    out = torch.zeros((n_out, 3, nb + 1), dtype=torch.float64, device=dev)
-    out[:, 0, :nb] = rows[0]
-    out[:, 1, :nb] = rows[1:1 + n_out]
-    out[:, 2, :nb] = rows[1 + np_]
-    return out
+    return acc
+
+
+def read_probe(arrays):
+    """The sum of the floats of 1, 2 or 4 float32 (nx, ny_loc, nzh) CUDA
+    lattices, streamed through the kernel's staging as :func:`bin_spectrum`
+    streams them (the same tiles, stages and grid) with no binning: a
+    yardstick of the staging's read rate, which no estimator calls and no
+    counter counts.  float64 scalar tensor."""
+    kind = _PROBE_KINDS.get(len(arrays))
+    a0 = arrays[0]
+    if kind is None or a0.device.type != "cuda" or a0.ndim != 3:
+        raise ValueError("read_probe takes 1, 2 or 4 CUDA (nx, ny, nzh) "
+                         "lattices")
+    nx, ny_loc, nzh = a0.shape
+    shape = (nx, ny_loc, 2 * (nzh - 1))
+    _check(kind, arrays, shape, 0)
+    return _launch(_CODES[kind], _PROBE, [_aligned(a) for a in arrays], shape,
+                   1.0, np.array([0.0, 1.0]), 1, 0, ny_loc, a0.device)[0]

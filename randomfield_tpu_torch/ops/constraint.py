@@ -20,15 +20,21 @@ part zeroed at the truly self-conjugate modes.  On a packed 'xyz' spectrum
   and a constrained render meets its constraints to rounding.
 
 On CUDA tensors :func:`measure` and :func:`correct` launch
-``csrc/constraint_kernel.cu`` (counter ``KC_LAUNCHES``: one launch a
-correction, one a block of up to 8 constraints a measurement) or raise; on
-CPU tensors they run the plain versions, which repeat the kernel's float32
-operations in its order: the correction equals the kernel bit for bit and
-the measurement agrees to float64 summation order.
+``csrc/constraint_kernel.cu`` (counter ``KC_LAUNCHES``: one a pass, for any
+M; a measurement's pass is the kernel and the fixed-order sum of its
+partials) or raise; on CPU tensors they run the plain versions, which
+repeat the kernel's float32 operations in its order: the correction equals
+the kernel bit for bit and the measurement agrees to float64 summation
+order.  The kernel streams the lattices once a pass through shared memory
+(``csrc/line_ring.cuh``) and holds the z tables of a block of constraints
+there: all M when they fit (:func:`launch_plan`; ``table_block`` caps the
+block, a check of the blocked path).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import typing
 
 import numpy as np
@@ -39,14 +45,13 @@ from randomfield_tpu_torch.ops import grid as _grid
 
 __all__ = ["ConstraintTables", "axis_tables", "kernel_block", "measure",
            "measure_plain", "correct", "correct_plain", "gram",
-           "sigma_eff2", "KC_LAUNCHES", "MEASURE_BLOCK"]
+           "sigma_eff2", "launch_plan", "KC_LAUNCHES"]
 
-# kernel launches by measure (one a block of constraints) and correct (the
-# CPU paths do not count)
+# kernel launches by measure and correct, one a pass (the CPU paths do not
+# count)
 KC_LAUNCHES = 0
 
-MEASURE_BLOCK = 8  # constraints one measure launch sums (kMaxBlock)
-_WARPS = 8  # the kernels' warps a block (ky rows)
+_KERNEL_WARPS = 8  # a block's warps, each with its own measure partials
 # x planes a step of the plain versions and of the Gram (bounds temporaries)
 _X_CHUNK = 8
 
@@ -158,6 +163,21 @@ def measure_plain(re, im, tables, sigmas=None, smoothing_length=0.0):
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def launch_plan(correct, scale, nx, ny, nz, m, table_block=0):
+    """(constraints a shared-memory block of tables, stages, blocks,
+    shared-memory bytes) of a CORRECT (``correct``) or MEASURE pass (with
+    the scale when ``scale``) on (nx, ny, nz//2+1) lattices with ``m``
+    constraints: every table in one block when they fit, at most
+    ``table_block`` when that is > 0."""
+    plan = (ctypes.c_int * 4)()
+    status = _build.library().rf_constraint_plan(
+        int(bool(correct)), int(bool(scale)), int(nx), int(ny), int(nz),
+        int(m), int(table_block), plan)
+    _build.check(status, "constraint")
+    return tuple(plan)
+
+
 def _check(re, im, tables, name):
     nx, ny, nz = tables.shape
     want = (nx, ny, nz // 2 + 1)
@@ -178,44 +198,53 @@ def _sigmas(sigmas, re, name):
             or sigmas.device != re.device):
         raise ValueError(f"{name}: sigmas must be a float32 grid of the "
                          f"lattices' shape on their device")
-    return sigmas.contiguous()
+    sigmas = sigmas.contiguous()
+    # the kernel's bulk copies read 16-byte-aligned lattices
+    return sigmas if sigmas.data_ptr() % 16 == 0 else sigmas.clone()
 
 
-def measure(re, im, tables, sigmas=None, smoothing_length=0.0):
+def _kernel_lattices(re, im, name):
+    """Raise unless ``re`` and ``im`` are what the kernel updates in place:
+    contiguous and 16-byte aligned."""
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError(f"{name}'s CUDA kernel needs contiguous lattices")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError(f"{name}'s CUDA kernel needs 16-byte-aligned "
+                         f"lattices")
+
+
+def measure(re, im, tables, sigmas=None, smoothing_length=0.0,
+            table_block=0):
     """KC MEASURE: float64 (M,) Gamma_i = sum m_k Re(c_k K_i).
 
     ``re``/``im``: float32 (nx, ny, nz//2+1) lattices; with ``sigmas`` (the
     per-mode sigma grid) they are unit draws, first scaled IN PLACE by
     sigma f (f the filter of ``smoothing_length``), and Gamma is of the
-    scaled spectrum.  On CUDA: one launch a block of
-    :data:`MEASURE_BLOCK` constraints (the first one scales); on the CPU
-    :func:`measure_plain`.
+    scaled spectrum.  On CUDA: one launch for any M (``table_block`` > 0
+    caps the constraints whose tables share memory at once, a check of the
+    blocked path); on the CPU :func:`measure_plain`.
     """
     global KC_LAUNCHES
     _check(re, im, tables, "measure")
     sigmas = _sigmas(sigmas, re, "measure")
     if re.device.type == "cpu":
         return measure_plain(re, im, tables, sigmas, smoothing_length)
-    if not (re.is_contiguous() and im.is_contiguous()):
-        raise ValueError("measure's CUDA kernel needs contiguous lattices")
+    _kernel_lattices(re, im, "measure")
     nx, ny, nz = tables.shape
     m = tables.tab.shape[0]
-    blocks = -(-ny // _WARPS) * nx
+    scale = sigmas is not None
+    cb, _, blocks, _ = launch_plan(False, scale, nx, ny, nz, m, table_block)
     out = torch.empty(m, dtype=torch.float64, device=re.device)
-    for c0 in range(0, m, MEASURE_BLOCK):
-        mc = min(MEASURE_BLOCK, m - c0)
-        partials = torch.empty((blocks, mc), dtype=torch.float64,
-                               device=re.device)
-        scale = sigmas is not None and c0 == 0
-        status = _build.library().rf_constraint_measure(
-            re.data_ptr(), im.data_ptr(),
-            sigmas.data_ptr() if scale else 0, tables.kvec.data_ptr(),
-            tables.tab.data_ptr(), partials.data_ptr(), nx, ny, nz, m, c0,
-            mc, float(np.float32(smoothing_length)), int(scale),
-            _build.current_stream(re))
-        _build.check(status, "measure")
-        KC_LAUNCHES += 1
-        out[c0:c0 + mc] = partials.sum(dim=0)
+    partials = torch.empty(blocks * _KERNEL_WARPS * m, dtype=torch.float64,
+                           device=re.device)
+    status = _build.library().rf_constraint_measure(
+        re.data_ptr(), im.data_ptr(), sigmas.data_ptr() if scale else 0,
+        tables.kvec.data_ptr(), tables.tab.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), nx, ny, nz, m, cb, blocks,
+        float(np.float32(smoothing_length)), int(scale),
+        _build.current_stream(re))
+    _build.check(status, "measure")
+    KC_LAUNCHES += 1
     return out
 
 
@@ -238,12 +267,14 @@ def correct_plain(re, im, tables, alpha, sigmas, smoothing_length=0.0):
     return re, im
 
 
-def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0):
+def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0,
+            table_block=0):
     """KC CORRECT: c += (sigma f)^2 sum_i alpha_i conj(K_i), IN PLACE.
 
     ``alpha``: the M coefficients (rounded to float32); ``sigmas``: the
-    per-mode sigma grid.  On CUDA one launch for any M; on the CPU
-    :func:`correct_plain`.  Returns (re, im).
+    per-mode sigma grid.  On CUDA one launch for any M (``table_block`` as
+    in :func:`measure`); on the CPU :func:`correct_plain`.  Returns (re,
+    im).
     """
     global KC_LAUNCHES
     _check(re, im, tables, "correct")
@@ -256,14 +287,15 @@ def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0):
                          f"{tables.tab.shape[0]} constraints")
     if re.device.type == "cpu":
         return correct_plain(re, im, tables, alpha, sigmas, smoothing_length)
-    if not (re.is_contiguous() and im.is_contiguous()):
-        raise ValueError("correct's CUDA kernel needs contiguous lattices")
+    _kernel_lattices(re, im, "correct")
     nx, ny, nz = tables.shape
+    cb, _, blocks, _ = launch_plan(True, True, nx, ny, nz, alpha.size,
+                                   table_block)
     a = torch.as_tensor(alpha, device=re.device)
     status = _build.library().rf_constraint_correct(
         re.data_ptr(), im.data_ptr(), sigmas.data_ptr(),
         tables.kvec.data_ptr(), tables.tab.data_ptr(), a.data_ptr(), nx, ny,
-        nz, alpha.size, float(np.float32(smoothing_length)),
+        nz, alpha.size, cb, blocks, float(np.float32(smoothing_length)),
         _build.current_stream(re))
     _build.check(status, "correct")
     KC_LAUNCHES += 1

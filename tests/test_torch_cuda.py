@@ -745,6 +745,23 @@ KB_CASES = [
     ("interlaced", (32, 32, 66), dict(order=3, ells=(2, 4))),
     ("grid", (48, 32, 40), dict(nmu=3, los_axis=0)),
     ("auto", (64, 64, 32), dict(y_off=16)),
+    # kz lines of 16, 17, 18, 34 and 1024 floats: below, at and above a
+    # step of 32 lanes, and a tile of 4 lines not a multiple of 16 bytes
+    ("auto", (8, 6, 30), {}),
+    ("cross", (6, 5, 32), dict(order=1)),
+    ("interlaced", (4, 7, 34), dict(nmu=2)),
+    ("grid", (3, 5, 66), dict(ells=(0, 4))),
+    ("auto", (4, 4, 2046), dict(ells=(0, 2))),
+    # one line; line counts that are not a multiple of the tile's 4; odd
+    # ny_loc with y_off
+    ("auto", (1, 1, 64), {}),
+    ("grid", (5, 3, 64), dict(order=2)),
+    ("cross", (8, 16, 64), dict(y_off=3, nmu=3)),
+    ("interlaced", (3, 9, 30), dict(y_off=2)),
+    # MAX_BINS with multipoles and with wedges (the shared memory's budget)
+    ("auto", (16, 16, 64), dict(ells=(0, 2, 4), nbins=1024)),
+    ("interlaced", (16, 8, 2046), dict(ells=(0, 2, 4), nbins=1024)),
+    ("cross", (16, 16, 64), dict(nmu=4, nbins=256)),
 ]
 
 
@@ -753,12 +770,14 @@ def test_bin_spectrum_matches_plain(cuda, kind, shape, kw):
     from randomfield_tpu_torch.ops import binning
 
     nx, ny, nz = shape
+    kw = dict(kw)
+    nbins = kw.pop("nbins", 12)
     rows = ny - kw.get("y_off", 0)
     arrays = [_randn((nx, rows, nz // 2 + 1), cuda, 40 + i)
               for i in range(binning.KINDS[kind][1])]
     if kind == "grid":
         arrays = [a.abs() for a in arrays]
-    edges, _ = stats.bin_setup(shape, SPACING, 12)
+    edges, _ = stats.bin_setup(shape, SPACING, nbins)
     before = binning.KB_LAUNCHES
     got = binning.bin_spectrum(kind, arrays, shape, SPACING, edges,
                                factor=0.25, **kw)
@@ -771,6 +790,39 @@ def test_bin_spectrum_matches_plain(cuda, kind, shape, kw):
     assert torch.equal(got[:, 0], want[:, 0])
     scale = float(want[:, 1:].abs().max())
     assert float((got[:, 1:] - want[:, 1:]).abs().max()) <= KB_SUM_RTOL * scale
+
+
+def test_bin_spectrum_keeps_its_geometry(cuda):
+    """The counts and |k| sums come from one geometry pass a geometry:
+    another spectrum or kind on the same bins reuses them, other wedges or
+    other rows do not."""
+    from randomfield_tpu_torch.ops import binning
+
+    shape = (16, 12, 64)
+    edges, _ = stats.bin_setup(shape, SPACING, 9)
+    a = [_randn((16, 12, 33), cuda, 60 + i) for i in range(4)]
+    binning._geometry.cache_clear()
+    before = binning.KB_GEOMETRY_LAUNCHES
+    auto = binning.bin_spectrum("auto", a[:2], shape, SPACING, edges)
+    cross = binning.bin_spectrum("cross", a, shape, SPACING, edges,
+                                 ells=(0, 2))
+    assert binning.KB_GEOMETRY_LAUNCHES == before + 1
+    assert torch.equal(auto[0, 0], cross[0, 0])
+    assert torch.equal(auto[0, 2], cross[1, 2])
+    binning.bin_spectrum("auto", a[:2], shape, SPACING, edges, nmu=3)
+    binning.bin_spectrum("auto", [t[:, 2:] for t in a[:2]], shape, SPACING,
+                         edges, y_off=2)
+    assert binning.KB_GEOMETRY_LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_read_probe_sums_the_lattices(cuda, n):
+    from randomfield_tpu_torch.ops import binning
+
+    arrays = [_randn((6, 7, 33), cuda, 70 + i).abs() for i in range(n)]
+    got = float(binning.read_probe(arrays))
+    want = sum(float(a.double().sum()) for a in arrays)
+    assert abs(got - want) <= 1e-5 * want
 
 
 def test_bin_spectrum_raises_above_its_bins(cuda):
@@ -982,9 +1034,13 @@ def _constraint_case(shape, m, dev, seed=3):
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 16), (32, 16, 30), (16, 24, 9)])
-@pytest.mark.parametrize("m", [1, 8, 11])
+@pytest.mark.parametrize("m", [1, 8, 11, 40])
 @pytest.mark.parametrize("smoothing", [0.0, 12.0])
-def test_constraint_kernel_matches_plain(cuda, shape, m, smoothing):
+@pytest.mark.parametrize("table_block", [0, 3])
+def test_constraint_kernel_matches_plain(cuda, shape, m, smoothing,
+                                         table_block):
+    """table_block 3: the z tables staged three constraints at a time over
+    each tile, the path of an M above one shared-memory block."""
     from randomfield_tpu_torch.ops import constraint
 
     tables = _constraint_case(shape, m, cuda)
@@ -994,16 +1050,23 @@ def test_constraint_kernel_matches_plain(cuda, shape, m, smoothing):
         _randn((shape[0], shape[1], nzh), cuda, 8)
     pr, pi = re.clone(), im.clone()
     before = constraint.KC_LAUNCHES
-    got = constraint.measure(re, im, tables, sig, smoothing)
+    got = constraint.measure(re, im, tables, sig, smoothing,
+                             table_block=table_block)
     want = constraint.measure_plain(pr, pi, tables, sig, smoothing)
-    assert constraint.KC_LAUNCHES == before + -(-m // constraint.MEASURE_BLOCK)
+    assert constraint.KC_LAUNCHES == before + 1
     assert torch.equal(re, pr) and torch.equal(im, pi)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-10, atol=1e-12)
     alpha = np.random.default_rng(m).normal(size=m).astype(np.float32)
-    constraint.correct(re, im, tables, alpha, sig, smoothing)
+    constraint.correct(re, im, tables, alpha, sig, smoothing,
+                       table_block=table_block)
     constraint.correct_plain(pr, pi, tables, alpha, sig, smoothing)
     assert torch.equal(re, pr) and torch.equal(im, pi)
+    # the measurement of the corrected spectrum, without the scale
+    got = constraint.measure(re, im, tables, table_block=table_block)
+    want = constraint.measure_plain(pr, pi, tables)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("nz", [32, 64, 256])

@@ -174,15 +174,11 @@ def test_power_1d_matches_jax(los_axis):
 # ---- KB's walk, replayed ------------------------------------------------------
 
 def kb_walk(kind, arrays, shape, spacing, edges, max_blocks, y_off=0,
-            factor=1.0, order=0, ells=None, nmu=None, los_axis=2):
-    """csrc/bin_spectrum.cu's walk on the plain version's per-mode terms:
-    warp g takes lines g, g + W, ... (W = 4 blocks' worth of warps); lane
-    l the kz l, l + 32, ... of a line, its bin carried from the line's
-    start (one edge compare a mode), checked against the plain search; a
-    lane's run flushed to its warp when its bin changes; warps, then
-    blocks, summed in order."""
+            factor=1.0, order=0, ells=None, nmu=None, los_axis=2, warps=4):
+    """csrc/bin_spectrum.cu's walk (:func:`kb_spans`) on the plain
+    version's per-mode terms, for the geometry pass's values (1 and |k|)
+    and the data pass's; as bin_spectrum returns them."""
     nx, ny, nz = shape
-    nzh = nz // 2 + 1
     ny_loc = arrays[0].shape[1]
     nbins = len(edges) - 1
     km, key, w, vals = binning.mode_terms(kind, arrays, shape, spacing, edges,
@@ -190,76 +186,149 @@ def kb_walk(kind, arrays, shape, spacing, edges, max_blocks, y_off=0,
                                           nmu, los_axis)
     km, key, w = km.numpy(), key.numpy(), w.numpy()
     vals = [v.numpy().astype(np.float64) for v in vals]
-    n_p = 3 if ells is not None else 1
+    kvec = binning.axis_tables(shape, float(spacing), "cpu")[0].numpy()
+    kx, ky, kzv = kvec[:nx], kvec[nx:nx + ny], kvec[nx + ny:]
+    thr = np.append(binning.edge_thresholds(edges), np.float32(np.inf))
+
+    def k2_of(x, yl):
+        kxy2 = np.float32(kx[x] * kx[x]) + np.float32(
+            ky[y_off + yl] * ky[y_off + yl])
+        return (kxy2 + kzv * kzv).astype(np.float32)
+
     nb = nbins * (nmu or 1)
-    e32 = np.append(np.asarray(edges, np.float64).astype(np.float32),
-                    np.float32(np.inf))
     rows = nx * ny_loc
     n_blocks = max(1, min(max_blocks, -(-rows // 4)))
-    warps = n_blocks * 4
-    acc = np.zeros((warps, 2 + n_p, nb))
-    for g in range(warps):
-        cur = [-1] * 32
-        run = [[0, np.zeros(n_p), 0.0] for _ in range(32)]
-
-        def flush(lanes):
-            for lane in lanes:
-                n, p, k = run[lane]
-                if n:
-                    acc[g, 0, cur[lane]] += n
-                    acc[g, 1:1 + len(vals), cur[lane]] += p[:len(vals)]
-                    acc[g, 1 + n_p, cur[lane]] += k
-                run[lane] = [0, np.zeros(n_p), 0.0]
-
-        for r in range(g, rows, warps):
-            x, yl = divmod(r, ny_loc)
-            cnt = [0] * 32
-            for z0 in range(0, nzh, 32):
-                keys = {}
-                for lane in range(32):
-                    z = z0 + lane
-                    if z >= nzh:
-                        continue
-                    kv = km[x, yl, z]
-                    while e32[cnt[lane]] < kv:
-                        cnt[lane] += 1
-                    valid = kv > 0 and 1 <= cnt[lane] <= nbins
-                    assert valid == (w[x, yl, z] > 0)
-                    if valid:
-                        kbin = cnt[lane] - 1
-                        mine = (kbin * nmu + key[x, yl, z] % nmu if nmu
-                                else kbin)
-                        assert mine == key[x, yl, z]
-                        keys[lane] = mine
-                ends = [lane for lane, k in keys.items() if k != cur[lane]]
-                flush(ends)
-                for lane in ends:
-                    cur[lane] = keys[lane]
-                for lane in keys:
-                    z = z0 + lane
-                    run[lane][0] += w[x, yl, z]
-                    for i, v in enumerate(vals):
-                        run[lane][1][i] += w[x, yl, z] * v[x, yl, z]
-                    run[lane][2] += w[x, yl, z] * np.float64(km[x, yl, z])
-        flush(range(32))
-    blocks = acc.reshape(n_blocks, 4, 2 + n_p, nb).sum(axis=1)
-    total = blocks.sum(axis=0)
+    terms = [np.ones(key.shape)] + vals + [km.astype(np.float64)]
+    sums = kb_spans(k2_of, thr, nbins, nz // 2 + 1, rows, ny_loc, key, w,
+                    terms, nb, n_blocks, warps, nmu)
     out = np.zeros((len(vals), 3, nb + 1))
-    out[:, 0, :nb] = total[0]
-    out[:, 1, :nb] = total[1:1 + len(vals)]
-    out[:, 2, :nb] = total[1 + n_p]
+    out[:, 0, :nb] = sums[0]
+    out[:, 1, :nb] = sums[1:1 + len(vals)]
+    out[:, 2, :nb] = sums[-1]
     return out
+
+
+def kb_spans(k2_of, thr, nbins, nzh, rows, ny_loc, key, w, vals, nb,
+             n_blocks, warps, nmu):
+
+    def count(k2):
+        return int(np.searchsorted(thr[:nbins + 1], k2, side="right"))
+
+    """The data pass's walk: a line's kz in spans of consecutive kz (a lane
+    of the line's warp each); a lane's count
+    started by the thresholds' search at its first kz and carried, its
+    runs kept (the current and two done) until the line's end, or until a
+    lane needs a fourth, when the warp adds the done ones; at the line's
+    end every run, key by key ascending.  On a simple line (no wedges,
+    every span across one edge at most) the kernel takes each count as the
+    span's first or one more: checked here.  Each mode visited once, its key
+    checked against the plain search; the value sums (len(vals), nb)."""
+    tiles = -(-rows // 4)
+    acc = np.zeros((n_blocks, warps, len(vals), nb))
+    seen = np.zeros(key.shape, np.int64)
+    for b in range(n_blocks):
+        for wp in range(warps):
+            lines = [4 * t + rr for t in range(b, tiles, n_blocks)
+                     for rr in range(wp, 4, warps) if 4 * t + rr < rows]
+            for r in lines:
+                x, yl = divmod(r, ny_loc)
+                k2 = k2_of(x, yl)
+                zb, ze = 0, nzh
+                span = (ze - zb + 31) // 32
+                runs = [[] for _ in range(32)]  # (key, sums); the last current
+                # a simple line (no wedges; every span across one edge at
+                # most): each count is the span's first, or one more past
+                # the first's threshold
+                ends = [(z, min(z + span, ze) - 1) for z in
+                        range(zb, zb + 32 * span, span) if z < ze]
+                cnts = [[int(np.searchsorted(thr[:nbins + 1], k2[z],
+                                             side="right")) for z in e]
+                        for e in ends]
+                if not nmu and all(b - a <= 1 for a, b in cnts):
+                    for (za, zz), (ca, _) in zip(ends, cnts):
+                        for z in range(za, zz + 1):
+                            assert count(k2[z]) == ca + (k2[z] >= thr[ca])
+
+                def add(keep):
+                    """Add every lane's runs but its last ``keep``, key by
+                    key ascending, and drop them."""
+                    done = [rl[:len(rl) - keep] for rl in runs]
+                    for kk in sorted({k for d in done for k, _ in d}):
+                        for d in done:
+                            for k, v in d:
+                                if k == kk:
+                                    acc[b, wp, :, kk] += v
+                    for lane in range(32):
+                        runs[lane] = runs[lane][len(done[lane]):]
+
+                for i in range(max(span, 0)):
+                    changes = {}
+                    for lane in range(32):
+                        z = zb + lane * span + i
+                        if i >= min(span, ze - zb - lane * span) or z >= ze:
+                            continue
+                        c = int(np.searchsorted(thr[:nbins + 1],
+                                                k2[zb + lane * span],
+                                                side="right"))
+                        while k2[z] >= thr[c]:
+                            c += 1
+                        m = (x, yl, z)
+                        seen[m] += 1
+                        valid = 1 <= c <= nbins
+                        assert valid == (w[m] > 0)
+                        if not valid:
+                            continue
+                        kk = (c - 1) * nmu + key[m] % nmu if nmu else c - 1
+                        assert kk == key[m]
+                        changes[lane] = (kk, m)
+                    full = [lane for lane, (kk, _) in changes.items()
+                            if runs[lane] and runs[lane][-1][0] != kk
+                            and len(runs[lane]) == 3]
+                    if full:
+                        add(1)
+                    for lane, (kk, m) in changes.items():
+                        if not runs[lane] or runs[lane][-1][0] != kk:
+                            runs[lane].append((kk, np.zeros(len(vals))))
+                        for e, v in enumerate(vals):
+                            runs[lane][-1][1][e] += w[m] * v[m]
+                add(0)
+    assert np.all(seen[w > 0] == 1) and np.all(seen <= 1)
+    return acc.sum(axis=1).sum(axis=0)
 
 
 WALKS = [
     ("auto", (40, 12, 20), {}, 64),
     ("auto", (16, 12, 70), dict(order=2, factor=0.37), 2),
-    ("cross", (16, 12, 9), dict(ells=(0, 2, 4), los_axis=1), 1),
+    ("cross", (16, 12, 9), dict(ells=(0, 2, 4), los_axis=1, warps=2), 1),
     ("interlaced", (8, 16, 66), dict(nmu=3, los_axis=2, order=3), 3),
-    ("grid", (16, 16, 15), dict(nmu=4, los_axis=0), 2),
+    ("grid", (16, 16, 15), dict(nmu=4, los_axis=0, warps=1), 2),
     ("grid", (12, 16, 16), dict(ells=(4, 2), los_axis=2), 64),
     ("auto", (16, 8, 16), dict(y_off=4), 1),
+    ("auto", (5, 13, 34), dict(y_off=2), 3),
+    ("cross", (6, 10, 130), dict(nmu=4, los_axis=0, warps=2), 4),
+    ("auto", (8, 8, 64), dict(ells=(0, 2), warps=1), 2),
 ]
+
+
+@pytest.mark.parametrize("shape,spacing,nbins", [
+    ((1024, 1024, 1024), 2.0, 32), ((64, 32, 64), 8.0, 12),
+    ((16, 16, 64), 8.0, 1024), ((3, 9, 30), 8.0, 12)])
+def test_edge_thresholds_are_the_edge_search(shape, spacing, nbins):
+    """KB's bin: the count of thresholds at or below a float32 k^2 is the
+    count of float32 edges below its correctly rounded float32 square root
+    (numpy's, as the card's sqrtf), on random k^2 and on each threshold's
+    neighbours."""
+    edges, _ = stats.bin_setup(shape, spacing, nbins)
+    thr = binning.edge_thresholds(edges)
+    e32 = edges.astype(np.float32)
+    rng = np.random.default_rng(nbins)
+    k2 = np.concatenate([
+        rng.uniform(0, (1.2 * e32[-1]) ** 2, 20000).astype(np.float32),
+        np.nextafter(thr, np.float32(0)), thr,
+        np.nextafter(thr, np.float32(np.inf))])
+    np.testing.assert_array_equal(
+        np.searchsorted(thr, k2, side="right"),
+        np.searchsorted(e32, np.sqrt(k2), side="left"))
 
 
 @pytest.mark.parametrize("kind,shape,kw,max_blocks", WALKS)
@@ -273,8 +342,9 @@ def test_kb_walk_matches_plain(kind, shape, kw, max_blocks):
     if kind == "grid":
         arrays = [a.abs() for a in arrays]
     edges, _ = stats.bin_setup(shape, SPACING, 6)
+    plain_kw = {k: v for k, v in kw.items() if k != "warps"}
     want = binning.bin_spectrum_plain(kind, arrays, shape, SPACING, edges,
-                                      **kw).numpy()
+                                      **plain_kw).numpy()
     got = kb_walk(kind, arrays, shape, SPACING, edges, max_blocks, **kw)
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
     np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=WALK_RTOL,
@@ -283,7 +353,7 @@ def test_kb_walk_matches_plain(kind, shape, kw, max_blocks):
     # the CPU wrapper is the plain version
     np.testing.assert_array_equal(
         binning.bin_spectrum(kind, arrays, shape, SPACING, edges,
-                             **kw).numpy(), want)
+                             **plain_kw).numpy(), want)
 
 
 def test_bin_spectrum_refuses_what_it_does_not_take():
