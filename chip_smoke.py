@@ -26,7 +26,7 @@ non-zero with no result line:
    the shared-memory atomics of KP's deposit instances and what a 64-bit
    atomicAdd on shared memory compiles to; KC MEASURE's loop a kz step
    (its F2F.F64.F32 and float64 instructions) and KC's plans at M = 1, 8,
-   40;
+   40, 64, 128 and 3000 (the constraints a pass takes);
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -57,15 +57,17 @@ non-zero with no result line:
    isotropic, with ells (0, 2, 4), with nmu = 4 wedges, with the cic
    window and at its most bins (1024 with the multipoles, 256 x 4 wedges),
    counts equal to the plain version's, sums within 1e-10, two calls
-   bit-equal; K5's block at 256^3 against its stored digest; the
+   bit-equal, and its geometry pass alone (KBG; isotropic and 4 wedges)
+   against the plain version's counts and |k| sums; K5's block at 256^3 against its stored digest; the
    threefry and pallas scenes' sigma tables unchanged, the nested tables
    of 512^3 and 1024^3 over one box sharing their knots; KP on 1024^3
    particles in random order (plus particles on faces, at L and below 0)
    and on 1024^3 Zel'dovich positions in lattice order (NGP, CIC, TSC,
    scalar and per-particle weights, the interlacing shift) bit-equal to
    its plain version and to a second call, the deposit's folded total
-   equal to the sums' and KPC on it bit-equal, KC (M = 1, 8, 40, s = 0 and 8)
-   MEASURE within 1e-10 and CORRECT bit-equal, K4L within K4's bar;
+   equal to the sums' and KPC on it bit-equal, KC (M = 1, 8, 40 and 64, the
+   last in two passes; s = 0 and 8) MEASURE within 1e-10 and CORRECT
+   bit-equal, K4L within K4's bar;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -96,7 +98,8 @@ non-zero with no result line:
    sigma of its sampling noise and whose rows must equal single sample_power
    calls bit for bit; the estimator paths (calculate_power, the
    multipoles, the bispectrum, the potential f_NL render), each launching
-   K6, K3, K4 or KB and never torch.fft; then the slab mesh at 1024^3, both
+   K6, K3, K4 or KB and never torch.fft, calculate_power on a geometry KB
+   has not kept (its geometry pass, KBG); then the slab mesh at 1024^3, both
    samplers: four ranks in a gloo group share the card (spawned processes;
    gloo stages the CUDA tensors of its collectives through host memory),
    each rank's x slab equal to the same rows of the single-device render
@@ -135,7 +138,8 @@ non-zero with no result line:
    and KD beside their plain versions, the nested, fixed and displacement
    renders and their stages; calculate_power split into its transform and
    KB, KB beside its plain version (index_add_), its first call for a
-   geometry (the geometry pass and the data pass), every kind and output,
+   geometry (the geometry pass and the data pass), the geometry pass alone
+   beside its plain version, every kind and output,
    the read-rate yardsticks (torch sums of the lattices, KB's staging
    alone), the multipoles, wedges, cross and interlaced estimators with
    their peak memory, the
@@ -143,13 +147,19 @@ non-zero with no result line:
    both f_NL renders; KP beside its plain version and index_add_ (and
    NGP, CIC, TSC on both orders, by pass, with the design's bytes), KPC on
    the deposit's total, KC's
-   two passes beside theirs and each pass at M = 1, 8, 40, K4L beside its
+   two passes beside theirs and each pass at M = 1, 8, 40, 64, 128, K4L
+   beside its
    plain version and irfft, the stages of the lognormal, constrained and
    Zel'dovich paths, the constrained render, measure_constraints, Wiener
    and posterior with their peak memory, and the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+``python3 chip_smoke.py --kc-times`` builds the kernels and logs KC's
+passes at every M of phase 4 alone, with the package beside the script:
+copied into another checkout, it sets that tree's KC against this one's
+on the same card.
 """
 
 from __future__ import annotations
@@ -221,6 +231,11 @@ KERNELS = {
     "KB": dict(name="bin_spectrum", route="cuda",
                source="randomfield_tpu_torch/csrc/bin_spectrum.cu",
                replaces="randomfield_tpu/validate/stats.py:77"),
+    # its geometry pass: the counts and |k| sums of the same bins, once a
+    # geometry (binning._geometry keeps them)
+    "KBG": dict(name="bin_geometry", route="cuda",
+                source="randomfield_tpu_torch/csrc/bin_spectrum.cu",
+                replaces="randomfield_tpu/validate/stats.py:77"),
     # the mock makers' XLA stages: the scatter-add painting, the chunked
     # constraint functionals (and :250 _correction_chunked) and the
     # lognormal exp map, fused into K4's tail
@@ -239,7 +254,8 @@ KERNELS = {
                 replaces="randomfield_tpu/models/lognormal.py:130"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
-                "K10", "KN", "K2FX", "KD", "KB", "KP", "KPC", "KC", "K4L")
+                "K10", "KN", "K2FX", "KD", "KB", "KBG", "KP", "KPC", "KC",
+                "K4L")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -299,12 +315,15 @@ FP64_OPS_PER_S = 34e12
 # and the modulus (two multiplies, an add, a sqrtf, two divisions, a compare:
 # 7).  KD: |k|^2 (3), the division, the kernel's factor (3), two multiplies.
 # KB (auto, isotropic): |k|^2 and its sqrtf (3), the edge compare and the
-# mask (3), the power (4), the weight and the three float64 adds (5).
+# mask (3), the power (4), the weight and the three float64 adds (5).  KB's
+# geometry pass (isotropic): |k|^2 and its sqrtf (3), the edge compare and
+# the mask (3), the weight and the two float64 adds (3).
 K10_DRAW_OPS = 74 + 7 + 12 + 12 + 4
 OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
                 "K2": 24, "K2F": 2 * (74 + 42) + 6 + 24,
                 "K10": K10_DRAW_OPS + 5 * 10, "KN": 74 + 7 + 12 + 12 + 4,
-                "K2FX": 2 * (74 + 42) + 6 + 24 + 7, "KD": 9, "KB": 15}
+                "K2FX": 2 * (74 + 42) + 6 + 24 + 7, "KD": 9, "KB": 15,
+                "KBG": 9}
 # KP, a particle (CIC): u = (x + shift) / a, uc, floor and fraction (12 over
 # the three axes), the 1 - f (3), and a corner's two weight products, its
 # conversion to 2^-s units (multiply, round) and its index (4 more): 8 x 6.
@@ -1049,7 +1068,8 @@ def reset_counts():
     sampler.KN_LAUNCHES = sampler.K2FX_LAUNCHES = derived.KD_LAUNCHES = 0
     from randomfield_tpu_torch.ops import binning, transform
 
-    binning.KB_LAUNCHES = transform.TORCH_FFT_CALLS = 0
+    binning.KB_LAUNCHES = binning.KB_GEOMETRY_LAUNCHES = 0
+    transform.TORCH_FFT_CALLS = 0
     from randomfield_tpu_torch.ops import constraint, paint
 
     paint.KP_LAUNCHES = paint.KPC_LAUNCHES = 0
@@ -1065,6 +1085,7 @@ def read_counts():
     from randomfield_tpu_torch.ops import derived
 
     return {"KB": binning.KB_LAUNCHES,
+            "KBG": binning.KB_GEOMETRY_LAUNCHES,
             "torch.fft": transform.TORCH_FFT_CALLS,
             "K1": sampler.K1_LAUNCHES, "K2": sampler.K2_LAUNCHES,
             "K2F": sampler.K2F_LAUNCHES, "K3": fft.K3_LAUNCHES,
@@ -2688,6 +2709,22 @@ def phase1_measure(torch, rft, dev, g, gp, errs):
                 f"{'bit-equal' if bit else 'DIFFERENT'}")
             if not (counts and bit and rel <= KB_SUM_RTOL):
                 raise AssertionError(f"KB {kind} {what} disagrees")
+    # the geometry pass alone, on a first call, against the plain version's
+    # counts and |k| sums: counts equal, sums within KB_SUM_RTOL
+    for what, nmu in (("isotropic", 0), ("nmu = 4 wedges", 4)):
+        edges, _ = stats.bin_setup(HEADLINE, spacing, NBINS)
+        binning._geometry.cache_clear()
+        got = kb_geometry(edges, nmu, dev)
+        want = kb_geometry_plain(torch, grid, edges, nmu)
+        counts = torch.equal(got[0], want[0])
+        rel = float((got[1] - want[1]).abs().max() / want[1].abs().max())
+        errs["KBG"] = max(errs.get("KBG", 0.0),
+                          float((got - want).abs().max()))
+        log(f"phase 1 KB geometry pass {what} {HEADLINE}: counts "
+            f"{'equal' if counts else 'DIFFER'}, |k| sums rel {rel:.3e} "
+            f"(bar {KB_SUM_RTOL:g})")
+        if not (counts and rel <= KB_SUM_RTOL):
+            raise AssertionError(f"KB's geometry pass {what} disagrees")
     del inputs, re1, im1, re2, im2, grid
     torch.cuda.empty_cache()
     digest = k5_digest(torch, rft, dev)
@@ -2716,6 +2753,36 @@ def phase1_measure(torch, rft, dev, g, gp, errs):
         f"({fine.knots.numel()} in the finer table)")
     if not (all(same) and shared):
         raise AssertionError("the sigma tables are off")
+
+
+def kb_geometry(edges, nmu, dev):
+    """float64 (2, nb): KB's geometry pass (counts, |k| sums by key) of
+    the 1024^3 grid's isotropic bins (``nmu`` 0) or wedges, kept by
+    binning after its first call for the geometry."""
+    from randomfield_tpu_torch.ops import binning
+
+    return binning._geometry(HEADLINE, float(HEADLINE_SPACING),
+                             np.asarray(edges, np.float64).tobytes(), 0,
+                             HEADLINE[1], int(nmu), 2, str(dev))
+
+
+def kb_geometry_plain(torch, lattice, edges, nmu):
+    """:func:`kb_geometry` in plain PyTorch: the counts and |k| sums of
+    binning.mode_terms (whose value of ``lattice`` it drops), x-slab by
+    x-slab, by binning.line_sums."""
+    from randomfield_tpu_torch.ops import binning
+
+    nb = (len(edges) - 1) * max(1, nmu)
+    out = torch.zeros((2, nb + 1), dtype=torch.float64, device=lattice.device)
+    for x0 in range(0, HEADLINE[0], 16):
+        x1 = min(HEADLINE[0], x0 + 16)
+        km, idx, w, _ = binning.mode_terms(
+            "grid", (lattice,), HEADLINE, HEADLINE_SPACING, edges, x0, x1,
+            nmu=nmu or None)
+        w = torch.broadcast_to(w, idx.shape)
+        out[0] += binning.line_sums(idx, w, nb + 1)
+        out[1] += binning.line_sums(idx, w * km.to(torch.float64), nb + 1)
+    return out[:, :nb]
 
 
 def _seed_mean(stack):
@@ -2928,15 +2995,19 @@ def phase3_measure(torch, rft, dev, g, card):
     the multipoles (K6, forward K3 twice, KB), the bispectrum (its shells
     and unit shells: K3 twice and K4 a shell) and the potential f_NL render
     (the render, two forward and two inverse transforms), none of them
-    through torch.fft.  Returns the launch counts, summed."""
+    through torch.fft.  KB's kept geometries are dropped first, so
+    calculate_power runs the geometry pass (KBG) as a first call does.
+    Returns the launch counts, summed."""
+    from randomfield_tpu_torch.ops import binning
     from randomfield_tpu_torch.validate import stats
 
     total = dict.fromkeys(KERNEL_ORDER, 0)
     field = g.generate_delta_field(7, apply_lightcone=False)
     shells = 2 * BISPECTRUM_NBINS
+    binning._geometry.cache_clear()
     paths = (
         ("calculate_power", lambda: g.calculate_power(field, NBINS),
-         {"K6": 1, "K3": 2, "KB": 1}),
+         {"K6": 1, "K3": 2, "KB": 1, "KBG": 1}),
         ("calculate_power_multipoles", lambda: stats.calculate_power_multipoles(
             field, HEADLINE_SPACING, NBINS), {"K6": 1, "K3": 2, "KB": 1}),
         ("calculate_bispectrum", lambda: g.calculate_bispectrum(
@@ -2971,7 +3042,7 @@ def phase4_measure(torch, rft, dev, g, card):
     kind on the Kaiser expectation) and outputs, the multipoles, wedges and cross power, the
     bispectrum (its first call with the unit shells, then cached) with its
     peak memory, xi, and the f_NL renders.  Returns {"KB": (ms, plain_ms,
-    None)}."""
+    None), "KBG": (the geometry pass's)}."""
     from randomfield_tpu_torch.ops import binning, transform
     from randomfield_tpu_torch.validate import bispectrum, fourier, stats
 
@@ -3002,6 +3073,19 @@ def phase4_measure(torch, rft, dev, g, card):
         log(f"phase 4 KB auto {what} {HEADLINE}, its first call for the "
             f"geometry (the geometry pass, then the data pass): {cold:.3f} "
             f"ms [{card}]")
+    # the geometry pass alone (KBG) beside its plain version, isotropic
+    # and the 4 wedges
+    g_ms, gp_ms, _ = time_kernel(
+        torch, f"KBG geometry pass isotropic nbins={NBINS}",
+        lambda: kb_geometry(edges, 0, dev),
+        lambda: kb_geometry_plain(torch, re, edges, 0), None,
+        binning._geometry.cache_clear, HEADLINE, card,
+        plain_reps=SLOW_PLAIN_REPS)
+    time_kernel(torch, f"KBG geometry pass nmu = 4 wedges nbins={NBINS}",
+                lambda: kb_geometry(edges, 4, dev),
+                lambda: kb_geometry_plain(torch, re, edges, 4), None,
+                binning._geometry.cache_clear, HEADLINE, card,
+                plain_reps=SLOW_PLAIN_REPS)
     for kind in KB_KINDS:
         arrays = inputs[kind]
         kfac = 1.0 if kind == "grid" else factor
@@ -3073,7 +3157,7 @@ def phase4_measure(torch, rft, dev, g, card):
         log(f"phase 4 generate_nongaussian_field(kind={kind!r}) {HEADLINE}: "
             f"{ms:.3f} ms [{card}]")
     torch.cuda.empty_cache()
-    return {"KB": (k_ms, p_ms, None)}
+    return {"KB": (k_ms, p_ms, None), "KBG": (g_ms, gp_ms, None)}
 
 
 # ---- the mock makers: KP (paint), KC (constraint functionals), K4L --------------
@@ -3086,6 +3170,12 @@ K4_SASS_512 = (64, 1224)
 # order), relative to the sum of |terms|; CORRECT bit-equal
 KC_MEASURE_RTOL = 1e-10
 KC_COUNTS = (1, 8, 40)
+# M whose tables do not fit in one block's shared memory at 1024^3 (the
+# kernels' passes: MEASURE streams the lattices once a pass, CORRECT keeps
+# the alpha sums between passes); the plans of phase 0 also at an M far
+# above it
+KC_BLOCKED = (64, 128)
+KC_PLAN_COUNTS = KC_COUNTS + KC_BLOCKED + (3000,)
 MOCK_CONSTRAINTS = 8
 # particles a block of KP's library timing (its 8 corners' terms, 1 GiB each)
 KP_LIB_BLOCK = 1 << 27
@@ -3145,7 +3235,7 @@ def phase0_mocks(torch, card):
                    "measure_kernelILb0E": "KC measure",
                    "measure_kernelILb1E": "KC measure + scale",
                    "correct_kernelILb0E": "KC correct",
-                   "correct_kernelILb1E": "KC correct (tables in blocks)"})
+                   "correct_kernelILb1E": "KC correct (in passes)"})
     found, atoms = {}, {}
     for f, r in regs.items():
         for frag, what in wanted.items():
@@ -3208,13 +3298,13 @@ def kc_sass(funcs, regs, card):
             f"block; a constraint's term is one DMUL): {'; '.join(rows)} "
             f"[{card}]")
     nx, ny, nz = HEADLINE
-    for m in KC_COUNTS:
+    for m in KC_PLAN_COUNTS:
         rows = [f"{what} {constraint.launch_plan(c, sc, nx, ny, nz, m)}"
                 for what, c, sc in (("measure", False, False),
                                     ("measure + scale", False, True),
                                     ("correct", True, True))]
-        log(f"phase 0 KC plans M={m} at {HEADLINE} (constraints a block of "
-            f"tables, stages, blocks, shared memory): {'; '.join(rows)} "
+        log(f"phase 0 KC plans M={m} at {HEADLINE} (constraints a pass, "
+            f"stages, blocks, shared memory): {'; '.join(rows)} "
             f"[{card}]")
 
 
@@ -3375,7 +3465,8 @@ def phase1_mocks(torch, g, errs):
     interlacing shift (KP_CHECKS), the int64 sums bit-equal to the plain
     version's and to a second call, the folded total exact, the contrast
     on it bit-equal.  KC on the scene's sigma grid and a K2F
-    unit draw with M = 1, 8 and 40 off-grid constraints (R = 0 among them),
+    unit draw with M = 1, 8, 40 and 64 (in passes) off-grid
+    constraints (R = 0 among them),
     s = 0 and 8: MEASURE within KC_MEASURE_RTOL, CORRECT bit-equal.  K4L on
     a render's spectrum after its x and y passes, the lognormal planes' a
     and c, within K4's bar of c2r_tail_plain then expm1."""
@@ -3394,7 +3485,7 @@ def phase1_mocks(torch, g, errs):
         torch.cuda.empty_cache()
 
     sig = g.sigmas
-    for m in KC_COUNTS:
+    for m in KC_COUNTS + KC_BLOCKED[:1]:
         cons = _constraint_set(m, HEADLINE, sp, m)
         p, r, _ = constrained.pack_constraints(cons, HEADLINE, sp)
         tables = constraint.axis_tables(p, r, HEADLINE, sp, dev)
@@ -3761,6 +3852,52 @@ def phase3_mocks(torch, rft, dev, card):
     return total, peaks
 
 
+def kc_pass_times(torch, g, re, im, restore, counts, card):
+    """Log KC's passes at 1024^3 for each M of ``counts`` on the draws
+    ``re``, ``im`` (``restore()`` puts them back): MEASURE with the scale,
+    without it, CORRECT, each with the constraints a pass of its plan takes
+    where the package has a plan."""
+    from randomfield_tpu_torch.models import constrained
+    from randomfield_tpu_torch.ops import constraint
+
+    sp, dev, sig = HEADLINE_SPACING, g.device, g.sigmas
+    for m in counts:
+        cs = _constraint_set(m, HEADLINE, sp, m)
+        pm, rm, _ = constrained.pack_constraints(cs, HEADLINE, sp)
+        tm = constraint.axis_tables(pm, rm, HEADLINE, sp, dev)
+        am = np.ones(m, np.float32)
+        t0 = cuda_ms(torch, lambda: constraint.measure(re, im, tm, sig),
+                     setup=restore)
+        t1 = cuda_ms(torch, lambda: constraint.measure(re, im, tm))
+        t2 = cuda_ms(torch, lambda: constraint.correct(re, im, tm, am, sig),
+                     setup=restore)
+        plan = getattr(constraint, "launch_plan", None)
+        tables = "" if plan is None else (
+            f" (constraints a pass: measure "
+            f"{plan(False, True, *HEADLINE, m)[0]}, correct "
+            f"{plan(True, True, *HEADLINE, m)[0]})")
+        log(f"phase 4 KC M={m} {HEADLINE}{tables}: measure with the scale "
+            f"{t0:.3f} ms, measure {t1:.3f} ms, correct {t2:.3f} ms; both "
+            f"passes of a render {t0 + t2:.3f} ms [{card}]")
+
+
+def kc_times_only(torch, rft, dev, card):
+    """``--kc-times``: KC's passes alone (:func:`kc_pass_times` at every M
+    of phase 4) with the package beside this script, to set a tree's KC
+    against another's on one card."""
+    from randomfield_tpu_torch.models import constrained
+
+    g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
+    re, im = constrained.unit_hermitian(5, HEADLINE, HEADLINE_SPACING, dev)
+    keep = (re.clone(), im.clone())
+
+    def restore():
+        re.copy_(keep[0])
+        im.copy_(keep[1])
+
+    kc_pass_times(torch, g, re, im, restore, KC_COUNTS + KC_BLOCKED, card)
+
+
 def phase4_mocks(torch, rft, dev, g, card):
     """Times at 1024^3: KP (CIC, scalar weight, a 1024^3 Zel'dovich
     catalog) beside its plain version and index_add_ of the same int64
@@ -3851,19 +3988,7 @@ def phase4_mocks(torch, rft, dev, g, card):
         lambda: constraint.correct(re, im, tables, alpha, sig),
         lambda: constraint.correct_plain(re, im, tables, alpha, sig), None,
         restore, HEADLINE, card, plain_reps=1)
-    for m in KC_COUNTS:
-        cs = _constraint_set(m, HEADLINE, sp, m)
-        pm, rm, _ = constrained.pack_constraints(cs, HEADLINE, sp)
-        tm = constraint.axis_tables(pm, rm, HEADLINE, sp, dev)
-        am = np.ones(m, np.float32)
-        t0 = cuda_ms(torch, lambda: constraint.measure(re, im, tm, sig),
-                     setup=restore)
-        t1 = cuda_ms(torch, lambda: constraint.measure(re, im, tm))
-        t2 = cuda_ms(torch, lambda: constraint.correct(re, im, tm, am, sig),
-                     setup=restore)
-        log(f"phase 4 KC M={m} {HEADLINE}: measure with the scale "
-            f"{t0:.3f} ms, measure {t1:.3f} ms, correct {t2:.3f} ms; both "
-            f"passes of a render {t0 + t2:.3f} ms [{card}]")
+    kc_pass_times(torch, g, re, im, restore, KC_COUNTS + KC_BLOCKED, card)
     log(f"phase 4 KC operations of the design, a mode and constraint: "
         f"measure {KC_DESIGN_OPS['measure']} (of them 2 F2F.F64.F32 at a "
         f"quarter of the float64 rate, 3 float64), correct "
@@ -4132,6 +4257,10 @@ def kernel_bounds(g):
         # written
         "KB": (8 * modes + 4 * (nx + ny + nzh + NBINS + 1) + 24 * NBINS,
                OPS_PER_MODE["KB"] * modes),
+        # its geometry pass: the k vectors and thresholds read, the counts
+        # and |k| sums written
+        "KBG": (4 * (nx + ny + nzh + NBINS + 1) + 16 * NBINS,
+                OPS_PER_MODE["KBG"] * modes),
         # KP (CIC, scalar weight, one particle a cell): the positions read
         # once, the int64 grid written once
         "KP": (12 * cells + 8 * cells, KP_OPS_PER_PARTICLE * cells),
@@ -4170,6 +4299,9 @@ def kernel_bounds(g):
 def main() -> int:
     import torch
 
+    if sys.argv[1:] not in ([], ["--kc-times"]):
+        print("usage: python3 chip_smoke.py [--kc-times]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs one CUDA card", file=sys.stderr)
@@ -4208,6 +4340,9 @@ def main() -> int:
         _build.library()
         log(f"phase 0 kernel build: {time.perf_counter() - t0:.1f} s "
             f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+        if sys.argv[1:] == ["--kc-times"]:
+            kc_times_only(torch, rft, dev, card)
+            return 0
         phase0_attributes(card)
         phase0_sass(torch, card)
         phase0_mocks(torch, card)

@@ -77,8 +77,8 @@ _SIGNATURES = {
     "rf_paint_contrast": [_P, _P, _LL, _D, _D, _P],
     "rf_constraint_measure": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _F, _I, _P],
-    "rf_constraint_correct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _P],
+    "rf_constraint_correct": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _F, _P],
     "rf_constraint_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],

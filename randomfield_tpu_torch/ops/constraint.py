@@ -25,10 +25,12 @@ M; a measurement's pass is the kernel and the fixed-order sum of its
 partials) or raise; on CPU tensors they run the plain versions, which
 repeat the kernel's float32 operations in its order: the correction equals
 the kernel bit for bit and the measurement agrees to float64 summation
-order.  The kernel streams the lattices once a pass through shared memory
-(``csrc/line_ring.cuh``) and holds the z tables of a block of constraints
-there: all M when they fit (:func:`launch_plan`; ``table_block`` caps the
-block, a check of the blocked path).
+order.  The kernel streams the lattices through shared memory
+(``csrc/line_ring.cuh``) and holds the z tables of the constraints there:
+all M when they fit, else it takes them in passes of as many as fit
+(:func:`launch_plan`), within the one launch.  MEASURE streams the
+lattices once a pass; CORRECT keeps each mode's alpha sums between its
+passes in a grid of float32 pairs and streams the lattices in its last.
 """
 
 from __future__ import annotations
@@ -52,6 +54,9 @@ __all__ = ["ConstraintTables", "axis_tables", "kernel_block", "measure",
 KC_LAUNCHES = 0
 
 _KERNEL_WARPS = 8  # a block's warps, each with its own measure partials
+# the most constraints a pass of the kernels takes (0: as many as fit in
+# shared memory); the tests lower it to drive the passes on small grids
+_PASS_CAP = 0
 # x planes a step of the plain versions and of the Gram (bounds temporaries)
 _X_CHUNK = 8
 
@@ -163,17 +168,22 @@ def measure_plain(re, im, tables, sigmas=None, smoothing_length=0.0):
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def launch_plan(correct, scale, nx, ny, nz, m, table_block=0):
-    """(constraints a shared-memory block of tables, stages, blocks,
-    shared-memory bytes) of a CORRECT (``correct``) or MEASURE pass (with
+def launch_plan(correct, scale, nx, ny, nz, m):
+    """(constraints a pass of the kernel takes, stages, blocks,
+    shared-memory bytes) of a CORRECT (``correct``) or MEASURE call (with
     the scale when ``scale``) on (nx, ny, nz//2+1) lattices with ``m``
-    constraints: every table in one block when they fit, at most
-    ``table_block`` when that is > 0."""
+    constraints: all of them when their tables fit in shared memory, else
+    the most that fit."""
+    return _plan(bool(correct), bool(scale), int(nx), int(ny), int(nz),
+                 int(m), _PASS_CAP)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(correct, scale, nx, ny, nz, m, cap):
     plan = (ctypes.c_int * 4)()
     status = _build.library().rf_constraint_plan(
         int(bool(correct)), int(bool(scale)), int(nx), int(ny), int(nz),
-        int(m), int(table_block), plan)
+        int(m), int(cap), plan)
     _build.check(status, "constraint")
     return tuple(plan)
 
@@ -213,16 +223,14 @@ def _kernel_lattices(re, im, name):
                          f"lattices")
 
 
-def measure(re, im, tables, sigmas=None, smoothing_length=0.0,
-            table_block=0):
+def measure(re, im, tables, sigmas=None, smoothing_length=0.0):
     """KC MEASURE: float64 (M,) Gamma_i = sum m_k Re(c_k K_i).
 
     ``re``/``im``: float32 (nx, ny, nz//2+1) lattices; with ``sigmas`` (the
     per-mode sigma grid) they are unit draws, first scaled IN PLACE by
     sigma f (f the filter of ``smoothing_length``), and Gamma is of the
-    scaled spectrum.  On CUDA: one launch for any M (``table_block`` > 0
-    caps the constraints whose tables share memory at once, a check of the
-    blocked path); on the CPU :func:`measure_plain`.
+    scaled spectrum.  On CUDA: one launch for any M; on the CPU
+    :func:`measure_plain`.
     """
     global KC_LAUNCHES
     _check(re, im, tables, "measure")
@@ -233,7 +241,7 @@ def measure(re, im, tables, sigmas=None, smoothing_length=0.0,
     nx, ny, nz = tables.shape
     m = tables.tab.shape[0]
     scale = sigmas is not None
-    cb, _, blocks, _ = launch_plan(False, scale, nx, ny, nz, m, table_block)
+    cb, _, blocks, _ = launch_plan(False, scale, nx, ny, nz, m)
     out = torch.empty(m, dtype=torch.float64, device=re.device)
     partials = torch.empty(blocks * _KERNEL_WARPS * m, dtype=torch.float64,
                            device=re.device)
@@ -267,14 +275,12 @@ def correct_plain(re, im, tables, alpha, sigmas, smoothing_length=0.0):
     return re, im
 
 
-def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0,
-            table_block=0):
+def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0):
     """KC CORRECT: c += (sigma f)^2 sum_i alpha_i conj(K_i), IN PLACE.
 
     ``alpha``: the M coefficients (rounded to float32); ``sigmas``: the
-    per-mode sigma grid.  On CUDA one launch for any M (``table_block`` as
-    in :func:`measure`); on the CPU :func:`correct_plain`.  Returns (re,
-    im).
+    per-mode sigma grid.  On CUDA one launch for any M; on the CPU
+    :func:`correct_plain`.  Returns (re, im).
     """
     global KC_LAUNCHES
     _check(re, im, tables, "correct")
@@ -289,13 +295,16 @@ def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0,
         return correct_plain(re, im, tables, alpha, sigmas, smoothing_length)
     _kernel_lattices(re, im, "correct")
     nx, ny, nz = tables.shape
-    cb, _, blocks, _ = launch_plan(True, True, nx, ny, nz, alpha.size,
-                                   table_block)
+    cb, _, blocks, _ = launch_plan(True, True, nx, ny, nz, alpha.size)
     a = torch.as_tensor(alpha, device=re.device)
+    # the alpha sums of every mode between the kernel's passes
+    carry = (torch.empty(re.shape + (2,), dtype=torch.float32,
+                         device=re.device) if cb < alpha.size else None)
     status = _build.library().rf_constraint_correct(
         re.data_ptr(), im.data_ptr(), sigmas.data_ptr(),
-        tables.kvec.data_ptr(), tables.tab.data_ptr(), a.data_ptr(), nx, ny,
-        nz, alpha.size, cb, blocks, float(np.float32(smoothing_length)),
+        tables.kvec.data_ptr(), tables.tab.data_ptr(), a.data_ptr(),
+        carry.data_ptr() if carry is not None else 0, nx, ny, nz, alpha.size,
+        cb, blocks, float(np.float32(smoothing_length)),
         _build.current_stream(re))
     _build.check(status, "correct")
     KC_LAUNCHES += 1

@@ -1038,11 +1038,12 @@ def _constraint_case(shape, m, dev, seed=3):
 @pytest.mark.parametrize("smoothing", [0.0, 12.0])
 @pytest.mark.parametrize("table_block", [0, 3])
 def test_constraint_kernel_matches_plain(cuda, shape, m, smoothing,
-                                         table_block):
-    """table_block 3: the z tables staged three constraints at a time over
-    each tile, the path of an M above one shared-memory block."""
+                                         table_block, monkeypatch):
+    """table_block 3: the kernels take three constraints a pass, the path
+    of an M whose tables do not fit in shared memory at once."""
     from randomfield_tpu_torch.ops import constraint
 
+    monkeypatch.setattr(constraint, "_PASS_CAP", table_block)
     tables = _constraint_case(shape, m, cuda)
     nzh = shape[2] // 2 + 1
     sig = torch.rand((shape[0], shape[1], nzh), device=cuda)
@@ -1050,23 +1051,59 @@ def test_constraint_kernel_matches_plain(cuda, shape, m, smoothing,
         _randn((shape[0], shape[1], nzh), cuda, 8)
     pr, pi = re.clone(), im.clone()
     before = constraint.KC_LAUNCHES
-    got = constraint.measure(re, im, tables, sig, smoothing,
-                             table_block=table_block)
+    got = constraint.measure(re, im, tables, sig, smoothing)
     want = constraint.measure_plain(pr, pi, tables, sig, smoothing)
     assert constraint.KC_LAUNCHES == before + 1
     assert torch.equal(re, pr) and torch.equal(im, pi)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-10, atol=1e-12)
     alpha = np.random.default_rng(m).normal(size=m).astype(np.float32)
-    constraint.correct(re, im, tables, alpha, sig, smoothing,
-                       table_block=table_block)
+    constraint.correct(re, im, tables, alpha, sig, smoothing)
     constraint.correct_plain(pr, pi, tables, alpha, sig, smoothing)
     assert torch.equal(re, pr) and torch.equal(im, pi)
     # the measurement of the corrected spectrum, without the scale
-    got = constraint.measure(re, im, tables, table_block=table_block)
+    got = constraint.measure(re, im, tables)
     want = constraint.measure_plain(pr, pi, tables)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-10, atol=1e-12)
+
+
+def test_constraint_kernel_many_constraints(cuda):
+    """M = 3000: more constraints than one block's shared memory holds,
+    in the plan's own passes (no cap)."""
+    from randomfield_tpu_torch.ops import constraint
+
+    shape, m = (16, 16, 16), 3000
+    tables = _constraint_case(shape, m, cuda)
+    for correct, scale in ((False, False), (False, True), (True, True)):
+        assert constraint.launch_plan(correct, scale, *shape, m)[0] < m
+    nzh = shape[2] // 2 + 1
+    sig = torch.rand((shape[0], shape[1], nzh), device=cuda)
+    re, im = _randn((shape[0], shape[1], nzh), cuda, 7), \
+        _randn((shape[0], shape[1], nzh), cuda, 8)
+    pr, pi = re.clone(), im.clone()
+    got = constraint.measure(re, im, tables, sig, 12.0)
+    want = constraint.measure_plain(pr, pi, tables, sig, 12.0)
+    assert torch.equal(re, pr) and torch.equal(im, pi)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-10, atol=1e-12)
+    alpha = np.random.default_rng(m).normal(size=m).astype(np.float32)
+    constraint.correct(re, im, tables, alpha, sig, 12.0)
+    constraint.correct_plain(pr, pi, tables, alpha, sig, 12.0)
+    assert torch.equal(re, pr) and torch.equal(im, pi)
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_constraint_plans_fit_any_m(cuda, n):
+    """Both kernels have a plan within one block's shared memory at the
+    largest grids for any M: a pass's layout does not grow with M."""
+    from randomfield_tpu_torch.ops import constraint
+
+    for m in (1, 40, 64, 3000, 20000):
+        for correct, scale in ((False, False), (False, True), (True, True)):
+            cb, _, blocks, smem = constraint.launch_plan(correct, scale, n, n,
+                                                         n, m)
+            assert 1 <= cb <= m and blocks >= 1 and smem <= 232448
 
 
 @pytest.mark.parametrize("nz", [32, 64, 256])
