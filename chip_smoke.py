@@ -50,15 +50,18 @@ non-zero with no result line:
    (and every length 16..2048 with several groups, ragged column counts,
    one column) and K10 sample_fftx (s = 0 and 8; bulk rows and plane rows
    apart); KN sample_nested (bits exact; spectrum, unit normals and the
-   fixed field), K2F's fixed mode draw_fixed (|c| = sigma filter, the paired
-   field the exact negation) and KD apply_kernel (each kind and component);
+   fixed field; the unit normals' largest ulp distance), K2F's fixed mode
+   draw_fixed (|c| = sigma filter, the paired field the exact negation)
+   and KD apply_kernel (each kind and component);
    KB bin_spectrum on the forward transforms of two 1024^3 renders (and the
    Kaiser expectation grid): auto, cross, interlaced and grid, each
    isotropic, with ells (0, 2, 4), with nmu = 4 wedges, with the cic
    window and at its most bins (1024 with the multipoles, 256 x 4 wedges),
    counts equal to the plain version's, sums within 1e-10, two calls
-   bit-equal, and its geometry pass alone (KBG; isotropic and 4 wedges)
-   against the plain version's counts and |k| sums; K5's block at 256^3 against its stored digest; the
+   bit-equal, and its geometry pass alone (KBG, on folded lines;
+   isotropic, 4 wedges and a (1024, 256, 513) shard) against the plain
+   version's counts (exactly) and |k| sums (within 1e-12); K5's block at
+   256^3 against its stored digest; the
    threefry and pallas scenes' sigma tables unchanged, the nested tables
    of 512^3 and 1024^3 over one box sharing their knots; KP on 1024^3
    particles in random order (plus particles on faces, at L and below 0)
@@ -138,7 +141,8 @@ non-zero with no result line:
    and KD beside their plain versions, the nested, fixed and displacement
    renders and their stages; calculate_power split into its transform and
    KB, KB beside its plain version (index_add_), its first call for a
-   geometry (the geometry pass and the data pass), the geometry pass alone
+   geometry (the geometry pass and the data pass) and calculate_power's
+   first call for its geometry, the geometry pass alone
    beside its plain version, every kind and output,
    the read-rate yardsticks (torch sums of the lattices, KB's staging
    alone), the multipoles, wedges, cross and interlaced estimators with
@@ -215,8 +219,7 @@ KERNELS = {
                 source="randomfield_tpu_torch/csrc/sample_fftx.cu",
                 replaces="randomfield_tpu/ops/pallas_genfft.py:76"),
     # three kernels of work the JAX package does in XLA, not in Pallas: the
-    # nested draw (K1's kernel on that stream), K2F's fixed mode and the
-    # derived fields' spectral kernel
+    # nested draw, K2F's fixed mode and the derived fields' spectral kernel
     "KN": dict(name="sample_nested", route="cuda",
                source="randomfield_tpu_torch/csrc/sample_modes.cu",
                replaces="randomfield_tpu/ops/sample.py:207"),
@@ -493,7 +496,8 @@ def phase0_attributes(card):
 # spectrum instance with 32-bit counters, the one a 1024^3 render runs
 # (draw_scale_kernel<0, false>), or the one instance of spectrum mode
 # before the counter width was a template parameter; its loop holds two
-# modes, four hashes
+# modes, four hashes.  KN's loop holds a quad of rows: four modes, four
+# hashes
 SASS_KERNELS = {"K1": ("sample_modes_kernel", 1),
                 "K2F": (r"draw_scale_kernelILi0E(?:Lb0E)?E", 2),
                 "K5": ("power_bins_kernel", 1),
@@ -2157,6 +2161,14 @@ def phase1_slice(torch, g, gn, errs):
         torch.cuda.synchronize()
         check_close(errs, "KN", f"{mode} {tuple(got.shape)} s={s_}",
                     (got[0], got[1]), (want[0], want[1]))
+        if mode == "unit":
+            # r cos and r sin of the kernel's sincos_turn against torch's
+            # cos and sin: the ulps a unit normal moved, and the share of
+            # normals that moved
+            moved = float((got != want).double().mean())
+            log(f"phase 1 KN unit normals vs plain: largest distance "
+                f"{max_ulps(torch, got, want)} ulps, {moved:.3e} of them "
+                f"not bit-equal")
         del want
         if mode == "fixed":
             paired = sampler.sample_nested(seed, t, shape, sp, s_,
@@ -2602,6 +2614,10 @@ def phase4_slice(torch, rft, dev, g, card):
 # float32 terms a mode, added in float64 in another order; counts exactly,
 # two calls bit for bit
 KB_SUM_RTOL = 1e-10
+# KBG's |k| sums against the plain version's: float32 |k| of the same modes
+# added in float64 in another order (the folded lines' multiplicities are
+# exact)
+KBG_SUM_RTOL = 1e-12
 KB_KINDS = ("auto", "cross", "interlaced", "grid")
 KB_OUTPUTS = {"isotropic": {}, "ells (0, 2, 4)": dict(ells=(0, 2, 4)),
               "nmu = 4 wedges": dict(nmu=4), "window cic": dict(order=2)}
@@ -2710,20 +2726,27 @@ def phase1_measure(torch, rft, dev, g, gp, errs):
             if not (counts and bit and rel <= KB_SUM_RTOL):
                 raise AssertionError(f"KB {kind} {what} disagrees")
     # the geometry pass alone, on a first call, against the plain version's
-    # counts and |k| sums: counts equal, sums within KB_SUM_RTOL
-    for what, nmu in (("isotropic", 0), ("nmu = 4 wedges", 4)):
+    # counts and |k| sums: counts equal, sums within KBG_SUM_RTOL; on the
+    # whole grid (x and y folded) and on one slab shard (x alone)
+    ny = HEADLINE[1]
+    shard = ny // MESH_RANKS
+    for what, nmu, y_off, ny_loc in (
+            ("isotropic", 0, 0, ny), ("nmu = 4 wedges", 4, 0, ny),
+            (f"isotropic, the shard ({HEADLINE[0]}, {shard}, "
+             f"{HEADLINE[2] // 2 + 1}) at y_off {shard}", 0, shard, shard)):
         edges, _ = stats.bin_setup(HEADLINE, spacing, NBINS)
         binning._geometry.cache_clear()
-        got = kb_geometry(edges, nmu, dev)
-        want = kb_geometry_plain(torch, grid, edges, nmu)
+        got = kb_geometry(edges, nmu, dev, y_off, ny_loc)
+        want = kb_geometry_plain(torch, grid[:, y_off:y_off + ny_loc], edges,
+                                 nmu, y_off)
         counts = torch.equal(got[0], want[0])
         rel = float((got[1] - want[1]).abs().max() / want[1].abs().max())
         errs["KBG"] = max(errs.get("KBG", 0.0),
                           float((got - want).abs().max()))
         log(f"phase 1 KB geometry pass {what} {HEADLINE}: counts "
             f"{'equal' if counts else 'DIFFER'}, |k| sums rel {rel:.3e} "
-            f"(bar {KB_SUM_RTOL:g})")
-        if not (counts and rel <= KB_SUM_RTOL):
+            f"(bar {KBG_SUM_RTOL:g})")
+        if not (counts and rel <= KBG_SUM_RTOL):
             raise AssertionError(f"KB's geometry pass {what} disagrees")
     del inputs, re1, im1, re2, im2, grid
     torch.cuda.empty_cache()
@@ -2755,21 +2778,22 @@ def phase1_measure(torch, rft, dev, g, gp, errs):
         raise AssertionError("the sigma tables are off")
 
 
-def kb_geometry(edges, nmu, dev):
+def kb_geometry(edges, nmu, dev, y_off=0, ny_loc=None):
     """float64 (2, nb): KB's geometry pass (counts, |k| sums by key) of
-    the 1024^3 grid's isotropic bins (``nmu`` 0) or wedges, kept by
-    binning after its first call for the geometry."""
+    the 1024^3 grid's isotropic bins (``nmu`` 0) or wedges, over the ky
+    rows [y_off, y_off + ny_loc) (all by default), kept by binning after
+    its first call for the geometry."""
     from randomfield_tpu_torch.ops import binning
 
     return binning._geometry(HEADLINE, float(HEADLINE_SPACING),
-                             np.asarray(edges, np.float64).tobytes(), 0,
-                             HEADLINE[1], int(nmu), 2, str(dev))
+                             np.asarray(edges, np.float64).tobytes(), y_off,
+                             ny_loc or HEADLINE[1], int(nmu), 2, str(dev))
 
 
-def kb_geometry_plain(torch, lattice, edges, nmu):
+def kb_geometry_plain(torch, lattice, edges, nmu, y_off=0):
     """:func:`kb_geometry` in plain PyTorch: the counts and |k| sums of
-    binning.mode_terms (whose value of ``lattice`` it drops), x-slab by
-    x-slab, by binning.line_sums."""
+    binning.mode_terms (whose value of ``lattice``, the ky rows from
+    ``y_off``, it drops), x-slab by x-slab, by binning.line_sums."""
     from randomfield_tpu_torch.ops import binning
 
     nb = (len(edges) - 1) * max(1, nmu)
@@ -2778,7 +2802,7 @@ def kb_geometry_plain(torch, lattice, edges, nmu):
         x1 = min(HEADLINE[0], x0 + 16)
         km, idx, w, _ = binning.mode_terms(
             "grid", (lattice,), HEADLINE, HEADLINE_SPACING, edges, x0, x1,
-            nmu=nmu or None)
+            y_off, nmu=nmu or None)
         w = torch.broadcast_to(w, idx.shape)
         out[0] += binning.line_sums(idx, w, nb + 1)
         out[1] += binning.line_sums(idx, w * km.to(torch.float64), nb + 1)
@@ -3113,6 +3137,12 @@ def phase4_measure(torch, rft, dev, g, card):
         f"(K6, K3 y, K3 x) {fwd:.3f} + KB {k_ms:.3f} + the rest "
         f"{total - fwd - k_ms:.3f}; with the plain binning it would take "
         f"{fwd + p_ms:.3f}; peak device memory {peak} [{card}]")
+    # a one-shot call: its geometry not kept, so KBG runs too
+    first = cuda_ms(torch, lambda: stats.calculate_power(field, sp, NBINS),
+                    setup=binning._geometry.cache_clear)
+    log(f"phase 4 calculate_power {HEADLINE}, a first call for the geometry "
+        f"(KBG, then KB): {first:.3f} ms; the geometry kept {total:.3f} ms "
+        f"[{card}]")
     for what, fn in (
             ("calculate_power_multipoles", lambda: stats.calculate_power_multipoles(
                 field, sp, NBINS)),

@@ -41,6 +41,19 @@
 //   no lattice) adds (w, w |k|) per key, and ops/binning.py keeps its result
 //   for the geometry (shape, spacing, edges, rows, wedges); the data pass
 //   adds w p alone.
+// * The geometry pass folds the lines.  kx^2 at x and at (nx - x) mod nx are
+//   one float32 number (the k tables are float64 fftfreq rounded once, and
+//   rounding is sign-symmetric), and so are ky^2, |k_los| and mu: it walks
+//   x in [0, nx/2] and, when the call holds every ky row, y in [0, ny/2],
+//   each line weighted by the rows it stands for (1 for a row that is its
+//   own partner, 0 or n/2, else 2 a folded axis).  Isotropic, its counts
+//   are closed-form: along a line k^2 never falls, so one lane a threshold
+//   binary-searches the first kz whose k^2 (the float32 expression of the
+//   walk and of the plain version) reaches it, and a bin's count on the
+//   line is the Hermitian weight of the kz between two such starts; per
+//   mode only |k| = sqrtf(k^2) is added, the lanes over the bin's kz, then
+//   one butterfly a bin the line crosses.  Wedges take the same k bins and
+//   each mode's mu bin, counted in registers a lane, 4 mu bins at a time.
 // * The bin is a compare of the float32 k^2 = (kx^2 + ky^2) + kz^2 with an
 //   edge's threshold: the least float32 k^2 whose sqrtf passes the edge
 //   (the edge search on |k| exactly, with no square root where no |k| is
@@ -57,8 +70,7 @@
 //   two float64 sums by a selected weight, with no branch; the line's keys
 //   then go to the warp's accumulator in one butterfly.  Other lines, and
 //   wedges, carry each lane's count and runs, the done runs waiting in
-//   registers until the line's end.  The geometry pass walks the same way
-//   with the values (1, |k|) and no lattice.
+//   registers until the line's end.
 // * The sums of a line go to a slot of its tile's line; chunks of
 //   consecutive tiles (their count fixed by the shapes) sum their slots in
 //   order, and a last kernel the chunks in order, so no sum's grouping
@@ -106,9 +118,14 @@ __host__ __device__ constexpr int sums_of(int out) {
   return out == kPoles ? 3 : 1;
 }
 
-// float64 sums a key takes: the geometry's (w, w |k|), the data's NP
-__host__ __device__ constexpr int values_of(int kind, int out) {
-  return kind == kGeo ? 2 : sums_of(out);
+// The lines the kernel walks, rows_x x rows_y: the lattices' (nx, ny_loc),
+// or the geometry pass's folded lines, x in [0, nx/2] and, on the whole
+// ky range, y in [0, ny/2].
+__host__ __device__ inline void rows_of(int kind, int nx, int ny, int ny_loc,
+                                        int* rows_x, int* rows_y) {
+  const bool geo = kind == kGeo;
+  *rows_x = geo ? nx / 2 + 1 : nx;
+  *rows_y = geo && ny_loc == ny ? ny / 2 + 1 : ny_loc;
 }
 
 // float64 rows (of nb) a slot accumulates: the geometry's count and |k|
@@ -190,33 +207,27 @@ __device__ __forceinline__ LineConst line_const(const Params& p,
 }
 
 // The terms of the mode at kz index z of a line: k^2, the V values (the
-// data's w-less value(s), or the geometry's 1 and |k|) and the mu bin
-// (wedges), every float32 operation rounded in the plain version's order.
+// data's w-less value(s)) and the mu bin (wedges), every float32 operation
+// rounded in the plain version's order.
 template <int KIND, int OUT, int V>
 __device__ __forceinline__ void mode_terms(const Params& p, const Tabs& t,
                                            const float* const* line,
                                            const LineConst& c, int z,
                                            float& k2, float (&vals)[V],
                                            int& mi) {
-  constexpr bool GEO = KIND == kGeo;
   constexpr int NA = arrays_of(KIND) > 0 ? arrays_of(KIND) : 1;
   const int zi = p.nx + p.ny + z;  // the kz entry of the tables
   const float bz = t.k[zi];
   k2 = __fadd_rn(c.kxy2, __fmul_rn(bz, bz));
-  // a |k|: the geometry's sums, mu
+  // a |k| for mu
   float km = 0.f;
-  if (GEO || OUT != kIso) km = sqrtf(k2);
+  if (OUT != kIso) km = sqrtf(k2);
   const float klos = p.los_axis == 0 ? c.bx : p.los_axis == 1 ? c.by : bz;
   mi = 0;
   if (OUT == kWedges) {
     const float mu = __fdiv_rn(fabsf(klos), km);
     const int m = static_cast<int>(__fmul_rn(mu, static_cast<float>(p.nmu)));
     mi = min(max(m, 0), p.nmu - 1);
-  }
-  if constexpr (GEO) {
-    vals[0] = 1.f;
-    vals[1] = km;
-    return;
   }
   float v;
   if (KIND == kAuto) {
@@ -366,7 +377,7 @@ __device__ __forceinline__ void bin_line(const Params& p, const float* thr,
                                          const Tabs& t, double* acc, int nb,
                                          const float* const* line, int x,
                                          int y) {
-  constexpr int V = values_of(KIND, OUT);
+  constexpr int V = sums_of(OUT);
   constexpr int U = OUT == kPoles ? 2 : 4;
   const int lane = threadIdx.x & 31;
   const int z_nyq = p.nz % 2 == 0 ? p.nzh - 1 : -1;
@@ -495,6 +506,131 @@ __device__ __forceinline__ void bin_line(const Params& p, const float* thr,
   flush_spans<V>(acc, nb, r, 0);
 }
 
+// The geometry pass's line (x, y), a folded line that stands for m rows
+// (x and nx - x unless x is 0 or nx/2; y and ny - y likewise when the call
+// holds every ky row).  With b_lo and b_hi the thresholds at or below the
+// line's first and last k^2, its kz fall in nseg = b_hi - b_lo + 1
+// segments, segment j from start(j) to start(j + 1) with the count b_lo + j
+// (the k bin b_lo - 1 + j): start(0) = 0, start(nseg) = nzh and, between,
+// the first kz whose k^2 reaches the threshold b_lo + j - 1, which lane j
+// binary-searches (in rounds of 31 segments, each segment's end the next
+// lane's start).  Each mode weighs 2, 1 at kz = 0 and the Nyquist plane.
+// Isotropic, a segment's count is closed-form and the lanes add sqrtf(k^2)
+// over its kz, one butterfly a segment.  Wedges take each mode's mu bin
+// (|k_los| / |k|, as the plain version rounds it) in groups of 4: a lane
+// keeps a count and a |k| sum for each bin of the group, and the warp adds
+// the bins its lanes touched, one reduction each.  Lane 0 adds the line's
+// sums times m.
+template <int OUT>
+__device__ __forceinline__ void geo_line(const Params& p, const float* thr,
+                                         const Tabs& t, double* acc,
+                                         const LineConst& c, int x, int y) {
+  const int lane = threadIdx.x & 31;
+  const float* kz = t.k + p.nx + p.ny;
+  const int nzh = p.nzh;
+  const int z_nyq = p.nz % 2 == 0 ? nzh - 1 : -1;
+  const int nb = OUT == kWedges ? p.nbins * p.nmu : p.nbins;
+  const bool fold_y = p.ny_loc == p.ny;
+  const double m = (x == 0 || 2 * x == p.nx ? 1.0 : 2.0) *
+                   (!fold_y || y == 0 || 2 * y == p.ny ? 1.0 : 2.0);
+  const auto k2_at = [&](int z) {
+    return __fadd_rn(c.kxy2, __fmul_rn(kz[z], kz[z]));
+  };
+  const int b_lo = count_below(thr, p.nbins, c.kxy2);
+  const int nseg = count_below(thr, p.nbins, k2_at(nzh - 1)) - b_lo + 1;
+  for (int j0 = 0; j0 < nseg; j0 += 31) {
+    const int j = j0 + lane;
+    int start = j == 0 ? 0 : nzh;
+    if (j > 0 && j < nseg) {
+      // the threshold lies in (k^2(0), k^2(nzh - 1)]: its kz in [1, nzh)
+      const float tb = thr[b_lo + j - 1];
+      int lo = 1, hi = nzh - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (k2_at(mid) >= tb) {
+          hi = mid;
+        } else {
+          lo = mid + 1;
+        }
+      }
+      start = lo;
+    }
+    const int n = min(31, nseg - j0);
+    for (int s = 0; s < n; ++s) {
+      const int zs = __shfl_sync(kFull, start, s);
+      const int ze = __shfl_sync(kFull, start, s + 1);
+      const int bin = b_lo - 1 + j0 + s;
+      if (bin < 0 || bin >= p.nbins || zs >= ze) continue;
+      if constexpr (OUT == kIso) {
+        double sum = 0.0;
+        for (int z = zs + lane; z < ze; z += 32) {
+          sum += static_cast<double>(sqrtf(k2_at(z)));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          sum += __shfl_xor_sync(kFull, sum, off);
+        }
+        if (lane == 0) {
+          double cnt = 2.0 * (ze - zs), ks = 2.0 * sum;
+          if (zs == 0) {
+            cnt -= 1.0;
+            ks -= static_cast<double>(sqrtf(c.kxy2));
+          }
+          if (zs <= z_nyq && z_nyq < ze) {
+            cnt -= 1.0;
+            ks -= static_cast<double>(sqrtf(k2_at(z_nyq)));
+          }
+          acc[bin] += m * cnt;
+          acc[nb + bin] += m * ks;
+        }
+      } else {
+        for (int g = 0; g < p.nmu; g += 4) {
+          int cnt[4] = {0, 0, 0, 0};
+          double ks[4] = {0.0, 0.0, 0.0, 0.0};
+          unsigned seen = 0u;
+          for (int z = zs + lane; z < ze; z += 32) {
+            const float bz = kz[z];
+            const float km = sqrtf(__fadd_rn(c.kxy2, __fmul_rn(bz, bz)));
+            const float klos =
+                p.los_axis == 0 ? c.bx : p.los_axis == 1 ? c.by : bz;
+            const float mu = __fdiv_rn(fabsf(klos), km);
+            const int mb = static_cast<int>(
+                __fmul_rn(mu, static_cast<float>(p.nmu)));
+            const int u = min(max(mb, 0), p.nmu - 1) - g;
+            const bool end = z == 0 || z == z_nyq;
+            const double wk = static_cast<double>(end ? km : 2.f * km);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (u == i) {
+                cnt[i] += end ? 1 : 2;
+                ks[i] += wk;
+              }
+            }
+            seen |= u >= 0 && u < 4 ? 1u << u : 0u;
+          }
+          seen = __reduce_or_sync(kFull, seen);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (!(seen & (1u << i))) continue;
+            const unsigned total =
+                __reduce_add_sync(kFull, static_cast<unsigned>(cnt[i]));
+            double sum = ks[i];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+              sum += __shfl_xor_sync(kFull, sum, off);
+            }
+            if (lane == 0) {
+              const int key = bin * p.nmu + g + i;
+              acc[key] += m * total;
+              acc[nb + key] += m * sum;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int KIND, int OUT>
 __global__ void __launch_bounds__(kThreads)
 bin_spectrum_kernel(const Params p) {
@@ -511,7 +647,9 @@ bin_spectrum_kernel(const Params p) {
   ring.arrays = NA;
   ring.stages = p.stages;
   ring.nzh = p.nzh;
-  ring.rows = static_cast<long long>(p.nx) * p.ny_loc;
+  int rows_x = 0, rows_y = 0;
+  rows_of(KIND, p.nx, p.ny, p.ny_loc, &rows_x, &rows_y);
+  ring.rows = static_cast<long long>(rows_x) * rows_y;
   double* slots = reinterpret_cast<double*>(
       smem + kRingOffset + rf::LineRing::bytes(NA, p.stages, p.nzh));
   float* thr = reinterpret_cast<float*>(slots + rf::kTileRows * per_slot);
@@ -576,10 +714,14 @@ bin_spectrum_kernel(const Params p) {
         }
       } else {
         const long long r = row0 + rr;
-        const int x = static_cast<int>(r / p.ny_loc);
+        const int x = static_cast<int>(r / rows_y);
         const int y = p.y_off + static_cast<int>(r - static_cast<long long>(x) *
-                                                         p.ny_loc);
-        bin_line<KIND, OUT>(p, thr, t, acc, nb, line, x, y);
+                                                         rows_y);
+        if constexpr (KIND == kGeo) {
+          geo_line<OUT>(p, thr, t, acc, line_const<kGeo>(p, t, x, y), x, y);
+        } else {
+          bin_line<KIND, OUT>(p, thr, t, acc, nb, line, x, y);
+        }
       }
     }
     __syncthreads();  // every warp is done with stage s and the slots
@@ -683,8 +825,10 @@ template <int KIND, int OUT>
 cudaError_t launch(const Params& p, double* acc, int warps, int n_blocks,
                    cudaStream_t s) {
   const int n_vals = per_slot_of(KIND, OUT, p.nbins, p.nmu);
+  int rows_x = 0, rows_y = 0;
+  rows_of(KIND, p.nx, p.ny, p.ny_loc, &rows_x, &rows_y);
   const long long chunks =
-      (rf::tile_count(static_cast<long long>(p.nx) * p.ny_loc) + p.chunk - 1) /
+      (rf::tile_count(static_cast<long long>(rows_x) * rows_y) + p.chunk - 1) /
       p.chunk;
   const size_t smem = smem_of(KIND, OUT, p.stages, p.nzh, p.nbins, p.nmu,
                               p.nx + p.ny + p.nzh);
@@ -758,8 +902,8 @@ struct LaunchFn {
 // The launch plan of (kind, out) on lattices of nx ny_loc lines (of an nx
 // ny grid) of nz/2+1 floats with nbins edges (nmu wedges): plan[0..6) =
 // warps a block, stages, blocks, dynamic shared memory in bytes, tiles a
-// chunk, chunks.  kind 4 is the geometry pass (out 0 or 2), out 3 the read
-// probe.
+// chunk, chunks.  kind 4 is the geometry pass (out 0 or 2; its tiles of
+// the folded lines), out 3 the read probe.
 extern "C" int rf_bin_spectrum_plan(int kind, int out, int nx, int ny,
                                     int ny_loc, int nz, int nbins, int nmu,
                                     void* plan_out) {
@@ -768,9 +912,11 @@ extern "C" int rf_bin_spectrum_plan(int kind, int out, int nx, int ny,
       !plan) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int rows_x = 0, rows_y = 0;
+  rows_of(kind, nx, ny, ny_loc, &rows_x, &rows_y);
   return static_cast<int>(dispatch<PlanFn>(
-      kind, out, nz / 2 + 1, static_cast<long long>(nx) * ny_loc, nbins, nmu,
-      nx + ny + nz / 2 + 1, plan));
+      kind, out, nz / 2 + 1, static_cast<long long>(rows_x) * rows_y, nbins,
+      nmu, nx + ny + nz / 2 + 1, plan));
 }
 
 // acc: float64 rows of nb out (nb = nbins, nbins nmu for wedges): for kind

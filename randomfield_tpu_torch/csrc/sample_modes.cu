@@ -58,7 +58,7 @@
 //   | kz of the signed lattice indices (sx, sy) (the Nyquist row is -n/2),
 //   so grids of different size over one box share every common mode;
 // - both uniforms carry the half-ulp offset, u = (b >> 8) 2^-24 + 2^-25;
-// - a non-canonical plane mode hashes its partner's code;
+// - a non-canonical plane mode takes its partner's draw, im negated;
 // - the amplitude is K2's (sigma_common.cuh:k2_amplitude_ksq at |k|^2
 //   summed (kx^2 + ky^2) + kz^2, times the gain), so the spectrum equals
 //   the Hermitian fix and scale_sigma.cu applied to the unit mode's
@@ -68,7 +68,21 @@
 // and no scale (generate_noise); the fixed field, z / |z| after the fix
 // (1 where |z| = 0; a self-conjugate mode becomes its sign), times the
 // amplitude with gain 1, or -1 for the paired field; and the bits, a
-// check of the hash alone.  The same bound and walk as K1.
+// check of the hash alone.  What bounds it: K1's instruction issue, and
+// once its own walk below cut that, its stores (at 1024^3 on the H100 its
+// SASS a mode issue in 2.95 ms and it takes 3.56).  Its own walk:
+// - a thread draws the quad of rows (+-x, +-y) of one |kx|, |ky| (one
+//   amplitude for four modes); on a plane a mode's partner, (-x, -y), is in
+//   the quad, and a non-canonical mode takes (re, -im) of its draw;
+// - the (quad, kz) pairs in quad-major order are cut into runs of 256, one
+//   a warp, its lanes on 32 consecutive kz: no tail of kz drawn lane by
+//   row; at most 4 blocks an SM (fewer rows written at once measured
+//   faster on the H100 than all that fit, and a persistent grid slower);
+// - the counter's second word is 0 and the key fixed, so the hash's first
+//   add (k0 + k1 into the code) and first rotation (of k1) are folded per
+//   row and per launch (threefry.cuh:threefry2x32_w0);
+// - sincos_turn: a quadrant reduction for the angles 2 pi u < 2 pi alone.
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -82,6 +96,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPairsPerWarp = 32;  // row pairs a warp owns: one per lane
+// KN: the (quad, kz) elements of a warp's run, and the blocks an SM takes
+// at most: 4 of the 6 (spectrum, fixed) or 8 (unit, bits) that fit, which
+// measured faster (fewer rows written at once)
+constexpr uint32_t kRun = 256;
+constexpr int kNestedBlocksPerSM = 4;
 
 struct Params {
   float* re;
@@ -91,6 +110,8 @@ struct Params {
   int n_knots, nx, ny, nzh, top, y_off, ny_loc;
   uint32_t k0, k1;
   float kx_scale, ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain;
+  // KN: k0 + k1 and rotl(k1, 13) (threefry2x32_w0)
+  uint32_t k01 = 0, rk = 0;
 };
 
 // The rows x and (-x) mod nx of ky row y (one row when the two coincide,
@@ -174,90 +195,182 @@ __device__ __forceinline__ uint32_t lattice_code(int x, int y, int nx,
          (static_cast<uint32_t>(sy & 1023) << 10);
 }
 
-// KN's row pair: RowPair's rows, walk and plane selection, with the nested
-// stream's codes in place of the counters and K2's |k|^2 and amplitude.
-template <int MODE>
-struct NestedRows {
-  float kxy;           // kx^2 + ky^2, the pair's
-  uint32_t code[2];    // own code at kz = 0
-  uint32_t pcode[2];   // the plane partner's code at kz = 0
-  bool nc[2], sc[2];   // not canonical / self-conjugate on a plane
-  long long out[2];    // output offset at kz = 0
+// sin and cos of theta in [0, 2 pi], the only angles Box-Muller gives:
+// the quadrant j = rint(theta 2 / pi) (a magic-number rounding), r = theta
+// - j pi / 2 with pi / 2 in three float32 parts (the first product exact),
+// r in [-pi / 4, pi / 4] through Cephes' sinf and cosf polynomials, then
+// the quadrant's swap and signs.  No branch for large arguments, which
+// sincosf carries; within 1.5 ulp of the true values (1 ulp of the
+// correctly rounded ones) on every angle the 24-bit uniforms give
+// (tests/test_torch_nested_quads.py replays it on all 2^24).
+__device__ __forceinline__ void sincos_turn(float theta, float* s,
+                                            float* c) {
+  constexpr float kMagic = 12582912.f;  // 1.5 2^23: rounds to an integer
+  const float t = __fmaf_rn(theta, 0x1.45f306p-1f, kMagic);
+  const unsigned q = __float_as_uint(t);  // j in its low bits
+  const float j = __fsub_rn(t, kMagic);
+  float r = __fmaf_rn(-j, 0x1.921fb6p+0f, theta);
+  r = __fmaf_rn(-j, -0x1.777a5cp-25f, r);
+  r = __fmaf_rn(-j, -0x1p-49f, r);
+  const float r2 = __fmul_rn(r, r);
+  float ps = __fmaf_rn(-0x1.9943f2p-13f, r2, 0x1.11073cp-7f);
+  ps = __fmaf_rn(ps, r2, -0x1.555546p-3f);
+  ps = __fmul_rn(ps, r2);
+  const float sn = __fmaf_rn(ps, r, r);
+  float pc = __fmaf_rn(0x1.99eb9cp-16f, r2, -0x1.6c0c34p-10f);
+  pc = __fmaf_rn(pc, r2, 0x1.55554ap-5f);
+  pc = __fmaf_rn(pc, r2, -0.5f);
+  const float cs = __fmaf_rn(pc, r2, 1.f);
+  const bool swap = q & 1u;
+  *s = __uint_as_float(__float_as_uint(swap ? cs : sn) ^ ((q & 2u) << 30));
+  *c = __uint_as_float(__float_as_uint(swap ? sn : cs) ^
+                       (((q + 1u) & 2u) << 30));
+}
 
-  __device__ __forceinline__ NestedRows(const Params& p, int q) {
-    const int xp = q / p.ny_loc;
-    const int yl = q - xp * p.ny_loc;
-    const int y = yl + p.y_off;
-    const int x[2] = {xp, rf::partner_index(xp, p.nx)};
+// KN's quad: the rows (x, y), (-x, y), (x, -y), (-x, -y) of one |kx|, |ky|
+// (x in [0, nx/2], y in [0, ny/2]), in that order, so that on a kz = 0 or
+// Nyquist plane row r's Hermitian partner is row 3 - r.  The four share
+// kx^2 + ky^2, so one amplitude serves four modes.  A row that repeats an
+// earlier one (x or y its own partner, 0 or n/2) is drawn but not stored,
+// so each mode is written once.  Offsets are 32-bit: KN's grids (every axis
+// at most 1024) hold fewer than 2^30 modes.
+template <int MODE>
+struct NestedQuad {
+  float kxy;            // kx^2 + ky^2, the quad's
+  uint32_t first[4];    // code + k0 + k1 at kz = 0: the hash's first word
+                        // after its first add
+  uint32_t out[4];      // output offset at kz = 0
+  uint32_t nc, sc, live;  // bit r: row r not canonical on a plane /
+                          // self-conjugate / stored
+
+  __device__ __forceinline__ NestedQuad(const Params& p, int q) {
+    const int nyq = p.ny / 2 + 1;
+    const int x = q / nyq;
+    const int y = q - x * nyq;
+    const int px = rf::partner_index(x, p.nx);
     const int py = rf::partner_index(y, p.ny);
-    const float kx =
-        p.kx_scale * static_cast<float>(rf::signed_index(xp, p.nx));
+    const int xs[4] = {x, px, x, px};
+    const int ys[4] = {y, y, py, py};
+    const float kx = p.kx_scale * static_cast<float>(rf::signed_index(x, p.nx));
     const float ky = p.ky_scale * static_cast<float>(rf::signed_index(y, p.ny));
     kxy = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky));
+    live = 1u | (px != x ? 2u : 0u) | (py != y ? 4u : 0u) |
+           (px != x && py != y ? 8u : 0u);
+    nc = sc = 0u;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int px = x[1 - r];  // (-x) mod nx of this row is the other row
-      code[r] = lattice_code(x[r], y, p.nx, p.ny);
-      pcode[r] = lattice_code(px, py, p.nx, p.ny);
-      nc[r] = rf::not_canonical(x[r], y, px, py);
-      sc[r] = rf::self_conjugate(x[r], y, px, py);
-      out[r] = (static_cast<long long>(x[r]) * p.ny_loc + yl) * p.nzh;
+    for (int r = 0; r < 4; ++r) {
+      first[r] = lattice_code(xs[r], ys[r], p.nx, p.ny) + p.k01;
+      out[r] = (static_cast<uint32_t>(xs[r]) * p.ny + ys[r]) * p.nzh;
+      nc |= rf::not_canonical(xs[r], ys[r], xs[3 - r], ys[3 - r]) ? 1u << r
+                                                                   : 0u;
+      sc |= rf::self_conjugate(xs[r], ys[r], xs[3 - r], ys[3 - r]) ? 1u << r
+                                                                    : 0u;
     }
   }
 
   // Draw (and for the spectrum and fixed modes fix and scale) and store
-  // both rows' mode at kz = z.
+  // the quad's modes at kz = z.
   __device__ __forceinline__ void draw(const Params& p, int z) const {
     constexpr bool kFix = MODE == kSpectrum || MODE == kFixed;
-    const bool fixed = kFix && (z == 0 || z == p.top);
     float amp = 0.f;
     if (kFix) {
       amp = rf::k2_amplitude_ksq(p.tab, p.n_knots, __fadd_rn(kxy, p.kz2[z]),
                                  p.half_inv_ln10, p.lk0, p.inv_dlk,
                                  p.smoothing, p.gain);
     }
+    float vre[4], vim[4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const bool partner = fixed && nc[r];
-      const uint2 b = rf::threefry2x32(
-          p.k0, p.k1, (partner ? pcode[r] : code[r]) + static_cast<uint32_t>(z),
-          0u);
+    for (int r = 0; r < 4; ++r) {
+      const uint2 b = rf::threefry2x32_w0(p.k0, p.k1,
+                                          first[r] + static_cast<uint32_t>(z),
+                                          p.rk);
       if (MODE == kBits) {
-        reinterpret_cast<uint32_t*>(p.re)[out[r] + z] = b.x;
-        reinterpret_cast<uint32_t*>(p.im)[out[r] + z] = b.y;
+        if (live & (1u << r)) {
+          reinterpret_cast<uint32_t*>(p.re)[out[r] + z] = b.x;
+          reinterpret_cast<uint32_t*>(p.im)[out[r] + z] = b.y;
+        }
         continue;
       }
       const float rr = sqrtf(__fmul_rn(-2.f, logf(rf::uniform_u1(b.x))));
       const float theta =
           __fmul_rn(6.28318530717958648f, rf::uniform_u1(b.y));
       float s, c;
-      sincosf(theta, &s, &c);
-      float vre = __fmul_rn(rr, c);
-      float vim = __fmul_rn(rr, s);
-      if (kFix) {
-        if (partner) vim = -vim;
-        if (fixed && sc[r]) {
-          vre = __fmul_rn(vre, rf::kSqrt2);
-          vim = 0.f;
+      sincos_turn(theta, &s, &c);
+      vre[r] = __fmul_rn(rr, c);
+      vim[r] = __fmul_rn(rr, s);
+    }
+    if (MODE == kBits) return;
+    if (kFix) {
+      if (z == 0 || z == p.top) {
+        // a mode that is not canonical takes its partner's draw (row 3 - r,
+        // canonical, so not changed here) with im negated; a self-conjugate
+        // one re sqrt(2), im 0
+        const float re0[4] = {vre[0], vre[1], vre[2], vre[3]};
+        const float im0[4] = {vim[0], vim[1], vim[2], vim[3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (nc & (1u << r)) {
+            vre[r] = re0[3 - r];
+            vim[r] = -im0[3 - r];
+          } else if (sc & (1u << r)) {
+            vre[r] = __fmul_rn(vre[r], rf::kSqrt2);
+            vim[r] = 0.f;
+          }
         }
-        if (MODE == kFixed) {
-          const float mag =
-              __fsqrt_rn(__fadd_rn(__fmul_rn(vre, vre), __fmul_rn(vim, vim)));
-          vre = mag > 0.f ? __fdiv_rn(vre, mag) : 1.f;
-          vim = mag > 0.f ? __fdiv_rn(vim, mag) : 0.f;
-        }
-        vre = __fmul_rn(vre, amp);
-        vim = __fmul_rn(vim, amp);
       }
-      p.re[out[r] + z] = vre;
-      p.im[out[r] + z] = vim;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (MODE == kFixed) {
+          const float mag = __fsqrt_rn(
+              __fadd_rn(__fmul_rn(vre[r], vre[r]), __fmul_rn(vim[r], vim[r])));
+          vre[r] = mag > 0.f ? __fdiv_rn(vre[r], mag) : 1.f;
+          vim[r] = mag > 0.f ? __fdiv_rn(vim[r], mag) : 0.f;
+        }
+        vre[r] = __fmul_rn(vre[r], amp);
+        vim[r] = __fmul_rn(vim[r], amp);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (live & (1u << r)) {
+        p.re[out[r] + z] = vre[r];
+        p.im[out[r] + z] = vim[r];
+      }
     }
   }
 };
 
-// The walk both kernels share: a warp owns 32 row pairs and walks each
-// pair's kz with its 32 lanes; the kz left over past a multiple of 32 are
-// drawn lane by row pair.
+// KN's walk: the (quad, kz) pairs in quad-major order, quad q's kz at
+// q nzh + kz, cut into runs of kRun (a multiple of 32), one a warp; lane l
+// takes a run's elements l, l + 32, ...: a warp's 32 lanes draw 32
+// consecutive kz (coalesced stores; at a quad's end, two quads' rows).
+template <int MODE>
+__device__ __forceinline__ void walk_quads(const Params& p) {
+  const uint32_t n_quads = static_cast<uint32_t>(p.nx / 2 + 1) * (p.ny / 2 + 1);
+  const uint32_t total = n_quads * static_cast<uint32_t>(p.nzh);
+  const uint32_t begin = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRun;
+  if (begin >= total) return;
+  const uint32_t end = min(begin + kRun, total);
+  uint32_t e = begin + (threadIdx.x & 31);
+  uint32_t q = e / p.nzh;
+  int z = static_cast<int>(e - q * p.nzh);
+  NestedQuad<MODE> quad(p, static_cast<int>(min(q, n_quads - 1)));
+  for (; e < end; e += 32) {
+    quad.draw(p, z);
+    z += 32;
+    if (z >= p.nzh) {
+      do {
+        z -= p.nzh;
+        ++q;
+      } while (z >= p.nzh);
+      if (q < n_quads) quad = NestedQuad<MODE>(p, static_cast<int>(q));
+    }
+  }
+}
+
+// K1's (and K8's) walk: a warp owns 32 row pairs and walks each pair's kz
+// with its 32 lanes; the kz left over past a multiple of 32 are drawn lane
+// by row pair.
 template <class Rows>
 __device__ __forceinline__ void walk_row_pairs(const Params& p) {
   const int lane = threadIdx.x & 31;
@@ -320,8 +433,9 @@ nested_modes_kernel(float* __restrict__ re, float* __restrict__ im,
   const float* kz2 = load_tables(smem, knots, n_knots, nzh, kz_scale);
   const Params p{re, im, smem, kz2, n_knots, nx, ny, nzh,
                  nz % 2 == 0 ? nzh - 1 : 0, 0, ny, k0, k1, kx_scale,
-                 ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain};
-  walk_row_pairs<NestedRows<MODE>>(p);
+                 ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain,
+                 k0 + k1, rf::rotl32(k1, 13)};
+  walk_quads<MODE>(p);
 }
 
 // The grid of a walk over (nx/2 + 1) ny_loc row pairs.
@@ -341,13 +455,34 @@ cudaError_t launch_nested(float* re, float* im, const float* knots,
                           float kz_scale, float half_inv_ln10, float lk0,
                           float inv_dlk, float smoothing, float gain,
                           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_knots) + nz / 2 + 1);
-  cudaError_t err = cudaFuncSetAttribute(
+  // the tables, or kNestedBlocksPerSM's share of an SM's shared memory (in
+  // the 128-byte units shared memory is given in), which caps the blocks
+  // an SM holds
+  int dev = 0, sm_smem = 0, reserved = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t share =
+      static_cast<size_t>(sm_smem / kNestedBlocksPerSM - reserved) / 128 * 128;
+  const size_t smem = std::max(
+      sizeof(float) * (static_cast<size_t>(n_knots) + nz / 2 + 1), share);
+  err = cudaFuncSetAttribute(
       nested_modes_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  nested_modes_kernel<MODE><<<walk_blocks(nx, ny), kThreads, smem, stream>>>(
+  const long long runs =
+      (static_cast<long long>(nx / 2 + 1) * (ny / 2 + 1) * (nz / 2 + 1) +
+       kRun - 1) / kRun;
+  nested_modes_kernel<MODE><<<static_cast<unsigned>((runs + kWarps - 1) /
+                                                    kWarps),
+                              kThreads, smem, stream>>>(
       re, im, knots, n_knots, nx, ny, nz, k0, k1, kx_scale, ky_scale,
       kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain);
   return cudaGetLastError();

@@ -17,7 +17,7 @@ on the scene's device, one of three samplers:
   On one device this is the staged render (:func:`.staged.render_v3`), whose
   ``RF_STAGED_PIPELINE=v4`` and ``=v6`` variants run the transforms below
   through K9, or draw through K10 (a realization family of its own);
-* ``sampler='nested'``: KN, K1's kernel on the resolution-nested stream
+* ``sampler='nested'``: KN, a hand kernel on the resolution-nested stream
   (:func:`.ops.sampler.sample_nested`): each mode drawn from its signed
   lattice indices, so grids of different size over one box share their
   common modes (zoom matching), with K2's amplitude; the JAX package's

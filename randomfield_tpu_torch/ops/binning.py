@@ -35,7 +35,11 @@ The kernel works in two passes.  The counts and |k| sums of the bins
 depend on the grid alone: its geometry pass adds (w, w |k|) by key without
 reading a spectrum, once for each geometry (shape, spacing, edges, rows,
 wedges), and :func:`bin_spectrum` keeps the result on the device (counter
-``KB_GEOMETRY_LAUNCHES``); the data pass adds w p alone.  The bin is the
+``KB_GEOMETRY_LAUNCHES``); the data pass adds w p alone.  The geometry
+pass walks the lines x in [0, nx/2] (and y in [0, ny/2] when it holds every
+ky row), each weighted by the rows of equal k^2 it stands for; its
+isotropic counts are closed-form, the first kz whose k^2 reaches each
+threshold found by a binary search.  The bin is the
 float32 k^2 against :func:`edge_thresholds`, the edge search on |k|
 exactly.  The data pass streams tiles of four whole kz lines through shared
 memory (``csrc/line_ring.cuh``) on a persistent grid whose plan (warps a

@@ -25,9 +25,10 @@ resamples sigma(k) = sqrt(P(k)/V) onto a uniform log10-k grid
 * K2F's fixed mode :func:`draw_fixed`: the same draws and plane fix, each
   mode then z / |z| times the amplitude with gain 1 (or -1, the paired
   field): ``generate_fixed_field``;
-* KN :func:`sample_nested` (K1's kernel, ``csrc/sample_modes.cu``, on the
-  resolution-nested stream of ``sampler='nested'``): the spectrum, the raw
-  unit normals, the fixed field, or the bits;
+* KN :func:`sample_nested` (``csrc/sample_modes.cu``'s nested kernel, a
+  thread on the quad of rows (+-x, +-y), on the resolution-nested stream
+  of ``sampler='nested'``): the spectrum, the raw unit normals, the fixed
+  field, or the bits;
 * K7 :func:`draw_scale_shard` and K8 :func:`sample_shard`: the fused K2 and
   K1 on the ky rows [y_off, y_off + ny_loc) of a slab mesh's shard, at the
   global counters and indices (the same sources; the union over the shards
