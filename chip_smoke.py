@@ -26,7 +26,8 @@ non-zero with no result line:
    the shared-memory atomics of KP's deposit instances and what a 64-bit
    atomicAdd on shared memory compiles to; KC MEASURE's loop a kz step
    (its F2F.F64.F32 and float64 instructions) and KC's plans at M = 1, 8,
-   40, 64, 128 and 3000 (the constraints a pass takes);
+   40, 64, 128 and 3000 (the constraints a pass takes); the registers of
+   KM's and KX's instances and KM's launch at 1024^3;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -70,7 +71,12 @@ non-zero with no result line:
    its plain version and to a second call, the deposit's folded total
    equal to the sums' and KPC on it bit-equal, KC (M = 1, 8, 40 and 64, the
    last in two passes; s = 0 and 8) MEASURE within 1e-10 and CORRECT
-   bit-equal, K4L within K4's bar;
+   bit-equal, K4L within K4's bar; KM (the Minkowski invariants and
+   threshold bins) on the nine derivative fields of a smoothed 1024^3
+   render (counts equal, sums within 1e-10, two calls bit-equal) and KX
+   (lattice extrema) in its peak (with the band mask), minima and void
+   modes on the render and on the render with planted voids, equal to
+   their plain versions;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -90,7 +96,11 @@ non-zero with no result line:
    per-plane variance; the displaced lattice's P(k), the Kaiser monopole
    and quadrupole, interlaced TSC against the field; 8 constraints met,
    the conditional mean and variance, the Wiener MSE, the posterior mean)
-   and each mock path on the card against the CPU;
+   and each mock path on the card against the CPU; the nine morphology
+   methods (Minkowski, peaks, minima, the stacked and peak profiles, voids,
+   kNN-CDFs; measured and predicted) and a power='halofit' render on the
+   card against the CPU at 128^3 (counts, totals, CDFs and catalogs
+   equal);
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
@@ -124,7 +134,12 @@ non-zero with no result line:
    interlaced TSC catalog multipoles, an 8-constraint field checked by
    measure_constraints, the Wiener filter and the posterior sample, each
    with its launches (KP, KC, K4L among them, never torch.fft) and peak
-   memory;
+   memory; the JAX package's morphology gates at 512^3 (Minkowski v0-v3,
+   peaks and minima against BBKS, the peak profile, the underdense
+   fraction, a non-overlapping void catalog, the kNN-CDFs of random
+   catalogs against the binomial) and the nine morphology methods at
+   1024^3 with their launches (KM, KX) and peak memory (Minkowski under 60
+   GiB);
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers and for the v4 and v6 variants, of
    generate_noise beside the plain draws, of each
@@ -155,7 +170,9 @@ non-zero with no result line:
    beside its
    plain version and irfft, the stages of the lognormal, constrained and
    Zel'dovich paths, the constrained render, measure_constraints, Wiener
-   and posterior with their peak memory, and the whole run's wall time.
+   and posterior with their peak memory; KM and KX (peaks, the mask, the
+   void mode) beside their plain versions and each morphology method at
+   1024^3 with the transforms' share of it; and the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -255,10 +272,20 @@ KERNELS = {
     "K4L": dict(name="c2r_tail_exp", route="cuda",
                 source="randomfield_tpu_torch/csrc/c2r_tail.cu",
                 replaces="randomfield_tpu/models/lognormal.py:130"),
+    # the morphology estimators' XLA work: the Minkowski invariants and
+    # their one-hot threshold bins (and :120 _threshold_bins); the 27-cube
+    # extrema of the peak counts (and :212 _peak_bins) and of the void
+    # finder's candidates (randomfield_tpu/models/voids.py:287)
+    "KM": dict(name="minkowski_threshold_sums", route="cuda",
+               source="randomfield_tpu_torch/csrc/minkowski.cu",
+               replaces="randomfield_tpu/validate/minkowski.py:66"),
+    "KX": dict(name="lattice_extrema", route="cuda",
+               source="randomfield_tpu_torch/csrc/extrema.cu",
+               replaces="randomfield_tpu/validate/peaks.py:202"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
                 "K10", "KN", "K2FX", "KD", "KB", "KBG", "KP", "KPC", "KC",
-                "K4L")
+                "K4L", "KM", "KX")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -1078,6 +1105,9 @@ def reset_counts():
 
     paint.KP_LAUNCHES = paint.KPC_LAUNCHES = 0
     constraint.KC_LAUNCHES = fft.K4L_LAUNCHES = 0
+    from randomfield_tpu_torch.ops import extrema, minkowski
+
+    minkowski.KM_LAUNCHES = extrema.KX_LAUNCHES = 0
 
 
 def read_counts():
@@ -1098,7 +1128,7 @@ def read_counts():
             "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES,
             "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES,
             "KN": sampler.KN_LAUNCHES, "K2FX": sampler.K2FX_LAUNCHES,
-            "KD": derived.KD_LAUNCHES, **mock_counts()}
+            "KD": derived.KD_LAUNCHES, **mock_counts(), **morph_counts()}
 
 
 def require_launches(counts, least, what):
@@ -4234,6 +4264,553 @@ def kp_windows(torch, pos, catalog, card):
         torch.cuda.empty_cache()
 
 
+# ---- the morphology estimators: KM (Minkowski) and KX (lattice extrema) ---------
+
+# the 1024^3 morphology field: a render smoothed over 4 cells, so lattice
+# maxima track continuum ones (validate/peaks.py); its units are the
+# predicted sigma0
+MORPH_SMOOTHING = 8.0
+KM_NBINS = 24
+# KM vs plain: the same float32 invariants, summed in float64 in another
+# order (per-thread slots and block partials vs index_add_), relative to
+# the largest |sum| of each quantity; counts exactly
+KM_SUM_RTOL = 1e-10
+PEAK_NBINS, PEAK_RANGE = 14, (-2.0, 5.0)
+# the void ladder (Mpc/h) and threshold of the 1024^3 paths (about 2000
+# voids in the morphology field: the greedy acceptance on the host is
+# quadratic in the catalog), and the planted voids of phase 1: (center
+# cell, radius in cells, depth below the threshold)
+VOID_RADII = (8.0, 12.0, 16.0, 24.0, 32.0)
+VOID_THRESHOLD = -1.5
+PLANTED_VOIDS = (((100, 200, 300), 12, 3.0), ((700, 40, 1000), 9, 2.5),
+                 ((512, 900, 16), 15, 3.5))
+KNN_RADII = (4.0, 8.0, 12.0)
+# the 1024^3 kNN paths' catalog: a tracer every 64 cells
+KNN_TRACERS = 1 << 24
+# CUDA vs the port on the CPU at 128^3: u and the counts are the same
+# numbers on both sides, the derivative fields and shells come from two
+# float32 FFT libraries (v1-v3 and the profiles within these of their
+# largest value), the predictions are float64 on both
+MORPH_SLICE = ((128, 128, 128), 16.0, 48.0)
+MORPH_V_BAR = 1e-4
+PROFILE_BAR = 1e-5
+PREDICTION_BAR = 1e-9
+# the JAX package's gates (tests/test_minkowski.py, test_peaks.py,
+# test_profiles.py, test_voids.py, test_knn.py) at 512^3: its peak gate's
+# spacing and smoothing, one seed (the volume of 150 of its 96^3 seeds)
+MORPH_GATE = ((512, 512, 512), 4.0, 14.0)
+MINKOWSKI_GATE_TOLS = (0.03, 0.06, 0.15, 0.18)
+KNN_GATE = ((256, 256, 256), 2.0, 400_000, (2.0, 4.0, 6.0), (1, 2, 3), 4)
+MINKOWSKI_PEAK_GIB = 60.0
+# operations a voxel, counted from the kernels' source.  KM: the invariants
+# (63: 3 squares, |g|^2 and tr A 4, g.A.g 15, g.cof(A).g 34, the square
+# root, the test, two products and two divisions 7), the edge search (10
+# over 25 edges) and the slot adds (a count and three conversions, 4), and
+# three float64 adds counted at the float32 rate's scale.  KX (peaks): the
+# division and the 26 comparisons of the 27-cube
+KM_OPS_PER_VOXEL = 63 + 10 + 4
+KM_FP64_ADDS = 3
+KX_OPS_PER_VOXEL = 1 + 26
+
+
+def morph_counts():
+    from randomfield_tpu_torch.ops import extrema, minkowski
+
+    return {"KM": minkowski.KM_LAUNCHES, "KX": extrema.KX_LAUNCHES}
+
+
+def phase0_morphology(card):
+    """The registers of KM's and KX's instances and KM's launch at 1024^3
+    with 24 bins."""
+    from randomfield_tpu_torch.ops import _build, minkowski
+
+    regs = res_usage(_build.library_path(), _build.cuda_tool("cuobjdump"))
+    wanted = {"minkowski_bins_kernel": "KM bins",
+              "minkowski_total_kernel": "KM block partials' sum",
+              "peaks_kernel": "KX peaks", "voids_kernel": "KX voids"}
+    found = {what: r for f, r in regs.items() for frag, what in wanted.items()
+             if frag in f}
+    log(f"phase 0 KM and KX registers a thread: {found} [{card}]")
+    missing = sorted(set(wanted.values()) - set(found))
+    if missing:
+        raise AssertionError(f"KM's or KX's instances are missing: {missing}")
+    threads, blocks, smem = minkowski.launch_plan(KM_NBINS,
+                                                  int(np.prod(HEADLINE)))
+    log(f"phase 0 KM plan at {HEADLINE}, {KM_NBINS} bins: {blocks} blocks of "
+        f"{threads} threads, {smem} bytes of shared memory a block [{card}]")
+    if threads == 0:
+        raise AssertionError("KM takes no launch at 24 bins")
+
+
+def _morph_field(torch, g, seed):
+    """(the 1024^3 morphology render, its predicted sigma0)."""
+    field = g.generate_delta_field(seed, smoothing_length=MORPH_SMOOTHING,
+                                   apply_lightcone=False)
+    return field, float(np.sqrt(g.predicted_variance(MORPH_SMOOTHING)))
+
+
+def _minkowski_edges(nbins=KM_NBINS, nu_max=3.0):
+    nu = np.linspace(-nu_max, nu_max, nbins)
+    dnu = nu[1] - nu[0]
+    return np.concatenate([nu - 0.5 * dnu, [nu[-1] + 0.5 * dnu]])
+
+
+def _plant_voids(torch, field):
+    """The field with PLANTED_VOIDS set to -depth inside their radius (a
+    one-cell deeper spike at the center), in place."""
+    n = field.shape
+    for center, r, depth in PLANTED_VOIDS:
+        o = torch.arange(-r, r + 1, device=field.device)
+        ox, oy, oz = torch.meshgrid(o, o, o, indexing="ij")
+        inside = (ox * ox + oy * oy + oz * oz) < r * r
+        idx = [((c + a[inside]) % m) for c, a, m in zip(center, (ox, oy, oz),
+                                                        n)]
+        field[idx[0], idx[1], idx[2]] = -depth
+        field[center] = -depth - 1e-3
+    return field
+
+
+def phase1_morphology(torch, g, errs):
+    """KM and KX against their plain versions at 1024^3 on the main path's
+    inputs: KM on the nine derivative fields of a smoothed render (counts
+    equal, sums within KM_SUM_RTOL, two calls bit-equal); KX's peaks (with
+    the height band's mask) and minima on the render, and its peaks, minima
+    and void candidates on the render with planted voids and its R_v grid:
+    equal to the plain versions and bit-equal across two calls."""
+    from randomfield_tpu_torch.models import voids
+    from randomfield_tpu_torch.ops import extrema
+    from randomfield_tpu_torch.ops import minkowski as km
+    from randomfield_tpu_torch.validate import minkowski as mk
+
+    field, s0 = _morph_field(torch, g, 11)
+    u = extrema.unit_field(field, s0)
+    derivs = mk.derivative_fields(u, HEADLINE_SPACING)
+    edges = _minkowski_edges()
+    got = km.threshold_sums(u, derivs, edges)
+    again = km.threshold_sums(u, derivs, edges)
+    want = km.threshold_sums_plain(u, derivs, edges)
+    counts = torch.equal(got[0], want[0])
+    rel = max(float((got[1][q] - want[1][q]).abs().max()
+                    / want[1][q].abs().max()) for q in range(3))
+    bit = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    errs["KM"] = float((got[1] - want[1]).abs().max())
+    log(f"phase 1 KM threshold_sums {HEADLINE} nbins={KM_NBINS}: counts "
+        f"{'equal' if counts else 'DIFFER'} ({int(got[0].sum())} voxels in "
+        f"the bins and tail), sums rel {rel:.3e} (bar {KM_SUM_RTOL:g}), two "
+        f"calls {'bit-equal' if bit else 'DIFFERENT'}")
+    if not (counts and bit and rel <= KM_SUM_RTOL):
+        raise AssertionError("KM disagrees with its plain version")
+    del u, derivs, got, again, want
+    torch.cuda.empty_cache()
+    pedges = np.linspace(*PEAK_RANGE, PEAK_NBINS + 1)
+
+    def check_peaks(what, delta):
+        for mode, sign, band in (("peaks", 1.0, (1.0, None)),
+                                 ("minima", -1.0, None)):
+            got = extrema.peak_counts(delta, s0, pedges, sign, band)
+            again = extrema.peak_counts(delta, s0, pedges, sign, band)
+            want = extrema.peak_counts_plain(delta, s0, pedges, sign, band)
+            same = all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, want))
+            bit = all((a is None and b is None) or torch.equal(a, b)
+                      for a, b in zip(got, again))
+            log(f"phase 1 KX {mode} on {what} {HEADLINE}: total "
+                f"{int(got[1])}, counts {got[0].tolist()}"
+                f"{', the nu >= 1 mask' if band else ''}: "
+                f"{'equal to' if same else 'DIFFER from'} the plain version, "
+                f"two calls {'bit-equal' if bit else 'DIFFERENT'}")
+            if not (same and bit):
+                raise AssertionError(f"KX {mode} on {what} disagrees")
+
+    check_peaks("the render", field)
+    _plant_voids(torch, field)
+    check_peaks("the render with planted voids", field)
+    rv = voids.void_radius_grid(field, HEADLINE_SPACING, VOID_RADII,
+                                VOID_THRESHOLD)
+    got = extrema.void_candidates(rv, field)
+    again = extrema.void_candidates(rv, field)
+    want = extrema.void_candidates_plain(rv, field)
+    same = np.array_equal(got, want) and np.array_equal(got, again)
+    planted = [int(np.ravel_multi_index(c, HEADLINE))
+               for c, _, _ in PLANTED_VOIDS]
+    found = bool(np.isin(planted, got).all())
+    log(f"phase 1 KX void candidates {HEADLINE}, radii {VOID_RADII} "
+        f"threshold {VOID_THRESHOLD}: {got.size} candidates, "
+        f"{'equal to' if same else 'DIFFER from'} the plain version and "
+        f"across two calls; the planted centers "
+        f"{'among them' if found else 'MISSING'}")
+    if not (same and found):
+        raise AssertionError("KX's void mode disagrees")
+    errs["KX"] = 0.0
+    del field, rv
+    torch.cuda.empty_cache()
+
+
+def _close(got, want, bar):
+    """(within, error): max |got - want| over max |want| (NaNs, empty bins,
+    in the same places)."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if g.shape != w.shape or not np.array_equal(np.isnan(g), np.isnan(w)):
+        return False, float("inf")
+    ok = ~np.isnan(w)
+    err = float(np.abs(g[ok] - w[ok]).max() / np.abs(w[ok]).max())
+    return err <= bar, err
+
+
+def phase2_morphology(torch, rft, dev):
+    """The nine morphology methods and a power='halofit' render on the card
+    against the port on the CPU at 128^3: counts, peak totals, kNN-CDFs and
+    void catalogs equal (the catalog also from the CPU's R_v grid through
+    KX), v1-v3, the profiles and the predictions within their bars."""
+    from randomfield_tpu_torch.models import voids
+    from randomfield_tpu_torch.ops import paint
+    from randomfield_tpu_torch.validate import knn
+
+    shape, sp, sm = MORPH_SLICE
+    gd = rft.Generator(*shape, grid_spacing=sp, device=dev)
+    gc = rft.Generator(*shape, grid_spacing=sp, device="cpu")
+    dc = gc.generate_delta_field(5, smoothing_length=sm, apply_lightcone=False)
+    d = dc.to(dev)
+    s0 = float(np.sqrt(gc.predicted_variance(sm)))
+    w = (dc > s0).to(torch.float32)
+    rng = np.random.default_rng(6)
+    pos = torch.as_tensor(rng.uniform(0.0, shape[0] * sp,
+                                      size=(3, 60_000)).astype(np.float32))
+    radii = tuple(4 * sp * f for f in (1.0, 1.5, 2.0, 3.0))
+    nu = np.linspace(-3.0, 3.0, 13)
+    checks = [  # (what, on the card, on the CPU, bars: None = equal)
+        ("calculate_minkowski",
+         lambda g, f, w_: g.calculate_minkowski(f, sigma0=s0),
+         (None, None, MORPH_V_BAR, MORPH_V_BAR, MORPH_V_BAR)),
+        ("predicted_minkowski",
+         lambda g, f, w_: g.predicted_minkowski(nu, sm), (PREDICTION_BAR,) * 4),
+        ("calculate_peaks",
+         lambda g, f, w_: g.calculate_peaks(f, sigma0=s0), (None,) * 3),
+        ("minima_statistics",
+         lambda g, f, w_: voids.minima_statistics(f, sp, sigma0=s0),
+         (None,) * 3),
+        ("predicted_peaks",
+         lambda g, f, w_: g.predicted_peaks(smoothing_length=sm),
+         (None, PREDICTION_BAR, PREDICTION_BAR)),
+        ("calculate_stacked_profile",
+         lambda g, f, w_: g.calculate_stacked_profile(f, w_, 16),
+         (PROFILE_BAR, PROFILE_BAR, None)),
+        ("calculate_peak_profile",
+         lambda g, f, w_: g.calculate_peak_profile(f, 1.0, None, 16, sm),
+         (PROFILE_BAR, PROFILE_BAR, None, PROFILE_BAR, PROFILE_BAR)),
+        ("predicted_peak_profile",
+         lambda g, f, w_: g.predicted_peak_profile(1.5, 1.0, 16, sm),
+         (PROFILE_BAR, PROFILE_BAR)),
+        ("find_voids",
+         lambda g, f, w_: g.find_voids(f, radii, threshold=-0.1), (None,) * 2),
+        ("calculate_knn_cdf",
+         lambda g, f, w_: (g.calculate_knn_cdf(
+             paint.deposit(pos.to(f.device), shape, sp, order=1)
+             .to(torch.float32), radii),), (None,)),
+        ("knn_cdf_positions",
+         lambda g, f, w_: (knn.knn_cdf_positions(pos.to(f.device), shape, sp,
+                                                 radii),), (None,)),
+    ]
+    for what, fn, bars in checks:
+        reset_counts()
+        got = fn(gd, d, w.to(dev))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = fn(gc, dc, w)
+        errs_ = []
+        for a, b, bar in zip(got, want, bars):
+            if bar is None:
+                ok, err = np.array_equal(np.asarray(a), np.asarray(b)), 0.0
+            else:
+                ok, err = _close(a, b, bar)
+            errs_.append(err)
+            if not ok:
+                raise AssertionError(f"CUDA {what} disagrees with the CPU: "
+                                     f"{err:.3e} (bar {bar})")
+        log(f"phase 2 morphology {what} {shape}: CUDA vs CPU "
+            f"{['equal' if b is None else f'{e:.2e}' for e, b in zip(errs_, bars)]}"
+            f", launches { {k: n for k, n in counts.items() if n} }")
+    pos_v, rv_v = gd.find_voids(d, radii, threshold=-0.1)
+    log(f"phase 2 morphology find_voids {shape}: {len(rv_v)} voids, largest "
+        f"{rv_v[:3].tolist()} Mpc/h")
+    rv = voids.void_radius_grid(dc, sp, radii, -0.1)
+    got = voids.voids_from_radius(rv.to(dev), d, sp)
+    want = voids.voids_from_radius(rv, dc, sp)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"phase 2 morphology the catalog of the CPU's R_v grid through KX: "
+        f"{'equal' if same else 'DIFFERENT'} ({len(got[1])} voids)")
+    if not same or len(got[1]) == 0:
+        raise AssertionError("KX's catalog of one R_v grid differs")
+    hd = rft.Generator(*shape, grid_spacing=sp, device=dev, power="halofit")
+    hc = rft.Generator(*shape, grid_spacing=sp, device="cpu", power="halofit")
+    same_table = (np.array_equal(hd.power.k, hc.power.k)
+                  and np.array_equal(hd.power.Pk, hc.power.Pk))
+    _, r = rel_err((hd.generate_delta_field(3).cpu(),),
+                   (hc.generate_delta_field(3),))
+    log(f"phase 2 power='halofit' {shape}: tables "
+        f"{'equal' if same_table else 'DIFFERENT'}, render CUDA vs CPU rel "
+        f"{r:.3e} (bar {SLICE_BAR:g}), predicted variance "
+        f"{hd.predicted_variance():.6g} (eh98 "
+        f"{rft.Generator(*shape, grid_spacing=sp, device=dev, power='eh98').predicted_variance():.6g})")
+    if not (same_table and r <= SLICE_BAR):
+        raise AssertionError("the halofit render disagrees")
+
+
+def phase3_morphology(torch, rft, dev, g, card):
+    """The JAX package's morphology gates on the card at 512^3, then the
+    nine methods at 1024^3 through the public API, each with the launch
+    counts set to 0 before it and read after it (none through torch.fft)
+    and its peak device memory.  Returns the launch counts, summed."""
+    from randomfield_tpu_torch.models import voids
+    from randomfield_tpu_torch.ops import paint
+    from randomfield_tpu_torch.validate import knn, peaks
+
+    shape, sp, sm = MORPH_GATE
+    g5 = rft.Generator(*shape, grid_spacing=sp, device=dev)
+    s0sq, s1sq, s2sq = peaks.bbks_moments(g5.power, shape, sp, sm, device=dev)
+    s0 = float(np.sqrt(s0sq))
+    d = g5.generate_delta_field(1, smoothing_length=sm, apply_lightcone=False)
+    nu, *meas = g5.calculate_minkowski(d, nbins=13, sigma0=s0)
+    theory = g5.predicted_minkowski(nu, smoothing_length=sm)
+    res = [float(np.abs(m - t).max() / np.abs(t).max())
+           for m, t in zip(meas, theory)]
+    log(f"phase 3 gate Minkowski v0..v3 {shape} s={sm}: max|meas - pred| / "
+        f"max|pred| {[f'{r:.4f}' for r in res]} (bars {MINKOWSKI_GATE_TOLS})")
+    if not all(r < t for r, t in zip(res, MINKOWSKI_GATE_TOLS)):
+        raise AssertionError("the Minkowski gate failed")
+    nu_p, exp_counts, exp_total = g5.predicted_peaks(smoothing_length=sm)
+    # one seed: 4 Poisson sigma and the JAX gate's 12% systematic a bin;
+    # the minima of delta are the peaks of -delta, their bins reflected
+    budget = 4.0 * np.sqrt(np.maximum(exp_counts, 1.0)) + 0.12 * exp_counts
+    for what, (nu_m, counts, total), want, bud in (
+            ("peaks", g5.calculate_peaks(d, sigma0=s0), exp_counts, budget),
+            ("minima", voids.minima_statistics(d, sp, sigma0=s0),
+             exp_counts[::-1], budget[::-1])):
+        worst = float(np.max(np.abs(counts - want) / bud))
+        ok = abs(total / exp_total - 1.0) < 0.10 and worst < 1.0
+        log(f"phase 3 gate {what} {shape}: total {total} (BBKS "
+            f"{exp_total:.1f}, {total / exp_total - 1.0:+.4f}), worst bin at "
+            f"{worst:.3f} of its budget")
+        if not ok:
+            raise AssertionError(f"the {what} gate failed")
+    r, prof, npk, nub, xbb = g5.calculate_peak_profile(
+        d, nu_min=1.0, nbins=16, smoothing_length=sm)
+    _, pred = g5.predicted_peak_profile(nub, xbb, 16, sm)
+    resid = float(np.abs(prof - pred).max() / s0)
+    log(f"phase 3 gate peak profile {shape}: {npk} peaks nu >= 1, nu_bar "
+        f"{nub:.4f}, x_bar {xbb:.4f}, max|meas - BBKS| / sigma0 {resid:.4f} "
+        f"(bar 0.04)")
+    if not resid < 0.04:
+        raise AssertionError("the peak profile gate failed")
+    # the prediction is of an unsmoothed render (the JAX gate's R and t)
+    frac = voids.underdense_fraction(g5.generate_delta_field(
+        2, apply_lightcone=False), sp, 8.0, -0.4)
+    pfrac = voids.predicted_underdense_fraction(g5.power, shape, sp, 8.0,
+                                                -0.4, device=dev)
+    log(f"phase 3 gate underdense fraction {shape} R=8 t=-0.4 (unsmoothed "
+        f"render): {frac:.5f} against {pfrac:.5f} (bar 0.02)")
+    if not (0.05 < pfrac < 0.95 and abs(frac - pfrac) < 0.02):
+        raise AssertionError("the underdense fraction gate failed")
+    pos, rv = g5.find_voids(d, VOID_RADII, threshold=-0.5)
+    box = shape[0] * sp
+    overlap = 0
+    for i in range(len(rv)):
+        dv = np.abs(pos[i + 1:] - pos[i])
+        dv = np.minimum(dv, box - dv)
+        overlap += int((np.sqrt((dv**2).sum(axis=1)) < rv[i] - 1e-9).sum())
+    log(f"phase 3 gate void catalog {shape}: {len(rv)} voids, radii sorted "
+        f"{bool(np.all(np.diff(rv) <= 0))}, {overlap} centers inside a larger "
+        f"void")
+    if overlap or len(rv) < 3 or not np.all(np.diff(rv) <= 0):
+        raise AssertionError("the void catalog gate failed")
+    del d, g5
+    torch.cuda.empty_cache()
+    kshape, ksp, ntr, kradii, ks, ncat = KNN_GATE
+    pred = knn.random_knn_cdf(ntr, kshape, ksp, kradii, ks)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    acc = [knn.knn_cdf_positions(
+        torch.rand((3, ntr), generator=gen, device=dev) * (kshape[0] * ksp),
+        kshape, ksp, kradii, ks) for _ in range(ncat)]
+    mean = np.mean(acc, axis=0)
+    sd = np.std(acc, axis=0, ddof=1) / np.sqrt(ncat)
+    worst = float((np.abs(mean - pred) / (5.0 * sd + 5e-3)).max())
+    log(f"phase 3 gate kNN-CDF of {ncat} random catalogs of {ntr} at {kshape}: "
+        f"worst |mean - binomial| at {worst:.3f} of its budget (5 sd + 5e-3); "
+        f"CDF_1 {mean[0].round(5).tolist()} vs {pred[0].round(5).tolist()}")
+    if not worst < 1.0:
+        raise AssertionError("the kNN gate failed")
+    knn._ball_spectrum.cache_clear()
+    torch.cuda.empty_cache()
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    field, s0 = _morph_field(torch, g, 7)
+    n_rad = len(VOID_RADII)
+    peaks_gib = {}
+
+    def run(what, fn, least):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require_launches(counts, least, what)
+        if counts["torch.fft"]:
+            raise AssertionError(f"{what} went through torch.fft")
+        for k in KERNEL_ORDER:
+            total[k] += counts[k]
+        peaks_gib[what] = peak / 2**30
+        log(f"phase 3 main path {what} {HEADLINE}: launches "
+            f"{ {k: n for k, n in counts.items() if n} }, torch.fft calls 0; "
+            f"peak device memory {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} above the {base / 2**30:.3f} held) "
+            f"[{card}]")
+        return out
+
+    out = run("calculate_minkowski", lambda: g.calculate_minkowski(
+        field, sigma0=s0), {"KM": 1, "K6": 1, "K3": 20, "K4": 9})
+    if not (np.isfinite(np.stack(out[1:])).all()
+            and abs(out[1][KM_NBINS // 2 - 1] + out[1][KM_NBINS // 2] - 1.0)
+            < 0.05):
+        raise AssertionError("the 1024^3 Minkowski functionals are off")
+    if run("calculate_peaks", lambda: g.calculate_peaks(field, sigma0=s0),
+           {"KX": 1})[2] <= 0:
+        raise AssertionError("no peaks at 1024^3")
+    # the stack's weight and the kNN paths' count grid, after the paths
+    # that do not read them
+    weight = (field > s0).to(torch.float32)
+    counts_grid = paint.deposit(
+        torch.rand((3, KNN_TRACERS), generator=gen, device=dev)
+        * (HEADLINE[0] * HEADLINE_SPACING), HEADLINE, HEADLINE_SPACING,
+        order=1).to(torch.float32)
+    for what, fn, least in (
+            ("predicted_minkowski", lambda: g.predicted_minkowski(
+                np.linspace(-3, 3, KM_NBINS), MORPH_SMOOTHING), {}),
+            ("minima_statistics", lambda: voids.minima_statistics(
+                field, HEADLINE_SPACING, sigma0=s0), {"KX": 1}),
+            ("predicted_peaks", lambda: g.predicted_peaks(
+                smoothing_length=MORPH_SMOOTHING), {}),
+            ("calculate_stacked_profile", lambda: g.calculate_stacked_profile(
+                field, weight), {"K6": 2, "K3": 6, "K4": 1}),
+            ("calculate_peak_profile", lambda: g.calculate_peak_profile(
+                field, 1.0, None, 24, MORPH_SMOOTHING),
+             {"KX": 1, "K6": 3, "K3": 10, "K4": 2}),
+            ("predicted_peak_profile", lambda: g.predicted_peak_profile(
+                1.5, 1.0, 24, MORPH_SMOOTHING), {"K3": 4, "K4": 2}),
+            ("find_voids", lambda: g.find_voids(field, VOID_RADII,
+                                                VOID_THRESHOLD),
+             {"KX": 1, "K6": 1, "K3": 2 + 2 * n_rad, "K4": n_rad}),
+            ("calculate_knn_cdf", lambda: g.calculate_knn_cdf(
+                counts_grid, KNN_RADII),
+             {"K6": 1 + len(KNN_RADII), "K4": len(KNN_RADII)})):
+        run(what, fn, least)
+    knn._ball_spectrum.cache_clear()
+    if not peaks_gib["calculate_minkowski"] < MINKOWSKI_PEAK_GIB:
+        raise AssertionError("the 1024^3 Minkowski measurement peaks at "
+                             f"{peaks_gib['calculate_minkowski']:.3f} GiB")
+    del field, weight, counts_grid
+    torch.cuda.empty_cache()
+    return total, peaks_gib
+
+
+def phase4_morphology(torch, rft, dev, g, card):
+    """Times at 1024^3: KM and KX (peaks, and the void mode) beside their
+    plain versions, each of the nine methods (median of 5 after a warm-up)
+    with the transforms' share of it.  Returns {"KM": ..., "KX": ...}."""
+    from randomfield_tpu_torch.models import voids
+    from randomfield_tpu_torch.ops import extrema, paint, transform
+    from randomfield_tpu_torch.ops import minkowski as km
+    from randomfield_tpu_torch.validate import knn
+    from randomfield_tpu_torch.validate import minkowski as mk
+
+    sp = HEADLINE_SPACING
+    field, s0 = _morph_field(torch, g, 7)
+    u = extrema.unit_field(field, s0)
+    edges = _minkowski_edges()
+    t_deriv = cuda_ms(torch, lambda: mk.derivative_fields(u, sp))
+    derivs = mk.derivative_fields(u, sp)
+    km_ms, km_plain, _ = time_kernel(
+        torch, f"KM threshold_sums nbins={KM_NBINS}",
+        lambda: km.threshold_sums(u, derivs, edges),
+        lambda: km.threshold_sums_plain(u, derivs, edges), None, None,
+        HEADLINE, card, plain_reps=1)
+    del u, derivs
+    torch.cuda.empty_cache()
+    pedges = np.linspace(*PEAK_RANGE, PEAK_NBINS + 1)
+    kx_ms, kx_plain, _ = time_kernel(
+        torch, f"KX peaks nbins={PEAK_NBINS}",
+        lambda: extrema.peak_counts(field, s0, pedges),
+        lambda: extrema.peak_counts_plain(field, s0, pedges), None, None,
+        HEADLINE, card, plain_reps=1)
+    # the other modes: the kernel (median of 5), the plain version once
+    rv = voids.void_radius_grid(field, sp, VOID_RADII, VOID_THRESHOLD)
+    ncand = extrema.void_candidates(rv, field).size
+    for what, kernel, plain in (
+            ("KX peaks with the nu >= 1 mask",
+             lambda: extrema.peak_counts(field, s0, pedges, 1.0, (1.0, None)),
+             lambda: extrema.peak_counts_plain(field, s0, pedges, 1.0,
+                                               (1.0, None))),
+            (f"KX void candidates ({ncand})",
+             lambda: extrema.void_candidates(rv, field),
+             lambda: extrema.void_candidates_plain(rv, field))):
+        k_ms = cuda_ms(torch, kernel)
+        p_ms = cuda_ms(torch, plain, reps=1)
+        log(f"phase 4 {what} at {HEADLINE}: kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms [{card}]")
+    del rv
+    torch.cuda.empty_cache()
+    t_fwd = cuda_ms(torch, lambda: transform.rfftn(field))
+    re, im = transform.rfftn(field)
+    spec = (re.clone(), im.clone())
+    t_inv = cuda_ms(torch, lambda: transform.irfftn_reim(re, im, HEADLINE),
+                    setup=lambda: (re.copy_(spec[0]), im.copy_(spec[1])))
+    del re, im, spec
+    torch.cuda.empty_cache()
+    log(f"phase 4 transforms {HEADLINE}: forward (K6, K3 y, K3 x) "
+        f"{t_fwd:.3f} ms, inverse (K3 x, K3 y, K4) {t_inv:.3f} ms; the nine "
+        f"derivative fields of the Minkowski measurement (a forward, nine "
+        f"multiplies and inverses) {t_deriv:.3f} ms [{card}]")
+    weight = (field > s0).to(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    counts_grid = paint.deposit(
+        torch.rand((3, KNN_TRACERS), generator=gen, device=dev)
+        * (HEADLINE[0] * sp), HEADLINE, sp, order=1).to(torch.float32)
+    n_rad, n_knn = len(VOID_RADII), len(KNN_RADII)
+    methods = (  # (what, call, the transform time inside it)
+        ("calculate_minkowski", lambda: g.calculate_minkowski(
+            field, sigma0=s0), t_deriv),
+        ("predicted_minkowski", lambda: g.predicted_minkowski(
+            np.linspace(-3, 3, KM_NBINS), MORPH_SMOOTHING), 0.0),
+        ("calculate_peaks", lambda: g.calculate_peaks(field, sigma0=s0), 0.0),
+        ("predicted_peaks", lambda: g.predicted_peaks(
+            smoothing_length=MORPH_SMOOTHING), 0.0),
+        ("calculate_stacked_profile", lambda: g.calculate_stacked_profile(
+            field, weight), 2 * t_fwd + t_inv),
+        ("calculate_peak_profile", lambda: g.calculate_peak_profile(
+            field, 1.0, None, 24, MORPH_SMOOTHING), 3 * t_fwd + 2 * t_inv),
+        ("predicted_peak_profile", lambda: g.predicted_peak_profile(
+            1.5, 1.0, 24, MORPH_SMOOTHING), 2 * t_inv),
+        ("find_voids", lambda: g.find_voids(field, VOID_RADII,
+                                            VOID_THRESHOLD),
+         t_fwd + n_rad * t_inv),
+        ("calculate_knn_cdf", lambda: g.calculate_knn_cdf(
+            counts_grid, KNN_RADII), t_fwd + n_knn * t_inv),
+    )
+    for what, fn, t_tr in methods:
+        ms = cuda_ms(torch, fn)
+        log(f"phase 4 {what} {HEADLINE}: {ms:.3f} ms; transforms {t_tr:.3f} "
+            f"ms ({100 * t_tr / ms:.1f}%)"
+            + (f"; {ncand} void candidates" if what == "find_voids" else "")
+            + f" [{card}]")
+    knn._ball_spectrum.cache_clear()
+    del field, weight, counts_grid
+    torch.cuda.empty_cache()
+    return {"KM": (km_ms, km_plain, None), "KX": (kx_ms, kx_plain, None)}
+
+
 def kernel_bounds(g):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
@@ -4308,6 +4885,15 @@ def kernel_bounds(g):
         "K4L": (8 * modes + 4 * cells + 8 * nz + 4 * m,
                 fft_ops(m, nx * ny) + 10.0 * m * nx * ny
                 + K4L_OPS_PER_CELL * cells),
+        # KM: u and the nine derivative fields read once, the edges; the
+        # sums written; its float64 adds at the float32 rate's scale
+        "KM": (40 * cells + 4 * (KM_NBINS + 1) + 32 * KM_NBINS,
+               (KM_OPS_PER_VOXEL + KM_FP64_ADDS * FP32_OPS_PER_S
+                / FP64_OPS_PER_S) * cells),
+        # KX (calculate_peaks' peak mode): the field read once, the edges,
+        # the counts written
+        "KX": (4 * cells + 4 * (PEAK_NBINS + 1) + 8 * (PEAK_NBINS + 1),
+               KX_OPS_PER_VOXEL * cells),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -4376,6 +4962,9 @@ def main() -> int:
         phase0_attributes(card)
         phase0_sass(torch, card)
         phase0_mocks(torch, card)
+        t0 = time.perf_counter()
+        phase0_morphology(card)
+        morph_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
@@ -4401,6 +4990,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase1_mocks(torch, g, errs)
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase1_morphology(torch, g, errs)
+        morph_s += time.perf_counter() - t0
+        torch.cuda.empty_cache()
         phase2_slice(torch, rft, dev)
         phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
@@ -4411,6 +5004,10 @@ def main() -> int:
         phase2_measure(torch, rft, dev)
         torch.cuda.empty_cache()
         phase2_mocks(torch, rft, dev)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase2_morphology(torch, rft, dev)
+        morph_s += time.perf_counter() - t0
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
         main_paths = [phase3_main(torch, g), phase3_noise(torch, g),
@@ -4429,6 +5026,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         mock_launches, mock_peaks = phase3_mocks(torch, rft, dev, card)
         main_paths.append(mock_launches)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        morph_launches, morph_peaks = phase3_morphology(torch, rft, dev, g,
+                                                        card)
+        morph_s += time.perf_counter() - t0
+        main_paths.append(morph_launches)
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
@@ -4439,9 +5042,18 @@ def main() -> int:
         times.update(phase4_measure(torch, rft, dev, g, card))
         torch.cuda.empty_cache()
         times.update(phase4_mocks(torch, rft, dev, g, card))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        times.update(phase4_morphology(torch, rft, dev, g, card))
+        morph_s += time.perf_counter() - t0
         bounds = kernel_bounds(g)
         log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
             f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
+        log(f"phase 4 peak device memory of the 1024^3 morphology methods "
+            f"(GiB): { {k: round(v, 3) for k, v in morph_peaks.items()} } "
+            f"[{card}]")
+        log(f"chip_smoke morphology phases (KM, KX; phases 0-4) wall time "
+            f"{morph_s:.1f} s [{card}]")
         log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
             f"[{card}]")
     except Exception:

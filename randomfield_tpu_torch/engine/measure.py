@@ -8,12 +8,14 @@ object.  The predictions build their per-mode grids on the scene's device:
 the Kaiser expectation (b + f mu^2)^2 P(k) (:meth:`_kaiser_pgrid`) binned
 with the estimator's multipole or wedge bins, its Gaussian covariance, a
 derived field's expected spectrum and the local-f_NL bispectrum.  The
-mixin's Minkowski, peak, profile, void and kNN methods belong to estimator
-modules that are not ported yet and raise NotImplementedError.
+morphology methods delegate to :mod:`..validate.minkowski` (KM),
+:mod:`..validate.peaks` and :mod:`..validate.profiles` (KX's peaks),
+:mod:`..models.voids` (KX's void candidates) and :mod:`..validate.knn`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from randomfield_tpu_torch.ops import derived as _derived
@@ -22,20 +24,6 @@ from randomfield_tpu_torch.ops import power as _power
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["MeasurementMixin"]
-
-_ITEM9 = ("are not ported to randomfield_tpu_torch yet: {} comes with the "
-          "other estimators (ROADMAP.md, Queue 1 item 9)")
-
-
-def _item9(method, module):
-    def refuse(self, *args, **kwargs):
-        raise NotImplementedError(f"Generator.{method} and its estimators "
-                                  + _ITEM9.format(module))
-    refuse.__name__ = method
-    refuse.__doc__ = (f"Not ported yet (``{module}``, ROADMAP.md Queue 1 "
-                      f"item 9): raises NotImplementedError.")
-    return refuse
-
 
 class MeasurementMixin:
     """calculate_* / predicted_* statistics of rendered fields."""
@@ -168,13 +156,113 @@ class MeasurementMixin:
         return _stats.bin_power_grid(pgrid, self.shape, self.grid_spacing,
                                      nbins=nbins)
 
-    calculate_minkowski = _item9("calculate_minkowski", "validate/minkowski.py")
-    predicted_minkowski = _item9("predicted_minkowski", "validate/minkowski.py")
-    calculate_peaks = _item9("calculate_peaks", "validate/peaks.py")
-    predicted_peaks = _item9("predicted_peaks", "validate/peaks.py")
-    calculate_stacked_profile = _item9("calculate_stacked_profile",
-                                       "validate/profiles.py")
-    calculate_peak_profile = _item9("calculate_peak_profile", "validate/profiles.py")
-    predicted_peak_profile = _item9("predicted_peak_profile", "validate/profiles.py")
-    find_voids = _item9("find_voids", "models/voids.py")
-    calculate_knn_cdf = _item9("calculate_knn_cdf", "validate/knn.py")
+    def calculate_minkowski(self, delta, nbins=24, nu_max=3.0, sigma0=None):
+        """Minkowski functional densities (v0..v3) of a rendered field at
+        ``nbins`` thresholds in [-nu_max, nu_max] (units of ``sigma0``:
+        pass the predicted one to gate against :meth:`predicted_minkowski`)
+        (:func:`..validate.minkowski.minkowski_functionals`).  Returns
+        ``(nu, v0, v1, v2, v3)``."""
+        from randomfield_tpu_torch.validate import minkowski as _mk
+
+        return _mk.minkowski_functionals(delta, self.grid_spacing,
+                                         nbins=nbins, nu_max=nu_max,
+                                         sigma0=sigma0, mesh=self.mesh)
+
+    def predicted_minkowski(self, nu, smoothing_length=0.0):
+        """The exact Gaussian expectations of :meth:`calculate_minkowski`
+        at thresholds ``nu``: the Tomita forms with the scene's spectral
+        moments (its modes, interpolation, smoothing and Nyquist-zeroed
+        gradient vectors).  Returns ``(v0, v1, v2, v3)``."""
+        from randomfield_tpu_torch.validate import minkowski as _mk
+
+        s0sq, s1sq = _mk.spectral_moments(
+            self.power, self.shape, self.grid_spacing,
+            smoothing_length=smoothing_length,
+            interpolation=self.scene.interpolation, device=self.device)
+        return _mk.gaussian_minkowski(nu, s0sq, s1sq)
+
+    def calculate_peaks(self, delta, nbins=14, nu_min=-2.0, nu_max=5.0,
+                        sigma0=None):
+        """Lattice peak counts of a rendered field, binned by height in
+        units of ``sigma0`` (:func:`..validate.peaks.peak_statistics`).
+        Returns ``(nu_centers, counts, total)``."""
+        from randomfield_tpu_torch.validate import peaks as _pk
+
+        return _pk.peak_statistics(delta, self.grid_spacing, nbins=nbins,
+                                   nu_min=nu_min, nu_max=nu_max,
+                                   sigma0=sigma0, mesh=self.mesh)
+
+    def _bbks_moments(self, smoothing_length):
+        from randomfield_tpu_torch.validate import peaks as _pk
+
+        return _pk.bbks_moments(self.power, self.shape, self.grid_spacing,
+                                smoothing_length=smoothing_length,
+                                interpolation=self.scene.interpolation,
+                                device=self.device)
+
+    def predicted_peaks(self, nbins=14, nu_min=-2.0, nu_max=5.0,
+                        smoothing_length=0.0):
+        """BBKS expectations of :meth:`calculate_peaks` with the scene's
+        spectral moments (full |k|).  Returns ``(nu_centers,
+        expected_counts, expected_total)``; the total integrates over all
+        heights."""
+        from randomfield_tpu_torch.validate import peaks as _pk
+
+        moments = self._bbks_moments(smoothing_length)
+        edges = np.linspace(float(nu_min), float(nu_max), int(nbins) + 1)
+        volume = float(np.prod(self.shape)) * float(self.grid_spacing) ** 3
+        counts, total = _pk.bbks_expected_counts(edges, volume, *moments)
+        return 0.5 * (edges[:-1] + edges[1:]), counts, total
+
+    def calculate_stacked_profile(self, delta, weight, nbins=24):
+        """Mean field value in radial shells around weighted positions
+        (:func:`..validate.profiles.stacked_profile`).  Returns
+        ``(r_mean, profile, n_cells)``."""
+        from randomfield_tpu_torch.validate import profiles as _pf
+
+        return _pf.stacked_profile(delta, weight, self.grid_spacing,
+                                   nbins=nbins, mesh=self.mesh)
+
+    def calculate_peak_profile(self, delta, nu_min=1.0, nu_max=None,
+                               nbins=24, smoothing_length=0.0):
+        """Stacked profile around lattice peaks in a height band, heights
+        and curvatures normalized by the scene's moments (``smoothing_length``
+        that of the render).  Returns ``(r_mean, profile, n_peaks, nu_bar,
+        x_bar)``."""
+        from randomfield_tpu_torch.validate import profiles as _pf
+
+        return _pf.peak_profile(delta, self.grid_spacing,
+                                self._bbks_moments(smoothing_length),
+                                nu_min=nu_min, nu_max=nu_max, nbins=nbins)
+
+    def predicted_peak_profile(self, nu_bar, x_bar=None, nbins=24,
+                               smoothing_length=0.0):
+        """The exact Gaussian expectation of a stacked profile: nu_bar
+        sigma0 psi(r), or with ``x_bar`` the BBKS peak profile, binned as
+        the estimator bins (:func:`..validate.profiles.
+        predicted_peak_profile`).  Returns ``(r_mean, profile)``."""
+        from randomfield_tpu_torch.validate import profiles as _pf
+
+        return _pf.predicted_peak_profile(
+            self.power, self.shape, self.grid_spacing, nu_bar, x_bar=x_bar,
+            smoothing_length=smoothing_length, nbins=nbins,
+            interpolation=self.scene.interpolation, device=self.device)
+
+    def find_voids(self, delta, radii, threshold=-0.4, candidate_budget=8192):
+        """Non-overlapping SO void catalog of a rendered field
+        (:func:`..models.voids.find_voids`).  Returns ``(positions,
+        radii_v)``."""
+        from randomfield_tpu_torch.models import voids as _voids
+
+        return _voids.find_voids(delta, self.grid_spacing, radii,
+                                 threshold=threshold, mesh=self.mesh,
+                                 candidate_budget=candidate_budget)
+
+    def calculate_knn_cdf(self, counts, radii, ks=(1, 2, 3)):
+        """kNN-CDFs of an NGP tracer count grid on the scene's lattice
+        (:func:`..validate.knn.knn_cdf`), shaped ``(len(ks),
+        len(radii))``."""
+        from randomfield_tpu_torch.validate import knn as _knn
+
+        return _knn.knn_cdf(counts, self.grid_spacing, radii, ks=ks,
+                            mesh=self.mesh)

@@ -167,9 +167,9 @@ def resolve_power(power, cosmology=None):
 
     ``None`` or ``'default'`` -> the shipped default table; ``'eh98'`` /
     ``'eisenstein_hu'`` or ``'bbks'`` -> the analytic spectrum of
-    ``cosmology``; anything else is returned untouched for
-    :func:`~randomfield_tpu_torch.ops.power.validate_power`.  ``'halofit'``
-    needs the nonlinear models, which the port does not have yet.
+    ``cosmology``; ``'halofit'`` -> the Takahashi nonlinear spectrum of its
+    EH98 table (:mod:`.halofit`); anything else is returned untouched for
+    :func:`~randomfield_tpu_torch.ops.power.validate_power`.
     """
     from randomfield_tpu_torch.ops.power import load_default_power
 
@@ -186,12 +186,14 @@ def resolve_power(power, cosmology=None):
             k = np.logspace(-4, 3, 1024)
             return k, bbks_power(cosmology, k)
         if name == "halofit":
-            raise NotImplementedError(
-                "power='halofit' needs models/halofit.py, not ported yet "
-                "(ROADMAP.md, Queue 1 item 9)"
-            )
+            # the Takahashi nonlinear spectrum of the cosmology's EH98 table
+            from randomfield_tpu_torch.models.halofit import halofit_power
+
+            return halofit_power(make_power_table(cosmology),
+                                 cosmology=cosmology)
         raise ValueError(
             f"unknown power model {power!r}: expected 'default', "
-            "'eh98'/'eisenstein_hu', 'bbks', or a tabulated (k, Pk) spectrum"
+            "'eh98'/'eisenstein_hu', 'bbks', 'halofit', or a tabulated "
+            "(k, Pk) spectrum"
         )
     return power

@@ -1160,3 +1160,97 @@ def test_mock_makers_on_the_card_match_the_cpu(cuda):
     want = zeldovich.catalog_power(pos, SPACING, window="tsc",
                                    interlaced=True, nbins=8)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+
+
+# ---- KM and KX: the morphology kernels -----------------------------------------
+
+@pytest.mark.parametrize("shape,nbins", [((32, 32, 32), 24), ((16, 8, 15), 1),
+                                         ((24, 16, 10), 64), ((8, 8, 9), 200)])
+def test_minkowski_kernel_matches_plain(cuda, shape, nbins):
+    from randomfield_tpu_torch.ops import minkowski
+
+    u = _randn(shape, cuda, 60)
+    derivs = [_randn(shape, cuda, 61 + i) for i in range(9)]
+    for t in derivs[:3]:
+        t[0, 0, :4] = 0.0  # |g| = 0 voxels
+    edges = np.linspace(-2.5, 2.5, nbins + 1)
+    before = minkowski.KM_LAUNCHES
+    counts, sums = minkowski.threshold_sums(u, derivs, edges)
+    assert minkowski.KM_LAUNCHES == before + 1
+    again = minkowski.threshold_sums(u, derivs, edges)
+    assert torch.equal(counts, again[0]) and torch.equal(sums, again[1])
+    pc, ps = minkowski.threshold_sums_plain(u, derivs, edges)
+    assert torch.equal(counts, pc)
+    assert int(counts.sum()) == int(((u >= float(np.float32(edges[0])))).sum())
+    for q in range(3):
+        assert _rel(sums[q], ps[q]) <= 1e-10
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 32), (17, 9, 33), (1, 8, 40),
+                                   (2, 2, 2), (40, 16, 70)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_extrema_peak_kernel_matches_plain(cuda, shape, sign):
+    from randomfield_tpu_torch.ops import extrema
+
+    d = torch.round(_randn(shape, cuda, 70) * 3) / 3  # plateaus: ties
+    edges = np.linspace(-2.0, 4.0, 9)
+    before = extrema.KX_LAUNCHES
+    got = extrema.peak_counts(d, 0.7, edges, sign, band=(0.5, None))
+    assert extrema.KX_LAUNCHES == before + 1
+    want = extrema.peak_counts_plain(d, 0.7, edges, sign, band=(0.5, None))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1]) > 0
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 32), (17, 9, 33), (2, 8, 10)])
+def test_extrema_void_kernel_matches_plain(cuda, shape, monkeypatch):
+    from randomfield_tpu_torch.ops import extrema
+
+    g = torch.Generator(device="cpu").manual_seed(71)
+    rv = (torch.randint(0, 3, shape, generator=g) * 4.0).to(cuda)
+    d = torch.round(_randn(shape, cuda, 72) * 5) / 5
+    want = extrema.void_candidates_plain(rv, d)
+    assert want.size > 2
+    for cap in (1 << 16, 2):  # 2: the list overflows and is launched again
+        monkeypatch.setattr(extrema, "_VOID_CAP", cap)
+        before = extrema.KX_LAUNCHES
+        got = extrema.void_candidates(rv, d)
+        np.testing.assert_array_equal(got, want)
+        assert extrema.KX_LAUNCHES == before + (1 if cap > want.size else 2)
+
+
+def test_morphology_methods_on_the_card_match_the_cpu(cuda):
+    from randomfield_tpu_torch.ops import extrema, minkowski
+
+    shape = (32, 32, 32)
+    g = rft.Generator(*shape, grid_spacing=SPACING, device=cuda)
+    gc = rft.Generator(*shape, grid_spacing=SPACING, device="cpu")
+    dc = gc.generate_delta_field(3, smoothing_length=32.0,
+                                 apply_lightcone=False)
+    d = dc.to(cuda)
+    before = (minkowski.KM_LAUNCHES, extrema.KX_LAUNCHES)
+    got, want = g.calculate_minkowski(d, sigma0=0.1), gc.calculate_minkowski(
+        dc, sigma0=0.1)
+    np.testing.assert_array_equal(got[1], want[1])
+    for k in (2, 3, 4):
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=1e-4 * np.abs(want[k]).max())
+    for name, args in (("calculate_peaks", (d, 9, -1.0, 3.0, 0.1)),
+                       ("find_voids", (d, (32.0, 48.0, 64.0), -0.05))):
+        got = getattr(g, name)(*args)
+        want = getattr(gc, name)(dc, *args[1:])
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    got = g.calculate_peak_profile(d, 0.0, None, 6, 32.0)
+    want = gc.calculate_peak_profile(dc, 0.0, None, 6, 32.0)
+    assert got[2] == want[2]
+    np.testing.assert_allclose(got[1], want[1], rtol=0,
+                               atol=1e-5 * np.nanmax(np.abs(want[1])))
+    counts = torch.zeros(shape, device=cuda)
+    counts.view(-1)[torch.randint(0, counts.numel(), (400,), device=cuda)] = 1.0
+    np.testing.assert_array_equal(g.calculate_knn_cdf(counts, (16.0, 32.0)),
+                                  gc.calculate_knn_cdf(counts.cpu(),
+                                                       (16.0, 32.0)))
+    assert minkowski.KM_LAUNCHES == before[0] + 1
+    assert extrema.KX_LAUNCHES >= before[1] + 3

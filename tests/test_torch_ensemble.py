@@ -143,12 +143,54 @@ def test_checkpoint_refuses_another_scene(tmp_path):
     ens.sample_power_ensemble(g, [1, 2, 3], nbins=NBINS, checkpoint_path=ckpt)
 
 
-def test_unported_measure_methods_raise(generators):
-    _, gt = generators
-    for name in ("calculate_minkowski", "predicted_minkowski",
-                 "calculate_peaks", "predicted_peaks",
-                 "calculate_stacked_profile", "calculate_peak_profile",
-                 "predicted_peak_profile", "find_voids",
-                 "calculate_knn_cdf"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            getattr(gt, name)(None)
+def _morphology_inputs():
+    rng = np.random.default_rng(4)
+    d = rft.Generator(*SHAPE, grid_spacing=SPACING, device="cpu") \
+        .generate_delta_field(2, smoothing_length=16.0,
+                              apply_lightcone=False).numpy()
+    counts = np.zeros(SHAPE, np.float32)
+    np.add.at(counts, tuple(rng.integers(0, 16, size=(3, 300))), 1.0)
+    return d, (d > 0).astype(np.float32), counts
+
+
+# each of the nine morphology methods with its arguments: (field, weight,
+# counts) -> positional arguments
+MORPHOLOGY = {
+    "calculate_minkowski": lambda d, w, c: (d, 9, 2.0, 0.1),
+    "predicted_minkowski": lambda d, w, c: (np.linspace(-2, 2, 9), 16.0),
+    "calculate_peaks": lambda d, w, c: (d, 6, -1.0, 3.0, 0.1),
+    "predicted_peaks": lambda d, w, c: (6, -1.0, 3.0, 16.0),
+    "calculate_stacked_profile": lambda d, w, c: (d, w, 6),
+    "calculate_peak_profile": lambda d, w, c: (d, 0.0, None, 6, 16.0),
+    "predicted_peak_profile": lambda d, w, c: (1.2, 0.8, 6, 16.0),
+    "find_voids": lambda d, w, c: (d, (8.0, 16.0, 24.0), -0.05),
+    "calculate_knn_cdf": lambda d, w, c: (c, (8.0, 16.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MORPHOLOGY))
+def test_unported_measure_methods_raise(generators, name):
+    """Each of the Generator's nine morphology methods returns what the JAX
+    package's returns on the same field: counts and catalogs exactly, the
+    float results within 1e-4 of their largest value (2e-3 for the
+    predictions' moment sums: the sigma table's bar)."""
+    gj, gt = generators
+    args = MORPHOLOGY[name](*_morphology_inputs())
+    want = getattr(gj, name)(*(jnp.asarray(a) if isinstance(a, np.ndarray)
+                               and a.ndim == 3 else a for a in args))
+    got = getattr(gt, name)(*(torch.as_tensor(a) if isinstance(a, np.ndarray)
+                              and a.ndim == 3 else a for a in args))
+    tol = 2e-3 if name.startswith("predicted") else 1e-4
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w))
+        ok = ~np.isnan(w)
+        if name in ("find_voids", "calculate_knn_cdf", "calculate_peaks") \
+                or w.dtype.kind == "i":
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g[ok], w[ok], rtol=tol,
+                                       atol=tol * np.abs(w[ok]).max())
