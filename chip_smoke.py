@@ -27,7 +27,8 @@ non-zero with no result line:
    atomicAdd on shared memory compiles to; KC MEASURE's loop a kz step
    (its F2F.F64.F32 and float64 instructions) and KC's plans at M = 1, 8,
    40, 64, 128 and 3000 (the constraints a pass takes); the registers of
-   KM's and KX's instances and KM's launch at 1024^3;
+   KM's and KX's instances, KX's shared memory a block and blocks an SM,
+   and KM's launch at 1024^3;
 1. each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
@@ -171,8 +172,10 @@ non-zero with no result line:
    plain version and irfft, the stages of the lognormal, constrained and
    Zel'dovich paths, the constrained render, measure_constraints, Wiener
    and posterior with their peak memory; KM and KX (peaks, the mask, the
-   void mode) beside their plain versions and each morphology method at
-   1024^3 with the transforms' share of it; and the whole run's wall time.
+   void mode) beside their plain versions, KX beside its read yardstick
+   (torch.sum of the same field) and its walk's cells loaded a cell, and
+   each morphology method at 1024^3 with the transforms' share of it; and
+   the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -180,7 +183,8 @@ The line before the last is a JSON object of the kernels; the last is
 ``python3 chip_smoke.py --kc-times`` builds the kernels and logs KC's
 passes at every M of phase 4 alone, with the package beside the script:
 copied into another checkout, it sets that tree's KC against this one's
-on the same card.
+on the same card.  ``--kx-times`` does the same for KX: its three modes
+at 1024^3 held to their plain versions, timed, beside the read yardstick.
 """
 
 from __future__ import annotations
@@ -4311,6 +4315,9 @@ MINKOWSKI_PEAK_GIB = 60.0
 KM_OPS_PER_VOXEL = 63 + 10 + 4
 KM_FP64_ADDS = 3
 KX_OPS_PER_VOXEL = 1 + 26
+# KX (voids): the key's product and difference, the 26 comparisons, in
+# float64
+KX_VOID_FP64_OPS_PER_VOXEL = 2 + 26
 
 
 def morph_counts():
@@ -4319,9 +4326,26 @@ def morph_counts():
     return {"KM": minkowski.KM_LAUNCHES, "KX": extrema.KX_LAUNCHES}
 
 
+def kx_attributes(card):
+    """Each KX instance's registers, shared memory a block and blocks an SM
+    (the peak instance at PEAK_NBINS bins)."""
+    from randomfield_tpu_torch.ops import extrema
+
+    for what, voids, mask in (("peaks", False, False),
+                              ("peaks with the mask", False, True),
+                              ("voids", True, False)):
+        regs, blocks, threads, smem = extrema.kernel_attributes(
+            voids, PEAK_NBINS, mask)
+        log(f"phase 0 KX {what}: {regs} registers a thread, {smem} bytes of "
+            f"shared memory a block, {blocks} blocks an SM of {threads} "
+            f"threads [{card}]")
+        if regs <= 0 or blocks <= 0:
+            raise AssertionError(f"KX {what} takes no block an SM")
+
+
 def phase0_morphology(card):
-    """The registers of KM's and KX's instances and KM's launch at 1024^3
-    with 24 bins."""
+    """The registers of KM's and KX's instances, KX's shared memory and
+    blocks an SM, and KM's launch at 1024^3 with 24 bins."""
     from randomfield_tpu_torch.ops import _build, minkowski
 
     regs = res_usage(_build.library_path(), _build.cuda_tool("cuobjdump"))
@@ -4334,6 +4358,7 @@ def phase0_morphology(card):
     missing = sorted(set(wanted.values()) - set(found))
     if missing:
         raise AssertionError(f"KM's or KX's instances are missing: {missing}")
+    kx_attributes(card)
     threads, blocks, smem = minkowski.launch_plan(KM_NBINS,
                                                   int(np.prod(HEADLINE)))
     log(f"phase 0 KM plan at {HEADLINE}, {KM_NBINS} bins: {blocks} blocks of "
@@ -4739,27 +4764,8 @@ def phase4_morphology(torch, rft, dev, g, card):
         HEADLINE, card, plain_reps=1)
     del u, derivs
     torch.cuda.empty_cache()
-    pedges = np.linspace(*PEAK_RANGE, PEAK_NBINS + 1)
-    kx_ms, kx_plain, _ = time_kernel(
-        torch, f"KX peaks nbins={PEAK_NBINS}",
-        lambda: extrema.peak_counts(field, s0, pedges),
-        lambda: extrema.peak_counts_plain(field, s0, pedges), None, None,
-        HEADLINE, card, plain_reps=1)
-    # the other modes: the kernel (median of 5), the plain version once
     rv = voids.void_radius_grid(field, sp, VOID_RADII, VOID_THRESHOLD)
-    ncand = extrema.void_candidates(rv, field).size
-    for what, kernel, plain in (
-            ("KX peaks with the nu >= 1 mask",
-             lambda: extrema.peak_counts(field, s0, pedges, 1.0, (1.0, None)),
-             lambda: extrema.peak_counts_plain(field, s0, pedges, 1.0,
-                                               (1.0, None))),
-            (f"KX void candidates ({ncand})",
-             lambda: extrema.void_candidates(rv, field),
-             lambda: extrema.void_candidates_plain(rv, field))):
-        k_ms = cuda_ms(torch, kernel)
-        p_ms = cuda_ms(torch, plain, reps=1)
-        log(f"phase 4 {what} at {HEADLINE}: kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms [{card}]")
+    kx_ms, kx_plain, ncand = kx_times(torch, field, s0, rv, card)
     del rv
     torch.cuda.empty_cache()
     t_fwd = cuda_ms(torch, lambda: transform.rfftn(field))
@@ -4808,15 +4814,87 @@ def phase4_morphology(torch, rft, dev, g, card):
     knn._ball_spectrum.cache_clear()
     del field, weight, counts_grid
     torch.cuda.empty_cache()
-    return {"KM": (km_ms, km_plain, None), "KX": (kx_ms, kx_plain, None)}
+    return {"KM": (km_ms, km_plain, None),
+            "KX": (kx_ms, kx_plain, None)}, ncand
 
 
-def kernel_bounds(g):
+def kx_times(torch, field, s0, rv, card):
+    """KX's three modes on ``field`` beside their plain versions (the peak
+    mode in turns, the others the kernel's median of 5 and the plain
+    version once), and the read yardstick: torch.sum of the same field,
+    one read of it as PyTorch's reduction streams it, beside the cells the
+    kernel's walk loads a cell.  Returns (peak ms, its plain ms, the
+    number of void candidates)."""
+    from randomfield_tpu_torch.ops import extrema
+
+    shape = tuple(field.shape)
+    pedges = np.linspace(*PEAK_RANGE, PEAK_NBINS + 1)
+    kx_ms, kx_plain, _ = time_kernel(
+        torch, f"KX peaks nbins={PEAK_NBINS}",
+        lambda: extrema.peak_counts(field, s0, pedges),
+        lambda: extrema.peak_counts_plain(field, s0, pedges), None, None,
+        shape, card, plain_reps=1)
+    ncand = extrema.void_candidates(rv, field).size
+    for what, kernel, plain in (
+            ("KX peaks with the nu >= 1 mask",
+             lambda: extrema.peak_counts(field, s0, pedges, 1.0, (1.0, None)),
+             lambda: extrema.peak_counts_plain(field, s0, pedges, 1.0,
+                                               (1.0, None))),
+            (f"KX void candidates ({ncand})",
+             lambda: extrema.void_candidates(rv, field),
+             lambda: extrema.void_candidates_plain(rv, field))):
+        k_ms = cuda_ms(torch, kernel)
+        p_ms = cuda_ms(torch, plain, reps=1)
+        log(f"phase 4 {what} at {shape}: kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms [{card}]")
+    nbytes = 4 * field.numel()
+    t_sum = cuda_ms(torch, lambda: torch.sum(field))
+    factor = getattr(extrema, "read_factor", None)
+    design = ("" if factor is None else
+              f"; the walk loads {factor(shape):.4f} cells a cell "
+              f"({factor(shape, 'voids'):.4f} in the void mode)")
+    log(f"phase 4 KX read yardstick at {shape}: torch.sum of the field "
+        f"{t_sum:.3f} ms ({nbytes / t_sum / 1e9:.3f} TB/s; the HBM rate "
+        f"{1e3 * nbytes / HBM_BYTES_PER_S:.3f} ms){design} [{card}]")
+    return kx_ms, kx_plain, ncand
+
+
+def kx_times_only(torch, rft, dev, card):
+    """``--kx-times``: KX's three modes at 1024^3 on phase 4's field, held
+    to their plain versions and timed (:func:`kx_times`), with the package
+    beside this script, to set a tree's KX against another's on one
+    card."""
+    from randomfield_tpu_torch.models import voids
+    from randomfield_tpu_torch.ops import extrema
+
+    if hasattr(extrema, "kernel_attributes"):
+        kx_attributes(card)
+    g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
+    field, s0 = _morph_field(torch, g, 7)
+    rv = voids.void_radius_grid(field, HEADLINE_SPACING, VOID_RADII,
+                                VOID_THRESHOLD)
+    pedges = np.linspace(*PEAK_RANGE, PEAK_NBINS + 1)
+    for sign, band in ((1.0, None), (1.0, (1.0, None)), (-1.0, None)):
+        got = extrema.peak_counts(field, s0, pedges, sign, band)
+        want = extrema.peak_counts_plain(field, s0, pedges, sign, band)
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"KX sign {sign} band {band} disagrees")
+    if not np.array_equal(extrema.void_candidates(rv, field),
+                          extrema.void_candidates_plain(rv, field)):
+        raise AssertionError("KX's void mode disagrees")
+    log(f"--kx-times: KX's peaks, mask, minima and void candidates equal "
+        f"to their plain versions at {HEADLINE}")
+    kx_times(torch, field, s0, rv, card)
+
+
+def kernel_bounds(g, kx_candidates):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
     once) over the HBM rate and its operations over the float32 rate.  K6
     at the one-rank forward transform's shape, K7 and K8 on one shard of a
-    four-rank mesh."""
+    four-rank mesh; KX's mask and void modes as "KX mask" and "KX voids"
+    (the void mode with phase 4's ``kx_candidates``)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
@@ -4894,6 +4972,15 @@ def kernel_bounds(g):
         # the counts written
         "KX": (4 * cells + 4 * (PEAK_NBINS + 1) + 8 * (PEAK_NBINS + 1),
                KX_OPS_PER_VOXEL * cells),
+        # its mask: the peak mode's bytes and the uint8 mask written
+        "KX mask": (5 * cells + 4 * (PEAK_NBINS + 1) + 8 * (PEAK_NBINS + 1),
+                    KX_OPS_PER_VOXEL * cells),
+        # its void mode: rv and delta read once, the count and the
+        # candidates' indices written; its float64 operations at the
+        # float32 rate's scale
+        "KX voids": (8 * cells + 8 + 8 * kx_candidates,
+                     KX_VOID_FP64_OPS_PER_VOXEL * cells * FP32_OPS_PER_S
+                     / FP64_OPS_PER_S),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -4915,8 +5002,9 @@ def kernel_bounds(g):
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in ([], ["--kc-times"]):
-        print("usage: python3 chip_smoke.py [--kc-times]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--kc-times"], ["--kx-times"]):
+        print("usage: python3 chip_smoke.py [--kc-times | --kx-times]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4958,6 +5046,9 @@ def main() -> int:
             f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
         if sys.argv[1:] == ["--kc-times"]:
             kc_times_only(torch, rft, dev, card)
+            return 0
+        if sys.argv[1:] == ["--kx-times"]:
+            kx_times_only(torch, rft, dev, card)
             return 0
         phase0_attributes(card)
         phase0_sass(torch, card)
@@ -5044,9 +5135,11 @@ def main() -> int:
         times.update(phase4_mocks(torch, rft, dev, g, card))
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        times.update(phase4_morphology(torch, rft, dev, g, card))
+        morph_times, kx_candidates = phase4_morphology(torch, rft, dev, g,
+                                                       card)
+        times.update(morph_times)
         morph_s += time.perf_counter() - t0
-        bounds = kernel_bounds(g)
+        bounds = kernel_bounds(g, kx_candidates)
         log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
             f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
         log(f"phase 4 peak device memory of the 1024^3 morphology methods "

@@ -82,8 +82,10 @@ _SIGNATURES = {
     "rf_constraint_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     "rf_sample_power_bins": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
-    "rf_extrema_peaks": [_P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
-    "rf_extrema_voids": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "rf_extrema_peaks": [_P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                         _I, _P],
+    "rf_extrema_voids": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "rf_extrema_attributes": [_I, _I, _I, _P, _P, _P, _P],
     "rf_minkowski_plan": [_I, _LL, _P],
     "rf_minkowski_bins": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _LL, _P, _P, _P, _P, _P],

@@ -12,6 +12,11 @@ versions, :func:`peak_counts_plain` (the JAX package's six rolled maxima)
 and :func:`void_candidates_plain` (its 26 neighbours, a chunk of x planes
 at a time).
 
+The kernel's walk: a block owns a (y, z) tile (``WALK_TILES``) and walks
+a run of :func:`run_length` x planes with a halo plane at each end, each
+thread reducing a (y, z) slice of its columns (``WALK_SLICES``);
+:func:`read_factor` is the cells it loads over the cells of the field.
+
 * Peaks: u = (sign delta) / sigma0, a float32 division as the JAX package
   forms u; a voxel is a peak iff u equals the maximum of its 27-cube
   (non-strict).  Counts by height bin (the count of float32 edges <= u,
@@ -23,6 +28,7 @@ at a time).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -31,7 +37,9 @@ import torch
 from randomfield_tpu_torch.ops import _build
 
 __all__ = ["KX_LAUNCHES", "peak_counts", "peak_counts_plain", "cube_max",
-           "void_candidates", "void_candidates_plain", "unit_field"]
+           "void_candidates", "void_candidates_plain", "unit_field",
+           "WALK_TILES", "WALK_SLICES", "run_length", "read_factor",
+           "kernel_attributes"]
 
 # kernel launches by peak_counts and void_candidates (the CPU path does not
 # count)
@@ -41,6 +49,60 @@ KX_LAUNCHES = 0
 _X_CHUNK = 16
 # the void mode's first list of candidates (a second launch takes the rest)
 _VOID_CAP = 1 << 16
+# the kernel's (y, z) tile of each mode and the (y, z) voxels a thread
+# reduces (csrc/extrema.cu PeakWalk, VoidWalk, kCols)
+WALK_TILES = {"peaks": (32, 64), "voids": (16, 64)}
+WALK_SLICES = {"peaks": (4, 2), "voids": (2, 2)}
+# the longest run of x planes a block walks, and the blocks a launch
+# should have before runs are shortened (four on each of the H100's 132
+# SMs)
+_MAX_RUN = 64
+_FILL = 4 * 132
+# True: the kernel takes its 64-bit plane offsets, which it otherwise
+# keeps for x planes of 2^32 cells or more (a check of that instance)
+_WIDE = False
+
+
+def _tiles(ny, nz, mode):
+    ty, tz = WALK_TILES[mode]
+    return -(-ny // ty) * -(-nz // tz)
+
+
+def run_length(nx, ny, nz, mode="peaks"):
+    """The x planes a block of the kernel's ``mode`` ('peaks' or 'voids')
+    walks: 64 (all of nx when it is smaller), halved down to 8 while the
+    launch would have fewer than ``_FILL`` blocks."""
+    rx = _MAX_RUN
+    while rx > 8 and _tiles(ny, nz, mode) * -(-nx // rx) < _FILL:
+        rx //= 2
+    return min(rx, nx)
+
+
+def read_factor(shape, mode="peaks"):
+    """The cells the kernel's ``mode`` loads from device memory (every
+    block's halo planes, its tile and a cell around it, for its run and
+    one plane at each end) over the cells of the field."""
+    nx, ny, nz = shape
+    rx = run_length(nx, ny, nz, mode)
+    runs, tail = divmod(nx, rx)
+    planes = runs * (rx + 2) + (tail + 2 if tail else 0)
+    ty, tz = WALK_TILES[mode]
+    return _tiles(ny, nz, mode) * planes * (ty + 2) * (tz + 2) / (nx * ny * nz)
+
+
+def kernel_attributes(voids=False, nbins=1, mask=False):
+    """(registers a thread, blocks an SM, threads a block, dynamic shared
+    memory bytes) of the peak instance at ``nbins`` (with the band mask
+    when ``mask``) or of the void instance, the ones a grid whose x planes
+    hold fewer than 2^32 cells runs, as ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` report them; builds
+    the library."""
+    out = [ctypes.c_int() for _ in range(4)]
+    status = _build.library().rf_extrema_attributes(
+        int(bool(voids)), int(bool(mask)), int(nbins),
+        *[ctypes.byref(v) for v in out])
+    _build.check(status, "extrema attributes")
+    return tuple(v.value for v in out)
 
 
 def _field(t, what):
@@ -129,7 +191,7 @@ def peak_counts(delta, sigma0, edges, sign=1.0, band=None):
         delta.data_ptr(), edges_t.data_ptr(), nbins, counts.data_ptr(),
         0 if mask is None else mask.data_ptr(), *delta.shape,
         float(np.float32(sigma0)), -1.0 if sign < 0 else 1.0, lo, hi,
-        _build.current_stream(delta))
+        run_length(*delta.shape), int(_WIDE), _build.current_stream(delta))
     _build.check(status, "peak_counts")
     KX_LAUNCHES += 1
     return counts[:nbins], counts[nbins], mask
@@ -188,7 +250,8 @@ def void_candidates(rv, delta):
         index = torch.empty(cap, dtype=torch.int64, device=rv.device)
         status = _build.library().rf_extrema_voids(
             rv.data_ptr(), delta.data_ptr(), found.data_ptr(),
-            index.data_ptr(), cap, *rv.shape, _build.current_stream(rv))
+            index.data_ptr(), cap, *rv.shape, run_length(*rv.shape, "voids"),
+            int(_WIDE), _build.current_stream(rv))
         _build.check(status, "void_candidates")
         KX_LAUNCHES += 1
         n = int(found.item())

@@ -1186,38 +1186,74 @@ def test_minkowski_kernel_matches_plain(cuda, shape, nbins):
         assert _rel(sums[q], ps[q]) <= 1e-10
 
 
-@pytest.mark.parametrize("shape", [(32, 32, 32), (17, 9, 33), (1, 8, 40),
-                                   (2, 2, 2), (40, 16, 70)])
+# KX's shapes: axes of 1 and 2 cells, ny and nz below the (16, 64) tile,
+# several x runs with a remainder, nx below a run
+KX_SHAPES = [(32, 32, 32), (17, 9, 33), (1, 8, 40), (2, 2, 2), (40, 16, 70),
+             (130, 20, 70), (5, 40, 130)]
+
+
+def _with_nan(d):
+    d = d.clone()
+    d.view(-1)[d.numel() // 3] = float("nan")
+    return d
+
+
+@pytest.mark.parametrize("shape", KX_SHAPES)
 @pytest.mark.parametrize("sign", [1.0, -1.0])
-def test_extrema_peak_kernel_matches_plain(cuda, shape, sign):
+def test_extrema_peak_kernel_matches_plain(cuda, shape, sign, monkeypatch):
     from randomfield_tpu_torch.ops import extrema
 
     d = torch.round(_randn(shape, cuda, 70) * 3) / 3  # plateaus: ties
     edges = np.linspace(-2.0, 4.0, 9)
-    before = extrema.KX_LAUNCHES
-    got = extrema.peak_counts(d, 0.7, edges, sign, band=(0.5, None))
-    assert extrema.KX_LAUNCHES == before + 1
-    want = extrema.peak_counts_plain(d, 0.7, edges, sign, band=(0.5, None))
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert int(got[1]) > 0
+    # the plan's runs, runs of 64 planes (all of nx below that), and the
+    # 64-bit plane offsets
+    for fill, wide in ((extrema._FILL, False), (1, False), (1, True)):
+        monkeypatch.setattr(extrema, "_FILL", fill)
+        monkeypatch.setattr(extrema, "_WIDE", wide)
+        for field in (d, _with_nan(d)):
+            before = extrema.KX_LAUNCHES
+            got = extrema.peak_counts(field, 0.7, edges, sign,
+                                      band=(0.5, None))
+            assert extrema.KX_LAUNCHES == before + 1
+            want = extrema.peak_counts_plain(field, 0.7, edges, sign,
+                                             band=(0.5, None))
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        got = extrema.peak_counts(d, 0.7, edges, sign, band=(0.5, None))
+        assert int(got[1]) > 0
 
 
-@pytest.mark.parametrize("shape", [(32, 32, 32), (17, 9, 33), (2, 8, 10)])
+@pytest.mark.parametrize("shape", [(32, 32, 32), (17, 9, 33), (2, 8, 10),
+                                   (130, 20, 70), (5, 40, 130)])
 def test_extrema_void_kernel_matches_plain(cuda, shape, monkeypatch):
     from randomfield_tpu_torch.ops import extrema
 
     g = torch.Generator(device="cpu").manual_seed(71)
     rv = (torch.randint(0, 3, shape, generator=g) * 4.0).to(cuda)
     d = torch.round(_randn(shape, cuda, 72) * 5) / 5
-    want = extrema.void_candidates_plain(rv, d)
-    assert want.size > 2
-    for cap in (1 << 16, 2):  # 2: the list overflows and is launched again
-        monkeypatch.setattr(extrema, "_VOID_CAP", cap)
-        before = extrema.KX_LAUNCHES
-        got = extrema.void_candidates(rv, d)
-        np.testing.assert_array_equal(got, want)
-        assert extrema.KX_LAUNCHES == before + (1 if cap > want.size else 2)
+    for fill, wide in ((extrema._FILL, False), (1, False), (1, True)):
+        monkeypatch.setattr(extrema, "_FILL", fill)
+        monkeypatch.setattr(extrema, "_WIDE", wide)
+        for field in (d, _with_nan(d)):
+            want = extrema.void_candidates_plain(rv, field)
+            assert want.size > 2 or field is not d
+            # 2: the list overflows and is launched again
+            for cap in (1 << 16, 2):
+                monkeypatch.setattr(extrema, "_VOID_CAP", cap)
+                before = extrema.KX_LAUNCHES
+                got = extrema.void_candidates(rv, field)
+                np.testing.assert_array_equal(got, want)
+                assert extrema.KX_LAUNCHES == before + (
+                    1 if cap > want.size else 2)
+
+
+def test_extrema_instances_fit(cuda):
+    from randomfield_tpu_torch.ops import extrema
+
+    for voids, mask in ((False, False), (False, True), (True, False)):
+        regs, blocks, threads, smem = extrema.kernel_attributes(voids, 14,
+                                                                mask)
+        assert regs > 0 and blocks >= 2 and threads == 256 and smem > 0
 
 
 def test_morphology_methods_on_the_card_match_the_cpu(cuda):
