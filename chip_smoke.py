@@ -15,9 +15,10 @@ non-zero with no result line:
    the register-radix FFT core: K3 (both signs), K4, K6, K9 and K10;
    registers and the SASS instructions of the loop body a mode of the
    hashing kernels K1 (and K8, the same kernel), K2F (and K7), K5, KN (K1's
-   kernel on the nested stream) and K2F's fixed mode (cuobjdump), and the
-   issue-rate time they imply; K2F's spectrum instance held to its
-   registers and instructions a mode (K2F_SPECTRUM_SASS), and K5 to its
+   kernel on the nested stream), K2F's fixed mode and KN's (cuobjdump), and
+   the issue-rate time they imply; K2F's spectrum instance held to its
+   registers and instructions a mode (K2F_SPECTRUM_SASS), K2F's fixed mode
+   below K2FX_SASS_BEFORE a mode, and K5 to its
    (K5_SASS: its binning code, csrc/bins_common.cuh, must not move); the
    registers of KB's eighteen instances (four kinds and the geometry pass;
    the outputs and the read probe) and its launch plans at 1024^3; K4's
@@ -53,8 +54,12 @@ non-zero with no result line:
    one column) and K10 sample_fftx (s = 0 and 8; bulk rows and plane rows
    apart); KN sample_nested (bits exact; spectrum, unit normals and the
    fixed field; the unit normals' largest ulp distance), K2F's fixed mode
-   draw_fixed (|c| = sigma filter, the paired field the exact negation)
-   and KD apply_kernel (each kind and component);
+   draw_fixed (s = 0 and 8: within the bar of draw_fixed_plain, and equal
+   bit for bit to K2 of the plain z / |z| of the plain draws; |c| = sigma
+   filter, the paired field the exact negation), the fixed modes'
+   device z / |z| (phase.cuh:unit_phase, through sampler.unit_phases) on
+   about 10^8 directed and random pairs equal to torch's sqrt and division
+   bit for bit, and KD apply_kernel (each kind and component);
    KB bin_spectrum on the forward transforms of two 1024^3 renders (and the
    Kaiser expectation grid): auto, cross, interlaced and grid, each
    isotropic, with ells (0, 2, 4), with nmu = 4 wedges, with the cic
@@ -528,17 +533,26 @@ def phase0_attributes(card):
 # (draw_scale_kernel<0, false>), or the one instance of spectrum mode
 # before the counter width was a template parameter; its loop holds two
 # modes, four hashes.  KN's loop holds a quad of rows: four modes, four
-# hashes
+# hashes; KNX is its fixed mode (nested_modes_kernel<2>)
 SASS_KERNELS = {"K1": ("sample_modes_kernel", 1),
                 "K2F": (r"draw_scale_kernelILi0E(?:Lb0E)?E", 2),
                 "K5": ("power_bins_kernel", 1),
                 "KN": (r"nested_modes_kernelILi0EE", 1),
-                "K2FX": (r"draw_scale_kernelILi3ELb0EE", 2)}
+                "K2FX": (r"draw_scale_kernelILi3ELb0EE", 2),
+                "KNX": (r"nested_modes_kernelILi2EE", 1)}
 # K2F's spectrum instance (draw_scale_kernel<0, false>, the one a 1024^3
 # render runs): its registers and hot SASS instructions a mode as built for
 # sm_90a since its x-row-pair walk; the other modes of the same template
-# must not move them
-K2F_SPECTRUM_SASS = (54, 363.0)
+# must not move them.  (NVVM's code for it depends on the rest of the
+# file: it took 54 registers, the same 363 a mode, while the fixed mode
+# called __fsqrt_rn and __fdiv_rn, and takes 48 without them, as with no
+# fixed mode at all.)
+K2F_SPECTRUM_SASS = (48, 363.0)
+# K2F's fixed instance's hot SASS a mode while its modulus was __fsqrt_rn
+# and two __fdiv_rn, each with its range test and slow-path branch; since
+# phase.cuh's unit_phase (their fast paths alone, one shared reciprocal) it
+# must stay below it
+K2FX_SASS_BEFORE = 404.0
 # rotations of one Threefry-2x32 hash (threefry.cuh), each a funnel shift or
 # a byte permute in SASS
 ROTATIONS_PER_HASH = 20
@@ -656,6 +670,13 @@ def phase0_sass(torch, card):
     if (regs, hot) != K2F_SPECTRUM_SASS:
         raise AssertionError("adding K2F's fixed mode moved its spectrum "
                              "instance")
+    regs, hot = counts["K2FX"][0], counts["K2FX"][4]
+    log(f"phase 0 K2F fixed instance: {regs} registers, {hot:.1f} hot "
+        f"instructions a mode; below {K2FX_SASS_BEFORE:.1f}, its count with "
+        f"__fsqrt_rn and two __fdiv_rn [{card}]")
+    if not hot < K2FX_SASS_BEFORE:
+        raise AssertionError("K2F's fixed mode issues no fewer instructions "
+                             "than with __fsqrt_rn and __fdiv_rn")
     regs, hot = counts["K5"][0], counts["K5"][4]
     log(f"phase 0 K5: {regs} registers, {hot:.1f} hot instructions a mode; "
         f"expected {K5_SASS[0]}, {K5_SASS[1]:.1f} (its binning code in "
@@ -2166,15 +2187,88 @@ def fixed_modulus(torch, spec, table, shape, spacing, s):
     return worst / top
 
 
+# the device z / |z| against torch's: each of the 2^23 normals of the
+# canonical stream paired with UNIT_PHASE_ROLLS others (rolled copies) and
+# with itself, its negation, +-0 and its sqrt(2) multiple and 0 (a
+# self-conjugate mode), the four signed zero pairs, and UNIT_PHASE_RANDOM
+# random pairs of components 0 or of magnitude in [2^-24, 2^4), random
+# mantissas and signs
+UNIT_PHASE_ROLLS = 8
+UNIT_PHASE_RANDOM = 2**25
+UNIT_PHASE_BATCH = 2**24
+
+
+def unit_phase_pairs(torch, dev):
+    """Yield the check's (re, im) batches, float32 vectors on ``dev``."""
+    from randomfield_tpu_torch.ops import threefry
+
+    n = threefry._normal_from_bits(
+        torch.arange(2**23, dtype=torch.int64, device=dev) << 9)
+    zero = torch.zeros_like(n)
+    sqrt2 = torch.tensor(1.4142135623730951, dtype=torch.float32, device=dev)
+    yield n, zero
+    yield n, -zero
+    yield n * sqrt2, zero
+    yield n, n
+    yield n, -n
+    for k in range(1, UNIT_PHASE_ROLLS + 1):
+        yield n, torch.roll(n, 977 * k * k)
+    z = torch.tensor([0.0, -0.0], dtype=torch.float32, device=dev)
+    yield z.repeat(2), z.repeat_interleave(2)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for _ in range(UNIT_PHASE_RANDOM // UNIT_PHASE_BATCH):
+        pair = []
+        for _ in range(2):
+            mant = torch.randint(0, 2**23, (UNIT_PHASE_BATCH,), generator=gen,
+                                 device=dev)
+            expo = torch.randint(127 - 24, 127 + 4, (UNIT_PHASE_BATCH,),
+                                 generator=gen, device=dev)
+            sign = torch.randint(0, 2, (UNIT_PHASE_BATCH,), generator=gen,
+                                 device=dev)
+            word = (sign << 31) | (expo << 23) | mant
+            # one component in 64 is 0
+            word = torch.where(mant % 64 == 0, sign << 31, word)
+            pair.append(torch.where(word >= 2**31, word - 2**32, word)
+                        .to(torch.int32).view(torch.float32))
+        yield pair[0], pair[1]
+
+
+def phase1_unit_phase(torch, dev):
+    """phase.cuh:unit_phase (sampler.unit_phases) against the plain z / |z|
+    (sample.unit_phase: torch's sqrt and division) on the card, bit for
+    bit, over the pairs of :func:`unit_phase_pairs`."""
+    from randomfield_tpu_torch.ops import sample, sampler
+
+    pairs = differ = 0
+    for re, im in unit_phase_pairs(torch, dev):
+        pad = -re.numel() % 4096
+        re = torch.cat([re, re.new_ones(pad)]).view(-1, 4096)
+        im = torch.cat([im, im.new_zeros(pad)]).view(-1, 4096)
+        got_re, got_im = sampler.unit_phases(re, im)
+        want_re, want_im = sample.unit_phase(re.clone(), im.clone())
+        same = ((got_re.view(torch.int32) == want_re.view(torch.int32))
+                & (got_im.view(torch.int32) == want_im.view(torch.int32)))
+        differ += int((~same).sum())
+        pairs += re.numel() - pad
+    torch.cuda.synchronize()
+    log(f"phase 1 K2FX/KN unit_phase over {pairs} directed and random pairs "
+        f"vs torch's sqrt and division: {differ} differ")
+    if differ:
+        raise AssertionError(f"phase.cuh:unit_phase differs from torch on "
+                             f"{differ} pairs")
+
+
 def phase1_slice(torch, g, gn, errs):
     """KN, K2F's fixed mode and KD vs their plain versions on the card at
     the 1024^3 shapes and tables of the threefry scene ``g`` and the nested
     scene ``gn``: KN's bits exact, its spectrum (s = 0, 8), unit normals and
     fixed field (s = 0, 8) within the K1 bar, the paired field the exact
-    negation; K2F fixed (s = 0, 8) within the bar, |c| = sigma filter, the
-    paired field the exact negation; KD in each kind and component (and
-    the 2LPT diagonals) within the bar."""
-    from randomfield_tpu_torch.ops import derived, sampler
+    negation; phase.cuh:unit_phase on its check pairs equal to torch's;
+    K2F fixed (s = 0, 8) within the bar of its plain version and equal bit
+    for bit to K2 (scale_sigma) of the plain z / |z| of the plain draws,
+    |c| = sigma filter, the paired field the exact negation; KD in each
+    kind and component (and the 2LPT diagonals) within the bar."""
+    from randomfield_tpu_torch.ops import derived, sample, sampler, threefry
 
     seed = 17
     t, shape, sp = gn.state.table, gn.shape, gn.grid_spacing
@@ -2218,15 +2312,32 @@ def phase1_slice(torch, g, gn, errs):
         del got
         torch.cuda.empty_cache()
 
+    phase1_unit_phase(torch, g.device)
     t, shape, sp = g.state.table, g.shape, g.grid_spacing
+    key = threefry.key_from_seed(seed)
     for s_ in (0.0, 8.0):
         got = sampler.draw_fixed(seed, t, shape, sp, s_)
         want = sampler.draw_fixed_plain(seed, t, shape, sp, s_)
         torch.cuda.synchronize()
-        check_close(errs, "K2FX", f"{tuple(got.shape)} s={s_} "
-                    f"({'bit-equal' if torch.equal(got, want) else 'not bit-equal'})",
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        check_close(errs, "K2FX", f"{tuple(got.shape)} s={s_} ({differ} "
+                    f"values not bit-equal: K2's amplitude)",
                     (got[0], got[1]), (want[0], want[1]))
         del want
+        # the modulus exactly: the plain z / |z| (torch's sqrt and division)
+        # of the plain Hermitian draws, times K2's amplitude (scale_sigma;
+        # the plain sigma_amplitude meets it only within K2's bar)
+        re, im = sample.unit_phase(*sample._hermitian_draws(key, shape,
+                                                            g.device, False))
+        sampler.scale_sigma(re, im, t, shape, sp, s_, gain=1.0)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], re) and torch.equal(got[1], im)
+        log(f"phase 1 K2FX s={s_}: K2 of the plain z / |z| of the plain "
+            f"draws {'= fixed bit for bit' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError("K2F's fixed mode is not the plain z / |z| "
+                                 "scaled by K2 bit for bit")
+        del re, im
         paired = sampler.draw_fixed(seed, t, shape, sp, s_, flip=True)
         negated = torch.equal(paired, -got)
         del paired

@@ -29,6 +29,9 @@
 // step 3 by z / |z|, |z| = sqrt(re^2 + im^2) rounded as written (1 where
 // |z| = 0; a self-conjugate mode becomes its sign), before step 4 with gain
 // 1, or -1 for the paired field, so |c| is sigma times the filter exactly.
+// z / |z| is phase.cuh:unit_phase, shared with KN: the fast paths of
+// sqrt.rn and div.rn alone, one reciprocal for both components and the
+// guard as selects, equal to the correctly rounded operations bit for bit.
 //
 // Replaces randomfield_tpu/ops/pallas_sampler.py:_scale_jit_reim together
 // with the jax.random draw in front of it (randomfield_tpu/engine/staged.py:
@@ -74,6 +77,7 @@
 #include <cuda_runtime.h>
 
 #include "hermitian.cuh"
+#include "phase.cuh"
 #include "sigma_common.cuh"
 #include "threefry.cuh"
 
@@ -202,12 +206,7 @@ struct RowPair {
           vre = __fmul_rn(vre, rf::kSqrt2);
           vim = 0.f;
         }
-        if (MODE == kFixed) {
-          const float mag =
-              __fsqrt_rn(__fadd_rn(__fmul_rn(vre, vre), __fmul_rn(vim, vim)));
-          vre = mag > 0.f ? __fdiv_rn(vre, mag) : 1.f;
-          vim = mag > 0.f ? __fdiv_rn(vim, mag) : 0.f;
-        }
+        if (MODE == kFixed) rf::unit_phase(vre, vim);
         vre = __fmul_rn(vre, amp);
         vim = __fmul_rn(vim, amp);
       }
@@ -292,6 +291,20 @@ cudaError_t launch_mode(const Params& p, float kz_scale,
               : launch<MODE, false>(p, kz_scale, keys, stream);
 }
 
+__global__ void unit_phase_kernel(const float* __restrict__ re,
+                                  const float* __restrict__ im,
+                                  float* __restrict__ out_re,
+                                  float* __restrict__ out_im, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i < n) {
+    float a = re[i], b = im[i];
+    rf::unit_phase(a, b);
+    out_re[i] = a;
+    out_im[i] = b;
+  }
+}
+
 __global__ void jax_normal_kernel(const uint32_t* __restrict__ bits,
                                   float* __restrict__ out, long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -368,5 +381,20 @@ extern "C" int rf_jax_normal(const void* bits, void* out, long long n,
   jax_normal_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
                       threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(bits), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rf::unit_phase of each of n pairs (re, im), as the fixed modes map their
+// modes: a check of the device function alone (chip_smoke.py holds it to
+// torch's sqrt and division), on no render's path.  re, im, out_re, out_im:
+// float32 (n,).  Returns the CUDA error of the launch.
+extern "C" int rf_unit_phase(const void* re, const void* im, void* out_re,
+                             void* out_im, long long n, void* stream) {
+  if (n <= 0) return 0;
+  constexpr int threads = 256;
+  unit_phase_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
+                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(re), static_cast<const float*>(im),
+      static_cast<float*>(out_re), static_cast<float*>(out_im), n);
   return static_cast<int>(cudaGetLastError());
 }

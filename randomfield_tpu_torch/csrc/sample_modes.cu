@@ -66,7 +66,8 @@
 //   render of s), and every product of the draw is rounded as written.
 // Its modes: the spectrum (gain 1/sqrt(2)); the raw unit normals, no fix
 // and no scale (generate_noise); the fixed field, z / |z| after the fix
-// (1 where |z| = 0; a self-conjugate mode becomes its sign), times the
+// (phase.cuh, shared with K2F's fixed mode: 1 where |z| = 0; a
+// self-conjugate mode becomes its sign), times the
 // amplitude with gain 1, or -1 for the paired field; and the bits, a
 // check of the hash alone.  What bounds it: K1's instruction issue, and
 // once its own walk below cut that, its stores (at 1024^3 on the H100 its
@@ -88,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "hermitian.cuh"
+#include "phase.cuh"
 #include "sigma_common.cuh"
 #include "threefry.cuh"
 
@@ -320,12 +322,7 @@ struct NestedQuad {
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        if (MODE == kFixed) {
-          const float mag = __fsqrt_rn(
-              __fadd_rn(__fmul_rn(vre[r], vre[r]), __fmul_rn(vim[r], vim[r])));
-          vre[r] = mag > 0.f ? __fdiv_rn(vre[r], mag) : 1.f;
-          vim[r] = mag > 0.f ? __fdiv_rn(vim[r], mag) : 0.f;
-        }
+        if (MODE == kFixed) rf::unit_phase(vre[r], vim[r]);
         vre[r] = __fmul_rn(vre[r], amp);
         vim[r] = __fmul_rn(vim[r], amp);
       }

@@ -67,6 +67,7 @@ _SIGNATURES = {
                        _U32, _U32, _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_fftx_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_jax_normal": [_P, _P, _LL, _P],
+    "rf_unit_phase": [_P, _P, _P, _P, _LL, _P],
     "rf_bin_spectrum": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _P],

@@ -81,6 +81,7 @@ __all__ = [
     "draw_fixed",
     "draw_fixed_plain",
     "draw_normals",
+    "unit_phases",
     "sample_nested",
     "sample_nested_plain",
     "sigma_amplitude",
@@ -521,6 +522,33 @@ def draw_normals(bits):
         _build.current_stream(out))
     _build.check(status, "draw_normals")
     return out
+
+
+def unit_phases(re, im):
+    """The fixed modes' z / |z| of each pair: (re / |z|, im / |z|), and
+    (1, 0) where |z| = 0.
+
+    ``re``, ``im``: float32 tensors of one shape.  Returns two new float32
+    tensors of that shape.  On CUDA this launches ``csrc/draw_scale.cu``'s
+    ``rf_unit_phase``, the device function ``phase.cuh:unit_phase`` alone
+    over the pairs (a check of that function, on no render's path, counted
+    nowhere); on the CPU it runs its plain version,
+    :func:`.sample.unit_phase`.
+    """
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise ValueError(f"unit_phases: re and im must be float32, got "
+                         f"{re.dtype} and {im.dtype}")
+    if re.shape != im.shape or re.device != im.device:
+        raise ValueError("unit_phases: re and im must share shape and device")
+    if re.device.type == "cpu":
+        return _canon.unit_phase(re.clone(), im.clone())
+    re, im = re.contiguous(), im.contiguous()
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    status = _build.library().rf_unit_phase(
+        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        re.numel(), _build.current_stream(out_re))
+    _build.check(status, "unit_phases")
+    return out_re, out_im
 
 
 def _block_rows(shape, x_off, y_off, nx_loc, ny_loc):

@@ -630,11 +630,41 @@ def test_draw_fixed_matches_plain(cuda, shape, smoothing):
     assert sampler.K2FX_LAUNCHES == before + 2
     want = sampler.draw_fixed_plain(4, table, shape, SPACING, smoothing)
     assert _rel(got, want) <= K2_TOL
+    # phase.cuh:unit_phase is sqrt.rn's and div.rn's fast paths, so the
+    # modulus and the quotients round as torch's sqrt and division: the
+    # kernel is the plain z / |z| of the plain draws scaled by K2 bit for
+    # bit (the plain version's own amplitude, sigma_amplitude, is within
+    # K2_TOL of K2's)
+    re, im = sample.unit_phase(*sample._hermitian_draws(
+        threefry.as_key(4), shape, cuda, False))
+    sampler.scale_sigma(re, im, table, shape, SPACING, smoothing, gain=1.0)
+    assert torch.equal(got, torch.stack([re, im]))
     assert torch.equal(flip, -got)
     # |c| is the amplitude the spectrum mode applies, up to the 1/sqrt(2)
     amp = sampler.sigma_amplitude(table, shape, SPACING, smoothing)
     mag = torch.sqrt(got[0] ** 2 + got[1] ** 2)
     assert float((mag - amp).abs().max()) <= 3e-6 * float(amp.abs().max())
+
+
+def test_unit_phases_match_plain(cuda):
+    # every canonical normal against rolled partners, zero and itself, the
+    # signed zero pairs, and random components across [2^-24, 2^4)
+    n = threefry._normal_from_bits(
+        torch.arange(2**23, dtype=torch.int64, device=cuda) << 9)
+    zero = torch.zeros_like(n)
+    rng = np.random.default_rng(5)
+    words = ((rng.integers(0, 2, 2**20, dtype=np.int64) << 31)
+             | (rng.integers(103, 131, 2**20, dtype=np.int64) << 23)
+             | rng.integers(0, 2**23, 2**20, dtype=np.int64))
+    rand = torch.from_numpy(words.astype(np.uint32).view(np.float32)).to(cuda)
+    z = torch.tensor([0.0, -0.0], device=cuda).repeat(32)
+    re = torch.cat([n, n, n, n * float(np.float32(np.sqrt(2))), z,
+                    rand[::2]])
+    im = torch.cat([zero, n, torch.roll(n, 12345), zero,
+                    z.view(2, 32).t().reshape(-1), rand[1::2]])
+    got = sampler.unit_phases(re.view(-1, 64), im.view(-1, 64))
+    want = sample.unit_phase(re.view(-1, 64).clone(), im.view(-1, 64).clone())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 KD_CASES = ([("scalar", 0)] + [("grad", a) for a in range(3)]
