@@ -29,8 +29,14 @@ non-zero with no result line:
    (its F2F.F64.F32 and float64 instructions) and KC's plans at M = 1, 8,
    40, 64, 128 and 3000 (the constraints a pass takes); the registers of
    KM's and KX's instances, KX's shared memory a block and blocks an SM,
-   and KM's launch at 1024^3;
-1. each hand kernel against its plain PyTorch version on the card, at the
+   and KM's launch at 1024^3; KQ's registers, shared memory a block and
+   blocks an SM in each mode (isotropic, wedges, Legendre rows) and counter
+   width, and its plan for the 2^17-object paths;
+1. ROADMAP F6: K2's amplitude step by step (log10|k|, t, i0, frac, the
+   amplitude at s = 0 and 8) over every |k|^2 of the 1024^3 grid through
+   the kernels' device functions (scale_sigma.cu's check entry) against
+   sigma_steps_plain, equal bit for bit; then
+   each hand kernel against its plain PyTorch version on the card, at the
    exact shapes, table and weights the 1024^3 main paths give it: the
    default render's fused K2 draw_scale (its device normal over all 2^23
    inputs it can take within 3 ulps of the plain normal, the bits of its
@@ -82,7 +88,13 @@ non-zero with no result line:
    render (counts equal, sums within 1e-10, two calls bit-equal) and KX
    (lattice extrema) in its peak (with the band mask), minima and void
    modes on the render and on the render with planted voids, equal to
-   their plain versions;
+   their plain versions; K2 (s = 0, 8), K2F's spectrum (the plain draws
+   times sigma_amplitude) and K2F's fixed mode (draw_fixed_plain) equal to
+   their plain versions bit for bit; KQ (pair counts) on 2^17 weighted
+   objects with objects on edges, on faces and coincident: auto, isotropic,
+   10 wedges and the Legendre rows (0, 2, 4) along each axis, and against a
+   2^16-object catalog, equal to pair_sums_plain bit for bit, two calls
+   bit-equal, every pair examined once;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -106,7 +118,13 @@ non-zero with no result line:
    methods (Minkowski, peaks, minima, the stacked and peak profiles, voids,
    kNN-CDFs; measured and predicted) and a power='halofit' render on the
    card against the CPU at 128^3 (counts, totals, CDFs and catalogs
-   equal);
+   equal); the catalog statistics on the card against the CPU (pair counts
+   of 3000 objects equal; FKP, marked and velocity statistics at 128^3
+   within 2e-5) and the JAX package's gates: uniform catalogs' xi = 0,
+   Poisson tracers' xi against the theory, the Kaiser anisotropy of pair
+   multipoles, FKP's Poisson-lognormal recovery, the linear marked power
+   against its Wick prediction, the seed-direct velocity cross against its
+   prediction;
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
@@ -145,7 +163,10 @@ non-zero with no result line:
    fraction, a non-overlapping void catalog, the kNN-CDFs of random
    catalogs against the binomial) and the nine morphology methods at
    1024^3 with their launches (KM, KX) and peak memory (Minkowski under 60
-   GiB);
+   GiB); catalog_correlation and its multipoles of 2^17 Zel'dovich objects
+   (KQ), fkp_power (CIC, TSC) and its multipoles of 2^24 Poisson data and
+   2^27 randoms, calculate_marked_power, density_velocity_correlation and
+   pairwise_velocity at 1024^3, with their launches and peak memory;
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers and for the v4 and v6 variants, of
    generate_noise beside the plain draws, of each
@@ -179,8 +200,10 @@ non-zero with no result line:
    and posterior with their peak memory; KM and KX (peaks, the mask, the
    void mode) beside their plain versions, KX beside its read yardstick
    (torch.sum of the same field) and its walk's cells loaded a cell, and
-   each morphology method at 1024^3 with the transforms' share of it; and
-   the whole run's wall time.
+   each morphology method at 1024^3 with the transforms' share of it; KQ
+   beside its plain version (in turns) and in its three modes, and the
+   catalog paths split into their stages (painting, transforms, binning,
+   KQ); and the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -291,10 +314,15 @@ KERNELS = {
     "KX": dict(name="lattice_extrema", route="cuda",
                source="randomfield_tpu_torch/csrc/extrema.cu",
                replaces="randomfield_tpu/validate/peaks.py:202"),
+    # the catalogs' pair counts: XLA's chunked minimum-image loop (and :63
+    # _dot_rows, its one-hot contraction)
+    "KQ": dict(name="pair_counts", route="cuda",
+               source="randomfield_tpu_torch/csrc/pair_counts.cu",
+               replaces="randomfield_tpu/validate/paircount.py:79"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
                 "K10", "KN", "K2FX", "KD", "KB", "KBG", "KP", "KPC", "KC",
-                "K4L", "KM", "KX")
+                "K4L", "KM", "KX", "KQ")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -447,6 +475,21 @@ def check_close(errs, kid, what, got, want):
         raise AssertionError(f"{kid} {what} disagrees: rel {r:.3e}")
 
 
+def check_bit_equal(torch, errs, kid, what, got, want):
+    """Fail unless paired float32 tensors are equal bit for bit; logs the
+    values that differ and keeps the largest absolute error in errs[kid]."""
+    differ = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                 for g, w in zip(got, want))
+    a, r = rel_err(got, want)
+    errs[kid] = max(errs.get(kid, 0.0), a)
+    total = sum(w.numel() for w in want)
+    log(f"phase 1 {kid} {what}: {differ} of {total} values differ "
+        f"(bit-equal required), max|d| {a:.3e}, rel {r:.3e}")
+    if differ:
+        raise AssertionError(f"{kid} {what} is not bit-equal to its plain "
+                             f"version")
+
+
 @contextlib.contextmanager
 def staged_variant(name):
     """RF_STAGED_PIPELINE set to ``name`` inside the block (unset for None)
@@ -546,8 +589,10 @@ SASS_KERNELS = {"K1": ("sample_modes_kernel", 1),
 # must not move them.  (NVVM's code for it depends on the rest of the
 # file: it took 54 registers, the same 363 a mode, while the fixed mode
 # called __fsqrt_rn and __fdiv_rn, and takes 48 without them, as with no
-# fixed mode at all.)
-K2F_SPECTRUM_SASS = (48, 363.0)
+# fixed mode at all.  Rounding log10|k| and t apart (sigma_common.cuh,
+# ROADMAP F6) took 363.0 to 364.0: the product and the difference that
+# one FFMA did before.)
+K2F_SPECTRUM_SASS = (48, 364.0)
 # K2F's fixed instance's hot SASS a mode while its modulus was __fsqrt_rn
 # and two __fdiv_rn, each with its range test and slow-path branch; since
 # phase.cuh's unit_phase (their fast paths alone, one shared reciprocal) it
@@ -769,7 +814,9 @@ def phase1_kernels(torch, g, errs):
     nzh = nz // 2 + 1
     table = g.state.table
     re, im = randn(nx, ny, nzh), randn(nx, ny, nzh)
-    for s in (0.0, 6.0):
+    # K2's amplitude rounds each step as sigma_amplitude does (ROADMAP F6):
+    # the same float32 products of the same inputs, so bit for bit
+    for s in (0.0, 8.0):
         a, b = re.clone(), im.clone()
         sampler.scale_sigma(a, b, table, g.shape, g.grid_spacing, s,
                             gain=RENDER_GAIN)
@@ -777,7 +824,8 @@ def phase1_kernels(torch, g, errs):
         sampler.scale_sigma_plain(c, d, table, g.shape, g.grid_spacing, s,
                                   gain=RENDER_GAIN)
         torch.cuda.synchronize()
-        record("K2", f"{tuple(re.shape)} s={s}", (a, b), (c, d))
+        check_bit_equal(torch, errs, "K2", f"{tuple(re.shape)} s={s}",
+                        (a, b), (c, d))
         del a, b, c, d
     del re, im
     check_k3(1, nx, ny * nzh)  # x pass
@@ -799,6 +847,50 @@ def phase1_kernels(torch, g, errs):
         w = torch.rand(2 * m, generator=gen, device=dev) + 0.5
         for lines in (2**22 // m + 3, 1):
             check_k4((lines,), 2 * m, w)
+
+
+SIGMA_STEPS = ("lk", "t", "i0", "frac", "amp")
+# x planes a step of the sigma-step check (bounds its temporaries)
+SIGMA_STEP_PLANES = 64
+
+
+def phase1_sigma_steps(torch, g):
+    """ROADMAP F6: K2's amplitude on the card step by step over every |k|^2
+    of the 1024^3 scene ``g`` (as sigma_amplitude sums it), through the
+    kernels' own device functions (sampler.sigma_steps, csrc/scale_sigma.cu's
+    check entry) against the plain version's steps (sigma_steps_plain):
+    log10|k|, t, i0, frac and the amplitude at s = 0 and 8 with the render's
+    gain.  Logs how many values of each step differ and the first step that
+    parts; fails unless every step is equal bit for bit."""
+    from randomfield_tpu_torch.ops import sampler
+
+    table, shape, sp = g.state.table, g.shape, g.grid_spacing
+    c = sampler._constants(table, shape, sp)
+    differ = dict.fromkeys(SIGMA_STEPS, 0)
+    differ["amp s=8"] = 0
+    n = 0
+    for x0 in range(0, shape[0], SIGMA_STEP_PLANES):
+        m = min(SIGMA_STEP_PLANES, shape[0] - x0)
+        kx, ky, kz = sampler._axis_k(c, shape, x0, m, 0, shape[1], g.device)
+        ksq = (kx * kx)[:, None, None] + (ky * ky)[None, :, None]
+        ksq = ksq + (kz * kz)[None, None, :]
+        n += ksq.numel()
+        for s_, keys in ((0.0, SIGMA_STEPS), (8.0, ("amp",))):
+            got = sampler.sigma_steps(table, ksq, s_, RENDER_GAIN)
+            want = sampler.sigma_steps_plain(table, ksq, s_, RENDER_GAIN)
+            for k in keys:
+                a, b = got[k], want[k]
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                differ[k if s_ == 0.0 else "amp s=8"] += int((a != b).sum())
+        del ksq, got, want
+    parted = [k for k in SIGMA_STEPS if differ[k]]
+    log(f"phase 1 F6 K2's amplitude step by step over the {n} |k|^2 of "
+        f"{shape}: values that differ from the plain version {differ}; "
+        f"first step that parts: {parted[0] if parted else 'none'}")
+    if any(differ.values()):
+        raise AssertionError(f"K2's amplitude parts from sigma_amplitude at "
+                             f"{parted[0] if parted else 'the filter'}")
 
 
 def max_ulps(torch, a, b):
@@ -862,9 +954,9 @@ def phase1_draw_scale(torch, g, errs):
         got = sampler.draw_scale(seed, table, shape, spacing, s_)
         want = sampler.draw_scale_plain(seed, table, shape, spacing, s_)
         torch.cuda.synchronize()
-        same = "bit-equal" if torch.equal(got, want) else "not bit-equal"
-        check_close(errs, "K2F", f"{tuple(got.shape)} s={s_} ({same})",
-                    (got[0], got[1]), (want[0], want[1]))
+        check_bit_equal(torch, errs, "K2F", f"{tuple(got.shape)} s={s_} vs "
+                        f"the plain draws times sigma_amplitude",
+                        (got[0], got[1]), (want[0], want[1]))
         del got, want
         torch.cuda.empty_cache()
 
@@ -1133,6 +1225,9 @@ def reset_counts():
     from randomfield_tpu_torch.ops import extrema, minkowski
 
     minkowski.KM_LAUNCHES = extrema.KX_LAUNCHES = 0
+    from randomfield_tpu_torch.ops import paircount
+
+    paircount.KQ_LAUNCHES = 0
 
 
 def read_counts():
@@ -1153,7 +1248,8 @@ def read_counts():
             "K7": sampler.K7_LAUNCHES, "K8": sampler.K8_LAUNCHES,
             "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES,
             "KN": sampler.KN_LAUNCHES, "K2FX": sampler.K2FX_LAUNCHES,
-            "KD": derived.KD_LAUNCHES, **mock_counts(), **morph_counts()}
+            "KD": derived.KD_LAUNCHES, **mock_counts(), **morph_counts(),
+            **catalog_counts()}
 
 
 def require_launches(counts, least, what):
@@ -2319,14 +2415,12 @@ def phase1_slice(torch, g, gn, errs):
         got = sampler.draw_fixed(seed, t, shape, sp, s_)
         want = sampler.draw_fixed_plain(seed, t, shape, sp, s_)
         torch.cuda.synchronize()
-        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        check_close(errs, "K2FX", f"{tuple(got.shape)} s={s_} ({differ} "
-                    f"values not bit-equal: K2's amplitude)",
-                    (got[0], got[1]), (want[0], want[1]))
+        check_bit_equal(torch, errs, "K2FX", f"{tuple(got.shape)} s={s_} vs "
+                        f"draw_fixed_plain", (got[0], got[1]),
+                        (want[0], want[1]))
         del want
         # the modulus exactly: the plain z / |z| (torch's sqrt and division)
-        # of the plain Hermitian draws, times K2's amplitude (scale_sigma;
-        # the plain sigma_amplitude meets it only within K2's bar)
+        # of the plain Hermitian draws, times K2's amplitude (scale_sigma)
         re, im = sample.unit_phase(*sample._hermitian_draws(key, shape,
                                                             g.device, False))
         sampler.scale_sigma(re, im, t, shape, sp, s_, gain=1.0)
@@ -2771,12 +2865,14 @@ KB_MAX_OUTPUTS = {"ells (0, 2, 4), 1024 bins": dict(ells=(0, 2, 4),
                                                     nbins=1024),
                   "nmu = 4 wedges, 256 x 4 bins": dict(nmu=4, nbins=256)}
 # K5's float64 block at 256^3 (pallas, seed 3, NBINS bins, no smoothing):
-# the sha256 of its bytes as the kernel computed it before its binning code
-# went to csrc/bins_common.cuh (which KB shared until its redesign); K5's
+# the sha256 of its bytes as the kernel computes it since its sigma
+# interpolation rounds log10|k| and t apart (sigma_common.cuh, ROADMAP F6:
+# some amplitudes moved by an ulp, and the digest with them); K5's
 # registers and hot SASS instructions a mode, which must not move either
+# (169.5 before F6, one instruction more a pair of modes since)
 K5_DIGEST_SHAPE, K5_DIGEST_SPACING, K5_DIGEST_SEED = (256, 256, 256), 8.0, 3
-K5_DIGEST = "5cec6ddee1deb2ac9edf9a3397db969f09092784c7ea8a1608de6e561ed093d7"
-K5_SASS = (48, 169.5)
+K5_DIGEST = "f2fa1b02f01d3a8381e64306a1d36045352f6ec951302065605d29a346b27646"
+K5_SASS = (48, 170.0)
 # the nested zoom with the box-anchored sigma table: max|dc| / max|c| over
 # the modes two grids of one box share (the class of the JAX package's
 # per-mode sigma grid)
@@ -4999,13 +5095,622 @@ def kx_times_only(torch, rft, dev, card):
     kx_times(torch, field, s0, rv, card)
 
 
-def kernel_bounds(g, kx_candidates):
+# ---- the catalog statistics: KQ (pair counts), FKP, marked and velocity ----------
+
+# the 1024^3 pair-count paths: 2^17 objects of the Zel'dovich catalog (2^16
+# for the cross catalog of phase 1), 30 linear bins to 150 Mpc/h, 10 |mu|
+# wedges, the even multipoles; the box is the scene's 2048 Mpc/h
+PAIR_OBJECTS = 1 << 17
+PAIR_CROSS = 1 << 16
+PAIR_EDGES = np.linspace(0.0, 150.0, 31)
+PAIR_NMU = 10
+PAIR_ELLS = (0, 2, 4)
+# FKP at 1024^3: about 2^24 data objects as the per-cell Poisson counts of
+# a render (their nonzero cells), 2^27 uniform randoms
+FKP_DATA = 1 << 24
+FKP_RANDOMS = 1 << 27
+# the marked power of the 1024^3 paths (the JAX package's defaults: the
+# White mark, delta_s = 0.25)
+MARK_R, MARK_P = 10.0, 2.0
+# CUDA vs the CPU at 128^3: the same KP sums, KQ sums and KB bins on both
+# sides, spectra from two float32 FFT libraries
+CATALOG_SLICE = ((128, 128, 128), 16.0)
+CATALOG_SLICE_BAR = 2e-5
+# the uniform-catalog gate: tests/test_paircount.py:98's 4000 objects in a
+# box of 100 Mpc/h, here 2^17 in a box of 1000
+PAIR_GATE = (1 << 17, 1000.0)
+# operations a pair, counted from csrc/pair_counts.cu: each pair examined
+# takes three minimum-image components (a subtract, a division, a rint, a
+# multiply and a subtract: 15), r^2 (three multiplies, two adds: 5) and the
+# range test (2); a pair in range adds the edge search (5 over 30 bins),
+# w w, the square root, w w r and two conversions (5 more), and two or
+# three shared adds.  The bound charges the first count only to the pairs
+# that a walk over neighbouring cells of side >= r_max must examine
+# (cell_walk_pairs), not to every pair KQ's brute-force walk examines.
+KQ_OPS_PER_PAIR = 22
+KQ_OPS_PER_PAIR_IN_RANGE = 12
+
+
+def cell_walk_pairs(torch, pos, box, r_max):
+    """Ordered pairs that a cell list examines for pairs within ``r_max``:
+    the box cut into nc^3 periodic cells of side box / nc >= r_max, each
+    object against the objects of its 27 neighbouring cells (every pair
+    when nc < 3)."""
+    n = pos.shape[0]
+    nc = int(box // r_max)
+    if nc < 3:
+        return n * n
+    c = (torch.remainder(pos, box) * (nc / box)).floor().long().clamp(0, nc - 1)
+    flat = (c[:, 0] * nc + c[:, 1]) * nc + c[:, 2]
+    counts = torch.bincount(flat, minlength=nc ** 3).view(nc, nc, nc)
+    near = sum(torch.roll(counts, (i, j, k), (0, 1, 2)) for i in (-1, 0, 1)
+               for j in (-1, 0, 1) for k in (-1, 0, 1))
+    return int((counts * near).sum())
+
+
+def catalog_counts():
+    from randomfield_tpu_torch.ops import paircount
+
+    return {"KQ": paircount.KQ_LAUNCHES}
+
+
+def phase0_catalogs(card):
+    """KQ's registers a thread, shared memory a block and blocks an SM for
+    each mode (isotropic, PAIR_NMU wedges, the PAIR_ELLS rows), and its
+    launch plan at the 1024^3 paths' catalog."""
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    nbins = len(PAIR_EDGES) - 1
+    for what, mode, nmu, n_ells in (("isotropic", 0, 1, 0),
+                                    (f"{PAIR_NMU} wedges", 1, PAIR_NMU, 0),
+                                    (f"ells {PAIR_ELLS}", 2, 1,
+                                     len(PAIR_ELLS))):
+        regs, blocks, threads, smem = pc.kernel_attributes(mode, nbins, nmu,
+                                                           n_ells)
+        log(f"phase 0 KQ {what}: {regs} registers a thread, {smem} bytes of "
+            f"shared memory a block, {blocks} blocks an SM of {threads} "
+            f"threads [{card}]")
+        if regs <= 0 or blocks <= 0:
+            raise AssertionError(f"KQ {what} takes no block an SM")
+    plan = pc.launch_plan(PAIR_OBJECTS, PAIR_OBJECTS, nbins)
+    log(f"phase 0 KQ plan for {PAIR_OBJECTS} x {PAIR_OBJECTS} objects, "
+        f"{nbins} bins: {plan} [{card}]")
+
+
+def _pair_rows(torch, n, dev, seed, weighted=True):
+    """float32 (n, 4) rows of a uniform catalog in the 1024^3 scene's box,
+    with weights in [0.5, 1.5) (or 1), and objects exactly on integer
+    edges (a line 5 Mpc/h apart), on the box's faces and coincident."""
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    box = HEADLINE[0] * HEADLINE_SPACING
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.rand((n, 3), generator=gen, device=dev) * box
+    pos[:30] = torch.tensor([100.0, 200.0, 300.0], device=dev)
+    pos[:30, 1] += 5.0 * torch.arange(30, device=dev)
+    pos[30:34] = torch.tensor([[0.0, 7.0, 9.0], [box, 7.0, 9.0],
+                               [box / 2, 7.0, 9.0], [0.0, box / 2, 0.0]],
+                              device=dev)
+    pos[34:40] = pos[40:46]
+    w = (torch.rand(n, generator=gen, device=dev) + 0.5 if weighted
+         else torch.ones(n, device=dev))
+    return pc.pack(pos, w)
+
+
+def phase1_catalogs(torch, g, errs):
+    """KQ against its plain version on the card at the 1024^3 paths'
+    catalog sizes: 2^17 weighted objects (with objects on edges, on faces
+    and coincident) auto, isotropic, PAIR_NMU wedges and the PAIR_ELLS rows
+    along each axis; against a 2^16-object second catalog; the sums equal
+    bit for bit, two calls bit-equal, every pair examined once."""
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    dev = g.device
+    box = (HEADLINE[0] * HEADLINE_SPACING,) * 3
+    edges2 = torch.as_tensor((PAIR_EDGES ** 2).astype(np.float32))
+    rows1 = _pair_rows(torch, PAIR_OBJECTS, dev, 21)
+    rows2 = _pair_rows(torch, PAIR_CROSS, dev, 22)
+    cases = [("auto isotropic", rows1, 0, 1, (), 2),
+             (f"auto {PAIR_NMU} wedges", rows1, 1, PAIR_NMU, (), 2)]
+    cases += [(f"auto ells {PAIR_ELLS} along axis {a}", rows1, 2, 1,
+               PAIR_ELLS, a) for a in range(3)]
+    cases += [("cross isotropic", rows2, 0, 1, (), 2),
+              (f"cross {PAIR_NMU} wedges", rows2, 1, PAIR_NMU, (), 1),
+              (f"cross ells {PAIR_ELLS}", rows2, 2, 1, PAIR_ELLS, 0)]
+    for what, other, mode, nmu, ells, los in cases:
+        s = pc.fixed_point_exponent(rows1.shape[0], other.shape[0], 1.5, 1.5,
+                                    PAIR_EDGES[-1], ells)
+        args = (rows1, other, box, edges2, s, mode, nmu, ells, los)
+        got, seen = pc.pair_sums(*args)
+        again, _ = pc.pair_sums(*args)
+        want, _ = pc.pair_sums_plain(*args)
+        same, bit = torch.equal(got, want), torch.equal(got, again)
+        n_pairs = rows1.shape[0] * other.shape[0]
+        log(f"phase 1 KQ {what}, {rows1.shape[0]} x {other.shape[0]}: "
+            f"{int(seen)} pairs examined ({n_pairs} expected), "
+            f"{float(got[0].sum()) * 2.0 ** -s:.6e} weighted pairs in "
+            f"range; sums {'equal to' if same else 'DIFFER from'} the plain "
+            f"version, two calls {'bit-equal' if bit else 'DIFFERENT'}")
+        if not (same and bit and int(seen) == n_pairs):
+            raise AssertionError(f"KQ {what} disagrees with its plain version")
+        del got, again, want
+    errs["KQ"] = 0.0
+    torch.cuda.empty_cache()
+
+
+def phase2_catalogs(torch, rft, dev):
+    """Each new device function on the card against the same call on the
+    CPU (their plain versions) at 128^3 and a few thousand objects, then the
+    JAX package's own gates on the card: uniform catalogs give xi = 0
+    within Poisson error, Poisson tracers' xi against the theory of the
+    mock, the Kaiser anisotropy of redshift-space pair multipoles, FKP's
+    Poisson-lognormal recovery, the linear marked power against its Wick
+    prediction and the seed-direct velocity cross against its prediction."""
+    from randomfield_tpu_torch.models import lognormal, zeldovich
+    from randomfield_tpu_torch.ops import power as _power
+    from randomfield_tpu_torch.validate import fkp, marked, paircount
+    from randomfield_tpu_torch.validate import stats, velocity
+
+    shape, sp = CATALOG_SLICE
+    box = shape[0] * sp
+    rng = np.random.default_rng(31)
+    pos = rng.random((3000, 3)) * box
+    pos2 = rng.random((2000, 3)) * box
+    w = rng.random(3000) + 0.5
+    edges = np.geomspace(8.0, 0.5 * box, 12)
+    for what, fn in (
+            ("catalog_correlation", lambda d: paircount.catalog_correlation(
+                pos, box, edges, weights=w, device=d)),
+            ("catalog_correlation wedges", lambda d:
+             paircount.catalog_correlation(pos, box, edges, positions2=pos2,
+                                           nmu=5, device=d)),
+            ("catalog_correlation_multipoles", lambda d:
+             paircount.catalog_correlation_multipoles(pos, box, edges,
+                                                      weights=w, device=d))):
+        got, want = fn(dev), fn("cpu")
+        same = all(np.array_equal(a, b, equal_nan=True)
+                   for a, b in zip(got, want))
+        log(f"phase 2 {what} of {len(pos)} objects on the card vs the CPU: "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{what} on the card differs from the CPU")
+    gc = rft.Generator(*shape, grid_spacing=sp, device="cpu")
+    d_cpu = gc.generate_delta_field(5, apply_lightcone=False)
+    v_cpu = gc.generate_velocity(5)
+    d_dev, v_dev = d_cpu.to(dev), v_cpu.to(dev)
+    counts = zeldovich.poisson_sample(d_cpu, 2e-3, sp, seed=6)
+    lat = zeldovich.lagrangian_positions(shape, sp, device="cpu").reshape(3, -1)
+    data = lat[:, counts.reshape(-1) > 0]
+    dw = counts.reshape(-1)[counts.reshape(-1) > 0]
+    rand = torch.as_tensor(rng.random((3, 200_000)) * box, dtype=torch.float32)
+    calls = {
+        "fkp_power cic": lambda d: fkp.fkp_power(
+            data.to(d), rand.to(d), sp, shape, data_weights=dw.to(d),
+            data_are_counts=True, nbins=16).p,
+        "fkp_power_multipoles tsc interlaced": lambda d:
+            np.stack(list(fkp.fkp_power_multipoles(
+                data.to(d), rand.to(d), sp, shape, data_weights=dw.to(d),
+                data_are_counts=True, nbins=16, window="tsc",
+                interlaced=True).p.values())),
+        "calculate_marked_power": lambda d: marked.calculate_marked_power(
+            d_cpu.to(d), sp, nbins=16, R=MARK_R, p=MARK_P)[1],
+        "predicted_linear_marked_power": lambda d:
+            marked.predicted_linear_marked_power(gc.power, shape, sp, 0.6,
+                                                 R=MARK_R, nbins=16,
+                                                 device=d)[1],
+        "density_velocity_correlation": lambda d:
+            velocity.density_velocity_correlation(
+                d_cpu.to(d), v_cpu.to(d), sp, nbins=16)[1],
+        "pairwise_velocity": lambda d: velocity.pairwise_velocity(
+            d_cpu.to(d), v_cpu.to(d), sp, nbins=16)[1],
+        "predicted_pairwise_velocity": lambda d:
+            velocity.predicted_pairwise_velocity(gc.power, shape, sp,
+                                                 nbins=16, device=d)[1],
+    }
+    for what, fn in calls.items():
+        ok, err = _close(fn(dev), fn("cpu"), CATALOG_SLICE_BAR)
+        log(f"phase 2 {what} at {shape} on the card vs the CPU: max|d| / "
+            f"max {err:.3e} (bar {CATALOG_SLICE_BAR:g})")
+        if not ok:
+            raise AssertionError(f"{what} on the card differs from the CPU")
+    del d_dev, v_dev
+    torch.cuda.empty_cache()
+
+    # tests/test_paircount.py:98 at 32x its objects: uniform catalogs give
+    # xi = 0 within 5 Poisson sigma, auto and cross
+    n, ubox = PAIR_GATE
+    upos = torch.rand((n, 3), device=dev) * ubox
+    uedges = np.geomspace(10.0, 150.0, 9)
+    _, xi, dd = paircount.catalog_correlation(upos, ubox, uedges)
+    _, xi2, dd2 = paircount.catalog_correlation(
+        upos, ubox, uedges, positions2=torch.rand((n // 2, 3), device=dev)
+        * ubox)
+    z_auto = float(np.max(np.abs(xi) / (2.0 / np.sqrt(dd))))
+    z_cross = float(np.max(np.abs(xi2) * np.sqrt(dd2)))
+    log(f"phase 2 gate uniform xi ({n} objects, box {ubox:g}): worst |xi| at "
+        f"{z_auto:.3f} (auto) and {z_cross:.3f} (cross) Poisson sigma (bar 5)")
+    if not (z_auto < 5.0 and z_cross < 5.0):
+        raise AssertionError("the uniform-catalog xi gate failed")
+    # :129 (marked slow there): Poisson tracers of 4 lognormal renders,
+    # jittered in their cells, against the target's theory xi
+    ng, gsp = 32, 4.0
+    lg = lognormal.LognormalGenerator(ng, ng, ng, grid_spacing=gsp,
+                                      device=dev)
+    tedges = np.geomspace(6.0, 50.0, 8)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xis = []
+    for seed in range(4):
+        c = zeldovich.poisson_sample(lg.generate_delta_field(seed), 0.004,
+                                     gsp, seed=seed)
+        idx = torch.nonzero(c > 0).to(torch.float32)
+        reps = c[c > 0].to(torch.int64)
+        cells = torch.repeat_interleave(idx, reps, dim=0)
+        tpos = (cells + torch.rand(cells.shape, generator=gen, device=dev)) * gsp
+        r, xi_t, _ = paircount.catalog_correlation(tpos, ng * gsp, tedges)
+        xis.append(xi_t)
+    xi_mean = np.mean(xis, axis=0)
+    xi_sd = np.std(xis, axis=0, ddof=1) / np.sqrt(len(xis))
+    xi_th = np.asarray(_power.power_to_correlation(lg.power, np.asarray(r)))
+    budget = 5 * xi_sd + 0.1 * np.abs(xi_th) + 0.01 * np.abs(xi_th).max()
+    frac = float(np.max(np.abs(xi_mean - xi_th) / budget))
+    log(f"phase 2 gate tracer xi (4 lognormal renders at {ng}^3): worst "
+        f"bin at {frac:.3f} of its budget")
+    if not frac < 1.0:
+        raise AssertionError("the tracer xi gate failed")
+    # :168: the redshift-space quadrupole below the real-space one
+    gz = rft.Generator(ng, ng, ng, grid_spacing=gsp, device=dev)
+    kedges = np.geomspace(10.0, 60.0, 6)
+    q2r, q2z = [], []
+    for seed in range(3):
+        psi = gz.generate_displacement(seed)
+        sel = torch.as_tensor(np.random.default_rng(seed).choice(
+            ng ** 3, 3000, replace=False), device=dev)
+        for f_, acc in ((0.0, q2r), (0.8, q2z)):
+            p3 = zeldovich.zeldovich_positions(psi, gsp, f=f_).reshape(3, -1)
+            acc.append(paircount.catalog_correlation_multipoles(
+                p3[:, sel].T, ng * gsp, kedges, ells=(0, 2))[1][1])
+    q2r, q2z = np.mean(q2r, axis=0), np.mean(q2z, axis=0)
+    log(f"phase 2 gate Kaiser pair multipoles: mean xi_2 real "
+        f"{q2r.mean():+.5f}, redshift {q2z.mean():+.5f} (redshift < real - "
+        f"0.005 and < 0)")
+    if not (q2z.mean() < q2r.mean() - 0.005 and q2z.mean() < 0):
+        raise AssertionError("the Kaiser pair-multipole gate failed")
+    # tests/test_fkp.py:147: FKP of Poisson counts against dense Poisson
+    # randoms tracks catalog_power of the same counts; its box at 32^3 (the
+    # card's kernels take nz / 2 >= 16)
+    fs, fsp = (32, 32, 32), 4.0
+    lgf = lognormal.LognormalGenerator(*fs, grid_spacing=fsp, device=dev)
+    fc = zeldovich.poisson_sample(lgf.generate_delta_field(11), 2e-3, fsp,
+                                  seed=12).reshape(-1)
+    rc = zeldovich.poisson_sample(torch.zeros(fs, device=dev), 2e-2, fsp,
+                                  seed=13).reshape(-1)
+    flat = zeldovich.lagrangian_positions(fs, fsp, device=dev).reshape(3, -1)
+    res = fkp.fkp_power(flat, flat, fsp, fs, data_weights=fc,
+                        randoms_weights=rc, data_are_counts=True,
+                        randoms_are_counts=True)
+    _, p_c, _ = zeldovich.catalog_power(flat, fsp, shape=fs, weights=fc)
+    good = (res.n_modes > 8) & np.isfinite(p_c) & (res.k < np.pi / fsp)
+    rel = np.abs(res.p[good] - p_c[good]) / np.abs(
+        np.where(np.abs(p_c) > 0, p_c, 1.0)[good])
+    volume = float(np.prod(fs)) * fsp ** 3
+    log(f"phase 2 gate FKP Poisson-lognormal: median |P_fkp - P_cat| / "
+        f"|P_cat| {float(np.median(rel)):.4f} (bar 0.25), shot "
+        f"{res.shot_noise:.2f} > V / N {volume / float(fc.sum()):.2f}")
+    if not (np.median(rel) < 0.25
+            and res.shot_noise > volume / float(fc.sum())):
+        raise AssertionError("the FKP Poisson-lognormal gate failed")
+    # tests/test_marked.py:69: 8 linear-marked renders against the Wick
+    # prediction, and the eps^2 term visible
+    gm = rft.Generator(ng, ng, ng, grid_spacing=gsp, device=dev)
+    eps, mR = 0.6, 8.0
+    _, p_pred, cnt = marked.predicted_linear_marked_power(
+        gm.power, gm.shape, gsp, eps, R=mR, nbins=10, device=dev)
+    _, p_plain, _ = marked.predicted_linear_marked_power(
+        gm.power, gm.shape, gsp, 0.0, R=mR, nbins=10, device=dev)
+    acc = [stats.calculate_power(marked.linear_marked_field(
+        gm.generate_delta_field(s, apply_lightcone=False), gsp, eps, R=mR),
+        gsp, nbins=10)[1] for s in range(8)]
+    m = cnt > 0
+    resid = np.abs(np.mean(acc, axis=0) - p_pred)[m]
+    budget = (5.0 * np.std(acc, axis=0, ddof=1)[m] / np.sqrt(8)
+              + 1e-4 * np.nanmax(np.abs(p_pred)))
+    shift = float((np.abs(p_pred - p_plain) / np.abs(p_plain))[m].max())
+    log(f"phase 2 gate linear marked power (8 renders at {ng}^3): worst bin "
+        f"at {float((resid / budget).max()):.3f} of its budget, the eps^2 "
+        f"term moves it {shift:.3f} (bar 0.05)")
+    if not ((resid < budget).all() and shift > 0.05):
+        raise AssertionError("the marked-power Wick gate failed")
+    # tests/test_velocity.py:40 (marked slow there): psi_r of 60 seeds
+    # against its exact expectation, and infall; 32^3 at 6 Mpc/h, the box
+    # of its 24^3 at 8 (the card's kernels take powers of two)
+    vs, vsp = (32, 32, 32), 6.0
+    gv = rft.Generator(*vs, grid_spacing=vsp, power="eh98", device=dev)
+    psis = []
+    for seed in range(60):
+        _, psi, vcounts = velocity.density_velocity_correlation(
+            gv.generate_delta_field(seed, apply_lightcone=False),
+            gv.generate_velocity(seed), vsp, nbins=10)
+        psis.append(psi)
+    psis = np.asarray(psis)
+    _, psi_pred, _ = velocity.predicted_density_velocity_correlation(
+        gv.power, vs, vsp, gv.cosmology, nbins=10, device=dev)
+    good = vcounts > 0
+    resid = np.abs(psis.mean(axis=0) - psi_pred)[good]
+    allow = (5.0 * psis.std(axis=0, ddof=1)[good] / np.sqrt(len(psis))
+             + 1e-3 * np.max(np.abs(psi_pred[good])))
+    log(f"phase 2 gate seed-direct velocity cross (60 renders at {vs}): "
+        f"worst bin at {float((resid / allow).max()):.3f} of its allowance, "
+        f"innermost psi_r {psi_pred[good][0]:.3f} (predicted) and "
+        f"{psis.mean(axis=0)[good][0]:.3f} km/s")
+    if not ((resid < allow).all() and psi_pred[good][0] < 0
+            and psis.mean(axis=0)[good][0] < 0):
+        raise AssertionError("the seed-direct velocity gate failed")
+    torch.cuda.empty_cache()
+
+
+def _fkp_catalogs(torch, g, dev):
+    """The 1024^3 FKP paths' catalogs: the cells with Poisson counts of a
+    render at nbar = FKP_DATA / V (their centres and counts), and
+    FKP_RANDOMS uniform randoms."""
+    from randomfield_tpu_torch.models import zeldovich
+
+    n = HEADLINE[0]
+    box = n * HEADLINE_SPACING
+    counts = zeldovich.poisson_sample(
+        g.generate_delta_field(8, apply_lightcone=False), FKP_DATA / box ** 3,
+        HEADLINE_SPACING, seed=9).reshape(-1)
+    cells = torch.nonzero(counts > 0).reshape(-1)
+    weights = counts[cells]
+    del counts
+    idx = torch.stack([cells // (n * n), (cells // n) % n, cells % n])
+    data = (idx.to(torch.float32) + 0.5) * HEADLINE_SPACING
+    gen = torch.Generator(device=dev).manual_seed(10)
+    randoms = torch.rand((3, FKP_RANDOMS), generator=gen, device=dev) * box
+    return data, weights, randoms
+
+
+def _zeldovich_sample(torch, g, dev):
+    """(real-space, redshift-space) (PAIR_OBJECTS, 3) positions: a uniform
+    subsample (with replacement) of the 1024^3 Zel'dovich catalog of seed
+    2, f the scene's growth rate."""
+    from randomfield_tpu_torch.models import zeldovich
+
+    sp = HEADLINE_SPACING
+    psi = g.generate_displacement(2)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    sel = torch.randint(0, psi[0].numel(), (PAIR_OBJECTS,), generator=gen,
+                        device=dev)
+    out = []
+    for f_ in (0.0, float(g.cosmology.growth_rate(0.0))):
+        pos = zeldovich.zeldovich_positions(psi, sp, f=f_).reshape(3, -1)
+        out.append(pos[:, sel].T.contiguous())
+        del pos
+    del psi
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase3_catalogs(torch, rft, dev, g, card):
+    """The slice's main paths through the public API, each with the launch
+    counts set to 0 before it and read after it (none through torch.fft)
+    and its peak device memory: catalog_correlation and its multipoles of
+    2^17 Zel'dovich objects (the multipoles in redshift space),
+    fkp_power (CIC and TSC) and its multipoles at 1024^3,
+    calculate_marked_power at 1024^3, density_velocity_correlation and
+    pairwise_velocity at 1024^3.  Returns the launch counts, summed, and
+    the peaks."""
+    from randomfield_tpu_torch.validate import fkp, marked, paircount
+    from randomfield_tpu_torch.validate import velocity
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    peaks = {}
+    sp = HEADLINE_SPACING
+    box = HEADLINE[0] * sp
+    real, redshift = _zeldovich_sample(torch, g, dev)
+    (r, xi, dd), peaks["catalog_correlation"] = _path(
+        torch, f"catalog_correlation ({PAIR_OBJECTS} Zel'dovich objects)",
+        lambda: paircount.catalog_correlation(real, box, PAIR_EDGES),
+        {"KQ": 1}, total)
+    log(f"phase 3 catalog_correlation: xi at r = {np.round(r[:4], 2)} "
+        f"{np.round(xi[:4], 4)}; {float(dd.sum()):.0f} pairs in range")
+    if not (np.isfinite(xi[1:]).all() and xi[1] > 0):
+        raise AssertionError("the 1024^3 catalog xi is off")
+    (r, xl, dd), peaks["catalog_correlation_multipoles"] = _path(
+        torch, f"catalog_correlation_multipoles ({PAIR_OBJECTS} "
+        f"redshift-space objects, ells {PAIR_ELLS})",
+        lambda: paircount.catalog_correlation_multipoles(
+            redshift, box, PAIR_EDGES, ells=PAIR_ELLS), {"KQ": 1}, total)
+    log(f"phase 3 catalog_correlation_multipoles: xi_0, xi_2 at r = "
+        f"{np.round(r[2:6], 2)}: {np.round(xl[0][2:6], 4)}, "
+        f"{np.round(xl[1][2:6], 4)}")
+    if not np.isfinite(xl[:, 1:]).all():
+        raise AssertionError("the 1024^3 catalog multipoles are not finite")
+    del real, redshift
+    data, dw, randoms = _fkp_catalogs(torch, g, dev)
+    log(f"phase 3 FKP catalogs: {data.shape[1]} data cells holding "
+        f"{int(dw.sum())} objects, {randoms.shape[1]} randoms")
+    for window in ("cic", "tsc"):
+        res, peaks[f"fkp_power {window}"] = _path(
+            torch, f"fkp_power ({window})", lambda: fkp.fkp_power(
+                data, randoms, sp, HEADLINE, data_weights=dw,
+                data_are_counts=True, window=window, nbins=NBINS),
+            {"KP": 2, "K6": 1, "K3": 2, "KB": 1}, total)
+        log(f"phase 3 fkp_power {window}: alpha {res.alpha:.6f}, I22 "
+            f"{res.i22:.6e}, shot {res.shot_noise:.3f}, P at the lowest "
+            f"k {np.round(res.p[:4], 1)}")
+        live = res.n_modes > 0
+        if not (np.isfinite(res.p[live]).all() and res.p[live][0] > 0):
+            raise AssertionError(f"the 1024^3 FKP spectrum ({window}) is off")
+    res, peaks["fkp_power_multipoles"] = _path(
+        torch, "fkp_power_multipoles (cic)", lambda: fkp.fkp_power_multipoles(
+            data, randoms, sp, HEADLINE, data_weights=dw,
+            data_are_counts=True, nbins=NBINS),
+        {"KP": 2, "K6": 1, "K3": 2, "KB": 1}, total)
+    if not all(np.isfinite(v[res.n_modes > 0]).all()
+               for v in res.p.values()):
+        raise AssertionError("the 1024^3 FKP multipoles are not finite")
+    del data, dw, randoms
+    torch.cuda.empty_cache()
+    field = g.generate_delta_field(7, apply_lightcone=False)
+    (k, pm, n), peaks["calculate_marked_power"] = _path(
+        torch, f"calculate_marked_power (R = {MARK_R}, p = {MARK_P})",
+        lambda: marked.calculate_marked_power(field, sp, nbins=NBINS,
+                                              R=MARK_R, p=MARK_P),
+        {"K6": 2, "K3": 6, "K4": 1, "KB": 1}, total)
+    if not (np.isfinite(pm[n > 0]).all() and (pm[n > 0] > 0).all()):
+        raise AssertionError("the 1024^3 marked power is off")
+    vel = g.generate_velocity(7)
+    (r, psi, c), peaks["density_velocity_correlation"] = _path(
+        torch, "density_velocity_correlation",
+        lambda: velocity.density_velocity_correlation(field, vel, sp),
+        {"K6": 4, "K3": 14, "K4": 3}, total)
+    (r, v12, c), peaks["pairwise_velocity"] = _path(
+        torch, "pairwise_velocity",
+        lambda: velocity.pairwise_velocity(field, vel, sp),
+        {"K6": 5, "K3": 18, "K4": 4}, total)
+    log(f"phase 3 velocity: psi_r at r = {np.round(r[:4], 1)} "
+        f"{np.round(psi[:4], 3)} km/s, v12 {np.round(v12[:4], 3)} km/s")
+    live = c > 0
+    if not (np.isfinite(psi[live]).all() and np.isfinite(v12[live]).all()
+            and psi[live][0] < 0 and v12[live][0] < 0):
+        raise AssertionError("the 1024^3 velocity statistics are off")
+    del field, vel
+    torch.cuda.empty_cache()
+    return total, peaks
+
+
+def phase4_catalogs(torch, rft, dev, g, card):
+    """Times at 1024^3 (CUDA events, median of 5 after a warm-up): KQ on
+    the 2^17 Zel'dovich sample beside its plain version (in turns) and in
+    its other modes; each path of phase 3 and its stages (painting,
+    transforms, binning, KQ).  Returns ({"KQ": (ms, plain ms, None)}, the
+    pairs in range of the timed launch, the pairs a cell list would examine
+    for it)."""
+    from randomfield_tpu_torch.ops import paint, paircount as pc, transform
+    from randomfield_tpu_torch.validate import fkp, fourier, marked
+    from randomfield_tpu_torch.validate import paircount, velocity
+
+    sp = HEADLINE_SPACING
+    box = HEADLINE[0] * sp
+    real, redshift = _zeldovich_sample(torch, g, dev)
+    ones = torch.ones(PAIR_OBJECTS, device=dev)
+    rows = pc.pack(real, ones)
+    edges2 = torch.as_tensor((PAIR_EDGES ** 2).astype(np.float32))
+    nbins = len(PAIR_EDGES) - 1
+    s = pc.fixed_point_exponent(PAIR_OBJECTS, PAIR_OBJECTS, 1.0, 1.0,
+                                PAIR_EDGES[-1])
+    b3 = (box,) * 3
+    kq_ms, kq_plain, _ = time_kernel(
+        torch, f"KQ pair_sums isotropic {PAIR_OBJECTS} auto, {nbins} bins",
+        lambda: pc.pair_sums(rows, rows, b3, edges2, s),
+        lambda: pc.pair_sums_plain(rows, rows, b3, edges2, s), None, None,
+        (PAIR_OBJECTS, 4), card, plain_reps=1)
+    in_range = int(pc.pair_sums(rows, rows, b3, edges2, s)[0][0].sum()) >> s
+    examined = cell_walk_pairs(torch, real, box, PAIR_EDGES[-1])
+    zrows = pc.pack(redshift, ones)
+    for what, mode, nmu, ells in ((f"{PAIR_NMU} wedges", 1, PAIR_NMU, ()),
+                                  (f"ells {PAIR_ELLS}", 2, 1, PAIR_ELLS)):
+        se = pc.fixed_point_exponent(PAIR_OBJECTS, PAIR_OBJECTS, 1.0, 1.0,
+                                     PAIR_EDGES[-1], ells)
+        ms = cuda_ms(torch, lambda: pc.pair_sums(zrows, zrows, b3, edges2, se,
+                                                 mode, nmu, ells))
+        log(f"phase 4 KQ {what} on the redshift-space sample: {ms:.3f} ms "
+            f"[{card}]")
+    t_corr = cuda_ms(torch, lambda: paircount.catalog_correlation(
+        real, box, PAIR_EDGES))
+    t_poles = cuda_ms(torch, lambda: paircount.catalog_correlation_multipoles(
+        redshift, box, PAIR_EDGES, ells=PAIR_ELLS))
+    log(f"phase 4 catalog_correlation of {PAIR_OBJECTS}: {t_corr:.3f} ms (KQ "
+        f"{kq_ms:.3f}, {100 * kq_ms / t_corr:.1f}%); the multipoles "
+        f"{t_poles:.3f} ms; {in_range} pairs in range of {PAIR_OBJECTS ** 2}, "
+        f"{examined} ({100 * examined / PAIR_OBJECTS ** 2:.3f}%) in the 27 "
+        f"neighbouring cells of side >= {PAIR_EDGES[-1]:g} [{card}]")
+    del real, redshift, rows, zrows
+    torch.cuda.empty_cache()
+
+    data, dw, randoms = _fkp_catalogs(torch, g, dev)
+    w_d = dw.to(torch.float32)
+    s_d = paint.fixed_point_exponent(float(dw.sum()))
+    s_r = paint.fixed_point_exponent(float(randoms.shape[1]))
+    def prepare():
+        return fkp._prepare(data, randoms, sp, HEADLINE, dw, 1.0, None, None,
+                            0.0, dev, data_are_counts=True)
+
+    cats = prepare()
+    f = fkp._painted_field(cats, sp, HEADLINE, paint.ORDERS["cic"])
+    t_prep = cuda_ms(torch, prepare)
+    for window in ("cic", "tsc"):
+        order = paint.ORDERS[window]
+        t_all = cuda_ms(torch, lambda: fkp.fkp_power(
+            data, randoms, sp, HEADLINE, data_weights=dw,
+            data_are_counts=True, window=window, nbins=NBINS))
+        t_paint_d = cuda_ms(torch, lambda: paint.deposit(
+            data, HEADLINE, sp, w_d, order, 0.0, s_d))
+        t_paint_r = cuda_ms(torch, lambda: paint.deposit(
+            randoms, HEADLINE, sp, 1.0, order, 0.0, s_r))
+        t_field = cuda_ms(torch, lambda: fkp._painted_field(
+            cats, sp, HEADLINE, order))
+        t_fwd = cuda_ms(torch, lambda: transform.rfftn(f))
+        t_power = cuda_ms(torch, lambda: fourier.calculate_power(
+            f, sp, nbins=NBINS, window=window))
+        log(f"phase 4 fkp_power {window} {HEADLINE}: {t_all:.3f} ms; the "
+            f"weights' sums {t_prep:.3f}, the field {t_field:.3f} (painting "
+            f"data {t_paint_d:.3f} + randoms {t_paint_r:.3f}, the rest the "
+            f"float64 difference), calculate_power {t_power:.3f} (transform "
+            f"{t_fwd:.3f}, binning {t_power - t_fwd:.3f}) [{card}]")
+    t_inter = cuda_ms(torch, lambda: fkp.fkp_power(
+        data, randoms, sp, HEADLINE, data_weights=dw, data_are_counts=True,
+        interlaced=True, nbins=NBINS))
+    log(f"phase 4 fkp_power cic interlaced {HEADLINE}: {t_inter:.3f} ms "
+        f"[{card}]")
+    t_poles = cuda_ms(torch, lambda: fkp.fkp_power_multipoles(
+        data, randoms, sp, HEADLINE, data_weights=dw, data_are_counts=True,
+        nbins=NBINS))
+    log(f"phase 4 fkp_power_multipoles cic {HEADLINE}: {t_poles:.3f} ms "
+        f"[{card}]")
+    del data, dw, w_d, randoms, f, cats
+    torch.cuda.empty_cache()
+
+    field = g.generate_delta_field(7, apply_lightcone=False)
+    t_all = cuda_ms(torch, lambda: marked.calculate_marked_power(
+        field, sp, nbins=NBINS, R=MARK_R, p=MARK_P))
+    t_smooth = cuda_ms(torch, lambda: marked.smooth_field(field, sp, MARK_R))
+    t_fwd = cuda_ms(torch, lambda: transform.rfftn(field))
+    re, im = transform.rfftn(field)
+    spec = (re.clone(), im.clone())
+    t_inv = cuda_ms(torch, lambda: transform.irfftn_reim(re, im, HEADLINE),
+                    setup=lambda: (re.copy_(spec[0]), im.copy_(spec[1])))
+    del re, im, spec
+    t_power = cuda_ms(torch, lambda: fourier.calculate_power(field, sp,
+                                                             nbins=NBINS))
+    log(f"phase 4 calculate_marked_power {HEADLINE}: {t_all:.3f} ms; "
+        f"smoothing {t_smooth:.3f} (forward {t_fwd:.3f}, inverse {t_inv:.3f}, "
+        f"the window multiply the rest), the mark "
+        f"{t_all - t_smooth - t_power:.3f}, calculate_power {t_power:.3f} "
+        f"(binning {t_power - t_fwd:.3f}) [{card}]")
+    vel = g.generate_velocity(7)
+    t_psi = cuda_ms(torch, lambda: velocity.density_velocity_correlation(
+        field, vel, sp))
+    t_v12 = cuda_ms(torch, lambda: velocity.pairwise_velocity(field, vel, sp))
+    t_tr = 4 * t_fwd + 3 * t_inv
+    log(f"phase 4 density_velocity_correlation {HEADLINE}: {t_psi:.3f} ms; "
+        f"transforms (4 forward, 3 inverse) {t_tr:.3f} "
+        f"({100 * t_tr / t_psi:.1f}%), the cross products, projection and r "
+        f"binning the rest; pairwise_velocity {t_v12:.3f} ms [{card}]")
+    del field, vel
+    torch.cuda.empty_cache()
+    return {"KQ": (kq_ms, kq_plain, None)}, in_range, examined
+
+
+def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
     once) over the HBM rate and its operations over the float32 rate.  K6
     at the one-rank forward transform's shape, K7 and K8 on one shard of a
     four-rank mesh; KX's mask and void modes as "KX mask" and "KX voids"
-    (the void mode with phase 4's ``kx_candidates``)."""
+    (the void mode with phase 4's ``kx_candidates``); KQ on phase 4's
+    PAIR_OBJECTS auto count, ``kq_in_range`` of its pairs in range and
+    ``kq_examined`` pairs that a cell list examines (cell_walk_pairs)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
@@ -5092,6 +5797,13 @@ def kernel_bounds(g, kx_candidates):
         "KX voids": (8 * cells + 8 + 8 * kx_candidates,
                      KX_VOID_FP64_OPS_PER_VOXEL * cells * FP32_OPS_PER_S
                      / FP64_OPS_PER_S),
+        # KQ (isotropic auto): the catalog's rows read once (twice: both
+        # sides of the pairs), the edges, the sums written; its operations
+        # on the pairs a cell list examines and on the pairs in range
+        "KQ": (2 * 16 * PAIR_OBJECTS + 4 * len(PAIR_EDGES)
+               + 16 * (len(PAIR_EDGES) - 1),
+               KQ_OPS_PER_PAIR * kq_examined
+               + KQ_OPS_PER_PAIR_IN_RANGE * kq_in_range),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -5167,6 +5879,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase0_morphology(card)
         morph_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase0_catalogs(card)
+        catalog_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
@@ -5176,6 +5891,7 @@ def main() -> int:
                            device=dev, sampler="pallas")
 
         errs = {}
+        phase1_sigma_steps(torch, g)
         phase1_draw_scale(torch, g, errs)
         torch.cuda.empty_cache()
         phase1_kernels(torch, g, errs)
@@ -5196,6 +5912,9 @@ def main() -> int:
         phase1_morphology(torch, g, errs)
         morph_s += time.perf_counter() - t0
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase1_catalogs(torch, g, errs)
+        catalog_s += time.perf_counter() - t0
         phase2_slice(torch, rft, dev)
         phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
@@ -5210,6 +5929,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase2_morphology(torch, rft, dev)
         morph_s += time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase2_catalogs(torch, rft, dev)
+        catalog_s += time.perf_counter() - t0
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
         main_paths = [phase3_main(torch, g), phase3_noise(torch, g),
@@ -5234,6 +5957,12 @@ def main() -> int:
                                                         card)
         morph_s += time.perf_counter() - t0
         main_paths.append(morph_launches)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        catalog_launches, catalog_peaks = phase3_catalogs(torch, rft, dev, g,
+                                                          card)
+        catalog_s += time.perf_counter() - t0
+        main_paths.append(catalog_launches)
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
@@ -5250,7 +5979,13 @@ def main() -> int:
                                                        card)
         times.update(morph_times)
         morph_s += time.perf_counter() - t0
-        bounds = kernel_bounds(g, kx_candidates)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        catalog_times, kq_in_range, kq_examined = phase4_catalogs(
+            torch, rft, dev, g, card)
+        times.update(catalog_times)
+        catalog_s += time.perf_counter() - t0
+        bounds = kernel_bounds(g, kx_candidates, kq_in_range, kq_examined)
         log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
             f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
         log(f"phase 4 peak device memory of the 1024^3 morphology methods "
@@ -5258,6 +5993,11 @@ def main() -> int:
             f"[{card}]")
         log(f"chip_smoke morphology phases (KM, KX; phases 0-4) wall time "
             f"{morph_s:.1f} s [{card}]")
+        log(f"phase 4 peak device memory of the 1024^3 catalog paths (GiB): "
+            f"{ {k: round(v, 3) for k, v in catalog_peaks.items()} } "
+            f"[{card}]")
+        log(f"chip_smoke catalog phases (KQ, FKP, marked, velocity; phases "
+            f"0-4) wall time {catalog_s:.1f} s [{card}]")
         log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
             f"[{card}]")
     except Exception:

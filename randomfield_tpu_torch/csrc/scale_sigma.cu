@@ -61,6 +61,34 @@ scale_sigma_kernel(float* __restrict__ re, float* __restrict__ im,
   }
 }
 
+// The check entry's kernel: K2's amplitude at each |k|^2 of a list, with
+// its steps written out (log10|k|, t, i0, frac), through the same device
+// functions the kernels inline.
+__global__ void __launch_bounds__(kThreads)
+sigma_steps_kernel(const float* __restrict__ ksq,
+                   const float* __restrict__ knots, int n_knots, long long n,
+                   float half_inv_ln10, float lk0, float inv_dlk,
+                   float smoothing, float gain, float* __restrict__ lk_out,
+                   float* __restrict__ t_out, int* __restrict__ i0_out,
+                   float* __restrict__ frac_out, float* __restrict__ amp_out) {
+  extern __shared__ float tab[];
+  rf::load_knots(tab, knots, n_knots);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float k2 = ksq[i];
+    const float lk = k2 > 0.f ? rf::log10_k(k2, half_inv_ln10) : 0.f;
+    const float t = rf::table_t(lk, lk0, inv_dlk, n_knots);
+    const int i0 = min(static_cast<int>(t), n_knots - 2);
+    lk_out[i] = lk;
+    t_out[i] = t;
+    i0_out[i] = i0;
+    frac_out[i] = __fsub_rn(t, static_cast<float>(i0));
+    amp_out[i] = rf::k2_amplitude_ksq(tab, n_knots, k2, half_inv_ln10, lk0,
+                                      inv_dlk, smoothing, gain);
+  }
+}
+
 }  // namespace
 
 // re, im: float32 (nx_loc, ny_loc, nzh), contiguous, scaled in place; they
@@ -89,6 +117,31 @@ extern "C" int rf_scale_sigma(void* re, void* im, const void* knots,
       static_cast<const float*>(knots), n_knots, ny_loc, nzh, nx, ny, x_off,
       y_off, kx_scale, ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk,
       smoothing, gain);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A check, counted nowhere: each step of K2's amplitude at n values of
+// |k|^2 (float32), written to lk, t, frac, amp (float32) and i0 (int32), as
+// ops/sampler.py:sigma_steps_plain writes the plain version's.
+extern "C" int rf_sigma_steps(const void* ksq, const void* knots, int n_knots,
+                              long long n, float half_inv_ln10, float lk0,
+                              float inv_dlk, float smoothing, float gain,
+                              void* lk, void* t, void* i0, void* frac,
+                              void* amp, void* stream) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(n_knots);
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_steps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 4096) blocks = 4096;
+  if (blocks < 1) blocks = 1;
+  sigma_steps_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ksq), static_cast<const float*>(knots),
+      n_knots, n, half_inv_ln10, lk0, inv_dlk, smoothing, gain,
+      static_cast<float*>(lk), static_cast<float*>(t), static_cast<int*>(i0),
+      static_cast<float*>(frac), static_cast<float*>(amp));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,9 +8,14 @@
 // one-vreg lane gather; here the flat knot vector sits in shared memory and
 // is indexed directly.  Step for step: log10|k| = (0.5 / ln 10) ln|k|^2,
 // t = (log10|k| - lk0) / dlk clipped to [0, n_knots - 1], i0 = min(int(t),
-// n_knots - 2), sigma = s[i0] (1 - frac) + s[i0 + 1] frac.  The final sum is
-// rounded as written (__fmul_rn, __fadd_rn), so no fused multiply-add moves
-// it away from the plain PyTorch version.
+// n_knots - 2), sigma = s[i0] (1 - frac) + s[i0 + 1] frac.  Every step is
+// rounded as written (__fmul_rn, __fsub_rn, __fadd_rn): nvcc's default
+// contraction would otherwise fuse log10|k| = h ln|k|^2 into the next
+// subtraction, (h ln|k|^2 - lk0), as one FFMA once the functions are
+// inlined, which moved t, and so sigma, by an ulp on some modes away from
+// the plain PyTorch version (ops/sampler.py:_interp_sigma, which rounds the
+// product and the difference apart).  table_t is that step alone, so the
+// check entry of scale_sigma.cu can write each step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,18 +37,25 @@ __device__ __forceinline__ int signed_index(int i, int n) {
 
 // log10|k| from |k|^2 > 0.
 __device__ __forceinline__ float log10_k(float ksq, float half_inv_ln10) {
-  return half_inv_ln10 * logf(ksq);
+  return __fmul_rn(half_inv_ln10, logf(ksq));
+}
+
+// The table coordinate of log10|k| = lk: (lk - lk0) / dlk clipped to
+// [0, n_knots - 1].
+__device__ __forceinline__ float table_t(float lk, float lk0, float inv_dlk,
+                                         int n_knots) {
+  return fminf(fmaxf(__fmul_rn(__fsub_rn(lk, lk0), inv_dlk), 0.f),
+               static_cast<float>(n_knots - 1));
 }
 
 // sigma at log10|k| = lk, linear over the table tab[0, n_knots).
 __device__ __forceinline__ float interp_sigma(const float* tab, int n_knots,
                                               float lk, float lk0,
                                               float inv_dlk) {
-  const float top = static_cast<float>(n_knots - 1);
-  const float t = fminf(fmaxf((lk - lk0) * inv_dlk, 0.f), top);
+  const float t = table_t(lk, lk0, inv_dlk, n_knots);
   const int i0 = min(static_cast<int>(t), n_knots - 2);
-  const float frac = t - static_cast<float>(i0);
-  return __fadd_rn(__fmul_rn(tab[i0], 1.f - frac),
+  const float frac = __fsub_rn(t, static_cast<float>(i0));
+  return __fadd_rn(__fmul_rn(tab[i0], __fsub_rn(1.f, frac)),
                    __fmul_rn(tab[i0 + 1], frac));
 }
 

@@ -96,6 +96,11 @@ class Cosmology:
         return C_KM_S / self.H0
 
     @property
+    def critical_density0(self) -> float:
+        """Critical density today, Msun / Mpc^3 (= 2.775e11 h^2)."""
+        return 2.77536627e11 * self.h**2
+
+    @property
     def _is_flat_lcdm(self) -> bool:
         """True for the flat cosmological-constant sector (closed-form
         growth applies; the general w0waCDM+curvature path uses the ODE)."""

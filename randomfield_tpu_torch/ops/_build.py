@@ -68,6 +68,8 @@ _SIGNATURES = {
     "rf_sample_fftx_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_jax_normal": [_P, _P, _LL, _P],
     "rf_unit_phase": [_P, _P, _P, _P, _LL, _P],
+    "rf_sigma_steps": [_P, _P, _I, _LL, _F, _F, _F, _F, _F, _P, _P, _P, _P,
+                       _P, _P],
     "rf_bin_spectrum": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _P],
@@ -88,6 +90,9 @@ _SIGNATURES = {
     "rf_extrema_voids": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "rf_extrema_attributes": [_I, _I, _I, _P, _P, _P, _P],
     "rf_minkowski_plan": [_I, _LL, _P],
+    "rf_pair_counts": [_P, _I, _P, _LL, _P, _I, _F, _F, _F, _I, _I, _I, _I,
+                       _I, _I, _I, _D, _LL, _I, _I, _P, _P, _P],
+    "rf_pair_counts_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
     "rf_minkowski_bins": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _LL, _P, _P, _P, _P, _P],
 }

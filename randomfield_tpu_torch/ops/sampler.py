@@ -74,6 +74,8 @@ __all__ = [
     "flat_knots",
     "scale_sigma",
     "scale_sigma_plain",
+    "sigma_steps",
+    "sigma_steps_plain",
     "draw_scale",
     "draw_scale_shard",
     "draw_scale_plain",
@@ -268,9 +270,10 @@ def _axis_k(c, shape, x_off, nx_loc, y_off, ny_loc, dev):
     return kx, ky, kz
 
 
-def _interp_sigma(knots, ksq, c):
-    """(log10|k| with DC at 0, sigma(|k|) with sigma(0) = 0) of ``ksq``:
-    csrc/sigma_common.cuh's float32 operations, in its order."""
+def _sigma_steps(knots, ksq, c):
+    """(log10|k| with DC at 0, t, i0, frac, sigma(|k|) with sigma(0) = 0) of
+    ``ksq``: csrc/sigma_common.cuh's float32 operations, in its order, each
+    rounded apart."""
     n_knots = knots.numel()
     pos = ksq > 0
     lk = torch.log(torch.where(pos, ksq, 1.0)) * float(_HALF_INV_LN10)
@@ -278,7 +281,62 @@ def _interp_sigma(knots, ksq, c):
     i0 = t.to(torch.int64).clamp_max(n_knots - 2)
     frac = t - i0.to(torch.float32)
     sig = knots[i0] * (1.0 - frac) + knots[i0 + 1] * frac
-    return lk, torch.where(pos, sig, 0.0)
+    return lk, t, i0, frac, torch.where(pos, sig, 0.0)
+
+
+def _interp_sigma(knots, ksq, c):
+    """(log10|k| with DC at 0, sigma(|k|) with sigma(0) = 0) of ``ksq``:
+    csrc/sigma_common.cuh's float32 operations, in its order."""
+    steps = _sigma_steps(knots, ksq, c)
+    return steps[0], steps[4]
+
+
+def _filtered(amp, ksq, smoothing_length, gain):
+    """K2's amplitude from sigma: times exp(-k^2 s^2 / 2) when s != 0, then
+    times the gain, each in float32 as the kernels round it."""
+    s = float(np.float32(smoothing_length))
+    if s != 0.0:
+        amp = amp * torch.exp(-0.5 * ksq * s * s)
+    return amp * float(np.float32(gain))
+
+
+def sigma_steps_plain(table, ksq, smoothing_length=0.0, gain=1.0):
+    """Each step of K2's amplitude at float32 ``ksq`` (any shape, on the
+    table's device) in plain PyTorch: a dict of log10|k| (0 at DC), t, i0
+    (int32), frac and the amplitude sigma(|k|) exp(-k^2 s^2 / 2) gain."""
+    c = dict(lk0=np.float32(table.lk0), inv_dlk=np.float32(1.0 / table.dlk))
+    lk, t, i0, frac, sig = _sigma_steps(table.knots, ksq, c)
+    return dict(lk=torch.where(ksq > 0, lk, 0.0), t=t,
+                i0=i0.to(torch.int32), frac=frac,
+                amp=_filtered(sig, ksq, smoothing_length, gain))
+
+
+def sigma_steps(table, ksq, smoothing_length=0.0, gain=1.0):
+    """:func:`sigma_steps_plain` on the card: ``csrc/scale_sigma.cu``'s
+    ``rf_sigma_steps`` runs the kernels' device functions
+    (``sigma_common.cuh``) on each value and writes every step (a check of
+    K2's amplitude, on no render's path, counted nowhere).  CPU tensors run
+    :func:`sigma_steps_plain`."""
+    ksq = torch.as_tensor(ksq)
+    if ksq.dtype != torch.float32 or ksq.device != table.knots.device:
+        raise ValueError("sigma_steps takes float32 |k|^2 on the table's "
+                         "device")
+    if ksq.device.type == "cpu":
+        return sigma_steps_plain(table, ksq, smoothing_length, gain)
+    flat = ksq.contiguous().reshape(-1)
+    out = {k: torch.empty(flat.shape, dtype=torch.int32 if k == "i0"
+                          else torch.float32, device=flat.device)
+           for k in ("lk", "t", "i0", "frac", "amp")}
+    status = _build.library().rf_sigma_steps(
+        flat.data_ptr(), table.knots.data_ptr(), table.knots.numel(),
+        flat.numel(), float(_HALF_INV_LN10), float(np.float32(table.lk0)),
+        float(np.float32(1.0 / table.dlk)),
+        float(np.float32(smoothing_length)), float(np.float32(gain)),
+        out["lk"].data_ptr(), out["t"].data_ptr(), out["i0"].data_ptr(),
+        out["frac"].data_ptr(), out["amp"].data_ptr(),
+        _build.current_stream(flat))
+    _build.check(status, "sigma_steps")
+    return {k: v.view(ksq.shape) for k, v in out.items()}
 
 
 def sigma_amplitude(table, shape, spacing, smoothing_length=0.0, x_off=0,
@@ -299,10 +357,7 @@ def sigma_amplitude(table, shape, spacing, smoothing_length=0.0, x_off=0,
     ksq = (kx * kx)[:, None, None] + (ky * ky)[None, :, None]
     ksq = ksq + (kz * kz)[None, None, :]
     _, amp = _interp_sigma(table.knots, ksq, c)
-    s = float(np.float32(smoothing_length))
-    if s != 0.0:
-        amp = amp * torch.exp(-0.5 * ksq * s * s)
-    return amp * float(np.float32(gain))
+    return _filtered(amp, ksq, smoothing_length, gain)
 
 
 def scale_sigma_plain(re, im, table, shape, spacing, smoothing_length=0.0,

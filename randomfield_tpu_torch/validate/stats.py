@@ -63,7 +63,7 @@ _HOME = {name: topic for topic, names in _TOPICS.items() for name in names}
 __all__ = ["spectrum_power", "spectrum_sums", "bin_power_grid",
            "bin_power_multipoles_grid", "bin_power_wedges_grid", "bin_setup",
            "plane_bins", "masked_bins", "bins_to_host", "poles_to_host",
-           "wedges_to_host", "mesh_not_ported", *_HOME]
+           "wedges_to_host", "mesh_not_ported", "device_of", *_HOME]
 
 LEGENDRE_ELLS = (0, 2, 4)
 
@@ -87,6 +87,16 @@ def mesh_not_ported(what, mesh):
         f"{what} with mesh= is not ported to randomfield_tpu_torch yet: the "
         f"{'pencil' if pencil else 'slab'}-mesh estimators (ROADMAP.md, "
         f"Queue 1 item {5 if pencil else 8})")
+
+
+def device_of(x, device=None):
+    """The device an estimator of ``x`` runs on: ``device`` when given, a
+    tensor's own, and the card for anything else (a numpy array)."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return torch.device("cuda")
 
 
 def check_ells(ells, why="for an autocorrelation"):

@@ -1320,3 +1320,150 @@ def test_morphology_methods_on_the_card_match_the_cpu(cuda):
                                                        (16.0, 32.0)))
     assert minkowski.KM_LAUNCHES == before[0] + 1
     assert extrema.KX_LAUNCHES >= before[1] + 3
+
+
+# ---- KQ: the pair counts, and K2's amplitude against its plain version --------
+
+def _pair_catalog(n, box, seed):
+    """float32 (n, 3) positions: uniform, then a line of points 4 apart
+    (pairs exactly on integer edges), points on the box's faces (0 and L,
+    one image apart, and L/2 apart, round half to even) and duplicates."""
+    rng = np.random.default_rng(seed)
+    pos = (rng.random((n, 3)) * np.asarray(box)).astype(np.float32)
+    k = min(24, n // 4)
+    pos[:k] = [10.0, 12.0, 14.0]
+    pos[:k, 0] += 4.0 * np.arange(k, dtype=np.float32) % box[0]
+    pos[k:k + 4] = [[0.0, 5.0, 5.0], [box[0], 5.0, 5.0],
+                    [box[0] / 2, 5.0, 5.0], [0.0, box[1] / 2, 0.0]]
+    pos[k + 4:k + 8] = pos[k + 8:k + 12]
+    return pos
+
+
+def _pair_setup(n1, n2, weighted, seed=0):
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    box = (96.0, 96.0, 120.0)
+    r_edges = np.array([0.0, 2.0, 4.0, 8.0, 12.0, 16.0, 24.0, 32.0, 48.0])
+    rng = np.random.default_rng(seed + 1)
+    cats = []
+    for n, s in ((n1, seed), (n2, seed + 7)):
+        w = (rng.random(n) + 0.25) if weighted else np.ones(n)
+        cats.append(pc.pack(torch.as_tensor(_pair_catalog(n, box, s)),
+                            torch.as_tensor(w)))
+    return pc, box, r_edges, cats
+
+
+@pytest.mark.parametrize("mode,nmu,ells", [
+    ("isotropic", 1, ()), ("wedges", 7, ()), ("ells", 1, (0, 2, 4)),
+    ("ells", 1, (4,))])
+@pytest.mark.parametrize("cross", [False, True])
+def test_pair_kernel_equals_plain_bit_for_bit(cuda, mode, nmu, ells, cross):
+    pc, box, r_edges, (a, b) = _pair_setup(1100, 700, weighted=True)
+    rows1 = a.to(cuda)
+    rows2 = b.to(cuda) if cross else rows1
+    edges2 = torch.as_tensor((r_edges**2).astype(np.float32))
+    n2 = rows2.shape[0]
+    s = pc.fixed_point_exponent(rows1.shape[0], n2, 1.25, 1.25, r_edges[-1],
+                                ells)
+    m = pc.MODES[mode]
+    before = pc.KQ_LAUNCHES
+    got, seen = pc.pair_sums(rows1, rows2, box, edges2, s, m, nmu, ells)
+    assert pc.KQ_LAUNCHES == before + 1
+    again, _ = pc.pair_sums(rows1, rows2, box, edges2, s, m, nmu, ells)
+    want, _ = pc.pair_sums_plain(rows1, rows2, box, edges2, s, m, nmu, ells)
+    assert int(seen) == rows1.shape[0] * n2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert int(got[0].sum()) > 0
+
+
+def test_pair_kernel_instances_and_plans_fit(cuda):
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    for mode, nmu, n_ells in ((0, 1, 0), (1, 10, 0), (2, 1, 3)):
+        regs, blocks, threads, smem = pc.kernel_attributes(mode, 30, nmu,
+                                                           n_ells)
+        assert regs > 0 and blocks >= 1 and threads == pc.ROWS
+    # one histogram a block where eight do not fit
+    plan = pc.launch_plan(3000, 3000, 600, pc.MODES["wedges"], 10)
+    assert plan.copies == 1
+    _, box, _, (a, _) = _pair_setup(600, 600, weighted=False)
+    rows = a.to(cuda)
+    e2 = torch.as_tensor((np.linspace(0, 48, 601) ** 2).astype(np.float32))
+    s = pc.fixed_point_exponent(600, 600, 1.0, 1.0, 48.0)
+    got, _ = pc.pair_sums(rows, rows, box, e2, s, 1, 10)
+    want, _ = pc.pair_sums_plain(rows, rows, box, e2, s, 1, 10)
+    assert torch.equal(got, want)
+
+
+def test_pair_counts_on_the_card_match_the_cpu(cuda):
+    from randomfield_tpu_torch.validate import paircount
+
+    box = (96.0, 96.0, 120.0)
+    pos = _pair_catalog(1500, box, 4)
+    pos2 = _pair_catalog(800, box, 5)
+    w = np.random.default_rng(6).random(1500) + 0.5
+    edges = np.geomspace(2.0, 48.0, 10)
+    for kw in (dict(), dict(nmu=5), dict(positions2=pos2)):
+        got = paircount.catalog_correlation(pos, box, edges, weights=w,
+                                            device=cuda, **kw)
+        want = paircount.catalog_correlation(pos, box, edges, weights=w,
+                                             device="cpu", **kw)
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+    got = paircount.catalog_correlation_multipoles(torch.as_tensor(pos)
+                                                   .to(cuda), box, edges)
+    want = paircount.catalog_correlation_multipoles(pos, box, edges,
+                                                    device="cpu")
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_numpy_fields_run_on_the_card(cuda):
+    """A numpy field, the JAX package's usual input, runs the marked and
+    velocity estimators on the card: their hand transforms launch."""
+    from randomfield_tpu_torch.validate import marked, velocity
+
+    shape = (32, 32, 32)
+    rng = np.random.default_rng(8)
+    d = (0.3 * rng.standard_normal(shape)).astype(np.float32)
+    v = rng.standard_normal((3, *shape)).astype(np.float32)
+    before = (fft.K6_LAUNCHES, fft.K4_LAUNCHES)
+    out = marked.smooth_field(d, SPACING, 9.0)
+    assert out.device.type == "cuda"
+    assert (fft.K6_LAUNCHES, fft.K4_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    for fn, k6 in ((lambda: marked.calculate_marked_power(d, SPACING,
+                                                          nbins=8), 2),
+                   (lambda: velocity.density_velocity_correlation(
+                       d, v, SPACING, nbins=8), 4)):
+        before = fft.K6_LAUNCHES
+        assert np.isfinite(fn()[1]).any()
+        assert fft.K6_LAUNCHES == before + k6
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 64), (32, 64, 30)])
+@pytest.mark.parametrize("smoothing", [0.0, 8.0])
+def test_k2_amplitude_bit_equal_to_plain(cuda, shape, smoothing):
+    """ROADMAP F6: each step of K2's amplitude, K2, K2F and K2F's fixed
+    mode equal to their plain versions bit for bit."""
+    table = sampler.make_sigma_table(rft.load_default_power(), shape, SPACING,
+                                     device=cuda)
+    ksq = grid.ksq(shape, SPACING, torch.float32, cuda)
+    got = sampler.sigma_steps(table, ksq, smoothing, 0.5 ** 0.5)
+    want = sampler.sigma_steps_plain(table, ksq, smoothing, 0.5 ** 0.5)
+    for k in ("lk", "t", "i0", "frac", "amp"):
+        assert torch.equal(got[k], want[k]), k
+    nzh = shape[2] // 2 + 1
+    re, im = _randn((shape[0], shape[1], nzh), cuda, 3), _randn(
+        (shape[0], shape[1], nzh), cuda, 4)
+    a = sampler.scale_sigma(re.clone(), im.clone(), table, shape, SPACING,
+                            smoothing, gain=0.5 ** 0.5)
+    b = sampler.scale_sigma_plain(re.clone(), im.clone(), table, shape,
+                                  SPACING, smoothing, gain=0.5 ** 0.5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(sampler.draw_scale(5, table, shape, SPACING, smoothing),
+                       sampler.draw_scale_plain(5, table, shape, SPACING,
+                                                smoothing))
+    assert torch.equal(sampler.draw_fixed(5, table, shape, SPACING, smoothing),
+                       sampler.draw_fixed_plain(5, table, shape, SPACING,
+                                                smoothing))
