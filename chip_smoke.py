@@ -30,8 +30,8 @@ non-zero with no result line:
    40, 64, 128 and 3000 (the constraints a pass takes); the registers of
    KM's and KX's instances, KX's shared memory a block and blocks an SM,
    and KM's launch at 1024^3; KQ's registers, shared memory a block and
-   blocks an SM in each mode (isotropic, wedges, Legendre rows) and counter
-   width, and its plan for the 2^17-object paths;
+   blocks an SM in each mode (isotropic, wedges, Legendre rows) and of its
+   sort's passes, and its cell plan for the 2^17-object paths;
 1. ROADMAP F6: K2's amplitude step by step (log10|k|, t, i0, frac, the
    amplitude at s = 0 and 8) over every |k|^2 of the 1024^3 grid through
    the kernels' device functions (scale_sigma.cu's check entry) against
@@ -90,11 +90,14 @@ non-zero with no result line:
    modes on the render and on the render with planted voids, equal to
    their plain versions; K2 (s = 0, 8), K2F's spectrum (the plain draws
    times sigma_amplitude) and K2F's fixed mode (draw_fixed_plain) equal to
-   their plain versions bit for bit; KQ (pair counts) on 2^17 weighted
-   objects with objects on edges, on faces and coincident: auto, isotropic,
-   10 wedges and the Legendre rows (0, 2, 4) along each axis, and against a
-   2^16-object catalog, equal to pair_sums_plain bit for bit, two calls
-   bit-equal, every pair examined once;
+   their plain versions bit for bit; KQ (pair counts on a cell list) on
+   2^17 weighted objects with objects on edges, on faces and coincident:
+   auto, isotropic, 10 wedges and the Legendre rows (0, 2, 4) along each
+   axis, and against a 2^16-object catalog; on the clustered Zel'dovich
+   sample in every mode, a box with 2 cells on z, one cell and a reach
+   whose cells the cap limits: equal to the brute pair_sums_plain bit for
+   bit, two calls bit-equal, the pairs examined equal to the cell walk's
+   own count;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -201,9 +204,12 @@ non-zero with no result line:
    void mode) beside their plain versions, KX beside its read yardstick
    (torch.sum of the same field) and its walk's cells loaded a cell, and
    each morphology method at 1024^3 with the transforms' share of it; KQ
-   beside its plain version (in turns) and in its three modes, and the
-   catalog paths split into their stages (painting, transforms, binning,
-   KQ); and the whole run's wall time.
+   beside its plain version (in turns) and in its three modes, its plan on
+   the Zel'dovich sample (cells, items, occupancy), its stages (the plan's
+   host read, the sort, the pair kernel, the check) and its pairs examined
+   beside cell_walk_pairs and their components that wrap; the catalog
+   paths split into their stages (painting, transforms, binning, KQ); and
+   the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -212,7 +218,9 @@ The line before the last is a JSON object of the kernels; the last is
 passes at every M of phase 4 alone, with the package beside the script:
 copied into another checkout, it sets that tree's KC against this one's
 on the same card.  ``--kx-times`` does the same for KX: its three modes
-at 1024^3 held to their plain versions, timed, beside the read yardstick.
+at 1024^3 held to their plain versions, timed, beside the read yardstick;
+``--kq-times`` for KQ: its phase-0 attributes and plan, its phase-1 checks
+and its phase-4 times.
 """
 
 from __future__ import annotations
@@ -1227,7 +1235,7 @@ def reset_counts():
     minkowski.KM_LAUNCHES = extrema.KX_LAUNCHES = 0
     from randomfield_tpu_torch.ops import paircount
 
-    paircount.KQ_LAUNCHES = 0
+    paircount.KQ_LAUNCHES = paircount.KQ_SORT_LAUNCHES = 0
 
 
 def read_counts():
@@ -5120,51 +5128,72 @@ CATALOG_SLICE_BAR = 2e-5
 # box of 100 Mpc/h, here 2^17 in a box of 1000
 PAIR_GATE = (1 << 17, 1000.0)
 # operations a pair, counted from csrc/pair_counts.cu: each pair examined
-# takes three minimum-image components (a subtract, a division, a rint, a
-# multiply and a subtract: 15), r^2 (three multiplies, two adds: 5) and the
-# range test (2); a pair in range adds the edge search (5 over 30 bins),
+# takes three minimum-image components (a subtract and the |d| <= box / 2
+# test: 6), r^2 (three multiplies, two adds: 5) and the range test (2); a
+# component that wraps (|d| > box / 2) adds the division, rint, multiply
+# and subtract (4); a pair in range adds the edge search (5 over 30 bins),
 # w w, the square root, w w r and two conversions (5 more), and two or
 # three shared adds.  The bound charges the first count only to the pairs
-# that a walk over neighbouring cells of side >= r_max must examine
-# (cell_walk_pairs), not to every pair KQ's brute-force walk examines.
-KQ_OPS_PER_PAIR = 22
+# that a walk over neighbouring cells of side >= r_max must examine, and
+# the second to their components that wrap (cell_walk_pairs), the design
+# KQ's cell list follows.
+KQ_OPS_PER_PAIR = 13
+KQ_OPS_PER_WRAP = 4
 KQ_OPS_PER_PAIR_IN_RANGE = 12
 
 
 def cell_walk_pairs(torch, pos, box, r_max):
-    """Ordered pairs that a cell list examines for pairs within ``r_max``:
-    the box cut into nc^3 periodic cells of side box / nc >= r_max, each
-    object against the objects of its 27 neighbouring cells (every pair
-    when nc < 3)."""
-    n = pos.shape[0]
+    """(ordered pairs, their components that wrap) that a cell list
+    examines for pairs within ``r_max``: the box cut into nc^3 periodic
+    cells of side box / nc >= r_max, each object against the objects of its
+    27 neighbouring cells.  The coordinates are wrapped into [0, box] (a
+    walk may wrap them first); a component wraps where the two cells lie
+    on the box's opposite faces on that axis, which with nc >= 4 is exactly
+    where |d| > box / 2 on the wrapped coordinates."""
     nc = int(box // r_max)
-    if nc < 3:
-        return n * n
+    if nc < 4:
+        raise ValueError(f"cell_walk_pairs counts nc >= 4 cells an axis, "
+                         f"not {nc}")
     c = (torch.remainder(pos, box) * (nc / box)).floor().long().clamp(0, nc - 1)
     flat = (c[:, 0] * nc + c[:, 1]) * nc + c[:, 2]
     counts = torch.bincount(flat, minlength=nc ** 3).view(nc, nc, nc)
-    near = sum(torch.roll(counts, (i, j, k), (0, 1, 2)) for i in (-1, 0, 1)
-               for j in (-1, 0, 1) for k in (-1, 0, 1))
-    return int((counts * near).sum())
+
+    def near(axes):
+        out = counts
+        for a in axes:
+            out = sum(torch.roll(out, o, a) for o in (-1, 0, 1))
+        return out
+
+    examined = int((counts * near((0, 1, 2))).sum())
+    wrapped = 0
+    for a in range(3):
+        side = near([b for b in range(3) if b != a])
+        wrapped += int((counts.select(a, 0) * side.select(a, nc - 1)).sum()
+                       + (counts.select(a, nc - 1) * side.select(a, 0)).sum())
+    return examined, wrapped
 
 
 def catalog_counts():
     from randomfield_tpu_torch.ops import paircount
 
-    return {"KQ": paircount.KQ_LAUNCHES}
+    return {"KQ": paircount.KQ_LAUNCHES,
+            "KQ sort": paircount.KQ_SORT_LAUNCHES}
 
 
 def phase0_catalogs(card):
     """KQ's registers a thread, shared memory a block and blocks an SM for
-    each mode (isotropic, PAIR_NMU wedges, the PAIR_ELLS rows), and its
-    launch plan at the 1024^3 paths' catalog."""
+    each mode of its pair kernel (isotropic, PAIR_NMU wedges, the PAIR_ELLS
+    rows) and for its sort's passes, and its plan for the 1024^3 paths'
+    catalog (cells per axis, rows a work item, the items' bound)."""
     from randomfield_tpu_torch.ops import paircount as pc
 
     nbins = len(PAIR_EDGES) - 1
     for what, mode, nmu, n_ells in (("isotropic", 0, 1, 0),
                                     (f"{PAIR_NMU} wedges", 1, PAIR_NMU, 0),
                                     (f"ells {PAIR_ELLS}", 2, 1,
-                                     len(PAIR_ELLS))):
+                                     len(PAIR_ELLS)),
+                                    *((f"sort pass {k}", k, 1, 0)
+                                      for k in pc.SORT_PASSES)):
         regs, blocks, threads, smem = pc.kernel_attributes(mode, nbins, nmu,
                                                            n_ells)
         log(f"phase 0 KQ {what}: {regs} registers a thread, {smem} bytes of "
@@ -5172,20 +5201,28 @@ def phase0_catalogs(card):
             f"threads [{card}]")
         if regs <= 0 or blocks <= 0:
             raise AssertionError(f"KQ {what} takes no block an SM")
-    plan = pc.launch_plan(PAIR_OBJECTS, PAIR_OBJECTS, nbins)
-    log(f"phase 0 KQ plan for {PAIR_OBJECTS} x {PAIR_OBJECTS} objects, "
-        f"{nbins} bins: {plan} [{card}]")
+    box = HEADLINE[0] * HEADLINE_SPACING
+    plan = pc.launch_plan(PAIR_OBJECTS, PAIR_OBJECTS, (box,) * 3,
+                          float(np.float32(PAIR_EDGES[-1] ** 2)), box, nbins)
+    log(f"phase 0 KQ plan for {PAIR_OBJECTS} x {PAIR_OBJECTS} objects in "
+        f"[0, {box:g}), {nbins} bins to {PAIR_EDGES[-1]:g}: {plan.cells} "
+        f"cells, {plan.rows} rows a work item, at most {plan.max_items} "
+        f"items, {plan.copies} histograms of {plan.slots} sums a block "
+        f"[{card}]")
 
 
-def _pair_rows(torch, n, dev, seed, weighted=True):
-    """float32 (n, 4) rows of a uniform catalog in the 1024^3 scene's box,
-    with weights in [0.5, 1.5) (or 1), and objects exactly on integer
-    edges (a line 5 Mpc/h apart), on the box's faces and coincident."""
+def _pair_rows(torch, n, dev, seed, weighted=True, box3=None):
+    """float32 (n, 4) rows of a uniform catalog in the 1024^3 scene's box
+    (or ``box3``), with weights in [0.5, 1.5) (or 1), and objects exactly
+    on integer edges (a line 5 Mpc/h apart), on the box's faces and
+    coincident."""
     from randomfield_tpu_torch.ops import paircount as pc
 
-    box = HEADLINE[0] * HEADLINE_SPACING
+    box3 = box3 or (HEADLINE[0] * HEADLINE_SPACING,) * 3
+    box = box3[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pos = torch.rand((n, 3), generator=gen, device=dev) * box
+    pos = torch.rand((n, 3), generator=gen, device=dev) * torch.tensor(
+        box3, device=dev)
     pos[:30] = torch.tensor([100.0, 200.0, 300.0], device=dev)
     pos[:30, 1] += 5.0 * torch.arange(30, device=dev)
     pos[30:34] = torch.tensor([[0.0, 7.0, 9.0], [box, 7.0, 9.0],
@@ -5201,37 +5238,76 @@ def phase1_catalogs(torch, g, errs):
     """KQ against its plain version on the card at the 1024^3 paths'
     catalog sizes: 2^17 weighted objects (with objects on edges, on faces
     and coincident) auto, isotropic, PAIR_NMU wedges and the PAIR_ELLS rows
-    along each axis; against a 2^16-object second catalog; the sums equal
-    bit for bit, two calls bit-equal, every pair examined once."""
+    along each axis; against a 2^16-object second catalog; the clustered
+    Zel'dovich sample of phase 4 (real and redshift space) in every mode; a
+    (2048, 2048, 400) box, 2 cells on z; one cell (the last edge at box /
+    2); a reach of 2 Mpc/h, whose cells the cap limits.  The sums equal bit
+    for bit, two calls bit-equal, and the pairs examined equal to the cell
+    walk's own count (expected_pairs of the plain cell_counts), below every
+    pair where the cells allow it."""
     from randomfield_tpu_torch.ops import paircount as pc
 
     dev = g.device
     box = (HEADLINE[0] * HEADLINE_SPACING,) * 3
-    edges2 = torch.as_tensor((PAIR_EDGES ** 2).astype(np.float32))
     rows1 = _pair_rows(torch, PAIR_OBJECTS, dev, 21)
     rows2 = _pair_rows(torch, PAIR_CROSS, dev, 22)
-    cases = [("auto isotropic", rows1, 0, 1, (), 2),
-             (f"auto {PAIR_NMU} wedges", rows1, 1, PAIR_NMU, (), 2)]
-    cases += [(f"auto ells {PAIR_ELLS} along axis {a}", rows1, 2, 1,
+    cases = [("auto isotropic", rows1, rows1, 0, 1, (), 2),
+             (f"auto {PAIR_NMU} wedges", rows1, rows1, 1, PAIR_NMU, (), 2)]
+    cases += [(f"auto ells {PAIR_ELLS} along axis {a}", rows1, rows1, 2, 1,
                PAIR_ELLS, a) for a in range(3)]
-    cases += [("cross isotropic", rows2, 0, 1, (), 2),
-              (f"cross {PAIR_NMU} wedges", rows2, 1, PAIR_NMU, (), 1),
-              (f"cross ells {PAIR_ELLS}", rows2, 2, 1, PAIR_ELLS, 0)]
-    for what, other, mode, nmu, ells, los in cases:
-        s = pc.fixed_point_exponent(rows1.shape[0], other.shape[0], 1.5, 1.5,
-                                    PAIR_EDGES[-1], ells)
-        args = (rows1, other, box, edges2, s, mode, nmu, ells, los)
+    cases += [("cross isotropic", rows1, rows2, 0, 1, (), 2),
+              (f"cross {PAIR_NMU} wedges", rows1, rows2, 1, PAIR_NMU, (), 1),
+              (f"cross ells {PAIR_ELLS}", rows1, rows2, 2, 1, PAIR_ELLS, 0)]
+    cases = [(what, a, b, box, PAIR_EDGES, *rest)
+             for what, a, b, *rest in cases]
+    real, redshift = _zeldovich_sample(torch, g, dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    zw = torch.rand(PAIR_OBJECTS, generator=gen, device=dev) + 0.5
+    zreal, zred = pc.pack(real, zw), pc.pack(redshift, zw)
+    del real, redshift
+    cases += [("Zel'dovich isotropic", zreal, zreal, box, PAIR_EDGES, 0, 1,
+               (), 2),
+              (f"Zel'dovich redshift {PAIR_NMU} wedges", zred, zred, box,
+               PAIR_EDGES, 1, PAIR_NMU, (), 2),
+              (f"Zel'dovich redshift ells {PAIR_ELLS}", zred, zred, box,
+               PAIR_EDGES, 2, 1, PAIR_ELLS, 2)]
+    thin = (box[0], box[1], 400.0)
+    slab = _pair_rows(torch, PAIR_CROSS, dev, 24, box3=thin)
+    whole = _pair_rows(torch, PAIR_CROSS // 2, dev, 25)
+    near = _pair_rows(torch, PAIR_OBJECTS, dev, 26)
+    half = PAIR_OBJECTS // 2
+    jitter = torch.rand((half, 3), generator=gen, device=dev) * 1.5
+    near[half:, :3] = near[:half, :3] + jitter
+    cases += [(f"box {thin}, 2 cells on z, {PAIR_NMU} wedges", slab, slab,
+               thin, PAIR_EDGES, 1, PAIR_NMU, (), 2),
+              (f"one cell (edges to {box[0] / 2:g}), ells {PAIR_ELLS}",
+               whole, whole, box, np.linspace(0.0, box[0] / 2, 31), 2, 1,
+               PAIR_ELLS, 0),
+              ("reach 2 Mpc/h, cells capped, isotropic", near, near, box,
+               np.linspace(0.0, 2.0, 11), 0, 1, (), 2)]
+    for what, one, other, b3, edges, mode, nmu, ells, los in cases:
+        edges2 = torch.as_tensor((edges ** 2).astype(np.float32))
+        s = pc.fixed_point_exponent(one.shape[0], other.shape[0], 1.5, 1.5,
+                                    edges[-1], ells)
+        args = (one, other, b3, edges2, s, mode, nmu, ells, los)
         got, seen = pc.pair_sums(*args)
         again, _ = pc.pair_sums(*args)
         want, _ = pc.pair_sums_plain(*args)
         same, bit = torch.equal(got, want), torch.equal(got, again)
-        n_pairs = rows1.shape[0] * other.shape[0]
-        log(f"phase 1 KQ {what}, {rows1.shape[0]} x {other.shape[0]}: "
-            f"{int(seen)} pairs examined ({n_pairs} expected), "
+        plan = pc._plan_of(one, other, torch.tensor(b3, device=dev),
+                           edges2.to(dev), mode, nmu, len(ells))
+        walk = pc.expected_pairs(pc.cell_counts(one, plan),
+                                 pc.cell_counts(other, plan), plan.cells)
+        n_pairs = one.shape[0] * other.shape[0]
+        log(f"phase 1 KQ {what}, {one.shape[0]} x {other.shape[0]}, cells "
+            f"{plan.cells}: {int(seen)} pairs examined (the walk's "
+            f"{walk}, {100 * walk / n_pairs:.3f}% of {n_pairs}), "
             f"{float(got[0].sum()) * 2.0 ** -s:.6e} weighted pairs in "
             f"range; sums {'equal to' if same else 'DIFFER from'} the plain "
             f"version, two calls {'bit-equal' if bit else 'DIFFERENT'}")
-        if not (same and bit and int(seen) == n_pairs):
+        if not (same and bit and int(seen) == walk
+                and (walk < n_pairs or plan.cells == (1, 1, 1))
+                and int(got[0].sum()) > 0):
             raise AssertionError(f"KQ {what} disagrees with its plain version")
         del got, again, want
     errs["KQ"] = 0.0
@@ -5510,7 +5586,7 @@ def phase3_catalogs(torch, rft, dev, g, card):
     (r, xi, dd), peaks["catalog_correlation"] = _path(
         torch, f"catalog_correlation ({PAIR_OBJECTS} Zel'dovich objects)",
         lambda: paircount.catalog_correlation(real, box, PAIR_EDGES),
-        {"KQ": 1}, total)
+        {"KQ": 1, "KQ sort": 1}, total)
     log(f"phase 3 catalog_correlation: xi at r = {np.round(r[:4], 2)} "
         f"{np.round(xi[:4], 4)}; {float(dd.sum()):.0f} pairs in range")
     if not (np.isfinite(xi[1:]).all() and xi[1] > 0):
@@ -5519,7 +5595,8 @@ def phase3_catalogs(torch, rft, dev, g, card):
         torch, f"catalog_correlation_multipoles ({PAIR_OBJECTS} "
         f"redshift-space objects, ells {PAIR_ELLS})",
         lambda: paircount.catalog_correlation_multipoles(
-            redshift, box, PAIR_EDGES, ells=PAIR_ELLS), {"KQ": 1}, total)
+            redshift, box, PAIR_EDGES, ells=PAIR_ELLS),
+        {"KQ": 1, "KQ sort": 1}, total)
     log(f"phase 3 catalog_correlation_multipoles: xi_0, xi_2 at r = "
         f"{np.round(r[2:6], 2)}: {np.round(xl[0][2:6], 4)}, "
         f"{np.round(xl[1][2:6], 4)}")
@@ -5579,19 +5656,17 @@ def phase3_catalogs(torch, rft, dev, g, card):
     return total, peaks
 
 
-def phase4_catalogs(torch, rft, dev, g, card):
-    """Times at 1024^3 (CUDA events, median of 5 after a warm-up): KQ on
-    the 2^17 Zel'dovich sample beside its plain version (in turns) and in
-    its other modes; each path of phase 3 and its stages (painting,
-    transforms, binning, KQ).  Returns ({"KQ": (ms, plain ms, None)}, the
-    pairs in range of the timed launch, the pairs a cell list would examine
-    for it)."""
-    from randomfield_tpu_torch.ops import paint, paircount as pc, transform
-    from randomfield_tpu_torch.validate import fkp, fourier, marked
-    from randomfield_tpu_torch.validate import paircount, velocity
+def kq_times(torch, g, dev, card):
+    """KQ at 1024^3 (CUDA events, median of 5 after a warm-up) on the 2^17
+    Zel'dovich sample: beside its plain version (in turns), in its other
+    modes, its plan, its stages and catalog_correlation(_multipoles).
+    Returns (ms, plain ms, the pairs in range of the timed launch, the
+    pairs a cell list would examine for it and their components that wrap
+    (cell_walk_pairs))."""
+    from randomfield_tpu_torch.ops import _build, paircount as pc
+    from randomfield_tpu_torch.validate import paircount
 
-    sp = HEADLINE_SPACING
-    box = HEADLINE[0] * sp
+    box = HEADLINE[0] * HEADLINE_SPACING
     real, redshift = _zeldovich_sample(torch, g, dev)
     ones = torch.ones(PAIR_OBJECTS, device=dev)
     rows = pc.pack(real, ones)
@@ -5606,7 +5681,37 @@ def phase4_catalogs(torch, rft, dev, g, card):
         lambda: pc.pair_sums_plain(rows, rows, b3, edges2, s), None, None,
         (PAIR_OBJECTS, 4), card, plain_reps=1)
     in_range = int(pc.pair_sums(rows, rows, b3, edges2, s)[0][0].sum()) >> s
-    examined = cell_walk_pairs(torch, real, box, PAIR_EDGES[-1])
+    examined, wrapped = cell_walk_pairs(torch, real, box, PAIR_EDGES[-1])
+    # the cell list's plan on this catalog and KQ's stages alone
+    seen = int(pc.pair_sums(rows, rows, b3, edges2, s)[1])
+    lib, stream = _build.library(), _build.current_stream(rows)
+    box_t, edges_t = torch.tensor(b3, device=dev), edges2.to(dev)
+    plan = pc._plan_of(rows, rows, box_t, edges_t, 0, 1, 0)
+    counts = pc.cell_counts(rows, plan)
+    items = int(pc.item_ends(counts, plan.rows)[-1])
+    log(f"phase 4 KQ plan on the Zel'dovich sample: {plan.cells} cells, "
+        f"{PAIR_OBJECTS / counts.numel():.1f} objects a cell on average, "
+        f"{int(counts.max())} at most, {int((counts == 0).sum())} empty; "
+        f"{items} work items of at most {plan.rows} rows (bound "
+        f"{plan.max_items}); {seen} pairs examined by the kernel, "
+        f"{examined} by cell_walk_pairs (the bound's count), {wrapped} of "
+        f"their components wrap [{card}]")
+    t_plan = cuda_ms(torch, lambda: pc._plan_of(rows, rows, box_t, edges_t,
+                                                0, 1, 0))
+    t_sort = cuda_ms(torch, lambda: pc._sort(rows, plan, lib, stream))
+    one = pc._sort(rows, plan, lib, stream)
+    scratch = torch.zeros(plan.slots + 2, dtype=torch.int64, device=dev)
+    t_pairs = cuda_ms(torch, lambda: pc._pairs(
+        one, one, plan, edges_t, s, 0, 1, (), 2, scratch, lib, stream),
+        setup=scratch.zero_)
+    t_check = cuda_ms(torch, lambda: (pc._expected(
+        one[2], one[2], plan.cells) - scratch[plan.slots]).item())
+    log(f"phase 4 KQ stages (isotropic): the plan's host read {t_plan:.3f} "
+        f"ms, the sort (count pass, cumsum, scatter pass) {t_sort:.3f}, the "
+        f"item cells and the pair kernel {t_pairs:.3f}, the check "
+        f"(expected_pairs of the sort's counts and the read) {t_check:.3f}; "
+        f"pair_sums {kq_ms:.3f} [{card}]")
+    del one, scratch, counts
     zrows = pc.pack(redshift, ones)
     for what, mode, nmu, ells in ((f"{PAIR_NMU} wedges", 1, PAIR_NMU, ()),
                                   (f"ells {PAIR_ELLS}", 2, 1, PAIR_ELLS)):
@@ -5623,10 +5728,38 @@ def phase4_catalogs(torch, rft, dev, g, card):
     log(f"phase 4 catalog_correlation of {PAIR_OBJECTS}: {t_corr:.3f} ms (KQ "
         f"{kq_ms:.3f}, {100 * kq_ms / t_corr:.1f}%); the multipoles "
         f"{t_poles:.3f} ms; {in_range} pairs in range of {PAIR_OBJECTS ** 2}, "
+        f"{seen} ({100 * seen / PAIR_OBJECTS ** 2:.3f}%) examined by KQ, "
         f"{examined} ({100 * examined / PAIR_OBJECTS ** 2:.3f}%) in the 27 "
         f"neighbouring cells of side >= {PAIR_EDGES[-1]:g} [{card}]")
     del real, redshift, rows, zrows
     torch.cuda.empty_cache()
+    return kq_ms, kq_plain, in_range, (examined, wrapped)
+
+
+def kq_times_only(torch, rft, dev, card):
+    """``--kq-times``: KQ alone, with the package beside this script, to
+    set a tree's KQ against another's on one card: its attributes and plan
+    (:func:`phase0_catalogs`), its checks against its plain version
+    (:func:`phase1_catalogs`) and its times (:func:`kq_times`)."""
+    phase0_catalogs(card)
+    g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
+    phase1_catalogs(torch, g, {})
+    kq_times(torch, g, dev, card)
+
+
+def phase4_catalogs(torch, rft, dev, g, card):
+    """Times at 1024^3 (CUDA events, median of 5 after a warm-up): KQ
+    (:func:`kq_times`); each path of phase 3 and its stages (painting,
+    transforms, binning, KQ).  Returns ({"KQ": (ms, plain ms, None)}, the
+    pairs in range of the timed launch, the pairs a cell list would examine
+    for it and their components that wrap)."""
+    from randomfield_tpu_torch.ops import paint
+    from randomfield_tpu_torch.ops import transform
+    from randomfield_tpu_torch.validate import fkp, fourier, marked
+    from randomfield_tpu_torch.validate import velocity
+
+    sp = HEADLINE_SPACING
+    kq_ms, kq_plain, in_range, examined = kq_times(torch, g, dev, card)
 
     data, dw, randoms = _fkp_catalogs(torch, g, dev)
     w_d = dw.to(torch.float32)
@@ -5710,7 +5843,8 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
     four-rank mesh; KX's mask and void modes as "KX mask" and "KX voids"
     (the void mode with phase 4's ``kx_candidates``); KQ on phase 4's
     PAIR_OBJECTS auto count, ``kq_in_range`` of its pairs in range and
-    ``kq_examined`` pairs that a cell list examines (cell_walk_pairs)."""
+    ``kq_examined``, the pairs that a cell list examines and their
+    components that wrap (cell_walk_pairs)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
@@ -5799,10 +5933,12 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
                      / FP64_OPS_PER_S),
         # KQ (isotropic auto): the catalog's rows read once (twice: both
         # sides of the pairs), the edges, the sums written; its operations
-        # on the pairs a cell list examines and on the pairs in range
+        # on the pairs a cell list examines, on their components that wrap
+        # and on the pairs in range
         "KQ": (2 * 16 * PAIR_OBJECTS + 4 * len(PAIR_EDGES)
                + 16 * (len(PAIR_EDGES) - 1),
-               KQ_OPS_PER_PAIR * kq_examined
+               KQ_OPS_PER_PAIR * kq_examined[0]
+               + KQ_OPS_PER_WRAP * kq_examined[1]
                + KQ_OPS_PER_PAIR_IN_RANGE * kq_in_range),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
@@ -5825,8 +5961,10 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in ([], ["--kc-times"], ["--kx-times"]):
-        print("usage: python3 chip_smoke.py [--kc-times | --kx-times]",
+    if sys.argv[1:] not in ([], ["--kc-times"], ["--kx-times"],
+                            ["--kq-times"]):
+        print("usage: python3 chip_smoke.py [--kc-times | --kx-times | "
+              "--kq-times]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5872,6 +6010,9 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--kx-times"]:
             kx_times_only(torch, rft, dev, card)
+            return 0
+        if sys.argv[1:] == ["--kq-times"]:
+            kq_times_only(torch, rft, dev, card)
             return 0
         phase0_attributes(card)
         phase0_sass(torch, card)

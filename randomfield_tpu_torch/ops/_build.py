@@ -90,8 +90,12 @@ _SIGNATURES = {
     "rf_extrema_voids": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "rf_extrema_attributes": [_I, _I, _I, _P, _P, _P, _P],
     "rf_minkowski_plan": [_I, _LL, _P],
-    "rf_pair_counts": [_P, _I, _P, _LL, _P, _I, _F, _F, _F, _I, _I, _I, _I,
-                       _I, _I, _I, _D, _LL, _I, _I, _P, _P, _P],
+    "rf_pair_cells": [_P, _LL, _I, _I, _I, _D, _D, _D, _D, _D, _D, _P, _P,
+                      _P],
+    "rf_pair_scatter": [_P, _LL, _P, _P, _P, _P],
+    "rf_pair_counts": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P, _P,
+                       _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _D, _I,
+                       _P, _P, _P, _P],
     "rf_pair_counts_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
     "rf_minkowski_bins": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _LL, _P, _P, _P, _P, _P],

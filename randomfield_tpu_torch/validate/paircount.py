@@ -4,21 +4,24 @@ Port of ``randomfield_tpu/validate/paircount.py`` with its names,
 arguments and returns: weighted pair counts DD(r) (DD(r, mu) in |mu|
 wedges, or Legendre-weighted DD_ell(r)) over periodic minimum-image
 separations, and xi = DD / RR - 1 with the exact analytic RR of a uniform
-periodic box (no random catalog).  Every ordered pair goes through KQ
-(``csrc/pair_counts.cu`` via :func:`..ops.paircount.pair_sums`, its plain
-version on CPU tensors), which runs the JAX package's float32 chain per
-pair (minimum image with round half to even, r^2, the ``searchsorted``
+periodic box (no random catalog).  The pairs go through KQ
+(``csrc/pair_counts.cu`` via :func:`..ops.paircount.pair_sums`: on the
+card the pairs in neighbouring cells of a cell list, every pair by its
+plain version on CPU tensors), which runs the JAX package's float32 chain
+per pair (minimum image with round half to even, r^2, the ``searchsorted``
 bin on the float32 squared edges, mu^2, the wedge, (2l + 1) L_l) and sums
-each term as an int64 count of 2^-s units.  So a pair exactly on an edge
-falls in the lower bin, as in the JAX package, and the sums are exact
+each term as an int64 count of 2^-s units; on the card it also holds its
+count of pairs examined to the cell walk's own.  So a pair exactly on an
+edge falls in the lower bin, as in the JAX package, and the sums are exact
 where the JAX package adds float32 (inexact beyond 2^24 pairs a bin); the
 weight totals are float64 on the catalog's device.
 
 Positions are (N, 3) or (3, ...) (the grid layout of
 ``models/zeldovich.py``), rounded to float32.  A tensor's device runs the
 count; numpy catalogs go to ``device`` ("cuda" by default).  ``chunk`` is
-accepted for the JAX signature and not used: the kernel's tiles replace
-it.  ``mesh=`` raises NotImplementedError (ROADMAP.md, Queue 1 item 8).
+accepted for the JAX signature and not used: the kernel's cells and
+tiles replace it.  ``mesh=`` raises NotImplementedError (ROADMAP.md,
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ def pair_counts(positions, box, r_edges, weights=None, positions2=None,
     ``r_mean`` (the pair-weighted mean separation a bin), ``dd_ell``
     ((len(ells), nbins) sums of w_i w_j (2l+1) L_l(mu)) and the totals the
     normalization needs, as host float64.  ``r_edges[-1]`` must be at most
-    min(box) / 2.  One KQ launch on CUDA; ``mesh`` raises.
+    min(box) / 2.  One KQ launch on CUDA (after the cell sort), whose count
+    of pairs examined must equal the cell walk's own; ``mesh`` raises.
     """
     if mesh is not None:
         raise mesh_not_ported("pair_counts", mesh)
@@ -120,11 +124,8 @@ def pair_counts(positions, box, r_edges, weights=None, positions2=None,
     wmax2 = float(w2.abs().max()) if n2 else 0.0
     s = _pc.fixed_point_exponent(n1, n2, wmax1, wmax2, r_edges[-1], ells)
     edges2 = torch.as_tensor((r_edges**2).astype(np.float32))
-    sums, visited = _pc.pair_sums(rows1, rows2, box3, edges2, s, mode, nmu,
-                                  ells, int(los_axis))
-    if int(visited) != n1 * n2:
-        raise RuntimeError(f"pair counts examined {int(visited)} pairs, "
-                           f"not {n1} x {n2}")
+    sums, _ = _pc.pair_sums(rows1, rows2, box3, edges2, s, mode, nmu, ells,
+                            int(los_axis))
     acc = sums.to(torch.float64).cpu().numpy() * math.ldexp(1.0, -s)
     dd = acc[0].reshape(nbins, nmu) if mu_mode else acc[0]
     rsum = acc[1].reshape(nbins, nmu).sum(axis=1) if mu_mode else acc[1]

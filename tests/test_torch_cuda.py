@@ -11,6 +11,8 @@ CPU render of the same seed, which the other test_torch_* files hold to
 the JAX package.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -1366,14 +1368,118 @@ def test_pair_kernel_equals_plain_bit_for_bit(cuda, mode, nmu, ells, cross):
     s = pc.fixed_point_exponent(rows1.shape[0], n2, 1.25, 1.25, r_edges[-1],
                                 ells)
     m = pc.MODES[mode]
-    before = pc.KQ_LAUNCHES
+    before = pc.KQ_LAUNCHES, pc.KQ_SORT_LAUNCHES
     got, seen = pc.pair_sums(rows1, rows2, box, edges2, s, m, nmu, ells)
-    assert pc.KQ_LAUNCHES == before + 1
+    assert pc.KQ_LAUNCHES == before[0] + 1
+    assert pc.KQ_SORT_LAUNCHES == before[1] + (2 if cross else 1)
     again, _ = pc.pair_sums(rows1, rows2, box, edges2, s, m, nmu, ells)
     want, _ = pc.pair_sums_plain(rows1, rows2, box, edges2, s, m, nmu, ells)
-    assert int(seen) == rows1.shape[0] * n2
+    plan = pc._plan_of(rows1, rows2, torch.tensor(box, device=cuda),
+                       edges2.to(cuda), m, nmu, len(ells))
+    assert int(seen) == pc.expected_pairs(pc.cell_counts(rows1, plan),
+                                          pc.cell_counts(rows2, plan),
+                                          plan.cells)
     assert torch.equal(got, want) and torch.equal(got, again)
     assert int(got[0].sum()) > 0
+
+
+def test_pair_kernel_raises_on_a_short_walk(cuda, monkeypatch):
+    """pair_sums holds the kernel's count of pairs examined to the cell
+    walk's own and raises where they differ."""
+    pc, box, r_edges, (a, _) = _pair_setup(900, 700, weighted=False)
+    rows = a.to(cuda)
+    edges2 = torch.as_tensor((r_edges**2).astype(np.float32))
+    s = pc.fixed_point_exponent(900, 900, 1.0, 1.0, r_edges[-1])
+    expected = pc._expected
+    monkeypatch.setattr(pc, "_expected", lambda *c: expected(*c) + 1)
+    with pytest.raises(RuntimeError, match="not the walk's"):
+        pc.pair_sums(rows, rows, box, edges2, s)
+
+
+def _cell_case(name, dev):
+    """(rows1, rows2, box, r_edges) of a cell-list case on ``dev``: a
+    clustered catalog, a non-cubic box with 2 cells on an axis, one cell
+    (the last edge at box / 2), a small reach whose cells the cap limits,
+    and objects on the faces and outside [0, box)."""
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    rng = np.random.default_rng(len(name))
+    box, p2 = (200.0,) * 3, None
+    if name == "clustered":
+        centres = rng.random((20, 3)) * 200.0
+        p1 = np.concatenate([c + 5.0 * rng.standard_normal((80, 3))
+                             for c in centres])
+        p2 = np.concatenate([rng.random((500, 3)) * 200.0, p1[::2]])
+        r_edges = np.linspace(0.0, 30.0, 9)
+    elif name == "two_cells":
+        box = (96.0, 96.0, 120.0)
+        p1 = rng.random((1200, 3)) * np.asarray(box)
+        r_edges = np.linspace(0.0, 40.0, 9)
+    elif name == "one_cell":
+        p1 = rng.random((1000, 3)) * 200.0
+        r_edges = np.linspace(0.0, 100.0, 11)
+    elif name == "cap":
+        box = (2048.0,) * 3
+        p1 = rng.random((3000, 3)) * 2048.0
+        p1[1500:] = p1[:1500] + rng.random((1500, 3)) * 1.5
+        r_edges = np.linspace(0.0, 2.0, 5)
+    else:  # faces
+        p1 = rng.random((1000, 3)) * 200.0
+        p1[:10] = [[0.0, 5.0, 5.0], [200.0, 5.0, 5.0], [-0.5, 9.0, 9.0],
+                   [200.5, 9.0, 9.0], [-200.0, 0.0, 0.0], [399.0, 3.0, 197.0],
+                   [-37.0, 450.0, -99.0], [50.0, 200.0, 80.0],
+                   [20.0, 20.0, 0.0], [20.0, 20.0, 200.0]]
+        p1[10:14] = p1[20:24]
+        r_edges = np.linspace(0.0, 40.0, 9)
+    w = rng.random(len(p1)) + 0.25
+    rows1 = pc.pack(torch.as_tensor(p1), torch.as_tensor(w)).to(dev)
+    rows2 = rows1 if p2 is None else pc.pack(
+        torch.as_tensor(p2), torch.ones(len(p2))).to(dev)
+    return rows1, rows2, box, r_edges
+
+
+@pytest.mark.parametrize("name", ["clustered", "two_cells", "one_cell",
+                                  "cap", "faces"])
+@pytest.mark.parametrize("mode,nmu,ells", [(0, 1, ()), (1, 5, ()),
+                                           (2, 1, (0, 2, 4))])
+def test_pair_kernel_cell_cases(cuda, name, mode, nmu, ells):
+    from randomfield_tpu_torch.ops import paircount as pc
+
+    rows1, rows2, box, r_edges = _cell_case(name, cuda)
+    edges2 = torch.as_tensor((r_edges**2).astype(np.float32))
+    plan = pc._plan_of(rows1, rows2, torch.tensor(box, device=cuda),
+                       edges2.to(cuda), mode, nmu, len(ells))
+    if name == "two_cells":
+        assert 2 in plan.cells
+    if name == "one_cell":
+        assert plan.cells == (1, 1, 1)
+    if name == "cap":
+        assert math.prod(plan.cells) <= max(rows2.shape[0], pc.MIN_CELL_CAP)
+    s = pc.fixed_point_exponent(rows1.shape[0], rows2.shape[0], 1.25, 1.0,
+                                r_edges[-1], ells)
+    args = (rows1, rows2, box, edges2, s, mode, nmu, ells, 2)
+    got, seen = pc.pair_sums(*args)
+    again, _ = pc.pair_sums(*args)
+    want, _ = pc.pair_sums_plain(*args)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert int(seen) == pc.expected_pairs(pc.cell_counts(rows1, plan),
+                                          pc.cell_counts(rows2, plan),
+                                          plan.cells)
+    assert int(got[0].sum()) > 0
+    # the count pass puts every object in the plain version's cell
+    from randomfield_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for r in (rows1, rows2):
+        cell, counts = pc._count(r, plan, lib, _build.current_stream(r))
+        assert torch.equal(cell.long(), pc.cell_index(r, plan))
+        assert torch.equal(counts, pc.cell_counts(r, plan))
+    # the replay of the walk on the CPU examines the same pairs
+    cpu = [r.cpu() for r in (rows1, rows2)]
+    if rows2 is rows1:
+        cpu[1] = cpu[0]
+    walk, examined = pc.pair_sums_walk_plain(cpu[0], cpu[1], *args[2:])
+    assert examined == int(seen) and torch.equal(walk, want.cpu())
 
 
 def test_pair_kernel_instances_and_plans_fit(cuda):
@@ -1382,9 +1488,13 @@ def test_pair_kernel_instances_and_plans_fit(cuda):
     for mode, nmu, n_ells in ((0, 1, 0), (1, 10, 0), (2, 1, 3)):
         regs, blocks, threads, smem = pc.kernel_attributes(mode, 30, nmu,
                                                            n_ells)
-        assert regs > 0 and blocks >= 1 and threads == pc.ROWS
+        assert regs > 0 and blocks >= 1 and threads == pc.THREADS
+    for name in pc.SORT_PASSES:
+        regs, blocks, threads, _ = pc.kernel_attributes(name)
+        assert regs > 0 and blocks >= 1
     # one histogram a block where eight do not fit
-    plan = pc.launch_plan(3000, 3000, 600, pc.MODES["wedges"], 10)
+    plan = pc.launch_plan(600, 600, (96.0, 96.0, 120.0), 48.0**2, 120.0, 600,
+                          pc.MODES["wedges"], 10)
     assert plan.copies == 1
     _, box, _, (a, _) = _pair_setup(600, 600, weighted=False)
     rows = a.to(cuda)

@@ -11,6 +11,8 @@ of JAX's float32 sums, and equal to the oracle at its own test's rtol of
 weight totals within 1e-6 (JAX's float32 sums of the weights).
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -139,39 +141,236 @@ def test_refusals_match_jax():
         paircount.pair_counts(pos, 10.0, [0.0, 2.0], mesh=mesh)
 
 
-@pytest.mark.parametrize("n1,n2,nbins,mode,nmu,n_ells", [
-    (1, 1, 5, 0, 1, 0), (300, 1000, 7, 1, 3, 0), (257, 255, 4, 2, 1, 3),
-    (600, 513, 30, 0, 1, 0), (5, 3000, 12, 1, 10, 0)])
-def test_walk_visits_each_pair_once(n1, n2, nbins, mode, nmu, n_ells):
-    plan = pc.launch_plan(n1, n2, nbins, mode, nmu, n_ells)
-    assert plan.cols % pc.TILE == 0
-    assert (plan.col_blocks - 1) * plan.cols < n2 <= plan.col_blocks * plan.cols
-    assert plan.row_blocks * pc.ROWS >= n1 > (plan.row_blocks - 1) * pc.ROWS
-    visits, per_block = pc.walk_plain(n1, n2, plan)
-    assert int(visits.min()) == 1 and int(visits.max()) == 1
-    assert sum(per_block) == n1 * n2
-    assert plan.slots == pc.row_count(mode, n_ells) * nbins * (
-        nmu if mode == 1 else 1)
+def _chain_r2(rows1, rows2, box):
+    """(n1, n2) float32 r^2 of the chain's minimum image, as pair_terms
+    computes it."""
+    b = torch.tensor(box, dtype=torch.float32)
+    d = [rows1[:, None, c] - rows2[None, :, c] for c in range(3)]
+    d = [dc - b[c] * torch.round(pc._div32(dc, b[c])) for c, dc in
+         enumerate(d)]
+    return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
 
 
-@pytest.mark.parametrize("n1,n2", [(256, 2**31 - 100), (256, 2**34),
-                                   (2**20, 2**31)])
-def test_plan_covers_long_catalogs(n1, n2):
-    # the column ranges reach past 2^31 objects, where a 32-bit column
-    # counter (col_lo + cols) would wrap: the kernel counts in 64 bits
-    plan = pc.launch_plan(n1, n2, 30)
-    assert plan.col_blocks * plan.cols >= n2 > (plan.col_blocks - 1) * plan.cols
-    assert plan.cols % pc.TILE == 0
-    assert plan.col_blocks * plan.cols >= 2**31
+def _tightest_edge(box, k, coord_max, n2):
+    """The largest float32 r^2 whose cell grid keeps k cells on x: its
+    cells are as narrow as cell_grid's margin allows."""
+    lo, hi = 1, int(np.float32(box[0] ** 2).view(np.int32))
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        e = float(np.int32(mid).view(np.float32))
+        if pc.cell_grid(box, e, coord_max, n2)[0][0] >= k:
+            lo = mid
+        else:
+            hi = mid - 1
+    return float(np.int32(lo).view(np.float32))
 
 
-def test_plan_fills_the_card_and_fits_the_histograms():
-    plan = pc.launch_plan(2**17, 2**17, 30)
-    assert plan.copies == pc.WARPS
-    assert plan.row_blocks * plan.col_blocks >= 2048
-    assert pc.launch_plan(10, 10, 300, 1, 10).copies == 1
+def _near(v, k):
+    """float32 v and its k neighbours below and above."""
+    out, up, down = [np.float32(v)], np.float32(v), np.float32(v)
+    for _ in range(k):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(-np.inf))
+        out += [up, down]
+    return out
+
+
+def _walk_case(name):
+    """(rows1, rows2, box, float32 squared edges) of a walk case."""
+    rng = np.random.default_rng(WALK_CASES.index(name))
+
+    def uniform(n, box):
+        return rng.random((n, 3)) * np.asarray(box)
+
+    box, r, p2 = (100.0,) * 3, None, None
+    if name in ("nc1", "nc2", "nc3"):
+        r = {"nc1": 50.0, "nc2": 40.0, "nc3": 30.0}[name]
+        p1, p2 = uniform(400, box), uniform(300, box)
+    elif name == "nc13":
+        box, r = (2048.0,) * 3, 150.0
+        p1 = uniform(1500, box)
+    elif name == "noncubic":
+        box, r = (96.0, 96.0, 120.0), 48.0
+        p1 = uniform(500, box)
+    elif name == "faces":
+        # on the faces, at exactly box, outside [0, box), coincident
+        r = 20.0
+        p1 = uniform(400, box)
+        p1[:12] = [[0.0, 5.0, 5.0], [100.0, 5.0, 5.0], [100.0, 100.0, 0.0],
+                   [-0.5, 50.0, 50.0], [100.5, 50.0, 50.0], [-100.0, 0, 0],
+                   [199.0, 3.0, 97.0], [-37.0, 250.0, -99.0], [50.0, 0, 80],
+                   [50.0, 100.0, 80.0], [20.0, 20.0, 0.0], [20.0, 20.0, 100]]
+        p1[12:16] = p1[20:24]
+        p2 = np.concatenate([uniform(200, box), p1[:16]])
+    elif name == "packed":
+        # every object in one cell, the other cells empty
+        r = 10.0
+        p1 = rng.random((300, 3)) * 6.0 + 41.0
+        p2 = rng.random((200, 3)) * 6.0 + 41.0
+    elif name == "clustered":
+        box, r = (200.0,) * 3, 20.0
+        centres = uniform(15, box)
+        p1 = np.concatenate([c + 6.0 * rng.standard_normal((60, 3))
+                             for c in centres])
+        p2 = np.concatenate([uniform(200, box), p1[::3]])
+    elif name == "cross_sizes":
+        r = 25.0
+        p1, p2 = uniform(1200, box), uniform(7, box)
+    elif name == "cap":
+        # a small reach in a large box: the cells are capped
+        box, r = (2048.0,) * 3, 2.0
+        p1 = uniform(300, box)
+        p1[150:] = p1[:150] + rng.random((150, 3)) * 1.5
+    elif name == "margin":
+        # the narrowest cells the margin allows (7 on x), coordinates in
+        # [-L, 3L) near every cell boundary (6 ulps either side) and one
+        # reach past them, and the last edge at the largest chain r^2 of a
+        # pair that wraps and straddles a boundary, below the reach
+        box = (2048.0, 4 * 2048.0 / 7, 4 * 2048.0 / 7)
+        top = 3 * 2048.0
+        e = _tightest_edge(box, 7, top, 100)
+        xs = [x for j in range(8) for s in (0.0, 2048.0, -2048.0, 4096.0)
+              for x in _near(j * 2048.0 / 7 + s, 6)]
+        xs += [np.float32(x + np.float32(e ** 0.5)) for x in xs]
+        xs = np.array([x for x in xs if abs(x) <= top], np.float32)
+        p1 = np.stack([xs, np.ones_like(xs), np.ones_like(xs)], 1)
+        rows = pc.pack(torch.as_tensor(p1), torch.ones(len(xs)))
+        plan = pc.launch_plan(len(xs), len(xs), box, e, top, 1)
+        r2 = _chain_r2(rows, rows, box)
+        cell = pc.cell_index(rows, plan)
+        x = rows[:, 0]
+        edge = ((x[:, None] - x[None, :]).abs() > 1024.0) & (
+            cell[:, None] != cell[None, :]) & (r2 <= e)
+        e2 = torch.stack([torch.tensor(0.0), r2[edge].max()])
+        return rows, rows, box, e2
+    else:
+        raise KeyError(name)
+    e2 = torch.as_tensor((np.array([0.0, r / 3, r]) ** 2).astype(np.float32))
+    rows1 = pc.pack(torch.as_tensor(p1), torch.ones(len(p1)))
+    rows2 = rows1 if p2 is None else pc.pack(torch.as_tensor(p2),
+                                             torch.ones(len(p2)))
+    return rows1, rows2, box, e2
+
+
+def _plan(rows1, rows2, box, e2):
+    coord = max(float(rows1[:, :3].abs().max()),
+                float(rows2[:, :3].abs().max()))
+    return pc.launch_plan(rows1.shape[0], rows2.shape[0], box, float(e2[-1]),
+                          coord, e2.numel() - 1)
+
+
+WALK_CASES = ["nc1", "nc2", "nc3", "nc13", "noncubic", "faces", "packed",
+              "clustered", "cross_sizes", "cap", "margin"]
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_walk_visits_each_pair_in_range_once(name):
+    rows1, rows2, box, e2 = _walk_case(name)
+    plan = _plan(rows1, rows2, box, e2)
+    want_cells = {"nc1": (1, 1, 1), "nc2": (2, 2, 2), "nc3": (3, 3, 3),
+                  "nc13": (13, 13, 13), "noncubic": (1, 1, 2),
+                  "margin": (7, 4, 4)}
+    if name in want_cells:
+        assert plan.cells == want_cells[name]
+    visits, per_item = pc.walk_plain(rows1, rows2, plan)
+    r2 = _chain_r2(rows1, rows2, box)
+    valid = (r2 > e2[0]) & (r2 <= e2[-1])
+    assert int(valid.sum()) > 0
+    assert bool((visits[valid] == 1).all()) and int(visits.max()) <= 1
+    assert sum(per_item) == int(visits.sum())
+    assert len(per_item) <= plan.max_items
+    if name == "margin":
+        # pairs exactly on the last edge, across a cell boundary and the
+        # periodic wrap
+        cell = pc.cell_index(rows1, plan)
+        x = rows1[:, 0]
+        edge = (r2 == e2[-1]) & (cell[:, None] != cell[None, :])
+        assert bool((edge & ((x[:, None] - x[None, :]).abs()
+                             > box[0] / 2)).any())
+
+
+@pytest.mark.parametrize("name", ["faces", "clustered", "noncubic"])
+def test_expected_pairs_is_the_replays_count(name):
+    rows1, rows2, box, e2 = _walk_case(name)
+    plan = _plan(rows1, rows2, box, e2)
+    _, per_item = pc.walk_plain(rows1, rows2, plan)
+    counts = [pc.cell_counts(r, plan) for r in (rows1, rows2)]
+    assert sum(int(c.sum()) for c in counts) == rows1.shape[0] + rows2.shape[0]
+    assert pc.expected_pairs(*counts, plan.cells) == sum(per_item)
+
+
+@pytest.mark.parametrize("mode,nmu,ells", [(0, 1, ()), (1, 7, ()),
+                                           (2, 1, (0, 2, 4))])
+def test_walk_sums_equal_the_brute_plain_version(mode, nmu, ells):
+    for name in ("faces", "clustered"):
+        rows1, rows2, box, e2 = _walk_case(name)
+        w1 = torch.as_tensor(np.random.default_rng(3).random(
+            rows1.shape[0]) + 0.25, dtype=torch.float32)
+        rows1 = torch.cat([rows1[:, :3], w1[:, None]], 1)
+        edges2 = torch.as_tensor((np.linspace(0.0, float(e2[-1]) ** 0.5, 9)
+                                  ** 2).astype(np.float32))
+        s = pc.fixed_point_exponent(rows1.shape[0], rows2.shape[0], 1.25,
+                                    1.0, float(edges2[-1]) ** 0.5, ells)
+        for los in (0, 2):
+            args = (rows1, rows2, box, edges2, s, mode, nmu, ells, los)
+            want, seen = pc.pair_sums_plain(*args)
+            got, examined = pc.pair_sums_walk_plain(*args)
+            assert torch.equal(got, want) and int(want[0].sum()) > 0
+            assert seen == rows1.shape[0] * rows2.shape[0] > examined
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 13])
+def test_neighbour_cells_are_distinct(n):
+    cells = (n, 3, n)
+    for c in range(n * 3 * n):
+        near = pc.neighbour_cells(c, cells)
+        assert len(near) == len(set(near)) == len(
+            pc.axis_offsets(n)) ** 2 * 3
+        assert c in near
+
+
+@pytest.mark.parametrize("n2,reach", [(300, 2.0), (10**6, 0.5)])
+def test_cell_count_is_capped(n2, reach):
+    cells, _, _ = pc.cell_grid((2048.0,) * 3, np.float32(reach**2), 2048.0,
+                               n2)
+    cap = max(n2, pc.MIN_CELL_CAP)
+    assert math.prod(cells) <= cap and math.prod(cells) > cap / 8
+    # without the cap, 2048 / 2 ~ 1023 cells an axis
+    assert max(cells) < 1023
+    # larger cells than the reach asks for: the walk stays right ("cap")
+
+
+def test_item_offsets_are_int64_past_2_31():
+    # the plan alone, no catalog: a cell of 2^31 + 5 objects, then cells
+    # whose rows start past 2^31 and 2^32
+    counts = [2**31 + 5, 3, 0, 2**31, 70]
+    starts = [0, 2**31 + 5, 2**31 + 8, 2**31 + 8, 2**32 + 8]
+    ends = pc.item_ends(torch.tensor(counts, dtype=torch.int64)).tolist()
+    first1 = -(-(2**31 + 5) // pc.ROWS)
+    assert ends[:2] == [first1, first1 + 1]
+    assert pc.item_rows(first1 - 1, ends, starts, counts) == (
+        0, (first1 - 1) * pc.ROWS, (2**31 + 5) - (first1 - 1) * pc.ROWS)
+    assert pc.item_rows(first1, ends, starts, counts) == (1, 2**31 + 5, 3)
+    last3 = ends[3] - 1
+    assert pc.item_rows(last3, ends, starts, counts) == (
+        3, 2**31 + 8 + 2**31 - pc.ROWS, pc.ROWS)
+    assert pc.item_rows(ends[4] - 1, ends, starts, counts) == (
+        4, 2**32 + 8 + 64, 6)
+    plan = pc.launch_plan(2**31 + 77, 2**33, (2048.0,) * 3, 150.0**2, 2048.0,
+                          30)
+    assert plan.cells == (13, 13, 13)
+    assert plan.max_items == 13**3 + -(-(2**31 + 77) // pc.ROWS) > 2**26
+
+
+def test_histograms_fit_or_raise():
+    def plan(*hist):
+        return pc.launch_plan(10, 10, (100.0,) * 3, 100.0, 100.0, *hist)
+
+    assert plan(30).copies == pc.WARPS and plan(30).slots == 60
+    assert plan(30, 1, 10).slots == 600 and plan(30, 2, 1, 3).slots == 150
+    assert plan(300, 1, 10).copies == 1
     with pytest.raises(ValueError, match="shared memory"):
-        pc.launch_plan(10, 10, 3000, 1, 10)
+        plan(3000, 1, 10)
 
 
 @pytest.mark.parametrize("n,wmax,rmax,ells", [
