@@ -31,7 +31,8 @@ non-zero with no result line:
    KM's and KX's instances, KX's shared memory a block and blocks an SM,
    and KM's launch at 1024^3; KQ's registers, shared memory a block and
    blocks an SM in each mode (isotropic, wedges, Legendre rows) and of its
-   sort's passes, and its cell plan for the 2^17-object paths;
+   sort's passes, and its cell plan for the 2^17-object paths; KH's
+   registers and blocks an SM in each of its three passes;
 1. ROADMAP F6: K2's amplitude step by step (log10|k|, t, i0, frac, the
    amplitude at s = 0 and 8) over every |k|^2 of the 1024^3 grid through
    the kernels' device functions (scale_sigma.cu's check entry) against
@@ -97,7 +98,11 @@ non-zero with no result line:
    sample in every mode, a box with 2 cells on z, one cell and a reach
    whose cells the cap limits: equal to the brute pair_sums_plain bit for
    bit, two calls bit-equal, the pairs examined equal to the cell walk's
-   own count;
+   own count; KH (jax.random.poisson replayed cell by cell) on the 1024^3
+   halo counts of 4 mass bins and on a 256^3 grid of lambda >= 10 (the
+   rejection passes) against poisson_counts_plain, the cells that differ
+   printed with their tie test (at most 1e-8 of the cells, ties only), and
+   KD's 'deriv' and 'recon' kinds bit for bit;
 2. the slices at 128^3, both samplers, and the v4 and v6 variants: CUDA
    render vs the CPU render (plain versions) at the same seed, which the CPU
    tests hold to the JAX package; the sampler='pallas' statistical gate (2000
@@ -127,7 +132,14 @@ non-zero with no result line:
    Poisson tracers' xi against the theory, the Kaiser anisotropy of pair
    multipoles, FKP's Poisson-lognormal recovery, the linear marked power
    against its Wick prediction, the seed-direct velocity cross against its
-   prediction;
+   prediction; the device models on the card against the CPU at 64^3 (the
+   halo counts: KH on the CPU's render bit for bit, end to end each
+   difference a tie of the two renders' intensities; the galaxies,
+   poisson_sample, second_order_density, the tree bispectrum, lensing,
+   the multi-tracer pair, reconstruction, the Fisher matrix) and their
+   JAX gates (halo counts and halo power at 256^3, galaxies at 256^3,
+   sigma_kappa growing with z_source at 512^3, reconstruction's r(k) at
+   256^3);
 3. the main paths at 1024^3, through the public API, each with the launch
    counts set to 0 before it and read after it: the default render and the
    sampler='pallas' render (determinism, finite values, variance vs
@@ -169,7 +181,12 @@ non-zero with no result line:
    GiB); catalog_correlation and its multipoles of 2^17 Zel'dovich objects
    (KQ), fkp_power (CIC, TSC) and its multipoles of 2^24 Poisson data and
    2^27 randoms, calculate_marked_power, density_velocity_correlation and
-   pairwise_velocity at 1024^3, with their launches and peak memory;
+   pairwise_velocity at 1024^3, with their launches and peak memory; the
+   device models at 1024^3 (halo counts and catalog, galaxies with and
+   without RSD, poisson_sample, second_order_density, the tree bispectrum
+   at nbins = 8, the lensing maps and E/B power, the multi-tracer pair,
+   reconstruction; the Fisher multipoles at 256^3), with their launches
+   (KH among them) and peak memory;
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers and for the v4 and v6 variants, of
    generate_noise beside the plain draws, of each
@@ -208,8 +225,9 @@ non-zero with no result line:
    the Zel'dovich sample (cells, items, occupancy), its stages (the plan's
    host read, the sort, the pair kernel, the check) and its pairs examined
    beside cell_walk_pairs and their components that wrap; the catalog
-   paths split into their stages (painting, transforms, binning, KQ); and
-   the whole run's wall time.
+   paths split into their stages (painting, transforms, binning, KQ); KH
+   beside its plain version, on the bins below and at lambda >= 10 apart,
+   and the device models' paths; and the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -327,10 +345,16 @@ KERNELS = {
     "KQ": dict(name="pair_counts", route="cuda",
                source="randomfield_tpu_torch/csrc/pair_counts.cu",
                replaces="randomfield_tpu/validate/paircount.py:79"),
+    # the device models' Poisson draws: XLA's jax.random.poisson (its
+    # Knuth and rejection loops) in the halo scan (and
+    # randomfield_tpu/models/zeldovich.py:114 poisson_sample)
+    "KH": dict(name="poisson_counts", route="cuda",
+               source="randomfield_tpu_torch/csrc/poisson.cu",
+               replaces="randomfield_tpu/models/halos.py:155"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
                 "K10", "KN", "K2FX", "KD", "KB", "KBG", "KP", "KPC", "KC",
-                "K4L", "KM", "KX", "KQ")
+                "K4L", "KM", "KX", "KQ", "KH")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -1236,6 +1260,9 @@ def reset_counts():
     from randomfield_tpu_torch.ops import paircount
 
     paircount.KQ_LAUNCHES = paircount.KQ_SORT_LAUNCHES = 0
+    from randomfield_tpu_torch.ops import poisson
+
+    poisson.KH_LAUNCHES = 0
 
 
 def read_counts():
@@ -1257,7 +1284,7 @@ def read_counts():
             "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES,
             "KN": sampler.KN_LAUNCHES, "K2FX": sampler.K2FX_LAUNCHES,
             "KD": derived.KD_LAUNCHES, **mock_counts(), **morph_counts(),
-            **catalog_counts()}
+            **catalog_counts(), **models_counts()}
 
 
 def require_launches(counts, least, what):
@@ -4012,10 +4039,11 @@ def phase2_mocks(torch, rft, dev):
     torch.cuda.empty_cache()
 
 
-def _path(torch, what, fn, least, total):
+def _path(torch, what, fn, least, total, seconds=None):
     """Run one 1024^3 mock path with the launch counts zeroed before it and
     read after it; fail if it skipped a kernel of ``least`` or called
-    torch.fft; print its launches, host seconds and peak device memory."""
+    torch.fft; print its launches, host seconds (kept in ``seconds[what]``
+    when given) and peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4024,6 +4052,8 @@ def _path(torch, what, fn, least, total):
     out = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    if seconds is not None:
+        seconds[what] = dt
     counts = read_counts()
     require_launches(counts, least, what)
     if counts["torch.fft"]:
@@ -5835,7 +5865,585 @@ def phase4_catalogs(torch, rft, dev, g, card):
     return {"KQ": (kq_ms, kq_plain, None)}, in_range, examined
 
 
-def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
+# ---- the device models: halos and HOD (KH), SPT, lensing, forecasts,
+# multi-tracer fields, reconstruction -------------------------------------
+
+HALO_BINS = 4
+MODELS_SEED = 5
+# phase 2: each model's CUDA output against its CPU output
+MODEL_SLICE = ((64, 64, 64), 16.0)
+MODEL_SLICE_BAR = 1e-5
+# the tree bispectrum on the card against the CPU at MODEL_SLICE, relative
+# a triple: the sound tree reads 4.3e-4 (a triple of few closed triads,
+# whose float32 sums cancel; 3.5e-7 on every triple of 1e6 triads or more)
+# and the tree without the Hermitian projection of its syntheses 8.8e-3
+# (scripts/tree_bispectrum_residual.py)
+TREE_TRIPLE_BAR = 2e-3
+# KH's key tables held to the default one: the threads derive every
+# subkey past the first KH_SHORT_TABLES[i] of each chain
+KH_SHORT_TABLES = (0, 3)
+# the lambda >= 10 grid of phase 1 (the linear form; the rejection passes)
+KH_REJECTION = ((256, 256, 256), 20.0)
+# phase 3's statistical gates
+HALO_GATE = ((256, 256, 256), 4.0, 4)
+GALAXY_GATE = ((256, 256, 256), 4.0, 3)
+LENSING_GATE = ((512, 512, 512), 4.0, (0.2, 0.4, 0.7))
+RECON_GATE = ((256, 256, 256), 5.0)
+# phase 4: the tree bispectrum's bins, the forecasting grid
+TREE_NBINS = 8
+FISHER_SHAPE = (256, 256, 256)
+# KH's operations (counted from csrc/poisson.cu), each fused multiply-add
+# of XLA's float32 function one float32 operation (one FFMA; the kernel's
+# float64 emulation of it is its own cost, not the function's): a (cell,
+# bin) forms lambda (the exponent's multiply-add and the exp: 14 float32
+# and integer operations and 8 multiply-adds) and a Knuth iteration hashes
+# its counter (74, as OPS_PER_MODE counts Threefry), makes the uniform (2),
+# takes XLA's log (13 and 10 multiply-adds) and adds (1)
+KH_OPS_PER_CELL_BIN = 14 + 8
+KH_OPS_PER_ITERATION = 74 + 2 + 13 + 10 + 1
+# a rejection step (two hashes and uniforms, k's float32 arithmetic with
+# its multiply-add and the acceptance tests; the log and lgamma only where
+# those do not decide), counted once a cell of each bin whose intensity
+# reaches 10 (the first pass) and once a cell at or above 10 (the replay):
+# the least this data needs
+KH_OPS_PER_REJECTION_STEP = 2 * 76 + 12 + 1
+
+
+def models_counts():
+    from randomfield_tpu_torch.ops import poisson
+
+    return {"KH": poisson.KH_LAUNCHES}
+
+
+def phase0_models(card):
+    """KH's registers a thread and blocks an SM, each of its three passes."""
+    from randomfield_tpu_torch.ops import poisson
+
+    for mode, what in enumerate(("Knuth", "first acceptance", "replay")):
+        regs, blocks, threads = poisson.kernel_attributes(mode)
+        log(f"phase 0 KH {what} pass: {regs} registers a thread, {blocks} "
+            f"blocks an SM of {threads} threads [{card}]")
+        if regs <= 0 or blocks <= 0:
+            raise AssertionError(f"KH {what} takes no block an SM")
+
+
+def _halo_keys(hg, seed):
+    from randomfield_tpu_torch.models import halos
+
+    return halos.halo_keys(seed, hg.nbar.size)
+
+
+def _halo_args(hg):
+    return dict(form="lognormal", lam0=hg.nbar * hg._cell_volume,
+                bias=hg.bias, sigma_g2=hg.lognormal.sigma_g2)
+
+
+def _kh_check(torch, errs, what, g, keys, kw, plain_chunk=1 << 26):
+    """KH against its plain version on the card on the same field, bit for
+    bit, with the default key table and with each of KH_SHORT_TABLES; the
+    first differing cells are logged with both counts and the intensity.
+    Returns (kernel counts, plain ms)."""
+    from randomfield_tpu_torch.ops import poisson
+
+    got = poisson.poisson_counts(g, keys, **kw)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = torch.empty_like(got)
+    for b, key in enumerate(keys):
+        lam = poisson.intensity(g, kw["form"], b, kw.get("lam0"),
+                                kw.get("bias"), kw.get("sigma_g2", 0.0),
+                                kw.get("scale", 1.0))
+        want[b] = poisson.poisson_plain(key, lam, chunk=plain_chunk)
+        del lam
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    diff = torch.nonzero(got != want)
+    for b, *cell in diff[:20].tolist():
+        lam = poisson.intensity(g[tuple(cell)].reshape(1).cpu(), kw["form"],
+                                b, kw.get("lam0"), kw.get("bias"),
+                                kw.get("sigma_g2", 0.0), kw.get("scale", 1.0))
+        log(f"phase 1 KH {what}: cell {(b, *cell)} kernel "
+            f"{int(got[(b, *cell)])}, plain {int(want[(b, *cell)])}, lambda "
+            f"{float(lam):.9g}")
+    errs["KH"] = max(errs.get("KH", 0.0), float(
+        (got - want).abs().max()) if len(diff) else 0.0)
+    log(f"phase 1 KH {what}: {len(diff)} of {got.numel()} counts differ "
+        f"from the plain version (bit-equal required); {int(got.sum())} "
+        f"counts in all; plain {plain_ms:.1f} ms")
+    if len(diff):
+        raise AssertionError(f"KH {what} disagrees with its plain version")
+    short = torch.empty_like(want)
+    for table in KH_SHORT_TABLES:
+        poisson.poisson_counts(g, keys, out=short, table=table, **kw)
+        ndiff = sum(int(torch.count_nonzero(s != w))
+                    for s, w in zip(short, want))
+        log(f"phase 1 KH {what}, key table {table}: {ndiff} counts differ "
+            f"from the plain version (bit-equal required)")
+        if ndiff:
+            raise AssertionError(f"KH {what} with a key table of {table} "
+                                 f"disagrees with its plain version")
+    del short
+    return got, plain_ms
+
+
+def phase1_models(torch, hg, errs):
+    """KH against its plain version on the card: the halo counts of the
+    1024^3 main path (HALO_BINS mass bins on one Gaussian render) and a
+    lambda >= 10 grid through the linear form (the rejection passes); KD's
+    'deriv' and 'recon' kinds on the 1024^3 lattices, bit for bit.
+    Returns the plain version's ms on the halo counts."""
+    from randomfield_tpu_torch.ops import derived, threefry
+
+    dev = hg.device
+    g = hg.lognormal.gaussian.generate_delta_field(
+        MODELS_SEED, apply_lightcone=False)
+    counts, plain_ms = _kh_check(torch, errs, f"halo counts {HEADLINE}, "
+                                 f"{HALO_BINS} bins", g,
+                                 _halo_keys(hg, MODELS_SEED), _halo_args(hg))
+    log(f"phase 1 KH halo counts per bin {counts.sum((1, 2, 3)).tolist()}, "
+        f"expected {np.round(hg.expected_counts(), 1).tolist()}")
+    del g, counts
+    torch.cuda.empty_cache()
+    shape, scale = KH_REJECTION
+    gen = torch.Generator(device=dev).manual_seed(3)
+    delta = 0.6 * torch.randn(shape, generator=gen, device=dev)
+    got, _ = _kh_check(torch, errs, f"linear form {shape}, lambda = "
+                       f"{scale:g} (1 + delta)", delta,
+                       [threefry.key_from_seed(9 ^ 0x5EEDC0DE)],
+                       dict(form="linear", scale=scale))
+    log(f"phase 1 KH linear form: {int((got >= 10).sum())} counts >= 10 of "
+        f"{got.numel()}")
+    del delta, got
+    torch.cuda.empty_cache()
+    nzh = HEADLINE[2] // 2 + 1
+    re = torch.randn((HEADLINE[0], HEADLINE[1], nzh), generator=gen,
+                     device=dev)
+    im = torch.randn_like(re)
+    for kind, comp, pref, los in (("deriv", 0, 1e-9, 2),
+                                  ("recon", 2, (1e-9, 1.5, 0.7, 10.0), 1)):
+        a = derived.apply_kernel(re.clone(), im.clone(), HEADLINE,
+                                 HEADLINE_SPACING, kind, comp, pref,
+                                 los_axis=los)
+        b = derived.apply_kernel_plain(re.clone(), im.clone(), HEADLINE,
+                                       HEADLINE_SPACING, kind, comp, pref,
+                                       los_axis=los)
+        check_bit_equal(torch, errs, "KD", f"{kind} {comp}", a, b)
+        del a, b
+    del re, im
+    torch.cuda.empty_cache()
+    return plain_ms
+
+
+def _close_to(what, got, want, bar):
+    got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+    want = want.cpu().numpy() if hasattr(want, "cpu") else np.asarray(want)
+    r = float(np.nanmax(np.abs(got.astype(np.float64) - want))
+              / np.nanmax(np.abs(want)))
+    log(f"phase 2 models {what} on the card vs the CPU: rel {r:.3e} (bar "
+        f"{bar:g})")
+    if not r <= bar:
+        raise AssertionError(f"{what} on the card disagrees with the CPU")
+
+
+def phase2_models(torch, rft, dev):
+    """Each model on the card against the CPU at MODEL_SLICE: the halo
+    counts (KH on the CPU's Gaussian render equal to the CPU counts bit
+    for bit; end to end, each differing cell a tie of the two renders'
+    intensities), the galaxy catalog, poisson_sample, second_order_density,
+    the tree bispectrum, lensing, the multi-tracer pair, reconstruction
+    and the Fisher matrix."""
+    from randomfield_tpu_torch.models import (fisher, halos, hod, lensing,
+                                              multitracer, reconstruction,
+                                              spt, zeldovich)
+    from randomfield_tpu_torch.ops import poisson
+
+    shape, sp = MODEL_SLICE
+    seed = MODELS_SEED
+    hg = {d: halos.HaloGenerator(*shape, sp, device=d, mmin=1e12)
+          for d in (dev, "cpu")}
+    keys = _halo_keys(hg["cpu"], seed)
+    g_cpu = hg["cpu"].lognormal.gaussian.generate_delta_field(
+        seed, apply_lightcone=False)
+    c_cpu = hg["cpu"].generate_halo_counts(seed)
+    same_g = poisson.poisson_counts(g_cpu.to(dev), keys,
+                                    **_halo_args(hg["cpu"])).cpu()
+    log(f"phase 2 models KH on the CPU render: "
+        f"{int((same_g != c_cpu).sum())} of {c_cpu.numel()} counts differ "
+        f"(bit-equal required)")
+    if not torch.equal(same_g, c_cpu):
+        raise AssertionError("KH on the CPU render differs from the CPU")
+    c_dev = hg[dev].generate_halo_counts(seed).cpu()
+    g_card = hg[dev].lognormal.gaussian.generate_delta_field(
+        seed, apply_lightcone=False).cpu()
+    diff = torch.nonzero(c_dev != c_cpu)
+    for b, *cell in diff.tolist():
+        for h, g, c in ((hg[dev], g_card, c_dev), (hg["cpu"], g_cpu, c_cpu)):
+            lam = poisson.intensity(g, "lognormal", b, **{
+                k: v for k, v in _halo_args(h).items() if k != "form"})
+            if int(poisson.poisson_plain(keys[b], lam)[tuple(cell)]) != \
+                    int(c[(b, *cell)]):
+                raise AssertionError("a halo count differs from KH at its "
+                                     "own intensity")
+    log(f"phase 2 models halo counts {shape}: {len(diff)} of "
+        f"{c_cpu.numel()} differ between the card and the CPU, each a tie "
+        f"of the two renders' intensities (max |g| diff "
+        f"{float((g_card - g_cpu).abs().max()):.3e})")
+    if len(diff) > 1e-3 * c_cpu.numel():
+        raise AssertionError("too many halo counts differ")
+    hd = {d: hod.HODGenerator(*shape, sp, device=d) for d in (dev, "cpu")}
+    gal = {d: hd[d].generate_galaxy_catalog(seed) for d in (dev, "cpu")}
+    same = (gal[dev][0].shape == gal["cpu"][0].shape
+            and np.array_equal(gal[dev][0], gal["cpu"][0]))
+    log(f"phase 2 models galaxy catalog: {gal[dev][0].shape[0]} galaxies on "
+        f"the card, {gal['cpu'][0].shape[0]} on the CPU, "
+        f"{'equal' if same else 'not equal (their halo counts differ)'}")
+    if not same and not len(torch.nonzero(
+            hd[dev].halos.generate_halo_counts(seed).cpu()
+            != hd["cpu"].halos.generate_halo_counts(seed))):
+        raise AssertionError("equal halo counts gave other galaxies")
+    rng = np.random.default_rng(2)
+    delta = torch.as_tensor(0.4 * rng.standard_normal(shape),
+                            dtype=torch.float32)
+    a = zeldovich.poisson_sample(delta.to(dev), 0.05, sp, seed=seed).cpu()
+    b = zeldovich.poisson_sample(delta, 0.05, sp, seed=seed)
+    log(f"phase 2 models poisson_sample: {int((a != b).sum())} of "
+        f"{a.numel()} differ (bit-equal required)")
+    if not torch.equal(a, b):
+        raise AssertionError("poisson_sample on the card differs")
+    _close_to("second_order_density", spt.second_order_density(
+        delta.to(dev), sp), spt.second_order_density(delta, sp),
+        MODEL_SLICE_BAR)
+    power = rft.load_default_power()
+    tb = [spt.predicted_tree_bispectrum(power, shape, sp, nbins=4, device=d)
+          for d in (dev, "cpu")]
+    if not np.array_equal(tb[0][1], tb[1][1]):
+        raise AssertionError("the tree bispectrum's triples differ")
+    rel = np.abs(tb[0][2] - tb[1][2]) / np.where(tb[1][2] != 0,
+                                                 np.abs(tb[1][2]), 1.0)
+    worst = tuple(int(v) for v in tb[1][1][rel.argmax()])
+    log(f"phase 2 models predicted_tree_bispectrum on the card vs the CPU: "
+        f"rel {rel.max():.3e} at triple {worst} of {len(rel)} (bar "
+        f"{TREE_TRIPLE_BAR:g} a triple)")
+    if not rel.max() <= TREE_TRIPLE_BAR:
+        raise AssertionError("the tree bispectrum on the card disagrees "
+                             "with the CPU")
+    kap = [lensing.convergence_map(delta.to(d), "Planck13", sp, 0.5)
+           for d in (dev, "cpu")]
+    _close_to("convergence_map", kap[0], kap[1], MODEL_SLICE_BAR)
+    shear = [lensing.convergence_to_shear(k, sp) for k in kap]
+    for i in range(2):
+        _close_to(f"convergence_to_shear gamma{i + 1}", shear[0][i],
+                  shear[1][i], MODEL_SLICE_BAR)
+    noisy = [lensing.add_shape_noise(*s, 0.05, seed) for s in shear]
+    _close_to("add_shape_noise", noisy[0][0], noisy[1][0], MODEL_SLICE_BAR)
+    peb = [lensing.shear_power_eb(*s, sp) for s in noisy]
+    _close_to("shear_power_eb (E)", peb[0][1], peb[1][1], MODEL_SLICE_BAR)
+    _close_to("shear_power_eb (B)", peb[0][2], peb[1][2], MODEL_SLICE_BAR)
+    mt = [multitracer.MultiTracerGenerator(*shape, sp, device=d)
+          .generate_fields(seed) for d in (dev, "cpu")]
+    for i in range(2):
+        _close_to(f"multitracer field {i + 1}", mt[0][i], mt[1][i],
+                  MODEL_SLICE_BAR)
+    rec = [reconstruction.reconstruct_field(delta.to(d), sp, bias=1.5,
+                                            f=0.5) for d in (dev, "cpu")]
+    _close_to("reconstruct_field delta_rec", rec[0][0], rec[1][0],
+              MODEL_SLICE_BAR)
+    _close_to("reconstruct_field psi_hat", rec[0][1], rec[1][1],
+              MODEL_SLICE_BAR)
+    fm = []
+    for d in (dev, "cpu"):
+        model, theta = fisher.make_kaiser_model(
+            power, shape, sp, params=("bias", "f", "sigma_fog"),
+            fixed={"f": 0.5, "sigma_fog": 2.0}, device=d)
+        fm.append(fisher.fisher_matrix_multipoles(model, theta, shape, sp,
+                                                  nbins=16))
+    _close_to("fisher_matrix_multipoles", fm[0], fm[1], MODEL_SLICE_BAR)
+
+
+def _gate(what, ok, detail):
+    log(f"phase 3 models gate {what}: {detail} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {what} gate failed: {detail}")
+
+
+def phase3_model_gates(torch, rft, dev):
+    """The JAX package's statistical gates on the card: the halo counts'
+    ensemble mean per bin against expected_counts and the halo power
+    against predicted_halo_power (HALO_GATE), the galaxies against
+    expected_galaxies (GALAXY_GATE), sigma_kappa growing with z_source
+    (LENSING_GATE), reconstruction raising r(k) with the initial field in
+    the quasi-linear band (RECON_GATE)."""
+    from randomfield_tpu_torch.models import (halos, hod, lensing,
+                                              reconstruction, zeldovich)
+    from randomfield_tpu_torch.validate import stats
+
+    shape, sp, nseeds = HALO_GATE
+    hg = halos.HaloGenerator(*shape, sp, device=dev)
+    totals, acc = [], []
+    nbar_cell = hg.nbar[0] * sp ** 3
+    for s in range(nseeds):
+        c = hg.generate_halo_counts(s)
+        totals.append(c.sum((1, 2, 3)).double().cpu().numpy())
+        dh = (c[0].double() / nbar_cell - 1.0).float()
+        acc.append(stats.calculate_power(dh, sp, nbins=16)[1])
+        del c, dh
+    totals = np.array(totals)
+    mean, expect = totals.mean(0), hg.expected_counts()
+    sig = totals.std(0, ddof=1) / np.sqrt(nseeds)
+    _gate(f"halo counts {shape} ({nseeds} seeds)",
+          bool(np.all(np.abs(mean - expect) < 5 * sig + 0.05 * expect)),
+          f"mean {np.round(mean, 1).tolist()}, expected "
+          f"{np.round(expect, 1).tolist()}")
+    p_hat = np.mean(acc, axis=0)
+    _, p_exp, cnt = hg.predicted_halo_power(0, nbins=16)
+    good = cnt > 8
+    sig = p_exp * np.sqrt(2.0 / (nseeds * np.maximum(cnt, 1)))
+    resid = np.abs(p_hat[good] - p_exp[good])
+    _gate("halo power (bin 0)", bool(np.all(
+        resid < 5 * sig[good] + 0.1 * p_exp[good])),
+        f"max resid / (5 sigma + 0.1 P) "
+        f"{float(np.max(resid / (5 * sig[good] + 0.1 * p_exp[good]))):.3f}")
+    del hg
+    torch.cuda.empty_cache()
+    shape, sp, nseeds = GALAXY_GATE
+    hd = hod.HODGenerator(*shape, sp, device=dev)
+    totals = [hd.generate_galaxy_catalog(s)[0].shape[0]
+              for s in range(nseeds)]
+    mean, expect = float(np.mean(totals)), hd.expected_galaxies()
+    sig = np.std(totals, ddof=1) / np.sqrt(nseeds)
+    _gate(f"galaxies {shape} ({nseeds} seeds)",
+          abs(mean - expect) < 5 * sig + 0.05 * expect,
+          f"mean {mean:.1f}, expected {expect:.1f}")
+    del hd
+    torch.cuda.empty_cache()
+    shape, sp, zs = LENSING_GATE
+    g = rft.Generator(*shape, grid_spacing=sp, device=dev)
+    d = g.generate_delta_field(3)
+    s = []
+    for z in zs:
+        k = lensing.convergence_map(d, g.cosmology, sp, z_source=z)
+        s.append(float(k.std()))
+        if not abs(float(k.mean())) < 5.0 * s[-1] / np.sqrt(k.numel()) + 1e-6:
+            raise AssertionError("the convergence map's mean is off")
+    _gate(f"sigma_kappa {shape}", s[0] < s[1] < s[2],
+          f"at z_source {zs}: {np.round(s, 6).tolist()}")
+    del g, d
+    torch.cuda.empty_cache()
+    shape, sp = RECON_GATE
+    g = rft.Generator(*shape, grid_spacing=sp, device=dev)
+    lin = g.generate_delta_field(11, apply_lightcone=False)
+    psi = g.generate_displacement(11)
+    q = zeldovich.lagrangian_positions(shape, sp, device=dev)
+    evolved, _ = zeldovich.paint(q + psi, shape, sp, window="cic")
+    del q, psi
+    rec, _ = reconstruction.reconstruct_field(evolved, sp, smoothing=10.0)
+
+    def cross_r(a, b):
+        k, pab, c = stats.calculate_cross_power(a, b, sp, nbins=20)
+        _, paa, _ = stats.calculate_power(a, sp, nbins=20)
+        _, pbb, _ = stats.calculate_power(b, sp, nbins=20)
+        return k, np.where(c > 0, pab / np.sqrt(np.maximum(paa * pbb, 1e-30)),
+                           np.nan), c
+
+    k, r_ev, c = cross_r(evolved, lin)
+    _, r_rec, _ = cross_r(rec, lin)
+    ql = (k > 0.25) & (k < 0.6) & (c > 50)
+    linear = (k < 0.15) & (c > 8)
+    _gate(f"reconstruction {shape}", bool(
+        ql.sum() >= 2 and np.nanmean(r_rec[ql]) > np.nanmean(r_ev[ql]) + 0.01
+        and np.all(r_rec[linear] > 0.95)),
+        f"quasi-linear r {np.nanmean(r_ev[ql]):.4f} -> "
+        f"{np.nanmean(r_rec[ql]):.4f}, linear min "
+        f"{float(np.min(r_rec[linear])):.4f}")
+    del g, lin, evolved, rec
+    torch.cuda.empty_cache()
+
+
+def phase3_models(torch, rft, dev, hg, hd, card):
+    """The slice's main paths at 1024^3 through the public API, each with
+    the launch counts set to 0 before it and read after it (none through
+    torch.fft), its host seconds and its peak device memory.  Returns the
+    launch counts, summed, the peaks and the host seconds (the time of the
+    host-bound paths: the catalogs, the tree bispectrum, the forecast)."""
+    from randomfield_tpu_torch.models import (fisher, lensing, multitracer,
+                                              reconstruction, spt, zeldovich)
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    peaks, seconds = {}, {}
+    sp, seed = HEADLINE_SPACING, MODELS_SEED
+    render = {"K2F": 1, "K3": 2, "K4": 1}
+    counts, peaks["generate_halo_counts"] = _path(
+        torch, f"generate_halo_counts ({HALO_BINS} bins)",
+        lambda: hg.generate_halo_counts(seed), {**render, "KH": 1}, total, seconds)
+    log(f"phase 3 halo counts per bin {counts.sum((1, 2, 3)).tolist()}, "
+        f"expected {np.round(hg.expected_counts(), 1).tolist()}")
+    del counts
+    (pos, mass), peaks["generate_halo_catalog"] = _path(
+        torch, "generate_halo_catalog", lambda: hg.generate_halo_catalog(seed),
+        {**render, "KH": 1}, total, seconds)
+    if not (np.isfinite(pos).all() and (mass > 0).all()):
+        raise AssertionError("the 1024^3 halo catalog is off")
+    del pos, mass
+    for rsd in (False, True):
+        least = ({"K2F": 2, "K3": 4, "K4": 2, "KH": 1, "KD": 1} if rsd
+                 else {**render, "KH": 1})
+        (pos, cen), peaks[f"generate_galaxy_catalog rsd={rsd}"] = _path(
+            torch, f"generate_galaxy_catalog (rsd={rsd})",
+            lambda: hd.generate_galaxy_catalog(seed, rsd=rsd), least, total, seconds)
+        log(f"phase 3 galaxies (rsd={rsd}): {pos.shape[0]} "
+            f"({int(cen.sum())} centrals), expected "
+            f"{hd.expected_galaxies():.0f}")
+        del pos, cen
+    delta = hg.lognormal.gaussian.generate_delta_field(seed)
+    d2, peaks["second_order_density"] = _path(
+        torch, "second_order_density", lambda: spt.second_order_density(
+            delta, sp), {"K6": 1, "K3": 26, "K4": 12, "KD": 12}, total, seconds)
+    if not bool(torch.isfinite(d2).all()):
+        raise AssertionError("the 1024^3 second-order density is not finite")
+    del d2
+    counts, peaks["poisson_sample"] = _path(
+        torch, "poisson_sample", lambda: zeldovich.poisson_sample(
+            delta, 2e-3, sp, seed), {"KH": 1}, total, seconds)
+    del counts
+    kappa, peaks["convergence_map"] = _path(
+        torch, "convergence_map", lambda: lensing.convergence_map(
+            delta, hg.cosmology, sp, 0.5), {}, total, seconds)
+    (g1, g2), peaks["convergence_to_shear"] = _path(
+        torch, "convergence_to_shear", lambda: lensing.convergence_to_shear(
+            kappa, sp), {"K3": 6}, total, seconds)
+    _, peaks["shear_power_eb"] = _path(
+        torch, "shear_power_eb", lambda: lensing.shear_power_eb(g1, g2, sp),
+        {"K3": 4}, total, seconds)
+    del kappa, g1, g2
+    mt = multitracer.MultiTracerGenerator(*HEADLINE, sp, device=dev)
+    fields, peaks["multitracer generate_fields"] = _path(
+        torch, "multitracer generate_fields", lambda: mt.generate_fields(
+            seed), {"K2F": 2, "K2": 2, "K3": 4, "K4": 2}, total, seconds)
+    del fields, mt
+    (rec, psi), peaks["reconstruct_field"] = _path(
+        torch, "reconstruct_field", lambda: reconstruction.reconstruct_field(
+            delta, sp, bias=1.5, f=0.5), {"K6": 1, "K3": 8, "K4": 3, "KD": 3,
+                                          "KP": 2, "KPC": 2}, total, seconds)
+    del rec, psi, delta
+    torch.cuda.empty_cache()
+    (_, tri, b, ntri), peaks[f"predicted_tree_bispectrum nbins={TREE_NBINS}"] \
+        = _path(torch, f"predicted_tree_bispectrum (nbins = {TREE_NBINS})",
+                lambda: spt.predicted_tree_bispectrum(
+                    hg._power, HEADLINE, sp,
+                    nbins=TREE_NBINS, device=dev), {"K3": 2, "K4": 1}, total, seconds)
+    log(f"phase 3 tree bispectrum: {len(tri)} triples, B at the first "
+        f"{np.round(b[:3], 1).tolist()}")
+    if not np.isfinite(b).all():
+        raise AssertionError("the 1024^3 tree bispectrum is not finite")
+    model, theta = fisher.make_kaiser_model(
+        hg._power, FISHER_SHAPE, 8.0,
+        params=("bias", "f", "sigma_fog"), fixed={"f": 0.5, "sigma_fog": 2.0},
+        device=dev)
+    fm, peaks["fisher_matrix_multipoles 256^3"] = _path(
+        torch, f"fisher_matrix_multipoles {FISHER_SHAPE}",
+        lambda: fisher.fisher_matrix_multipoles(model, theta, FISHER_SHAPE,
+                                                8.0), {}, total, seconds)
+    log(f"phase 3 Fisher matrix {FISHER_SHAPE}: diag "
+        f"{np.round(np.diag(fm), 1).tolist()}")
+    if not (np.isfinite(fm).all() and (np.diag(fm) > 0).all()):
+        raise AssertionError("the Fisher matrix is off")
+    torch.cuda.empty_cache()
+    return total, peaks, seconds
+
+
+def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
+    """Times at 1024^3 (CUDA events, median after a warm-up) and peak device
+    memory: KH alone beside phase 1's plain time, on the bins below 10 and
+    on the bin whose intensity reaches 10 apart (the rejection passes);
+    generate_halo_counts, second_order_density, the lensing paths, the
+    multi-tracer pair and reconstruction; the host-bound paths (the
+    catalogs, the tree bispectrum, the forecast) with phase 3's host
+    seconds.  Returns ({"KH": (ms, plain ms, None)}, (KH's Knuth iterations
+    in the timed launch, the least rejection steps its data needs))."""
+    from randomfield_tpu_torch.models import (lensing, multitracer,
+                                              reconstruction, spt)
+    from randomfield_tpu_torch.ops import poisson
+
+    sp, seed = HEADLINE_SPACING, MODELS_SEED
+    g = hg.lognormal.gaussian.generate_delta_field(seed,
+                                                   apply_lightcone=False)
+    g_cells = g.numel()
+    keys, kw = _halo_keys(hg, seed), _halo_args(hg)
+    out = torch.empty((HALO_BINS, *HEADLINE), dtype=torch.int32, device=dev)
+    kh_ms = cuda_ms(torch, lambda: poisson.poisson_counts(g, keys, out=out,
+                                                          **kw))
+    cells = g.numel() * HALO_BINS
+    lam_kw = {k: v for k, v in kw.items() if k != "form"}
+    live, high = 0, []
+    for b in range(HALO_BINS):
+        lam = poisson.intensity(g, "lognormal", b, **lam_kw)
+        live += int((lam > 0).sum())
+        high.append(int((lam >= 10).sum()))
+        del lam
+    iterations = int(out.sum(dtype=torch.int64)) + live
+    log(f"phase 4 KH {HEADLINE}, {HALO_BINS} bins: {kh_ms:.3f} ms (plain "
+        f"{plain_ms:.1f} ms, phase 1); {iterations} Knuth iterations over "
+        f"{cells} (cell, bin) pairs; cells with lambda >= 10 per bin {high} "
+        f"[{card}]")
+    for what, bins in (("bins without lambda >= 10", [
+            b for b in range(HALO_BINS) if not high[b]]), (
+            "bins with lambda >= 10", [b for b in range(HALO_BINS)
+                                       if high[b]])):
+        if not bins:
+            continue
+        sub = {k: (np.asarray(v)[bins] if k in ("lam0", "bias") else v)
+               for k, v in kw.items()}
+        ms = cuda_ms(torch, lambda: poisson.poisson_counts(
+            g, [keys[b] for b in bins], **sub))
+        log(f"phase 4 KH {what} {bins}: {ms:.3f} ms [{card}]")
+    del g, out
+    torch.cuda.empty_cache()
+    times = {"KH": (kh_ms, plain_ms, None)}
+    ms, peak = timed_peak(torch, lambda: hg.generate_halo_counts(seed))
+    log(f"phase 4 generate_halo_counts {HEADLINE}: {ms:.3f} ms, peak {peak} "
+        f"[{card}]")
+    delta = hg.lognormal.gaussian.generate_delta_field(seed)
+    kappa = lensing.convergence_map(delta, hg.cosmology, sp, 0.5)
+    g1, g2 = lensing.convergence_to_shear(kappa, sp)
+    mt = multitracer.MultiTracerGenerator(*HEADLINE, sp, device=dev)
+    for what, fn in (
+            ("second_order_density", lambda: spt.second_order_density(
+                delta, sp)),
+            ("convergence_map + convergence_to_shear", lambda:
+             lensing.convergence_to_shear(lensing.convergence_map(
+                 delta, hg.cosmology, sp, 0.5), sp)),
+            ("shear_power_eb", lambda: lensing.shear_power_eb(g1, g2, sp)),
+            ("multitracer generate_fields", lambda: mt.generate_fields(seed)),
+            ("reconstruct_field", lambda: reconstruction.reconstruct_field(
+                delta, sp, bias=1.5, f=0.5))):
+        ms, peak = timed_peak(torch, fn)
+        log(f"phase 4 {what} {HEADLINE}: {ms:.3f} ms, peak {peak} [{card}]")
+    del delta, kappa, g1, g2, mt
+    torch.cuda.empty_cache()
+    for what, dt in seconds.items():
+        if any(w in what for w in ("catalog", "bispectrum", "fisher")):
+            log(f"phase 4 {what} {HEADLINE}: {dt:.3f} s (phase 3's first "
+                f"call, host clock) [{card}]")
+    flagged = sum(1 for h in high if h)
+    return times, (iterations, flagged * g_cells + sum(high))
+
+
+def kh_bound(iterations, rejection_steps):
+    """(bytes, operations) of KH at 1024^3 with HALO_BINS bins: g read once
+    and the int32 counts written once; the intensity a (cell, bin),
+    ``iterations`` Knuth iterations and ``rejection_steps`` rejection
+    steps, all float32 and integer operations."""
+    cells = HEADLINE[0] * HEADLINE[1] * HEADLINE[2]
+    nbytes = 4 * cells + 4 * HALO_BINS * cells
+    ops = (KH_OPS_PER_CELL_BIN * cells * HALO_BINS
+           + KH_OPS_PER_ITERATION * iterations
+           + KH_OPS_PER_REJECTION_STEP * rejection_steps)
+    return nbytes, ops
+
+
+def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
     of the bytes each kernel must move (inputs read once, outputs written
     once) over the HBM rate and its operations over the float32 rate.  K6
@@ -5844,7 +6452,9 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
     (the void mode with phase 4's ``kx_candidates``); KQ on phase 4's
     PAIR_OBJECTS auto count, ``kq_in_range`` of its pairs in range and
     ``kq_examined``, the pairs that a cell list examines and their
-    components that wrap (cell_walk_pairs)."""
+    components that wrap (cell_walk_pairs); KH on the halo counts of phase
+    4 (:func:`kh_bound` of ``kh_work``, its Knuth iterations and rejection
+    steps)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
@@ -5940,6 +6550,7 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined):
                KQ_OPS_PER_PAIR * kq_examined[0]
                + KQ_OPS_PER_WRAP * kq_examined[1]
                + KQ_OPS_PER_PAIR_IN_RANGE * kq_in_range),
+        "KH": kh_bound(*kh_work),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
@@ -5975,6 +6586,7 @@ def main() -> int:
     sys.path.insert(0, here)
     try:
         import randomfield_tpu_torch as rft
+        from randomfield_tpu_torch.models import halos, hod
         from randomfield_tpu_torch.ops import _build
     except ImportError:
         traceback.print_exc()
@@ -6023,6 +6635,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase0_catalogs(card)
         catalog_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase0_models(card)
+        models_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         g = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
@@ -6056,6 +6671,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase1_catalogs(torch, g, errs)
         catalog_s += time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        hg = halos.HaloGenerator(*HEADLINE, HEADLINE_SPACING, device=dev)
+        kh_plain_ms = phase1_models(torch, hg, errs)
+        models_s += time.perf_counter() - t0
         phase2_slice(torch, rft, dev)
         phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
@@ -6074,6 +6694,12 @@ def main() -> int:
         t0 = time.perf_counter()
         phase2_catalogs(torch, rft, dev)
         catalog_s += time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase2_models(torch, rft, dev)
+        torch.cuda.empty_cache()
+        phase3_model_gates(torch, rft, dev)
+        models_s += time.perf_counter() - t0
         torch.cuda.empty_cache()
         launches = dict.fromkeys(KERNEL_ORDER, 0)
         main_paths = [phase3_main(torch, g), phase3_noise(torch, g),
@@ -6104,6 +6730,13 @@ def main() -> int:
                                                           card)
         catalog_s += time.perf_counter() - t0
         main_paths.append(catalog_launches)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        hd = hod.HODGenerator(*HEADLINE, HEADLINE_SPACING, device=dev)
+        model_launches, model_peaks, model_seconds = phase3_models(
+            torch, rft, dev, hg, hd, card)
+        models_s += time.perf_counter() - t0
+        main_paths.append(model_launches)
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
@@ -6126,7 +6759,14 @@ def main() -> int:
             torch, rft, dev, g, card)
         times.update(catalog_times)
         catalog_s += time.perf_counter() - t0
-        bounds = kernel_bounds(g, kx_candidates, kq_in_range, kq_examined)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model_times, kh_work = phase4_models(
+            torch, rft, dev, hg, model_seconds, kh_plain_ms, card)
+        times.update(model_times)
+        models_s += time.perf_counter() - t0
+        bounds = kernel_bounds(g, kx_candidates, kq_in_range, kq_examined,
+                               kh_work)
         log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
             f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
         log(f"phase 4 peak device memory of the 1024^3 morphology methods "
@@ -6139,6 +6779,11 @@ def main() -> int:
             f"[{card}]")
         log(f"chip_smoke catalog phases (KQ, FKP, marked, velocity; phases "
             f"0-4) wall time {catalog_s:.1f} s [{card}]")
+        log(f"phase 4 peak device memory of the 1024^3 model paths (GiB): "
+            f"{ {k: round(v, 3) for k, v in model_peaks.items()} } [{card}]")
+        log(f"chip_smoke model phases (KH, halos, HOD, SPT, lensing, Fisher, "
+            f"multi-tracer, reconstruction; phases 0-4) wall time "
+            f"{models_s:.1f} s [{card}]")
         log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
             f"[{card}]")
     except Exception:

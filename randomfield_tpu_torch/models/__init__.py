@@ -1,0 +1,1 @@
+"""Physical models: background cosmology and linear power spectra."""

@@ -165,6 +165,20 @@ class Cosmology:
         zt, dt = self._distance_table
         return np.interp(np.asarray(z, dtype=np.float64), zt, dt)
 
+    def transverse_comoving_distance(self, z):
+        """Transverse comoving distance D_M [Mpc]: the line-of-sight D_C
+        when flat, sinh/sin-scaled under open/closed curvature (the
+        distance lensing kernels are built from)."""
+        dc = self.comoving_distance(z)
+        if self.Ok0 == 0.0:
+            return dc
+        dh = self.hubble_distance
+        sq = np.sqrt(abs(self.Ok0))
+        x = sq * dc / dh
+        if self.Ok0 > 0:
+            return dh / sq * np.sinh(x)
+        return dh / sq * np.sin(x)
+
     def redshift_at_comoving_distance(self, dc_mpc):
         """Inverse of :meth:`comoving_distance` by monotone interpolation."""
         zt, dt = self._distance_table

@@ -1,7 +1,8 @@
 """Linear matter power spectrum models and the power-spec resolver.
 
-The subset of ``randomfield_tpu/models/powerspec.py`` that scene setup
-needs: the Eisenstein & Hu (1998) and BBKS linear spectra,
+Port of ``randomfield_tpu/models/powerspec.py``: the Eisenstein & Hu
+(1998) linear spectrum and its no-wiggle companion, the BBKS and power-law
+spectra, the CAMB table reader, :func:`power_at_redshift`,
 :func:`make_power_table` (which generated the shipped default table), and
 :func:`resolve_power`.
 Host float64 numpy, the same expressions as the JAX package's module; k in
@@ -16,9 +17,14 @@ from randomfield_tpu_torch.models.cosmology import Cosmology, create_cosmology
 
 __all__ = [
     "eh98_transfer",
+    "eh98_nowiggle_transfer",
+    "eh98_nowiggle_power",
     "eisenstein_hu_power",
     "bbks_transfer",
     "bbks_power",
+    "power_law_power",
+    "load_camb_power",
+    "power_at_redshift",
     "make_power_table",
     "resolve_power",
 ]
@@ -99,6 +105,42 @@ def eh98_transfer(cosmology: Cosmology, k_mpc):
     return np.where(k > 0, t_full, 1.0)
 
 
+def eh98_nowiggle_transfer(cosmology: Cosmology, k_mpc):
+    """EH98 zero-baryon ("no-wiggle") transfer function (eqs. 26, 28-31):
+    the broadband of :func:`eh98_transfer` with the baryon acoustic
+    oscillations removed through the effective shape parameter
+    Gamma_eff.  ``k_mpc`` in 1/Mpc."""
+    k = np.asarray(k_mpc, dtype=np.float64)
+    omhh = cosmology.Om0 * cosmology.h**2
+    obhh = cosmology.Ob0 * cosmology.h**2
+    f_baryon = cosmology.Ob0 / cosmology.Om0
+    theta = cosmology.Tcmb0 / 2.7
+    # eq. 26: the approximate sound horizon the no-wiggle fit is made for
+    s = 44.5 * np.log(9.83 / omhh) / np.sqrt(1.0 + 10.0 * obhh**0.75)
+    # eq. 31: baryon suppression of the apparent shape parameter
+    a_gamma = (
+        1.0
+        - 0.328 * np.log(431.0 * omhh) * f_baryon
+        + 0.38 * np.log(22.3 * omhh) * f_baryon**2
+    )
+    # eq. 30: the scale-dependent Gamma; eq. 28: the shifted variable
+    gamma_eff = cosmology.Om0 * cosmology.h * (
+        a_gamma + (1.0 - a_gamma) / (1.0 + (0.43 * k * s) ** 4)
+    )
+    q = k / cosmology.h * theta**2 / gamma_eff
+    # eq. 29
+    l0 = np.log(2.0 * np.e + 1.8 * q)
+    c0 = 14.2 + 731.0 / (1.0 + 62.5 * q)
+    t = l0 / (l0 + c0 * q * q)
+    return np.where(k > 0, t, 1.0)
+
+
+def eh98_nowiggle_power(cosmology=None, k_h=None):
+    """Smooth EH98 linear P(k) at z=0, sigma8-normalized; k in h/Mpc."""
+    return _normalized_power(create_cosmology(cosmology), k_h,
+                             eh98_nowiggle_transfer)
+
+
 def _sigma_r_unnormalized(k_h, pk, r=8.0):
     """Top-hat sigma(R) from a tabulated (k, P): trapezoid in ln k."""
     x = k_h * r
@@ -145,15 +187,63 @@ def bbks_transfer(cosmology: Cosmology, k_mpc):
     return np.where(q > 0, t, 1.0)
 
 
-def bbks_power(cosmology=None, k_h=None):
-    """BBKS linear P(k) at z=0, sigma8-normalized; k in h/Mpc."""
-    cosmology = create_cosmology(cosmology)
+def _normalized_power(cosmology, k_h, transfer):
+    """k^ns T(k)^2 scaled so sigma8 matches the cosmology's value."""
     k_h = np.asarray(k_h, dtype=np.float64)
-    p_shape = k_h**cosmology.ns * bbks_transfer(cosmology, k_h * cosmology.h) ** 2
+    p_shape = k_h**cosmology.ns * transfer(cosmology, k_h * cosmology.h) ** 2
     k_ref = np.logspace(-4.5, 2.5, 4096)
-    p_ref = k_ref**cosmology.ns * bbks_transfer(cosmology, k_ref * cosmology.h) ** 2
+    p_ref = k_ref**cosmology.ns * transfer(cosmology, k_ref * cosmology.h) ** 2
     s8 = _sigma_r_unnormalized(k_ref, p_ref, r=8.0)
     return p_shape * (cosmology.sigma8 / s8) ** 2
+
+
+def bbks_power(cosmology=None, k_h=None):
+    """BBKS linear P(k) at z=0, sigma8-normalized; k in h/Mpc."""
+    return _normalized_power(create_cosmology(cosmology), k_h, bbks_transfer)
+
+
+def power_law_power(k_h, ns=1.0, sigma8=0.8288):
+    """Scale-free P(k) = A k^ns with A set so sigma(8 Mpc/h) = sigma8
+    (needs ns > -3 for the variance integral to converge at low k)."""
+    if ns <= -3.0:
+        raise ValueError(f"power-law spectrum needs ns > -3, got {ns}")
+    k_h = np.asarray(k_h, dtype=np.float64)
+    k_ref = np.logspace(-4.5, 2.5, 4096)
+    s8 = _sigma_r_unnormalized(k_ref, k_ref**ns, r=8.0)
+    return k_h**ns * (sigma8 / s8) ** 2
+
+
+def load_camb_power(path, h_units=True):
+    """Read a CAMB ``matter_power`` table: columns k/h [h/Mpc], P
+    [(Mpc/h)^3] (``#`` comments, extra columns ignored).  ``h_units=False``
+    raises: the file does not record h, so convert beforehand (k_h = k / h,
+    P_h = P h^3)."""
+    arr = np.loadtxt(path, comments="#", dtype=np.float64)
+    if arr.ndim == 1:
+        arr = arr[None, :]
+    if arr.shape[1] < 2:
+        raise ValueError(
+            f"{path}: expected at least 2 columns (k, P), got {arr.shape[1]}"
+        )
+    k, pk = arr[:, 0], arr[:, 1]
+    if not h_units:
+        raise ValueError(
+            "h_units=False needs the table pre-converted: k_h = k/h, "
+            "P_h = P * h^3 (the file does not record h)"
+        )
+    return k, pk
+
+
+def power_at_redshift(power, cosmology, z):
+    """A z = 0 linear table scaled to redshift z, P(k, z) = D(z)^2 P(k, 0),
+    for a snapshot box (the lightcone render weights each plane instead).
+    Returns a (k, Pk) pair."""
+    from randomfield_tpu_torch.ops.power import as_power_table
+
+    t = as_power_table(power)
+    cosmology = create_cosmology(cosmology)
+    d = float(cosmology.growth_function(float(z)))
+    return t.k.copy(), t.Pk * d * d
 
 
 def make_power_table(cosmology=None, kmin=1e-4, kmax=1e3, n=1024):

@@ -8,7 +8,8 @@ particle a cell: positions ``(3, nx, ny, nz)`` and per-particle weights.
    of sight for redshift space), wrapped into the box, float32 in the
    reference's order, on the displacement's device;
 2. :func:`poisson_sample`: per-cell tracer counts of intensity
-   nbar a^3 (1 + delta) (see its note: the port's own stream);
+   nbar a^3 (1 + delta), the JAX package's ``jax.random.poisson`` draws
+   replayed by KH (:mod:`..ops.poisson`);
 3. :func:`paint`: mass assignment, KP (:mod:`..ops.paint`): int64 fixed
    point, so the painted field does not depend on the order the atomics
    land in; an interlaced copy is the same kernel with a shift argument,
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from randomfield_tpu_torch.ops import paint as _paint
+from randomfield_tpu_torch.ops import poisson as _poisson
 from randomfield_tpu_torch.ops import threefry as _threefry
 
 __all__ = [
@@ -45,10 +47,6 @@ __all__ = [
     "zeldovich_power",
 ]
 
-# the tag folded into the Poisson stream's key (ASCII "POIS")
-POISSON_TAG = 0x504F4953
-# x planes a step of poisson_sample (bounds its temporaries)
-_X_CHUNK = 16
 
 
 def _as_positions(positions):
@@ -119,26 +117,6 @@ def zeldovich_positions(psi, spacing, f=0.0, los_axis=2):
     return out
 
 
-def _poisson_counts(lam, key, offset):
-    """Poisson counts of float64 intensities ``lam`` by inversion: the
-    smallest k with P(X <= k) = Q(k + 1, lam) >= u, found by bisection, u
-    the 53-bit uniform (+ 2^-54) of the two Threefry words at each cell's
-    flat index (``offset`` + its index in ``lam``)."""
-    idx = offset + torch.arange(lam.numel(), dtype=torch.int64,
-                                device=lam.device).view(lam.shape)
-    b1, b2 = _threefry.threefry2x32(key, idx >> 32, idx & 0xFFFFFFFF)
-    u = ((b1 >> 5) * 67108864 + (b2 >> 6)).to(torch.float64)
-    u = (u + 0.5) * 2.0 ** -53
-    lo = torch.zeros_like(lam)
-    hi = torch.ceil(lam + 12.0 * torch.sqrt(lam) + 12.0)
-    for _ in range(int(math.ceil(math.log2(float(hi.max()) + 1.0))) + 1):
-        mid = torch.floor(0.5 * (lo + hi))
-        below = torch.special.gammaincc(mid + 1.0, lam) >= u
-        hi = torch.where(below, mid, hi)
-        lo = torch.where(below, lo, mid + 1.0)
-    return hi
-
-
 def poisson_sample(delta, nbar, spacing, seed=0):
     """Per-cell Poisson tracer counts with intensity nbar*Vcell*(1+delta).
 
@@ -147,30 +125,18 @@ def poisson_sample(delta, nbar, spacing, seed=0):
     counts of ``delta``'s dtype, on its device (a weight array for
     :func:`paint` / :func:`catalog_power`).
 
-    The stream is the port's own, by design: the JAX package's
-    ``jax.random.poisson`` runs a data-dependent rejection loop drawing a
-    whole-grid uniform array per iteration.  Here each cell's count is the
-    exact inversion of its Poisson CDF (float64) at one uniform drawn from
-    Threefry-2x32 at the cell's flat index under
-    ``fold_in(key_from_seed(seed ^ 0x5EEDC0DE), POISSON_TAG)``, so the CPU
-    and the card draw the same counts.  It is held to the Poisson law
-    statistically (mean and variance per intensity, the flat shot noise).
+    The counts are the JAX package's: ``jax.random.poisson`` under
+    ``key(seed ^ 0x5EEDC0DE)`` replayed cell by cell by KH's linear form
+    (:func:`..ops.poisson.poisson_counts`: the kernel on CUDA, its plain
+    version on the CPU), lambda = max((1 + delta) s, 0) in float32 with s
+    the float32 nbar a^3.
     """
     delta = torch.as_tensor(delta)
-    scale = float(np.float32(float(nbar) * float(spacing) ** 3))
-    key = _threefry.fold_in(
-        _threefry.key_from_seed(int(seed) ^ 0x5EEDC0DE), POISSON_TAG)
-    out = torch.empty_like(delta)
-    flat = delta.reshape(delta.shape[0], -1) if delta.ndim > 1 else \
-        delta.reshape(1, -1)
-    dst = out.view(flat.shape)
-    per = flat.shape[1]
-    for x0 in range(0, flat.shape[0], _X_CHUNK):
-        x1 = min(flat.shape[0], x0 + _X_CHUNK)
-        lam = torch.clamp_min((1.0 + flat[x0:x1]) * scale, 0.0)
-        dst[x0:x1] = _poisson_counts(lam.to(torch.float64), key,
-                                     x0 * per).to(delta.dtype)
-    return out
+    field = delta if delta.dtype == torch.float32 else delta.to(torch.float32)
+    key = _threefry.key_from_seed(int(seed) ^ 0x5EEDC0DE)
+    counts = _poisson.poisson_counts(
+        field, [key], "linear", scale=float(nbar) * float(spacing) ** 3)[0]
+    return counts.to(delta.dtype)
 
 
 def paint(positions, shape, spacing, weights=1.0, window="cic"):

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "rf_sample_nested": [_P, _P, _P, _I, _I, _I, _I, _U32, _U32,
                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "rf_spectral_kernel": [_P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _I, _I,
-                           _F, _F, _P],
+                           _F, _F, _F, _F, _P],
     "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _U32, _U32, _F, _F, _F, _F, _F, _F, _F, _P],
     "rf_sample_fftx_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -97,6 +97,8 @@ _SIGNATURES = {
                        _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _D, _I,
                        _P, _P, _P, _P],
     "rf_pair_counts_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
+    "rf_poisson_counts": [_P, _P, _LL, _I, _I, _P, _P, _I, _P, _P],
+    "rf_poisson_attributes": [_I, _P, _P, _P],
     "rf_minkowski_bins": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _LL, _P, _P, _P, _P, _P],
 }

@@ -9,6 +9,8 @@ Port of ``randomfield_tpu/ops/derived.py``, with its Fourier conventions
 * velocity:       v_k = i a H(a) f(a) delta_k k / k^2  [km/s]
 * tidal tensor:   T_ij,k = k_i k_j / k^2 delta_k  (grad^2 phi = delta)
 * Kaiser:         (b + f mu^2) delta_k, mu = k_los / |k|
+* gradient:       i k delta_k (the second-order SPT source, models/spt.py)
+* reconstruction: i k / k^2 S(k) delta_k / (b + f mu^2) (models/reconstruction.py)
 
 DC modes are zero in every case.  Each is one elementwise spectral kernel
 on a packed spectrum: KD, :func:`apply_kernel` (``csrc/spectral_kernel.cu``,
@@ -60,7 +62,8 @@ TIDAL_PAIRS = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 D_H_MPC_H = 2997.92458  # Hubble distance in Mpc/h (c / (100 km/s/Mpc))
 
 # KD's kinds, as csrc/spectral_kernel.cu numbers them
-KINDS = {"scalar": 0, "grad": 1, "tidal": 2, "kaiser": 3}
+KINDS = {"scalar": 0, "grad": 1, "tidal": 2, "kaiser": 3, "deriv": 4,
+         "recon": 5}
 
 # kernel launches by apply_kernel (the CPU path does not count)
 KD_LAUNCHES = 0
@@ -109,26 +112,30 @@ def _check(kind, component):
                          f"{component!r}")
 
 
-def _axes(kind, component):
-    """(a, b) axes of KD's kernel for this kind and component."""
+def _axes(kind, component, los_axis=2):
+    """(a, b) axes of KD's kernel for this kind and component (recon: the
+    component's axis and the line of sight)."""
     if kind == "tidal":
         return TIDAL_PAIRS[int(component)]
-    if kind in ("grad", "kaiser"):
+    if kind == "recon":
+        return int(component), int(los_axis)
+    if kind in ("grad", "kaiser", "deriv"):
         return int(component), 0
     return 0, 0
 
 
 def _prefactors(kind, prefactor):
-    """KD's (p0, p1) as float32 values: (b, f) for 'kaiser', else
-    (prefactor, 0)."""
-    if kind == "kaiser":
-        b, f = (float(v) for v in np.ravel(prefactor))
-        return float(np.float32(b)), float(np.float32(f))
-    return float(np.float32(prefactor)), 0.0
+    """KD's (p0, p1, p2, p3) as float32 values: (b, f) for 'kaiser',
+    (prefactor, b, f, sigma^2) for 'recon', else (prefactor,)."""
+    vals = [float(np.float32(v)) for v in np.ravel(prefactor)]
+    if kind == "recon":
+        # the smoothing length squared in float32, as jnp squares it
+        vals[3] = float(np.float32(vals[3]) * np.float32(vals[3]))
+    return tuple(vals + [0.0] * (4 - len(vals)))
 
 
 def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
-                       prefactor=1.0, grad_diag=False):
+                       prefactor=1.0, grad_diag=False, los_axis=2):
     """:func:`apply_kernel` in plain PyTorch, IN PLACE, x-slab by x-slab:
     the float32 operations of ``csrc/spectral_kernel.cu`` in its order.
     Returns (re, im)."""
@@ -136,8 +143,8 @@ def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
     dev = re.device
     full = _grid.kvectors(shape, spacing, torch.float32, dev)
     zeroed = grad_kvectors(shape, spacing, torch.float32, dev)
-    a, b = _axes(kind, component)
-    p0, p1 = _prefactors(kind, prefactor)
+    a, b = _axes(kind, component, los_axis)
+    p0, p1, p2, p3 = _prefactors(kind, prefactor)
     bcast = ((slice(None), None, None), (None, slice(None), None),
              (None, None, slice(None)))
     kx2 = full[0] * full[0]
@@ -153,10 +160,23 @@ def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
         k2 = (kx2[rows][:, None, None] + ky2) + kz2
         inv = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
         r, i = re[rows], im[rows]
-        if kind == "grad":
-            g = (p0 * vec(a, zeroed)) * inv
+        if kind in ("grad", "deriv"):
+            g = p0 * vec(a, zeroed)
+            if kind == "grad":
+                g = g * inv
             new_re = -(i * g)
             i.copy_(r * g)
+            r.copy_(new_re)
+            continue
+        if kind == "recon":
+            kl = vec(b, full)
+            smooth = torch.exp((-0.5 * k2) * p3)
+            mu2 = torch.where(k2 > 0, (kl * kl) / torch.where(k2 > 0, k2, 1.0),
+                              0.0)
+            den = p1 + p2 * mu2
+            g = (p0 * vec(a, zeroed)) * inv
+            new_re = -(((i * smooth) / den) * g)
+            i.copy_(((r * smooth) / den) * g)
             r.copy_(new_re)
             continue
         if kind == "scalar":
@@ -173,17 +193,20 @@ def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
 
 
 def apply_kernel(re, im, shape, spacing, kind, component=0, prefactor=1.0,
-                 grad_diag=False):
+                 grad_diag=False, los_axis=2):
     """KD: a derived field's spectral kernel on a packed spectrum, IN PLACE.
 
     ``re``/``im``: float32 (nx, ny, nz//2+1) 'xyz' lattices of an ``shape``
     scene.  ``kind`` (with ``component``): 'scalar', c -> prefactor c / k^2;
     'grad' (axis), c -> i prefactor k_a c / k^2; 'tidal' (an index of
     :data:`TIDAL_PAIRS`), c -> prefactor k_a k_b c / k^2; 'kaiser' (the
-    line-of-sight axis, ``prefactor`` = (b, f)), c -> (b + f k_a^2 / k^2) c.
-    DC maps to 0 (Kaiser: to b c).  The odd kernels, and with ``grad_diag``
-    the tidal diagonals too (the 2LPT source), take :func:`grad_kvectors`;
-    the others the full vectors.  On CUDA this launches
+    line-of-sight axis, ``prefactor`` = (b, f)), c -> (b + f k_a^2 / k^2) c;
+    'deriv' (axis), c -> i prefactor k_a c; 'recon' (axis; ``prefactor`` =
+    (p, b, f, sigma), ``los_axis``), c -> i p k_a / k^2 exp(-k^2 sigma^2 /
+    2) c / (b + f mu^2).  DC maps to 0 (Kaiser: to b c).  The odd kernels
+    (grad, deriv, recon's k_a), and with ``grad_diag`` the tidal diagonals
+    too (the 2LPT source), take :func:`grad_kvectors`; the others the full
+    vectors.  On CUDA this launches
     ``csrc/spectral_kernel.cu``; on the CPU it runs
     :func:`apply_kernel_plain`.  Returns (re, im).
     """
@@ -199,17 +222,17 @@ def apply_kernel(re, im, shape, spacing, kind, component=0, prefactor=1.0,
                          f"{tuple(im.shape)} {im.dtype}")
     if re.device.type == "cpu":
         return apply_kernel_plain(re, im, shape, spacing, kind, component,
-                                  prefactor, grad_diag)
+                                  prefactor, grad_diag, los_axis)
     if re.device.type != "cuda":
         raise ValueError(f"apply_kernel runs on cpu or cuda, not {re.device}")
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("apply_kernel's CUDA kernel needs contiguous tensors")
-    a, b = _axes(kind, component)
-    p0, p1 = _prefactors(kind, prefactor)
+    a, b = _axes(kind, component, los_axis)
     vals = [1.0 / (n * float(spacing)) for n in shape]
     status = _build.library().rf_spectral_kernel(
         re.data_ptr(), im.data_ptr(), nx, ny, nz, *vals, KINDS[kind], a, b,
-        int(bool(grad_diag)), p0, p1, _build.current_stream(re))
+        int(bool(grad_diag)), *_prefactors(kind, prefactor),
+        _build.current_stream(re))
     _build.check(status, "apply_kernel")
     KD_LAUNCHES += 1
     return re, im

@@ -12,7 +12,10 @@ version (ops/paint.py) vs the JAX package.
     the kernel's shift argument equal to shifted positions;
 (c) catalog_power and its multipoles at 1e-4 relative, interlaced too;
 (d) zeldovich_power at 1e-10;
-(e) the port's own Poisson stream, gated statistically, and refusals.
+(e) poisson_sample: the JAX package's jax.random.poisson counts replayed by
+    KH's plain version, equal on every cell (Gaussian and lognormal fields,
+    clipped intensities, lambda >= 10, float64 input), still gated
+    statistically; and refusals.
 """
 
 import numpy as np
@@ -196,9 +199,38 @@ def test_zeldovich_power_matches_jax():
                     jz._filon_cos_batch(mu, f, x)) <= THEORY
 
 
+POISSON_CASES = {
+    "gaussian": (2e-3, 8.0, 1),
+    "clipped": (0.02, 4.0, 2),
+    "lognormal": (0.004, 6.0, 3),
+    "rejection": (0.5, 5.0, 4),
+    "float64": (0.05, 4.0, 5),
+    "wide seed": (0.01, 4.0, 2**33 + 17),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POISSON_CASES))
+def test_poisson_sample_equals_jax(case):
+    # jax.random.poisson(key(seed ^ 0x5EEDC0DE), lambda) replayed cell by
+    # cell: equal counts on every cell, both branches of the JAX loop
+    nbar, spacing, seed = POISSON_CASES[case]
+    rng = np.random.default_rng(seed & 0xFFFF)
+    delta = rng.normal(0.0, 1.5 if case == "clipped" else 0.5, SHAPE)
+    if case == "lognormal":
+        delta = np.expm1(delta - 0.125)
+    delta = delta.astype(np.float64 if case == "float64" else np.float32)
+    got = tz.poisson_sample(torch.as_tensor(delta), nbar, spacing, seed)
+    want = np.asarray(jz.poisson_sample(delta.astype(np.float32), nbar,
+                                        spacing, seed))
+    assert got.dtype == torch.as_tensor(delta).dtype
+    np.testing.assert_array_equal(got.numpy().astype(np.float32), want)
+    if case == "rejection":
+        assert float(got.max()) >= 10.0  # the rejection branch ran
+
+
 @pytest.mark.parametrize("lam", [0.05, 0.7, 3.0, 40.0])
 def test_poisson_counts_are_poisson(lam):
-    # the port's own stream (by design): mean and variance per intensity
+    # the replayed JAX stream: mean and variance per intensity
     shape = (32, 32, 32)
     counts = tz.poisson_sample(torch.zeros(shape), lam / 8.0, 2.0, seed=9)
     c = counts.double()
@@ -214,7 +246,7 @@ def test_poisson_counts_are_poisson(lam):
 
 
 def test_poisson_shot_noise_flat():
-    # the reference's gate (tests/test_zeldovich.py) on the port's stream
+    # the reference's gate (tests/test_zeldovich.py) on the replayed stream
     n, spacing, nbar = 24, 5.0, 0.02
     shape = (n, n, n)
     counts = tz.poisson_sample(torch.zeros(shape), nbar, spacing, seed=5)
