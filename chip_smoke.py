@@ -226,8 +226,10 @@ non-zero with no result line:
    host read, the sort, the pair kernel, the check) and its pairs examined
    beside cell_walk_pairs and their components that wrap; the catalog
    paths split into their stages (painting, transforms, binning, KQ); KH
-   beside its plain version, on the bins below and at lambda >= 10 apart,
-   and the device models' paths; and the whole run's wall time.
+   beside its plain version, each of its three passes apart, on the bins
+   below and at lambda >= 10 apart, the SM clock under its load and its
+   bound by pipe, and the device models' paths; and the whole run's wall
+   time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -238,7 +240,8 @@ copied into another checkout, it sets that tree's KC against this one's
 on the same card.  ``--kx-times`` does the same for KX: its three modes
 at 1024^3 held to their plain versions, timed, beside the read yardstick;
 ``--kq-times`` for KQ: its phase-0 attributes and plan, its phase-1 checks
-and its phase-4 times.
+and its phase-4 times; ``--kh-times`` for KH: its phase-0 attributes, its
+phase-1 checks, its phase-4 times (each pass apart) and its bound.
 """
 
 from __future__ import annotations
@@ -663,21 +666,15 @@ def res_usage(lib, cuobjdump):
             for m in re.finditer(r"Function (\S+?):?\s+REG:(\d+)", text)}
 
 
-def hash_loop(instrs):
-    """(span, hot, rotations) of the smallest loop (the span of a backward
-    branch) that holds a hash's rotations: the per-mode loop of a hashing
-    kernel.  ``span`` counts every instruction in it; ``hot`` leaves out
-    each inner loop or call with the smallest range a forward branch skips
-    around it: the cold paths laid out inside the loop (libdevice's slow
-    paths of sincosf and sqrtf, a run's flush in K5, the rare steps of a
-    bin search)."""
+def smallest_hash_loop(instrs):
+    """(body, rotations, first address, last address, branches) of the
+    smallest loop (the span of a backward branch) that holds a hash's
+    rotations; ``branches`` lists every (address, target) of ``instrs``."""
     branches = []
     for addr, text in instrs:
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
         if m:
             branches.append((addr, int(m.group(1), 16)))
-    calls = [a for a, t in instrs if t.split()[0].startswith("CALL")
-             or (t.startswith("@") and t.split()[1].startswith("CALL"))]
     best = None
     for addr, first in branches:
         if first >= addr:
@@ -688,7 +685,20 @@ def hash_loop(instrs):
         if rot >= ROTATIONS_PER_HASH // 2 and (best is None
                                                 or len(body) < len(best[0])):
             best = (body, rot, first, addr)
-    body, rot, first, last = best
+    return (*best, branches)
+
+
+def hash_loop(instrs):
+    """(span, hot, rotations) of the smallest loop (the span of a backward
+    branch) that holds a hash's rotations: the per-mode loop of a hashing
+    kernel.  ``span`` counts every instruction in it; ``hot`` leaves out
+    each inner loop or call with the smallest range a forward branch skips
+    around it: the cold paths laid out inside the loop (libdevice's slow
+    paths of sincosf and sqrtf, a run's flush in K5, the rare steps of a
+    bin search)."""
+    body, rot, first, last, branches = smallest_hash_loop(instrs)
+    calls = [a for a, t in instrs if t.split()[0].startswith("CALL")
+             or (t.startswith("@") and t.split()[1].startswith("CALL"))]
     skips = [(at, to) for at, to in branches if first <= at < to <= last]
     cold = set()
     # each inner loop or call, with the smallest forward skip around it
@@ -5892,21 +5902,50 @@ RECON_GATE = ((256, 256, 256), 5.0)
 # phase 4: the tree bispectrum's bins, the forecasting grid
 TREE_NBINS = 8
 FISHER_SHAPE = (256, 256, 256)
-# KH's operations (counted from csrc/poisson.cu), each fused multiply-add
-# of XLA's float32 function one float32 operation (one FFMA; the kernel's
-# float64 emulation of it is its own cost, not the function's): a (cell,
-# bin) forms lambda (the exponent's multiply-add and the exp: 14 float32
-# and integer operations and 8 multiply-adds) and a Knuth iteration hashes
-# its counter (74, as OPS_PER_MODE counts Threefry), makes the uniform (2),
-# takes XLA's log (13 and 10 multiply-adds) and adds (1)
-KH_OPS_PER_CELL_BIN = 14 + 8
-KH_OPS_PER_ITERATION = 74 + 2 + 13 + 10 + 1
-# a rejection step (two hashes and uniforms, k's float32 arithmetic with
-# its multiply-add and the acceptance tests; the log and lgamma only where
-# those do not decide), counted once a cell of each bin whose intensity
-# reaches 10 (the first pass) and once a cell at or above 10 (the replay):
-# the least this data needs
-KH_OPS_PER_REJECTION_STEP = 2 * 76 + 12 + 1
+# KH's instructions, counted from csrc/poisson.cu as issue slots on the
+# pipes that can carry each (each of XLA's float32 multiply-adds one FFMA;
+# the CUDA C++ Programming Guide's throughput table for compute capability
+# 9.0): an SM issues 128 instructions a clock (one warp instruction a clock
+# a quarter SM), float32 ones on its FMA pipes at 128; funnel shifts (the
+# hash's rotations), right shifts and logic (LOP3) only on its ALU pipe,
+# at 64; a 32-bit integer add (and a left shift by a constant) on the ALU
+# pipe as IADD3 or on the FMA pipe as IMAD, so the adds load neither pipe
+# alone and count only in the issue term (phase 0 logs the split nvcc
+# chose in KH's SASS).  A (cell, bin) forms lambda: the exponent's
+# multiply-add, the clamps, exp's floor, reduction and polynomial (9
+# multiply-adds), its scale and flushes, the Knuth test (25 float32), exp's
+# scale bits (3 integer: a conversion, an add and a left shift).  A Knuth
+# iteration hashes its counter (72 integer: 20 rounds of add, rotate, xor
+# and 5 key injections of two adds, as OPS_PER_MODE counts Threefry, with
+# the counter split 2), makes the uniform (2 integer: a right shift and an
+# or; 1 float32), takes XLA's log (its exponent and mantissa bits 5
+# integer, of them a right shift and the mask's logic on the ALU pipe; 11
+# multiply-adds, 3 multiplies, 6 adds, the clamp, the branch test and 3
+# edge selects: 24 float32), adds and tests the sum (2 float32) and counts
+# (1 integer).  KH_ALU_* are the integer instructions that only the ALU
+# pipe runs.
+KH_FP32_PER_CELL_BIN, KH_INT_PER_CELL_BIN = 25, 3
+KH_FP32_PER_ITERATION, KH_INT_PER_ITERATION = 1 + 24 + 2, 74 + 2 + 5 + 1
+KH_ALU_PER_CELL_BIN, KH_ALU_PER_ITERATION = 0, 2 * 20 + 2 + 2
+# a rejection step: two hashes and uniforms (2 x 76 integer, 2 float32; 2 x
+# 42 on the ALU pipe alone), u - 0.5, |u|, us and the acceptance test
+# accept1 (5 float32); the log and lgamma only where accept1 fails, which
+# at the main path's intensities is rare, so they are not counted.  One
+# step is counted a cell of each bin whose intensity reaches 10 (the first
+# pass) and one a cell at or above 10 (the replay): the least this data
+# needs
+KH_FP32_PER_REJECTION_STEP, KH_INT_PER_REJECTION_STEP = 2 + 5, 2 * 76
+KH_ALU_PER_REJECTION_STEP = 2 * (2 * 20 + 2)
+# KH's SASS instructions by the pipe that runs them (phase0_models): the
+# funnel-shift rotations, the other shifts and the logic on the ALU pipe
+# alone; the integer multiply-adds (IMAD.IADD is an add, IMAD.MOV a move,
+# IMAD.SHL a left shift) on the FMA pipe; the integer adds nvcc kept as
+# IADD3 or VIADD; the float32 arithmetic, compares and selects
+KH_SASS_CLASSES = (("rotations", r"SHF\.[LR]\.W|PRMT"),
+                   ("shifts and logic", r"SHF|LOP3"),
+                   ("IMAD", r"IMAD"),
+                   ("IADD3 and VIADD", r"IADD3|VIADD"),
+                   ("float32", r"F(FMA|ADD|MUL|MNMX|SETP|SEL|SET)\b"))
 
 
 def models_counts():
@@ -5916,8 +5955,11 @@ def models_counts():
 
 
 def phase0_models(card):
-    """KH's registers a thread and blocks an SM, each of its three passes."""
-    from randomfield_tpu_torch.ops import poisson
+    """KH's registers a thread and blocks an SM, each of its three passes,
+    and the pipes of the instructions in the hash loops of its Knuth and
+    first-acceptance passes (:data:`KH_SASS_CLASSES`; the split that
+    :func:`kh_pipe_bound` takes)."""
+    from randomfield_tpu_torch.ops import _build, poisson
 
     for mode, what in enumerate(("Knuth", "first acceptance", "replay")):
         regs, blocks, threads = poisson.kernel_attributes(mode)
@@ -5925,6 +5967,21 @@ def phase0_models(card):
             f"blocks an SM of {threads} threads [{card}]")
         if regs <= 0 or blocks <= 0:
             raise AssertionError(f"KH {what} takes no block an SM")
+    funcs, _ = sass_functions(_build.library_path(),
+                              _build.cuda_tool("cuobjdump"))
+    for what, frag in (("Knuth", "knuth_kernel"),
+                       ("first acceptance", "first_kernel")):
+        name = next(f for f in funcs if frag in f and "poisson" in f)
+        body, rot = smallest_hash_loop(funcs[name])[:2]
+        split = dict.fromkeys([k for k, _ in KH_SASS_CLASSES] + ["other"], 0)
+        for _, text in body:
+            op = re.sub(r"^@!?U?P\w+ ", "", text).split()[0]
+            split[next((k for k, pat in KH_SASS_CLASSES
+                        if re.match(pat, op)), "other")] += 1
+        log(f"phase 0 KH {what} pass SASS, its smallest hash loop: "
+            f"{len(body)} instructions, {rot / ROTATIONS_PER_HASH:g} hashes' "
+            f"rotations; " + ", ".join(f"{k} {v}" for k, v in split.items())
+            + f" [{card}]")
 
 
 def _halo_keys(hg, seed):
@@ -5988,13 +6045,12 @@ def _kh_check(torch, errs, what, g, keys, kw, plain_chunk=1 << 26):
     return got, plain_ms
 
 
-def phase1_models(torch, hg, errs):
+def phase1_kh(torch, hg, errs):
     """KH against its plain version on the card: the halo counts of the
     1024^3 main path (HALO_BINS mass bins on one Gaussian render) and a
-    lambda >= 10 grid through the linear form (the rejection passes); KD's
-    'deriv' and 'recon' kinds on the 1024^3 lattices, bit for bit.
-    Returns the plain version's ms on the halo counts."""
-    from randomfield_tpu_torch.ops import derived, threefry
+    lambda >= 10 grid through the linear form (the rejection passes), bit
+    for bit.  Returns the plain version's ms on the halo counts."""
+    from randomfield_tpu_torch.ops import threefry
 
     dev = hg.device
     g = hg.lognormal.gaussian.generate_delta_field(
@@ -6017,6 +6073,18 @@ def phase1_models(torch, hg, errs):
         f"{got.numel()}")
     del delta, got
     torch.cuda.empty_cache()
+    return plain_ms
+
+
+def phase1_models(torch, hg, errs):
+    """:func:`phase1_kh`; KD's 'deriv' and 'recon' kinds on the 1024^3
+    lattices, bit for bit.  Returns the plain version's ms on the halo
+    counts."""
+    from randomfield_tpu_torch.ops import derived
+
+    plain_ms = phase1_kh(torch, hg, errs)
+    gen = torch.Generator(device=hg.device).manual_seed(3)
+    dev = hg.device
     nzh = HEADLINE[2] // 2 + 1
     re = torch.randn((HEADLINE[0], HEADLINE[1], nzh), generator=gen,
                      device=dev)
@@ -6353,20 +6421,35 @@ def phase3_models(torch, rft, dev, hg, hd, card):
     return total, peaks, seconds
 
 
-def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
-    """Times at 1024^3 (CUDA events, median after a warm-up) and peak device
-    memory: KH alone beside phase 1's plain time, on the bins below 10 and
-    on the bin whose intensity reaches 10 apart (the rejection passes);
-    generate_halo_counts, second_order_density, the lensing paths, the
-    multi-tracer pair and reconstruction; the host-bound paths (the
-    catalogs, the tree bispectrum, the forecast) with phase 3's host
-    seconds.  Returns ({"KH": (ms, plain ms, None)}, (KH's Knuth iterations
-    in the timed launch, the least rejection steps its data needs))."""
-    from randomfield_tpu_torch.models import (lensing, multitracer,
-                                              reconstruction, spt)
+def sm_clock_under_load(torch, fn, ms_each, hold_ms=2000.0):
+    """The SM clock (Hz) nvidia-smi reads while the card runs enough queued
+    calls of ``fn`` (``ms_each`` ms each) to stay busy for ``hold_ms``."""
+    torch.cuda.synchronize()
+    for _ in range(max(2, min(200, int(hold_ms / max(ms_each, 1e-3)) + 1))):
+        fn()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.splitlines()[0]
+    finally:
+        torch.cuda.synchronize()
+    sm, sm_max, power = (float(v) for v in out.split(","))
+    return 1e6 * sm, 1e6 * sm_max, power
+
+
+def kh_times(torch, hg, dev, plain_ms, card):
+    """KH at 1024^3 with HALO_BINS bins (CUDA events, median after a
+    warm-up): the whole call beside phase 1's plain time, each of its three
+    passes apart (:func:`poisson.pass_times`) and the host's key tables
+    (host clock), the bins below 10 and the
+    bins whose intensity reaches 10 apart, and the SM clock under KH's
+    load.  Returns ({"KH": (ms, plain ms, None)}, (KH's Knuth iterations in
+    the timed launch, the least rejection steps its data needs, the SM
+    clock in Hz))."""
     from randomfield_tpu_torch.ops import poisson
 
-    sp, seed = HEADLINE_SPACING, MODELS_SEED
+    seed = MODELS_SEED
     g = hg.lognormal.gaussian.generate_delta_field(seed,
                                                    apply_lightcone=False)
     g_cells = g.numel()
@@ -6374,6 +6457,15 @@ def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
     out = torch.empty((HALO_BINS, *HEADLINE), dtype=torch.int32, device=dev)
     kh_ms = cuda_ms(torch, lambda: poisson.poisson_counts(g, keys, out=out,
                                                           **kw))
+    passes = [poisson.pass_times(g, keys, out=out, **kw)[1]
+              for _ in range(TIMING_REPS + 1)][1:]
+    pass_ms = [statistics.median(p[i] for p in passes) for i in range(3)]
+    host = []
+    for _ in range(TIMING_REPS):
+        t0 = time.perf_counter()
+        poisson.key_tables(keys)
+        host.append(1e3 * (time.perf_counter() - t0))
+    host_ms = statistics.median(host)
     cells = g.numel() * HALO_BINS
     lam_kw = {k: v for k, v in kw.items() if k != "form"}
     live, high = 0, []
@@ -6387,6 +6479,11 @@ def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
         f"{plain_ms:.1f} ms, phase 1); {iterations} Knuth iterations over "
         f"{cells} (cell, bin) pairs; cells with lambda >= 10 per bin {high} "
         f"[{card}]")
+    log(f"phase 4 KH passes {HEADLINE}, {HALO_BINS} bins: Knuth "
+        f"{pass_ms[0]:.3f} ms, first acceptance {pass_ms[1]:.3f} ms, replay "
+        f"{pass_ms[2]:.3f} ms (each its median of {TIMING_REPS}; the three "
+        f"{sum(pass_ms):.3f}); the call's key tables {host_ms:.3f} ms on "
+        f"the host clock [{card}]")
     for what, bins in (("bins without lambda >= 10", [
             b for b in range(HALO_BINS) if not high[b]]), (
             "bins with lambda >= 10", [b for b in range(HALO_BINS)
@@ -6398,9 +6495,45 @@ def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
         ms = cuda_ms(torch, lambda: poisson.poisson_counts(
             g, [keys[b] for b in bins], **sub))
         log(f"phase 4 KH {what} {bins}: {ms:.3f} ms [{card}]")
+    clock, clock_max, power = sm_clock_under_load(
+        torch, lambda: poisson.poisson_counts(g, keys, out=out, **kw), kh_ms)
+    log(f"phase 4 KH load: SM clock {clock / 1e6:.0f} MHz (maximum "
+        f"{clock_max / 1e6:.0f}), {power:.1f} W, read by nvidia-smi while "
+        f"KH ran [{card}]")
     del g, out
     torch.cuda.empty_cache()
-    times = {"KH": (kh_ms, plain_ms, None)}
+    flagged = sum(1 for h in high if h)
+    return ({"KH": (kh_ms, plain_ms, None)},
+            (iterations, flagged * g_cells + sum(high), clock))
+
+
+def kh_times_only(torch, rft, dev, card):
+    """``--kh-times``: KH alone, with the package beside this script, to
+    set a tree's KH against another's on one card: its attributes
+    (:func:`phase0_models`), its checks against its plain version
+    (:func:`phase1_kh`) and its times and bound (:func:`kh_times`,
+    :func:`kh_pipe_bound`)."""
+    from randomfield_tpu_torch.models import halos
+
+    phase0_models(card)
+    hg = halos.HaloGenerator(*HEADLINE, HEADLINE_SPACING, device=dev)
+    plain_ms = phase1_kh(torch, hg, {})
+    times, kh_work = kh_times(torch, hg, dev, plain_ms, card)
+    kh_pipe_bound(*kh_work)
+
+
+def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
+    """Times at 1024^3 (CUDA events, median after a warm-up) and peak device
+    memory: KH (:func:`kh_times`); generate_halo_counts, poisson_sample,
+    second_order_density, the lensing paths, the multi-tracer pair and
+    reconstruction; the host-bound paths (the catalogs, the tree
+    bispectrum, the forecast) with phase 3's host seconds.  Returns
+    ({"KH": (ms, plain ms, None)}, KH's work for its bound)."""
+    from randomfield_tpu_torch.models import (lensing, multitracer,
+                                              reconstruction, spt, zeldovich)
+
+    sp, seed = HEADLINE_SPACING, MODELS_SEED
+    times, kh_work = kh_times(torch, hg, dev, plain_ms, card)
     ms, peak = timed_peak(torch, lambda: hg.generate_halo_counts(seed))
     log(f"phase 4 generate_halo_counts {HEADLINE}: {ms:.3f} ms, peak {peak} "
         f"[{card}]")
@@ -6409,6 +6542,8 @@ def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
     g1, g2 = lensing.convergence_to_shear(kappa, sp)
     mt = multitracer.MultiTracerGenerator(*HEADLINE, sp, device=dev)
     for what, fn in (
+            ("poisson_sample", lambda: zeldovich.poisson_sample(
+                delta, 2e-3, sp, seed)),
             ("second_order_density", lambda: spt.second_order_density(
                 delta, sp)),
             ("convergence_map + convergence_to_shear", lambda:
@@ -6426,21 +6561,47 @@ def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
         if any(w in what for w in ("catalog", "bispectrum", "fisher")):
             log(f"phase 4 {what} {HEADLINE}: {dt:.3f} s (phase 3's first "
                 f"call, host clock) [{card}]")
-    flagged = sum(1 for h in high if h)
-    return times, (iterations, flagged * g_cells + sum(high))
+    return times, kh_work
 
 
-def kh_bound(iterations, rejection_steps):
-    """(bytes, operations) of KH at 1024^3 with HALO_BINS bins: g read once
-    and the int32 counts written once; the intensity a (cell, bin),
-    ``iterations`` Knuth iterations and ``rejection_steps`` rejection
-    steps, all float32 and integer operations."""
+def kh_pipe_bound(iterations, rejection_steps, clock_hz):
+    """(bound ms, bound_by) of KH at 1024^3 with HALO_BINS bins: g read
+    once and the int32 counts written once, over the HBM rate; the
+    intensity a (cell, bin), ``iterations`` Knuth iterations and
+    ``rejection_steps`` rejection steps as issue slots by pipe, at
+    ``clock_hz``, the SM clock read under KH's load: every instruction
+    through the SM's issue (128 a clock), and those only the ALU pipe runs
+    through it (64 a clock; the float32 ones, at most the issue term, and
+    the integer adds, which either pipe takes, bound nothing alone).  Also
+    logs every term and the time of every instruction at the flat float32
+    rate."""
+    import torch
+
     cells = HEADLINE[0] * HEADLINE[1] * HEADLINE[2]
     nbytes = 4 * cells + 4 * HALO_BINS * cells
-    ops = (KH_OPS_PER_CELL_BIN * cells * HALO_BINS
-           + KH_OPS_PER_ITERATION * iterations
-           + KH_OPS_PER_REJECTION_STEP * rejection_steps)
-    return nbytes, ops
+    fp32 = (KH_FP32_PER_CELL_BIN * cells * HALO_BINS
+            + KH_FP32_PER_ITERATION * iterations
+            + KH_FP32_PER_REJECTION_STEP * rejection_steps)
+    ints = (KH_INT_PER_CELL_BIN * cells * HALO_BINS
+            + KH_INT_PER_ITERATION * iterations
+            + KH_INT_PER_REJECTION_STEP * rejection_steps)
+    alu = (KH_ALU_PER_CELL_BIN * cells * HALO_BINS
+           + KH_ALU_PER_ITERATION * iterations
+           + KH_ALU_PER_REJECTION_STEP * rejection_steps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "ALU pipe": alu / (64 * sms * clock_hz),
+         "issue": (fp32 + ints) / (128 * sms * clock_hz)}
+    by = max(t, key=t.get)
+    log(f"phase 4 KH bound by pipe at {HEADLINE}, {HALO_BINS} bins, {sms} "
+        f"SMs at {clock_hz / 1e6:.0f} MHz: {nbytes / 1e9:.4f} GB, "
+        f"{fp32 / 1e9:.2f} G float32 and {ints / 1e9:.2f} G integer "
+        f"instructions, {alu / 1e9:.2f} G of them on the ALU pipe alone; "
+        + ", ".join(f"{k} {1e3 * v:.4f} ms" for k, v in t.items())
+        + f"; bound {1e3 * t[by]:.4f} ms by {by} (every instruction at the "
+        f"flat {FP32_OPS_PER_S / 1e12:g} TFLOP/s: "
+        f"{1e3 * (fp32 + ints) / FP32_OPS_PER_S:.4f} ms)")
+    return 1e3 * t[by], "bytes" if by == "bytes" else "operations"
 
 
 def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
@@ -6453,8 +6614,8 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
     PAIR_OBJECTS auto count, ``kq_in_range`` of its pairs in range and
     ``kq_examined``, the pairs that a cell list examines and their
     components that wrap (cell_walk_pairs); KH on the halo counts of phase
-    4 (:func:`kh_bound` of ``kh_work``, its Knuth iterations and rejection
-    steps)."""
+    4 by pipe (:func:`kh_pipe_bound` of ``kh_work``: its Knuth iterations,
+    rejection steps and the SM clock under its load)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
@@ -6550,13 +6711,12 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
                KQ_OPS_PER_PAIR * kq_examined[0]
                + KQ_OPS_PER_WRAP * kq_examined[1]
                + KQ_OPS_PER_PAIR_IN_RANGE * kq_in_range),
-        "KH": kh_bound(*kh_work),
     }
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
                      fft_ops(n, lines) / FP32_OPS_PER_S)
         log(f"phase 4 K3 bound of the {what} pass alone: {1e3 * t_pass:.4f} ms")
-    out = {}
+    out = {"KH": kh_pipe_bound(*kh_work)}
     for k, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
         out[k] = (1e3 * max(t_bytes, t_ops),
@@ -6572,10 +6732,11 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in ([], ["--kc-times"], ["--kx-times"],
-                            ["--kq-times"]):
-        print("usage: python3 chip_smoke.py [--kc-times | --kx-times | "
-              "--kq-times]",
+    only = {"--kc-times": kc_times_only, "--kx-times": kx_times_only,
+            "--kq-times": kq_times_only, "--kh-times": kh_times_only}
+    if not (sys.argv[1:] == [] or (len(sys.argv) == 2
+                                   and sys.argv[1] in only)):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(only)}]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6617,14 +6778,8 @@ def main() -> int:
         _build.library()
         log(f"phase 0 kernel build: {time.perf_counter() - t0:.1f} s "
             f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-        if sys.argv[1:] == ["--kc-times"]:
-            kc_times_only(torch, rft, dev, card)
-            return 0
-        if sys.argv[1:] == ["--kx-times"]:
-            kx_times_only(torch, rft, dev, card)
-            return 0
-        if sys.argv[1:] == ["--kq-times"]:
-            kq_times_only(torch, rft, dev, card)
+        if sys.argv[1:]:
+            only[sys.argv[1]](torch, rft, dev, card)
             return 0
         phase0_attributes(card)
         phase0_sass(torch, card)

@@ -97,7 +97,8 @@ _SIGNATURES = {
                        _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _D, _I,
                        _P, _P, _P, _P],
     "rf_pair_counts_attributes": [_I, _I, _I, _I, _P, _P, _P, _P],
-    "rf_poisson_counts": [_P, _P, _LL, _I, _I, _P, _P, _I, _P, _P],
+    "rf_poisson_counts": [_P, _P, _LL, _I, _I, _P, _P, _I, _P, _P, _P,
+                          _P],
     "rf_poisson_attributes": [_I, _P, _P, _P],
     "rf_minkowski_bins": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _LL, _P, _P, _P, _P, _P],

@@ -23,17 +23,20 @@ depend on the data.  Both loops can be replayed one cell at a time:
   and neither walk runs.
 
 The loops' log, exp and lgamma are XLA's CPU float32 functions as
-:mod:`.xla_math` repeats them, so the counts here equal
-``jax.random.poisson``'s on the JAX package's CPU backend;
-``csrc/poisson.cu`` repeats the same operations, so the kernel equals its
-plain version bit for bit.
+:mod:`.xla_math` repeats them (each fused multiply-add rounded once), so
+the counts here equal ``jax.random.poisson``'s on the JAX package's CPU
+backend; ``csrc/poisson.cu`` repeats the same operations (each
+multiply-add one ``__fmaf_rn``), so the kernel equals its plain version
+bit for bit.
 
 On CUDA tensors :func:`poisson_counts` launches ``csrc/poisson.cu`` (KH,
-counter ``KH_LAUNCHES``, one a call: a Knuth pass over every bin and
-cell, then a first-acceptance pass and a replay pass that return at once
-where no lambda reached 10, all on the stream with no host read); on CPU
+counter ``KH_LAUNCHES``, one a call: a Knuth pass over every bin and cell
+that marks the lambda >= 10 cells, a bit a cell; then a first-acceptance
+pass and a replay pass over the marked cells, which return at once where
+no lambda reached 10; all on the stream with no host read); on CPU
 tensors it runs :func:`poisson_counts_plain`, a transcription of the two
-loops over whole chunks of cells.
+loops over whole chunks of cells.  :func:`pass_times` times the three
+passes apart.
 
 Two intensity forms, each in the JAX package's float32 order:
 
@@ -50,13 +53,13 @@ import torch
 from randomfield_tpu_torch.ops import _build
 from randomfield_tpu_torch.ops import threefry as _threefry
 from randomfield_tpu_torch.ops.xla_math import (_F32, _div, _f32, _flush,
-                                                _fma, xla_exp, xla_lgamma,
-                                                xla_log)
+                                                _fma, _sqrt, xla_exp,
+                                                xla_lgamma, xla_log)
 
 __all__ = ["KH_LAUNCHES", "FORMS", "TABLE", "poisson_counts",
            "poisson_counts_plain", "poisson_plain", "intensity",
            "key_tables", "lognormal_constants", "uniform_at",
-           "kernel_attributes"]
+           "kernel_attributes", "pass_times"]
 
 # kernel launches by poisson_counts (the CPU path does not count)
 KH_LAUNCHES = 0
@@ -101,7 +104,7 @@ def _knuth(key, lam, idx):
 
 def _rejection_constants(lam):
     log_lam = xla_log(lam)
-    b = _fma(torch.sqrt(lam), _f32(2.53), _f32(0.931))
+    b = _fma(_sqrt(lam), _f32(2.53), _f32(0.931))
     a = _fma(b, _f32(0.02483), _f32(-0.059))
     inv_alpha = _f32(1.1239) + _div(_f32(1.1328), b - _f32(3.4))
     v_r = _f32(0.9277) - _div(_f32(3.6224), b - 2.0)
@@ -278,6 +281,22 @@ def poisson_counts(g, keys, form="lognormal", lam0=None, bias=None,
     :func:`key_tables` and deriving the rest; on the CPU it runs
     :func:`poisson_counts_plain`.
     """
+    return _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table)
+
+
+def pass_times(g, keys, form="lognormal", lam0=None, bias=None,
+               sigma_g2=0.0, scale=1.0, out=None, table=TABLE):
+    """:func:`poisson_counts` on CUDA with each of KH's three passes (Knuth,
+    first acceptance, replay) timed apart by CUDA events: (counts, [ms of
+    each pass]).  The call waits for the card."""
+    ms = np.zeros(3, np.float32)
+    counts = _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table,
+                     ms)
+    return counts, [float(t) for t in ms]
+
+
+def _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table,
+            pass_ms=None):
     global KH_LAUNCHES
     if form not in FORMS:
         raise ValueError(f"unknown intensity form {form!r}; use {sorted(FORMS)}")
@@ -300,12 +319,13 @@ def poisson_counts(g, keys, form="lognormal", lam0=None, bias=None,
             or not out.is_contiguous() or out.device != g.device):
         raise ValueError("out must be a contiguous int32 (nbins, *g.shape) "
                          "tensor on g's device")
-    if g.device.type == "cpu":
+    if g.device.type == "cpu" and pass_ms is None:
         res = poisson_counts_plain(g, keys, form, lam0, bias, sigma_g2,
                                    scale)
         return res if out is None else out.copy_(res)
     if g.device.type != "cuda":
-        raise ValueError(f"poisson_counts runs on cpu or cuda, not {g.device}")
+        raise ValueError(f"KH runs on cuda (poisson_counts also on cpu), "
+                         f"not {g.device}")
     g = g.contiguous()
     n = g.numel()
     if out is None:
@@ -319,12 +339,15 @@ def poisson_counts(g, keys, form="lognormal", lam0=None, bias=None,
                               device=dev)
     words = torch.as_tensor(key_tables(keys, table), device=dev)
     # per bin: the flag "a lambda >= 10 was seen" and the rejection loop's
-    # iteration count
+    # iteration count; the marks of the lambda >= 10 cells, a bit a cell
     state = torch.zeros((2, nbins), dtype=torch.int32, device=dev)
+    marks = torch.empty((nbins, (n + 31) // 32), dtype=torch.int32,
+                        device=dev)
     status = _build.library().rf_poisson_counts(
         g.data_ptr(), out.data_ptr(), n, nbins, FORMS[form],
         params.data_ptr(), words.data_ptr(), table, state.data_ptr(),
-        _build.current_stream(g))
+        marks.data_ptr(), _build.current_stream(g),
+        None if pass_ms is None else pass_ms.ctypes.data)
     _build.check(status, "poisson_counts")
     KH_LAUNCHES += 1
     return out

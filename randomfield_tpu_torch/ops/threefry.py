@@ -164,10 +164,10 @@ def _normal_from_bits(bits):
 def normal_exact(key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` with XLA's CPU erfinv
     repeated operation for operation (:func:`.xla_math.xla_erfinv`: its
-    log1p and fused multiply-adds), not the single-precision evaluation of
-    :func:`normal` that the render kernels share.  Equal to JAX's CPU
-    normals except about 1.4e-5 of them, in the tail |u| > 0.9968, one ulp
-    apart."""
+    log1p, fused multiply-adds rounded once and the tail's correctly
+    rounded square root), not the single-precision evaluation of
+    :func:`normal` that the render kernels share: equal to JAX's CPU
+    normals on every tested draw."""
     from randomfield_tpu_torch.ops.xla_math import xla_erfinv
 
     bits = random_bits(key, shape, device)

@@ -6,15 +6,14 @@ own float32 polynomials (Cephes' log and exp, a rational log1p, a Lanczos
 lgamma, Giles' erfinv) rather than the C library, and whose LLVM code
 generation contracts each multiply that feeds one add into a fused
 multiply-add.  The functions here repeat those operations in their order,
-each fused multiply-add as a float64 product (exact for float32 factors)
-and a float64 sum, rounded to float64 and then to float32 (:func:`_fma`).
-XLA's fused multiply-add rounds once; the two roundings differ only where
-the float64 sum lands exactly on a float32 rounding midpoint that the
-exact sum is not on, which is rare.  The port's replays of
+each fused multiply-add rounded once, as XLA's (:func:`_fma`: the float64
+sum of the exact float64 product and the addend, rounded to odd, then to
+float32), and each square root correctly rounded (:func:`_sqrt`; torch's
+float32 sqrt on a CPU can miss by an ulp).  The port's replays of
 ``jax.random.poisson`` (:mod:`.poisson`, KH) and ``jax.random.normal``
 (:func:`.threefry.normal_exact`) give the JAX package's numbers bit for
 bit on every tested input.  ``csrc/poisson.cu`` repeats the same
-operations on the card.
+operations on the card, each multiply-add one ``__fmaf_rn``.
 """
 
 from __future__ import annotations
@@ -48,11 +47,50 @@ def _div(c, t):
 
 
 def _fma(a, b, c):
-    """a b + c in float32: the float64 product of two float32 values is
-    exact; the float64 sum is rounded to float64, then to float32 (two
-    roundings where a fused multiply-add makes one; the kernel's ``fma32``
-    makes the same two)."""
-    return (a.to(_F64) * b + c).to(_F32)
+    """a b + c for float32 values, rounded once to float32 as a fused
+    multiply-add rounds it (for results in float32's normal range; XLA's
+    CPU backend flushes subnormal ones, which its callers here do).  The
+    float64 product of two float32 values is exact and their float64 sum
+    s rounds to float32 as the exact sum does unless s is a float32
+    rounding midpoint: only there is s made the sum rounded to odd
+    (TwoSum's error says whether s was inexact; an inexact s with an even
+    last bit steps one ulp toward the exact sum), and a float64 rounded to
+    odd, 29 bits longer than float32, rounds to float32 as the exact sum
+    does (Boldo and Melquiond, "Emulation of FMA and correctly rounded
+    sums: proved algorithms using rounding to odd", IEEE Trans. Computers
+    57, 2008)."""
+    # in place (a float32 factor's shape is the result's); the product is
+    # formed again where it is needed
+    s = a.to(_F64, copy=True).mul_(b).add_(c)
+    near = (s.view(torch.int64) & 0x1FFFFFFF).eq_(0x10000000)
+    if bool(near.any()):
+        i = near.nonzero(as_tuple=True)
+
+        def at(x):
+            return x.expand(s.shape)[i].to(_F64) if torch.is_tensor(x) else x
+
+        ps, cs, ss = at(a) * at(b), at(c), s[i]
+        pb = ss - ps
+        err = (ps - (ss - pb)) + (cs - pb)
+        even = (ss.view(torch.int64) & 1) == 0
+        toward = torch.where(err > 0, torch.inf, -torch.inf).to(_F64)
+        s[i] = torch.where((err != 0) & even, torch.nextafter(ss, toward), ss)
+    return s.to(_F32)
+
+
+def _fma_of_exact(a, b, c):
+    """a b + c, one of XLA's fused multiply-adds (``fma32`` in
+    ``csrc/poisson.cu``) where the product a b is exact in float32 (one
+    factor a power of two, or an integer of 8 bits times a constant of 10):
+    the float32 sum then rounds once, as the fused one does, and costs less
+    than :func:`_fma`."""
+    return a * b + c
+
+
+def _sqrt(x):
+    """float32 sqrt, correctly rounded (the float64 root of a float32 value
+    rounds to float32 as the float32 root would)."""
+    return torch.sqrt(x.to(_F64)).to(_F32)
 
 
 _LOG_P = [_f32(v) for v in (7.0376836292e-2, -1.1514610310e-1,
@@ -87,8 +125,8 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     y = _fma(y, x3, y1)
     y = _fma(y, x3, y2)
     y = _fma(y, x3, e * _LOG_Q1)
-    r = _fma(x2, -0.5, m) + y
-    r = _fma(e, _LOG_Q2, r)
+    r = _fma_of_exact(x2, -0.5, m) + y
+    r = _fma_of_exact(e, _LOG_Q2, r)
     r = torch.where(x > 0, r, torch.where(x == 0, -torch.inf, torch.nan))
     return torch.where(x == torch.inf, torch.inf, r)
 
@@ -107,7 +145,7 @@ def xla_exp(x: torch.Tensor) -> torch.Tensor:
     flushed to zero)."""
     x = torch.clamp(x.to(_F32), _EXP_LO, _EXP_HI)
     fx = torch.floor(_fma(x, _EXP_LOG2E, 0.5)).clamp(-127.0, 127.0)
-    t = _fma(fx, -_EXP_C1, x)
+    t = _fma_of_exact(fx, -_EXP_C1, x)
     t = _fma(fx, -_EXP_C2, t)
     y = torch.full_like(t, _EXP_P[0])
     for c in _EXP_P[1:]:
@@ -143,7 +181,7 @@ def xla_log1p(w):
     for c in _L1P_Q[1:]:
         q = _fma(q, w, c)
     w2 = w * w
-    small = w + _fma(w2, -0.5, (w * w2) * (q / p))
+    small = w + _fma_of_exact(w2, -0.5, (w * w2) * (q / p))
     return torch.where(w.abs() < _L1P_SMALL, small, big)
 
 
@@ -192,7 +230,7 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
     x = x.to(_F32)
     l = xla_log1p(x * -x)
     central = l > -5.0
-    t = torch.where(central, -2.5 - l, torch.sqrt(-l) - 3.0)
+    t = torch.where(central, -2.5 - l, _sqrt(-l) - 3.0)
     p = None
     for a, b in zip(_ERFINV_CENTRAL, _ERFINV_TAIL):
         c = torch.where(central, a, b)

@@ -1598,12 +1598,17 @@ def _poisson_case(name, dev):
         keys = [tfry.key_from_seed(s) for s in (3, 4)]
         return g, keys, dict(form="lognormal", lam0=[1e-3, 0.05],
                              bias=[0.9, 1.3], sigma_g2=0.8)
+    if name == "linear, mostly 10 or more":
+        # 99% of the cells at lambda >= 10: the rejection passes on dense marks
+        return 1.0 + 0.3 * g, [tfry.key_from_seed(12)], dict(form="linear",
+                                                            scale=8.0)
     g = g * 2.0
     g[0, 0, :4] = torch.tensor([-1.0, float("nan"), 1e3, 0.0])
     return g, [tfry.key_from_seed(9)], dict(form="linear", scale=6.0)
 
 
-@pytest.mark.parametrize("name", ["halos", "halos, all below 10", "linear"])
+@pytest.mark.parametrize("name", ["halos", "halos, all below 10", "linear",
+                                  "linear, mostly 10 or more"])
 def test_poisson_kernel_equals_plain_bit_for_bit(cuda, name):
     from randomfield_tpu_torch.ops import poisson
 
@@ -1619,7 +1624,8 @@ def test_poisson_kernel_equals_plain_bit_for_bit(cuda, name):
 
 
 @pytest.mark.parametrize("table", [0, 3])
-@pytest.mark.parametrize("name", ["halos", "linear"])
+@pytest.mark.parametrize("name", ["halos", "linear",
+                                  "linear, mostly 10 or more"])
 def test_poisson_kernel_derives_keys_past_its_table(cuda, name, table):
     """A short key table: the threads derive every later subkey of both
     chains (Chain::at past the table), and the counts stay the plain

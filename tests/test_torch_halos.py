@@ -57,9 +57,31 @@ def halos():
 
 
 @pytest.fixture(scope="module")
+def jax_counts(halos):
+    """The JAX package's Gaussian render and halo counts of SEED, computed
+    once a module: (g, counts) as numpy arrays."""
+    j, _ = halos
+    g = np.asarray(j.lognormal.gaussian.generate_delta_field(
+        SEED, apply_lightcone=False))
+    return g, np.asarray(j.generate_halo_counts(SEED))
+
+
+@pytest.fixture(scope="module")
+def jax_counts_next(halos):
+    """The JAX package's halo counts of SEED + 1, computed once a module."""
+    return np.asarray(halos[0].generate_halo_counts(SEED + 1))
+
+
+@pytest.fixture(scope="module")
 def hods():
     return (jhod.HODGenerator(*SHAPE, SPACING, **HOD_KW),
             thod.HODGenerator(*SHAPE, SPACING, device="cpu", **HOD_KW))
+
+
+@pytest.fixture(scope="module")
+def jax_halo_catalog(hods):
+    """The JAX package's halo catalog of SEED, computed once a module."""
+    return hods[0].halos.generate_halo_catalog(SEED)
 
 
 def _rel(got, want):
@@ -93,20 +115,18 @@ def test_predictions(halos, which):
     assert _rel(got[0], want[0]) <= PRED and _rel(got[1], want[1]) <= PRED
 
 
-def test_counts_from_the_reference_field(halos):
+def test_counts_from_the_reference_field(halos, jax_counts):
     j, _ = halos
-    g = np.asarray(j.lognormal.gaussian.generate_delta_field(
-        SEED, apply_lightcone=False))
+    g, want = jax_counts
     got = kh.poisson_counts(torch.from_numpy(g), th.halo_keys(SEED, 3),
                             "lognormal", lam0=j.nbar * j._cell_volume,
                             bias=j.bias, sigma_g2=j.lognormal.sigma_g2)
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(j.generate_halo_counts(SEED)))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_generate_halo_counts_differ_only_at_ties(halos):
+def test_generate_halo_counts_differ_only_at_ties(halos, jax_counts):
     j, t = halos
-    want = np.asarray(j.generate_halo_counts(SEED))
+    g, want = jax_counts
     got = t.generate_halo_counts(SEED)
     assert got.dtype == torch.int32 and tuple(got.shape) == (3, *SHAPE)
     got = got.numpy()
@@ -116,8 +136,7 @@ def test_generate_halo_counts_differ_only_at_ties(halos):
     # sigma_g2 by the JAX package's float32 sum; at lambda ~ 30 (bin 0)
     # that moves a count on a few cells in a thousand
     assert len(diff) <= 1e-2 * got.size
-    gj = torch.from_numpy(np.asarray(j.lognormal.gaussian.generate_delta_field(
-        SEED, apply_lightcone=False)))
+    gj = torch.from_numpy(g)
     gt = t.lognormal.gaussian.generate_delta_field(SEED, apply_lightcone=False)
     assert float((gt - gj).abs().max() / gj.abs().max()) <= PUBLIC
     assert abs(t.lognormal.sigma_g2 / j.lognormal.sigma_g2 - 1.0) <= 1e-4
@@ -137,9 +156,10 @@ def test_generate_halo_counts_differ_only_at_ties(halos):
 
 @pytest.mark.parametrize("with_power", [True, False])
 @pytest.mark.parametrize("as_tensor", [True, False])
-def test_counts_to_catalog_bit_for_bit(halos, with_power, as_tensor):
+def test_counts_to_catalog_bit_for_bit(halos, jax_counts_next, with_power,
+                                       as_tensor):
     j, t = halos
-    counts = np.asarray(j.generate_halo_counts(SEED + 1))
+    counts = jax_counts_next
     kw = dict(seed=SEED + 1, cosmology="Planck13", fit=j.fit,
               power=j._power if with_power else None)
     want = jh.counts_to_catalog(counts, j.mass_edges, SPACING, **kw)
@@ -162,9 +182,10 @@ def test_halo_catalog_of_its_own_counts(halos):
 
 
 @pytest.mark.parametrize("rsd", [False, True])
-def test_galaxy_catalog_on_one_halo_catalog(hods, monkeypatch, rsd):
+def test_galaxy_catalog_on_one_halo_catalog(hods, jax_halo_catalog,
+                                           monkeypatch, rsd):
     j, t = hods
-    cat = j.halos.generate_halo_catalog(SEED)
+    cat = jax_halo_catalog
     # both packages occupy the same halo catalog
     monkeypatch.setattr(j.halos, "generate_halo_catalog",
                         lambda seed, smoothing_length=0.0: cat)

@@ -11,8 +11,15 @@
     whole and in chunks: equal on every cell (no float32 tie occurs
     here: every log, exp and lgamma is XLA's own to the bit);
 (c) the kernel's key table and the chain it derives past the table, the
-    intensity forms, and the refusals.
+    intensity forms, and the refusals;
+(d) xla_math._fma rounds once, as XLA's fused multiply-add and the
+    kernel's __fmaf_rn do: equal to jax.jit(a * b + c) on (1 + 2^-23,
+    1 - 2^-23, 16777218), where a float64 sum rounded twice gives
+    16777220, and on 4096 searched triples where the two roundings differ;
+    equal to an exact fractions.Fraction rounding on 10^5 random triples.
 """
+
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -164,10 +171,11 @@ def test_intensity_forms_and_counts_plain():
                             bias=bias, sigma_g2=sig2)
     assert got.dtype == torch.int32 and tuple(got.shape) == (3, 8, 16, 16)
     l0, b, c = kh.lognormal_constants(lam0, bias, sig2)
+    # the JAX package's scan body on the same float32 scalars, compiled once
+    body = jax.jit(lambda x, l0, bb: l0 * jnp.exp(
+        bb * x - np.float32(0.5) * bb * bb * np.float32(sig2)))
     for i in range(3):
-        # the JAX package's scan body on the same float32 scalars
-        lam = jax.jit(lambda x, l0=l0[i], bb=b[i]: l0 * jnp.exp(
-            bb * x - np.float32(0.5) * bb * bb * np.float32(sig2)))(g)
+        lam = body(g, l0[i], b[i])
         mine = kh.intensity(torch.from_numpy(g), "lognormal", i, lam0, bias,
                             sig2)
         np.testing.assert_array_equal(mine.numpy(), np.asarray(lam))
@@ -193,3 +201,82 @@ def test_refusals():
         kh.poisson_counts(g.double(), [1], "linear")
     with pytest.raises(ValueError):
         kh.poisson_counts(g, [1], "linear", out=torch.zeros(1, 4, 4, 4))
+
+
+def _twice_rounded(a, b, c):
+    """a b + c as a float64 sum rounded to float64, then to float32."""
+    a, b, c = (torch.from_numpy(v).double() for v in (a, b, c))
+    return (a * b + c).float().numpy()
+
+
+def _fma(a, b, c):
+    return xla_math._fma(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+
+
+def _xla_fma(a, b, c):
+    return np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+
+
+def _fraction_rounded(a, b, c):
+    """float32 of the exact a b + c, ties to even (Fraction arithmetic)."""
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    if x == 0:
+        return 0.0
+    num, den = abs(x.numerator), x.denominator
+    e = num.bit_length() - den.bit_length()
+    if (num < den << e) if e >= 0 else (num << -e < den):
+        e -= 1  # now 2^e <= |x| < 2^(e + 1): keep 24 bits
+    shift = 23 - e
+    top, bottom = (num << shift, den) if shift >= 0 else (num, den << -shift)
+    q, r = divmod(top, bottom)
+    if 2 * r > bottom or (2 * r == bottom and q & 1):
+        q += 1
+    return float(np.copysign(q * 2.0**-shift, float(x)))
+
+
+def _near_midpoints(n, seed):
+    """Triples whose exact a b + c lies within half a float64 ulp of a
+    float32 rounding midpoint, not on it: c = +-m 2^(k - 23) with m odd in
+    [2^23, 2^24) and a b = +-2^(k - 24) (1 - j^2 2^-46), 1 <= j <= 361, so
+    that the float64 sum is the midpoint."""
+    rng = np.random.default_rng(seed)
+    m = 2 * rng.integers(1 << 22, 1 << 23, n) + 1
+    k = rng.integers(-40, 80, n)
+    j = rng.integers(1, 362, n).astype(np.float64)
+    e1 = rng.integers(-30, 31, n)
+    a = rng.choice([-1.0, 1.0], n) * np.ldexp(1.0 + j * 2.0**-23, e1)
+    b = np.ldexp(1.0 - j * 2.0**-23, k - 24 - e1)
+    c = rng.choice([-1.0, 1.0], n) * np.ldexp(m.astype(np.float64), k - 23)
+    return tuple(v.astype(np.float32) for v in (a, b, c))
+
+
+def test_fma_rounds_once_as_xla():
+    a, b, c = (np.float32([v]) for v in (1 + 2**-23, 1 - 2**-23, 16777218))
+    assert _xla_fma(a, b, c)[0] == np.float32(16777218)
+    assert _twice_rounded(a, b, c)[0] == np.float32(16777220)
+    assert _fma(a, b, c)[0] == np.float32(16777218)
+
+
+def test_fma_equals_xla_where_two_roundings_differ():
+    a, b, c = _near_midpoints(4096, 1)
+    differ = _twice_rounded(a, b, c) != _fma(a, b, c)
+    assert differ.sum() >= 4000
+    a, b, c = a[differ], b[differ], c[differ]
+    np.testing.assert_array_equal(_fma(a, b, c), _xla_fma(a, b, c))
+    np.testing.assert_array_equal(
+        _fma(a, b, c), np.float32([_fraction_rounded(*t)
+                                   for t in zip(a, b, c)]))
+
+
+def test_fma_equals_the_exact_rounding():
+    rng = np.random.default_rng(11)
+
+    def draws(n):  # random signs, mantissas and exponents in 2^[-40, 40)
+        m = rng.integers(0, 1 << 23, n, dtype=np.uint32)
+        e = rng.integers(127 - 40, 127 + 40, n, dtype=np.uint32)
+        s = rng.integers(0, 2, n, dtype=np.uint32)
+        return ((s << 31) | (e << 23) | m).view(np.float32)
+
+    a, b, c = draws(10**5), draws(10**5), draws(10**5)
+    want = np.float32([_fraction_rounded(*t) for t in zip(a, b, c)])
+    np.testing.assert_array_equal(_fma(a, b, c), want)

@@ -96,6 +96,19 @@ def test_normal_of_every_mantissa_matches_jax():
     assert worst <= MAX_ULPS
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+def test_normal_exact_equals_jax_on_every_draw(seed):
+    # XLA's erf_inv operation for operation, each multiply-add rounded once
+    # and the tail's square root (w >= 5, |u| > 0.99663) correctly rounded:
+    # equal to jax.random.normal on all 2^22 draws, about 14,000 of them in
+    # the tail
+    shape = (1 << 22,)
+    want = np.asarray(jax.random.normal(jax.random.key(seed), shape,
+                                        jnp.float32))
+    got = threefry.normal_exact(threefry.key_from_seed(seed), shape).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("shape", [(8, 8, 8), (12, 6, 10), (32, 16, 9)])
 def test_unit_draws_reim_match_jax(shape):
     want_re, want_im = jsample.unit_draws_reim(jax.random.key(3), shape)
