@@ -186,7 +186,24 @@ non-zero with no result line:
    without RSD, poisson_sample, second_order_density, the tree bispectrum
    at nbins = 8, the lensing maps and E/B power, the multi-tracer pair,
    reconstruction; the Fisher multipoles at 256^3), with their launches
-   (KH among them) and peak memory;
+   (KH among them) and peak memory; the entry points, through
+   ``randomfield_tpu_torch.__main__.main(argv)`` in this process: the
+   1024^3 default render with --stats, its untimed lines equal character
+   for character to the API's (generate_delta_field, field_moments,
+   calculate_power), config 4 (--sample-power --sampler pallas, 64 seeds)
+   resumed from a 32-seed checkpoint with its rows equal bit for bit to a
+   run without one and to sample_power_batch, --lognormal, --fixed --flip,
+   --rsd, the morphology flags and both catalogs at 512^3, and --out at
+   256^3 read back by utils/io.py:load_field equal to the API's field, each
+   run with its launches (none through torch.fft) and peak memory; utils/
+   on the card (profiling.trace of a 1024^3 render naming K2F's, K3's and
+   K4's __global__ functions, block_and_time no shorter than the render's
+   CUDA-event time, a forced torch.cuda.OutOfMemoryError through
+   retry_transient classified fatal and raised on its first try, the card
+   rendering the same field after it); the nine examples at their own
+   sizes, each launching kernels, and quickstart, ensemble_covariance and
+   mock_catalog held to the same example on the CPU, each number at the
+   bar of its kind (CPU_EXAMPLES);
 4. times (CUDA events, median after warm-up) of renders, of each stage of a
    1024^3 render for both samplers and for the v4 and v6 variants, of
    generate_noise beside the plain draws, of each
@@ -228,8 +245,13 @@ non-zero with no result line:
    paths split into their stages (painting, transforms, binning, KQ); KH
    beside its plain version, each of its three passes apart, on the bins
    below and at lambda >= 10 apart, the SM clock under its load and its
-   bound by pipe, and the device models' paths; and the whole run's wall
-   time.
+   bound by pipe, and the device models' paths; the CLI's time a seed
+   beside the API's for the 1024^3 render and config 4; the SM clock under
+   the load of each Threefry kernel (K1, K2F, K5, K7, K8, K10, KN, K2F
+   fixed) and their bounds by pipe (threefry_pipe_bounds: every
+   instruction through the issue, the hash's rotations, shifts and logic
+   through the ALU pipe alone), with phase 0 logging the pipes of each
+   hashing kernel's SASS loop; and the whole run's wall time.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -712,11 +734,12 @@ def hash_loop(instrs):
     return len(body), len(body) - len(cold), rot
 
 
-def sass_counts(lib, cuobjdump):
+def sass_counts(lib, cuobjdump, sass=None):
     """{K: (registers, loop span, hot instructions, hashes in the loop,
     hot instructions a mode)} of the hashing kernels in the library
-    ``lib`` (those it holds: another commit's may lack the newer ones)."""
-    funcs, regs = sass_functions(lib, cuobjdump)
+    ``lib`` (those it holds: another commit's may lack the newer ones);
+    ``sass``, :func:`sass_functions`' output if it was read already."""
+    funcs, regs = sass or sass_functions(lib, cuobjdump)
     out = {}
     for kid, (frag, hashes_a_mode) in SASS_KERNELS.items():
         name = next((f for f in funcs if re.search(frag, f)), None)
@@ -744,7 +767,8 @@ def phase0_sass(torch, card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     nx, ny, nz = HEADLINE
     modes = nx * ny * (nz // 2 + 1)
-    counts = sass_counts(_build.library_path(), _build.cuda_tool("cuobjdump"))
+    sass = sass_functions(_build.library_path(), _build.cuda_tool("cuobjdump"))
+    counts = sass_counts(None, None, sass)
     missing = set(SASS_KERNELS) - set(counts)
     if missing:
         raise AssertionError(f"no SASS function of {sorted(missing)}")
@@ -782,6 +806,17 @@ def phase0_sass(torch, card):
     if len(instances) != 18:
         raise AssertionError("KB's instances are missing from the library")
     kb_plans(card)
+    for kid, (frag, hashes_a_mode) in SASS_KERNELS.items():
+        name = next(f for f in sass[0] if re.search(frag, f))
+        body, rot = smallest_hash_loop(sass[0][name])[:2]
+        scale = hashes_a_mode / max(1, round(rot / ROTATIONS_PER_HASH))
+        split = pipe_split(body)
+        alu = split["rotations"] + split["shifts and logic"]
+        log(f"phase 0 {kid} SASS by pipe, its smallest hash loop a mode: "
+            + ", ".join(f"{k} {v * scale:.1f}" for k, v in split.items())
+            + f"; on the ALU pipe alone {alu * scale:.1f} (the bound counts "
+            f"{THREEFRY_ALU_PER_MODE.get(kid, 'no')} from the source) "
+            f"[{card}]")
     for kid, (regs, span, hot, hashes, per_mode) in counts.items():
         n_modes = modes // MESH_RANKS if kid in ("K7", "K8") else modes
         ms = 1e3 * per_mode * n_modes / 32 / (sms * 4 * clock_mhz * 1e6)
@@ -5948,6 +5983,17 @@ KH_SASS_CLASSES = (("rotations", r"SHF\.[LR]\.W|PRMT"),
                    ("float32", r"F(FMA|ADD|MUL|MNMX|SETP|SEL|SET)\b"))
 
 
+def pipe_split(body):
+    """{class: instructions} of a SASS loop body by the pipe that runs
+    them (:data:`KH_SASS_CLASSES`, the rest "other")."""
+    split = dict.fromkeys([k for k, _ in KH_SASS_CLASSES] + ["other"], 0)
+    for _, text in body:
+        op = re.sub(r"^@!?U?P\w+ ", "", text).split()[0]
+        split[next((k for k, pat in KH_SASS_CLASSES
+                    if re.match(pat, op)), "other")] += 1
+    return split
+
+
 def models_counts():
     from randomfield_tpu_torch.ops import poisson
 
@@ -5973,11 +6019,7 @@ def phase0_models(card):
                        ("first acceptance", "first_kernel")):
         name = next(f for f in funcs if frag in f and "poisson" in f)
         body, rot = smallest_hash_loop(funcs[name])[:2]
-        split = dict.fromkeys([k for k, _ in KH_SASS_CLASSES] + ["other"], 0)
-        for _, text in body:
-            op = re.sub(r"^@!?U?P\w+ ", "", text).split()[0]
-            split[next((k for k, pat in KH_SASS_CLASSES
-                        if re.match(pat, op)), "other")] += 1
+        split = pipe_split(body)
         log(f"phase 0 KH {what} pass SASS, its smallest hash loop: "
             f"{len(body)} instructions, {rot / ROTATIONS_PER_HASH:g} hashes' "
             f"rotations; " + ", ".join(f"{k} {v}" for k, v in split.items())
@@ -6564,6 +6606,631 @@ def phase4_models(torch, rft, dev, hg, seconds, plain_ms, card):
     return times, kh_work
 
 
+# ---- the entry points: the command line, utils/ and the examples -------------
+
+# the command line at full width: BASELINE's 1024^3 render and config 4 at
+# HEADLINE_SPACING, the other modes at 512^3 and the same spacing (the
+# galaxy catalogs are host-bound, 25 s in a 2048 Mpc/h box: their cost
+# follows the box's halos, not the grid), --out at 256^3
+CLI_NBINS = 16
+CLI_SEEDS = ("0", "1")
+CLI_MODES_SHAPE, CLI_MODES_SPACING = 512, HEADLINE_SPACING
+CLI_OUT_SHAPE, CLI_OUT_SPACING, CLI_OUT_SEED = 256, 8.0, 5
+# the CLI's modes, each with the kernels its run must launch
+CLI_MODES = (
+    (["--lognormal"], {"K2F": 1, "K3": 2, "K4L": 1}),
+    (["--fixed", "--flip"], {"K2FX": 1, "K3": 2, "K4": 1}),
+    (["--rsd", "0.5", "--bias", "2", "--no-lightcone", "--stats"],
+     {"K2F": 1, "KD": 1, "K3": 4, "K4": 1, "K6": 1, "KB": 1}),
+    # smoothed as the morphology phases smooth (MORPH_SMOOTHING): the void
+    # finder accepts its candidates one by one on the host, and a raw
+    # 2 Mpc/h field holds millions
+    (["--minkowski", "--peaks", "--voids", "8,16", "--no-lightcone",
+      "--smoothing", str(MORPH_SMOOTHING)], {"K2F": 1, "KM": 1, "KX": 2}),
+    (["--catalog", "halos", "--stats"], {"K2F": 1, "KH": 1, "KP": 1,
+                                         "KB": 1}),
+    (["--catalog", "galaxies"], {"K2F": 1, "KH": 1}),
+)
+# the CLI's time a seed: the marginal host time of CLI_TIMED_SEEDS more
+# seeds in one run
+CLI_TIMED_SEEDS = 8
+# the examples at their own sizes (variance_reduction's zoom at 32^3 and
+# 64^3: the kernels take nz/2 >= 16, its 16^3 grid is below that)
+EXAMPLES = (("quickstart", None), ("ensemble_covariance", None),
+            ("lensing_map", None), ("variance_reduction", 64),
+            ("mock_catalog", None), ("constrained_field", None),
+            ("morphology", None), ("forecast_rsd", None),
+            ("galaxy_survey", None))
+# the examples held to the same example on the CPU, each number at the bar
+# of the CUDA-vs-CPU check of its kind: estimator outputs (the moments, the
+# binned spectra, sigma(8), the ratios and predictions) at ESTIMATOR_RTOL of
+# their largest magnitude; a field's mean at SLICE_BAR of its rms (the
+# render's bar); a spread over seeds (rel_err, sigma8_std) at
+# ESTIMATOR_RTOL sqrt((mean/sd)^2 + 1) (the rows' error moves a standard
+# deviation by at most that error times their rms); and mock_catalog's
+# lognormal tracers, Poisson counts of two renders' intensities, at the
+# halo-count check's bar: up to 1e-3 of the cells differ by a tie, so the
+# galaxy total by that many and its P(k) by twice that over the total; the
+# share of its cells whose count differs is measured as well and held to
+# that 1e-3 (another Poisson stream would move most of them)
+CPU_EXAMPLES = ("quickstart", "ensemble_covariance", "mock_catalog")
+COUNT_TIE_BAR = 1e-3
+
+
+def _cli_run(torch, argv):
+    """(exit code, printed lines, host seconds) of one in-process run of
+    ``python -m randomfield_tpu_torch argv``."""
+    import io
+
+    from randomfield_tpu_torch import __main__ as cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _cli_path(torch, what, argv, least, total, peaks, shape, show=4):
+    """One CLI run with the launch counts zeroed before it and read after
+    it: fail unless it exits 0, launches every kernel of ``least`` and
+    calls torch.fft never; logs its launches, host seconds, peak device
+    memory (kept in ``peaks[what]``) and its first ``show`` lines.
+    Returns the printed lines."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rc, lines, dt = _cli_run(torch, argv)
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"the CLI {what} exited {rc}")
+    require_launches(counts, least, f"the CLI {what}")
+    if counts["torch.fft"]:
+        raise AssertionError(f"the CLI {what} went through torch.fft")
+    for k in KERNEL_ORDER:
+        total[k] += counts[k]
+    peaks[what] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 3 entry point CLI {what} {shape}^3: exit 0, {len(lines)} "
+        f"lines, launches { {k: n for k, n in counts.items() if n} }, "
+        f"torch.fft calls 0; {dt:.3f} s on the host clock, peak device "
+        f"memory {peaks[what]:.3f} GiB")
+    for ln in lines[:show]:
+        log(f"phase 3   | {ln}")
+    return lines
+
+
+def _untimed(lines):
+    """The printed lines without the ones that carry a wall time."""
+    return [ln for ln in lines
+            if "rendered in" not in ln and " seeds in " not in ln]
+
+
+def _api_render_lines(torch, g, seeds, nbins):
+    """What the CLI's default render with --stats prints for ``seeds``
+    (its `rendered in` lines left out), from Generator.generate_delta_field,
+    field_moments and calculate_power."""
+    from randomfield_tpu_torch.validate.stats import field_moments
+
+    lines = []
+    for seed in seeds:
+        delta = g.generate_delta_field(int(seed))
+        mean, var = field_moments(delta)
+        pv = g.predicted_variance(0.0)
+        lines.append(f"  mean = {mean:+.3e}  var = {var:.5f} "
+                     f"(predicted {pv:.5f} before lightcone weighting)")
+        k, ph, nm = g.calculate_power(delta, nbins=nbins)
+        lines += [f"  k = {k[i]:9.4f}  P^ = {ph[i]:12.2f}  "
+                  f"({nm[i]:8.0f} modes)" for i in range(len(k)) if nm[i] > 0]
+        del delta
+    return lines
+
+
+def phase3_cli(torch, rft, dev, g, gp, work, card):
+    """The command line in this process, through ``main(argv)``, each run
+    with the launch counts zeroed before it and read after it: the 1024^3
+    default render with --stats, equal character for character to the
+    API's lines; config 4 (--sample-power --sampler pallas, 64 seeds)
+    resumed from a 32-seed checkpoint, its rows equal bit for bit to a run
+    without the checkpoint and to sample_power_batch; the other modes at
+    512^3; --out at 256^3 read back by utils/io.py:load_field equal to the
+    API's field bit for bit, the .npz write timed.  Returns the launch
+    counts, summed, and the peak device memory of each run."""
+    from randomfield_tpu_torch.utils import io as rio
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    peaks = {}
+    n, sp = HEADLINE[0], HEADLINE_SPACING
+    head = ["--nx", str(n), "--spacing", str(sp)]
+    lines = _cli_path(torch, "default render --stats", head + [
+        "--seed", *CLI_SEEDS, "--stats", "--nbins", str(CLI_NBINS)],
+        {"K2F": 2, "K3": 8, "K4": 2, "K6": 2, "KB": 2}, total, peaks, n)
+    want = _api_render_lines(torch, g, CLI_SEEDS, CLI_NBINS)
+    got = _untimed(lines)
+    same = got == want
+    log(f"phase 3 entry point CLI default render {HEADLINE}: its "
+        f"{len(got)} untimed lines {'EQUAL' if same else 'DIFFER from'} "
+        f"the API's {len(want)} (generate_delta_field, field_moments, "
+        f"calculate_power), character for character")
+    if not same:
+        for a, b in zip(got, want):
+            if a != b:
+                log(f"phase 3   CLI {a!r} vs API {b!r}")
+        raise AssertionError("the CLI's render lines are not the API's")
+
+    seeds = [str(s) for s in range(ENSEMBLE_SEEDS)]
+    half = seeds[:ENSEMBLE_SEEDS // 2]
+    ck = os.path.join(work, "config4_checkpoint.npz")
+    c4 = head + ["--sampler", "pallas", "--sample-power", "--nbins",
+                 str(NBINS)]
+    _cli_path(torch, f"config 4, seeds 0-{len(half) - 1}, checkpointed",
+              c4 + ["--seed", *half, "--checkpoint", ck], {"K5": 1}, total,
+              peaks, n)
+    resumed = _cli_path(
+        torch, f"config 4, seeds 0-{len(seeds) - 1}, resumed",
+        c4 + ["--seed", *seeds, "--checkpoint", ck, "--out",
+              os.path.join(work, "resumed_{seed}.npz")], {"K5": 1}, total,
+        peaks, n)
+    fresh = _cli_path(
+        torch, f"config 4, seeds 0-{len(seeds) - 1}, no checkpoint",
+        c4 + ["--seed", *seeds, "--out", os.path.join(work, "fresh_{seed}.npz")],
+        {"K5": 1}, total, peaks, n)
+    with np.load(os.path.join(work, "resumed_ensemble.npz")) as a, \
+            np.load(os.path.join(work, "fresh_ensemble.npz")) as b, \
+            np.load(ck) as c:
+        rows_r, rows_f, k_f, n_f = a["p_hat"], b["p_hat"], b["k"], b["n_modes"]
+        order = np.argsort(c["seeds"])
+        rows_c, seeds_c = c["p_hat"][order], c["seeds"][order]
+    k_a, rows_a, n_a = gp.sample_power_batch(range(ENSEMBLE_SEEDS),
+                                             nbins=NBINS)
+    def bits(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and \
+            a.tobytes() == b.tobytes()
+
+    def spectra(lines):
+        return [ln for ln in _untimed(lines) if "wrote" not in ln]
+
+    checks = {
+        "resumed rows vs the run without a checkpoint": bits(rows_r, rows_f),
+        "checkpoint rows vs the run without a checkpoint":
+            np.array_equal(seeds_c, np.arange(ENSEMBLE_SEEDS))
+            and bits(rows_c, rows_f),
+        "rows vs sample_power_batch": bits(rows_f, rows_a)
+            and bits(k_f, k_a) and bits(n_f, n_a),
+        "printed lines, resumed vs without": spectra(resumed)
+            == spectra(fresh),
+    }
+    for what, ok in checks.items():
+        log(f"phase 3 entry point CLI config 4 {HEADLINE}, {ENSEMBLE_SEEDS} "
+            f"seeds: {what}: {'bit-equal' if ok else 'DIFFERENT'}")
+    if not all(checks.values()):
+        raise AssertionError("the CLI's resumed config-4 ensemble is not the "
+                             "uninterrupted one")
+
+    m = ["--nx", str(CLI_MODES_SHAPE), "--spacing", str(CLI_MODES_SPACING),
+         "--seed", "0"]
+    for flags, least in CLI_MODES:
+        _cli_path(torch, " ".join(flags), m + flags, least, total, peaks,
+                  CLI_MODES_SHAPE)
+    torch.cuda.empty_cache()
+
+    n, sp, seed = CLI_OUT_SHAPE, CLI_OUT_SPACING, CLI_OUT_SEED
+    _cli_path(torch, "--out", ["--nx", str(n), "--spacing", str(sp),
+                               "--seed", str(seed), "--quiet", "--out",
+                               os.path.join(work, "field_{seed}.npz")],
+              {"K2F": 1, "K3": 2, "K4": 1}, total, peaks, n)
+    field, meta = rio.load_field(os.path.join(work, f"field_{seed}.npz"))
+    g_out = rft.Generator(n, n, n, grid_spacing=sp, device=dev)
+    api = g_out.generate_delta_field(seed).cpu().numpy()
+    same = (field.dtype == api.dtype and np.array_equal(field, api)
+            and meta["seed"] == seed)
+    t0 = time.perf_counter()
+    rio.save_field(os.path.join(work, "api.npz"), api, generator=g_out,
+                   seed=seed)
+    write_s = time.perf_counter() - t0
+    log(f"phase 3 entry point CLI --out {n}^3: load_field's field "
+        f"{'bit-equal to' if same else 'DIFFERS from'} the API's; the .npz "
+        f"write (save_field, compressed, {api.nbytes / 2**20:.0f} MiB) "
+        f"{write_s:.3f} s on the host clock [{card}]")
+    if not same:
+        raise AssertionError("the CLI's --out field is not the API's")
+    return total, peaks
+
+
+def phase3_utils(torch, g, work, card):
+    """utils/ on the card: profiling.trace around a 1024^3 render names
+    K2F's, K3's and K4's __global__ functions; block_and_time of the
+    render is no shorter than its CUDA-event time; a forced
+    torch.cuda.OutOfMemoryError through retry_transient is classified
+    fatal, raised on the first try, and the card renders the same field
+    after it."""
+    from randomfield_tpu_torch.utils import (block_and_time, profiling,
+                                             resilience)
+
+    trace_dir = os.path.join(work, "trace")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("chip_smoke render"):
+            field = g.generate_delta_field(seed=0)
+    names = set()
+    for name in os.listdir(trace_dir):
+        with open(os.path.join(trace_dir, name)) as f:
+            names |= {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    wanted = {k: [n for n in names if k in n] for k in (
+        "draw_scale_kernel", "fft_axis_kernel", "c2r_tail_kernel",
+        "chip_smoke render")}
+    log(f"phase 3 entry point utils profiling.trace of a {HEADLINE} render: "
+        f"{len(names)} event names; "
+        + "; ".join(f"{k}: {v[:1] or 'MISSING'}" for k, v in wanted.items()))
+    if not all(wanted.values()):
+        raise AssertionError("the trace does not name the render's kernels")
+
+    def render():
+        return g.generate_delta_field(seed=0)
+
+    # each call timed both ways: CUDA events around the launches inside
+    # the span block_and_time clocks on the host
+    pairs = []
+    for _ in range(TIMING_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def timed():
+            start.record()
+            out = render()
+            end.record()
+            return out
+
+        host, _ = block_and_time(timed)
+        pairs.append((1e3 * host, start.elapsed_time(end)))
+    event_ms = cuda_ms(torch, render)
+    log(f"phase 3 entry point utils block_and_time of a {HEADLINE} render, "
+        f"{TIMING_REPS} calls (host ms, CUDA-event ms of the same call): "
+        + ", ".join(f"({h:.3f}, {e:.3f})" for h, e in pairs)
+        + f"; cuda_ms median {event_ms:.3f} ms [{card}]")
+    if not all(h >= e for h, e in pairs):
+        raise AssertionError("block_and_time returned before the card ended")
+
+    # more than the card holds at all: the free memory nvidia-smi and
+    # mem_get_info report leaves out the allocator's cached blocks, which
+    # an allocation may take
+    free, card_bytes = torch.cuda.mem_get_info()
+    tries = []
+
+    def grab():
+        tries.append(1)
+        return torch.empty(card_bytes + 2**30, dtype=torch.uint8,
+                           device=g.device)
+
+    try:
+        resilience.retry_transient(grab, max_retries=3, base_delay_s=0.0)
+        raise AssertionError("an allocation past the free memory succeeded")
+    except torch.cuda.OutOfMemoryError as exc:
+        verdict = resilience.classify_failure(exc)
+    again = render()
+    same = torch.equal(again, field)
+    log(f"phase 3 entry point utils retry_transient of a "
+        f"{(card_bytes + 2**30) / 2**30:.1f} GiB allocation (the card "
+        f"{card_bytes / 2**30:.1f} GiB, {free / 2**30:.1f} GiB free): "
+        f"torch.cuda.OutOfMemoryError, classified {verdict}, raised "
+        f"after {len(tries)} try; the render after it "
+        f"{'bit-equal to' if same else 'DIFFERS from'} the one before")
+    if verdict != "fatal" or len(tries) != 1 or not same:
+        raise AssertionError("the out-of-memory error was not handled as "
+                             "fatal, or the card lost its state")
+    del field, again
+    torch.cuda.empty_cache()
+
+
+def _example(module, device, n):
+    """An example's returned numbers, its stdout swallowed."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return module.main(device=device, n=n)
+
+
+def _example_tolerances(name, cpu):
+    """{key: (bar label, absolute tolerance)} of each number ``name``
+    returns, against the CPU run's ``cpu`` (see CPU_EXAMPLES)."""
+    def largest(key):
+        return float(np.nanmax(np.abs(np.asarray(cpu[key], np.float64))))
+
+    tol = {k: ("ESTIMATOR_RTOL", ESTIMATOR_RTOL * largest(k)) for k in cpu}
+    if name == "quickstart":
+        tol["mean"] = ("SLICE_BAR x rms", SLICE_BAR * cpu["var"] ** 0.5)
+    if name == "ensemble_covariance":
+        for key, mean_sd in (
+                ("rel_err", 1.0 / (8.0 * np.asarray(cpu["rel_err"]))),
+                ("sigma8_std", cpu["sigma8_mean"] / cpu["sigma8_std"])):
+            spread = float(np.nanmax(np.sqrt(np.square(mean_sd) + 1.0)))
+            tol[key] = ("ESTIMATOR_RTOL sqrt((mean/sd)^2 + 1)",
+                        ESTIMATOR_RTOL * spread * largest(key))
+    if name == "mock_catalog":
+        tol["galaxies"] = ("COUNT_TIE_BAR", COUNT_TIE_BAR * cpu["galaxies"])
+        for key in ("p_hat", "shot_noise"):
+            tol[key] = ("2 COUNT_TIE_BAR", 2 * COUNT_TIE_BAR * largest(key))
+        for key in ("k_s", "p_s", "kaiser_p_lin"):
+            tol[key] = ("CATALOG_SLICE_BAR", CATALOG_SLICE_BAR * largest(key))
+    return tol
+
+
+def phase3_examples(torch, dev, card):
+    """The nine examples on the card at their own sizes, each with the
+    launch counts zeroed before it and read after it: it must return and
+    launch kernels, and call torch.fft never; quickstart,
+    ensemble_covariance and mock_catalog are held to the same example on
+    the CPU at the same size, each number at its bar
+    (:func:`_example_tolerances`).  Returns the launch counts, summed,
+    and the peak device memory of each example."""
+    import importlib
+
+    total = dict.fromkeys(KERNEL_ORDER, 0)
+    peaks = {}
+    for name, n in EXAMPLES:
+        module = importlib.import_module(f"randomfield_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = _example(module, dev, n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        launched = {k: counts[k] for k in KERNEL_ORDER if counts[k]}
+        log(f"phase 3 entry point example {name} (n = {n or 'its own'}): "
+            f"{len(out)} numbers returned, launches {launched}, torch.fft "
+            f"calls {counts['torch.fft']}; {dt:.3f} s on the host clock, "
+            f"peak device memory {peaks[name]:.3f} GiB")
+        if not launched or counts["torch.fft"]:
+            raise AssertionError(f"the example {name} launched no kernel or "
+                                 f"went through torch.fft")
+        for k in KERNEL_ORDER:
+            total[k] += counts[k]
+        if name not in CPU_EXAMPLES:
+            continue
+        cpu = _example(module, "cpu", n)
+        worst = []
+        for key, (label, tol) in _example_tolerances(name, cpu).items():
+            a = np.asarray(out[key], np.float64)
+            b = np.asarray(cpu[key], np.float64)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"{name} {key}: other NaNs on the card")
+            err = float(np.max(np.abs(a - b)[~np.isnan(b)], initial=0.0))
+            worst.append(f"{key} {err:.3e} (bar {label}, {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"the example {name}'s {key} on the "
+                                     f"card disagrees with the CPU")
+        log(f"phase 3 entry point example {name} on the card vs the CPU, "
+            f"max |d| a number: " + "; ".join(worst))
+        if name == "mock_catalog":
+            ties, cells = _mock_catalog_ties(torch, module, dev)
+            log(f"phase 3 entry point example mock_catalog: {ties} of "
+                f"{cells} Poisson counts differ between the card and the "
+                f"CPU (share {ties / cells:.3e}, bar COUNT_TIE_BAR "
+                f"{COUNT_TIE_BAR:g})")
+            if not ties <= COUNT_TIE_BAR * cells:
+                raise AssertionError("mock_catalog's counts on the card "
+                                     "differ from the CPU's beyond ties")
+    return total, peaks
+
+
+def _mock_catalog_ties(torch, module, dev):
+    """(cells whose galaxy count differs between the card and the CPU,
+    cells) of mock_catalog's Part A at its own size (64^3, 8 Mpc/h): the
+    same lognormal render and Poisson draw on each device."""
+    from randomfield_tpu_torch.models import zeldovich as zl
+    from randomfield_tpu_torch.models.lognormal import LognormalGenerator
+
+    n, spacing = 64, 8.0
+    counts = []
+    for d in (dev, "cpu"):
+        ln = LognormalGenerator(n, n, n, grid_spacing=spacing, device=d)
+        delta = ln.generate_delta_field(seed=42, apply_lightcone=False)
+        counts.append(zl.poisson_sample(delta, module.NBAR, spacing,
+                                        seed=42).cpu())
+    torch.cuda.synchronize()
+    return int((counts[0] != counts[1]).sum()), counts[1].numel()
+
+
+def phase3_entry_points(torch, rft, dev, g, gp, card):
+    """The entry-point slice's phase 3 (:func:`phase3_cli`,
+    :func:`phase3_utils`, :func:`phase3_examples`) in a scratch directory
+    under the checkout's build/; returns the launch counts, summed, and
+    the peak device memory of each CLI run and example."""
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "entry_points")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        launches, peaks = phase3_cli(torch, rft, dev, g, gp, work, card)
+        torch.cuda.empty_cache()
+        phase3_utils(torch, g, work, card)
+        example_launches, example_peaks = phase3_examples(torch, dev, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k in KERNEL_ORDER:
+        launches[k] += example_launches[k]
+    log(f"phase 4 peak device memory of the CLI's runs (GiB): "
+        f"{ {k: round(v, 3) for k, v in peaks.items()} } [{card}]")
+    log(f"phase 4 peak device memory of the examples (GiB): "
+        f"{ {k: round(v, 3) for k, v in example_peaks.items()} } [{card}]")
+    return launches
+
+
+def phase4_cli(torch, g, gp, card):
+    """The CLI's time a seed against the API's on the host clock: the
+    1024^3 render (the marginal time of CLI_TIMED_SEEDS more seeds in one
+    run, against generate_delta_field and a synchronize a seed; and its
+    CUDA-event time) and config 4 (the whole run of 64 seeds, against
+    sample_power_ensemble and sample_power_batch of the same seeds)."""
+    from randomfield_tpu_torch.validate.ensemble import sample_power_ensemble
+
+    head = ["--nx", str(HEADLINE[0]), "--spacing", str(HEADLINE_SPACING),
+            "--quiet"]
+
+    def run(argv):
+        rc, _, dt = _cli_run(torch, argv)
+        if rc:
+            raise AssertionError(f"the CLI {argv} exited {rc}")
+        return dt
+
+    one = run(head + ["--seed", "0"])
+    many = run(head + ["--seed", *[str(s)
+                                   for s in range(CLI_TIMED_SEEDS + 1)]])
+    cli_ms = 1e3 * (many - one) / CLI_TIMED_SEEDS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(CLI_TIMED_SEEDS):
+        g.generate_delta_field(seed=s)
+        torch.cuda.synchronize()
+    api_ms = 1e3 * (time.perf_counter() - t0) / CLI_TIMED_SEEDS
+    event_ms = cuda_ms(torch, lambda: g.generate_delta_field(seed=2))
+    log(f"phase 4 entry point CLI default render {HEADLINE}: "
+        f"{cli_ms:.3f} ms a seed (the marginal host time of "
+        f"{CLI_TIMED_SEEDS} more seeds; runs of 1 and "
+        f"{CLI_TIMED_SEEDS + 1} seeds {one:.3f} s and {many:.3f} s, scene "
+        f"setup included), the API {api_ms:.3f} ms a seed "
+        f"(generate_delta_field and a synchronize, host clock), CUDA events "
+        f"{event_ms:.3f} ms; CLI / API {cli_ms / api_ms:.4f} [{card}]")
+    seeds = list(range(ENSEMBLE_SEEDS))
+    wall = run(head + ["--sampler", "pallas", "--sample-power", "--nbins",
+                       str(NBINS), "--seed", *[str(s) for s in seeds]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_power_ensemble(gp, seeds, nbins=NBINS)
+    ens = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp.sample_power_batch(seeds, nbins=NBINS)
+    batch = time.perf_counter() - t0
+    k = len(seeds)
+    log(f"phase 4 entry point CLI config 4 {HEADLINE}, {k} seeds, "
+        f"nbins={NBINS}: the CLI {1e3 * wall / k:.3f} ms a seed ({wall:.3f} "
+        f"s, scene setup included), sample_power_ensemble "
+        f"{1e3 * ens / k:.3f} ms a seed (16 seeds a K5 launch), "
+        f"sample_power_batch {1e3 * batch / k:.3f} ms a seed (one launch); "
+        f"host clock [{card}]")
+
+
+# the Threefry kernels' instructions by pipe, counted from the sources as
+# KH's are (KH_FP32_PER_ITERATION...): every operation OPS_PER_MODE counts
+# is one issue slot (an SM issues 128 instructions a clock), and of them
+# the hash's 20 rotations and 20 xors, the two-instruction right shift and
+# or that turns bits into a uniform, and K2F's xor of its hash's two words
+# run only on the ALU pipe (64 a clock); the integer adds go on either
+# pipe (IADD3 or IMAD.IADD, phase 0's split) and bound nothing alone.  A
+# mode of K1 (K8 on a shard), K5, KN and K10's draw hashes once and makes
+# two uniforms; a mode of K2F (K7 on a shard) and of its fixed mode hashes
+# twice, each hash's two words xored into one uniform.  K10's transform
+# issues its floating-point operations at most two an instruction (FFMA).
+THREEFRY_KERNELS = ("K1", "K2F", "K5", "K7", "K8", "K10", "KN", "K2FX")
+ALU_ONE_HASH = 2 * ROTATIONS_PER_HASH + 2 * 2
+ALU_TWO_HASHES = 2 * (2 * ROTATIONS_PER_HASH + 1 + 2)
+THREEFRY_ALU_PER_MODE = {"K1": ALU_ONE_HASH, "K5": ALU_ONE_HASH,
+                         "KN": ALU_ONE_HASH, "K10": ALU_ONE_HASH,
+                         "K2F": ALU_TWO_HASHES, "K2FX": ALU_TWO_HASHES}
+# the kernel whose per-mode counts a shard kernel takes
+THREEFRY_SHARDS = {"K7": "K2F", "K8": "K1"}
+
+
+def threefry_clocks(torch, rft, g, gp, card, hold_ms=1000.0):
+    """{K: the SM clock (Hz) nvidia-smi reads under that Threefry
+    kernel's load} at its 1024^3 main-path shape (K7 and K8 on the
+    second of four shards)."""
+    from randomfield_tpu_torch.ops import genfft, sampler
+    from randomfield_tpu_torch.validate import stats
+
+    t, tp, sp = g.state.table, gp.state.table, HEADLINE_SPACING
+    gn = rft.Generator(*HEADLINE, grid_spacing=sp, device=g.device,
+                       sampler="nested")
+    edges, _ = stats.bin_setup(HEADLINE, sp, NBINS)
+    plan = sampler.bin_plan(HEADLINE, sp, edges, g.device)
+    planes = genfft.plane_spectra(2, t, HEADLINE, sp)
+    ny_loc = HEADLINE[1] // MESH_RANKS
+    calls = {
+        "K1": lambda: sampler.sample_modes(2, tp, HEADLINE, sp),
+        "K2F": lambda: sampler.draw_scale(2, t, HEADLINE, sp),
+        "K5": lambda: sampler.sample_power_bins_batch([2], tp, HEADLINE, sp,
+                                                      0.0, plan),
+        "K7": lambda: sampler.draw_scale_shard(2, t, HEADLINE, sp, 0.0,
+                                               ny_loc, ny_loc),
+        "K8": lambda: sampler.sample_shard(2, tp, HEADLINE, sp, 0.0, ny_loc,
+                                           ny_loc),
+        "K10": lambda: genfft.sample_fftx(2, t, HEADLINE, sp, planes=planes),
+        "KN": lambda: sampler.sample_nested(2, gn.state.table, HEADLINE, sp),
+        "K2FX": lambda: sampler.draw_fixed(2, t, HEADLINE, sp),
+    }
+    clocks = {}
+    for kid, fn in calls.items():
+        ms = cuda_ms(torch, fn, reps=2)
+        clocks[kid], top, power = sm_clock_under_load(torch, fn, ms, hold_ms)
+        log(f"phase 4 {kid} load: SM clock {clocks[kid] / 1e6:.0f} MHz "
+            f"(maximum {top / 1e6:.0f}), {power:.1f} W, read by nvidia-smi "
+            f"while {kid} ran ({ms:.3f} ms a call) [{card}]")
+        torch.cuda.empty_cache()
+    del gn, planes
+    torch.cuda.empty_cache()
+    return clocks
+
+
+def pipe_bound(nbytes, issue, alu, clock_hz):
+    """({term: seconds}, the bounding term, (bound ms, bound_by)) of a
+    kernel's ``nbytes`` over the HBM rate, its ``issue`` instructions
+    through the SM's issue (128 a clock an SM) and the ``alu`` of them that
+    only the ALU pipe runs (64 a clock an SM), at the SM clock
+    ``clock_hz``."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "issue": issue / (128 * sms * clock_hz),
+         "ALU pipe": alu / (64 * sms * clock_hz)}
+    by = max(t, key=t.get)
+    return t, by, (1e3 * t[by], "bytes" if by == "bytes" else "operations")
+
+
+def threefry_pipe_bounds(work, clocks):
+    """{K: (bound ms, bound_by)} of the Threefry kernels: the larger of
+    their bytes (``work[K][0]``) over the HBM rate, every instruction
+    through the issue (128 a clock an SM) and the ALU-only ones through
+    the ALU pipe (64 a clock an SM), at the SM clock under each kernel's
+    load (``clocks``); logs every term beside the flat float32 count."""
+    import torch
+
+    nx, ny, nz = HEADLINE
+    modes = nx * ny * (nz // 2 + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for kid in THREEFRY_KERNELS:
+        base = THREEFRY_SHARDS.get(kid, kid)
+        count = modes // MESH_RANKS if kid in THREEFRY_SHARDS else modes
+        issue = OPS_PER_MODE[base] * count
+        alu = THREEFRY_ALU_PER_MODE[base] * count
+        if kid == "K10":  # the plane rows are loaded, not drawn
+            drawn = modes - 2 * nx * ny
+            issue = K10_DRAW_OPS * drawn + (OPS_PER_MODE["K10"]
+                                            - K10_DRAW_OPS) * modes / 2
+            alu = THREEFRY_ALU_PER_MODE["K10"] * drawn
+        nbytes, flat_ops = work[kid]
+        clock = clocks[kid]
+        t, by, out[kid] = pipe_bound(nbytes, issue, alu, clock)
+        log(f"phase 4 {kid} bound by pipe ({sms} SMs at "
+            f"{clock / 1e6:.0f} MHz under its load): {nbytes / 1e9:.4f} GB, "
+            f"{issue / 1e9:.2f} G instructions, {alu / 1e9:.2f} G of them on "
+            f"the ALU pipe alone; "
+            + ", ".join(f"{k} {1e3 * v:.4f} ms" for k, v in t.items())
+            + f"; bound {1e3 * t[by]:.4f} ms by {by} (the flat "
+            f"{FP32_OPS_PER_S / 1e12:g} TFLOP/s count: "
+            f"{1e3 * max(nbytes / HBM_BYTES_PER_S, flat_ops / FP32_OPS_PER_S):.4f}"
+            f" ms)")
+    return out
+
+
 def kh_pipe_bound(iterations, rejection_steps, clock_hz):
     """(bound ms, bound_by) of KH at 1024^3 with HALO_BINS bins: g read
     once and the int32 counts written once, over the HBM rate; the
@@ -6589,10 +7256,7 @@ def kh_pipe_bound(iterations, rejection_steps, clock_hz):
            + KH_ALU_PER_ITERATION * iterations
            + KH_ALU_PER_REJECTION_STEP * rejection_steps)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    t = {"bytes": nbytes / HBM_BYTES_PER_S,
-         "ALU pipe": alu / (64 * sms * clock_hz),
-         "issue": (fp32 + ints) / (128 * sms * clock_hz)}
-    by = max(t, key=t.get)
+    t, by, bound = pipe_bound(nbytes, fp32 + ints, alu, clock_hz)
     log(f"phase 4 KH bound by pipe at {HEADLINE}, {HALO_BINS} bins, {sms} "
         f"SMs at {clock_hz / 1e6:.0f} MHz: {nbytes / 1e9:.4f} GB, "
         f"{fp32 / 1e9:.2f} G float32 and {ints / 1e9:.2f} G integer "
@@ -6601,21 +7265,18 @@ def kh_pipe_bound(iterations, rejection_steps, clock_hz):
         + f"; bound {1e3 * t[by]:.4f} ms by {by} (every instruction at the "
         f"flat {FP32_OPS_PER_S / 1e12:g} TFLOP/s: "
         f"{1e3 * (fp32 + ints) / FP32_OPS_PER_S:.4f} ms)")
-    return 1e3 * t[by], "bytes" if by == "bytes" else "operations"
+    return bound
 
 
-def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
-    """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes: the larger
-    of the bytes each kernel must move (inputs read once, outputs written
-    once) over the HBM rate and its operations over the float32 rate.  K6
-    at the one-rank forward transform's shape, K7 and K8 on one shard of a
-    four-rank mesh; KX's mask and void modes as "KX mask" and "KX voids"
-    (the void mode with phase 4's ``kx_candidates``); KQ on phase 4's
-    PAIR_OBJECTS auto count, ``kq_in_range`` of its pairs in range and
-    ``kq_examined``, the pairs that a cell list examines and their
-    components that wrap (cell_walk_pairs); KH on the halo counts of phase
-    4 by pipe (:func:`kh_pipe_bound` of ``kh_work``: its Knuth iterations,
-    rejection steps and the SM clock under its load)."""
+def kernel_work(g, kx_candidates, kq_in_range, kq_examined):
+    """{K: (bytes, operations)} at the 1024^3 main paths' shapes: the bytes
+    each kernel must move (inputs read once, outputs written once) and its
+    operations.  K6 at the one-rank forward transform's shape, K7 and K8 on
+    one shard of a four-rank mesh; KX's mask and void modes as "KX mask"
+    and "KX voids" (the void mode with phase 4's ``kx_candidates``); KQ on
+    phase 4's PAIR_OBJECTS auto count, ``kq_in_range`` of its pairs in
+    range and ``kq_examined``, the pairs that a cell list examines and
+    their components that wrap (cell_walk_pairs)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes, cells = nx * ny * nzh, nx * ny * nz
@@ -6712,18 +7373,38 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work):
                + KQ_OPS_PER_WRAP * kq_examined[1]
                + KQ_OPS_PER_PAIR_IN_RANGE * kq_in_range),
     }
+    return work
+
+
+def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work,
+                  clocks):
+    """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes
+    (:func:`kernel_work`): the larger of the bytes over the HBM rate and
+    the operations over the float32 rate; the Threefry kernels by pipe
+    (:func:`threefry_pipe_bounds`, at the SM clocks ``clocks`` read under
+    their loads); KH on the halo counts of phase 4 by pipe
+    (:func:`kh_pipe_bound` of ``kh_work``: its Knuth iterations, rejection
+    steps and the SM clock under its load)."""
+    nx, ny, nz = HEADLINE
+    nzh = nz // 2 + 1
+    modes = nx * ny * nzh
+    work = kernel_work(g, kx_candidates, kq_in_range, kq_examined)
+
+    def fft_ops(n, lines):
+        return 5.0 * n * np.log2(n) * lines
+
     for what, n, lines in (("x", nx, ny * nzh), ("y", ny, nx * nzh)):
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
                      fft_ops(n, lines) / FP32_OPS_PER_S)
         log(f"phase 4 K3 bound of the {what} pass alone: {1e3 * t_pass:.4f} ms")
-    out = {"KH": kh_pipe_bound(*kh_work)}
+    out = {"KH": kh_pipe_bound(*kh_work), **threefry_pipe_bounds(work, clocks)}
     for k, (nbytes, ops) in work.items():
+        if k in out:
+            continue
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
         out[k] = (1e3 * max(t_bytes, t_ops),
                   "bytes" if t_bytes >= t_ops else "operations")
-        at = (f"one shard ({nx}, {ny // MESH_RANKS}, {nzh})"
-              if k in ("K7", "K8") else f"{HEADLINE}")
-        log(f"phase 4 {k} bound at {at}: {nbytes / 1e9:.4f} GB -> "
+        log(f"phase 4 {k} bound at {HEADLINE}: {nbytes / 1e9:.4f} GB -> "
             f"{1e3 * t_bytes:.4f} ms, {ops / 1e9:.2f} G operations -> "
             f"{1e3 * t_ops:.4f} ms; bound {out[k][0]:.4f} ms by {out[k][1]}")
     return out
@@ -6892,6 +7573,10 @@ def main() -> int:
             torch, rft, dev, hg, hd, card)
         models_s += time.perf_counter() - t0
         main_paths.append(model_launches)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        main_paths.append(phase3_entry_points(torch, rft, dev, g, gp, card))
+        entry_s = time.perf_counter() - t0
         for counts in main_paths:
             for k in KERNEL_ORDER:
                 launches[k] += counts[k]
@@ -6920,8 +7605,12 @@ def main() -> int:
             torch, rft, dev, hg, model_seconds, kh_plain_ms, card)
         times.update(model_times)
         models_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase4_cli(torch, g, gp, card)
+        entry_s += time.perf_counter() - t0
         bounds = kernel_bounds(g, kx_candidates, kq_in_range, kq_examined,
-                               kh_work)
+                               kh_work, threefry_clocks(torch, rft, g, gp,
+                                                        card))
         log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
             f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
         log(f"phase 4 peak device memory of the 1024^3 morphology methods "
@@ -6939,6 +7628,8 @@ def main() -> int:
         log(f"chip_smoke model phases (KH, halos, HOD, SPT, lensing, Fisher, "
             f"multi-tracer, reconstruction; phases 0-4) wall time "
             f"{models_s:.1f} s [{card}]")
+        log(f"chip_smoke entry-point phases (the CLI, utils/, the "
+            f"examples; phases 3-4) wall time {entry_s:.1f} s [{card}]")
         log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
             f"[{card}]")
     except Exception:

@@ -26,7 +26,7 @@ import torch
 __all__ = ["SlabMesh", "PencilMesh", "make_mesh", "make_pencil_mesh",
            "require_slab", "check_divisible"]
 
-_ROADMAP = "(ROADMAP.md, Next)"
+_ROADMAP = "(ROADMAP.md, Queue 1 item 5)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1741,3 +1741,43 @@ def test_device_models_on_the_card_match_the_cpu(cuda):
         fm.append(fisher.fisher_matrix_multipoles(model, theta, shape,
                                                   SPACING, nbins=8))
     assert _close(fm[0], fm[1], 1e-5)
+
+
+# ---- the entry points: the command line and the examples ------------------------
+
+def test_cli_field_equals_the_api(cuda, tmp_path):
+    """``python -m randomfield_tpu_torch``'s 128^3 field on the card (its
+    ``--out`` file) equals ``Generator.generate_delta_field`` bit for bit,
+    and its run launched the render's kernels."""
+    from randomfield_tpu_torch import __main__ as cli
+    from randomfield_tpu_torch.utils import io
+
+    sampler.K2F_LAUNCHES = fft.K3_LAUNCHES = fft.K4_LAUNCHES = 0
+    rc = cli.main(["--nx", "128", "--spacing", "8", "--seed", "3",
+                   "--quiet", "--out", str(tmp_path / "f_{seed}.npz")])
+    assert rc == 0
+    assert (sampler.K2F_LAUNCHES, fft.K3_LAUNCHES, fft.K4_LAUNCHES) == (1, 2, 1)
+    field, meta = io.load_field(tmp_path / "f_3.npz")
+    want = rft.Generator(128, 128, 128, grid_spacing=8.0,
+                         device=cuda).generate_delta_field(3)
+    assert meta["seed"] == 3
+    assert np.array_equal(field, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("name, n", [
+    ("quickstart", None), ("ensemble_covariance", None),
+    ("lensing_map", None), ("variance_reduction", 64), ("mock_catalog", None),
+    ("constrained_field", None), ("morphology", None), ("forecast_rsd", None),
+    ("galaxy_survey", None)])
+def test_examples_run_on_the_card(cuda, capsys, name, n):
+    """Each example at its own size on the card (variance_reduction's zoom
+    at 32^3 and 64^3: the kernels take nz/2 >= 16) returns finite
+    numbers."""
+    import importlib
+
+    module = importlib.import_module(f"randomfield_tpu_torch.examples.{name}")
+    out = module.main(device="cuda", n=n)
+    capsys.readouterr()
+    for key, value in out.items():
+        value = np.asarray(value, np.float64)
+        assert np.isfinite(value[~np.isnan(value)]).all(), key

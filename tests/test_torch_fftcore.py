@@ -99,6 +99,7 @@ def test_register_butterfly_is_a_dft(radix, sign):
     assert _rel(got, want) <= 1e-6
 
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("sign", (+1, -1))
 @pytest.mark.parametrize("n", LENGTHS)
 def test_stockham_passes_match_numpy(n, sign):

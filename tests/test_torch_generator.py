@@ -81,6 +81,7 @@ def test_slice_matches_jax_pieces_tight(shape, smoothing):
     assert _max_rel(got.numpy(), want) <= TIGHT
 
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("smoothing,lightcone", [(0.0, True), (8.0, False)])
 def test_public_api_matches_jax(jax_gen32, smoothing, lightcone):
     want = np.asarray(jax_gen32.generate_delta_field(
@@ -158,6 +159,7 @@ def test_noise_roundtrip_and_determinism():
         g.generate_from_noise(noise[:, :8])
 
 
+@pytest.mark.smoke
 def test_port_imports_no_jax():
     code = (
         "import sys; import randomfield_tpu_torch as rft; "

@@ -54,6 +54,7 @@ def test_flat_table_equals_deduplicated_jax_rows(shape):
     np.testing.assert_array_equal(rows[1:, 0], rows[:-1, -1])
 
 
+@pytest.mark.smoke
 def test_table_sigma_tracks_tabulated_sigma():
     # the table's linear-in-log10k sigma vs the direct per-mode sigma
     # (the JAX package's 2e-3 table bound, pallas_sampler.make_sigma_table)
@@ -228,6 +229,7 @@ def test_ifft_axis_rejects_bad_views():
 
 # ---- K4 -------------------------------------------------------------------------
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("shape,nz", [((2, 8, 129), 256), ((3, 4, 17), 32)])
 def test_c2r_tail_matches_pallas(shape, nz):
     rng = np.random.RandomState(3)

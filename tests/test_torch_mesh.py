@@ -202,6 +202,7 @@ def test_k8_plain_union_is_k1(smoothing):
 
 # ---- the mesh vs one device ------------------------------------------------------------
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("size", [1, 2, 4])
 @pytest.mark.parametrize("name", SAMPLERS)
 def test_mesh_render_equals_single_device(tmp_path_factory, size, name):

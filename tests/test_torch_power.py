@@ -67,6 +67,7 @@ def test_spectrum_power_matches_jax(shape, nbins):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("nbins", [6, 20])
 def test_calculate_power_matches_jax(shape, nbins):

@@ -46,6 +46,7 @@ def test_fold_in_matches_jax(seed, data):
     assert threefry.fold_in(threefry.key_from_seed(seed), data) == want
 
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("seed", [0, 7, -1])
 @pytest.mark.parametrize("shape", [(7,), (3, 5), (2, 4, 9, 16)])
 def test_random_bits_match_jax_exactly(seed, shape):
