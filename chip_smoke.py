@@ -1780,6 +1780,9 @@ def mesh_rank(rank, size, store, out_dir, device):
         mesh = pmesh.make_mesh(space=size, device=device)
         out = {name: mesh_rank_sampler(torch, rft, mesh, name)
                for name in SAMPLERS}
+        t0 = time.perf_counter()
+        out["surface"] = mesh_rank_surface(torch, rft, mesh)
+        out["surface_s"] = time.perf_counter() - t0
     finally:
         multihost.shutdown()
     out["imports_jax"] = "jax" in sys.modules or "randomfield_tpu" in sys.modules
@@ -1804,7 +1807,8 @@ def check_mesh_power(what, p, n, p_single, n_single):
 
 def phase3_four_ranks(torch, dev, card):
     """The slab mesh at 1024^3 on four ranks sharing the card ``dev``
-    (gloo), both samplers; returns the launch counts summed over the
+    (gloo), both samplers, and item 8a's renders and estimators
+    (:func:`mesh_rank_surface`); returns the launch counts summed over the
     ranks."""
     import shutil
     import tempfile
@@ -1870,6 +1874,10 @@ def phase3_four_ranks(torch, dev, card):
                 f"{', '.join(f'{t:.3f}' for t in per_rank)} ms per rank "
                 f"(host clock, median of {MESH_STAGE_REPS}; four processes "
                 f"share the card) [{card}]")
+    add_counts(counts, check_four_rank_surface(ranks, card))
+    log(f"phase 3 four-rank mesh item-8a work: "
+        f"{[round(r['surface_s'], 1) for r in ranks]} s per rank (host "
+        f"clock, references included) [{card}]")
     return counts
 
 
@@ -7410,6 +7418,617 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work,
     return out
 
 
+# ---- the slab mesh's fixed, nested, derived and 2LPT renders, sigmas,
+# moments and Fourier and xi estimators (ROADMAP item 8a) --------------------
+
+SURFACE_SEED = 3
+# the mesh's 2LPT synthesizes the second order from the sampled spectrum (the
+# JAX package's mesh program), the single device from a forward transform of
+# the rendered field: the two differ by the transforms' rounding
+MESH_LPT_BAR = 1e-5
+# xi (values over the largest |xi|), the bispectrum (B over the largest |B|;
+# its triad counts elementwise) and the moments against the single device:
+# float64 sums of the same float32 terms in another order, after the
+# transforms' rounding
+MESH_XI_BAR = 1e-5
+MESH_BISP_BAR = 1e-5
+MESH_NTRI_RTOL = 1e-6
+MESH_MOMENT_RTOL = 1e-10
+XI_NBINS = 24
+# the four-rank bispectrum's grid: at 1024^3 the single-device reference
+# alone peaks at ~54 GiB, beside four ranks' eight shells each
+MESH_BISP_SHAPE = (512, 512, 512)
+MESH_BISP_SPACING = 4.0
+# the f_NL values of the f_NL paths
+SURFACE_FNL = {"field": 50.0, "potential": 2e3}
+
+
+def surface_renders(seed=SURFACE_SEED, stacked=True):
+    """The mesh renders of item 8a: (name, sampler, call on a Generator,
+    components it stacks or None, bar).  A stacked render is compared one
+    component at a time (``component=c`` on the single device).  Without
+    ``stacked`` the displacement and the tidal field are one component
+    each (z and xy): four ranks on one card cannot hold four ranks' six
+    tidal slabs and their transforms' buffers at once."""
+    fnl = SURFACE_FNL
+    if stacked:
+        vectors = (
+            ("displacement", "threefry",
+             lambda g, **kw: g.generate_displacement(seed, **kw), 3,
+             MESH_BAR),
+            ("tidal", "threefry",
+             lambda g, **kw: g.generate_tidal_field(seed, **kw), 6,
+             MESH_BAR))
+    else:
+        vectors = (
+            ("displacement z", "threefry",
+             lambda g, **kw: g.generate_displacement(seed, component=2),
+             None, MESH_BAR),
+            ("tidal xy", "threefry",
+             lambda g, **kw: g.generate_tidal_field(seed, component=3),
+             None, MESH_BAR))
+    return (
+        ("nested render", "nested",
+         lambda g, **kw: g.generate_delta_field(seed), None, MESH_BAR),
+        ("fixed", "threefry",
+         lambda g, **kw: g.generate_fixed_field(seed), None, MESH_BAR),
+        ("paired (flip, s = 4)", "threefry",
+         lambda g, **kw: g.generate_fixed_field(seed, 4.0, False, flip=True),
+         None, MESH_BAR),
+        ("nested paired", "nested",
+         lambda g, **kw: g.generate_fixed_field(seed, flip=True), None,
+         MESH_BAR),
+        ("potential", "threefry",
+         lambda g, **kw: g.generate_potential(seed, z=0.5), None, MESH_BAR),
+        *vectors,
+        ("Kaiser", "threefry",
+         lambda g, **kw: g.generate_kaiser_field(seed, z=0.3, bias=1.5),
+         None, MESH_BAR),
+        ("nested velocity", "nested",
+         lambda g, **kw: g.generate_velocity(seed, component=1), None,
+         MESH_BAR),
+        ("f_NL field", "threefry",
+         lambda g, **kw: g.generate_nongaussian_field(seed, fnl["field"]),
+         None, MESH_BAR),
+        ("f_NL potential", "threefry",
+         lambda g, **kw: g.generate_nongaussian_field(
+             seed, fnl["potential"], kind="potential"), None, MESH_BAR),
+        ("2LPT x", "threefry",
+         lambda g, **kw: g.generate_displacement(seed, component=0, order=2),
+         None, MESH_LPT_BAR),
+    )
+
+
+def surface_estimators(spacing):
+    """The mesh estimators of item 8a: (name, call(a, b, w, mesh), kind of
+    result).  ``a`` and ``b`` are fields and ``w`` a window (this rank's x
+    slabs, or whole fields with mesh None)."""
+    from randomfield_tpu_torch.validate import stats
+
+    return (
+        ("power cic", lambda a, b, w, m: stats.calculate_power(
+            a, spacing, NBINS, mesh=m, window="cic"), "bins"),
+        ("power cic interlaced", lambda a, b, w, m: stats.calculate_power(
+            a, spacing, NBINS, mesh=m, window="cic", interlaced_with=b),
+         "bins"),
+        ("multipoles tsc", lambda a, b, w, m:
+         stats.calculate_power_multipoles(a, spacing, NBINS, window="tsc",
+                                          mesh=m), "poles"),
+        ("multipoles interlaced", lambda a, b, w, m:
+         stats.calculate_power_multipoles(a, spacing, NBINS,
+                                          interlaced_with=b, mesh=m),
+         "poles"),
+        ("wedges cic", lambda a, b, w, m: stats.calculate_power_wedges(
+            a, spacing, NBINS, nmu=4, window="cic", mesh=m), "bins"),
+        ("cross", lambda a, b, w, m: stats.calculate_cross_power(
+            a, b, spacing, NBINS, mesh=m), "bins"),
+        ("masked", lambda a, b, w, m: stats.calculate_masked_power(
+            a, w, spacing, NBINS, mesh=m), "bins"),
+        ("xi", lambda a, b, w, m: stats.calculate_correlation(
+            a, spacing, XI_NBINS, mesh=m), "xi"),
+        ("xi_ell", lambda a, b, w, m: stats.calculate_correlation_multipoles(
+            a, spacing, XI_NBINS, mesh=m), "xi"),
+        ("field_moments", lambda a, b, w, m: stats.field_moments(a, mesh=m),
+         "moments"),
+    )
+
+
+def bispectrum_estimator(spacing):
+    from randomfield_tpu_torch.validate import bispectrum
+
+    return lambda a, b, w, m: bispectrum.calculate_bispectrum(
+        a, spacing, nbins=BISPECTRUM_NBINS, mesh=m)
+
+
+def to_host(result):
+    """An estimator's result as nested lists of floats (JSON)."""
+    if isinstance(result, (tuple, list)):
+        return [to_host(r) for r in result]
+    return np.asarray(result, np.float64).tolist()
+
+
+def estimate_error(kind, got, want):
+    """How far a mesh estimate lies from the single device's, against its
+    bar, as (ok, text): counts exact and p within MESH_P_RTOL (a multipole
+    within MESH_P_RTOL of its bin's monopole); xi within MESH_XI_BAR of its
+    largest value; moments within MESH_MOMENT_RTOL; the bispectrum's
+    triples exact, B within MESH_BISP_BAR of its largest |B|, its triad
+    counts within MESH_NTRI_RTOL."""
+    if kind == "moments":
+        rel = max(abs(g / w - 1.0) for g, w in zip(got, want))
+        return rel <= MESH_MOMENT_RTOL, f"rel {rel:.3e}"
+    if kind == "bispectrum":
+        same = np.array_equal(np.asarray(got[1]), np.asarray(want[1]))
+        b, bw = np.asarray(got[2]), np.asarray(want[2])
+        rel = float(np.abs(b - bw).max() / np.abs(bw).max())
+        nt = float(np.max(np.abs(np.asarray(got[3]) / np.asarray(want[3])
+                                 - 1.0)))
+        return (same and rel <= MESH_BISP_BAR and nt <= MESH_NTRI_RTOL,
+                f"triples {'equal' if same else 'DIFFER'}, B {rel:.3e} of "
+                f"max|B|, triad counts rel {nt:.3e}")
+    k, p, n = (np.asarray(a, np.float64) for a in got)
+    kw, pw, nw = (np.asarray(a, np.float64) for a in want)
+    same = np.array_equal(n, nw)
+    live = nw > 0
+    if kind == "xi":
+        rel = float(np.abs(p[..., live] - pw[..., live]).max()
+                    / np.abs(pw[..., live]).max())
+        ok = rel <= MESH_XI_BAR
+    elif kind == "poles":
+        rel = float(np.max(np.abs(p[:, live] - pw[:, live])
+                           / np.abs(pw[0, live])))
+        ok = rel <= MESH_P_RTOL
+    else:
+        rel = float(np.max(np.abs(p[live] / pw[live] - 1.0)))
+        ok = rel <= MESH_P_RTOL
+    return same and ok, (f"counts {'equal' if same else 'DIFFER'}, values "
+                         f"{rel:.3e}")
+
+
+def phase1_mesh_surface(torch, g, gn, errs):
+    """KN (spectrum, unit, fixed), K2F's fixed mode (with and without flip)
+    and KD (every kind and component of KD_CASES) on each of the four
+    (1024, 256, 513) shards of a four-rank 1024^3 mesh: the union of the
+    shards equal to one whole-grid launch bit for bit, and the second shard
+    against its plain version (KN and K2F fixed within their bars, KD bit
+    for bit)."""
+    from randomfield_tpu_torch.ops import derived, sampler
+
+    seed = 17
+    nx, ny, nz = g.shape
+    ny_loc = ny // MESH_RANKS
+    rows = [slice(r * ny_loc, (r + 1) * ny_loc) for r in range(MESH_RANKS)]
+    shard = (nx, ny_loc, nz // 2 + 1)
+
+    def unions(kid, what, whole, part, plain):
+        equal = all(torch.equal(part(r), whole[:, :, rows[r]])
+                    for r in range(MESH_RANKS))
+        log(f"phase 1 {kid} {what}: the union of {MESH_RANKS} {shard} "
+            f"shards {'equals' if equal else 'DIFFERS from'} the whole-grid "
+            f"launch bit for bit")
+        if not equal:
+            raise AssertionError(f"{kid} {what}: shards are not the "
+                                 f"whole-grid launch's rows")
+        got, want = part(1), plain(1)
+        torch.cuda.synchronize()
+        check_close(errs, kid, f"{what} shard 1 {shard} vs plain",
+                    (got[0], got[1]), (want[0], want[1]))
+
+    t, sp = gn.state.table, gn.grid_spacing
+    for mode in ("spectrum", "unit", "fixed"):
+        whole = sampler.sample_nested(seed, t, gn.shape, sp, 8.0, mode=mode)
+        unions("KN", mode, whole,
+               lambda r: sampler.sample_nested(
+                   seed, t, gn.shape, sp, 8.0, mode=mode,
+                   y_off=r * ny_loc, ny_loc=ny_loc),
+               lambda r: sampler.sample_nested_plain(
+                   seed, t, gn.shape, sp, 8.0, mode=mode,
+                   y_off=r * ny_loc, ny_loc=ny_loc))
+        del whole
+        torch.cuda.empty_cache()
+    t, sp = g.state.table, g.grid_spacing
+    for flip in (False, True):
+        whole = sampler.draw_fixed(seed, t, g.shape, sp, 8.0, flip)
+        unions("K2FX", f"flip={flip}", whole,
+               lambda r: sampler.draw_fixed(seed, t, g.shape, sp, 8.0, flip,
+                                            r * ny_loc, ny_loc),
+               lambda r: sampler.draw_fixed_plain(
+                   seed, t, g.shape, sp, 8.0, flip, r * ny_loc, ny_loc))
+        del whole
+        torch.cuda.empty_cache()
+    src = sampler.draw_scale(seed, t, g.shape, sp)
+    for kind, comp, diag in KD_CASES:
+        pref = (1.5, 0.6) if kind == "kaiser" else -0.37
+        whole = torch.stack(derived.apply_kernel(
+            src[0].clone(), src[1].clone(), g.shape, sp, kind, comp, pref,
+            diag))
+
+        def part(r, plain=False):
+            fn = derived.apply_kernel_plain if plain else derived.apply_kernel
+            return torch.stack(fn(
+                src[0][:, rows[r]].contiguous(),
+                src[1][:, rows[r]].contiguous(), g.shape, sp, kind, comp,
+                pref, diag, y_off=r * ny_loc))
+
+        equal = all(torch.equal(part(r), whole[:, :, rows[r]])
+                    for r in range(MESH_RANKS))
+        got, want = part(1), part(1, plain=True)
+        torch.cuda.synchronize()
+        check_bit_equal(torch, errs, "KD",
+                        f"{kind} {comp}{' (2LPT diagonal)' if diag else ''} "
+                        f"shard 1 {shard} vs plain", (got[0], got[1]),
+                        (want[0], want[1]))
+        if not equal:
+            raise AssertionError(f"KD {kind} {comp}: shards are not the "
+                                 f"whole-grid launch's rows")
+        del whole, got, want
+    log(f"phase 1 KD: every kind's {MESH_RANKS} shards equal the whole-grid "
+        f"launch bit for bit")
+    del src
+    torch.cuda.empty_cache()
+
+
+def add_counts(total, counts):
+    for k in KERNEL_ORDER:
+        total[k] += counts[k]
+
+
+def mesh_rank_surface(torch, rft, mesh):
+    """One rank's part of the four-rank run for item 8a: each render of
+    surface_renders and each estimator of surface_estimators (and the
+    bispectrum at MESH_BISP_SHAPE) through the public API on the mesh, the
+    counts set to 0 before each and read after it; each rank's slab held
+    to the same rows of the single-device result (made one rank at a time,
+    to bound the card's memory), the estimators' inputs the single-device
+    renders' rows and rank 0 the single-device estimators; sigmas and
+    generate_noise on the mesh against the single device.  Returns a dict
+    for JSON."""
+    import torch.distributed as dist
+
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    out = {"renders": {}, "estimators": {}, "seconds": {}, "peaks": {}}
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    x0, nx_loc = mesh.rows(HEADLINE[0])
+    gens = {name: rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                mesh=mesh, sampler=name)
+            for name in ("threefry", "nested")}
+
+    def in_turns(fn):
+        """fn() on each rank in turn, the others waiting at a barrier."""
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier(group=mesh.group)
+
+    for name, sampler, call, comps, bar in surface_renders(stacked=False):
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = call(gens[sampler])
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["peaks"][name] = torch.cuda.max_memory_allocated() / 2**30
+        add_counts(counts, read_counts())
+        torch.cuda.empty_cache()  # before a rank's turn holds a reference
+        res = {"finite": bool(torch.isfinite(got).all()),
+               "shape": list(got.shape)}
+
+        def compare():
+            one = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                device=dev, sampler=sampler)
+            diff = scale = 0.0
+            for c in range(comps or 1):
+                w = call(one) if comps is None else call(one, component=c)
+                mine = got if comps is None else got[c]
+                diff = max(diff, float((mine - w[x0:x0 + nx_loc]).abs().max()))
+                scale = max(scale, float(w.abs().max()))
+                del w
+            res["rel"] = diff / scale
+
+        in_turns(compare)
+        res["bar"] = bar
+        out["renders"][name] = res
+        del got
+        torch.cuda.empty_cache()
+
+    g = gens["threefry"]
+    one = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING, device=dev)
+    y_off, ny_loc = mesh.rows(HEADLINE[1])
+
+    def grids():
+        out["sigmas_equal"] = torch.equal(
+            g.sigmas, one.sigmas[:, y_off:y_off + ny_loc])
+        g._sigmas = one._sigmas = None
+        if mesh.rank == 0:
+            out["noise_equal"] = torch.equal(
+                g.generate_noise(SURFACE_SEED),
+                one.generate_noise(SURFACE_SEED))
+
+    in_turns(grids)
+
+    def estimators(shape, spacing, calls):
+        held = {}
+
+        def inputs():
+            s = rft.Generator(*shape, grid_spacing=spacing, device=dev)
+            a = s.generate_delta_field(1)
+            b = s.generate_delta_field(2)
+            xo, nxl = mesh.rows(shape[0])
+            held["slabs"] = tuple(t[xo:xo + nxl].clone() for t in (a, b))
+            if mesh.rank == 0:
+                held["whole"] = (a, b)
+            del a, b
+
+        in_turns(inputs)
+        a, b = held["slabs"]
+        w = (b > 0).float()
+        for name, call, kind in calls:
+            dist.barrier(group=mesh.group)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = call(a, b, w, mesh)
+            torch.cuda.synchronize()
+            out["seconds"][name] = time.perf_counter() - t0
+            out["peaks"][name] = torch.cuda.max_memory_allocated() / 2**30
+            add_counts(counts, read_counts())
+            torch.cuda.empty_cache()
+            res = {"got": to_host(got), "kind": kind}
+            if mesh.rank == 0:
+                wa, wb = held["whole"]
+                res["want"] = to_host(call(wa, wb, (wb > 0).float(), None))
+            out["estimators"][name] = res
+            torch.cuda.empty_cache()
+        held.clear()
+        torch.cuda.empty_cache()
+
+    estimators(HEADLINE, HEADLINE_SPACING, surface_estimators(
+        HEADLINE_SPACING))
+    estimators(MESH_BISP_SHAPE, MESH_BISP_SPACING, (
+        (f"bispectrum {MESH_BISP_SHAPE[0]}^3",
+         bispectrum_estimator(MESH_BISP_SPACING), "bispectrum"),))
+    out["counts"] = counts
+    return out
+
+
+def check_four_rank_surface(ranks, card):
+    """The four ranks' item-8a results against the single device; returns
+    the launch counts summed over the ranks."""
+    res = [r["surface"] for r in ranks]
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    for r in res:
+        add_counts(counts, r["counts"])
+    for name, first in res[0]["renders"].items():
+        rel = max(r["renders"][name]["rel"] for r in res)
+        finite = all(r["renders"][name]["finite"] for r in res)
+        log(f"phase 3 four-rank mesh {name}: x slabs {first['shape']} vs the "
+            f"single-device result, max|d| / max|w| {rel:.3e} (bar "
+            f"{first['bar']:g}); {[round(r['seconds'][name], 2) for r in res]}"
+            f" s per rank (host clock), peak "
+            f"{max(r['peaks'][name] for r in res):.2f} GiB a rank [{card}]")
+        if not (finite and rel <= first["bar"]):
+            raise AssertionError(f"four-rank {name} disagrees: {rel:.3e}")
+    for name, first in res[0]["estimators"].items():
+        mine = json.dumps(first["got"])
+        if not all(json.dumps(r["estimators"][name]["got"]) == mine
+                   for r in res):
+            raise AssertionError(f"four-rank {name}: the ranks' results "
+                                 f"differ")
+        ok, text = estimate_error(first["kind"], first["got"], first["want"])
+        log(f"phase 3 four-rank mesh {name} vs the single-device estimator: "
+            f"{text}; {[round(r['seconds'][name], 2) for r in res]} s per rank"
+            f" (host clock), peak {max(r['peaks'][name] for r in res):.2f} "
+            f"GiB a rank [{card}]")
+        if not ok:
+            raise AssertionError(f"four-rank {name} disagrees: {text}")
+    if not (all(r["sigmas_equal"] for r in res) and res[0]["noise_equal"]):
+        raise AssertionError("four-rank sigmas or generate_noise differ from "
+                             "the single device")
+    log(f"phase 3 four-rank mesh sigmas: each rank's ky slab equal to the "
+        f"single-device grid's rows; generate_noise on the mesh equal to the "
+        f"single device's bit for bit")
+    require_launches(counts, {"KN": 1, "K2FX": 1, "KD": 1, "K7": 1, "K6": 1,
+                              "K3": 1, "K4": 1, "KB": 1},
+                     "the four-rank item-8a paths")
+    log(f"phase 3 four-rank mesh item-8a launches over the ranks: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase3_one_rank_surface(torch, rft, dev, mesh, card):
+    """Every method item 8a ports, on the one-rank NCCL mesh at 1024^3
+    through the public API (the counts set to 0 before each and read after
+    it), against the single device: the renders of surface_renders, sigmas,
+    generate_noise, generate_from_noise's refusal, classify_web, the
+    estimators of surface_estimators and the bispectrum.  Returns the
+    launch counts."""
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    gens = {name: rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                mesh=mesh, sampler=name)
+            for name in ("threefry", "nested")}
+    ones = {name: rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                device=dev, sampler=name)
+            for name in ("threefry", "nested")}
+    renders = surface_renders() + (
+        ("classify_web", "threefry", lambda g, **kw: g.classify_web(
+            SURFACE_SEED), None, 0.0),)
+    for name, sampler, call, comps, bar in renders:
+        torch.cuda.synchronize()
+        reset_counts()
+        got = call(gens[sampler])
+        torch.cuda.synchronize()
+        add_counts(counts, read_counts())
+        rel, equal = 0.0, True
+        for c in range(comps or 1):  # a stacked render a component at a time
+            want = (call(ones[sampler]) if comps is None
+                    else call(ones[sampler], component=c))
+            mine = got if comps is None else got[c]
+            if name == "classify_web":
+                rel = int((mine != want).sum()) / want.numel()
+            else:
+                rel = max(rel, rel_err((mine,), (want,))[1])
+            equal = equal and torch.equal(mine, want)
+            del want
+        measure = ("share of cells that differ" if name == "classify_web"
+                   else "rel")
+        log(f"phase 3 one-rank NCCL mesh {name} {tuple(got.shape)} vs the "
+            f"single device: {measure} {rel:.3e} (bar {bar:g}), "
+            f"{'bit-equal' if equal else 'not bit-equal'}")
+        if not rel <= bar:
+            raise AssertionError(f"one-rank mesh {name} disagrees")
+        del got
+        torch.cuda.empty_cache()
+    g, one = gens["threefry"], ones["threefry"]
+    same = (torch.equal(g.sigmas, one.sigmas)
+            and torch.equal(g.generate_noise(SURFACE_SEED),
+                            one.generate_noise(SURFACE_SEED)))
+    g._sigmas = one._sigmas = None
+    try:
+        g.generate_from_noise(one.generate_noise(SURFACE_SEED))
+        refused = False
+    except ValueError as err:
+        refused = "single-device fused scene" in str(err)
+    log(f"phase 3 one-rank NCCL mesh sigmas and generate_noise equal to the "
+        f"single device's: {same}; generate_from_noise refuses the mesh as "
+        f"the JAX package does: {refused}")
+    if not (same and refused):
+        raise AssertionError("one-rank mesh sigmas / noise I/O disagree")
+    torch.cuda.empty_cache()
+    a, b = one.generate_delta_field(1), one.generate_delta_field(2)
+    w = (b > 0).float()
+    calls = surface_estimators(HEADLINE_SPACING) + (
+        ("bispectrum", bispectrum_estimator(HEADLINE_SPACING), "bispectrum"),)
+    for name, call, kind in calls:
+        torch.cuda.synchronize()
+        reset_counts()
+        got = call(a, b, w, mesh)
+        torch.cuda.synchronize()
+        add_counts(counts, read_counts())
+        ok, text = estimate_error(kind, to_host(got),
+                                  to_host(call(a, b, w, None)))
+        log(f"phase 3 one-rank NCCL mesh {name} vs the single-device "
+            f"estimator: {text}")
+        if not ok:
+            raise AssertionError(f"one-rank mesh {name} disagrees: {text}")
+        torch.cuda.empty_cache()
+    del a, b, w
+    forget_geometries()
+    torch.cuda.empty_cache()
+    require_launches(counts, {"KN": 1, "K2FX": 1, "KD": 1, "K7": 1, "K6": 1,
+                              "K3": 1, "K4": 1, "KB": 1},
+                     "the one-rank item-8a paths")
+    return counts
+
+
+def forget_geometries():
+    """Drop the bispectrum's kept triangle counts and KB's kept geometries,
+    so that a later phase's estimator runs as a first call does (phase 3
+    counts the unit shells' and the geometry pass's launches)."""
+    from randomfield_tpu_torch.ops import binning
+    from randomfield_tpu_torch.validate import bispectrum
+
+    bispectrum._triangle_counts.cache_clear()
+    binning._geometry.cache_clear()
+
+
+def phase4_mesh_surface(torch, rft, dev, mesh, card):
+    """Times of item 8a at 1024^3: each path on the one-rank NCCL mesh
+    beside the single device (in turns: mesh, single, single, mesh), and
+    the shard instances of KN, K2F's fixed mode and KD (the second of four
+    (1024, 256, 513) shards) beside their whole-grid launches and plain
+    versions."""
+    from randomfield_tpu_torch.ops import derived, sampler
+
+    gens = {name: rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                mesh=mesh, sampler=name)
+            for name in ("threefry", "nested")}
+    ones = {name: rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
+                                device=dev, sampler=name)
+            for name in ("threefry", "nested")}
+
+    def turns(what, on_mesh, single, reps=2):
+        m1 = cuda_ms(torch, on_mesh, reps)
+        s1 = cuda_ms(torch, single, reps)
+        s2 = cuda_ms(torch, single, reps)
+        m2 = cuda_ms(torch, on_mesh, reps)
+        log(f"phase 4 {what} {HEADLINE}: one-rank NCCL mesh "
+            f"{(m1 + m2) / 2:.3f} ms ({m1:.3f}, {m2:.3f}), single device "
+            f"{(s1 + s2) / 2:.3f} ms ({s1:.3f}, {s2:.3f}), mesh / single "
+            f"{(m1 + m2) / (s1 + s2):.4f} [{card}]")
+        torch.cuda.empty_cache()
+
+    for name, sampler_name, call, comps, _ in surface_renders():
+        turns(name, lambda: call(gens[sampler_name]),
+              lambda: call(ones[sampler_name]))
+    g, one = gens["threefry"], ones["threefry"]
+
+    def sigmas(gen):
+        gen._sigmas = None
+        return gen.sigmas
+
+    turns("sigmas", lambda: sigmas(g), lambda: sigmas(one))
+    g._sigmas = one._sigmas = None
+    a, b = one.generate_delta_field(1), one.generate_delta_field(2)
+    w = (b > 0).float()
+    calls = surface_estimators(HEADLINE_SPACING) + (
+        ("bispectrum", bispectrum_estimator(HEADLINE_SPACING), "bispectrum"),)
+    for name, call, _ in calls:
+        turns(name, lambda: call(a, b, w, mesh), lambda: call(a, b, w, None),
+              reps=1 if name == "bispectrum" else 2)
+    del a, b, w
+    forget_geometries()
+    torch.cuda.empty_cache()
+
+    nx, ny, nz = HEADLINE
+    ny_loc = ny // MESH_RANKS
+    shard = (nx, ny_loc, nz // 2 + 1)
+    gn = ones["nested"]
+    tn, t, sp = gn.state.table, one.state.table, HEADLINE_SPACING
+    for mode in ("spectrum", "fixed"):
+        whole = cuda_ms(torch, lambda: sampler.sample_nested(
+            2, tn, HEADLINE, sp, mode=mode))
+        time_kernel(
+            torch, f"KN {mode} (shard 1 of 4; whole grid {whole:.3f} ms)",
+            lambda: sampler.sample_nested(2, tn, HEADLINE, sp, mode=mode,
+                                          y_off=ny_loc, ny_loc=ny_loc),
+            lambda: sampler.sample_nested_plain(2, tn, HEADLINE, sp,
+                                                mode=mode, y_off=ny_loc,
+                                                ny_loc=ny_loc),
+            None, None, shard, card, plain_reps=SLOW_PLAIN_REPS)
+    whole = cuda_ms(torch, lambda: sampler.draw_fixed(2, t, HEADLINE, sp))
+    time_kernel(
+        torch, f"K2FX (shard 1 of 4; whole grid {whole:.3f} ms)",
+        lambda: sampler.draw_fixed(2, t, HEADLINE, sp, 0.0, False, ny_loc,
+                                   ny_loc),
+        lambda: sampler.draw_fixed_plain(2, t, HEADLINE, sp, 0.0, False,
+                                         ny_loc, ny_loc),
+        None, None, shard, card, plain_reps=SLOW_PLAIN_REPS)
+    src = sampler.draw_scale(2, t, HEADLINE, sp)
+    re, im = src[0].clone(), src[1].clone()
+    whole = cuda_ms(torch, lambda: derived.apply_kernel(
+        re, im, HEADLINE, sp, "grad", 0), setup=lambda: (
+            re.copy_(src[0]), im.copy_(src[1])))
+    del re, im
+    rows = slice(ny_loc, 2 * ny_loc)
+    s_re, s_im = src[0][:, rows].contiguous(), src[1][:, rows].contiguous()
+    re, im = s_re.clone(), s_im.clone()
+    time_kernel(
+        torch, f"KD grad x (shard 1 of 4; whole grid {whole:.3f} ms)",
+        lambda: derived.apply_kernel(re, im, HEADLINE, sp, "grad", 0,
+                                     y_off=ny_loc),
+        lambda: derived.apply_kernel_plain(re, im, HEADLINE, sp, "grad", 0,
+                                           y_off=ny_loc),
+        None, lambda: (re.copy_(s_re), im.copy_(s_im)), shard, card)
+    del src, re, im, s_re, s_im
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -7494,6 +8113,9 @@ def main() -> int:
         gn = rft.Generator(*HEADLINE, grid_spacing=HEADLINE_SPACING,
                            device=dev, sampler="nested")
         phase1_slice(torch, g, gn, errs)
+        t0 = time.perf_counter()
+        phase1_mesh_surface(torch, g, gn, errs)
+        surface_s = {"phase 1": time.perf_counter() - t0}
         del gn
         torch.cuda.empty_cache()
         phase1_measure(torch, rft, dev, g, gp, errs)
@@ -7546,6 +8168,11 @@ def main() -> int:
         mesh = nccl_one_rank_mesh(dev)
         main_paths.append(phase3_one_rank(torch, rft, dev, mesh))
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        main_paths.append(phase3_one_rank_surface(torch, rft, dev, mesh,
+                                                  card))
+        surface_s["phase 3 one-rank"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         main_paths.append(phase3_variants(torch, rft, gp, card))
         torch.cuda.empty_cache()
         main_paths.append(phase3_slice(torch, rft, dev, g, card))
@@ -7583,6 +8210,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         times = phase4_times(torch, rft, dev, g, gp, card)
         times.update(phase4_mesh(torch, rft, dev, g, gp, mesh, card))
+        t0 = time.perf_counter()
+        phase4_mesh_surface(torch, rft, dev, mesh, card)
+        surface_s["phase 4"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         times.update(phase4_slice(torch, rft, dev, g, card))
         times.update(phase4_measure(torch, rft, dev, g, card))
         torch.cuda.empty_cache()
@@ -7630,6 +8261,9 @@ def main() -> int:
             f"{models_s:.1f} s [{card}]")
         log(f"chip_smoke entry-point phases (the CLI, utils/, the "
             f"examples; phases 3-4) wall time {entry_s:.1f} s [{card}]")
+        log(f"chip_smoke item-8a mesh phases (wall time; the four-rank part "
+            f"inside phase 3's four-rank run): "
+            f"{ {k: round(v, 1) for k, v in surface_s.items()} } s [{card}]")
         log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
             f"[{card}]")
     except Exception:

@@ -83,6 +83,19 @@
 //   add (k0 + k1 into the code) and first rotation (of k1) are folded per
 //   row and per launch (threefry.cuh:threefry2x32_w0);
 // - sincos_turn: a quadrant reduction for the angles 2 pi u < 2 pi alone.
+//
+// KN on the ky rows [y_off, y_off + ny_loc) of a slab mesh's shard
+// (nested_shard_kernel; the JAX package draws the nested stream in XLA
+// under GSPMD, randomfield_tpu/parallel/render.py:196, _sampled_spectrum
+// with nested=True).  On a ky slab the rows y and (-y) mod ny of a quad
+// mostly lie on different ranks, so a shard quad is one local row y and
+// its partner row: (x, y), (-x, y), (x, -y), (-x, -y) as above, x in
+// [0, nx/2], the quads in (x, local y) order.  A row outside the shard is
+// not stored; it is hashed only on the kz = 0 and Nyquist planes, where
+// the fix of a stored row takes its draw (so nothing is exchanged).  Where
+// both y and -y lie in the shard, the quad of the smaller one stores all
+// four rows and the other quad stores nothing.  Each mode is the
+// whole-grid kernel's bit for bit.
 #include <algorithm>
 #include <cstdint>
 
@@ -337,13 +350,127 @@ struct NestedQuad {
   }
 };
 
+// KN's quad on a shard of ky rows [y_off, y_off + ny_loc): local row
+// yl = q mod ny_loc, x = q / ny_loc, the rows in NestedQuad's order (row
+// r's partner is row 3 - r).  Bit r of ``live``: row r lies in the shard
+// and is stored by this quad; a quad whose partner row -y lies in the
+// shard at a smaller y stores nothing (that row's quad stores both).
+template <int MODE>
+struct NestedShardQuad {
+  float kxy;
+  uint32_t first[4];
+  uint32_t out[4];
+  uint32_t nc, sc, live;
+
+  __device__ __forceinline__ NestedShardQuad(const Params& p, int q) {
+    const int x = q / p.ny_loc;
+    const int yl = q - x * p.ny_loc;
+    const int y = p.y_off + yl;
+    const int px = rf::partner_index(x, p.nx);
+    const int py = rf::partner_index(y, p.ny);
+    const bool py_here = static_cast<unsigned>(py - p.y_off) <
+                         static_cast<unsigned>(p.ny_loc);
+    const int xs[4] = {x, px, x, px};
+    const int ys[4] = {y, y, py, py};
+    const float kx = p.kx_scale * static_cast<float>(rf::signed_index(x, p.nx));
+    const float ky = p.ky_scale * static_cast<float>(rf::signed_index(y, p.ny));
+    kxy = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky));
+    const bool second = py != y && py_here;
+    live = py_here && py < y
+               ? 0u
+               : 1u | (px != x ? 2u : 0u) | (second ? 4u : 0u) |
+                     (px != x && second ? 8u : 0u);
+    nc = sc = 0u;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      first[r] = lattice_code(xs[r], ys[r], p.nx, p.ny) + p.k01;
+      const int yr = r < 2 ? yl : py - p.y_off;
+      out[r] = live & (1u << r)
+                   ? (static_cast<uint32_t>(xs[r]) * p.ny_loc + yr) * p.nzh
+                   : 0u;
+      nc |= rf::not_canonical(xs[r], ys[r], xs[3 - r], ys[3 - r]) ? 1u << r
+                                                                   : 0u;
+      sc |= rf::self_conjugate(xs[r], ys[r], xs[3 - r], ys[3 - r]) ? 1u << r
+                                                                    : 0u;
+    }
+  }
+
+  // NestedQuad::draw, hashing only the rows it needs: the stored ones,
+  // and on a plane of the spectrum and fixed modes all four (a stored
+  // row's fix may take its partner row's draw).
+  __device__ __forceinline__ void draw(const Params& p, int z) const {
+    if (live == 0u) return;
+    constexpr bool kFix = MODE == kSpectrum || MODE == kFixed;
+    const bool plane = kFix && (z == 0 || z == p.top);
+    const uint32_t need = plane ? 15u : live;
+    float amp = 0.f;
+    if (kFix) {
+      amp = rf::k2_amplitude_ksq(p.tab, p.n_knots, __fadd_rn(kxy, p.kz2[z]),
+                                 p.half_inv_ln10, p.lk0, p.inv_dlk,
+                                 p.smoothing, p.gain);
+    }
+    float vre[4] = {0.f, 0.f, 0.f, 0.f}, vim[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (!(need & (1u << r))) continue;
+      const uint2 b = rf::threefry2x32_w0(p.k0, p.k1,
+                                          first[r] + static_cast<uint32_t>(z),
+                                          p.rk);
+      if (MODE == kBits) {
+        if (live & (1u << r)) {
+          reinterpret_cast<uint32_t*>(p.re)[out[r] + z] = b.x;
+          reinterpret_cast<uint32_t*>(p.im)[out[r] + z] = b.y;
+        }
+        continue;
+      }
+      const float rr = sqrtf(__fmul_rn(-2.f, logf(rf::uniform_u1(b.x))));
+      const float theta =
+          __fmul_rn(6.28318530717958648f, rf::uniform_u1(b.y));
+      float s, c;
+      sincos_turn(theta, &s, &c);
+      vre[r] = __fmul_rn(rr, c);
+      vim[r] = __fmul_rn(rr, s);
+    }
+    if (MODE == kBits) return;
+    if (kFix) {
+      if (plane) {
+        const float re0[4] = {vre[0], vre[1], vre[2], vre[3]};
+        const float im0[4] = {vim[0], vim[1], vim[2], vim[3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (nc & (1u << r)) {
+            vre[r] = re0[3 - r];
+            vim[r] = -im0[3 - r];
+          } else if (sc & (1u << r)) {
+            vre[r] = __fmul_rn(vre[r], rf::kSqrt2);
+            vim[r] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (MODE == kFixed) rf::unit_phase(vre[r], vim[r]);
+        vre[r] = __fmul_rn(vre[r], amp);
+        vim[r] = __fmul_rn(vim[r], amp);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (live & (1u << r)) {
+        p.re[out[r] + z] = vre[r];
+        p.im[out[r] + z] = vim[r];
+      }
+    }
+  }
+};
+
 // KN's walk: the (quad, kz) pairs in quad-major order, quad q's kz at
 // q nzh + kz, cut into runs of kRun (a multiple of 32), one a warp; lane l
 // takes a run's elements l, l + 32, ...: a warp's 32 lanes draw 32
 // consecutive kz (coalesced stores; at a quad's end, two quads' rows).
-template <int MODE>
-__device__ __forceinline__ void walk_quads(const Params& p) {
-  const uint32_t n_quads = static_cast<uint32_t>(p.nx / 2 + 1) * (p.ny / 2 + 1);
+template <class Quad>
+__device__ __forceinline__ void walk_quads(const Params& p,
+                                           uint32_t n_quads) {
   const uint32_t total = n_quads * static_cast<uint32_t>(p.nzh);
   const uint32_t begin = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRun;
   if (begin >= total) return;
@@ -351,7 +478,7 @@ __device__ __forceinline__ void walk_quads(const Params& p) {
   uint32_t e = begin + (threadIdx.x & 31);
   uint32_t q = e / p.nzh;
   int z = static_cast<int>(e - q * p.nzh);
-  NestedQuad<MODE> quad(p, static_cast<int>(min(q, n_quads - 1)));
+  Quad quad(p, static_cast<int>(min(q, n_quads - 1)));
   for (; e < end; e += 32) {
     quad.draw(p, z);
     z += 32;
@@ -360,7 +487,7 @@ __device__ __forceinline__ void walk_quads(const Params& p) {
         z -= p.nzh;
         ++q;
       } while (z >= p.nzh);
-      if (q < n_quads) quad = NestedQuad<MODE>(p, static_cast<int>(q));
+      if (q < n_quads) quad = Quad(p, static_cast<int>(q));
     }
   }
 }
@@ -432,7 +559,27 @@ nested_modes_kernel(float* __restrict__ re, float* __restrict__ im,
                  nz % 2 == 0 ? nzh - 1 : 0, 0, ny, k0, k1, kx_scale,
                  ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain,
                  k0 + k1, rf::rotl32(k1, 13)};
-  walk_quads<MODE>(p);
+  walk_quads<NestedQuad<MODE>>(
+      p, static_cast<uint32_t>(nx / 2 + 1) * (ny / 2 + 1));
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+nested_shard_kernel(float* __restrict__ re, float* __restrict__ im,
+                    const float* __restrict__ knots, int n_knots, int nx,
+                    int ny, int nz, int y_off, int ny_loc, uint32_t k0,
+                    uint32_t k1, float kx_scale, float ky_scale,
+                    float kz_scale, float half_inv_ln10, float lk0,
+                    float inv_dlk, float smoothing, float gain) {
+  extern __shared__ float smem[];
+  const int nzh = nz / 2 + 1;
+  const float* kz2 = load_tables(smem, knots, n_knots, nzh, kz_scale);
+  const Params p{re, im, smem, kz2, n_knots, nx, ny, nzh,
+                 nz % 2 == 0 ? nzh - 1 : 0, y_off, ny_loc, k0, k1, kx_scale,
+                 ky_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain,
+                 k0 + k1, rf::rotl32(k1, 13)};
+  walk_quads<NestedShardQuad<MODE>>(
+      p, static_cast<uint32_t>(nx / 2 + 1) * ny_loc);
 }
 
 // The grid of a walk over (nx/2 + 1) ny_loc row pairs.
@@ -447,11 +594,11 @@ unsigned walk_blocks(int nx, int ny_loc) {
 
 template <int MODE>
 cudaError_t launch_nested(float* re, float* im, const float* knots,
-                          int n_knots, int nx, int ny, int nz, uint32_t k0,
-                          uint32_t k1, float kx_scale, float ky_scale,
-                          float kz_scale, float half_inv_ln10, float lk0,
-                          float inv_dlk, float smoothing, float gain,
-                          cudaStream_t stream) {
+                          int n_knots, int nx, int ny, int nz, int y_off,
+                          int ny_loc, uint32_t k0, uint32_t k1,
+                          float kx_scale, float ky_scale, float kz_scale,
+                          float half_inv_ln10, float lk0, float inv_dlk,
+                          float smoothing, float gain, cudaStream_t stream) {
   // the tables, or kNestedBlocksPerSM's share of an SM's shared memory (in
   // the 128-byte units shared memory is given in), which caps the blocks
   // an SM holds
@@ -470,16 +617,27 @@ cudaError_t launch_nested(float* re, float* im, const float* knots,
       static_cast<size_t>(sm_smem / kNestedBlocksPerSM - reserved) / 128 * 128;
   const size_t smem = std::max(
       sizeof(float) * (static_cast<size_t>(n_knots) + nz / 2 + 1), share);
+  // the whole grid walks quads of |kx|, |ky|; a shard quads of its rows
+  const bool shard = y_off != 0 || ny_loc != ny;
+  const long long quads = static_cast<long long>(nx / 2 + 1) *
+                          (shard ? ny_loc : ny / 2 + 1);
+  const long long runs = (quads * (nz / 2 + 1) + kRun - 1) / kRun;
+  const unsigned blocks = static_cast<unsigned>((runs + kWarps - 1) / kWarps);
+  if (shard) {
+    err = cudaFuncSetAttribute(nested_shard_kernel<MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    nested_shard_kernel<MODE><<<blocks, kThreads, smem, stream>>>(
+        re, im, knots, n_knots, nx, ny, nz, y_off, ny_loc, k0, k1, kx_scale,
+        ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain);
+    return cudaGetLastError();
+  }
   err = cudaFuncSetAttribute(
       nested_modes_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const long long runs =
-      (static_cast<long long>(nx / 2 + 1) * (ny / 2 + 1) * (nz / 2 + 1) +
-       kRun - 1) / kRun;
-  nested_modes_kernel<MODE><<<static_cast<unsigned>((runs + kWarps - 1) /
-                                                    kWarps),
-                              kThreads, smem, stream>>>(
+  nested_modes_kernel<MODE><<<blocks, kThreads, smem, stream>>>(
       re, im, knots, n_knots, nx, ny, nz, k0, k1, kx_scale, ky_scale,
       kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain);
   return cudaGetLastError();
@@ -514,48 +672,47 @@ extern "C" int rf_sample_modes(void* re, void* im, const void* knots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// KN: re, im float32 (nx, ny, nz/2 + 1) outputs, contiguous (bits mode:
-// uint32 bits in the same storage).  knots: float32 (n_knots,), n_knots >=
-// 2.  (k0, k1): key(seed) itself.  k_scale and the table constants as for
+// KN: re, im float32 (nx, ny_loc, nz/2 + 1) outputs, contiguous (bits mode:
+// uint32 bits in the same storage), the ky rows [y_off, y_off + ny_loc) of
+// the spectrum (the whole grid: y_off = 0, ny_loc = ny).  knots: float32
+// (n_knots,), n_knots >= 2.  (k0, k1): key(seed) itself.  k_scale and the table constants as for
 // rf_sample_modes; gain folded into K2's amplitude (spectrum: 1/sqrt(2);
 // fixed: 1, or -1 for the paired field).  mode: 0 spectrum, 1 unit
 // normals, 2 fixed, 3 bits.  Returns the CUDA error of the launch.
 extern "C" int rf_sample_nested(void* re, void* im, const void* knots,
                                 int n_knots, int nx, int ny, int nz,
-                                uint32_t k0, uint32_t k1, float kx_scale,
-                                float ky_scale, float kz_scale,
-                                float half_inv_ln10, float lk0, float inv_dlk,
-                                float smoothing, float gain, int mode,
-                                void* stream) {
+                                int y_off, int ny_loc, uint32_t k0,
+                                uint32_t k1, float kx_scale, float ky_scale,
+                                float kz_scale, float half_inv_ln10,
+                                float lk0, float inv_dlk, float smoothing,
+                                float gain, int mode, void* stream) {
+  if (y_off < 0 || ny_loc < 1 || y_off + ny_loc > ny) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto* r = static_cast<float*>(re);
   auto* i = static_cast<float*>(im);
   const auto* t = static_cast<const float*>(knots);
   auto* s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  decltype(&launch_nested<kSpectrum>) launch = nullptr;
   switch (mode) {
     case kSpectrum:
-      err = launch_nested<kSpectrum>(r, i, t, n_knots, nx, ny, nz, k0, k1,
-                                     kx_scale, ky_scale, kz_scale,
-                                     half_inv_ln10, lk0, inv_dlk, smoothing,
-                                     gain, s);
+      launch = launch_nested<kSpectrum>;
       break;
     case kUnit:
-      err = launch_nested<kUnit>(r, i, t, n_knots, nx, ny, nz, k0, k1,
-                                 kx_scale, ky_scale, kz_scale, half_inv_ln10,
-                                 lk0, inv_dlk, smoothing, gain, s);
+      launch = launch_nested<kUnit>;
       break;
     case kFixed:
-      err = launch_nested<kFixed>(r, i, t, n_knots, nx, ny, nz, k0, k1,
-                                  kx_scale, ky_scale, kz_scale, half_inv_ln10,
-                                  lk0, inv_dlk, smoothing, gain, s);
+      launch = launch_nested<kFixed>;
       break;
     case kBits:
-      err = launch_nested<kBits>(r, i, t, n_knots, nx, ny, nz, k0, k1,
-                                 kx_scale, ky_scale, kz_scale, half_inv_ln10,
-                                 lk0, inv_dlk, smoothing, gain, s);
+      launch = launch_nested<kBits>;
       break;
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaError_t err =
+      launch(r, i, t, n_knots, nx, ny, nz, y_off, ny_loc, k0, k1, kx_scale,
+             ky_scale, kz_scale, half_inv_ln10, lk0, inv_dlk, smoothing, gain,
+             s);
   return static_cast<int>(err);
 }

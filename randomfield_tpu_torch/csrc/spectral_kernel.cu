@@ -40,6 +40,14 @@
 // warps take eight ky rows (ky once a warp), the lanes walk a row's kz 32
 // at a time (coalesced, no division a mode), and kz comes from a table the
 // block builds in shared memory.
+//
+// On a slab mesh's shard, the ky rows [y_off, y_off + ny_loc) of the
+// spectrum (randomfield_tpu/parallel/render.py:624 make_sharded_derived,
+// where XLA shards the same elementwise expression), a warp's ky row is
+// its global row y_off + local row: ky and the Nyquist test come from the
+// global index, so the rank that holds the Nyquist row zeroes it for the
+// odd kernels and the others do not, and each mode is the whole-grid
+// launch's bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -68,7 +76,7 @@ __device__ __forceinline__ int fft_signed(int i, int n) {
 struct Args {
   float* re;
   float* im;
-  int nx, ny, nz, nzh;
+  int nx, ny, nz, nzh, y_off, ny_loc;
   double val_x, val_y, val_z;
   int kind, a, b, grad_diag;
   float p0, p1, p2, p3;
@@ -98,8 +106,9 @@ spectral_kernel(const Args args) {
   __syncthreads();
 
   const int x = blockIdx.y;
-  const int y = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (y >= p.ny) return;
+  const int yl = blockIdx.x * kWarps + (threadIdx.x >> 5);  // local ky row
+  if (yl >= p.ny_loc) return;
+  const int y = p.y_off + yl;
   const int lane = threadIdx.x & 31;
   ModeK m;
   m.k[0] = axis_k(fft_signed(x, p.nx), p.val_x);
@@ -111,7 +120,7 @@ spectral_kernel(const Args args) {
   const bool zeroed = p.kind == kGrad || (p.kind == kTidal &&
                                           (p.a != p.b || p.grad_diag));
   const float kl_row = p.b == 0 ? m.k[0] : m.k[1];  // recon's line of sight
-  const long long row = (static_cast<long long>(x) * p.ny + y) * p.nzh;
+  const long long row = (static_cast<long long>(x) * p.ny_loc + yl) * p.nzh;
   float* rp = p.re + row;
   float* ip = p.im + row;
   for (int z = lane; z < p.nzh; z += 32) {
@@ -158,7 +167,9 @@ spectral_kernel(const Args args) {
 
 }  // namespace
 
-// re, im: float32 (nx, ny, nz/2 + 1), contiguous, transformed in place.
+// re, im: float32 (nx, ny_loc, nz/2 + 1), contiguous, transformed in place:
+// the ky rows [y_off, y_off + ny_loc) of an (nx, ny, nz) scene's spectrum
+// (the whole spectrum: y_off = 0, ny_loc = ny).
 // val_x, val_y, val_z: numpy's 1 / (n d) of each axis (float64).  kind: 0
 // scalar (p0 = prefactor), 1 grad (a = axis, p0 = prefactor), 2 tidal (a,
 // b = the pair, p0 = prefactor, grad_diag: Nyquist-zeroed vectors on the
@@ -167,20 +178,22 @@ spectral_kernel(const Args args) {
 // = prefactor, p1 = bias, p2 = f, p3 = sigma^2).  nx up to 65535.  Returns
 // the CUDA error of the launch.
 extern "C" int rf_spectral_kernel(void* re, void* im, int nx, int ny, int nz,
-                                  double val_x, double val_y, double val_z,
+                                  int y_off, int ny_loc, double val_x,
+                                  double val_y, double val_z,
                                   int kind, int a, int b, int grad_diag,
                                   float p0, float p1, float p2, float p3,
                                   void* stream) {
   if (kind < kScalar || kind > kRecon || a < 0 || a > 2 || b < 0 || b > 2 ||
-      nx < 1 || nx > 65535 || ny < 1 || nz < 1) {
+      nx < 1 || nx > 65535 || ny < 1 || nz < 1 || y_off < 0 ||
+      ny_loc < 1 || y_off + ny_loc > ny) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nzh = nz / 2 + 1;
   const Args args{static_cast<float*>(re), static_cast<float*>(im), nx, ny,
-                  nz, nzh, val_x, val_y, val_z, kind, a, b, grad_diag, p0, p1,
-                  p2, p3};
+                  nz, nzh, y_off, ny_loc, val_x, val_y, val_z, kind, a, b,
+                  grad_diag, p0, p1, p2, p3};
   const size_t smem = sizeof(float) * static_cast<size_t>(nzh);
-  const dim3 grid((ny + kWarps - 1) / kWarps, nx);
+  const dim3 grid((ny_loc + kWarps - 1) / kWarps, nx);
   spectral_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       args);
   return static_cast<int>(cudaGetLastError());

@@ -53,10 +53,14 @@ kernel's unit mode; ``generate_from_noise`` runs the Hermitian fix and K2
 
 With ``mesh`` (a :class:`..parallel.mesh.SlabMesh`) every rank builds the
 same Generator and calls the same methods; each rank draws its ky slab of
-the spectrum (K7 or K8 in place of the fused K2 or K1), and the
-distributed inverse (:mod:`..parallel.dfft`) returns its x slab of the
-field, equal to the same rows of the single-device render
-(:mod:`..parallel.render`).
+the spectrum (K7, K8 or KN on the shard in place of the fused K2, K1 or
+KN; K2F's or KN's fixed mode on the shard for the fixed fields; KD at the
+shard's ky offset for the derived fields), and the distributed inverse
+(:mod:`..parallel.dfft`) returns its x slab of the field, equal to the
+same rows of the single-device render (:mod:`..parallel.render`).
+``sigmas`` is the rank's ky slab of the grid; ``generate_noise`` returns
+the whole grid's draws on every rank, as the JAX package returns its
+global array; ``generate_from_noise`` refuses a mesh, as there.
 """
 
 from __future__ import annotations
@@ -84,26 +88,6 @@ from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["Generator"]
 
-_NOT_PORTED = {
-    "noise I/O on a mesh": ("generate_noise and generate_from_noise run on "
-                            "one device (ROADMAP.md, Queue 1 item 5)"),
-    "sampler='nested' on a mesh": ("the nested stream runs on one device "
-                                   "(ROADMAP.md, Queue 1 item 8)"),
-    "fixed fields on a mesh": ("generate_fixed_field(s) run on one device "
-                               "(ROADMAP.md, Queue 1 item 8)"),
-    "derived fields on a mesh": ("the derived fields run on one device "
-                                 "(ROADMAP.md, Queue 1 item 8)"),
-    "sigmas on a mesh": ("the sigma grid is built on one device "
-                         "(ROADMAP.md, Queue 1 item 8)"),
-}
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to randomfield_tpu_torch yet: {_NOT_PORTED[what]}"
-    )
-
-
 class Generator(MeasurementMixin, ConstrainedMixin):
     """Generate 3-D Gaussian random density fields with a given P(k).
 
@@ -126,11 +110,13 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         (the fused sampler K1: its own counter-based stream,
         :mod:`~randomfield_tpu_torch.ops.modestream`) or 'nested' (the
         resolution-nested stream, the JAX package's bit for bit; every axis
-        at most 1024, one device, not with ``pipeline='staged'``).
+        at most 1024, not with ``pipeline='staged'``).
     mesh : None for one device, or this rank's slab mesh
         (:func:`randomfield_tpu_torch.parallel.mesh.make_mesh`): nx and ny
         must divide by its size; renders return the rank's (nx/P, ny, nz)
-        x slab.  A pencil mesh raises NotImplementedError.
+        x slab.  A pencil mesh raises NotImplementedError.  As in the JAX
+        package, a mesh scene with ``sampler='pallas'`` renders plain
+        fields only.
     pipeline : 'auto', 'fused' or 'staged'.  ``sampler='pallas'`` ignores it,
         as the JAX package does (its single-device render is always the
         staged one).  With ``sampler='threefry'``, 'staged' renders through
@@ -167,8 +153,6 @@ class Generator(MeasurementMixin, ConstrainedMixin):
                     f"sampler='nested' packs signed mode indices into 10 "
                     f"bits per axis (max dim {_sample.NESTED_MAX_DIM}); got "
                     f"{shape}")
-            if mesh is not None:
-                raise _not_ported("sampler='nested' on a mesh")
         if mesh is not None:
             mesh = _mesh.require_slab(mesh)
             if device is not None and torch.device(device) != mesh.device:
@@ -230,17 +214,23 @@ class Generator(MeasurementMixin, ConstrainedMixin):
     @property
     def sigmas(self):
         """The per-mode sigma(k) grid, float32 (nx, ny, nz//2+1) on the
-        scene's device: ``ops.power.tabulate_sigmas`` of the scene's power
-        table (its own interpolant, evaluated in float64), built on the first
+        scene's device (on a mesh, this rank's (nx, ny/P, nz//2+1) ky slab
+        of it): ``ops.power.tabulate_sigmas`` of the scene's power table
+        (its own interpolant, evaluated in float64), built on the first
         read and cached.  The renders read the uniform table instead; this
         is the grid the JAX package's fused scenes hold."""
-        if self.mesh is not None:
-            raise _not_ported("sigmas on a mesh")
         if self._sigmas is None:
+            y_off, ny_loc = self._ky_rows()
             self._sigmas = _power.tabulate_sigmas(
                 self.shape, self.grid_spacing, self.power,
-                self.scene.interpolation, self.device)
+                self.scene.interpolation, self.device, y_off, ny_loc)
         return self._sigmas
+
+    def _ky_rows(self):
+        """(offset, count) of this rank's ky rows: the whole axis on one
+        device."""
+        ny = self.shape[1]
+        return (0, ny) if self.mesh is None else self.mesh.rows(ny)
 
     def predicted_variance(self, smoothing_length=0.0, apply_lightcone=False):
         """Expected variance of a rendered field, from the table sigma.
@@ -253,7 +243,7 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         unweighted variance.
         """
         nx, ny, nz = self.shape
-        y_off, ny_loc = (0, ny) if self.mesh is None else self.mesh.rows(ny)
+        y_off, ny_loc = self._ky_rows()
         mult = _grid.kz_multiplicity(nz, self.device)
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         step = 64  # x planes per pass: bounds the temporaries at any size
@@ -280,8 +270,9 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         """The seed's packed 'xyz' spectrum as (re, im) float32 lattices
         (on a mesh, this rank's ky slab)."""
         if self.mesh is not None:
-            spectrum = (_render.pallas_spectrum if self.sampler == "pallas"
-                        else _render.threefry_spectrum)
+            spectrum = {"pallas": _render.pallas_spectrum,
+                        "nested": _render.nested_spectrum,
+                        "threefry": _render.threefry_spectrum}[self.sampler]
             return spectrum(seed, self.state.table, self.shape,
                             self.grid_spacing, smoothing_length, self.mesh)
         if self.sampler == "pallas":
@@ -344,15 +335,15 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         if self.sampler == "pallas":
             raise ValueError(
                 f"sampler='pallas' draws inside the fused kernel; {what}")
-        if self.mesh is not None:
-            raise _not_ported("noise I/O on a mesh")
 
     def generate_noise(self, seed=0):
         """A seed's raw unit normal draws, shape (2, nx, ny, nz//2+1): the
         state before symmetrization and scaling.  ``generate_from_noise``
         of it equals ``generate_delta_field(seed)`` exactly.  On CUDA the
         fused K2 kernel writes them (its unit mode), or for a nested scene
-        KN (its unit mode)."""
+        KN (its unit mode).  On a mesh every rank gets the whole grid's
+        draws on its device, the single-device result (the JAX package's
+        global array)."""
         self._require_threefry("there is no exportable pre-kernel noise state")
         if self.sampler == "nested":
             return _sampler.sample_nested(seed, self.state.table, self.shape,
@@ -365,10 +356,16 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         """Render from external unit normal draws (2, nx, ny, nz//2+1).
 
         The same algebra as a seeded render: symmetrize, sigma(k) and the
-        filter, c2r, lightcone.  ``draws`` is copied, not consumed.
+        filter, c2r, lightcone.  ``draws`` is copied, not consumed.  One
+        device: a mesh raises ValueError, as in the JAX package.
         """
         self._require_threefry("generate_from_noise needs a scene with "
                                "sampler='threefry' or 'nested'")
+        if self.mesh is not None:
+            raise ValueError(
+                "generate_from_noise needs a single-device fused scene with "
+                "a materialized sigma grid (sampler='threefry' or 'nested', "
+                "pipeline='fused', mesh=None)")
         nx, ny, nz = self.shape
         want = (2, nx, ny, nz // 2 + 1)
         draws = torch.as_tensor(draws, dtype=torch.float32, device=self.device)
@@ -390,8 +387,6 @@ class Generator(MeasurementMixin, ConstrainedMixin):
                 "Pallas/staged pipelines stream the spectrum); build the "
                 "Generator with sampler='threefry', pipeline='auto' or "
                 "'fused'")
-        if self.mesh is not None:
-            raise _not_ported("fixed fields on a mesh")
 
     def generate_fixed_field(self, seed=0, smoothing_length=0.0,
                              apply_lightcone=True, flip=False):
@@ -402,16 +397,23 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         so the field variance equals ``predicted_variance()`` to rounding.
         ``flip=True`` renders the paired realization (every phase shifted by
         pi: for the Gaussian field the exact negation).  On CUDA the draw is
-        K2F's fixed mode (KN's for a nested scene), then K3, K3, K4.
-        ``sampler='pallas'`` and ``pipeline='staged'`` raise ValueError, as
-        in the JAX package.
+        K2F's fixed mode (KN's for a nested scene), then K3, K3, K4; on a
+        mesh the same modes on the rank's ky rows, then the distributed
+        inverse.  ``sampler='pallas'`` and ``pipeline='staged'`` raise
+        ValueError, as in the JAX package.
         """
         re, im = self._fixed_spectrum(seed, smoothing_length, flip)
         return self._spectrum_to_field(re, im, apply_lightcone)
 
     def _fixed_spectrum(self, seed, smoothing_length, flip):
-        """The seed's fixed spectrum (re, im): K2F's fixed mode, or KN's."""
+        """The seed's fixed spectrum (re, im): K2F's fixed mode, or KN's (on
+        a mesh, this rank's ky slab)."""
         self._require_fixed()
+        if self.mesh is not None:
+            return _render.fixed_spectrum(
+                seed, self.state.table, self.shape, self.grid_spacing,
+                smoothing_length, flip, self.mesh,
+                nested=self.sampler == "nested")
         if self.sampler == "nested":
             spec = _sampler.sample_nested(
                 seed, self.state.table, self.shape, self.grid_spacing,
@@ -441,13 +443,28 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         spectrum drawn once (K2F, K1 or KN; a pallas scene's draw is K1
         whatever ``RF_STAGED_PIPELINE`` says), each component KD on a
         copy of it (the last on the spectrum itself), then K3, K3 and K4.
-        Returns a list of float32 (nx, ny, nz) fields."""
-        if self.mesh is not None:
-            raise _not_ported("derived fields on a mesh")
-        re, im = self._sampled_spectrum(seed, smoothing_length)
+        Returns a list of float32 (nx, ny, nz) fields.  On a mesh (not with
+        ``sampler='pallas'``, as in the JAX package) the rank's ky slab of
+        the spectrum, KD at its ky offset and the distributed inverse: a
+        list of the rank's (nx/P, ny, nz) x slabs."""
+        re, im = self._mesh_spectrum(seed, smoothing_length)
         return _derived.fields_from_spectrum(re, im, self.shape,
                                              self.grid_spacing, kind,
-                                             components, prefactor)
+                                             components, prefactor,
+                                             mesh=self.mesh)
+
+    def _mesh_spectrum(self, seed, smoothing_length):
+        """:meth:`_sampled_spectrum` for the mesh programs that read more
+        than a plain render: ValueError for a pallas mesh scene, whose
+        mesh renders are plain fields only (the JAX package's
+        ``_mesh_sigmas``)."""
+        if self.mesh is not None and self.sampler == "pallas":
+            raise ValueError(
+                "mesh scenes with sampler='pallas' support plain renders only "
+                "(the hardware stream is its own realization family); build "
+                "the Generator with sampler='threefry' for derived fields, "
+                "estimators and constrained renders")
+        return self._sampled_spectrum(seed, smoothing_length)
 
     def _components(self, seed, kind, count, component, prefactor,
                     smoothing_length):
@@ -470,16 +487,23 @@ class Generator(MeasurementMixin, ConstrainedMixin):
         ``order=1``: Zel'dovich, psi_k = i k delta_k / k^2.  ``order=2``:
         adds the 2LPT correction of the same realization
         (:func:`..ops.derived.delta_to_displacement_2lpt` of its unweighted
-        field).  ``component`` 0/1/2 returns one (nx, ny, nz) component;
-        None stacks all three.
+        field; on a mesh :func:`..parallel.render.displacement_2lpt` of its
+        sampled spectrum, the JAX package's mesh program, equal to it up to
+        the transforms' rounding).  ``component`` 0/1/2 returns one (nx, ny,
+        nz) component; None stacks all three.
         """
         if order not in (1, 2):
             raise ValueError(f"order must be 1 or 2, got {order!r}")
         psi = self._components(seed, "grad", 3, component, 1.0,
                                smoothing_length)
+        if order == 2 and self.mesh is not None:
+            comps = (0, 1, 2) if component is None else (int(component),)
+            re, im = self._mesh_spectrum(seed, smoothing_length)
+            psi2 = _render.displacement_2lpt(re, im, self.shape,
+                                             self.grid_spacing, self.mesh,
+                                             comps)
+            return psi + (torch.stack(psi2) if component is None else psi2[0])
         if order == 2:
-            if self.mesh is not None:
-                raise _not_ported("derived fields on a mesh")
             delta = self.generate_delta_field(
                 seed, smoothing_length=smoothing_length, apply_lightcone=False)
             psi2 = _derived.delta_to_displacement_2lpt(delta,

@@ -17,7 +17,12 @@ no lightcone weights: K2F, K3, K3, K4 for the default sampler); the
 potential flavor adds :func:`..ops.transform.rfftn` (K6, forward K3 twice)
 and :func:`..ops.transform.irfftn_reim` (K3, K3, K4) twice each, the JAX
 package's ``norm='forward'`` r2c being the port's unnormalized one over N.
-f_NL = 0 returns the Gaussian render bit for bit (g + 0 x, x finite).  The
+f_NL = 0 returns the Gaussian render bit for bit (g + 0 x, x finite).  On a
+slab mesh the Gaussian render is the rank's x slab and the quadratic part
+is the whole field's, as the JAX package computes it on its sharded array:
+<g^2> summed in float64 on each rank and all-reduced, the potential's
+transforms the distributed ones (:mod:`..parallel.dfft`) with alpha on the
+rank's ky rows.  The
 prediction evaluates the estimator's shell identity sum_x F_i F_j F_l =
 N sum_{closed triads} f(k1) f(k2) f(k3) with weighted shells through the
 same bins and triad geometry as
@@ -34,7 +39,7 @@ from randomfield_tpu_torch.models import cosmology as _cosmo
 from randomfield_tpu_torch.ops import derived as _derived
 from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import power as _power
-from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.validate import bispectrum as _bisp
 
 __all__ = ["generate_local_ng_field", "predicted_ng_bispectrum"]
@@ -47,12 +52,14 @@ def _check_kind(kind):
         raise ValueError(f"kind must be 'field' or 'potential', got {kind!r}")
 
 
-def _alpha_grid(shape, spacing, cosmology, dtype=torch.float32, device="cpu"):
+def _alpha_grid(shape, spacing, cosmology, dtype=torch.float32, device="cpu",
+                y_off=0, ny_loc=None):
     """delta_k / Phi_k at z = 0 with the Bardeen (CMB) sign, 0 at DC: the
     negative of the Newtonian Poisson kernel of :mod:`..ops.derived`, so
-    f_NL > 0 gives a positive squeezed bispectrum."""
+    f_NL > 0 gives a positive squeezed bispectrum.  On the ky rows [y_off,
+    y_off + ny_loc), all by default."""
     c = _cosmo.create_cosmology(cosmology)
-    k2 = _grid.ksq(shape, spacing, dtype, device)
+    k2 = _grid.ksq(shape, spacing, dtype, device, y_off=y_off, ny_loc=ny_loc)
     return (k2 * _derived.D_H_MPC_H ** 2) / (1.5 * c.Om0)
 
 
@@ -61,37 +68,42 @@ def _inverse_alpha(alpha):
                        0.0)
 
 
-def _mean(x):
-    """float32 mean of a field, summed in float64 x-slab by x-slab."""
+def _mean(x, shape, mesh=None):
+    """float32 mean of a field (on a mesh, of the whole field from this
+    rank's x slab), summed in float64 x-slab by x-slab (and over the
+    ranks)."""
     total = torch.zeros((), dtype=torch.float64, device=x.device)
     for chunk in x.split(16):
         total += chunk.sum(dtype=torch.float64)
-    return float(np.float32(float(total) / x.numel()))
+    if mesh is not None:
+        mesh.all_reduce_sum(total)
+    return float(np.float32(float(total) / (shape[0] * shape[1] * shape[2])))
 
 
-def _quadratic_ng(g, fnl, shape, spacing, kind, alpha):
-    """delta_NG from the Gaussian render g (float32 f_NL ``fnl``)."""
+def _quadratic_ng(g, fnl, shape, spacing, kind, alpha, mesh=None):
+    """delta_NG from the Gaussian render g (float32 f_NL ``fnl``); on a
+    mesh g is this rank's x slab and ``alpha`` its ky slab."""
     if kind == "field":
         q = g * g
-        return g + fnl * (q - _mean(q))
+        return g + fnl * (q - _mean(q, shape, mesh))
     n = shape[0] * shape[1] * shape[2]
     inv_n = float(np.float32(1.0 / n))
-    re, im = _transform.rfftn(g)
+    re, im = _dfft.forward(g, mesh)
     scale = _inverse_alpha(alpha).mul_(inv_n)
     re.mul_(scale)
     im.mul_(scale)
     del scale
-    phi = _transform.irfftn_reim(re, im, shape)
+    phi = _dfft.inverse(re, im, shape, mesh)
     q = phi * phi
     del phi
-    q -= _mean(q)
-    re, im = _transform.rfftn(q)
+    q -= _mean(q, shape, mesh)
+    re, im = _dfft.forward(q, mesh)
     del q
     scale = alpha * inv_n
     re.mul_(scale)
     im.mul_(scale)
     del scale
-    dq = _transform.irfftn_reim(re, im, shape)
+    dq = _dfft.inverse(re, im, shape, mesh)
     return g + fnl * dq
 
 
@@ -101,18 +113,22 @@ def generate_local_ng_field(generator, seed, fnl, kind="field",
 
     The Gaussian part is the scene's realization of ``seed`` with no
     lightcone weights (f_NL = 0 returns it bit for bit), the quadratic part
-    added on its device (module docstring for ``kind``).  Validate with
+    added on its device (module docstring for ``kind``); a mesh scene
+    returns this rank's x slab of the whole field's result.  Validate with
     ``calculate_bispectrum`` against :func:`predicted_ng_bispectrum`.
     """
     _check_kind(kind)
     g = generator.generate_delta_field(seed, smoothing_length=smoothing_length,
                                        apply_lightcone=False)
-    shape = tuple(int(s) for s in g.shape[-3:])
+    shape = tuple(int(s) for s in generator.shape)
     spacing = float(generator.grid_spacing)
+    mesh = getattr(generator, "mesh", None)
+    y_off, ny_loc = (0, shape[1]) if mesh is None else mesh.rows(shape[1])
     alpha = (_alpha_grid(shape, spacing, generator.cosmology, g.dtype,
-                         g.device) if kind == "potential" else None)
+                         g.device, y_off, ny_loc)
+             if kind == "potential" else None)
     return _quadratic_ng(g, float(np.float32(fnl)), shape, spacing, kind,
-                         alpha)
+                         alpha, mesh)
 
 
 def _weighted_triple_sums(wa, wb, shape, spacing, edges, triples):

@@ -59,9 +59,10 @@ _SIGNATURES = {
     "rf_c2r_tail_attributes": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "rf_sample_modes": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                         _F, _F, _F, _F, _F, _F, _F, _P],
-    "rf_sample_nested": [_P, _P, _P, _I, _I, _I, _I, _U32, _U32,
+    "rf_sample_nested": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32,
                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
-    "rf_spectral_kernel": [_P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _I, _I,
+    "rf_spectral_kernel": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _I, _I,
+                           _I, _I,
                            _F, _F, _F, _F, _P],
     "rf_sample_fftx": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _U32, _U32, _F, _F, _F, _F, _F, _F, _F, _P],

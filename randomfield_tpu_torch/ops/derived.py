@@ -135,14 +135,20 @@ def _prefactors(kind, prefactor):
 
 
 def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
-                       prefactor=1.0, grad_diag=False, los_axis=2):
+                       prefactor=1.0, grad_diag=False, los_axis=2, y_off=0):
     """:func:`apply_kernel` in plain PyTorch, IN PLACE, x-slab by x-slab:
-    the float32 operations of ``csrc/spectral_kernel.cu`` in its order.
-    Returns (re, im)."""
+    the float32 operations of ``csrc/spectral_kernel.cu`` in its order, on
+    the ky rows [y_off, y_off + re.shape[1]).  Returns (re, im)."""
     _check(kind, component)
     dev = re.device
-    full = _grid.kvectors(shape, spacing, torch.float32, dev)
-    zeroed = grad_kvectors(shape, spacing, torch.float32, dev)
+    rows = slice(int(y_off), int(y_off) + re.shape[1])
+
+    def block(vectors):
+        kx, ky, kz = vectors
+        return kx, ky[rows], kz
+
+    full = block(_grid.kvectors(shape, spacing, torch.float32, dev))
+    zeroed = block(grad_kvectors(shape, spacing, torch.float32, dev))
     a, b = _axes(kind, component, los_axis)
     p0, p1, p2, p3 = _prefactors(kind, prefactor)
     bcast = ((slice(None), None, None), (None, slice(None), None),
@@ -151,15 +157,15 @@ def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
     ky2 = (full[1] * full[1])[None, :, None]
     kz2 = (full[2] * full[2])[None, None, :]
     for x0 in range(0, re.shape[0], _X_CHUNK):
-        rows = slice(x0, x0 + _X_CHUNK)
+        xs = slice(x0, x0 + _X_CHUNK)
 
         def vec(axis, vectors):
             v = vectors[axis]
-            return v[rows][:, None, None] if axis == 0 else v[bcast[axis]]
+            return v[xs][:, None, None] if axis == 0 else v[bcast[axis]]
 
-        k2 = (kx2[rows][:, None, None] + ky2) + kz2
+        k2 = (kx2[xs][:, None, None] + ky2) + kz2
         inv = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
-        r, i = re[rows], im[rows]
+        r, i = re[xs], im[xs]
         if kind in ("grad", "deriv"):
             g = p0 * vec(a, zeroed)
             if kind == "grad":
@@ -193,11 +199,13 @@ def apply_kernel_plain(re, im, shape, spacing, kind, component=0,
 
 
 def apply_kernel(re, im, shape, spacing, kind, component=0, prefactor=1.0,
-                 grad_diag=False, los_axis=2):
+                 grad_diag=False, los_axis=2, y_off=0):
     """KD: a derived field's spectral kernel on a packed spectrum, IN PLACE.
 
-    ``re``/``im``: float32 (nx, ny, nz//2+1) 'xyz' lattices of an ``shape``
-    scene.  ``kind`` (with ``component``): 'scalar', c -> prefactor c / k^2;
+    ``re``/``im``: float32 (nx, ny_loc, nz//2+1) 'xyz' lattices, the ky
+    rows [y_off, y_off + ny_loc) of an ``shape`` scene (the whole spectrum
+    by default; a slab mesh's shard, each mode the whole-grid result bit
+    for bit).  ``kind`` (with ``component``): 'scalar', c -> prefactor c / k^2;
     'grad' (axis), c -> i prefactor k_a c / k^2; 'tidal' (an index of
     :data:`TIDAL_PAIRS`), c -> prefactor k_a k_b c / k^2; 'kaiser' (the
     line-of-sight axis, ``prefactor`` = (b, f)), c -> (b + f k_a^2 / k^2) c;
@@ -213,16 +221,20 @@ def apply_kernel(re, im, shape, spacing, kind, component=0, prefactor=1.0,
     global KD_LAUNCHES
     _check(kind, component)
     nx, ny, nz = shape
-    want = (nx, ny, nz // 2 + 1)
+    y_off = int(y_off)
+    ny_loc = re.shape[1] if re.ndim == 3 else -1
+    want = (nx, ny_loc, nz // 2 + 1)
     if (tuple(re.shape) != want or tuple(im.shape) != want
+            or not 0 <= y_off <= ny - ny_loc
             or re.dtype != torch.float32 or im.dtype != torch.float32
             or re.device != im.device):
-        raise ValueError(f"re/im must be float32 {want} lattices on one "
-                         f"device, got {tuple(re.shape)} {re.dtype} and "
-                         f"{tuple(im.shape)} {im.dtype}")
+        raise ValueError(f"re/im must be float32 (nx, ny_loc, nzh) lattices "
+                         f"of ky rows [y_off, y_off + ny_loc) of {shape} on "
+                         f"one device, got {tuple(re.shape)} {re.dtype} and "
+                         f"{tuple(im.shape)} {im.dtype} at y_off {y_off}")
     if re.device.type == "cpu":
         return apply_kernel_plain(re, im, shape, spacing, kind, component,
-                                  prefactor, grad_diag, los_axis)
+                                  prefactor, grad_diag, los_axis, y_off)
     if re.device.type != "cuda":
         raise ValueError(f"apply_kernel runs on cpu or cuda, not {re.device}")
     if not (re.is_contiguous() and im.is_contiguous()):
@@ -230,7 +242,8 @@ def apply_kernel(re, im, shape, spacing, kind, component=0, prefactor=1.0,
     a, b = _axes(kind, component, los_axis)
     vals = [1.0 / (n * float(spacing)) for n in shape]
     status = _build.library().rf_spectral_kernel(
-        re.data_ptr(), im.data_ptr(), nx, ny, nz, *vals, KINDS[kind], a, b,
+        re.data_ptr(), im.data_ptr(), nx, ny, nz, y_off, ny_loc, *vals,
+        KINDS[kind], a, b,
         int(bool(grad_diag)), *_prefactors(kind, prefactor),
         _build.current_stream(re))
     _build.check(status, "apply_kernel")
@@ -264,18 +277,25 @@ def _spectrum(delta):
 
 
 def fields_from_spectrum(re, im, shape, spacing, kind, comps, prefactor,
-                         grad_diag=False):
+                         grad_diag=False, mesh=None):
     """One field per component of ``kind``: KD (:func:`apply_kernel`) on a
     copy of the (re, im) spectrum for each component but the last, which
     consumes the spectrum itself, then K3, K3 and K4 with unit weights
     (:func:`.transform.irfftn_reim`).  Returns a list of float32 (nx, ny,
-    nz) fields."""
+    nz) fields.  On a slab ``mesh`` (the JAX package's
+    ``make_sharded_derived``) the spectrum is this rank's ky slab, KD runs
+    at its ky offset and the distributed inverse returns the rank's (nx/P,
+    ny, nz) x slabs."""
+    from randomfield_tpu_torch.parallel import dfft as _dfft
+
+    y_off = 0 if mesh is None else mesh.rows(shape[1])[0]
     out = []
     for n, comp in enumerate(comps):
         last = n == len(comps) - 1
         r, i = (re, im) if last else (re.clone(), im.clone())
-        apply_kernel(r, i, shape, spacing, kind, comp, prefactor, grad_diag)
-        out.append(_transform.irfftn_reim(r, i, shape))
+        apply_kernel(r, i, shape, spacing, kind, comp, prefactor, grad_diag,
+                     y_off=y_off)
+        out.append(_dfft.inverse(r, i, shape, mesh))
     return out
 
 

@@ -151,24 +151,28 @@ def table_arrays_host(power, interpolation, dtype=np.float32):
 
 
 def tabulate_sigmas(shape, spacing, power, interpolation="log10k",
-                    device="cpu") -> torch.Tensor:
+                    device="cpu", y_off=0, ny_loc=None) -> torch.Tensor:
     """Per-mode sigma(k) = sqrt(P(|k|)/V) over the packed half-spectrum.
 
     The table's own interpolant evaluated in float64 on ``device``, x-slab
     by x-slab (numpy's ``interp`` arithmetic), returned as a float32 (nx,
-    ny, nz//2+1) tensor with sigma(0) = 0.  The grid the constrained
-    renders read; the other renders use the uniform table.
+    ny_loc, nz//2+1) tensor of the ky rows [y_off, y_off + ny_loc) (all by
+    default: a slab mesh's shard is those rows of the whole grid, value for
+    value) with sigma(0) = 0.  The grid the constrained renders read; the
+    other renders use the uniform table.
     """
     power = validate_power(power)
     require_coverage(power, shape, spacing)
     nx, ny, nz = shape
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
     volume = nx * ny * nz * float(spacing) ** 3
     kx, ky, kz = _grid.kvectors(shape, spacing, torch.float64, device)
+    ky = ky[y_off:y_off + ny_loc]
     lk_tab, val_tab, log_values = table_arrays_host(power, interpolation,
                                                     np.float64)
     lk_tab = torch.as_tensor(lk_tab, device=device)
     val_tab = torch.as_tensor(val_tab, device=device)
-    out = torch.empty((nx, ny, nz // 2 + 1), dtype=torch.float32,
+    out = torch.empty((nx, ny_loc, nz // 2 + 1), dtype=torch.float32,
                       device=device)
     for x0 in range(0, nx, _SIGMA_X_CHUNK):
         x1 = min(nx, x0 + _SIGMA_X_CHUNK)

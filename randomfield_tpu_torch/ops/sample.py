@@ -148,9 +148,11 @@ def _code_fields(idx, n):
     return torch.where(idx < (n + 1) // 2, idx, idx - n) & 1023
 
 
-def lattice_codes(shape, device="cpu", x_off=0, nx_loc=None):
+def lattice_codes(shape, device="cpu", x_off=0, nx_loc=None, y_off=0,
+                  ny_loc=None):
     """The 30-bit code of every packed mode of x rows [x_off, x_off + nx_loc)
-    (all by default): int64 (nx_loc, ny, nz//2+1) tensors of
+    and ky rows [y_off, y_off + ny_loc) (all by default): int64 (nx_loc,
+    ny_loc, nz//2+1) tensors of
     ``(sx & 1023) << 20 | (sy & 1023) << 10 | kz``, the signed integer
     lattice indices (the wavenumbers in units of each axis' fundamental), so
     grids of different size over one box give every shared mode one code.
@@ -158,8 +160,9 @@ def lattice_codes(shape, device="cpu", x_off=0, nx_loc=None):
     nx, ny, nz = shape
     _check_nested(shape)
     nx_loc = nx - x_off if nx_loc is None else nx_loc
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
     ix = torch.arange(x_off, x_off + nx_loc, dtype=torch.int64, device=device)
-    iy = torch.arange(ny, dtype=torch.int64, device=device)
+    iy = torch.arange(y_off, y_off + ny_loc, dtype=torch.int64, device=device)
     iz = torch.arange(nz // 2 + 1, dtype=torch.int64, device=device)
     return ((_code_fields(ix, nx) << 20)[:, None, None]
             | (_code_fields(iy, ny) << 10)[None, :, None] | iz[None, None, :])
@@ -184,20 +187,22 @@ def _box_muller(b1, b2):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def _nested_chunks(key, shape, device, fix):
-    """(re, im) float32 (nx, ny, nzh) of the nested stream, drawn x-slab by
-    x-slab; with ``fix`` the kz = 0 / Nyquist planes are made Hermitian as
-    the kernel makes them: a mode that is not canonical draws its partner's
+def _nested_chunks(key, shape, device, fix, y_off=0, ny_loc=None):
+    """(re, im) float32 (nx, ny_loc, nzh) of the nested stream on the ky
+    rows [y_off, y_off + ny_loc) (all by default), drawn x-slab by x-slab;
+    with ``fix`` the kz = 0 / Nyquist planes are made Hermitian as the
+    kernel makes them: a mode that is not canonical draws its partner's
     code, im negated; a self-conjugate mode keeps re sqrt(2), im = 0."""
     nx, ny, nz = shape
     nzh = nz // 2 + 1
-    re = torch.empty((nx, ny, nzh), dtype=torch.float32, device=device)
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
+    re = torch.empty((nx, ny_loc, nzh), dtype=torch.float32, device=device)
     im = torch.empty_like(re)
     planes = _grid.self_conjugate_kz_planes(nz) if fix else ()
-    ys = torch.arange(ny, dtype=torch.int64, device=device)
+    ys = torch.arange(y_off, y_off + ny_loc, dtype=torch.int64, device=device)
     for x0 in range(0, nx, _X_CHUNK):
         n = min(_X_CHUNK, nx - x0)
-        codes = lattice_codes(shape, device, x0, n)
+        codes = lattice_codes(shape, device, x0, n, y_off, ny_loc)
         xs = torch.arange(x0, x0 + n, dtype=torch.int64, device=device)
         px = torch.where(xs == 0, 0, nx - xs)[:, None]
         py = torch.where(ys == 0, 0, ny - ys)[None, :]
@@ -216,32 +221,47 @@ def _nested_chunks(key, shape, device, fix):
     return re, im
 
 
-def nested_unit_draws(key, shape, device="cpu"):
+def nested_unit_draws(key, shape, device="cpu", y_off=0, ny_loc=None):
     """The nested stream's raw unit normals, float32 (nx, ny, nz//2+1) re
     and im: the state before the Hermitian fix and the scale, the contract
     of ``generate_noise`` for a nested scene (``generate_from_noise`` of
     them reproduces the nested render).  ``key``: a Threefry key pair
-    (:func:`threefry.key_from_seed`), used raw, with no fold."""
+    (:func:`threefry.key_from_seed`), used raw, with no fold; ky rows
+    [y_off, y_off + ny_loc), all by default."""
     _check_nested(shape)
-    return _nested_chunks(key, shape, device, fix=False)
+    return _nested_chunks(key, shape, device, False, y_off, ny_loc)
 
 
-def nested_hermitian_draws(key, shape, device="cpu"):
+def nested_hermitian_draws(key, shape, device="cpu", y_off=0, ny_loc=None):
     """:func:`nested_unit_draws` with the kz = 0 / Nyquist planes made
     Hermitian, each non-canonical mode at its partner's code: equal to
     :func:`.transform.symmetrize_with_shape_reim` of the raw draws bit for
-    bit, and what the kernel draws before its scale."""
+    bit, and what the kernel draws before its scale (ky rows [y_off, y_off
+    + ny_loc), all by default)."""
     _check_nested(shape)
-    return _nested_chunks(key, shape, device, fix=True)
+    return _nested_chunks(key, shape, device, True, y_off, ny_loc)
 
 
-def _hermitian_draws(key, shape, device, nested):
+def _hermitian_draws(key, shape, device, nested, y_off=0, ny_loc=None):
     """The unit draws of the canonical or the nested stream with the kz = 0
-    / Nyquist planes made Hermitian (a self-conjugate mode re sqrt(2))."""
+    / Nyquist planes made Hermitian (a self-conjugate mode re sqrt(2)), on
+    the ky rows [y_off, y_off + ny_loc) (all by default).  A canonical
+    block of fewer rows than the grid's is fixed from its whole planes,
+    drawn at their own counters, so it needs no mesh."""
+    nx, ny, nz = shape
+    ny_loc = ny - y_off if ny_loc is None else ny_loc
     if nested:
-        return nested_hermitian_draws(key, shape, device)
-    re, im = unit_draws_reim(key, shape, device)
-    return _transform.symmetrize_with_shape_reim(re, im, shape[2])
+        return nested_hermitian_draws(key, shape, device, y_off, ny_loc)
+    re, im = unit_draws_reim(key, shape, device, y_off, ny_loc)
+    if ny_loc == ny:
+        return _transform.symmetrize_with_shape_reim(re, im, nz)
+    rows = slice(y_off, y_off + ny_loc)
+    for p in _grid.self_conjugate_kz_planes(nz):
+        fre, fim = _transform.symmetrize_plane_reim(
+            *plane_draws_reim(key, shape, p, device))
+        re[..., p] = fre[:, rows]
+        im[..., p] = fim[:, rows]
+    return re, im
 
 
 def sample_unit_hermitian(key, shape, device="cpu", nested=False):
@@ -263,17 +283,21 @@ def sample_unit_hermitian_nested(key, shape, device="cpu"):
     return sample_unit_hermitian(key, shape, device, nested=True)
 
 
-def sample_spectrum_nested(key, table, shape, spacing, smoothing_length=0.0):
+def sample_spectrum_nested(key, table, shape, spacing, smoothing_length=0.0,
+                           y_off=0, ny_loc=None):
     """The nested spectrum (re, im): :func:`nested_hermitian_draws` times
     K2's amplitude with the draws' 1/sqrt(2) as its gain
     (``sampler.scale_sigma_plain``), the kernel's order of float32
     operations.  ``table``: the scene's ``sampler.SigmaTable``, whose
-    device the draws are made on."""
+    device the draws are made on; ky rows [y_off, y_off + ny_loc), all by
+    default."""
     from randomfield_tpu_torch.ops import sampler as _sampler
 
-    re, im = nested_hermitian_draws(key, shape, table.knots.device)
+    re, im = nested_hermitian_draws(key, shape, table.knots.device, y_off,
+                                    ny_loc)
     return _sampler.scale_sigma_plain(re, im, table, shape, spacing,
-                                      smoothing_length, gain=_INV_SQRT2)
+                                      smoothing_length, y_off=y_off,
+                                      gain=_INV_SQRT2)
 
 
 def unit_phase(re, im):
@@ -291,18 +315,19 @@ def unit_phase(re, im):
 
 
 def sample_fixed_spectrum(key, table, shape, spacing, smoothing_length=0.0,
-                          flip=False, nested=False):
+                          flip=False, nested=False, y_off=0, ny_loc=None):
     """A 'fixed' spectrum (re, im) (Angulo & Pontzen 2016): |c_k| =
     sigma(k) times the filter EXACTLY, the phase of the seed's Hermitian
     draw kept.  The draw after the plane fix -> :func:`unit_phase` (a
     self-conjugate mode becomes its sign) -> K2's amplitude with gain 1,
     or -1 with ``flip`` (the paired realization, every phase shifted by
     pi: the exact negation).  The canonical stream, or with ``nested`` the
-    nested one."""
+    nested one; ky rows [y_off, y_off + ny_loc), all by default."""
     from randomfield_tpu_torch.ops import sampler as _sampler
 
-    re, im = _hermitian_draws(key, shape, table.knots.device, nested)
+    re, im = _hermitian_draws(key, shape, table.knots.device, nested, y_off,
+                              ny_loc)
     unit_phase(re, im)
     return _sampler.scale_sigma_plain(re, im, table, shape, spacing,
-                                      smoothing_length,
+                                      smoothing_length, y_off=y_off,
                                       gain=-1.0 if flip else 1.0)

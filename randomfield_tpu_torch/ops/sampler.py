@@ -489,22 +489,25 @@ def draw_scale(seed, table, shape, spacing, smoothing_length=0.0, x_off=0,
 
 
 def draw_fixed_plain(seed, table, shape, spacing, smoothing_length=0.0,
-                     flip=False):
+                     flip=False, y_off=0, ny_loc=None):
     """:func:`draw_fixed` in plain PyTorch on the table's device: the
-    canonical unit draws -> the Hermitian fix -> z / |z| -> K2's amplitude
-    with gain 1, or -1 with ``flip`` (:func:`.sample.sample_fixed_spectrum`).
-    Returns float32 (2, nx, ny, nzh)."""
+    canonical unit draws -> the Hermitian fix (a block of ky rows from its
+    whole planes) -> z / |z| -> K2's amplitude with gain 1, or -1 with
+    ``flip`` (:func:`.sample.sample_fixed_spectrum`).  Returns float32 (2,
+    nx, ny_loc, nzh) for the ky rows [y_off, y_off + ny_loc)."""
     return torch.stack(_canon.sample_fixed_spectrum(
         _threefry.as_key(seed), table, shape, spacing,
-        smoothing_length, flip))
+        smoothing_length, flip, y_off=y_off, ny_loc=ny_loc))
 
 
 def draw_fixed(seed, table, shape, spacing, smoothing_length=0.0,
-               flip=False):
+               flip=False, y_off=0, ny_loc=None):
     """K2F's fixed mode: the seed's 'fixed' spectrum (Angulo & Pontzen
     2016), ``sampler='threefry'``'s stream.
 
-    Returns float32 (2, nx, ny, nz//2+1), re and im, on the table's device:
+    Returns float32 (2, nx, ny_loc, nz//2+1), re and im, on the table's
+    device for the ky rows [y_off, y_off + ny_loc) (the whole grid by
+    default; a slab mesh's shard, drawn with no exchange as K7 draws it):
     :func:`draw_scale`'s draws after the Hermitian fix, each mode replaced by
     z / |z| (1 where |z| = 0; a self-conjugate mode by its sign), times
     sigma(|k|) * exp(-k^2 s^2 / 2), so |c| is exactly the target amplitude;
@@ -515,7 +518,7 @@ def draw_fixed(seed, table, shape, spacing, smoothing_length=0.0,
     """
     global K2FX_LAUNCHES
     out, launched = _draw(seed, table, shape, spacing, smoothing_length, 0,
-                          0, None, None, _FIXED, "draw_fixed",
+                          y_off, None, ny_loc, _FIXED, "draw_fixed",
                           gain=-1.0 if flip else 1.0)
     K2FX_LAUNCHES += launched
     return out
@@ -625,14 +628,15 @@ def _draw(seed, table, shape, spacing, smoothing_length, x_off, y_off,
     """The fused kernel's body: (output, launches) with the plain version
     on the CPU (0 launches) or one launch of ``mode`` on CUDA; ``gain`` is
     folded into the amplitude (the spectrum's 1/sqrt(2), the fixed field's
-    1 or -1; the fixed mode takes the whole grid)."""
+    1 or -1; the fixed mode takes every x row)."""
     dev = _check_table(table, name)
     nx, ny, nz = shape
     nx_loc, ny_loc = _block_rows(shape, x_off, y_off, nx_loc, ny_loc)
     if dev.type == "cpu":
         if mode == _FIXED:
             return draw_fixed_plain(seed, table, shape, spacing,
-                                    smoothing_length, gain < 0), 0
+                                    smoothing_length, gain < 0, y_off,
+                                    ny_loc), 0
         if mode == _BITS:
             bits = _canon.canonical_bits_reim(_threefry.as_key(seed),
                                                shape, dev, y_off, ny_loc)
@@ -927,31 +931,38 @@ def _sample(seed, table, shape, spacing, smoothing_length, y_off, ny_loc,
 
 
 def sample_nested_plain(seed, table, shape, spacing, smoothing_length=0.0,
-                        mode="spectrum", flip=False):
+                        mode="spectrum", flip=False, y_off=0, ny_loc=None):
     """:func:`sample_nested` in plain PyTorch on the table's device
-    (:mod:`.sample`'s nested stream, x-slab by x-slab): float32 (2, nx, ny,
-    nzh), or for ``mode='bits'`` int64 uint32 words."""
+    (:mod:`.sample`'s nested stream, x-slab by x-slab): float32 (2, nx,
+    ny_loc, nzh), or for ``mode='bits'`` int64 uint32 words, of the ky rows
+    [y_off, y_off + ny_loc) (all by default)."""
     key = _threefry.as_key(seed)
     dev = table.knots.device
+    rows = dict(y_off=y_off, ny_loc=ny_loc)
     if mode == "spectrum":
         out = _canon.sample_spectrum_nested(key, table, shape, spacing,
-                                            smoothing_length)
+                                            smoothing_length, **rows)
     elif mode == "unit":
-        out = _canon.nested_unit_draws(key, shape, dev)
+        out = _canon.nested_unit_draws(key, shape, dev, **rows)
     elif mode == "fixed":
         out = _canon.sample_fixed_spectrum(key, table, shape, spacing,
                                            smoothing_length, flip,
-                                           nested=True)
+                                           nested=True, **rows)
     else:
-        out = _canon.nested_bits(key, _canon.lattice_codes(shape, dev))
+        out = _canon.nested_bits(key, _canon.lattice_codes(shape, dev,
+                                                           **rows))
     return torch.stack(out)
 
 
 def sample_nested(seed, table, shape, spacing, smoothing_length=0.0,
-                  mode="spectrum", flip=False):
+                  mode="spectrum", flip=False, y_off=0, ny_loc=None):
     """KN: the ``sampler='nested'`` draws of ``seed`` in one pass.
 
-    Returns float32 (2, nx, ny, nz//2+1), re and im, on the table's device.
+    Returns float32 (2, nx, ny_loc, nz//2+1), re and im, on the table's
+    device, for the ky rows [y_off, y_off + ny_loc) (the whole grid by
+    default; a slab mesh's shard, whose union over the shards is the
+    whole-grid result bit for bit with no exchange).
+
     Each mode's Threefry-2x32 words are the hash of (its lattice code, 0)
     under ``key_from_seed(seed)`` (:func:`.sample.lattice_codes`), its unit
     normals their Box-Muller pair (:func:`.sample.nested_unit_draws`).
@@ -973,11 +984,12 @@ def sample_nested(seed, table, shape, spacing, smoothing_length=0.0,
         raise ValueError(f"nested sampling packs signed indices into 10 bits "
                          f"per axis: max dim is {_canon.NESTED_MAX_DIM}, got "
                          f"{tuple(shape)}")
+    nx, ny, nz = shape
+    _, ny_loc = _block_rows(shape, 0, y_off, None, ny_loc)
     if dev.type == "cpu":
         return sample_nested_plain(seed, table, shape, spacing,
-                                   smoothing_length, mode, flip)
-    nx, ny, nz = shape
-    out = torch.empty((2, nx, ny, nz // 2 + 1),
+                                   smoothing_length, mode, flip, y_off, ny_loc)
+    out = torch.empty((2, nx, ny_loc, nz // 2 + 1),
                       dtype=torch.int32 if mode == "bits" else torch.float32,
                       device=dev)
     gain = {"spectrum": float(_INV_SQRT2), "fixed": -1.0 if flip else 1.0}
@@ -985,7 +997,8 @@ def sample_nested(seed, table, shape, spacing, smoothing_length=0.0,
     k0, k1 = _threefry.as_key(seed)
     status = _build.library().rf_sample_nested(
         out[0].data_ptr(), out[1].data_ptr(), table.knots.data_ptr(),
-        table.knots.numel(), nx, ny, nz, k0, k1, float(c["kx_scale"]),
+        table.knots.numel(), nx, ny, nz, int(y_off), ny_loc, k0, k1,
+        float(c["kx_scale"]),
         float(c["ky_scale"]), float(c["kz_scale"]), float(_HALF_INV_LN10),
         float(c["lk0"]), float(c["inv_dlk"]),
         float(np.float32(smoothing_length)), gain.get(mode, 1.0),

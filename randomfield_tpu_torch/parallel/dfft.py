@@ -16,15 +16,20 @@ The TPU schedule keeps its kernel's lane-major digit order through the
 all-to-all and pins transposes with ``optimization_barrier``; the port's
 K3 transforms the middle axis of any view in natural order, so neither
 exists here.  Each step is a function of its own, so a caller can time
-them one by one.
+them one by one.  :func:`forward` and :func:`inverse` take a field or a
+spectrum on one device (mesh None) or on a slab mesh, for the callers that
+run on either.
 """
 
 from __future__ import annotations
 
+import torch
+
 from randomfield_tpu_torch.ops import fft as _fft
 from randomfield_tpu_torch.parallel.mesh import check_divisible
 
-__all__ = ["irfftn_slab_reim", "rfftn_slab", "to_x_slabs", "to_ky_slabs"]
+__all__ = ["irfftn_slab_reim", "rfftn_slab", "to_x_slabs", "to_ky_slabs",
+           "forward", "inverse"]
 
 
 def _check_spectrum(re, im, shape, mesh):
@@ -100,3 +105,29 @@ def rfftn_slab(x, shape, mesh):
     im = to_ky_slabs(im, shape, mesh)
     _fft.fft_axis(re, im, 1, nx, (ny // mesh.size) * nzh)
     return re, im
+
+
+def forward(x, mesh=None):
+    """The unnormalized packed spectrum (re, im) of a real field: one
+    device's :func:`..ops.transform.rfftn` of the whole field, or on a
+    slab mesh :func:`rfftn_slab` of this rank's x slab (its ky slab of the
+    whole field's spectrum)."""
+    if mesh is None:
+        from randomfield_tpu_torch.ops import transform as _transform
+
+        return _transform.rfftn(x)
+    nx, ny, nz = (int(n) for n in x.shape[-3:])
+    return rfftn_slab(x, (nx * mesh.size, ny, nz), mesh)
+
+
+def inverse(re, im, shape, mesh=None):
+    """The Hermitian c2r of a packed spectrum (``norm='forward'``, unit
+    weights): one device's :func:`..ops.transform.irfftn_reim`, or on a
+    slab mesh :func:`irfftn_slab_reim` of this rank's ky slab (its x slab
+    of the field).  ``re``/``im`` are consumed."""
+    if mesh is None:
+        from randomfield_tpu_torch.ops import transform as _transform
+
+        return _transform.irfftn_reim(re, im, shape)
+    ones = torch.ones(shape[2], dtype=torch.float32, device=re.device)
+    return irfftn_slab_reim(re, im, shape, mesh, ones)

@@ -21,8 +21,15 @@ nbins shells, one product, the field and, while the shells are made, the
 spectrum and |k|: about 52 GB at 1024^3 with nbins = 8.  Each triple sum is
 taken in float64, x-slab by x-slab.  The geometry denominator (unit shells)
 is cached per (shape, spacing, edges, triples), as ``lru_cache`` does in
-the JAX package.  The mesh variants are not ported: ``mesh=`` raises
-NotImplementedError (ROADMAP.md, Queue 1 item 8).
+the JAX package.
+
+With a slab ``mesh=`` (the JAX package's ``_make_mesh_triple_sums``) the
+field is this rank's (nx/P, ny, nz) x slab: the distributed forward
+transform gives its ky rows of the spectrum, the shells are masked there
+and synthesized by the distributed inverse into x slabs, each rank sums
+its cells' triple products in float64, and one all-reduce of the sums
+gives every rank the whole field's result; the geometry denominator is
+made the same way from unit shells and cached per mesh.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from randomfield_tpu_torch.ops import grid as _grid
-from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["bispectrum_bins", "calculate_bispectrum", "reduced_bispectrum",
@@ -65,14 +72,16 @@ def bispectrum_bins(shape, spacing, nbins=8, kmin=None, kmax=None):
     return edges, np.asarray(triples, np.int32)
 
 
-def shells(re, im, shape, edges, kmag):
+def shells(re, im, shape, edges, kmag, mesh=None):
     """The |k| shells of a packed spectrum (re, im) as real fields: for bin
     b the spectrum masked to edges[b] <= |k| < edges[b + 1] (DC out)
     through :func:`..ops.transform.irfftn_reim` (a masked copy is
     consumed, the spectrum is not).  ``im=None`` takes a real weight grid
     (imaginary part 0).  The edges are compared in float32 with the
     float32 |k| ``kmag`` of :func:`..ops.grid.kmag`, as the JAX package
-    compares them.  Returns a list of float32 (nx, ny, nz) tensors."""
+    compares them.  Returns a list of float32 (nx, ny, nz) tensors; on a
+    slab ``mesh`` the arrays are this rank's ky rows and the shells its
+    (nx/P, ny, nz) x slabs, through the distributed inverse."""
     dev = re.device
     out = []
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -83,7 +92,7 @@ def shells(re, im, shape, edges, kmag):
         sim = (torch.zeros_like(sre) if im is None
                else torch.where(mask, im, zero))
         del mask
-        out.append(_transform.irfftn_reim(sre, sim, shape))
+        out.append(_dfft.inverse(sre, sim, shape, mesh))
         del sre, sim
     return out
 
@@ -100,10 +109,11 @@ def _dot64(fields):
     return total
 
 
-def triple_sums(sh, triples):
+def triple_sums(sh, triples, mesh=None):
     """sum_x d_i d_j d_l for every triple, float64 on the shells' device:
     the triples in (i, j) order, each pair product formed once and one
-    held at a time."""
+    held at a time; on a slab ``mesh`` over this rank's cells, then summed
+    over the ranks with one all-reduce.  Host float64 (T,)."""
     out = torch.zeros(len(triples), dtype=torch.float64, device=sh[0].device)
     pair, prod = None, None
     for t, (i, j, l) in enumerate(triples):
@@ -112,7 +122,7 @@ def triple_sums(sh, triples):
             prod = sh[i] * sh[j]
             pair = (i, j)
         out[t] = _dot64((prod, sh[l]))
-    return out.cpu().numpy()
+    return _stats.mesh_sum(out, mesh).cpu().numpy()
 
 
 def _ordered(triples):
@@ -122,30 +132,38 @@ def _ordered(triples):
     return [tuple(int(v) for v in row) for row in t[order]], order
 
 
-def _sorted_sums(sh, triples):
+def _sorted_sums(sh, triples, mesh=None):
     tri, order = _ordered(triples)
     sums = np.empty(len(tri))
-    sums[order] = triple_sums(sh, tri)
+    sums[order] = triple_sums(sh, tri, mesh)
     return sums
 
 
+def _kmag(shape, spacing, device, mesh):
+    """float32 |k| of the packed spectrum, or of this rank's ky rows."""
+    y_off, ny_loc = (0, shape[1]) if mesh is None else mesh.rows(shape[1])
+    return _grid.kmag(shape, spacing, torch.float32, device, y_off=y_off,
+                      ny_loc=ny_loc)
+
+
 @functools.lru_cache(maxsize=8)
-def _triangle_counts(shape, spacing, edges, triples, device):
+def _triangle_counts(shape, spacing, edges, triples, device, mesh=None):
     """The cached geometry denominator: sum_x u_i u_j u_l per triple."""
-    kmag = _grid.kmag(shape, spacing, torch.float32, device)
+    kmag = _kmag(shape, spacing, device, mesh)
     ones = torch.ones_like(kmag)
-    sh = shells(ones, None, shape, edges, kmag)
+    sh = shells(ones, None, shape, edges, kmag, mesh)
     del kmag, ones
-    return _sorted_sums(sh, triples)
+    return _sorted_sums(sh, triples, mesh)
 
 
-def triangle_counts(shape, spacing, edges, triples, device):
+def triangle_counts(shape, spacing, edges, triples, device, mesh=None):
     """sum_x u_i u_j u_l per triple (host float64), cached per (shape,
-    spacing, edges, triples, device)."""
+    spacing, edges, triples, device, mesh); on a slab ``mesh`` from this
+    rank's unit shells, summed over the ranks."""
     return _triangle_counts(tuple(int(n) for n in shape), float(spacing),
                             tuple(float(e) for e in edges),
                             tuple(map(tuple, np.asarray(triples).tolist())),
-                            str(torch.device(device)))
+                            str(torch.device(device)), mesh)
 
 
 def calculate_bispectrum(delta, spacing, nbins=8, kmin=None, kmax=None,
@@ -157,29 +175,29 @@ def calculate_bispectrum(delta, spacing, nbins=8, kmin=None, kmax=None,
     estimated B in length^6 and the (T,) number of closed Fourier triads
     per triple; triples with no closed triad are dropped.  A Gaussian
     field's expectation is 0; :func:`reduced_bispectrum` gives Q.  Runs on
-    ``delta``'s device; ``mesh`` raises NotImplementedError.
+    ``delta``'s device; with a slab ``mesh`` ``delta`` is this rank's x
+    slab and every rank gets the whole field's result.
     """
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_bispectrum", mesh)
+    mesh = _stats.slab_mesh("calculate_bispectrum", mesh)
     delta = torch.as_tensor(delta)
     if delta.dtype != torch.float32 or delta.ndim != 3:
         raise ValueError(f"delta must be one float32 (nx, ny, nz) field, got "
                          f"{delta.dtype} {tuple(delta.shape)}")
-    shape = tuple(int(n) for n in delta.shape)
+    shape = _stats.mesh_shape(delta, mesh)
     spacing = float(spacing)
     edges, triples = bispectrum_bins(shape, spacing, nbins, kmin, kmax)
     volume = shape[0] * shape[1] * shape[2] * spacing ** 3
     ncells = shape[0] * shape[1] * shape[2]
-    re, im = _transform.rfftn(delta)
+    re, im = _dfft.forward(delta, mesh)
     a3 = float(np.float32(spacing ** 3))
     re.mul_(a3)
     im.mul_(a3)
-    kmag = _grid.kmag(shape, spacing, torch.float32, delta.device)
-    sh = shells(re, im, shape, edges, kmag)
+    kmag = _kmag(shape, spacing, delta.device, mesh)
+    sh = shells(re, im, shape, edges, kmag, mesh)
     del re, im, kmag
-    num = _sorted_sums(sh, triples)
+    num = _sorted_sums(sh, triples, mesh)
     del sh
-    den = triangle_counts(shape, spacing, edges, triples, delta.device)
+    den = triangle_counts(shape, spacing, edges, triples, delta.device, mesh)
     ntri = den / ncells
     keep = ntri > 0.5  # shells with no closed triad
     with np.errstate(invalid="ignore", divide="ignore"):

@@ -21,6 +21,14 @@ bin, so no float64 atomics collide) x-slab by x-slab, the
 separations built in float64 on the device and rounded to float32 as the
 JAX package rounds them.  Functions that take a field run on its device;
 the predictions take ``device=`` ("cuda" by default).
+
+With a slab ``mesh=`` (``_make_sharded_xi`` and ``_make_mesh_xi_multipoles``
+of the JAX package) the field is this rank's (nx/P, ny, nz) x slab: the
+distributed forward transform gives its ky rows of the spectrum, squared
+in place with DC zeroed on the rank that holds it, the distributed inverse
+gives its x rows of the xi grid, which it bins at its x offset, and one
+all-reduce of the float64 sums gives every rank the whole grid's result.
+The binning stays plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from randomfield_tpu_torch.ops import binning as _binning
 from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import power as _power
 from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["calculate_correlation", "predicted_correlation",
@@ -56,22 +65,24 @@ def _min_image_axes(shape, spacing, device):
                             device=device) for n in shape]
 
 
-def _field_xi(delta, spacing):
+def _field_xi(delta, spacing, mesh=None):
     """The xi grid of a field: |c|^2 / V^2 of its spectrum (DC zeroed)
-    through the inverse transform; float32 (nx, ny, nz) on its device."""
+    through the inverse transform; float32 (nx, ny, nz) on its device (on
+    a mesh, this rank's x slab of it), and the whole grid's shape."""
     delta = torch.as_tensor(delta)
     if delta.dtype != torch.float32 or delta.ndim != 3:
         raise ValueError(f"delta must be one float32 (nx, ny, nz) field, got "
                          f"{delta.dtype} {tuple(delta.shape)}")
-    shape = tuple(int(s) for s in delta.shape)
-    re, im = _transform.rfftn(delta)
+    shape = _stats.mesh_shape(delta, mesh)
+    re, im = _dfft.forward(delta, mesh)
     a3 = float(spacing) ** 3
     volume = shape[0] * shape[1] * shape[2] * a3
     factor = float(np.float32(a3 * a3 / (volume * volume)))
     re.mul_(re).addcmul_(im, im).mul_(factor)
-    re[0, 0, 0] = 0.0
+    if _stats.ky_offset(shape, mesh) == 0:
+        re[0, 0, 0] = 0.0
     im.zero_()
-    return _transform.irfftn_reim(re, im, shape), shape
+    return _dfft.inverse(re, im, shape, mesh), shape
 
 
 def _grid_xi(pgrid, shape, spacing):
@@ -81,18 +92,23 @@ def _grid_xi(pgrid, shape, spacing):
     return _transform.irfftn_reim(re, torch.zeros_like(re), shape)
 
 
-def _xi_bins(xi, shape, spacing, nbins, ells=(0,), los_axis=2):
+def _xi_bins(xi, shape, spacing, nbins, ells=(0,), los_axis=2, mesh=None):
     """(r_mean, xi_ell (len(ells), nbins), n_cells) of a xi grid binned by
-    minimum-image |r| with (2l + 1) L_l(mu^2) weights, mu = r_los / |r|."""
+    minimum-image |r| with (2l + 1) L_l(mu^2) weights, mu = r_los / |r|; on
+    a mesh ``xi`` is this rank's x slab, binned at its x offset, and the
+    sums are all-reduced."""
     dev = xi.device
     ax = _min_image_axes(shape, spacing, dev)
+    if mesh is not None:
+        x0, nx_loc = mesh.rows(shape[0])
+        ax[0] = ax[0][x0:x0 + nx_loc]
     edges = torch.as_tensor(_r_edges(shape, spacing, nbins),
                             dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     out = torch.zeros((len(ells), 3, nbins + 1), dtype=torch.float64,
                       device=dev)
-    for x0 in range(0, shape[0], _X_CHUNK):
-        x1 = min(shape[0], x0 + _X_CHUNK)
+    for x0 in range(0, xi.shape[0], _X_CHUNK):
+        x1 = min(xi.shape[0], x0 + _X_CHUNK)
         d2 = [(ax[0][x0:x1] ** 2)[:, None, None], (ax[1] ** 2)[None, :, None],
               (ax[2] ** 2)[None, None, :]]
         r2 = d2[0] + d2[1] + d2[2]
@@ -104,7 +120,7 @@ def _xi_bins(xi, shape, spacing, nbins, ells=(0,), los_axis=2):
         for i, ell in enumerate(ells):
             val = _binning.legendre_weighted(ell, mu2, xi[x0:x1])
             _stats.masked_bins(rmag, one, val, edges, nbins, out[i])
-    a = out[:, :, :nbins].cpu().numpy()
+    a = _stats.mesh_sum(out, mesh)[:, :, :nbins].cpu().numpy()
     counts, rsum = a[0, 0], a[0, 2]
     with np.errstate(invalid="ignore", divide="ignore"):
         return rsum / counts, a[:, 1] / counts, counts
@@ -134,14 +150,14 @@ def calculate_correlation(delta, spacing, nbins=24, mesh=None):
     Returns host float64 ``(r_mean, xi_hat, n_cells)``: per bin the
     cell-weighted mean separation, the mean correlation and the number of
     cells; bins are linear in r from 0 to half the shortest side, the zero
-    lag excluded, empty bins NaN.  Runs on ``delta``'s device; ``mesh``
-    raises NotImplementedError.  Its expectation on the same modes and bins
-    is :func:`predicted_correlation`.
+    lag excluded, empty bins NaN.  Runs on ``delta``'s device; with a slab
+    ``mesh`` ``delta`` is this rank's x slab and every rank gets the whole
+    field's result (module docstring).  Its expectation on the same modes
+    and bins is :func:`predicted_correlation`.
     """
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_correlation", mesh)
-    xi, shape = _field_xi(delta, spacing)
-    r, x, n = _xi_bins(xi, shape, float(spacing), int(nbins))
+    mesh = _stats.slab_mesh("calculate_correlation", mesh)
+    xi, shape = _field_xi(delta, spacing, mesh)
+    r, x, n = _xi_bins(xi, shape, float(spacing), int(nbins), mesh=mesh)
     return r, x[0], n
 
 
@@ -163,13 +179,12 @@ def calculate_correlation_multipoles(delta, spacing, nbins=24,
     along a plane-parallel line of sight, mu = s_los / |s| (even ell).
     Returns ``(r_mean, xi_ell, n_cells)``, ``xi_ell`` shaped
     ``(len(ells), nbins)``; ``ells=(0,)`` is :func:`calculate_correlation`.
-    One device: ``mesh`` raises NotImplementedError."""
+    ``mesh`` as in :func:`calculate_correlation`."""
     ells = _stats.check_ells(ells)
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_correlation_multipoles", mesh)
-    xi, shape = _field_xi(delta, spacing)
+    mesh = _stats.slab_mesh("calculate_correlation_multipoles", mesh)
+    xi, shape = _field_xi(delta, spacing, mesh)
     return _xi_bins(xi, shape, float(spacing), int(nbins), ells,
-                    int(los_axis))
+                    int(los_axis), mesh)
 
 
 def predicted_correlation_multipoles(power, shape, spacing, f=0.0, nbins=24,

@@ -14,12 +14,18 @@ which forms each mode's power (with the cell volume folded into one
 float32 factor a^6 / V), the interlaced combination, the window
 deconvolution and the Legendre or wedge weights in one pass.
 
-``calculate_power(mesh=slab)`` without a window or interlacing is the slab
-mesh's estimator (the distributed transform, each rank binning its ky
-rows, one all-reduce); every other ``mesh=`` raises NotImplementedError
-naming Queue 1 item 8 (slab) or item 5 (pencil).  The JAX package's
-``_staged_field_power`` is not ported: it chunks the transform for a 16 GB
-chip, and a 1024^3 field is 4.3 GB on an 80 GB card.
+With a slab ``mesh=`` (the JAX package's ``_make_sharded_binned``,
+``_make_mesh_interlaced``, ``_make_sharded_multipoles``,
+``_make_sharded_wedges`` and ``_make_mesh_cross``) each field is this
+rank's (nx/P, ny, nz) x slab: the distributed forward transform
+(:func:`..parallel.dfft.rfftn_slab`) gives the rank's ky rows of the
+spectrum, KB bins them at their ky offset (the window and the interlacing
+phase are built from the global indices in the kernel), and one all-reduce
+of the float64 sums gives every rank the whole field's result.  Interlaced
+wedges refuse a mesh with ValueError, as in the JAX package; a pencil mesh
+raises NotImplementedError (ROADMAP.md, Queue 1 item 5).  The JAX
+package's ``_staged_field_power`` is not ported: it chunks the transform
+for a 16 GB chip, and a 1024^3 field is 4.3 GB on an 80 GB card.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from randomfield_tpu_torch.ops import binning as _binning
 from randomfield_tpu_torch.ops import power as _power
 from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.parallel import dfft as _dfft
 from randomfield_tpu_torch.validate import stats as _stats
 
 __all__ = ["calculate_power", "calculate_power_multipoles",
@@ -62,27 +69,32 @@ def _factor(shape, spacing):
     return float(np.float32(a3 * a3 / (shape[0] * shape[1] * shape[2] * a3)))
 
 
-def _spectra(delta, interlaced_with):
+def _spectra(delta, interlaced_with, mesh=None):
     """('auto', (re, im)) of the field, or ('interlaced', (re, im, re2,
     im2)) with the half-cell-shifted painting."""
-    shape = tuple(int(s) for s in delta.shape)
+    local = tuple(int(s) for s in delta.shape)
     if interlaced_with is None:
-        return "auto", _transform.rfftn(delta)
+        return "auto", _dfft.forward(delta, mesh)
     d2 = _field(interlaced_with, "interlaced_with")
-    if tuple(d2.shape) != shape or d2.device != delta.device:
-        raise ValueError(f"interlaced_with must be a field of {shape} on "
+    if tuple(d2.shape) != local or d2.device != delta.device:
+        raise ValueError(f"interlaced_with must be a field of {local} on "
                          f"{delta.device}")
-    return "interlaced", (*_transform.rfftn(delta), *_transform.rfftn(d2))
+    return "interlaced", (*_dfft.forward(delta, mesh),
+                          *_dfft.forward(d2, mesh))
 
 
-def _sums(delta, spacing, nbins, window, interlaced_with, **out):
-    shape = tuple(int(s) for s in delta.shape)
+def _sums(delta, spacing, nbins, window, interlaced_with, mesh=None, **out):
+    """KB's float64 sums of the field's spectrum (on a mesh, of the rank's
+    ky rows, then summed over the ranks)."""
+    shape = _stats.mesh_shape(delta, mesh)
     order = _window_order(window)
-    kind, arrays = _spectra(delta, interlaced_with)
+    kind, arrays = _spectra(delta, interlaced_with, mesh)
     edges, _ = _stats.bin_setup(shape, float(spacing), int(nbins))
-    return _binning.bin_spectrum(kind, arrays, shape, float(spacing), edges,
-                                 factor=_factor(shape, spacing), order=order,
-                                 **out)
+    acc = _binning.bin_spectrum(kind, arrays, shape, float(spacing), edges,
+                                y_off=_stats.ky_offset(shape, mesh),
+                                factor=_factor(shape, spacing), order=order,
+                                **out)
+    return _stats.mesh_sum(acc, mesh)
 
 
 def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
@@ -96,35 +108,16 @@ def calculate_power(delta, spacing, nbins=32, mesh=None, window=None,
     mass-assignment window before binning; ``interlaced_with`` is the same
     catalog painted half a cell over in every axis, phase-aligned and
     averaged with ``delta``'s spectrum (alias cancellation).  With ``mesh``
-    (a :class:`..parallel.mesh.SlabMesh`; no window or interlacing) ``delta``
+    (a :class:`..parallel.mesh.SlabMesh`) ``delta`` (and ``interlaced_with``)
     is this rank's (nx/P, ny, nz) x slab: the distributed forward transform
     runs on the hand kernels, each rank bins its ky rows and one all-reduce
     sums them, so every rank returns the whole field's result.
     """
+    mesh = _stats.slab_mesh("calculate_power", mesh)
     delta = _field(delta)
-    spacing = float(spacing)
     nbins = int(nbins)
-    if mesh is not None:
-        if window is not None or interlaced_with is not None:
-            raise _stats.mesh_not_ported(
-                "calculate_power(window=..., interlaced_with=...)", mesh)
-        return _slab_power(delta, spacing, nbins, mesh)
-    acc = _sums(delta, spacing, nbins, window, interlaced_with)
+    acc = _sums(delta, float(spacing), nbins, window, interlaced_with, mesh)
     return _stats.bins_to_host(acc[0], nbins)
-
-
-def _slab_power(delta, spacing, nbins, mesh):
-    from randomfield_tpu_torch.parallel import dfft as _dfft
-    from randomfield_tpu_torch.parallel import mesh as _mesh
-
-    mesh = _mesh.require_slab(mesh)
-    shape = (delta.shape[0] * mesh.size, delta.shape[1], delta.shape[2])
-    re, im = _dfft.rfftn_slab(delta, shape, mesh)
-    y_off, _ = mesh.rows(shape[1])
-    out = _stats._binned_sums(re, im, shape, spacing, nbins, y_off,
-                              _factor(shape, spacing))
-    mesh.all_reduce_sum(out)
-    return _stats.bins_to_host(out, nbins)
 
 
 def calculate_power_multipoles(delta, spacing, nbins=32, ells=(0, 2, 4),
@@ -133,15 +126,13 @@ def calculate_power_multipoles(delta, spacing, nbins=32, ells=(0, 2, 4),
     """Power-spectrum multipoles P_ell(k) = (2 ell + 1) <L_ell(mu) |c_k|^2 /
     V> along a plane-parallel line of sight, mu = k_los / |k| (even ell
     only).  Returns ``(k_mean, p_ell, n_modes)``, ``p_ell`` shaped
-    ``(len(ells), nbins)``; ``window`` and ``interlaced_with`` as in
-    :func:`calculate_power`.  One device: ``mesh`` raises
-    NotImplementedError."""
+    ``(len(ells), nbins)``; ``window``, ``interlaced_with`` and ``mesh``
+    as in :func:`calculate_power`."""
     ells = _stats.check_ells(ells, "under Hermitian symmetry")
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_power_multipoles", mesh)
+    mesh = _stats.slab_mesh("calculate_power_multipoles", mesh)
     delta = _field(delta)
-    acc = _sums(delta, spacing, nbins, window, interlaced_with, ells=ells,
-                los_axis=int(los_axis))
+    acc = _sums(delta, spacing, nbins, window, interlaced_with, mesh,
+                ells=ells, los_axis=int(los_axis))
     return _stats.poles_to_host(acc, int(nbins))
 
 
@@ -151,13 +142,15 @@ def calculate_power_wedges(delta, spacing, nbins=32, nmu=4, los_axis=2,
     and ``nmu`` uniform |mu| wedges on [0, 1].  Returns ``(k_mean, p,
     n_modes)`` with ``p`` and ``n_modes`` shaped ``(nbins, nmu)`` and
     ``k_mean`` the shells' mean |k|; the count-weighted wedge average is
-    :func:`calculate_power` bin for bin.  One device: ``mesh`` raises
-    NotImplementedError."""
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_power_wedges", mesh)
+    :func:`calculate_power` bin for bin.  ``window`` and ``mesh`` as in
+    :func:`calculate_power`; interlaced wedges run on one device (ValueError
+    with a mesh, as in the JAX package)."""
+    mesh = _stats.slab_mesh("calculate_power_wedges", mesh)
+    if mesh is not None and interlaced_with is not None:
+        raise ValueError("interlaced wedges are single-device; drop mesh=")
     delta = _field(delta)
-    acc = _sums(delta, spacing, nbins, window, interlaced_with, nmu=int(nmu),
-                los_axis=int(los_axis))
+    acc = _sums(delta, spacing, nbins, window, interlaced_with, mesh,
+                nmu=int(nmu), los_axis=int(los_axis))
     return _stats.wedges_to_host(acc, int(nbins), int(nmu))
 
 
@@ -165,37 +158,40 @@ def calculate_cross_power(delta1, delta2, spacing, nbins=32, mesh=None):
     """Binned cross-spectrum Re<c1 c2*> / V of two fields on one grid, with
     the bins and conventions of :func:`calculate_power` (the cross power
     of a field with itself is its power).  Returns ``(k_mean, p_cross,
-    n_modes)``.  One device: ``mesh`` raises NotImplementedError."""
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_cross_power", mesh)
+    n_modes)``.  ``mesh`` as in :func:`calculate_power`: both fields are
+    this rank's x slabs."""
+    mesh = _stats.slab_mesh("calculate_cross_power", mesh)
     d1, d2 = _field(delta1, "delta1"), _field(delta2, "delta2")
     if d1.shape != d2.shape or d1.device != d2.device:
         raise ValueError(f"fields must share a grid and a device, got "
                          f"{tuple(d1.shape)} vs {tuple(d2.shape)}")
-    shape = tuple(int(s) for s in d1.shape)
+    shape = _stats.mesh_shape(d1, mesh)
     edges, _ = _stats.bin_setup(shape, float(spacing), int(nbins))
     acc = _binning.bin_spectrum(
-        "cross", (*_transform.rfftn(d1), *_transform.rfftn(d2)), shape,
-        float(spacing), edges, factor=_factor(shape, spacing))
-    return _stats.bins_to_host(acc[0], int(nbins))
+        "cross", (*_dfft.forward(d1, mesh), *_dfft.forward(d2, mesh)), shape,
+        float(spacing), edges, y_off=_stats.ky_offset(shape, mesh),
+        factor=_factor(shape, spacing))
+    return _stats.bins_to_host(_stats.mesh_sum(acc, mesh)[0], int(nbins))
 
 
 def calculate_masked_power(delta, mask, spacing, nbins=32, mesh=None):
     """Pseudo-P(k) of a survey-masked field: :func:`calculate_power` of
     ``mask * delta`` over <mask^2>; its expectation is
     :func:`predicted_masked_power`.  ``mask = 1`` is ``calculate_power``.
-    One device: ``mesh`` raises NotImplementedError."""
-    if mesh is not None:
-        raise _stats.mesh_not_ported("calculate_masked_power", mesh)
+    With ``mesh`` the field and the mask are this rank's x slabs and
+    <mask^2> is the whole field's (float64 sums, all-reduced)."""
+    mesh = _stats.slab_mesh("calculate_masked_power", mesh)
     d = _field(delta)
     w = torch.as_tensor(mask).to(device=d.device, dtype=d.dtype)
     if tuple(w.shape) != tuple(d.shape):
         raise ValueError(f"mask shape {tuple(w.shape)} != field shape "
                          f"{tuple(d.shape)}")
-    w2 = float((torch.as_tensor(mask).to(d.device, torch.float64) ** 2).mean())
+    w2 = (torch.as_tensor(mask).to(d.device, torch.float64) ** 2).sum()
+    w2 = float(_stats.mesh_sum(w2, mesh)) / float(
+        np.prod(_stats.mesh_shape(d, mesh)))
     if w2 <= 0:
         raise ValueError("mask is identically zero")
-    k, p, nm = calculate_power(w * d, spacing, nbins=nbins)
+    k, p, nm = calculate_power(w * d, spacing, nbins=nbins, mesh=mesh)
     return k, p / w2, nm
 
 

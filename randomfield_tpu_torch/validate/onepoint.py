@@ -29,14 +29,15 @@ def field_moments(delta, mesh=None):
     """(mean, variance) of a field as host floats.
 
     Two passes over x slabs of ``delta`` on its device, each slab summed in
-    float64.  One device only: a slab ``mesh`` raises NotImplementedError.
+    float64.  With a slab ``mesh`` ``delta`` is this rank's x slab: each
+    rank sums its count, its sum and its squared deviations from its own
+    mean in float64, one all-reduce adds (sum, squares + n mean^2) over the
+    ranks, and every rank returns the whole field's moments.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "field_moments of a mesh field is not ported to "
-            "randomfield_tpu_torch yet: the mesh versions (ROADMAP.md, "
-            "Queue 1 item 8)")
+    mesh = _stats.slab_mesh("field_moments", mesh)
     delta = torch.as_tensor(delta)
+    if mesh is not None:
+        return _mesh_moments(delta, mesh)
     n = delta.numel()
     total = torch.zeros((), dtype=torch.float64, device=delta.device)
     for chunk in delta.split(_CHUNK):
@@ -46,6 +47,19 @@ def field_moments(delta, mesh=None):
     for chunk in delta.split(_CHUNK):
         total += ((chunk.to(torch.float64) - mean) ** 2).sum()
     return float(mean), float(total / n)
+
+
+def _mesh_moments(delta, mesh):
+    """:func:`field_moments` of the whole field from this rank's slab."""
+    n_loc = delta.numel()
+    mean_loc, var_loc = field_moments(delta)
+    acc = torch.tensor([mean_loc * n_loc,
+                        (var_loc + mean_loc * mean_loc) * n_loc],
+                       dtype=torch.float64, device=delta.device)
+    total, squares = mesh.all_reduce_sum(acc).tolist()
+    n = n_loc * mesh.size
+    mean = total / n
+    return mean, squares / n - mean * mean
 
 
 def field_pdf(delta, nbins=64, vmin=None, vmax=None):

@@ -28,10 +28,13 @@ purpose: it contracts float32 values against a one-hot matrix on the MXU
 (xi, w_p) keep :func:`masked_bins` in plain PyTorch, float64 sums by
 :func:`..ops.binning.line_sums`.
 
-Results come back as host float64 numpy arrays.  With ``mesh=`` only
-``calculate_power`` (no window, no interlacing) runs on a slab mesh; every
-other estimator raises NotImplementedError naming the ROADMAP item of its
-mesh version.
+Results come back as host float64 numpy arrays.  With ``mesh=`` (a slab
+mesh) a field is this rank's (nx/P, ny, nz) x slab: the Fourier estimators
+run the distributed forward transform and bin the rank's ky rows, xi runs
+both distributed transforms and bins the rank's x rows, and one
+all-reduce of the float64 sums gives every rank the whole field's result.
+A pencil mesh, and the estimators whose mesh versions are still to come,
+raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ _HOME = {name: topic for topic, names in _TOPICS.items() for name in names}
 __all__ = ["spectrum_power", "spectrum_sums", "bin_power_grid",
            "bin_power_multipoles_grid", "bin_power_wedges_grid", "bin_setup",
            "plane_bins", "masked_bins", "bins_to_host", "poles_to_host",
-           "wedges_to_host", "mesh_not_ported", "device_of", *_HOME]
+           "wedges_to_host", "mesh_not_ported", "slab_mesh", "mesh_shape",
+           "ky_offset", "mesh_sum", "device_of", *_HOME]
 
 LEGENDRE_ELLS = (0, 2, 4)
 
@@ -79,14 +83,45 @@ def __getattr__(name):
 
 def mesh_not_ported(what, mesh):
     """The NotImplementedError of an estimator called with a mesh it has no
-    version for: the slab mesh's item 8, the pencil mesh's item 5."""
+    version for: the slab mesh's item 8b, the pencil mesh's item 5."""
     from randomfield_tpu_torch.parallel import mesh as _mesh
 
     pencil = isinstance(mesh, _mesh.PencilMesh)
     return NotImplementedError(
         f"{what} with mesh= is not ported to randomfield_tpu_torch yet: the "
         f"{'pencil' if pencil else 'slab'}-mesh estimators (ROADMAP.md, "
-        f"Queue 1 item {5 if pencil else 8})")
+        f"Queue 1 item {5 if pencil else '8b'})")
+
+
+def slab_mesh(what, mesh):
+    """``mesh`` as the slab mesh an estimator runs on (None for one
+    device): NotImplementedError for a pencil mesh (:func:`mesh_not_ported`),
+    TypeError for anything else."""
+    from randomfield_tpu_torch.parallel import mesh as _mesh
+
+    if mesh is None:
+        return None
+    if isinstance(mesh, _mesh.PencilMesh):
+        raise mesh_not_ported(what, mesh)
+    return _mesh.require_slab(mesh)
+
+
+def mesh_shape(field, mesh):
+    """The whole grid's (nx, ny, nz) of a field, or of this rank's x slab
+    of it on a slab mesh."""
+    nx, ny, nz = (int(n) for n in field.shape[-3:])
+    return (nx * (1 if mesh is None else mesh.size), ny, nz)
+
+
+def ky_offset(shape, mesh):
+    """This rank's first ky row (0 on one device)."""
+    return 0 if mesh is None else mesh.rows(shape[1])[0]
+
+
+def mesh_sum(acc, mesh):
+    """``acc`` summed over the ranks of ``mesh`` in place (itself on one
+    device)."""
+    return acc if mesh is None else mesh.all_reduce_sum(acc)
 
 
 def device_of(x, device=None):

@@ -181,6 +181,16 @@ def test_generator_bispectrum_methods():
     np.testing.assert_array_equal(tri, got[1])
     np.testing.assert_allclose(ntri, got[3], rtol=1e-12)
     assert np.all(np.isfinite(bp))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        bisp.calculate_bispectrum(d, SPACING, mesh=pmesh.make_mesh(
-            device="cpu"))
+    # a one-rank slab mesh is the single-device estimator; a pencil mesh
+    # waits for item 5
+    # (the slab transforms round apart from the one-device ones: B within
+    # 1e-5 of the largest |B|, the triad counts within 1e-6)
+    kc, tri, bm, nm = bisp.calculate_bispectrum(
+        d, SPACING, nbins=4, mesh=pmesh.make_mesh(device="cpu"))
+    np.testing.assert_array_equal(kc, want[0])
+    np.testing.assert_array_equal(tri, want[1])
+    assert np.abs(bm - want[2]).max() <= 1e-5 * np.abs(want[2]).max()
+    np.testing.assert_allclose(nm, want[3], rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        bisp.calculate_bispectrum(d, SPACING, mesh=pmesh.make_pencil_mesh(
+            spx=2, spy=2))

@@ -1781,3 +1781,72 @@ def test_examples_run_on_the_card(cuda, capsys, name, n):
     for key, value in out.items():
         value = np.asarray(value, np.float64)
         assert np.isfinite(value[~np.isnan(value)]).all(), key
+
+
+# ---- the slab mesh's shard instances of KN, K2F's fixed mode and KD ----------------
+
+SHARD_CASES = [((16, 16, 16), 2), ((64, 32, 64), 4), ((32, 16, 30), 4),
+               ((32, 64, 18), 8), ((16, 16, 16), 16)]
+
+
+@pytest.mark.parametrize("shape,ranks", SHARD_CASES)
+@pytest.mark.parametrize("mode", list(sampler.NESTED_MODES))
+def test_nested_shards_union_is_kn(cuda, shape, ranks, mode):
+    table = _table(shape, cuda)
+    whole = sampler.sample_nested(4, table, shape, SPACING, 8.0, mode=mode,
+                                  flip=True)
+    ny_loc = shape[1] // ranks
+    before = sampler.KN_LAUNCHES
+    parts = [sampler.sample_nested(4, table, shape, SPACING, 8.0, mode=mode,
+                                   flip=True, y_off=r * ny_loc, ny_loc=ny_loc)
+             for r in range(ranks)]
+    assert sampler.KN_LAUNCHES == before + ranks
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+    if mode == "bits":  # the shard's own plain version, bit for bit
+        want = sampler.sample_nested_plain(4, table, shape, SPACING, 8.0,
+                                           mode=mode, y_off=ny_loc,
+                                           ny_loc=ny_loc)
+        assert torch.equal(parts[1], want)
+
+
+@pytest.mark.parametrize("shape,ranks", SHARD_CASES)
+@pytest.mark.parametrize("flip", [False, True])
+def test_draw_fixed_shards_union_is_k2fx(cuda, shape, ranks, flip):
+    table = _table(shape, cuda)
+    whole = sampler.draw_fixed(4, table, shape, SPACING, 8.0, flip)
+    ny_loc = shape[1] // ranks
+    before = sampler.K2FX_LAUNCHES
+    parts = [sampler.draw_fixed(4, table, shape, SPACING, 8.0, flip,
+                                r * ny_loc, ny_loc) for r in range(ranks)]
+    assert sampler.K2FX_LAUNCHES == before + ranks
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+    want = sampler.draw_fixed_plain(4, table, shape, SPACING, 8.0, flip,
+                                    ny_loc, ny_loc)
+    assert _rel(parts[1], want) <= K2_TOL
+
+
+@pytest.mark.parametrize("shape,ranks", SHARD_CASES[:4])
+@pytest.mark.parametrize("kind,comp", KD_CASES + [("deriv", 1)])
+def test_spectral_kernel_shards_union_is_kd(cuda, shape, ranks, kind, comp):
+    nzh = shape[2] // 2 + 1
+    re0 = _randn((shape[0], shape[1], nzh), cuda, 25)
+    im0 = _randn((shape[0], shape[1], nzh), cuda, 26)
+    pref = (1.5, 0.6) if kind == "kaiser" else -0.37
+    whole = derived.apply_kernel(re0.clone(), im0.clone(), shape, SPACING,
+                                 kind, comp, pref, grad_diag=True)
+    ny_loc = shape[1] // ranks
+    before = derived.KD_LAUNCHES
+    for r in range(ranks):
+        rows = slice(r * ny_loc, (r + 1) * ny_loc)
+        a, b = derived.apply_kernel(re0[:, rows].contiguous(),
+                                    im0[:, rows].contiguous(), shape,
+                                    SPACING, kind, comp, pref,
+                                    grad_diag=True, y_off=r * ny_loc)
+        c, d = derived.apply_kernel_plain(re0[:, rows].clone(),
+                                          im0[:, rows].clone(), shape,
+                                          SPACING, kind, comp, pref,
+                                          grad_diag=True, y_off=r * ny_loc)
+        assert torch.equal(a, whole[0][:, rows])
+        assert torch.equal(b, whole[1][:, rows])
+        assert torch.equal(a, c) and torch.equal(b, d)
+    assert derived.KD_LAUNCHES == before + ranks

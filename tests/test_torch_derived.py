@@ -212,9 +212,16 @@ def test_derived_refusals():
     with pytest.raises(ValueError, match="kind"):
         derived.apply_kernel(torch.zeros(16, 16, 9), torch.zeros(16, 16, 9),
                              (16, 16, 16), SPACING, "curl")
+    # a one-rank mesh renders the single-device fields; a pallas mesh scene
+    # renders plain fields only, as in the JAX package
     m = rft.Generator(16, 16, 16, grid_spacing=SPACING,
                       mesh=pmesh.make_mesh(space=1, device="cpu"))
     for method in ("generate_potential", "generate_displacement",
                    "generate_tidal_field"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        assert torch.equal(getattr(m, method)(1), getattr(g, method)(1))
+    m = rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="pallas",
+                      mesh=pmesh.make_mesh(space=1, device="cpu"))
+    for method in ("generate_potential", "generate_displacement",
+                   "generate_tidal_field"):
+        with pytest.raises(ValueError, match="plain renders only"):
             getattr(m, method)(1)

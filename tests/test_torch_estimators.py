@@ -380,15 +380,17 @@ def test_estimators_refuse_meshes_and_bad_options():
         lambda m: stats.calculate_power_multipoles(d, SPACING, mesh=m),
         lambda m: stats.calculate_power_wedges(d, SPACING, mesh=m),
         lambda m: stats.calculate_cross_power(d, d, SPACING, mesh=m),
-        lambda m: stats.calculate_masked_power(d, d, SPACING, mesh=m),
+        lambda m: stats.calculate_masked_power(d, d + 1.0, SPACING, mesh=m),
         lambda m: stats.calculate_power(d, SPACING, mesh=m, window="cic"),
         lambda m: stats.calculate_correlation(d, SPACING, mesh=m),
         lambda m: stats.calculate_correlation_multipoles(d, SPACING, mesh=m),
     ]
-    for mesh, item in ((slab, "Queue 1 item 8"), (pencil, "Queue 1 item 5")):
-        for call in calls:
-            with pytest.raises(NotImplementedError, match=item):
-                call(mesh)
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            call(pencil)
+        call(slab)  # a one-rank slab mesh runs each of them
+    with pytest.raises(ValueError, match="interlaced wedges"):
+        stats.calculate_power_wedges(d, SPACING, interlaced_with=d, mesh=slab)
     with pytest.raises(ValueError, match="unknown window"):
         stats.calculate_power(d, SPACING, window="pcs")
     with pytest.raises(ValueError, match="ell=3"):

@@ -128,9 +128,14 @@ def test_field_moments_match_jax(shape):
     jmean, jvar = jstats.field_moments(jnp.asarray(field))
     assert abs(mean - jmean) <= 1e-6 * abs(jmean)
     assert abs(var - jvar) <= 1e-6 * jvar
+    # a one-rank slab mesh sums its one slab: the single-device moments
+    mmean, mvar = stats.field_moments(
+        torch.as_tensor(field), mesh=pmesh.make_mesh(space=1, device="cpu"))
+    assert abs(mmean - mean) <= 1e-12 * abs(mean)
+    assert abs(mvar - var) <= 1e-12 * var
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         stats.field_moments(torch.as_tensor(field),
-                            mesh=pmesh.make_mesh(space=1, device="cpu"))
+                            mesh=pmesh.make_pencil_mesh(spx=2, spy=2))
 
 
 def test_fixed_refusals_match_jax():
@@ -141,9 +146,15 @@ def test_fixed_refusals_match_jax():
             g.generate_fixed_field(1)
         with pytest.raises(ValueError, match="fixed fields"):
             g.generate_fixed_fields([1, 2])
+    # a one-rank mesh renders the single-device fixed field and sigmas; a
+    # pallas mesh scene refuses fixed fields as one device does
+    one = rft.Generator(16, 16, 16, grid_spacing=SPACING, device="cpu")
     g = rft.Generator(16, 16, 16, grid_spacing=SPACING,
                       mesh=pmesh.make_mesh(space=1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert torch.equal(g.generate_fixed_field(1, flip=True),
+                       one.generate_fixed_field(1, flip=True))
+    assert torch.equal(g.sigmas, one.sigmas)
+    g = rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="pallas",
+                      mesh=pmesh.make_mesh(space=1, device="cpu"))
+    with pytest.raises(ValueError, match="fixed fields"):
         g.generate_fixed_field(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _ = g.sigmas

@@ -200,8 +200,8 @@ def test_cuda_rejects_shapes_the_kernels_do_not_take(shape):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(sampler="nested", mesh=pmesh.make_mesh(space=1, device="cpu")),
-     "sampler='nested' on a mesh"),
+    (dict(sampler="nested", mesh=pmesh.make_pencil_mesh(spx=2, spy=2)),
+     "pencil"),
     (dict(mesh=pmesh.make_pencil_mesh(spx=2, spy=2)), "mesh"),
 ])
 def test_unported_options_raise(kw, what):

@@ -335,5 +335,9 @@ def test_mesh_error_cases(tmp_path_factory):
     with pytest.raises(ValueError, match="not the mesh's device"):
         rft.Generator(*SHAPE, grid_spacing=SPACING, mesh=one, device="cuda")
     g = rft.Generator(*SHAPE, grid_spacing=SPACING, mesh=one)
-    with pytest.raises(NotImplementedError, match="noise I/O on a mesh"):
-        g.generate_noise(1)
+    # generate_noise on a mesh returns the whole grid's draws, as the JAX
+    # package does; generate_from_noise refuses a mesh with its words
+    noise = g.generate_noise(1)
+    assert noise.shape == (2, SHAPE[0], SHAPE[1], SHAPE[2] // 2 + 1)
+    with pytest.raises(ValueError, match="single-device fused scene"):
+        g.generate_from_noise(noise)

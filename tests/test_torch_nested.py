@@ -219,7 +219,14 @@ def test_nested_refusals_match_jax():
                       device="cpu")
     with pytest.raises(ValueError, match="10 bits"):
         sample.lattice_codes((16, 16, 2048))
+    # the nested stream runs on a slab mesh (a one-rank mesh renders the
+    # single-device field), and refuses a pencil mesh
     mesh = pmesh.make_mesh(space=1, device="cpu")
+    one = rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="nested",
+                        device="cpu")
+    g = rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="nested",
+                      mesh=mesh)
+    assert torch.equal(g.generate_delta_field(3), one.generate_delta_field(3))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="nested",
-                      mesh=mesh)
+                      mesh=pmesh.make_pencil_mesh(spx=2, spy=2))

@@ -10,8 +10,10 @@ repeats an earlier one of its quad is not stored.  On a kz = 0 or Nyquist
 plane row r's partner is row 3 - r: a non-canonical mode takes its
 partner's draw with im negated, a self-conjugate one re sqrt(2), im 0.  The
 hash's first add and rotation are folded per row and launch; the angle's
-sin and cos come from a quadrant reduction for [0, 2 pi] alone.  Each is
-held here to what the plain nested stream (ops/sample.py) computes.
+sin and cos come from a quadrant reduction for [0, 2 pi] alone.  On a
+slab mesh's shard of ky rows the quads are a local row and its partner
+row (``shard_quads``).  Each is held here to what the plain nested stream
+(ops/sample.py) computes.
 """
 
 import numpy as np
@@ -115,6 +117,62 @@ def test_quad_planes_are_the_plain_fix(shape):
     got = plane_fix(re, im, nx, ny, planes)
     want = sample.nested_hermitian_draws(key, shape)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def shard_quads(nx, ny, y_off, ny_loc):
+    """KN's shard walk (``NestedShardQuad``): quad q -> its four rows in
+    the kernel's order and which of them it stores.  The quad of local row
+    y holds (x, y), (-x, y), (x, -y), (-x, -y), x in [0, nx/2]; a row
+    outside the shard is not stored, and where -y lies in the shard at a
+    smaller y the quad stores nothing (the quad of -y stores both rows)."""
+    for q in range((nx // 2 + 1) * ny_loc):
+        x, yl = divmod(q, ny_loc)
+        y = y_off + yl
+        px, py = (-x) % nx, (-y) % ny
+        here = y_off <= py < y_off + ny_loc
+        rows = [(x, y), (px, y), (x, py), (px, py)]
+        if here and py < y:
+            yield q, rows, [False] * 4
+            continue
+        second = py != y and here
+        yield q, rows, [True, px != x, second, px != x and second]
+
+
+@pytest.mark.parametrize("shape,size", [((16, 16, 16), 2), ((16, 16, 16), 4),
+                                        ((8, 12, 10), 3), ((12, 8, 9), 8),
+                                        ((6, 10, 6), 5), ((16, 16, 16), 1)])
+def test_shard_quads_store_every_shard_mode_once(shape, size):
+    """Each mode of each shard is stored once by the shard's quads, and a
+    stored plane mode's fix (row 3 - r's draw, im negated, or re sqrt(2))
+    is the plain stream's Hermitian draw: the union of the shards is the
+    whole-grid result."""
+    nx, ny, nz = shape
+    ny_loc = ny // size
+    key = threefry.key_from_seed(5)
+    re, im = sample.nested_unit_draws(key, shape)
+    want = sample.nested_hermitian_draws(key, shape)
+    planes = [0] + ([nz // 2] if nz % 2 == 0 else [])
+    sqrt2 = float(F32(np.sqrt(2.0)))
+    for r in range(size):
+        y_off = r * ny_loc
+        writes = np.zeros((nx, ny_loc), np.int64)
+        for _, rows, live in shard_quads(nx, ny, y_off, ny_loc):
+            for i, ((x, y), stored) in enumerate(zip(rows, live)):
+                if not stored:
+                    continue
+                assert y_off <= y < y_off + ny_loc
+                writes[x, y - y_off] += 1
+                px, py = rows[3 - i]
+                for p in planes:
+                    if x > px or (x == px and y > py):
+                        got = (re[px, py, p], -im[px, py, p])
+                    elif (x, y) == (px, py):
+                        got = (re[x, y, p] * sqrt2, 0.0)
+                    else:
+                        got = (re[x, y, p], im[x, y, p])
+                    assert float(got[0]) == float(want[0][x, y, p])
+                    assert float(got[1]) == float(want[1][x, y, p])
+        assert np.all(writes == 1)
 
 
 def _rotl(x, r):
