@@ -376,10 +376,25 @@ KERNELS = {
     "KH": dict(name="poisson_counts", route="cuda",
                source="randomfield_tpu_torch/csrc/poisson.cu",
                replaces="randomfield_tpu/models/halos.py:155"),
+    # the shard instances of the slab mesh's mock makers (ROADMAP item 8b):
+    # KP on a rank's x window (the JAX package's local painter behind
+    # paint_sharded), KH on an x slab at its global cells with the whole
+    # grid's loop count (the halo scan on the mesh) and KC on a ky block
+    # (the mesh constrained programs' functionals); K4L takes an x slab as
+    # it stands and keeps its own record
+    "KPS": dict(name="deposit_window", route="cuda",
+                source="randomfield_tpu_torch/csrc/paint.cu",
+                replaces="randomfield_tpu/parallel/paint.py:178"),
+    "KHS": dict(name="poisson_counts_slab", route="cuda",
+                source="randomfield_tpu_torch/csrc/poisson.cu",
+                replaces="randomfield_tpu/models/halos.py:155"),
+    "KCS": dict(name="constraint_measure_correct_block", route="cuda",
+                source="randomfield_tpu_torch/csrc/constraint_kernel.cu",
+                replaces="randomfield_tpu/models/constrained.py:404"),
 }
 KERNEL_ORDER = ("K1", "K2", "K2F", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
                 "K10", "KN", "K2FX", "KD", "KB", "KBG", "KP", "KPC", "KC",
-                "K4L", "KM", "KX", "KQ", "KH")
+                "K4L", "KM", "KX", "KQ", "KH", "KPS", "KHS", "KCS")
 # relative bars (max|kernel - plain| / max|plain|): float32 rounding of a
 # scale (K1's Box-Muller, K2 and the fused K2F, and K8 and K7 that are K1
 # and K2F on a shard; libdevice logf/sincosf/log1pf on both sides) and of a
@@ -457,6 +472,9 @@ OPS_PER_MODE = {"K1": 74 + 7 + 12 + 12 + 4, "K5": 74 + 12 + 12 + 6 + 8 + 6 + 6,
 # int64 conversion, two multiplies and a subtract in float64, and the
 # rounding to float32 (the total's sum is one add a cell more).
 KP_OPS_PER_PARTICLE = 12 + 3 + 8 * 6
+# KP's x window, a particle of the catalog: its owner (u = (x + shift) / a,
+# uc and its floor, the wrap on nx, the two compares)
+KP_OWNER_OPS_PER_PARTICLE = 6
 KPC_FP64_OPS_PER_CELL = 6
 KC_OPS_PER_MODE_AND_CONSTRAINT = 16
 # what the redesigned kernels issue a mode and constraint: MEASURE the
@@ -1307,7 +1325,8 @@ def reset_counts():
     paircount.KQ_LAUNCHES = paircount.KQ_SORT_LAUNCHES = 0
     from randomfield_tpu_torch.ops import poisson
 
-    poisson.KH_LAUNCHES = 0
+    poisson.KH_LAUNCHES = poisson.KHS_LAUNCHES = 0
+    paint.KPS_LAUNCHES = constraint.KCS_LAUNCHES = 0
 
 
 def read_counts():
@@ -1329,7 +1348,7 @@ def read_counts():
             "K9": fft.K9_LAUNCHES, "K10": genfft.K10_LAUNCHES,
             "KN": sampler.KN_LAUNCHES, "K2FX": sampler.K2FX_LAUNCHES,
             "KD": derived.KD_LAUNCHES, **mock_counts(), **morph_counts(),
-            **catalog_counts(), **models_counts()}
+            **catalog_counts(), **models_counts(), **mesh_mock_counts()}
 
 
 def require_launches(counts, least, what):
@@ -1783,6 +1802,9 @@ def mesh_rank(rank, size, store, out_dir, device):
         t0 = time.perf_counter()
         out["surface"] = mesh_rank_surface(torch, rft, mesh)
         out["surface_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["mocks"] = mesh_rank_mocks(torch, rft, mesh)
+        out["mocks_s"] = time.perf_counter() - t0
     finally:
         multihost.shutdown()
     out["imports_jax"] = "jax" in sys.modules or "randomfield_tpu" in sys.modules
@@ -1877,6 +1899,10 @@ def phase3_four_ranks(torch, dev, card):
     add_counts(counts, check_four_rank_surface(ranks, card))
     log(f"phase 3 four-rank mesh item-8a work: "
         f"{[round(r['surface_s'], 1) for r in ranks]} s per rank (host "
+        f"clock, references included) [{card}]")
+    add_counts(counts, check_four_rank_mocks(ranks, card))
+    log(f"phase 3 four-rank mesh item-8b work: "
+        f"{[round(r['mocks_s'], 1) for r in ranks]} s per rank (host "
         f"clock, references included) [{card}]")
     return counts
 
@@ -5607,24 +5633,25 @@ def phase2_catalogs(torch, rft, dev):
     torch.cuda.empty_cache()
 
 
-def _fkp_catalogs(torch, g, dev):
-    """The 1024^3 FKP paths' catalogs: the cells with Poisson counts of a
-    render at nbar = FKP_DATA / V (their centres and counts), and
-    FKP_RANDOMS uniform randoms."""
+def _fkp_catalogs(torch, g, dev, sizes=None):
+    """The FKP paths' catalogs on ``g``'s cubic grid: the cells with Poisson
+    counts of a render at nbar = sizes[0] / V (their centres and counts),
+    and sizes[1] uniform randoms (FKP_DATA and FKP_RANDOMS by default)."""
     from randomfield_tpu_torch.models import zeldovich
 
-    n = HEADLINE[0]
-    box = n * HEADLINE_SPACING
+    sizes = sizes or (FKP_DATA, FKP_RANDOMS)
+    n, sp = g.shape[0], g.grid_spacing
+    box = n * sp
     counts = zeldovich.poisson_sample(
-        g.generate_delta_field(8, apply_lightcone=False), FKP_DATA / box ** 3,
-        HEADLINE_SPACING, seed=9).reshape(-1)
+        g.generate_delta_field(8, apply_lightcone=False), sizes[0] / box ** 3,
+        sp, seed=9).reshape(-1)
     cells = torch.nonzero(counts > 0).reshape(-1)
     weights = counts[cells]
     del counts
     idx = torch.stack([cells // (n * n), (cells // n) % n, cells % n])
-    data = (idx.to(torch.float32) + 0.5) * HEADLINE_SPACING
+    data = (idx.to(torch.float32) + 0.5) * sp
     gen = torch.Generator(device=dev).manual_seed(10)
-    randoms = torch.rand((3, FKP_RANDOMS), generator=gen, device=dev) * box
+    randoms = torch.rand((3, sizes[1]), generator=gen, device=dev) * box
     return data, weights, randoms
 
 
@@ -7239,9 +7266,10 @@ def threefry_pipe_bounds(work, clocks):
     return out
 
 
-def kh_pipe_bound(iterations, rejection_steps, clock_hz):
-    """(bound ms, bound_by) of KH at 1024^3 with HALO_BINS bins: g read
-    once and the int32 counts written once, over the HBM rate; the
+def kh_pipe_bound(iterations, rejection_steps, clock_hz, cells=None):
+    """(bound ms, bound_by) of KH at 1024^3 with HALO_BINS bins (or on a
+    slab of ``cells`` cells): g read once and the int32 counts written
+    once, over the HBM rate; the
     intensity a (cell, bin), ``iterations`` Knuth iterations and
     ``rejection_steps`` rejection steps as issue slots by pipe, at
     ``clock_hz``, the SM clock read under KH's load: every instruction
@@ -7252,7 +7280,7 @@ def kh_pipe_bound(iterations, rejection_steps, clock_hz):
     rate."""
     import torch
 
-    cells = HEADLINE[0] * HEADLINE[1] * HEADLINE[2]
+    cells = cells or HEADLINE[0] * HEADLINE[1] * HEADLINE[2]
     nbytes = 4 * cells + 4 * HALO_BINS * cells
     fp32 = (KH_FP32_PER_CELL_BIN * cells * HALO_BINS
             + KH_FP32_PER_ITERATION * iterations
@@ -7265,7 +7293,7 @@ def kh_pipe_bound(iterations, rejection_steps, clock_hz):
            + KH_ALU_PER_REJECTION_STEP * rejection_steps)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t, by, bound = pipe_bound(nbytes, fp32 + ints, alu, clock_hz)
-    log(f"phase 4 KH bound by pipe at {HEADLINE}, {HALO_BINS} bins, {sms} "
+    log(f"phase 4 KH bound by pipe on {cells} cells, {HALO_BINS} bins, {sms} "
         f"SMs at {clock_hz / 1e6:.0f} MHz: {nbytes / 1e9:.4f} GB, "
         f"{fp32 / 1e9:.2f} G float32 and {ints / 1e9:.2f} G integer "
         f"instructions, {alu / 1e9:.2f} G of them on the ALU pipe alone; "
@@ -7385,18 +7413,20 @@ def kernel_work(g, kx_candidates, kq_in_range, kq_examined):
 
 
 def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work,
-                  clocks):
+                  clocks, shard_work, kh_slab):
     """{K: (bound_ms, bound_by)} at the 1024^3 main paths' shapes
     (:func:`kernel_work`): the larger of the bytes over the HBM rate and
     the operations over the float32 rate; the Threefry kernels by pipe
     (:func:`threefry_pipe_bounds`, at the SM clocks ``clocks`` read under
     their loads); KH on the halo counts of phase 4 by pipe
     (:func:`kh_pipe_bound` of ``kh_work``: its Knuth iterations, rejection
-    steps and the SM clock under its load)."""
+    steps and the SM clock under its load); the shard instances on their
+    shard's work (``shard_work``; KH's slab by pipe, ``kh_slab``)."""
     nx, ny, nz = HEADLINE
     nzh = nz // 2 + 1
     modes = nx * ny * nzh
-    work = kernel_work(g, kx_candidates, kq_in_range, kq_examined)
+    work = {**kernel_work(g, kx_candidates, kq_in_range, kq_examined),
+            **shard_work}
 
     def fft_ops(n, lines):
         return 5.0 * n * np.log2(n) * lines
@@ -7405,7 +7435,8 @@ def kernel_bounds(g, kx_candidates, kq_in_range, kq_examined, kh_work,
         t_pass = max((16 * modes + 4 * n) / HBM_BYTES_PER_S,
                      fft_ops(n, lines) / FP32_OPS_PER_S)
         log(f"phase 4 K3 bound of the {what} pass alone: {1e3 * t_pass:.4f} ms")
-    out = {"KH": kh_pipe_bound(*kh_work), **threefry_pipe_bounds(work, clocks)}
+    out = {"KH": kh_pipe_bound(*kh_work), "KHS": kh_pipe_bound(*kh_slab),
+           **threefry_pipe_bounds(work, clocks)}
     for k, (nbytes, ops) in work.items():
         if k in out:
             continue
@@ -8029,6 +8060,756 @@ def phase4_mesh_surface(torch, rft, dev, mesh, card):
     torch.cuda.empty_cache()
 
 
+# ---- the mock makers on the slab mesh (ROADMAP item 8b) ---------------------
+
+# the four-rank run's mock paths: 1024^3 holds four ranks' whole catalogs
+# and lognormal tables beside their slabs on one card only just, so they run
+# at 512^3 (4 Mpc/h, the same box), the FKP catalogs cut by 8 with the grid
+MESH_MOCK_SHAPE, MESH_MOCK_SPACING = (512, 512, 512), 4.0
+MESH_MOCK_FKP = (FKP_DATA // 8, FKP_RANDOMS // 8)
+# phase 1's KP window catalog: random particles on the 1024^3 grid (the
+# plain version selects the owners on the host)
+KPS_PARTICLES = 1 << 26
+MESH_MOCK_SEED = 6
+# the ported pod_survey_catalog's own grid
+POD_N = 64
+# one-rank mesh over single device: fields and counts bit for bit is the
+# expectation; the bars admit float32 rounding of a transform (fields) and
+# float64 reordering (numbers)
+MESH_NUMBER_RTOL = 1e-10
+
+
+def mesh_mock_counts():
+    from randomfield_tpu_torch.ops import constraint, paint, poisson
+
+    return {"KPS": paint.KPS_LAUNCHES, "KHS": poisson.KHS_LAUNCHES,
+            "KCS": constraint.KCS_LAUNCHES}
+
+
+class ThreadMesh:
+    """The collectives of a slab mesh that KP's fold and KH's slab
+    instance take (``SlabMesh.ring_exchange`` and ``all_reduce_max``),
+    between threads standing for the ranks of a mesh in one process:
+    phase 1 and tests/test_torch_cuda.py hold the shards to one whole-grid
+    launch without spawning ranks.  A rank holds ``turn`` while it works
+    and lets it go only inside a collective, so the ranks run one at a
+    time (four threads launching at once contend for the interpreter: KH's
+    plain version ran 7x slower so)."""
+
+    def __init__(self, rank, size, slots, barrier, turn):
+        self.rank, self.size = rank, size
+        self._slots, self._barrier, self._turn = slots, barrier, turn
+
+    def _share(self, value):
+        """Every rank's ``value``, in rank order."""
+        self._slots[self.rank] = value
+        self._turn.release()
+        try:
+            self._barrier.wait()
+            out = list(self._slots)
+            self._barrier.wait()
+        finally:
+            self._turn.acquire()
+        return out
+
+    def all_reduce_max(self, t):
+        import torch
+
+        return t.copy_(torch.stack(self._share(t.clone())).amax(dim=0))
+
+    def ring_exchange(self, to_prev, to_next):
+        got = self._share((to_prev.clone(), to_next.clone()))
+        return (got[(self.rank + 1) % self.size][0],
+                got[(self.rank - 1) % self.size][1])
+
+
+def on_thread_ranks(size, work):
+    """``work(rank, mesh)`` on ``size`` threads, each a rank of one
+    ThreadMesh; their results in rank order (the first error raised)."""
+    import threading
+
+    slots, barrier = [None] * size, threading.Barrier(size)
+    turn = threading.Lock()
+    out, errors = [None] * size, []
+
+    def run(r):
+        turn.acquire()
+        try:
+            out[r] = work(r, ThreadMesh(r, size, slots, barrier, turn))
+        except Exception as err:  # raised below
+            errors.append(err)
+            barrier.abort()
+        finally:
+            turn.release()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase1_mesh_mocks(torch, g, hg, errs):
+    """KP's x window, KH's slab instance, KC's ky block and K4L on an x
+    slab at the 1024^3 paths' shapes, on each of four shards: the union of
+    the shards equal to one whole-grid launch bit for bit, and shard 1
+    against its plain version (KH: every slab against the plain mesh
+    version on the same thread ranks).  KP: KPS_PARTICLES random particles (and
+    seam particles) for NGP, CIC (shifted) and TSC, the folded windows;
+    KH: the halo counts (HALO_BINS bins) of the main path's render and the
+    lambda >= 10 grid of KH_REJECTION, four slabs on threads that take the
+    state's maximum between the passes; KC: M = 8, MEASURE within
+    KC_MEASURE_RTOL of its plain version and the blocks' sums within it of
+    the whole grid's, CORRECT bit for bit; K4L on a render's spectrum after
+    its x and y passes.  Returns KH's plain ms a slab of the halo counts
+    (the four slabs' plain runs, one rank at a time, over four)."""
+    from randomfield_tpu_torch.models import constrained
+    from randomfield_tpu_torch.ops import constraint, fft, paint, poisson
+    from randomfield_tpu_torch.ops import threefry
+    from randomfield_tpu_torch.parallel import paint as ppaint
+
+    dev, sp = g.device, HEADLINE_SPACING
+    nx, ny, nz = HEADLINE
+    p_ranks = MESH_RANKS
+    nx_loc, ny_loc = nx // p_ranks, ny // p_ranks
+
+    # KP's x window
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pos = torch.rand((3, KPS_PARTICLES), generator=gen, device=dev) * (
+        nx * sp)
+    seams = torch.arange(p_ranks + 1, device=dev) * (nx_loc * sp)
+    pos[0, :4 * (p_ranks + 1)] = torch.cat(
+        [seams, seams - 1e-3, seams + 0.5 * sp, seams - 0.5 * sp])
+    w = torch.rand(KPS_PARTICLES, generator=gen, device=dev) * 2.0
+    for window, shift in (("ngp", 0.0), ("cic", 0.5 * sp), ("tsc", 0.0)):
+        order = paint.ORDERS[window]
+        s = paint.fixed_point_exponent(paint.total_abs_weight(pos, w))
+        windows = [paint.deposit(pos, HEADLINE, sp, w, order, shift, s,
+                                 (r * nx_loc, nx_loc)) for r in range(p_ranks)]
+        whole = paint.deposit(pos, HEADLINE, sp, w, order, shift, s)
+        rows = on_thread_ranks(p_ranks, lambda r, m: ppaint.fold_margins(
+            windows[r].clone(), order, m))
+        torch.cuda.synchronize()
+        union = torch.equal(torch.cat(rows), whole)
+        del whole, rows
+        want = paint.deposit_plain(pos, HEADLINE, sp, w, order, shift, s,
+                                   (nx_loc, nx_loc))
+        equal = torch.equal(windows[1], want)
+        log(f"phase 1 KPS {window} x windows {tuple(windows[1].shape)} of "
+            f"{KPS_PARTICLES} particles on {HEADLINE}: the {p_ranks} windows "
+            f"folded {'equal' if union else 'DIFFER from'} the whole-grid "
+            f"launch bit for bit; window 1 equal to plain {equal}")
+        if not (union and equal):
+            raise AssertionError(f"KPS {window} disagrees")
+        del windows, want
+        torch.cuda.empty_cache()
+    errs["KPS"] = 0.0
+    del pos, w
+    torch.cuda.empty_cache()
+
+    # KH's slabs, the state's maximum over the ranks between the passes
+    kh_plain_ms = None
+    g_h = hg.lognormal.gaussian.generate_delta_field(MODELS_SEED,
+                                                     apply_lightcone=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape_r, scale = KH_REJECTION
+    cases = (("halo counts", g_h, _halo_keys(hg, MODELS_SEED),
+              _halo_args(hg)),
+             (f"linear form lambda = {scale:g} (1 + delta)",
+              0.6 * torch.randn(shape_r, generator=gen, device=dev),
+              [threefry.key_from_seed(9 ^ 0x5EEDC0DE)],
+              dict(form="linear", scale=scale)))
+    for what, field, keys, kw in cases:
+        n_loc = field.shape[0] // p_ranks
+        cells = n_loc * field.shape[1] * field.shape[2]
+        slabs = [field[r * n_loc:(r + 1) * n_loc] for r in range(p_ranks)]
+        whole = poisson.poisson_counts(field, keys, **kw)
+        got = on_thread_ranks(p_ranks, lambda r, m: poisson.poisson_counts(
+            slabs[r], keys, **kw, offset=r * cells, mesh=m))
+        torch.cuda.synchronize()
+        union = all(torch.equal(got[r], whole[:, r * n_loc:(r + 1) * n_loc])
+                    for r in range(p_ranks))
+        del whole
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = on_thread_ranks(
+            p_ranks, lambda r, m: poisson.poisson_counts_plain(
+                slabs[r], keys, **kw, offset=r * cells, mesh=m))
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) / p_ranks
+        if kh_plain_ms is None:
+            kh_plain_ms = plain_ms
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"phase 1 KHS {what} {tuple(field.shape)}, {len(keys)} bin(s): "
+            f"the {p_ranks} x slabs at their global cells, the state's "
+            f"maximum taken over them between the passes, "
+            f"{'equal' if union else 'DIFFER from'} the whole-grid launch bit "
+            f"for bit; equal to the plain mesh version on the same thread "
+            f"ranks {equal} ({plain_ms:.1f} ms a slab: the {p_ranks} slabs' "
+            f"plain runs, one rank at a time, over {p_ranks})")
+        if not (union and equal):
+            raise AssertionError(f"KHS {what} disagrees")
+        del got, want, slabs
+        torch.cuda.empty_cache()
+    errs["KHS"] = 0.0
+    del g_h, cases
+    torch.cuda.empty_cache()
+
+    # KC's ky blocks
+    cons = _constraint_set(MOCK_CONSTRAINTS, HEADLINE, sp, 8)
+    p, r_, _ = constrained.pack_constraints(cons, HEADLINE, sp)
+    tables = constraint.axis_tables(p, r_, HEADLINE, sp, dev)
+    sig = g.sigmas
+    alpha = np.random.default_rng(8).normal(
+        size=MOCK_CONSTRAINTS).astype(np.float32)
+    re, im = constrained.unit_hermitian(5, HEADLINE, sp, dev)
+    src = (re.clone(), im.clone())
+    whole = constraint.measure(re, im, tables, sig, 8.0)
+    constraint.correct(re, im, tables, alpha, sig, 8.0)
+    total = torch.zeros_like(whole)
+    union, rel = True, 0.0
+    for b in range(p_ranks):
+        rows = slice(b * ny_loc, (b + 1) * ny_loc)
+        block = constraint.ky_block(tables, b * ny_loc, ny_loc)
+        s_b = sig[:, rows].contiguous()
+        br, bi = src[0][:, rows].contiguous(), src[1][:, rows].contiguous()
+        if b == 1:
+            pr, pi = br.clone(), bi.clone()
+        got = constraint.measure(br, bi, block, s_b, 8.0)
+        total += got
+        constraint.correct(br, bi, block, alpha, s_b, 8.0)
+        union = union and torch.equal(br, re[:, rows]) and torch.equal(
+            bi, im[:, rows])
+        if b == 1:
+            want = constraint.measure_plain(pr, pi, block, s_b, 8.0)
+            rel = float((got - want).abs().max() / want.abs().max())
+            errs["KCS"] = float((got - want).abs().max())
+            constraint.correct_plain(pr, pi, block, alpha, s_b, 8.0)
+            plain_eq = torch.equal(br, pr) and torch.equal(bi, pi)
+            del pr, pi
+        del br, bi, s_b
+    sums = float((total - whole).abs().max() / whole.abs().max())
+    log(f"phase 1 KCS M={MOCK_CONSTRAINTS} s=8 ky blocks ({nx}, {ny_loc}, "
+        f"{nz // 2 + 1}) of {HEADLINE}: CORRECT's {p_ranks} blocks "
+        f"{'equal' if union else 'DIFFER from'} the whole-grid launch's rows "
+        f"bit for bit; block 1 MEASURE rel {rel:.3e} and CORRECT equal "
+        f"{plain_eq} against plain; the blocks' MEASURE sums rel {sums:.3e} "
+        f"of the whole grid's (bar {KC_MEASURE_RTOL:g})")
+    if not (union and plain_eq and rel <= KC_MEASURE_RTOL
+            and sums <= KC_MEASURE_RTOL):
+        raise AssertionError("KCS disagrees")
+    del re, im, src, total, whole
+    torch.cuda.empty_cache()
+
+    # K4L on the x slabs of a render's spectrum after its x and y passes
+    re, im = g._sampled_spectrum(3, 0.0)
+    fft.ifft_axis(re, im, 1, nx, ny * (nz // 2 + 1))
+    fft.ifft_axis(re, im, nx, ny, nz // 2 + 1)
+    wz = g.state.lightcone_weights
+    a, c = wz.clone(), (0.5 * (wz.double() ** 2 * 0.5)).float()
+    whole = fft.c2r_tail_exp(re, im, nz, a, c)
+    union = all(torch.equal(fft.c2r_tail_exp(
+        re[r * nx_loc:(r + 1) * nx_loc], im[r * nx_loc:(r + 1) * nx_loc], nz,
+        a, c), whole[r * nx_loc:(r + 1) * nx_loc]) for r in range(p_ranks))
+    log(f"phase 1 K4L: the {p_ranks} x slabs ({nx_loc}, {ny}, {nz}) "
+        f"{'equal' if union else 'DIFFER from'} the whole-grid launch bit "
+        f"for bit")
+    if not union:
+        raise AssertionError("K4L on x slabs disagrees")
+    del whole
+    rows = slice(nx_loc, 2 * nx_loc)
+    got = fft.c2r_tail_exp(re[rows], im[rows], nz, a, c)
+    want = fft.c2r_tail_exp_plain(re[rows], im[rows], nz, a, c)
+    check_close(errs, "K4L", f"x slab 1 ({nx_loc}, {ny}, {nz})", (got,),
+                (want,))
+    del re, im, got, want
+    torch.cuda.empty_cache()
+    return kh_plain_ms
+
+
+def mesh_mock_inputs(torch, rft, dev, shape, spacing, fkp_sizes):
+    """The mock paths' inputs on ``dev``, the same on every rank (made from
+    seeds on the single device): a Zel'dovich catalog (3, nx, ny, nz), the
+    FKP catalogs (Poisson cells of a render and uniform randoms), 8
+    constraints, and a noisy render for the Wiener and posterior paths."""
+    from randomfield_tpu_torch.models import zeldovich
+
+    one = rft.Generator(*shape, grid_spacing=spacing, device=dev)
+    psi = one.generate_displacement(2)
+    zel = zeldovich.zeldovich_positions(psi, spacing)
+    del psi
+    fkp_catalogs = _fkp_catalogs(torch, one, dev, fkp_sizes)
+    field = one.generate_delta_field(4, apply_lightcone=False)
+    noise_std = 0.5 * float(field.std())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    field.add_(noise_std * torch.randn(field.shape, device=dev,
+                                       generator=gen))
+    del one
+    torch.cuda.empty_cache()
+    return dict(zel=zel, fkp=fkp_catalogs,
+                cons=_constraint_set(MOCK_CONSTRAINTS, shape, spacing, 8),
+                data=field, npow=noise_std ** 2 * spacing ** 3)
+
+
+def mesh_mock_gens(rft, shape, spacing, mesh, dev):
+    """The scenes of the mock paths: on ``mesh``, or one device (None)."""
+    from randomfield_tpu_torch.models import halos, lognormal
+
+    kw = dict(device=dev) if mesh is None else dict(mesh=mesh)
+    return dict(
+        ln=lognormal.LognormalGenerator(*shape, spacing, **kw),
+        hg=halos.HaloGenerator(*shape, spacing, **kw),
+        g=rft.Generator(*shape, grid_spacing=spacing, **kw))
+
+
+def mesh_mock_paths(shape, spacing, inputs):
+    """(name, call(gens, mesh), kind, least launches on a mesh) of each
+    item-8b path through the public API; ``gens`` from mesh_mock_gens."""
+    from randomfield_tpu_torch.models import zeldovich
+    from randomfield_tpu_torch.validate import fkp
+
+    data, weights, randoms = inputs["fkp"]
+    cons, field, npow = inputs["cons"], inputs["data"], inputs["npow"]
+
+    def fkp_call(interlaced):
+        return lambda gens, m: fkp.fkp_power(
+            data, randoms, spacing, shape, data_weights=weights, nbins=NBINS,
+            window="cic", interlaced=interlaced, data_are_counts=True,
+            mesh=m, device=data.device)
+
+    return (
+        ("catalog_power (tsc, interlaced)", lambda gens, m:
+         zeldovich.catalog_power(inputs["zel"], spacing, window="tsc",
+                                 interlaced=True, nbins=NBINS, mesh=m),
+         "bins", {"KPS": 2, "KPC": 2, "K6": 2, "KB": 1}),
+        ("catalog_power_multipoles (tsc, interlaced)", lambda gens, m:
+         zeldovich.catalog_power_multipoles(
+             inputs["zel"], spacing, window="tsc", interlaced=True,
+             nbins=NBINS, mesh=m), "poles", {"KPS": 2, "KB": 1}),
+        ("fkp_power (cic)", fkp_call(False), "fkp", {"KPS": 2, "KB": 1}),
+        ("fkp_power (cic, interlaced)", fkp_call(True), "fkp",
+         {"KPS": 4, "KB": 1}),
+        ("lognormal render", lambda gens, m:
+         gens["ln"].generate_delta_field(MESH_MOCK_SEED), "field",
+         {"K7": 1, "K4L": 1}),
+        (f"halo counts ({HALO_BINS} bins)", lambda gens, m:
+         gens["hg"].generate_halo_counts(MESH_MOCK_SEED), "counts",
+         {"K7": 1, "KHS": 1}),
+        ("halo catalog", lambda gens, m:
+         gens["hg"].generate_halo_catalog(MESH_MOCK_SEED), "catalog",
+         {"KHS": 1}),
+        (f"constrained render (M={MOCK_CONSTRAINTS})", lambda gens, m:
+         gens["g"].generate_constrained_field(MESH_MOCK_SEED, cons), "field",
+         {"K7": 1, "KCS": 2}),
+        ("constraint_matrix", lambda gens, m:
+         gens["g"].constraint_matrix(cons), "number", {}),
+        ("constrained mean", lambda gens, m:
+         gens["g"].constrained_mean_field(cons), "field", {"KCS": 1}),
+        ("measure_constraints", lambda gens, m:
+         gens["g"].measure_constraints(field, cons), "measure",
+         {"K6": 1, "KCS": 1}),
+        ("Wiener filter", lambda gens, m: gens["g"].wiener_filter(field, npow),
+         "field", {"K6": 1, "K4": 1}),
+        ("posterior", lambda gens, m:
+         gens["g"].generate_posterior_field(MESH_MOCK_SEED, field, npow),
+         "field", {"K7": 2, "K6": 1, "K4": 1}),
+        ("posterior MSE", lambda gens, m:
+         gens["g"].predicted_posterior_mse(npow), "number", {}),
+    )
+
+
+def mock_result(torch, kind, got):
+    """A path's result for the comparison: host arrays (fields and counts
+    stay tensors)."""
+    if kind in ("field", "counts"):
+        return got
+    if kind == "fkp":
+        return [np.asarray(got.k), np.asarray(got.p), np.asarray(got.n_modes),
+                float(got.shot_noise), float(got.alpha)]
+    if kind == "catalog":
+        return [np.asarray(a) for a in got]
+    if kind in ("number", "measure"):
+        return np.atleast_1d(np.asarray(got, np.float64))
+    return [np.asarray(a, np.float64) for a in got]
+
+
+def mock_error(torch, kind, got, want, rows):
+    """(ok, text, bit-equal) of a mesh path's result against the single
+    device's: fields within MESH_BAR of max|w| (the rank's rows ``rows``
+    of it), counts and catalogs equal, the spectra's counts exact and p
+    within MESH_P_RTOL of the bin's largest |p| plus the shot noise, the
+    numbers within MESH_NUMBER_RTOL (float64 sums reordered) and the
+    measured constraints within MESH_BAR (a forward transform's float32
+    rounding)."""
+    if kind in ("field", "counts"):
+        w = want[rows] if kind == "field" else want[:, rows]
+        equal = torch.equal(got, w)
+        if kind == "counts":
+            return equal, f"{'equal' if equal else 'DIFFER'}", equal
+        rel = float((got - w).abs().max() / w.abs().max())
+        return rel <= MESH_BAR, f"rel {rel:.3e} (bar {MESH_BAR:g})", equal
+    if kind == "catalog":
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        text = f"{len(got[1])} halos, {'equal' if equal else 'DIFFER'}"
+        return equal, text, equal
+    if kind in ("number", "measure"):
+        g_, w_ = np.asarray(got), np.asarray(want)
+        rel = float(np.abs(g_ - w_).max() / np.abs(w_).max())
+        bar = MESH_NUMBER_RTOL if kind == "number" else MESH_BAR
+        return (rel <= bar, f"rel {rel:.3e} (bar {bar:g})",
+                bool(np.array_equal(g_, w_)))
+    shot = 0.0
+    if kind == "fkp":
+        same = got[3] == want[3] and got[4] == want[4]
+        shot, got, want = want[3], got[:3], want[:3]
+    else:
+        same = True
+    k, p, n = (np.asarray(a, np.float64) for a in got)
+    kw, pw, nw = (np.asarray(a, np.float64) for a in want)
+    if pw.ndim == 1:
+        p, pw = p[None], pw[None]
+    live = nw > 0
+    scale = np.abs(pw[:, live]).max(axis=0) + shot
+    rel = float(np.max(np.abs(p[:, live] - pw[:, live]) / scale))
+    counts = np.array_equal(n, nw)
+    equal = counts and np.array_equal(p, pw) and same
+    return (counts and same and rel <= MESH_P_RTOL,
+            f"counts {'equal' if counts else 'DIFFER'}, p {rel:.3e} of the "
+            f"bin's scale (bar {MESH_P_RTOL:g})", equal)
+
+
+def mesh_rank_mocks(torch, rft, mesh):
+    """One rank's part of the four-rank run for item 8b, at MESH_MOCK_SHAPE:
+    each path of mesh_mock_paths through the public API on the mesh, the
+    counts set to 0 before each and read after it, then the single-device
+    result made one rank at a time (to bound the card's memory) and held
+    against the rank's; and the ported pod_survey_catalog (POD_N^3) on the
+    mesh against a one-rank run on rank 0.  Returns a dict for JSON."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from randomfield_tpu_torch.examples import pod_survey_catalog
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    dev = mesh.device
+    shape, sp = MESH_MOCK_SHAPE, MESH_MOCK_SPACING
+    out = {"paths": {}, "counts": dict.fromkeys(KERNEL_ORDER, 0)}
+    x0, nx_loc = mesh.rows(shape[0])
+    inputs = mesh_mock_inputs(torch, rft, dev, shape, sp, MESH_MOCK_FKP)
+    gens = mesh_mock_gens(rft, shape, sp, mesh, dev)
+    held = {}
+    for name, call, kind, least in mesh_mock_paths(shape, sp, inputs):
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        held[name] = mock_result(torch, kind, call(gens, mesh))
+        torch.cuda.synchronize()
+        got = read_counts()
+        out["paths"][name] = {
+            "seconds": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated() / 2**30,
+            "least": least, "counts": got}
+        add_counts(out["counts"], got)
+        torch.cuda.empty_cache()
+    del gens
+    torch.cuda.empty_cache()
+
+    def compare():
+        one = mesh_mock_gens(rft, shape, sp, None, dev)
+        for name, call, kind, _ in mesh_mock_paths(shape, sp, inputs):
+            want = mock_result(torch, kind, call(one, None))
+            rows = slice(x0, x0 + nx_loc)
+            ok, text, equal = mock_error(torch, kind, held[name], want, rows)
+            out["paths"][name].update(ok=ok, text=text, equal=equal)
+            del want
+            torch.cuda.empty_cache()
+
+    for r in range(mesh.size):  # the single device, one rank at a time
+        if r == mesh.rank:
+            compare()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group)
+    held.clear()
+    del inputs
+    torch.cuda.empty_cache()
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        pod = pod_survey_catalog.main(n=POD_N, mesh=mesh)
+    out["pod"] = {"seconds": time.perf_counter() - t0,
+                  "lines": printed.getvalue(),
+                  "halos": int(pod["halos"]),
+                  "p_fkp": np.asarray(pod["p_fkp"]).tolist()}
+    if mesh.rank == 0:
+        with contextlib.redirect_stdout(io.StringIO()):
+            alone = pod_survey_catalog.main(n=POD_N, mesh=pmesh.SlabMesh(
+                None, 0, 1, dev))
+        out["pod"]["one_rank"] = {"halos": int(alone["halos"]),
+                                  "p_fkp": np.asarray(alone["p_fkp"]).tolist()}
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_four_rank_mocks(ranks, card):
+    """The four ranks' item-8b results; returns the launch counts summed
+    over the ranks."""
+    res = [r["mocks"] for r in ranks]
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    for r in res:
+        add_counts(counts, r["counts"])
+    for name, first in res[0]["paths"].items():
+        ok = all(r["paths"][name]["ok"] for r in res)
+        equal = all(r["paths"][name]["equal"] for r in res)
+        log(f"phase 3 four-rank mesh {name} {MESH_MOCK_SHAPE} vs the "
+            f"single device: {[r['paths'][name]['text'] for r in res]}, "
+            f"{'bit-equal' if equal else 'not bit-equal'}; "
+            f"{[round(r['paths'][name]['seconds'], 2) for r in res]} s per "
+            f"rank (host clock), peak "
+            f"{max(r['paths'][name]['peak'] for r in res):.2f} GiB a rank "
+            f"[{card}]")
+        if not ok:
+            raise AssertionError(f"four-rank {name} disagrees")
+        for i, r in enumerate(res):
+            require_launches(r["paths"][name]["counts"],
+                             r["paths"][name]["least"],
+                             f"four-rank {name} on rank {i}")
+    pod = [r["pod"] for r in res]
+    lines = pod[0]["lines"].splitlines()
+    for line in lines:
+        log(f"phase 3 four-rank pod_survey_catalog (n = {POD_N}): {line}")
+    alone = pod[0]["one_rank"]
+    p4, p1 = np.asarray(pod[0]["p_fkp"]), np.asarray(alone["p_fkp"])
+    rel = float(np.max(np.abs(p4 - p1) / np.abs(p1)))
+    quiet = all(not p["lines"] for p in pod[1:])
+    same = all(p["halos"] == pod[0]["halos"] and p["p_fkp"] == pod[0]["p_fkp"]
+               for p in pod)
+    log(f"phase 3 four-rank pod_survey_catalog: {pod[0]['halos']} halos "
+        f"(one rank: {alone['halos']}), P_FKP rel {rel:.3e} of the one-rank "
+        f"run's (bar {MESH_P_RTOL:g}), the ranks' numbers equal {same}, "
+        f"ranks 1-3 silent {quiet}; "
+        f"{[round(p['seconds'], 1) for p in pod]} s per rank [{card}]")
+    if not (len(lines) >= 5 and pod[0]["halos"] == alone["halos"]
+            and rel <= MESH_P_RTOL and same and quiet):
+        raise AssertionError("the four-rank pod_survey_catalog disagrees")
+    require_launches(counts, {"KPS": 1, "KHS": 1, "KCS": 1, "K4L": 1},
+                     "the four-rank item-8b paths")
+    log(f"phase 3 four-rank mesh item-8b launches over the ranks: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase3_one_rank_mocks(torch, rft, dev, mesh, card):
+    """Every item-8b path on the one-rank NCCL mesh at 1024^3 through the
+    public API (the counts set to 0 before each and read after it), held
+    to the single device, with the peak device memory of each; then each
+    path timed in turns (mesh, single, single, mesh; CUDA events, one call
+    a turn after a warm-up; the halo catalog, host-bound, on the host
+    clock).  Returns the launch counts."""
+    counts = dict.fromkeys(KERNEL_ORDER, 0)
+    inputs = mesh_mock_inputs(torch, rft, dev, HEADLINE, HEADLINE_SPACING,
+                              (FKP_DATA, FKP_RANDOMS))
+    gens = {"mesh": mesh_mock_gens(rft, HEADLINE, HEADLINE_SPACING, mesh,
+                                   dev),
+            "one": mesh_mock_gens(rft, HEADLINE, HEADLINE_SPACING, None,
+                                  dev)}
+    rows = slice(0, HEADLINE[0])
+    for name, call, kind, least in mesh_mock_paths(HEADLINE,
+                                                   HEADLINE_SPACING, inputs):
+        peaks = {}
+        res = {}
+        for side, m in (("mesh", mesh), ("one", None)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            res[side] = mock_result(torch, kind, call(gens[side], m))
+            torch.cuda.synchronize()
+            peaks[side] = torch.cuda.max_memory_allocated() / 2**30
+            if side == "mesh":
+                got = read_counts()
+                require_launches(got, least, f"one-rank mesh {name}")
+                add_counts(counts, got)
+        ok, text, equal = mock_error(torch, kind, res["mesh"], res["one"],
+                                     rows)
+        del res
+        torch.cuda.empty_cache()
+
+        def run(side):
+            m = mesh if side == "mesh" else None
+            return lambda: call(gens[side], m)
+
+        if kind == "catalog":
+            times = []
+            for side in ("mesh", "one", "one", "mesh"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(side)()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            clock = " on the host clock"
+        else:
+            times = [cuda_ms(torch, run(side), reps=1)
+                     for side in ("mesh", "one", "one", "mesh")]
+            clock = ""
+        m_ms, s_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        log(f"phase 3 one-rank NCCL mesh {name} {HEADLINE} vs the single "
+            f"device: {text}, {'bit-equal' if equal else 'not bit-equal'}; "
+            f"mesh {m_ms:.3f} ms ({times[0]:.3f}, {times[3]:.3f}), single "
+            f"{s_ms:.3f} ms ({times[1]:.3f}, {times[2]:.3f}){clock}, mesh / "
+            f"single {m_ms / s_ms:.4f}; peak {peaks['mesh']:.3f} GiB on the "
+            f"mesh, {peaks['one']:.3f} on one device [{card}]")
+        if not ok:
+            raise AssertionError(f"one-rank mesh {name} disagrees")
+        torch.cuda.empty_cache()
+    del gens, inputs
+    torch.cuda.empty_cache()
+    require_launches(counts, {"KPS": 1, "KHS": 1, "KCS": 1, "K4L": 1},
+                     "the one-rank item-8b paths")
+    return counts
+
+
+def phase4_mesh_mocks(torch, rft, dev, g, hg, kh_clock, khs_plain_ms, card):
+    """The shard instances' times at the 1024^3 paths' shapes, each beside
+    the whole-grid launch in the same call: KP's window 1 of 4 (CIC, the
+    FKP randoms), KH's slab 1 of 4 (the halo counts; its three passes on a
+    one-rank mesh, phase 1's plain time), KC's ky block 1 of 4 (MEASURE
+    with the scale and CORRECT, M = 8), and K4L on x slab 1 of 4 in turns
+    with the whole grid (logged; K4L's record keeps the whole grid's).  Returns
+    ({K: (ms, plain ms, library ms)}, {K: (bytes, operations)} for the
+    bounds, and KH's slab work for its bound by pipe)."""
+    from randomfield_tpu_torch.models import constrained
+    from randomfield_tpu_torch.ops import constraint, fft, paint, poisson
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    sp = HEADLINE_SPACING
+    nx, ny, nz = HEADLINE
+    nzh = nz // 2 + 1
+    nx_loc, ny_loc = nx // MESH_RANKS, ny // MESH_RANKS
+    times, work = {}, {}
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    pos = torch.rand((3, FKP_RANDOMS), generator=gen, device=dev) * (nx * sp)
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, 1.0))
+    rows = (nx_loc, nx_loc)
+    whole = cuda_ms(torch, lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 2,
+                                                 0.0, s))
+    times["KPS"] = time_kernel(
+        torch, f"KPS deposit cic, window 1 of {MESH_RANKS} "
+        f"{paint.window_shape(HEADLINE, 2, rows)} of {FKP_RANDOMS} random "
+        f"particles (whole grid {whole:.3f} ms)",
+        lambda: paint.deposit(pos, HEADLINE, sp, 1.0, 2, 0.0, s, rows),
+        lambda: paint.deposit_plain(pos, HEADLINE, sp, 1.0, 2, 0.0, s, rows),
+        None, None, HEADLINE, card, plain_reps=1)
+    u0 = pos[0] / torch.tensor(sp, dtype=torch.float32, device=dev)
+    owned = int(((torch.floor(u0 - 0.5).long() % nx) // nx_loc == 1).sum())
+    window_cells = (nx_loc + 2) * ny * nz
+    work["KPS"] = (12 * FKP_RANDOMS + 8 * window_cells,
+                   KP_OPS_PER_PARTICLE * owned
+                   + KP_OWNER_OPS_PER_PARTICLE * FKP_RANDOMS)
+    del pos, u0
+    torch.cuda.empty_cache()
+
+    g_h = hg.lognormal.gaussian.generate_delta_field(MODELS_SEED,
+                                                     apply_lightcone=False)
+    keys, kw = _halo_keys(hg, MODELS_SEED), _halo_args(hg)
+    cells = nx_loc * ny * nz
+    slab = g_h[nx_loc:2 * nx_loc]
+    one = pmesh.SlabMesh(None, 0, 1, dev)
+    whole = cuda_ms(torch, lambda: poisson.poisson_counts(g_h, keys, **kw))
+    k_ms = [cuda_ms(torch, lambda: poisson.poisson_counts(
+        slab, keys, **kw, offset=cells, mesh=one)) for _ in range(2)]
+    got = poisson.poisson_counts(slab, keys, **kw, offset=cells, mesh=one)
+    lam_kw = {k: v for k, v in kw.items() if k != "form"}
+    live, steps = 0, 0
+    for b in range(len(keys)):  # the rejection steps as kh_times counts them
+        lam = poisson.intensity(slab, "lognormal", b, **lam_kw)
+        live += int((lam > 0).sum())
+        high = int((lam >= 10).sum())
+        if bool((poisson.intensity(g_h, "lognormal", b, **lam_kw)
+                 >= 10).any()):
+            steps += cells + high
+        del lam
+    iterations = int(got.sum(dtype=torch.int64)) + live
+    times["KHS"] = (sum(k_ms) / 2, khs_plain_ms, None)
+    log(f"phase 4 KHS slab 1 of {MESH_RANKS} ({nx_loc}, {ny}, {nz}), "
+        f"{HALO_BINS} bins, its three passes apart: {times['KHS'][0]:.3f} ms "
+        f"({k_ms[0]:.3f}, {k_ms[1]:.3f}; whole grid {whole:.3f} ms), plain "
+        f"{khs_plain_ms:.1f} ms (phase 1); {iterations} Knuth iterations "
+        f"[{card}]")
+    kh_slab = (iterations, steps, kh_clock, cells)
+    del g_h, slab, got
+    torch.cuda.empty_cache()
+
+    cons = _constraint_set(MOCK_CONSTRAINTS, HEADLINE, sp, 8)
+    p, r_, _ = constrained.pack_constraints(cons, HEADLINE, sp)
+    tables = constraint.axis_tables(p, r_, HEADLINE, sp, dev)
+    block = constraint.ky_block(tables, ny_loc, ny_loc)
+    sig = g.sigmas
+    s_b = sig[:, ny_loc:2 * ny_loc].contiguous()
+    src = constrained.unit_hermitian(5, HEADLINE, sp, dev)
+    alpha = np.random.default_rng(8).normal(
+        size=MOCK_CONSTRAINTS).astype(np.float32)
+    re, im = src[0].clone(), src[1].clone()
+
+    def both(r_, i_, t_, s_, plain=False):
+        if plain:
+            constraint.measure_plain(r_, i_, t_, s_, 8.0)
+            constraint.correct_plain(r_, i_, t_, alpha, s_, 8.0)
+        else:
+            constraint.measure(r_, i_, t_, s_, 8.0)
+            constraint.correct(r_, i_, t_, alpha, s_, 8.0)
+
+    whole = cuda_ms(torch, lambda: both(re, im, tables, sig), setup=lambda: (
+        re.copy_(src[0]), im.copy_(src[1])))
+    del re, im
+    b_src = [t[:, ny_loc:2 * ny_loc].contiguous() for t in src]
+    del src
+    br, bi = b_src[0].clone(), b_src[1].clone()
+    times["KCS"] = time_kernel(
+        torch, f"KCS measure + correct M={MOCK_CONSTRAINTS}, ky block 1 of "
+        f"{MESH_RANKS} ({nx}, {ny_loc}, {nzh}) (whole grid {whole:.3f} ms)",
+        lambda: both(br, bi, block, s_b),
+        lambda: both(br, bi, block, s_b, plain=True), None,
+        lambda: (br.copy_(b_src[0]), bi.copy_(b_src[1])), HEADLINE, card,
+        plain_reps=1)
+    b_modes = nx * ny_loc * nzh
+    work["KCS"] = (2 * 20 * b_modes
+                   + 8 * MOCK_CONSTRAINTS * (nx + ny_loc + nzh),
+                   2 * KC_OPS_PER_MODE_AND_CONSTRAINT * MOCK_CONSTRAINTS
+                   * b_modes)
+    del br, bi, b_src, s_b
+    torch.cuda.empty_cache()
+
+    re, im = g._sampled_spectrum(3, 0.0)
+    fft.ifft_axis(re, im, 1, nx, ny * nzh)
+    fft.ifft_axis(re, im, nx, ny, nzh)
+    wz = g.state.lightcone_weights
+    a, c = wz.clone(), (0.5 * (wz.double() ** 2 * 0.5)).float()
+    sr, si = re[nx_loc:2 * nx_loc], im[nx_loc:2 * nx_loc]
+    turns = [cuda_ms(torch, call) for call in (
+        lambda: fft.c2r_tail_exp(re, im, nz, a, c),
+        lambda: fft.c2r_tail_exp(sr, si, nz, a, c),
+        lambda: fft.c2r_tail_exp(sr, si, nz, a, c),
+        lambda: fft.c2r_tail_exp(re, im, nz, a, c))]
+    whole, slab = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    log(f"phase 4 K4L c2r_tail_exp on x slab 1 of {MESH_RANKS} ({nx_loc}, "
+        f"{ny}, {nz}): {slab:.3f} ms ({turns[1]:.3f}, {turns[2]:.3f}), the "
+        f"whole grid {whole:.3f} ms ({turns[0]:.3f}, {turns[3]:.3f}), slab / "
+        f"whole {slab / whole:.4f} [{card}]")
+    del re, im, sr, si
+    torch.cuda.empty_cache()
+    return times, work, kh_slab
+
+
 def main() -> int:
     import torch
 
@@ -8134,6 +8915,10 @@ def main() -> int:
         hg = halos.HaloGenerator(*HEADLINE, HEADLINE_SPACING, device=dev)
         kh_plain_ms = phase1_models(torch, hg, errs)
         models_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        khs_plain_ms = phase1_mesh_mocks(torch, g, hg, errs)
+        mocks_s = {"phase 1": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
         phase2_slice(torch, rft, dev)
         phase2_slice_fields(torch, rft, dev)
         phase2_variants(torch, rft, dev)
@@ -8172,6 +8957,10 @@ def main() -> int:
         main_paths.append(phase3_one_rank_surface(torch, rft, dev, mesh,
                                                   card))
         surface_s["phase 3 one-rank"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        main_paths.append(phase3_one_rank_mocks(torch, rft, dev, mesh, card))
+        mocks_s["phase 3 one-rank"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         main_paths.append(phase3_variants(torch, rft, gp, card))
         torch.cuda.empty_cache()
@@ -8237,11 +9026,18 @@ def main() -> int:
         times.update(model_times)
         models_s += time.perf_counter() - t0
         t0 = time.perf_counter()
+        mesh_times, shard_work, kh_slab = phase4_mesh_mocks(
+            torch, rft, dev, g, hg, kh_work[2], khs_plain_ms, card)
+        times.update(mesh_times)
+        mocks_s["phase 4"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         phase4_cli(torch, g, gp, card)
         entry_s += time.perf_counter() - t0
         bounds = kernel_bounds(g, kx_candidates, kq_in_range, kq_examined,
                                kh_work, threefry_clocks(torch, rft, g, gp,
-                                                        card))
+                                                        card),
+                               shard_work, kh_slab)
         log(f"phase 4 peak device memory of the 1024^3 mock paths (GiB): "
             f"{ {k: round(v, 3) for k, v in mock_peaks.items()} } [{card}]")
         log(f"phase 4 peak device memory of the 1024^3 morphology methods "
@@ -8264,6 +9060,9 @@ def main() -> int:
         log(f"chip_smoke item-8a mesh phases (wall time; the four-rank part "
             f"inside phase 3's four-rank run): "
             f"{ {k: round(v, 1) for k, v in surface_s.items()} } s [{card}]")
+        log(f"chip_smoke item-8b mesh phases (wall time; the four-rank part "
+            f"inside phase 3's four-rank run): "
+            f"{ {k: round(v, 1) for k, v in mocks_s.items()} } s [{card}]")
         log(f"chip_smoke wall time {time.perf_counter() - wall0:.1f} s "
             f"[{card}]")
     except Exception:

@@ -27,6 +27,14 @@
 // product and sum rounded as written (__fmul_rn, __fadd_rn), the order of
 // ops/constraint.py:correct_plain, which the kernel equals bit for bit.
 //
+// On a slab mesh a rank holds its ky rows [y_off, y_off + ny) of a grid of
+// ny_full rows: the host hands over the tables of those rows (e_y and the
+// ky vector cut to them; ops/constraint.py:ky_block) and the kernel runs on
+// the (nx, ny, nzh) block as on a grid, but for the self-conjugate test,
+// taken at the global ky (y_off + y of ny_full).  CORRECT then equals the
+// whole grid's rows bit for bit, and MEASURE's partial sums, all-reduced
+// in float64, the whole grid's Gamma within float64 reordering.
+//
 // What bounds it on the H100: device-memory bytes, the lattices and the
 // sigma grid read and the lattices written (20 bytes a mode), until M grows:
 // then MEASURE's float32 -> float64 conversions (F2F.F64.F32, a quarter of
@@ -78,6 +86,7 @@ struct Args {
   float2* carry;         // (nx, ny, nzh) alpha sums between passes (CORRECT)
   int nx, ny, nz, nzh, m, cb;  // cb: the constraints of a pass
   float smoothing;
+  int y_off, ny_full;    // the ky block's first row, the grid's ky rows
 };
 
 struct Layout {  // offsets into dynamic shared memory
@@ -368,7 +377,8 @@ measure_kernel(const Args p) {
         __syncwarp();
       }
       if (mine_line) {
-        const bool self = own_partner(x, p.nx) && own_partner(y, p.ny);
+        const bool self = own_partner(x, p.nx) &&
+                          own_partner(p.y_off + y, p.ny_full);
         measure_block(self, cn, p, re_s, im_s, ztab, exy, h, acc);
         __syncwarp();  // exy is rewritten for the next tile
       }
@@ -462,7 +472,8 @@ __global__ void __launch_bounds__(kThreads) correct_kernel(const Args p) {
       const bool mine_line = line < ring.rows;
       const int x = static_cast<int>(line / p.ny);
       const int y = static_cast<int>(line - static_cast<long long>(x) * p.ny);
-      const bool sxy = own_partner(x, p.nx) && own_partner(y, p.ny);
+      const bool sxy = own_partner(x, p.nx) &&
+                          own_partner(p.y_off + y, p.ny_full);
       pass_exy(p, exy, next, prefetch, mine_line,
                i + 1 < mine ? row0_of(i + 1) + rr : -1, x, y, c0, cn);
       if (mine_line) {
@@ -602,7 +613,7 @@ cudaError_t make_plan(bool correct, bool scale, int nx, int ny, int nz,
 Args make_args(void* re, void* im, const void* sig, const void* kvec,
                const void* tab, const void* alpha, void* partials,
                void* carry, int nx, int ny, int nz, int m, int cb,
-               float smoothing) {
+               float smoothing, int y_off, int ny_full) {
   return Args{static_cast<float*>(re),
               static_cast<float*>(im),
               static_cast<const float*>(sig),
@@ -611,7 +622,7 @@ Args make_args(void* re, void* im, const void* sig, const void* kvec,
               static_cast<const float*>(alpha),
               static_cast<double*>(partials),
               static_cast<float2*>(carry),
-              nx, ny, nz, nz / 2 + 1, m, cb, smoothing};
+              nx, ny, nz, nz / 2 + 1, m, cb, smoothing, y_off, ny_full};
 }
 
 bool aligned16(const void* p) {
@@ -641,22 +652,24 @@ extern "C" int rf_constraint_plan(int correct, int scale, int nx, int ny,
 // kvec: float32 nx + ny + nz/2 + 1 k vectors; tab: float32 pairs (m, nx +
 // ny + nz/2 + 1); out: float64 (m,); partials: float64 scratch of blocks x
 // 8 x m; cb, blocks from rf_constraint_plan.  One launch (and its fixed-
-// order sum of the partials) for any m.  Returns the CUDA error of the
+// order sum of the partials) for any m.  On a ky block (y_off, ny_full:
+// its first row and the grid's rows; 0 and ny for the whole grid) ny is
+// the block's rows and kvec, tab its tables.  Returns the CUDA error of the
 // launches.
 extern "C" int rf_constraint_measure(void* re, void* im, const void* sig,
                                      const void* kvec, const void* tab,
                                      void* out, void* partials, int nx,
                                      int ny, int nz, int m, int cb,
                                      int blocks, float smoothing, int scale,
-                                     void* stream) {
+                                     int y_off, int ny_full, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || m < 1 || cb < 1 || cb > m ||
       cb > kRegBlock || blocks < 1 || !aligned16(re) || !aligned16(im) ||
-      (scale && !aligned16(sig))) {
+      (scale && !aligned16(sig)) || y_off < 0 || y_off + ny > ny_full) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args args = make_args(re, im, scale ? sig : nullptr, kvec, tab,
                               nullptr, partials, nullptr, nx, ny, nz, m, cb,
-                              smoothing);
+                              smoothing, y_off, ny_full);
   const size_t smem =
       layout_of(scale ? 3 : 2, nz / 2 + 1, cb, nx + ny + nz / 2 + 1).total;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -686,16 +699,16 @@ extern "C" int rf_constraint_correct(void* re, void* im, const void* sig,
                                      const void* kvec, const void* tab,
                                      const void* alpha, void* carry, int nx,
                                      int ny, int nz, int m, int cb,
-                                     int blocks, float smoothing,
-                                     void* stream) {
+                                     int blocks, float smoothing, int y_off,
+                                     int ny_full, void* stream) {
   const bool passes = cb < m;
   if (nx < 1 || ny < 1 || nz < 1 || m < 1 || cb < 1 || cb > m ||
       blocks < 1 || !aligned16(re) || !aligned16(im) || !aligned16(sig) ||
-      (passes && !carry)) {
+      (passes && !carry) || y_off < 0 || y_off + ny > ny_full) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args args = make_args(re, im, sig, kvec, tab, alpha, nullptr, carry,
-                              nx, ny, nz, m, cb, smoothing);
+                              nx, ny, nz, m, cb, smoothing, y_off, ny_full);
   const size_t smem =
       layout_of(3, nz / 2 + 1, cb, nx + ny + nz / 2 + 1).total;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

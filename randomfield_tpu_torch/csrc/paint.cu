@@ -62,6 +62,23 @@
 // the carry out of the low one (ATOMS.ADD twice at most).  That is exact
 // modulo 2^64, so still order-free.
 //
+// The x window of a slab mesh's rank (the counterpart of the local frame of
+// randomfield_tpu/parallel/paint.py:178 _make_paint): with nx_loc > 0 the
+// grid is the rank's nx_loc owned x planes [x0, x0 + nx_loc) of a global nx
+// and a margin of m planes each side, the window's reach past the reference
+// cell (0 for NGP, 1 for CIC and TSC).
+// Every operation above runs as on the whole grid (u, the reference cell,
+// the wrap on the global nx); a particle belongs to the rank whose planes
+// hold its reference cell (NGP floor(u), CIC i0, TSC rint(uc):
+// _axis_owner's rule), the others are skipped where they are counted, and
+// an owned particle's anchor plane is wrap(ref) - x0 + m + (anchor - ref),
+// so its window lies inside the rank's planes and margins whichever side of
+// the periodic seam it sits on.  The window's tiles are those of an
+// (nx_loc + 2m, ny, nz) grid; the gather's wrap along x there adds only the
+// empty shell past its far face.  Folding the margins into the neighbours
+// (ops/paint.py, parallel/paint.py) then gives the whole-grid deposit's
+// rows bit for bit.
+//
 // The last kernel of the file writes float32((acc 2^-s) (1 / mean) - 1),
 // each float64 operation rounded as written, in the plain version's order
 // (a product by the host's reciprocal: PyTorch divides a CUDA tensor by a
@@ -85,6 +102,8 @@ struct Args {
   float spacing;
   float shift;
   double scale;           // 2^s
+  int x0, nx_loc, gnx;    // the x window (nx_loc 0: the whole grid)
+  int margin;             // the window's planes past each side
 };
 
 template <int ORDER>
@@ -106,7 +125,22 @@ template <int ORDER>
 struct Window {
   int anchor[3];
   float fac[ORDER][3];
+  bool owned;   // in the x window (always, on the whole grid)
 };
+
+// The anchor along x of a particle whose reference cell is ``ref`` and
+// whose anchor is ref + rel (unwrapped): wrapped on the grid, or its place
+// in the rank's x window (owned or not).
+__device__ __forceinline__ int x_anchor(const Args& p, int ref, int rel,
+                                        bool* owned) {
+  if (p.nx_loc == 0) {
+    *owned = true;
+    return wrap(ref + rel, p.dims[0]);
+  }
+  const int r = wrap(ref, p.gnx) - p.x0;
+  *owned = r >= 0 && r < p.nx_loc;
+  return r + p.margin + rel;
+}
 
 // the window of a particle at x (length units)
 template <int ORDER>
@@ -117,13 +151,16 @@ __device__ __forceinline__ Window<ORDER> window_of(const Args& p,
   for (int a = 0; a < 3; ++a) {
     const float u = __fdiv_rn(__fadd_rn(x[a], p.shift), p.spacing);
     if (ORDER == 1) {
-      win.anchor[a] = wrap(static_cast<int>(floorf(u)), p.dims[a]);
+      const int ref = static_cast<int>(floorf(u));
+      win.anchor[a] = a == 0 ? x_anchor(p, ref, 0, &win.owned)
+                             : wrap(ref, p.dims[a]);
       win.fac[0][a] = 1.f;
     } else if (ORDER == 2) {
       const float uc = __fsub_rn(u, 0.5f);
       const int i0 = static_cast<int>(floorf(uc));
       const float f = __fsub_rn(uc, static_cast<float>(i0));
-      win.anchor[a] = wrap(i0, p.dims[a]);
+      win.anchor[a] = a == 0 ? x_anchor(p, i0, 0, &win.owned)
+                             : wrap(i0, p.dims[a]);
       win.fac[0][a] = __fsub_rn(1.f, f);
       win.fac[1][a] = f;
     } else {
@@ -132,7 +169,8 @@ __device__ __forceinline__ Window<ORDER> window_of(const Args& p,
       const float s = __fsub_rn(uc, static_cast<float>(i0));
       const float lo = __fsub_rn(0.5f, s);
       const float hi = __fadd_rn(0.5f, s);
-      win.anchor[a] = wrap(i0 - 1, p.dims[a]);
+      win.anchor[a] = a == 0 ? x_anchor(p, i0, -1, &win.owned)
+                             : wrap(i0 - 1, p.dims[a]);
       win.fac[0][a] = __fmul_rn(0.5f, __fmul_rn(lo, lo));
       win.fac[1][a] = __fsub_rn(0.75f, __fmul_rn(s, s));
       win.fac[2][a] = __fmul_rn(0.5f, __fmul_rn(hi, hi));
@@ -152,13 +190,15 @@ __device__ __forceinline__ void load_position(const Args& p, long long i,
   for (int a = 0; a < 3; ++a) x[a] = p.pos[a * p.n + i];
 }
 
-// the anchor's tile of particle i, or -1 past the end (a warp's tail)
+// the anchor's tile of particle i, or -1 past the end (a warp's tail) and
+// for a particle the x window does not own
 template <int ORDER>
 __device__ __forceinline__ int tile_or_none(const Args& p, long long i) {
   if (i >= p.n) return -1;
   float x[3];
   load_position(p, i, x);
-  return tile_of(p, window_of<ORDER>(p, x).anchor);
+  const Window<ORDER> win = window_of<ORDER>(p, x);
+  return win.owned ? tile_of(p, win.anchor) : -1;
 }
 
 // A tile's shell slots: the extended-local cells (lx, ly, lz) past its far
@@ -507,16 +547,23 @@ unsigned grid_blocks(long long n) {
                                                : 132 * 64);
 }
 
+// nx_loc > 0: the x window of planes [x0, x0 + nx_loc) of the global nx
+// with a margin of one plane a side for CIC and TSC (none for NGP); the
+// grid is then (nx_loc + 2 margin, ny, nz), and nx must be that extent.
 bool make_args(const void* pos, const void* weights, float w0, long long n,
                int nx, int ny, int nz, float spacing, float shift,
-               double scale, int order, int tile, Args* args) {
+               double scale, int order, int tile, int x0, int nx_loc,
+               int gnx, Args* args) {
+  const int margin = order == 1 ? 0 : 1;
   if (order < 1 || order > 3 || nx < 1 || ny < 1 || nz < 1 || n < 0 ||
-      tile != kTile) {
+      tile != kTile || nx_loc < 0 ||
+      (nx_loc > 0 && (x0 < 0 || x0 + nx_loc > gnx ||
+                      nx != nx_loc + 2 * margin))) {
     return false;
   }
   *args = Args{static_cast<const float*>(pos),
                static_cast<const float*>(weights), w0, n, {nx, ny, nz},
-               {}, {}, spacing, shift, scale};
+               {}, {}, spacing, shift, scale, x0, nx_loc, gnx, margin};
   for (int a = 0; a < 3; ++a) {
     args->tiles[a] = (args->dims[a] + kTile - 1) / kTile;
     args->box[a] = args->dims[a] < kTile ? args->dims[a] : kTile;
@@ -557,13 +604,15 @@ int launch_deposit(const Args& a, const unsigned long long* counts,
 
 // Pass 1.  pos: float32 (3, n) contiguous positions in length units;
 // counts: int64 (tiles,) zeroed, tiles = prod ceil(dims / tile); tile must
-// be kTile.  order: 1 NGP, 2 CIC, 3 TSC.  Returns the CUDA error.
+// be kTile.  order: 1 NGP, 2 CIC, 3 TSC.  x0, nx_loc, gnx: the x window
+// (nx_loc 0 for the whole grid; make_args).  Returns the CUDA error.
 extern "C" int rf_paint_count(const void* pos, long long n, int nx, int ny,
                               int nz, float spacing, float shift, int order,
-                              int tile, void* counts, void* stream) {
+                              int tile, int x0, int nx_loc, int gnx,
+                              void* counts, void* stream) {
   Args a;
   if (!make_args(pos, nullptr, 0.f, n, nx, ny, nz, spacing, shift, 1.0, order,
-                 tile, &a)) {
+                 tile, x0, nx_loc, gnx, &a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -585,18 +634,19 @@ extern "C" int rf_paint_count(const void* pos, long long n, int nx, int ny,
 // to the exclusive starts); index: (n,) int32 (index_bytes 4) or int64 (8);
 // shell: int64 (tiles, shell slots) scratch (ops/paint.py:shell_slots; none
 // for NGP); grid: int64 (nx, ny, nz), written whole, in 2^-s units with
-// scale = 2^s; total: int64 (1,) zeroed, gets the sum of every term.
+// scale = 2^s; total: int64 (1,) zeroed, gets the sum of every term;
+// x0, nx_loc, gnx: pass 1's window (only its particles are indexed).
 // Returns the CUDA error of the first launch that failed.
 extern "C" int rf_paint_deposit(const void* pos, const void* weights,
                                 float w0, long long n, int nx, int ny, int nz,
                                 float spacing, float shift, double scale,
-                                int order, int tile, const void* counts,
-                                void* cursor, void* index, int index_bytes,
-                                void* shell, void* grid, void* total,
-                                void* stream) {
+                                int order, int tile, int x0, int nx_loc,
+                                int gnx, const void* counts, void* cursor,
+                                void* index, int index_bytes, void* shell,
+                                void* grid, void* total, void* stream) {
   Args a;
   if (!make_args(pos, weights, w0, n, nx, ny, nz, spacing, shift, scale,
-                 order, tile, &a) ||
+                 order, tile, x0, nx_loc, gnx, &a) ||
       (index_bytes != 4 && index_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -32,6 +32,15 @@
 // read.  The host hands over a table of each bin's first TABLE subkeys of
 // both chains and the chain keys after them; a thread derives later ones.
 //
+// On a slab mesh a rank holds the x slab of cells [offset, offset + n) of
+// the whole grid: every uniform is drawn at the cell's global index offset
+// + i (jax.random.poisson is partitionable), and the loop's count is the
+// whole grid's, so the wrapper launches the passes one at a time
+// (first_pass, last_pass) with an all-reduce of the state's maximum over
+// the ranks after the Knuth pass (a bin whose lambda reached 10 on any rank
+// runs its rejection loop on every rank) and after the first-acceptance pass
+// (N is the maximum over every rank's cells), both on the device.
+//
 // Every float operation repeats ops/poisson.py's plain version in its order
 // (XLA's CPU log, exp and lgamma: Cephes' polynomials and a Lanczos sum,
 // multiply-adds fused): products and sums through the _rn intrinsics, so
@@ -193,6 +202,7 @@ struct Args {
   uint32_t* marks;         // (nbins, words): bit c % 32 of word c / 32 set
                            // where cell c's lambda >= 10
   long long words;         // words a bin of marks: ceil(n / 32)
+  unsigned long long offset;  // the global index of cell 0 (a mesh's slab)
 };
 
 __device__ __forceinline__ float intensity(const Args& p, float g, int b) {
@@ -308,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) knuth_kernel(const Args p) {
        base < p.n; base += stride) {
     const long long i = base + lane;
     const bool in = i < p.n;
-    const unsigned long long idx = static_cast<unsigned long long>(i);
+    const unsigned long long idx = p.offset + static_cast<unsigned long long>(i);
     const float g = in ? __ldg(p.g + i) : 0.f;
     for (int b = 0; b < p.nbins; ++b) {
       const float lam = intensity(p, g, b);
@@ -374,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) first_kernel(const Args p) {
   int it = 0;  // the iteration of (i, b) that the next step takes
   Chain chain;
   while (i < p.n) {
-    const unsigned long long idx = static_cast<unsigned long long>(i);
+    const unsigned long long idx = p.offset + static_cast<unsigned long long>(i);
     const uint32_t* row = p.keys + static_cast<long long>(b) * key_words;
     int need = 0;  // a first acceptance to raise M with, once settled
     bool settled;
@@ -435,7 +445,7 @@ __global__ void __launch_bounds__(kThreads) replay_kernel(const Args p) {
       if (!((bits >> lane) & 1u)) continue;
       const int b = static_cast<int>((base + src) / p.words);
       const long long i = (base + src - b * p.words) * 32 + lane;
-      const unsigned long long idx = static_cast<unsigned long long>(i);
+      const unsigned long long idx = p.offset + static_cast<unsigned long long>(i);
       const Rejection rej(intensity(p, __ldg(p.g + i), b));
       Chain chain;
       chain.start(p.keys + static_cast<long long>(b) * key_words + 2 * p.table + 2,
@@ -491,26 +501,31 @@ int launch(int pass, const Args& args, cudaStream_t stream) {
 // 0: lam0, b, c) or (1,) (form 1: scale); keys: (nbins, 6 table + 4) words
 // (ops/poisson.py:key_tables); state: int32 (2, nbins) zeros, written;
 // marks: uint32 (nbins, ceil(n / 32)) scratch, cleared, then written by
-// the Knuth pass.  Launches the Knuth, first-acceptance and replay passes
-// on ``stream``.
-// pass_ms: null, or three floats that receive each pass's device time
-// (CUDA events around each launch, the clearing counted with the Knuth
+// the Knuth pass.  Launches passes first_pass..last_pass (0 Knuth, 1 first
+// acceptance, 2 replay; the whole call 0..2) on ``stream``; a call that
+// starts after pass 0 reads the state and marks an earlier call left.
+// offset: the global index of g's first cell (0 on one device).
+// pass_ms: null, or three floats that receive each launched pass's device
+// time (CUDA events around each launch, the clearing counted with the Knuth
 // pass; the call then waits for the stream).
 // Returns the first CUDA error.
 extern "C" int rf_poisson_counts(const void* g, void* out, long long n,
                                  int nbins, int form, const void* params,
                                  const void* keys, int table, void* state,
-                                 void* marks, void* stream, void* pass_ms) {
-  if (n < 1 || nbins < 1 || nbins > kMaxBins || table < 0 ||
+                                 void* marks, long long offset,
+                                 int first_pass, int last_pass, void* stream,
+                                 void* pass_ms) {
+  if (n < 1 || nbins < 1 || nbins > kMaxBins || table < 0 || offset < 0 ||
       (form != kLognormal && form != kLinear) ||
-      (form == kLinear && nbins != 1)) {
+      (form == kLinear && nbins != 1) || first_pass < kKnuthPass ||
+      last_pass > kReplayPass || first_pass > last_pass) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args args{static_cast<const float*>(g), static_cast<int*>(out), n,
                   nbins, form, table, static_cast<const float*>(params),
                   static_cast<const uint32_t*>(keys),
                   static_cast<int*>(state), static_cast<uint32_t*>(marks),
-                  (n + 31) / 32};
+                  (n + 31) / 32, static_cast<unsigned long long>(offset)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ms = static_cast<float*>(pass_ms);
   cudaEvent_t ev[4] = {};
@@ -518,19 +533,23 @@ extern "C" int rf_poisson_counts(const void* g, void* out, long long n,
   for (int e = 0; ms && e < 4 && !status; ++e) {
     status = static_cast<int>(cudaEventCreate(&ev[e]));
   }
-  if (ms && !status) status = static_cast<int>(cudaEventRecord(ev[0], st));
-  if (!status) {
+  if (ms && !status) {
+    status = static_cast<int>(cudaEventRecord(ev[first_pass], st));
+  }
+  if (!status && first_pass == kKnuthPass) {
     status = static_cast<int>(cudaMemsetAsync(
         marks, 0, sizeof(uint32_t) * args.words * nbins, st));
   }
-  for (int pass = kKnuthPass; pass <= kReplayPass && !status; ++pass) {
+  for (int pass = first_pass; pass <= last_pass && !status; ++pass) {
     status = launch(pass, args, st);
     if (ms && !status) {
       status = static_cast<int>(cudaEventRecord(ev[pass + 1], st));
     }
   }
-  if (ms && !status) status = static_cast<int>(cudaEventSynchronize(ev[3]));
-  for (int e = 0; ms && e < 3 && !status; ++e) {
+  if (ms && !status) {
+    status = static_cast<int>(cudaEventSynchronize(ev[last_pass + 1]));
+  }
+  for (int e = first_pass; ms && e <= last_pass && !status; ++e) {
     status = static_cast<int>(cudaEventElapsedTime(ms + e, ev[e], ev[e + 1]));
   }
   for (int e = 0; ms && e < 4; ++e) {

@@ -1,14 +1,18 @@
 """Constrained / data-conditioned sampling methods of the Generator.
 
-Port of ``randomfield_tpu/engine/constrained_api.py`` (``ConstrainedMixin``)
-on one device: Hoffman-Ribak constrained realizations, the conditional
-mean, Wiener filtering and posterior sampling; the math lives in
+Port of ``randomfield_tpu/engine/constrained_api.py`` (``ConstrainedMixin``):
+Hoffman-Ribak constrained realizations, the conditional mean, Wiener
+filtering and posterior sampling; the math lives in
 :mod:`..models.constrained`.  Every method reads the scene's per-mode sigma
 grid (``Generator.sigmas``), as the JAX package reads ``state.sigmas``, so
 the draw's scale, the Gram matrix and the correction share one
 sigma_eff^2.  ``sampler='pallas'`` and ``pipeline='staged'`` scenes raise
-the reference's ValueError; a mesh raises NotImplementedError (the
-reference's ``make_sharded_*`` programs: ROADMAP.md, Queue 1 item 8).
+the reference's ValueError.  On a slab mesh every method runs (the
+reference's ``make_sharded_*`` programs, ``allow_mesh=True``): fields in
+and out are the rank's x slabs (a whole grid passed in is cut to them),
+the sigma grid its ky slab, the numbers the whole grid's on every rank; a
+pallas mesh scene refuses all but ``measure_constraints`` with the
+reference's ``_mesh_sigmas`` ValueError.
 """
 
 from __future__ import annotations
@@ -22,12 +26,19 @@ from randomfield_tpu_torch.ops import threefry as _threefry
 class ConstrainedMixin:
     """Constraint packing, Hoffman-Ribak renders, Wiener/posterior."""
 
-    def _require_constrainable(self, what):
+    def _require_constrainable(self, what, sigmas=True):
+        """The reference's check (``allow_mesh=True``): a mesh scene passes,
+        but one with ``sampler='pallas'`` refuses the programs that read
+        its sigma grid (``sigmas``), as the reference's ``_mesh_sigmas``
+        does."""
         if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh is not ported to randomfield_tpu_torch "
-                f"yet: the make_sharded_* constrained programs (ROADMAP.md, "
-                f"Queue 1 item 8)")
+            if sigmas and self.sampler == "pallas":
+                raise ValueError(
+                    "mesh scenes with sampler='pallas' support plain renders "
+                    "only (the hardware stream is its own realization "
+                    "family); build the Generator with sampler='threefry' "
+                    "for derived fields, estimators and constrained renders")
+            return
         if self.sampler == "pallas" or self.pipeline == "staged":
             raise ValueError(
                 f"{what} needs a single-device fused scene with a "
@@ -73,7 +84,7 @@ class ConstrainedMixin:
             _threefry.as_key(seed), self.sigmas,
             self._weights(apply_lightcone), gram, pos, scales, values,
             smoothing_length, self.scene.shape, self.scene.grid_spacing,
-            nested=self.sampler == "nested",
+            nested=self.sampler == "nested", mesh=self.mesh,
         )
 
     def constrained_mean_field(self, constraints, smoothing_length=0.0,
@@ -89,7 +100,7 @@ class ConstrainedMixin:
         return _con.constrained_mean(
             self.sigmas, self._weights(apply_lightcone), gram, pos, scales,
             values, smoothing_length, self.scene.shape,
-            self.scene.grid_spacing,
+            self.scene.grid_spacing, mesh=self.mesh,
         )
 
     def _constraint_gram_cached(self, pos, scales, smoothing_length):
@@ -107,9 +118,23 @@ class ConstrainedMixin:
         if key not in cache:
             cache[key] = _con.constraint_gram(
                 self.sigmas, pos, scales, smoothing_length,
-                self.scene.shape, self.scene.grid_spacing,
+                self.scene.shape, self.scene.grid_spacing, mesh=self.mesh,
             )
         return cache[key]
+
+    def _rank_field(self, field):
+        """A field as a float32 tensor on the scene's device: on a mesh the
+        rank's x slab (a whole grid is cut to it)."""
+        if isinstance(field, np.ndarray):
+            field = np.array(field, np.float32)
+        field = torch.as_tensor(field, dtype=torch.float32,
+                                device=self.device)
+        nx = self.scene.shape[0]
+        if self.mesh is not None and self.mesh.size > 1 and (
+                field.shape[0] == nx):
+            x0, nx_loc = self.mesh.rows(nx)
+            field = field[x0:x0 + nx_loc]
+        return field
 
     def measure_constraints(self, delta, constraints):
         """Evaluate constraint functionals on a rendered field (host
@@ -117,14 +142,11 @@ class ConstrainedMixin:
         constrained render's own measurement."""
         from randomfield_tpu_torch.models import constrained as _con
 
-        self._require_constrainable("measure_constraints")
+        self._require_constrainable("measure_constraints", sigmas=False)
         pos, scales, _ = self._packed_constraints(constraints)
-        if isinstance(delta, np.ndarray):
-            delta = np.array(delta, np.float32)
-        delta = torch.as_tensor(delta, dtype=torch.float32,
-                                device=self.device)
-        out = _con.measure_constraints(delta, pos, scales, self.scene.shape,
-                                       self.scene.grid_spacing)
+        out = _con.measure_constraints(self._rank_field(delta), pos, scales,
+                                       self.scene.shape,
+                                       self.scene.grid_spacing, self.mesh)
         return out.cpu().numpy()
 
     def wiener_filter(self, data, noise_power):
@@ -135,8 +157,9 @@ class ConstrainedMixin:
         from randomfield_tpu_torch.models import constrained as _con
 
         self._require_constrainable("wiener_filter")
-        return _con.wiener_filter(data, self.sigmas, noise_power,
-                                  self.scene.shape, self.scene.grid_spacing)
+        return _con.wiener_filter(self._rank_field(data), self.sigmas,
+                                  noise_power, self.scene.shape,
+                                  self.scene.grid_spacing, self.mesh)
 
     def generate_posterior_field(self, seed, data, noise_power):
         """One exact sample of P(field | data) for full-grid noisy data:
@@ -146,8 +169,9 @@ class ConstrainedMixin:
 
         self._require_constrainable("generate_posterior_field")
         return _con.posterior_render(
-            _threefry.as_key(seed), data, self.sigmas, noise_power,
-            self.scene.shape, self.scene.grid_spacing,
+            _threefry.as_key(seed), self._rank_field(data), self.sigmas,
+            noise_power, self.scene.shape, self.scene.grid_spacing,
+            self.mesh,
         )
 
     def predicted_posterior_mse(self, noise_power):
@@ -157,5 +181,5 @@ class ConstrainedMixin:
         self._require_constrainable("predicted_posterior_mse")
         return _con.predicted_posterior_mse(
             self.sigmas, noise_power, self.scene.shape,
-            self.scene.grid_spacing,
+            self.scene.grid_spacing, mesh=self.mesh,
         )

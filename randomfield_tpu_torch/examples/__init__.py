@@ -9,9 +9,11 @@ returns the numbers it printed as a dict.  Run one with
 
     python -m randomfield_tpu_torch.examples.quickstart [--device cpu] [--n N]
 
+``pod_survey_catalog`` runs on a slab mesh: ``main(device, n, mesh)`` on
+every rank, rank 0 printing (``--multihost`` joins a ``torchrun`` group).
 ``sharded_field`` and ``pencil_multihost`` wait for the mesh's 'data' axis
-and pencil mesh, ``pod_survey_catalog`` and ``pod_voids_knn`` for the
-mesh versions of the estimators (ROADMAP.md, Queue 1 items 5 and 8).
+and pencil mesh, ``pod_voids_knn`` for the mesh versions of the item-9
+estimators (ROADMAP.md, Queue 1 items 5 and 8b).
 """
 
 import argparse

@@ -17,7 +17,14 @@ the card (``torch.nonzero`` in C order, as ``np.argwhere``, then
 and masses are drawn from the same ``default_rng`` with the same calls in
 the same order.  The expectations are host float64 and the lognormal
 scene's grid predictions (:class:`.lognormal.LognormalGenerator`).
-``mesh=`` raises ValueError (ROADMAP.md, Queue 1 item 8).
+
+With ``mesh=`` (a slab mesh) the Gaussian render is the rank's x slab and
+KH draws its cells at their whole-grid indices, the loop's count the
+whole grid's (:func:`..ops.poisson.poisson_counts` with ``offset`` and
+``mesh``): the counts are the rank's x slab of the single-device cube, as
+``jax.random.poisson`` is partitionable.  ``generate_halo_catalog``
+gathers the counts and compacts them on every rank, as the JAX package's
+``np.asarray(counts)`` brings the cube to the host.
 """
 
 from __future__ import annotations
@@ -57,8 +64,7 @@ class HaloGenerator:
     bins; ``fit`` selects the mass function ('ps' / 'st' / 'tinker08')
     with its companion bias ('ps' / 'st' / 'tinker10'); ``z`` is the
     snapshot redshift (the table scaled by D(z)^2).  Engine kwargs
-    (``sampler=``, ``device=``...) pass to the lognormal scene; ``mesh=``
-    raises ValueError.
+    (``sampler=``, ``device=``, ``mesh=``...) pass to the lognormal scene.
 
     Per-bin number densities ``n_i`` integrate dn/dlnM over each bin (host
     float64, 64-point sub-grid); per-bin biases ``b_i`` are the
@@ -72,11 +78,6 @@ class HaloGenerator:
         from randomfield_tpu_torch.models.powerspec import (
             power_at_redshift, resolve_power)
 
-        if kwargs.get("mesh") is not None:
-            raise ValueError(
-                "HaloGenerator with mesh= is not ported to "
-                "randomfield_tpu_torch yet: the mesh lognormal renders "
-                "(ROADMAP.md, Queue 1 item 8)")
         if not (0 < float(mmin) < float(mmax)):
             raise ValueError("need 0 < mmin < mmax")
         self.fit = str(fit)
@@ -137,6 +138,10 @@ class HaloGenerator:
     def device(self):
         return self.lognormal.device
 
+    @property
+    def mesh(self):
+        return self.lognormal.gaussian.mesh
+
     def halo_abundance(self):
         """(mean mass, nbar) per bin: the exact Poisson intensity."""
         return self.mass_centers, self.nbar
@@ -154,15 +159,20 @@ class HaloGenerator:
     # -- rendering ----------------------------------------------------
     def generate_halo_counts(self, seed=0, smoothing_length=0.0):
         """One catalog realization as an (nm, nx, ny, nz) int32 tensor on
-        the scene's device: the seed's Gaussian render (no lightcone)
-        and KH's counts for every mass bin (the same seed drives both, on
-        independent Threefry streams)."""
+        the scene's device (on a mesh, this rank's (nm, nx/P, ny, nz) x
+        slab): the seed's Gaussian render (no lightcone) and KH's counts
+        for every mass bin (the same seed drives both, on independent
+        Threefry streams)."""
         g = self.lognormal.gaussian.generate_delta_field(
             seed, smoothing_length=smoothing_length, apply_lightcone=False)
+        offset = 0
+        if self.mesh is not None:
+            nx, ny, nz = self.scene.shape
+            offset = self.mesh.rows(nx)[0] * ny * nz
         return _poisson.poisson_counts(
             g, halo_keys(seed, self.nbar.size), "lognormal",
             lam0=self.nbar * self._cell_volume, bias=self.bias,
-            sigma_g2=self.lognormal.sigma_g2)
+            sigma_g2=self.lognormal.sigma_g2, offset=offset, mesh=self.mesh)
 
     def generate_halo_catalog(self, seed=0, smoothing_length=0.0):
         """One realization compacted to ``(positions, masses)`` on the host:
@@ -170,6 +180,8 @@ class HaloGenerator:
         cell) and (N,) Msun/h drawn from dn/dlnM within each halo's bin."""
         counts = self.generate_halo_counts(
             seed, smoothing_length=smoothing_length)
+        if self.mesh is not None:
+            counts = self.mesh.all_gather(counts, dim=1)
         return counts_to_catalog(
             counts, self.mass_edges, self.scene.grid_spacing, seed=seed,
             power=self._power, cosmology=self.cosmology, fit=self.fit)

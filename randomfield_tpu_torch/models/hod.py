@@ -101,12 +101,19 @@ class HODGenerator:
 
     ``hod`` is a dict of Zheng05 parameters (:func:`zheng05_occupation`);
     the halo mass range defaults to ``logmmin - 3 sigma`` up to 1e16.
-    Engine kwargs pass through to the halo and Gaussian scenes.
+    Engine kwargs pass through to the halo and Gaussian scenes; ``mesh=``
+    raises NotImplementedError (its redshift-space catalog reads the
+    displacement at the halos' cells: ROADMAP.md, Queue 1 item 8b).
     """
 
     def __init__(self, nx, ny, nz, grid_spacing, cosmology=None, power=None,
                  hod=None, mmin=None, mmax=1e16, nbins_mass=6, fit="st",
                  z=0.0, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "HODGenerator with mesh= is not ported to "
+                "randomfield_tpu_torch yet: the galaxy catalogs on the slab "
+                "mesh (ROADMAP.md, Queue 1 item 8b)")
         self.hod = dict(logmmin=13.0, sigma_logm=0.25, logm0=13.0,
                         logm1=14.0, alpha=1.0)
         self.hod.update(hod or {})

@@ -26,8 +26,12 @@ draw (K2F, K1 or KN), K3 along x and y, then K4's kernel writing
 ``expm1(a_z x - c_z)`` with a_z = b w_z and c_z = b^2 w_z^2 sigma_G^2 / 2, so
 the exp map costs no pass of its own.  The standalone
 :func:`gaussian_to_lognormal` on a given field is a plain elementwise
-expression, as the reference leaves it to XLA.  ``mesh=`` raises
-NotImplementedError (ROADMAP.md, Queue 1 item 8).
+expression, as the reference leaves it to XLA.  On a slab mesh
+(``mesh=``) each rank draws its ky rows of the Gaussian spectrum and runs
+the distributed inverse, whose last step is K4L on its x slab
+(:func:`..parallel.dfft.irfftn_slab_reim` with offsets); the transformed
+table is every rank's whole-grid one, as the JAX package builds it on
+each host.
 
 Lightcone: with ``apply_lightcone=True`` each z-plane's Gaussian amplitude
 is D(z)/D(0), so the map subtracts the per-plane variance D^2 sigma_G^2 / 2.
@@ -44,6 +48,7 @@ from randomfield_tpu_torch.ops import binning as _binning
 from randomfield_tpu_torch.ops import grid as _grid
 from randomfield_tpu_torch.ops import power as _power
 from randomfield_tpu_torch.ops import transform as _transform
+from randomfield_tpu_torch.parallel import dfft as _dfft
 
 __all__ = ["transformed_power", "gaussian_to_lognormal", "LognormalGenerator"]
 
@@ -172,7 +177,9 @@ class LognormalGenerator:
     own kernel (K2F, K1 or KN) whatever ``RF_STAGED_PIPELINE`` says, as the
     derived fields draw.  ``generate_delta_field(seed)`` returns a
     mean-zero field bounded below by -1 whose measured P(k) matches
-    ``power``.  ``mesh=`` raises NotImplementedError (Queue 1 item 8).
+    ``power``.  With ``mesh=`` (a slab mesh) the renders return this rank's
+    x slab, the draw on its ky rows (K7, K8 or KN's shard) and K4L on its x
+    slab; a pencil mesh raises NotImplementedError (Queue 1 item 5).
     """
 
     def __init__(self, nx, ny, nz, grid_spacing, cosmology=None, power=None,
@@ -181,16 +188,16 @@ class LognormalGenerator:
         from randomfield_tpu_torch.models.cosmology import create_cosmology
         from randomfield_tpu_torch.models.powerspec import resolve_power
 
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "LognormalGenerator with mesh= is not ported to "
-                "randomfield_tpu_torch yet: the mesh lognormal renders "
-                "(ROADMAP.md, Queue 1 item 8)")
+        from randomfield_tpu_torch.parallel import mesh as _mesh
+
+        mesh = kwargs.get("mesh")
+        if mesh is not None:
+            mesh = _mesh.require_slab(mesh)
         cosmology = create_cosmology(cosmology)
         self.power = _power.validate_power(resolve_power(power, cosmology))
         shape = (int(nx), int(ny), int(nz))
         self.interpolation = kwargs.get("interpolation", "log10k")
-        device = kwargs.get("device")
+        device = kwargs.get("device", None if mesh is None else mesh.device)
         self.gaussian_power, self.transform_info = transformed_power(
             self.power, shape, float(grid_spacing), nbins=table_bins,
             interpolation=self.interpolation, device=device,
@@ -250,6 +257,9 @@ class LognormalGenerator:
         w = self.growth_function if apply_lightcone else None
         a, c = _plane_terms(var, w, self.scene.shape[2], bias, self.device)
         re, im = spectrum
+        if self.gaussian.mesh is not None:
+            return _dfft.irfftn_slab_reim(re, im, self.scene.shape,
+                                          self.gaussian.mesh, a, c)
         return _transform.irfftn_reim_exp(re, im, self.scene.shape, a, c)
 
     def generate_delta_field(self, seed=0, smoothing_length=0.0,

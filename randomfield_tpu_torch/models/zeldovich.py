@@ -19,9 +19,11 @@ particle a cell: positions ``(3, nx, ny, nz)`` and per-particle weights.
    deconvolved and the shot noise subtracted.
 
 :func:`zeldovich_power` (the exact Zel'dovich spectrum, the theory curve of
-these mocks) is host float64 numpy, a copy of the reference's.  ``mesh=``
-raises NotImplementedError: the sharded painting (the JAX package's
-``parallel/paint.py:paint_sharded``) is ROADMAP.md, Queue 1 item 8.
+these mocks) is host float64 numpy, a copy of the reference's.  With
+``mesh=`` (a slab mesh) the catalog spectra paint with
+:func:`..parallel.paint.paint_sharded` (every rank the whole catalog, its x
+slab of the contrast) and estimate with the mesh ``calculate_power``; a
+pencil mesh raises NotImplementedError (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -57,12 +59,6 @@ def _as_positions(positions):
     positions = torch.as_tensor(positions)
     return positions if positions.dtype == torch.float32 else \
         positions.to(torch.float32)
-
-
-def _mesh_refusal(what):
-    return NotImplementedError(
-        f"{what} with mesh= is not ported to randomfield_tpu_torch yet: the "
-        f"sharded painting, paint_sharded (ROADMAP.md, Queue 1 item 8)")
 
 
 def _q_axis(n, spacing, device):
@@ -197,10 +193,13 @@ def shot_noise(weights, volume, counts=True):
 
 
 def _catalog_fields(positions, spacing, shape, weights, window, interlaced,
-                    what, mesh):
-    """(delta, delta2 or None, shape, weights) of a catalog."""
+                    mesh):
+    """(delta, delta2 or None, shape, weights) of a catalog: the whole
+    grids, or on a slab mesh this rank's x slabs."""
     if mesh is not None:
-        raise _mesh_refusal(what)
+        from randomfield_tpu_torch.parallel import mesh as _mesh
+
+        mesh = _mesh.require_slab(mesh)
     positions = _as_positions(positions)
     if shape is None:
         if positions.ndim != 4:
@@ -213,13 +212,24 @@ def _catalog_fields(positions, spacing, shape, weights, window, interlaced,
         raise ValueError(
             f"window must be 'ngp', 'cic' or 'tsc', got {window!r}"
         )
-    w = _as_weights(weights, positions)
-    order = _paint.ORDERS[window]
-    delta, _ = _paint.paint(positions, shape, float(spacing), w, order)
-    delta2 = None
-    if interlaced:
-        delta2, _ = _paint.paint(positions, shape, float(spacing), w, order,
-                                 shift=float(spacing) / 2.0)
+    if mesh is not None:
+        from randomfield_tpu_torch.parallel.paint import paint_sharded
+
+        positions = positions.to(mesh.device)
+        w = _as_weights(weights, positions)
+
+        def painted(shift):
+            return paint_sharded(positions, shape, float(spacing), mesh, w,
+                                 window, shift)[0]
+    else:
+        w = _as_weights(weights, positions)
+        order = _paint.ORDERS[window]
+
+        def painted(shift):
+            return _paint.paint(positions, shape, float(spacing), w, order,
+                                shift=shift)[0]
+    delta = painted(0.0)
+    delta2 = painted(float(spacing) / 2.0) if interlaced else None
     return delta, delta2, shape, w
 
 
@@ -246,18 +256,19 @@ def catalog_power(positions, spacing, shape=None, weights=1.0, nbins=32,
     False for the equal-weight displaced grid).  ``interlaced=True`` paints
     the catalog again half a cell over (the kernel's shift argument) and
     alias-cancels the two spectra.  Returns host float64 ``(k_mean, p_hat,
-    n_modes)``.  ``mesh`` raises NotImplementedError (Queue 1 item 8).
+    n_modes)``.  With ``mesh`` (a slab mesh; every rank passes the whole
+    catalog) the painting is :func:`..parallel.paint.paint_sharded` and the
+    estimator the mesh's: every rank returns the whole catalog's spectrum.
     """
     from randomfield_tpu_torch.validate import fourier as _fourier
 
     if subtract_shot_noise is None:
         subtract_shot_noise = np.ndim(weights) > 0
     delta, delta2, shape, w = _catalog_fields(
-        positions, spacing, shape, weights, window, interlaced,
-        "catalog_power", mesh)
+        positions, spacing, shape, weights, window, interlaced, mesh)
     k, p, n = _fourier.calculate_power(
         delta, float(spacing), nbins=int(nbins), window=window,
-        interlaced_with=delta2,
+        interlaced_with=delta2, mesh=mesh,
     )
     if subtract_shot_noise:
         p = p - _shot(w, _as_positions(positions), shape, spacing)
@@ -273,19 +284,19 @@ def catalog_power_multipoles(positions, spacing, shape=None, weights=1.0,
     Paints with ``window``, runs ``calculate_power_multipoles`` with that
     window deconvolved (``interlaced=True`` as in :func:`catalog_power`),
     and subtracts the (flat, monopole-only) shot noise under the same
-    default.  Returns ``(k_mean, p_ell, n_modes)``.  ``mesh`` raises
-    NotImplementedError (Queue 1 item 8).
+    default.  Returns ``(k_mean, p_ell, n_modes)``; ``mesh`` as in
+    :func:`catalog_power`.
     """
     from randomfield_tpu_torch.validate import fourier as _fourier
 
     if subtract_shot_noise is None:
         subtract_shot_noise = np.ndim(weights) > 0
     delta, delta2, shape, w = _catalog_fields(
-        positions, spacing, shape, weights, window, interlaced,
-        "catalog_power_multipoles", mesh)
+        positions, spacing, shape, weights, window, interlaced, mesh)
     k, p_ell, n = _fourier.calculate_power_multipoles(
         delta, float(spacing), nbins=int(nbins), ells=ells,
         los_axis=int(los_axis), window=window, interlaced_with=delta2,
+        mesh=mesh,
     )
     if subtract_shot_noise and 0 in tuple(ells):
         p_ell[tuple(ells).index(0)] -= _shot(w, _as_positions(positions),

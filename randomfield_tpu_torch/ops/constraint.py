@@ -31,6 +31,15 @@ all M when they fit, else it takes them in passes of as many as fit
 (:func:`launch_plan`), within the one launch.  MEASURE streams the
 lattices once a pass; CORRECT keeps each mode's alpha sums between its
 passes in a grid of float32 pairs and streams the lattices in its last.
+
+On a slab mesh a rank holds the ky rows [y_off, y_off + ny/P) of the
+spectrum: :func:`ky_block` cuts the tables to them (e_y and the ky
+vector), and every version runs on the (nx, ny/P, nzh) block as on a grid
+but for the self-conjugate test, taken at the global ky.  CORRECT gives the
+whole grid's rows bit for bit; MEASURE and :func:`gram` give the block's
+partial sums, which the caller all-reduces in float64 (the whole grid's
+within float64 reordering).  The kernel's block instances are counted in
+``KCS_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -45,13 +54,14 @@ import torch
 from randomfield_tpu_torch.ops import _build
 from randomfield_tpu_torch.ops import grid as _grid
 
-__all__ = ["ConstraintTables", "axis_tables", "kernel_block", "measure",
-           "measure_plain", "correct", "correct_plain", "gram",
-           "sigma_eff2", "launch_plan", "KC_LAUNCHES"]
+__all__ = ["ConstraintTables", "axis_tables", "ky_block", "kernel_block",
+           "measure", "measure_plain", "correct", "correct_plain", "gram",
+           "sigma_eff2", "launch_plan", "KC_LAUNCHES", "KCS_LAUNCHES"]
 
-# kernel launches by measure and correct, one a pass (the CPU paths do not
-# count)
+# kernel launches by measure and correct, one a call, on a whole grid and on
+# a ky block (the CPU paths do not count)
 KC_LAUNCHES = 0
+KCS_LAUNCHES = 0
 
 _KERNEL_WARPS = 8  # a block's warps, each with its own measure partials
 # the most constraints a pass of the kernels takes (0: as many as fit in
@@ -62,11 +72,20 @@ _X_CHUNK = 8
 
 
 class ConstraintTables(typing.NamedTuple):
-    """The per-axis tables of M constraints on one grid."""
+    """The per-axis tables of M constraints on one grid, or on a ky block
+    of it (``shape`` the block's (nx, ny_loc, nz), its rows [y_off, y_off +
+    ny_loc) of ``ny_full``)."""
 
     tab: torch.Tensor    # float32 (M, nx + ny + nzh, 2): e_x, e_y, e_z
     kvec: torch.Tensor   # float32 (nx + ny + nzh,): kx, ky, kz
     shape: tuple
+    y_off: int = 0
+    ny_full: int = 0     # the grid's ky rows (0: shape[1], a whole grid)
+
+    @property
+    def rows(self):
+        """(y_off, the grid's ky rows)."""
+        return self.y_off, self.ny_full or self.shape[1]
 
 
 def axis_tables(positions, scales, shape, spacing, device="cpu"):
@@ -92,15 +111,29 @@ def axis_tables(positions, scales, shape, spacing, device="cpu"):
                             kvec.to(device), (nx, ny, nz))
 
 
-def _self_conjugate(shape, x0, x1, device):
-    """bool (x1 - x0, ny, nzh): every axis index its own partner."""
+def ky_block(tables, y_off, ny_loc):
+    """The :class:`ConstraintTables` of a whole grid's tables cut to its ky
+    rows [y_off, y_off + ny_loc): a slab mesh rank's block."""
+    nx, ny, nz = tables.shape
+    keep = torch.cat([torch.arange(nx), nx + y_off + torch.arange(ny_loc),
+                      torch.arange(nx + ny, nx + ny + nz // 2 + 1)]).to(
+                          tables.tab.device)
+    return ConstraintTables(tables.tab[:, keep].contiguous(),
+                            tables.kvec[keep].contiguous(),
+                            (nx, int(ny_loc), nz), int(y_off), ny)
+
+
+def _self_conjugate(shape, x0, x1, device, y_off=0, ny_full=0):
+    """bool (x1 - x0, ny, nzh): every axis index its own partner (on a ky
+    block of a grid of ``ny_full`` rows, ky at its index there)."""
     nx, ny, nz = shape
+    ny_full = ny_full or ny
 
     def own(idx, n):
         return (idx == 0) | ((n % 2 == 0) & (idx == n // 2))
 
     sx = own(torch.arange(x0, x1, device=device), nx)
-    sy = own(torch.arange(ny, device=device), ny)
+    sy = own(torch.arange(y_off, y_off + ny, device=device), ny_full)
     iz = torch.arange(nz // 2 + 1, device=device)
     sz = (iz == 0) | ((nz % 2 == 0) & (iz == nz // 2))
     return sx[:, None, None] & sy[None, :, None] & sz[None, None, :]
@@ -119,7 +152,7 @@ def kernel_block(tables, x0, x1):
     ezr, ezi = ez[..., 0][:, None, None, :], ez[..., 1][:, None, None, :]
     kr = xyr[..., None] * ezr - xyi[..., None] * ezi
     ki = xyr[..., None] * ezi + xyi[..., None] * ezr
-    sc = _self_conjugate(tables.shape, x0, x1, t.device)
+    sc = _self_conjugate(tables.shape, x0, x1, t.device, *tables.rows)
     return kr, torch.where(sc, 0.0, ki)
 
 
@@ -232,7 +265,7 @@ def measure(re, im, tables, sigmas=None, smoothing_length=0.0):
     scaled spectrum.  On CUDA: one launch for any M; on the CPU
     :func:`measure_plain`.
     """
-    global KC_LAUNCHES
+    global KC_LAUNCHES, KCS_LAUNCHES
     _check(re, im, tables, "measure")
     sigmas = _sigmas(sigmas, re, "measure")
     if re.device.type == "cpu":
@@ -249,10 +282,13 @@ def measure(re, im, tables, sigmas=None, smoothing_length=0.0):
         re.data_ptr(), im.data_ptr(), sigmas.data_ptr() if scale else 0,
         tables.kvec.data_ptr(), tables.tab.data_ptr(), out.data_ptr(),
         partials.data_ptr(), nx, ny, nz, m, cb, blocks,
-        float(np.float32(smoothing_length)), int(scale),
+        float(np.float32(smoothing_length)), int(scale), *tables.rows,
         _build.current_stream(re))
     _build.check(status, "measure")
-    KC_LAUNCHES += 1
+    if tables.ny_full:
+        KCS_LAUNCHES += 1
+    else:
+        KC_LAUNCHES += 1
     return out
 
 
@@ -282,7 +318,7 @@ def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0):
     per-mode sigma grid.  On CUDA one launch for any M; on the CPU
     :func:`correct_plain`.  Returns (re, im).
     """
-    global KC_LAUNCHES
+    global KC_LAUNCHES, KCS_LAUNCHES
     _check(re, im, tables, "correct")
     sigmas = _sigmas(sigmas, re, "correct")
     if sigmas is None:
@@ -304,10 +340,13 @@ def correct(re, im, tables, alpha, sigmas, smoothing_length=0.0):
         re.data_ptr(), im.data_ptr(), sigmas.data_ptr(),
         tables.kvec.data_ptr(), tables.tab.data_ptr(), a.data_ptr(),
         carry.data_ptr() if carry is not None else 0, nx, ny, nz, alpha.size,
-        cb, blocks, float(np.float32(smoothing_length)),
+        cb, blocks, float(np.float32(smoothing_length)), *tables.rows,
         _build.current_stream(re))
     _build.check(status, "correct")
-    KC_LAUNCHES += 1
+    if tables.ny_full:
+        KCS_LAUNCHES += 1
+    else:
+        KC_LAUNCHES += 1
     return re, im
 
 

@@ -25,6 +25,17 @@ u - 1/2 of CIC and TSC, TSC's round half to even, Python's non-negative
 modulo for the wrap, NGP's floor before it.  On CUDA tensors each wrapper
 launches its kernels or raises; on CPU tensors it runs the plain version.
 
+On a slab mesh a rank deposits onto its x window (``x_rows=(x0,
+nx_loc)``): its nx_loc owned planes of the whole grid and a margin of
+:func:`margin` planes a side (:func:`window_shape`), with every operation
+of a particle as on the whole grid.  A particle belongs to the rank whose
+planes hold its reference cell (:func:`axis_owner`, the JAX package's
+``parallel/paint.py:221 _axis_owner`` rule), so the kernel skips the
+others where it counts them (counted in ``KPS_LAUNCHES``); the plain
+version selects them with :func:`axis_owner` in numpy.  Folding the margins
+into the neighbours' planes (``parallel/paint.py:paint_sharded``) gives the
+whole grid's rows bit for bit.
+
 The kernel bins the particles by the tile of TILE^3 cells that holds the
 lowest cell of their window (the anchor), sums each tile in shared memory
 over the tile and its shell (the r = order - 1 layers past its far
@@ -39,6 +50,7 @@ from __future__ import annotations
 import math
 import typing
 
+import numpy as np
 import torch
 
 from randomfield_tpu_torch.ops import _build
@@ -46,10 +58,13 @@ from randomfield_tpu_torch.ops import _build
 __all__ = ["deposit", "deposit_plain", "contrast", "contrast_plain",
            "paint", "window_terms", "fixed_point_exponent", "total_abs_weight",
            "tile_plan_plain", "TilePlan", "tile_grid", "shell_slots",
-           "ORDERS", "TILE", "KP_LAUNCHES", "KPC_LAUNCHES"]
+           "axis_owner", "margin", "window_shape",
+           "ORDERS", "TILE", "KP_LAUNCHES", "KPS_LAUNCHES", "KPC_LAUNCHES"]
 
-# kernel launches by deposit and by contrast (the CPU path does not count)
+# kernel launches by deposit on the whole grid and on an x window, and by
+# contrast (the CPU path does not count)
 KP_LAUNCHES = 0
+KPS_LAUNCHES = 0
 KPC_LAUNCHES = 0
 
 ORDERS = {"ngp": 1, "cic": 2, "tsc": 3}
@@ -129,17 +144,64 @@ def _flat(idx, dims):
     return flat
 
 
+def margin(order):
+    """The planes an x window holds past each side of its own: the window's
+    reach past the reference cell (0 for NGP, 1 for CIC and TSC)."""
+    return 0 if int(order) == 1 else 1
+
+
+def window_shape(shape, order, x_rows=None):
+    """The grid a deposit writes: ``shape``, or with ``x_rows=(x0,
+    nx_loc)`` the x window (nx_loc + 2 margin, ny, nz)."""
+    dims = tuple(int(d) for d in shape)
+    if x_rows is None:
+        return dims
+    return (int(x_rows[1]) + 2 * margin(order), dims[1], dims[2])
+
+
+def axis_owner(u_axis, n_axis, n_loc, order):
+    """(owner, reference cell) of particles at grid coordinates ``u_axis``
+    (float32 numpy) along a sharded axis of ``n_axis`` cells in blocks of
+    ``n_loc``: the port's copy of ``randomfield_tpu/parallel/paint.py:221
+    _axis_owner``, whose reference cell is NGP's floor(u), CIC's floor(u -
+    1/2) and TSC's round(u - 1/2) (half to even), its owner the block that
+    holds it wrapped.  The JAX function also returns the coordinates
+    shifted into its painter's frame; here the reference cell places the
+    particle (:func:`deposit_plain`)."""
+    u = np.asarray(u_axis, np.float32)
+    if order == 1:
+        ref = np.floor(u)
+    elif order == 2:
+        ref = np.floor(u - np.float32(0.5))
+    else:
+        ref = np.round(u - np.float32(0.5))
+    ref = ref.astype(np.int64)
+    return (ref % n_axis) // n_loc, ref
+
+
+def _check_rows(x_rows, shape):
+    x0, nx_loc = (int(v) for v in x_rows)
+    if nx_loc < 1 or x0 < 0 or x0 + nx_loc > int(shape[0]):
+        raise ValueError(f"x_rows {tuple(x_rows)} must be a block of the "
+                         f"grid's {int(shape[0])} x planes")
+    return x0, nx_loc
+
+
 def deposit_plain(positions, shape, spacing, weights=1.0, order=2,
-                  shift=0.0, scale_exp=0):
+                  shift=0.0, scale_exp=0, x_rows=None):
     """:func:`deposit` in plain PyTorch on the positions' device: per chunk
     of particles and window corner, the float32 weight rounded to int64
-    units of 2^-scale_exp and ``index_add_`` into the grid."""
+    units of 2^-scale_exp and ``index_add_`` into the grid.  With
+    ``x_rows`` the particles the window owns (:func:`axis_owner`, in numpy
+    on the host) onto the x window, each at its reference cell's plane."""
     pos, trailing = _positions(positions)
     n = pos.shape[1]
     w0, w = _weights(weights, trailing, pos.device)
     dims = tuple(int(d) for d in shape)
-    grid = torch.zeros(dims[0] * dims[1] * dims[2], dtype=torch.int64,
-                       device=pos.device)
+    out = window_shape(dims, order, x_rows)
+    if x_rows is not None:
+        x0, nx_loc = _check_rows(x_rows, dims)
+    grid = torch.zeros(math.prod(out), dtype=torch.int64, device=pos.device)
     scale = math.ldexp(1.0, int(scale_exp))
     spacing32 = torch.tensor(float(spacing), dtype=torch.float32)
     shift32 = torch.tensor(float(shift), dtype=torch.float32)
@@ -149,14 +211,31 @@ def deposit_plain(positions, shape, spacing, weights=1.0, order=2,
         wt = (w[lo:hi] if w is not None
               else torch.full((hi - lo,), w0, dtype=torch.float32,
                               device=pos.device))
-        for idx, fac in window_terms(u, order):
-            wc = wt
+        for idx, fac, wt_c in _terms(u, wt, order, dims[0], x_rows):
+            wc = wt_c
             if fac is not None:
                 for a in range(3):
                     wc = wc * fac[a]
             q = torch.round(wc.to(torch.float64) * scale).to(torch.int64)
-            grid.index_add_(0, _flat(idx, dims), q)
-    return grid.view(dims)
+            grid.index_add_(0, _flat(idx, out), q)
+    return grid.view(out)
+
+
+def _terms(u, wt, order, nx, x_rows):
+    """:func:`window_terms` of particles at ``u`` with weights ``wt``, as
+    (cell indices, factors, weights) corners: on the whole grid, or of the
+    particles the x window ``x_rows`` owns (:func:`axis_owner`, on the
+    host), their x index moved to the window's plane, the reference cell at
+    its owned place plus the margin."""
+    if x_rows is None:
+        return [(idx, fac, wt) for idx, fac in window_terms(u, order)]
+    x0, nx_loc = (int(v) for v in x_rows)
+    owner, ref = axis_owner(u[0].cpu().numpy(), nx, nx_loc, order)
+    mine = torch.as_tensor(owner == x0 // nx_loc, device=u.device)
+    ref = torch.as_tensor(ref, device=u.device)[mine]
+    move = torch.remainder(ref, nx) - x0 + margin(order) - ref
+    return [(torch.cat([(idx[0] + move)[None], idx[1:]]), fac, wt[mine])
+            for idx, fac in window_terms(u[:, mine], order)]
 
 
 def tile_grid(shape, tile=TILE):
@@ -173,22 +252,25 @@ def shell_slots(shape, order, tile=TILE):
     return r * (by + r) * (bz + r) + bx * r * (bz + r) + bx * by * r
 
 
-def _deposit(positions, shape, spacing, weights, order, shift, scale_exp):
+def _deposit(positions, shape, spacing, weights, order, shift, scale_exp,
+             x_rows=None):
     """(:func:`deposit`'s grid, the int64 total of every term as a (1,)
     tensor on the card, or None on the CPU)."""
-    global KP_LAUNCHES
+    global KP_LAUNCHES, KPS_LAUNCHES
     pos, trailing = _positions(positions)
     if int(order) not in (1, 2, 3):
         raise ValueError(f"order must be 1, 2 or 3, got {order!r}")
+    window = (0, 0) if x_rows is None else _check_rows(x_rows, shape)
     if pos.device.type == "cpu":
         return deposit_plain(positions, shape, spacing, weights, order, shift,
-                             scale_exp), None
+                             scale_exp, x_rows), None
     if pos.device.type != "cuda":
         raise ValueError(f"deposit runs on cpu or cuda, not {pos.device}")
     n, order = pos.shape[1], int(order)
     w0, w = _weights(weights, trailing, pos.device)
     pos = pos.contiguous()
-    dims = tuple(int(d) for d in shape)
+    gnx = int(shape[0])
+    dims = window_shape(shape, order, x_rows)
     tiles = math.prod(tile_grid(dims))
     if tiles >= 2 ** 31:
         raise ValueError(f"deposit takes fewer than 2^31 tiles of {TILE}^3 "
@@ -198,7 +280,7 @@ def _deposit(positions, shape, spacing, weights, order, shift, scale_exp):
     counts = torch.zeros(tiles, dtype=torch.int64, device=dev)
     _build.check(lib.rf_paint_count(
         pos.data_ptr(), n, *dims, float(spacing), float(shift), order, TILE,
-        counts.data_ptr(), stream), "deposit")
+        *window, gnx, counts.data_ptr(), stream), "deposit")
     cursor = torch.cumsum(counts, 0)
     index = torch.empty(n, dtype=torch.int32 if n < 2 ** 31 else torch.int64,
                         device=dev)
@@ -209,18 +291,23 @@ def _deposit(positions, shape, spacing, weights, order, shift, scale_exp):
     status = lib.rf_paint_deposit(
         pos.data_ptr(), 0 if w is None else w.data_ptr(),
         0.0 if w0 is None else w0, n, *dims, float(spacing), float(shift),
-        math.ldexp(1.0, int(scale_exp)), order, TILE, counts.data_ptr(),
-        cursor.data_ptr(), index.data_ptr(), index.element_size(),
-        shell.data_ptr(), grid.data_ptr(), total.data_ptr(), stream)
+        math.ldexp(1.0, int(scale_exp)), order, TILE, *window, gnx,
+        counts.data_ptr(), cursor.data_ptr(), index.data_ptr(),
+        index.element_size(), shell.data_ptr(), grid.data_ptr(),
+        total.data_ptr(), stream)
     _build.check(status, "deposit")
-    KP_LAUNCHES += 1
+    if x_rows is None:
+        KP_LAUNCHES += 1
+    else:
+        KPS_LAUNCHES += 1
     return grid, total
 
 
 def deposit(positions, shape, spacing, weights=1.0, order=2, shift=0.0,
-            scale_exp=0):
+            scale_exp=0, x_rows=None):
     """KP: int64 (nx, ny, nz) window sums of the particles, in units of
-    2^-scale_exp.
+    2^-scale_exp; with ``x_rows=(x0, nx_loc)`` those of the particles the
+    x window owns, on the window (:func:`window_shape`).
 
     ``positions``: float32 (3, ...) in length units (any trailing shape);
     ``weights``: a scalar, or a float32 tensor of one weight a particle;
@@ -233,7 +320,7 @@ def deposit(positions, shape, spacing, weights=1.0, order=2, shift=0.0,
     :func:`deposit_plain`.
     """
     return _deposit(positions, shape, spacing, weights, order, shift,
-                    scale_exp)[0]
+                    scale_exp, x_rows)[0]
 
 
 class TilePlan(typing.NamedTuple):
@@ -250,7 +337,7 @@ class TilePlan(typing.NamedTuple):
 
 
 def tile_plan_plain(positions, shape, spacing, weights=1.0, order=2,
-                    shift=0.0, scale_exp=0, tile=TILE):
+                    shift=0.0, scale_exp=0, tile=TILE, x_rows=None):
     """``csrc/paint.cu``'s deposit replayed step by step in plain PyTorch
     on the positions' device, with tiles of ``tile``^3 cells (the kernel's
     are TILE^3): the anchors and their tiles, the counts and starts, the
@@ -259,18 +346,23 @@ def tile_plan_plain(positions, shape, spacing, weights=1.0, order=2,
     own cells written once, its shell written to its scratch slots (the
     unused ones hold a poison value no sum reaches, so a read of one
     shows), and each cell at a local place below r on some axis adding the
-    shell slots that land on it.  Tests hold ``grid`` to
+    shell slots that land on it.  With ``x_rows`` the plan of the x window
+    (the owned particles, the window's grid).  Tests hold ``grid`` to
     :func:`deposit_plain` bit for bit; the CUDA path never calls this."""
     pos, trailing = _positions(positions)
     dev, n, order = pos.device, pos.shape[1], int(order)
     w0, w = _weights(weights, trailing, dev)
-    dims = tuple(int(d) for d in shape)
+    dims = window_shape(shape, order, x_rows)
     ntile = tile_grid(dims, tile)
     count = math.prod(ntile)
     r, side = order - 1, tile + order - 1
     u = ((pos + torch.tensor(float(shift), dtype=torch.float32).to(dev))
          / torch.tensor(float(spacing), dtype=torch.float32).to(dev))
-    corners = window_terms(u, order)
+    wt = (w if w is not None
+          else torch.full((n,), w0, dtype=torch.float32, device=dev))
+    terms = _terms(u, wt, order, int(shape[0]), x_rows)
+    corners = [(idx, fac) for idx, fac, _ in terms]
+    wt = terms[0][2]
     anchor = torch.remainder(corners[0][0],
                              torch.tensor(dims, device=dev)[:, None])
     tid = ((anchor[0] // tile * ntile[1] + anchor[1] // tile) * ntile[2]
@@ -280,8 +372,7 @@ def tile_plan_plain(positions, shape, spacing, weights=1.0, order=2,
     index = torch.argsort(tid, stable=True)
 
     scale = math.ldexp(1.0, int(scale_exp))
-    wt = (w if w is not None
-          else torch.full((n,), w0, dtype=torch.float32, device=dev))[index]
+    wt = wt[index]
     place = (anchor % tile)[:, index]
     local = torch.zeros(count * side ** 3, dtype=torch.int64, device=dev)
     for idx, fac in corners:
@@ -388,16 +479,19 @@ def _gather_shells(grid, shell, dims, ntile, tile, r, own):
                                     torch.zeros_like(value))
 
 
-def _mean(acc, scale_exp, total=None):
+def _mean(acc, scale_exp, total=None, cells=None):
     """The mean mass a cell: the exact int64 total (``total``, else the
-    sums' own) times 2^-s over the cells, in float64 on the host."""
+    sums' own) times 2^-s over the cells (``cells``, else the sums'), in
+    float64 on the host."""
     total = int(acc.sum() if total is None else total)
-    return math.ldexp(float(total), -int(scale_exp)) / acc.numel()
+    return (math.ldexp(float(total), -int(scale_exp))
+            / (acc.numel() if cells is None else int(cells)))
 
 
-def contrast_plain(acc, scale_exp):
-    """:func:`contrast` in plain PyTorch on the sums' device."""
-    mean = _mean(acc, scale_exp)
+def contrast_plain(acc, scale_exp, total=None, cells=None):
+    """:func:`contrast` in plain PyTorch on the sums' device; ``total`` and
+    ``cells`` as :func:`_contrast` takes them."""
+    mean = _mean(acc, scale_exp, total, cells)
     m = acc.to(torch.float64) * math.ldexp(1.0, -int(scale_exp))
     return (m * (1.0 / mean) - 1.0).to(torch.float32), mean
 
@@ -411,18 +505,19 @@ def contrast(acc, scale_exp):
     return _contrast(acc, scale_exp)
 
 
-def _contrast(acc, scale_exp, total=None):
+def _contrast(acc, scale_exp, total=None, cells=None):
     """:func:`contrast` with the sums' exact total given (an int64 tensor
-    or an int; None sums ``acc``)."""
+    or an int; None sums ``acc``) over ``cells`` cells (None: ``acc``'s;
+    a slab mesh's rank gives the whole grid's total and cells)."""
     global KPC_LAUNCHES
     if acc.dtype != torch.int64:
         raise ValueError(f"contrast takes int64 sums, got {acc.dtype}")
     if acc.device.type == "cpu":
-        return contrast_plain(acc, scale_exp)
+        return contrast_plain(acc, scale_exp, total, cells)
     if acc.device.type != "cuda":
         raise ValueError(f"contrast runs on cpu or cuda, not {acc.device}")
     acc = acc.contiguous()
-    mean = _mean(acc, scale_exp, total)
+    mean = _mean(acc, scale_exp, total, cells)
     out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
     status = _build.library().rf_paint_contrast(
         acc.data_ptr(), out.data_ptr(), acc.numel(),

@@ -38,6 +38,17 @@ tensors it runs :func:`poisson_counts_plain`, a transcription of the two
 loops over whole chunks of cells.  :func:`pass_times` times the three
 passes apart.
 
+On a slab mesh (``offset=``, ``mesh=``) a rank holds the x slab of cells
+[offset, offset + n) of the whole grid, and its draws are those of the
+whole-grid call at those cells (``jax.random.poisson`` is partitionable):
+every uniform at the cell's global index, and the rejection loop's count
+the whole grid's.  So the flag "a lambda reached 10" and N are maxima over
+every rank: KH runs its passes one at a time with an all-reduce of the
+maximum of its state after the Knuth pass and after the first-acceptance
+pass, on the device (counter ``KHS_LAUNCHES``); the plain version takes
+the same two maxima (:func:`first_acceptances_plain`, ``poisson_plain``'s
+``iters``).
+
 Two intensity forms, each in the JAX package's float32 order:
 
 * ``'lognormal'`` (halos): lambda_b = lam0_b exp(b_b g - c_b) with
@@ -56,13 +67,16 @@ from randomfield_tpu_torch.ops.xla_math import (_F32, _div, _f32, _flush,
                                                 _fma, _sqrt, xla_exp,
                                                 xla_lgamma, xla_log)
 
-__all__ = ["KH_LAUNCHES", "FORMS", "TABLE", "poisson_counts",
-           "poisson_counts_plain", "poisson_plain", "intensity",
+__all__ = ["KH_LAUNCHES", "KHS_LAUNCHES", "FORMS", "TABLE",
+           "poisson_counts", "poisson_counts_plain", "poisson_plain",
+           "first_acceptances_plain", "intensity",
            "key_tables", "lognormal_constants", "uniform_at",
            "kernel_attributes", "pass_times"]
 
-# kernel launches by poisson_counts (the CPU path does not count)
+# calls of poisson_counts that launched KH, on the whole grid and on a
+# mesh's slab (the CPU path does not count)
 KH_LAUNCHES = 0
+KHS_LAUNCHES = 0
 
 # the intensity forms, as csrc/poisson.cu numbers them
 FORMS = {"lognormal": 0, "linear": 1}
@@ -153,35 +167,61 @@ def _rejection(key, lam, idx, iters):
     return k_out
 
 
+def _spans(n, chunk):
+    return [(c, min(n, c + chunk)) for c in range(0, n, chunk)]
+
+
+def _indices(offset, c0, c1, device):
+    return torch.arange(offset + c0, offset + c1, dtype=torch.int64,
+                        device=device)
+
+
+def first_acceptances_plain(key, lam: torch.Tensor, chunk: int = _CHUNK,
+                            offset: int = 0) -> int:
+    """The iterations ``jax.random.poisson``'s rejection loop needs until
+    every cell of ``lam`` (at global flat indices from ``offset``; the
+    lambda < 10 and NaN cells at lambda = 1e5) has accepted once: this
+    slab's share of the loop's count, whose maximum over a mesh's ranks is
+    ``poisson_plain``'s ``iters``."""
+    key = _threefry.as_key(key)
+    flat = lam.reshape(-1).to(_F32)
+    use_knuth = torch.isnan(flat) | (flat < 10.0)
+    lam_rej = torch.where(use_knuth, 1e5, flat)
+    return max(_first_acceptances(key, lam_rej[c0:c1],
+                                  _indices(offset, c0, c1, flat.device))
+               for c0, c1 in _spans(flat.numel(), chunk))
+
+
 def poisson_plain(key, lam: torch.Tensor, chunk: int = _CHUNK,
-                  offset: int = 0) -> torch.Tensor:
+                  offset: int = 0, iters=None) -> torch.Tensor:
     """``jax.random.poisson(key, lam, dtype=int32)`` for float32 ``lam``, in
     plain PyTorch on ``lam``'s device, a chunk of ``chunk`` cells at a
     time: the Knuth loop on the lambda < 10 cells; where a lambda reached
     10, the rejection loop's count (the most iterations any cell, the Knuth
     cells at lambda = 1e5, needs for its first acceptance) and the
     lambda >= 10 cells' walks of that many iterations.  ``offset``: the
-    flat index of ``lam``'s first cell in a larger draw (a Knuth cell
-    replays alone; a rejection cell then takes the count of ``lam``'s own
-    loop)."""
+    flat index of ``lam``'s first cell in a larger draw; ``iters``: that
+    draw's rejection loop count (0 where no lambda of it reached 10), given
+    explicitly for a slab of it (a slab mesh's maximum over its ranks of
+    :func:`first_acceptances_plain`); None takes ``lam``'s own loop."""
     key = _threefry.as_key(key)
     flat = lam.reshape(-1).to(_F32)
     n = flat.numel()
     use_knuth = torch.isnan(flat) | (flat < 10.0)
     out = torch.empty(n, dtype=torch.int32, device=flat.device)
-    spans = [(c, min(n, c + chunk)) for c in range(0, n, chunk)]
+    spans = _spans(n, chunk)
 
     def idx(c0, c1):
-        return torch.arange(offset + c0, offset + c1, dtype=torch.int64,
-                            device=flat.device)
+        return _indices(offset, c0, c1, flat.device)
 
     for c0, c1 in spans:
         lk = torch.where(use_knuth[c0:c1], flat[c0:c1], 0.0)
         out[c0:c1] = _knuth(key, lk, idx(c0, c1))
-    if not bool(use_knuth.all()):
+    if iters is None and not bool(use_knuth.all()):
+        iters = first_acceptances_plain(key, flat, chunk, offset)
+    if iters and not bool(use_knuth.all()):
         lam_rej = torch.where(use_knuth, 1e5, flat)
-        total = max(_first_acceptances(key, lam_rej[c0:c1], idx(c0, c1))
-                    for c0, c1 in spans)
+        total = int(iters)
         for c0, c1 in spans:
             cells = torch.nonzero(~use_knuth[c0:c1]).reshape(-1)
             k_rej = _rejection(key, lam_rej[c0:c1][cells],
@@ -220,14 +260,27 @@ def _keys(keys):
 
 
 def poisson_counts_plain(g, keys, form="lognormal", lam0=None, bias=None,
-                         sigma_g2=0.0, scale=1.0):
-    """:func:`poisson_counts` in plain PyTorch on ``g``'s device."""
+                         sigma_g2=0.0, scale=1.0, offset=0, mesh=None):
+    """:func:`poisson_counts` in plain PyTorch on ``g``'s device; with
+    ``mesh`` the flag and the loop's count of each bin are maxima over its
+    ranks (:meth:`..parallel.mesh.SlabMesh.all_reduce_max`)."""
     keys = _keys(keys)
     out = torch.empty((len(keys), *g.shape), dtype=torch.int32,
                       device=g.device)
     for b, key in enumerate(keys):
-        out[b] = poisson_plain(key, intensity(g, form, b, lam0, bias,
-                                              sigma_g2, scale))
+        lam = intensity(g, form, b, lam0, bias, sigma_g2, scale)
+        iters = None
+        if mesh is not None:
+            high = ~(torch.isnan(lam) | (lam < 10.0))
+            flag = mesh.all_reduce_max(
+                high.any().to(torch.int64).reshape(1))
+            iters = 0
+            if int(flag):
+                n = torch.tensor([first_acceptances_plain(
+                    key, lam, offset=offset)], dtype=torch.int64,
+                    device=g.device)
+                iters = int(mesh.all_reduce_max(n))
+        out[b] = poisson_plain(key, lam, offset=offset, iters=iters)
     return out
 
 
@@ -268,7 +321,8 @@ def kernel_attributes(mode):
 
 
 def poisson_counts(g, keys, form="lognormal", lam0=None, bias=None,
-                   sigma_g2=0.0, scale=1.0, out=None, table=TABLE):
+                   sigma_g2=0.0, scale=1.0, out=None, table=TABLE, offset=0,
+                   mesh=None):
     """KH: ``jax.random.poisson(keys[b], lambda_b, dtype=int32)`` for every
     bin b of one field ``g``, as an int32 (nbins, *g.shape) tensor on its
     device.
@@ -279,9 +333,13 @@ def poisson_counts(g, keys, form="lognormal", lam0=None, bias=None,
     CUDA it launches ``csrc/poisson.cu`` (g read once for every bin), its
     threads reading the first ``table`` subkeys of each chain from
     :func:`key_tables` and deriving the rest; on the CPU it runs
-    :func:`poisson_counts_plain`.
+    :func:`poisson_counts_plain`.  On a slab mesh ``g`` is the rank's x slab
+    whose first cell has the whole grid's flat index ``offset``, and
+    ``mesh`` the mesh whose ranks hold the other slabs: the counts are the
+    whole-grid call's at these cells.
     """
-    return _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table)
+    return _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table,
+                   offset=offset, mesh=mesh)
 
 
 def pass_times(g, keys, form="lognormal", lam0=None, bias=None,
@@ -296,8 +354,8 @@ def pass_times(g, keys, form="lognormal", lam0=None, bias=None,
 
 
 def _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table,
-            pass_ms=None):
-    global KH_LAUNCHES
+            pass_ms=None, offset=0, mesh=None):
+    global KH_LAUNCHES, KHS_LAUNCHES
     if form not in FORMS:
         raise ValueError(f"unknown intensity form {form!r}; use {sorted(FORMS)}")
     g = torch.as_tensor(g)
@@ -321,7 +379,7 @@ def _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table,
                          "tensor on g's device")
     if g.device.type == "cpu" and pass_ms is None:
         res = poisson_counts_plain(g, keys, form, lam0, bias, sigma_g2,
-                                   scale)
+                                   scale, offset, mesh)
         return res if out is None else out.copy_(res)
     if g.device.type != "cuda":
         raise ValueError(f"KH runs on cuda (poisson_counts also on cpu), "
@@ -343,11 +401,25 @@ def _counts(g, keys, form, lam0, bias, sigma_g2, scale, out, table,
     state = torch.zeros((2, nbins), dtype=torch.int32, device=dev)
     marks = torch.empty((nbins, (n + 31) // 32), dtype=torch.int32,
                         device=dev)
-    status = _build.library().rf_poisson_counts(
-        g.data_ptr(), out.data_ptr(), n, nbins, FORMS[form],
-        params.data_ptr(), words.data_ptr(), table, state.data_ptr(),
-        marks.data_ptr(), _build.current_stream(g),
-        None if pass_ms is None else pass_ms.ctypes.data)
-    _build.check(status, "poisson_counts")
-    KH_LAUNCHES += 1
+    lib, stream = _build.library(), _build.current_stream(g)
+
+    def passes(first, last):
+        _build.check(lib.rf_poisson_counts(
+            g.data_ptr(), out.data_ptr(), n, nbins, FORMS[form],
+            params.data_ptr(), words.data_ptr(), table, state.data_ptr(),
+            marks.data_ptr(), int(offset), first, last, stream,
+            None if pass_ms is None else pass_ms.ctypes.data),
+            "poisson_counts")
+
+    if mesh is None:
+        passes(0, 2)
+        KH_LAUNCHES += 1
+        return out
+    # the flags, then N: maxima over the ranks, the state never leaving
+    # the card
+    for first in range(3):
+        passes(first, first)
+        if first < 2:
+            mesh.all_reduce_max(state)
+    KHS_LAUNCHES += 1
     return out

@@ -66,13 +66,17 @@ def to_ky_slabs(t, shape, mesh):
     return mesh.all_to_all(send).view(nx, ny // p, nzh)
 
 
-def irfftn_slab_reim(re, im, shape, mesh, weights):
+def irfftn_slab_reim(re, im, shape, mesh, weights, offsets=None):
     """Distributed Hermitian c2r, ``norm='forward'``, times ``weights``.
 
     ``re``/``im``: this rank's float32 (nx, ny/P, nz/2+1) ky slab of a
     Hermitian spectrum, consumed (transformed in place, then released);
     ``weights``: float32 (nz,) per-plane multipliers, fused into K4.
-    Returns this rank's float32 (nx/P, ny, nz) x slab of the field.
+    Returns this rank's float32 (nx/P, ny, nz) x slab of the field.  With
+    ``offsets`` (float32 (nz,)) the last step is K4L on the x slab
+    (:func:`..ops.fft.c2r_tail_exp`, whose per-plane tables need no offset
+    since z is never sharded): ``expm1(weights[z] x - offsets[z])``, the
+    lognormal map.
     """
     nx, ny, nz = shape
     check_divisible(shape, mesh.size)
@@ -82,6 +86,8 @@ def irfftn_slab_reim(re, im, shape, mesh, weights):
     re = to_x_slabs(re, shape, mesh)
     im = to_x_slabs(im, shape, mesh)
     _fft.ifft_axis(re, im, nx // mesh.size, ny, nzh)
+    if offsets is not None:
+        return _fft.c2r_tail_exp(re, im, nz, weights, offsets)
     return _fft.c2r_tail(re, im, nz, weights)
 
 

@@ -76,6 +76,48 @@ class SlabMesh:
             dist.all_reduce(t, group=self.group)
         return t
 
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``t`` over the ranks, in place;
+        returns ``t``."""
+        if self.size > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def ring_exchange(self, to_prev: torch.Tensor, to_next: torch.Tensor):
+        """The periodic neighbour exchange of a ring: ``to_prev`` goes to
+        rank - 1 and ``to_next`` to rank + 1 (mod size); returns
+        (``to_prev`` of rank + 1, ``to_next`` of rank - 1).  Both tensors
+        have one shape.  One ``all_to_all`` whose other blocks are empty;
+        on one rank the two tensors come back swapped."""
+        if self.size == 1:
+            return to_prev, to_next
+        import torch.distributed as dist
+
+        n, p, r = to_prev.numel(), self.size, self.rank
+        prev, nxt = (r - 1) % p, (r + 1) % p
+        send, send_splits, recv_splits = [], [], []
+        for d in range(p):  # to rank d: to_prev first, then to_next
+            blocks = ([to_prev] if d == prev else []) + (
+                [to_next] if d == nxt else [])
+            send += [b.reshape(-1) for b in blocks]
+            send_splits.append(n * len(blocks))
+            recv_splits.append(n * ((d == nxt) + (d == prev)))
+        out = torch.empty(sum(recv_splits), dtype=to_prev.dtype,
+                          device=to_prev.device)
+        dist.all_to_all_single(out, torch.cat(send), recv_splits,
+                               send_splits, group=self.group)
+        got, at = {}, 0
+        for s in range(p):  # from rank s, in the order it sent them
+            if s == nxt:
+                got["next"] = out[at:at + n].view(to_prev.shape)
+                at += n
+            if s == prev:
+                got["prev"] = out[at:at + n].view(to_prev.shape)
+                at += n
+        return got["next"], got["prev"]
+
 
 def check_divisible(shape, size):
     """Raise ValueError unless a slab mesh of ``size`` ranks splits the grid

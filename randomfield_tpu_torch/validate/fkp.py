@@ -19,8 +19,17 @@ exact int64 grids in float64, a slab of x planes at a time, and rounded
 once to float32.  The estimator is the port's ``calculate_power`` (and
 its multipoles) with the window deconvolved: K6 and K3 for the transform,
 KB for the bins.  Positions are (3, N); numpy catalogs go to ``device``
-("cuda" by default), tensors stay on theirs.  ``mesh=`` raises
-NotImplementedError (ROADMAP.md, Queue 1 item 8).
+("cuda" by default), tensors stay on theirs.
+
+With ``mesh=`` (a slab mesh) every rank takes both whole catalogs, forms
+alpha, I22, the shot sums and the fixed-point exponents from them as one
+device does, deposits the particles it owns onto its x window
+(:func:`..parallel.paint.deposit_sharded`: KP, the margins folded through
+the ring, int64) and runs the same float64 combination on its rows, so
+its x slab of F equals the single-device field's rows bit for bit; the
+mesh ``calculate_power`` estimates it.  (The JAX package's mesh path
+rebuilds each mass grid in float32 from its painted contrast.)  A pencil
+mesh raises NotImplementedError (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 
 from randomfield_tpu_torch.ops import paint as _paint
 from randomfield_tpu_torch.validate import fourier as _fourier
-from randomfield_tpu_torch.validate.stats import device_of, mesh_not_ported
+from randomfield_tpu_torch.validate.stats import device_of, slab_mesh
 
 __all__ = ["FKPPower", "fkp_weights", "fkp_power", "fkp_power_multipoles"]
 
@@ -163,15 +172,23 @@ def _prepare(data, randoms, spacing, shape, data_weights, randoms_weights,
     return _Catalogs(tuple(paint), alpha, i22, sw2_d, sw2_r, scale)
 
 
-def _painted_field(cats, spacing, shape, order, shift=0.0):
+def _painted_field(cats, spacing, shape, order, shift=0.0, mesh=None):
     """The normalized FKP field (float32 on the catalogs' device) of
-    :class:`_Catalogs` ``cats``, painted with ``shift``."""
-    (acc_d, u_d), (acc_r, u_r) = [
-        (_paint.deposit(pos, shape, spacing, w32, order, shift, s),
-         math.ldexp(1.0, -s)) for pos, w32, s in cats.paint]
+    :class:`_Catalogs` ``cats``, painted with ``shift``: the whole grid, or
+    on a slab mesh this rank's x slab."""
+    if mesh is None:
+        accs = [_paint.deposit(pos, shape, spacing, w32, order, shift, s)
+                for pos, w32, s in cats.paint]
+    else:
+        from randomfield_tpu_torch.parallel.paint import deposit_sharded
+
+        accs = [deposit_sharded(pos, shape, spacing, mesh, w32, order, shift,
+                                s)[0] for pos, w32, s in cats.paint]
+    (acc_d, acc_r), (u_d, u_r) = accs, [math.ldexp(1.0, -s)
+                                        for _, _, s in cats.paint]
     scale, alpha = cats.scale, cats.alpha
-    f = torch.empty(shape, dtype=torch.float32, device=acc_d.device)
-    for x0 in range(0, shape[0], _X_CHUNK):
+    f = torch.empty(acc_d.shape, dtype=torch.float32, device=acc_d.device)
+    for x0 in range(0, acc_d.shape[0], _X_CHUNK):
         sl = slice(x0, x0 + _X_CHUNK)
         mass = acc_d[sl].to(torch.float64).mul_(u_d * scale)
         f[sl] = mass.sub_(acc_r[sl].to(torch.float64),
@@ -187,16 +204,17 @@ def _shot(i22, shot_d, shot_r, alpha, randoms_are_poisson):
 def _fields(data, randoms, spacing, shape, data_weights, randoms_weights,
             nbar_data, nbar_randoms, p0, window, interlaced, device, mesh,
             what, **kw):
-    if mesh is not None:
-        raise mesh_not_ported(what, mesh)
+    mesh = slab_mesh(what, mesh)
     order = _order(window)
     shape = tuple(int(s) for s in shape)
     spacing = float(spacing)
+    if mesh is not None:
+        device = mesh.device
     cats = _prepare(data, randoms, spacing, shape, data_weights,
                     randoms_weights, nbar_data, nbar_randoms, p0,
                     device_of(data, device), **kw)
-    f = _painted_field(cats, spacing, shape, order)
-    f2 = (_painted_field(cats, spacing, shape, order, spacing / 2.0)
+    f = _painted_field(cats, spacing, shape, order, mesh=mesh)
+    f2 = (_painted_field(cats, spacing, shape, order, spacing / 2.0, mesh)
           if interlaced else None)
     return f, f2, cats.alpha, cats.i22, cats.shot_d, cats.shot_r
 
@@ -217,7 +235,9 @@ def fkp_power(data, randoms, spacing, shape, data_weights=1.0,
     term from the shot noise; ``*_are_counts=True`` declares a
     per-cell-counts catalog.  ``window`` and ``interlaced`` follow
     ``catalog_power``.  Returns :class:`FKPPower`; runs on the catalogs'
-    device (``device`` for numpy ones, CUDA by default).
+    device (``device`` for numpy ones, CUDA by default), or with ``mesh``
+    (a slab mesh, every rank passing both whole catalogs) on its device,
+    every rank returning the whole estimate.
     """
     f, f2, alpha, i22, shot_d, shot_r = _fields(
         data, randoms, spacing, shape, data_weights, randoms_weights,
@@ -225,7 +245,8 @@ def fkp_power(data, randoms, spacing, shape, data_weights=1.0,
         "fkp_power", data_are_counts=data_are_counts,
         randoms_are_counts=randoms_are_counts)
     k, p, n = _fourier.calculate_power(f, float(spacing), nbins=int(nbins),
-                                       window=window, interlaced_with=f2)
+                                       window=window, interlaced_with=f2,
+                                       mesh=mesh)
     shot = _shot(i22, shot_d, shot_r, alpha, randoms_are_poisson)
     return FKPPower(k, p - shot, n, shot, alpha, i22)
 
@@ -248,7 +269,7 @@ def fkp_power_multipoles(data, randoms, spacing, shape, data_weights=1.0,
     ells = tuple(int(e) for e in ells)
     k, p_ell, n = _fourier.calculate_power_multipoles(
         f, float(spacing), nbins=int(nbins), ells=ells,
-        los_axis=int(los_axis), window=window, interlaced_with=f2)
+        los_axis=int(los_axis), window=window, interlaced_with=f2, mesh=mesh)
     shot = _shot(i22, shot_d, shot_r, alpha, randoms_are_poisson)
     p_out = {ell: (row - shot if ell == 0 else row)
              for ell, row in zip(ells, np.asarray(p_ell))}

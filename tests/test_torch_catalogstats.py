@@ -111,6 +111,13 @@ def test_fkp_refusals_match_jax():
                         **kw)
         with pytest.raises(ValueError):
             m.fkp_weights(np.array([-1e-4]), 1e4)
+    # the slab mesh runs it (tests/test_torch_mesh_mocks.py); the pencil
+    # mesh waits for item 5
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        fkp.fkp_power(data, lat, FKP_SPACING, FKP_SHAPE,
+                      mesh=pmesh.make_pencil_mesh(1, 2, 2))
 
 
 @pytest.mark.parametrize("window", ["gaussian", "tophat"])
@@ -206,10 +213,17 @@ def test_mesh_refusals_name_item_8(fields):
     mesh = pmesh.make_mesh(space=1, device="cpu")
     dt, vt = torch.as_tensor(d), torch.as_tensor(v)
     lat = _lattice()
+    # FKP runs on the slab mesh (tests/test_torch_mesh_mocks.py); on the
+    # pencil mesh it waits for item 5
+    pencil = pmesh.make_pencil_mesh(1, 2, 2)
     for call in (
-            lambda: fkp.fkp_power(lat, lat, FKP_SPACING, FKP_SHAPE, mesh=mesh),
+            lambda: fkp.fkp_power(lat, lat, FKP_SPACING, FKP_SHAPE,
+                                  mesh=pencil),
             lambda: fkp.fkp_power_multipoles(lat, lat, FKP_SPACING, FKP_SHAPE,
-                                             mesh=mesh),
+                                             mesh=pencil)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            call()
+    for call in (
             lambda: marked.smooth_field(dt, SPACING, 8.0, mesh=mesh),
             lambda: marked.marked_field(dt, SPACING, mesh=mesh),
             lambda: marked.linear_marked_field(dt, SPACING, 0.3, mesh=mesh),

@@ -12,7 +12,8 @@ JAX package.
     fields at the same seed within 1e-4 max|delta| of the reference, on
     even, odd and anisotropic grids, both samplers that have a sigma grid;
 (d) constraints met exactly, the lightcone after constraining, and every
-    refusal with the reference's text or naming Queue 1 item 8.
+    refusal with the reference's text or naming Queue 1 item 5 (the slab
+    mesh runs them: tests/test_torch_mesh_mocks.py).
 """
 
 import numpy as np
@@ -279,18 +280,24 @@ def test_refusals_match_jax():
                 getattr(g, name)(*args)
     from randomfield_tpu_torch.parallel import mesh as pmesh
 
-    g = rft.Generator(16, 16, 16, grid_spacing=SPACING,
+    # a slab mesh runs every method (tests/test_torch_mesh_mocks.py); a
+    # pallas mesh scene refuses those that read its sigma grid with the JAX
+    # package's _mesh_sigmas error and measures; the pencil mesh waits for
+    # item 5
+    g = rft.Generator(16, 16, 16, grid_spacing=SPACING, sampler="pallas",
                       mesh=pmesh.make_mesh(space=1, device="cpu"))
     for name, args in (("generate_constrained_field", (0, CONSTRAINTS)),
                        ("constrained_mean_field", (CONSTRAINTS,)),
-                       ("measure_constraints", (np.zeros((16,) * 3,
-                                                         np.float32),
-                                                CONSTRAINTS)),
                        ("generate_posterior_field",
                         (0, np.zeros((16,) * 3, np.float32), 1.0)),
                        ("predicted_posterior_mse", (1.0,))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(ValueError, match="plain renders only"):
             getattr(g, name)(*args)
+    assert np.all(g.measure_constraints(np.zeros((16,) * 3, np.float32),
+                                        CONSTRAINTS) == 0.0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        rft.Generator(16, 16, 16, grid_spacing=SPACING,
+                      mesh=pmesh.make_pencil_mesh(1, 2, 2))
 
 
 @pytest.mark.gpu

@@ -1850,3 +1850,196 @@ def test_spectral_kernel_shards_union_is_kd(cuda, shape, ranks, kind, comp):
         assert torch.equal(b, whole[1][:, rows])
         assert torch.equal(a, c) and torch.equal(b, d)
     assert derived.KD_LAUNCHES == before + ranks
+
+
+# ---- item 8b: the shard instances of KP, KH, KC and K4L ---------------------
+
+def _thread_ranks():
+    """chip_smoke.py's ThreadMesh helper: ``work(rank, mesh)`` on threads
+    standing for a mesh's ranks (ring exchange and maximum between them)."""
+    import pathlib
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke.on_thread_ranks
+
+
+@pytest.mark.parametrize("window", ["ngp", "cic", "tsc"])
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("case", ["wrap", "faces", "negative", "random"])
+def test_paint_window_equals_plain_bit_for_bit(cuda, window, ranks, case):
+    """KP on each rank's x window (nx/P + 2m planes: 18 at P = 4, not a
+    multiple of the 16^3 tile) equals its plain version and its plan's
+    replay bit for bit, counted in KPS_LAUNCHES, and the windows folded by
+    parallel/paint.py:fold_margins (threads as ranks) equal the whole-grid
+    deposit."""
+    from randomfield_tpu_torch.ops import paint
+    from randomfield_tpu_torch.parallel import paint as ppaint
+
+    pos, shape, w = _paint_case(case, cuda)
+    pos[0] *= 64 // shape[0]  # the case's x range stretched over 64 planes
+    shape = (64, shape[1], shape[2])
+    order = paint.ORDERS[window]
+    shift = SPACING / 2 if ranks % 2 else 0.0
+    s = paint.fixed_point_exponent(paint.total_abs_weight(pos, w))
+    nx_loc = shape[0] // ranks
+    windows = []
+    for r in range(ranks):
+        rows = (r * nx_loc, nx_loc)
+        before, kp = paint.KPS_LAUNCHES, paint.KP_LAUNCHES
+        got = paint.deposit(pos, shape, SPACING, w, order, shift, s, rows)
+        assert paint.KPS_LAUNCHES == before + 1 and paint.KP_LAUNCHES == kp
+        assert tuple(got.shape) == paint.window_shape(shape, order, rows)
+        want = paint.deposit_plain(pos, shape, SPACING, w, order, shift, s,
+                                   rows)
+        assert torch.equal(got, want)
+        plan = paint.tile_plan_plain(pos, shape, SPACING, w, order, shift, s,
+                                     x_rows=rows)
+        assert torch.equal(plan.grid, want)
+        windows.append(got)
+    whole = paint.deposit(pos, shape, SPACING, w, order, shift, s)
+    rows = _thread_ranks()(ranks, lambda r, m: ppaint.fold_margins(
+        windows[r].clone(), order, m))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(rows), whole)
+
+
+def test_paint_sharded_one_rank_equals_paint(cuda):
+    from randomfield_tpu_torch.ops import paint
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+    from randomfield_tpu_torch.parallel import paint as ppaint
+
+    pos, shape, w = _paint_case("random", cuda)
+    mesh = pmesh.make_mesh(space=1, device=cuda)
+    for window in ("ngp", "cic", "tsc"):
+        d, mean = ppaint.paint_sharded(pos, shape, SPACING, mesh, w, window)
+        want = paint.paint(pos, shape, SPACING, w, paint.ORDERS[window])
+        assert torch.equal(d, want[0]) and mean == want[1]
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("name", ["halos", "linear",
+                                  "linear, mostly 10 or more"])
+def test_poisson_slabs_with_the_whole_maximum(cuda, ranks, name):
+    """KH on x slabs at their global cells, the state's maximum taken over
+    the ranks between the passes (threads stand for ranks): the union
+    equals the whole-grid launch and each slab its plain version, bit for
+    bit, counted in KHS_LAUNCHES."""
+    from randomfield_tpu_torch.ops import poisson
+
+    g, keys, kw = _poisson_case(name, cuda)
+    whole = poisson.poisson_counts(g, keys, **kw)
+    nx_loc = g.shape[0] // ranks
+    cells = nx_loc * g.shape[1] * g.shape[2]
+    before = poisson.KHS_LAUNCHES
+
+    def slab(r, mesh, plain=False):
+        part = g[r * nx_loc:(r + 1) * nx_loc].contiguous()
+        fn = poisson.poisson_counts_plain if plain else poisson.poisson_counts
+        out = fn(part, keys, **kw, offset=r * cells, mesh=mesh)
+        torch.cuda.synchronize()
+        return out
+
+    got = torch.cat(_thread_ranks()(ranks, slab), dim=1)
+    assert poisson.KHS_LAUNCHES == before + ranks
+    assert torch.equal(got, whole)
+    plain = torch.cat(_thread_ranks()(
+        ranks, lambda r, m: slab(r, m, plain=True)), dim=1)
+    assert torch.equal(plain, whole)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("m", [1, 8, 11])
+@pytest.mark.parametrize("smoothing", [0.0, 12.0])
+def test_constraint_ky_blocks(cuda, ranks, m, smoothing):
+    """KC on each rank's ky block: MEASURE within float64 reordering of its
+    plain version, the blocks' sums of the whole grid's; CORRECT bit for
+    bit, its blocks the whole grid's rows; counted in KCS_LAUNCHES."""
+    from randomfield_tpu_torch.ops import constraint
+
+    shape = (16, 32, 30)
+    tables = _constraint_case(shape, m, cuda)
+    nzh = shape[2] // 2 + 1
+    sig = torch.rand((shape[0], shape[1], nzh), device=cuda)
+    re, im = _randn((shape[0], shape[1], nzh), cuda, 7), \
+        _randn((shape[0], shape[1], nzh), cuda, 8)
+    alpha = np.random.default_rng(m).normal(size=m).astype(np.float32)
+    wr, wi = re.clone(), im.clone()
+    whole = constraint.measure(wr, wi, tables, sig, smoothing)
+    constraint.correct(wr, wi, tables, alpha, sig, smoothing)
+    ny_loc = shape[1] // ranks
+    total = torch.zeros_like(whole)
+    for r in range(ranks):
+        rows = slice(r * ny_loc, (r + 1) * ny_loc)
+        block = constraint.ky_block(tables, r * ny_loc, ny_loc)
+        s = sig[:, rows].contiguous()
+        br, bi = re[:, rows].contiguous(), im[:, rows].contiguous()
+        pr, pi = br.clone(), bi.clone()
+        before, kc = constraint.KCS_LAUNCHES, constraint.KC_LAUNCHES
+        got = constraint.measure(br, bi, block, s, smoothing)
+        want = constraint.measure_plain(pr, pi, block, s, smoothing)
+        assert torch.equal(br, pr) and torch.equal(bi, pi)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-10, atol=1e-12)
+        total += got
+        constraint.correct(br, bi, block, alpha, s, smoothing)
+        constraint.correct_plain(pr, pi, block, alpha, s, smoothing)
+        assert constraint.KCS_LAUNCHES == before + 2
+        assert constraint.KC_LAUNCHES == kc
+        assert torch.equal(br, pr) and torch.equal(bi, pi)
+        assert torch.equal(br, wr[:, rows]) and torch.equal(bi, wi[:, rows])
+    np.testing.assert_allclose(total.cpu().numpy(), whole.cpu().numpy(),
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("nz", [32, 256])
+def test_lognormal_tail_on_x_slabs(cuda, ranks, nz):
+    """K4L takes an x slab as it stands: on each rank's slab it equals its
+    plain version, and the slabs the whole-grid launch's rows bit for bit;
+    one K4L launch a slab."""
+    re = _randn((16, 8, nz // 2 + 1), cuda, 3)
+    im = _randn((16, 8, nz // 2 + 1), cuda, 4)
+    im[..., 0] = 0.0
+    im[..., -1] = 0.0
+    a = torch.rand(nz, device=cuda) * 0.01
+    c = torch.rand(nz, device=cuda) * 0.1
+    whole = fft.c2r_tail_exp(re, im, nz, a, c)
+    nx_loc = 16 // ranks
+    for r in range(ranks):
+        rows = slice(r * nx_loc, (r + 1) * nx_loc)
+        sr, si = re[rows].contiguous(), im[rows].contiguous()
+        before = fft.K4L_LAUNCHES
+        got = fft.c2r_tail_exp(sr, si, nz, a, c)
+        assert fft.K4L_LAUNCHES == before + 1
+        assert torch.equal(got, whole[rows])
+        assert _rel(got, fft.c2r_tail_exp_plain(sr, si, nz, a, c)) <= K4_TOL
+
+
+def test_mesh_mock_makers_one_rank_on_the_card(cuda):
+    """The item-8b paths on a one-rank mesh on the card: the lognormal and
+    constrained fields and the halo counts equal the single device's bit
+    for bit (the same kernels; the exchanges are identities)."""
+    from randomfield_tpu_torch.models import halos, lognormal
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(space=1, device=cuda)
+    shape = (32, 32, 32)
+    ln = [lognormal.LognormalGenerator(*shape, SPACING, **kw)
+          for kw in (dict(device=cuda), dict(mesh=mesh))]
+    assert torch.equal(ln[0].generate_delta_field(3),
+                       ln[1].generate_delta_field(3))
+    hg = [halos.HaloGenerator(*shape, SPACING, **kw)
+          for kw in (dict(device=cuda), dict(mesh=mesh))]
+    assert torch.equal(hg[0].generate_halo_counts(3),
+                       hg[1].generate_halo_counts(3))
+    cons = [((100.0, 200.0, 300.0), 1.5, 40.0), ((30.0, 60.0, 90.0), -1.0,
+                                                 20.0)]
+    gs = [rft.Generator(*shape, grid_spacing=SPACING, **kw)
+          for kw in (dict(device=cuda), dict(mesh=mesh))]
+    assert torch.equal(gs[0].generate_constrained_field(4, cons),
+                       gs[1].generate_constrained_field(4, cons))

@@ -246,8 +246,17 @@ def test_refusals():
         th.HaloGenerator(*SHAPE, SPACING, mmin=1e15, mmax=1e13, device="cpu")
     with pytest.raises(ValueError):
         th.HaloGenerator(*SHAPE, SPACING, fit="tinker10", device="cpu")
-    with pytest.raises(ValueError, match="item 8"):
-        th.HaloGenerator(*SHAPE, SPACING, mesh=object(), device="cpu")
+    # the slab mesh runs it (tests/test_torch_mesh_mocks.py); the pencil
+    # mesh waits for item 5
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        th.HaloGenerator(*SHAPE, SPACING,
+                         mesh=pmesh.make_pencil_mesh(1, 2, 2))
+    # the HOD's redshift-space catalog on a mesh is item 8b's second half
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
+        thod.HODGenerator(*SHAPE, SPACING,
+                          mesh=pmesh.make_mesh(space=1, device="cpu"))
     with pytest.raises(ValueError):
         th.counts_to_catalog(np.zeros((2, 4, 4, 4), int), [1.0, 2.0],
                              SPACING)

@@ -265,7 +265,14 @@ def test_lightcone_per_plane_and_batch():
 
 
 def test_refusals_name_item_8():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # item 8b brought the slab mesh (tests/test_torch_mesh_mocks.py); the
+    # pencil mesh waits for item 5
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tl.LognormalGenerator(16, 16, 16, 8.0,
+                              mesh=pmesh.make_pencil_mesh(1, 2, 2))
+    with pytest.raises(TypeError, match="SlabMesh"):
         tl.LognormalGenerator(16, 16, 16, 8.0, device="cpu", mesh=object())
 
 

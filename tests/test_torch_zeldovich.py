@@ -282,8 +282,15 @@ def test_refusals():
         tz.zeldovich_positions(torch.zeros((4, 4, 4)), 1.0)
     with pytest.raises(ValueError, match="shape="):
         tz.catalog_power(np.zeros((3, 64), np.float32), 1.0)
+    from randomfield_tpu_torch.parallel import mesh as pmesh
+
+    # the slab mesh runs them (tests/test_torch_mesh_mocks.py); the pencil
+    # mesh waits for item 5, and anything else is no mesh
     for fn in (tz.catalog_power, tz.catalog_power_multipoles):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            fn(np.zeros((3, 4, 4, 4), np.float32), 1.0,
+               mesh=pmesh.make_pencil_mesh(1, 2, 2))
+        with pytest.raises(TypeError, match="SlabMesh"):
             fn(np.zeros((3, 4, 4, 4), np.float32), 1.0, mesh=object())
 
 
